@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA main path once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA and CTPF main paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -7,21 +7,26 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU
 printing its own lines; any failure exits non-zero:
 
 1. the card's name and power limit, then the kernels' build from
-   ``topicmodelsvb_jl_torch/kernels/csrc`` and its time;
-2. the synthetic NSF-scale corpus (128,804 docs, V = 25,319, seed 7),
-   bucketized as ``LDA`` does (chunk 1024, width multiple 8);
-3. each kernel against its plain PyTorch version on the card, at K = 100
-   on one 1024-document chunk of the widest bucket and on a synthetic
-   chunk of L = 1024 slots (rows beyond the shared-memory limit), then a
-   small model trained on the card (f32, kernels) and on the CPU (f64,
-   plain versions) from one init;
-4. the main path: ``LDA(packed, 100, device="cuda").train(iter=4,
-   checkelbo=1)`` — every ∆elbo > 0, ``check_model`` passes, and the
-   launch counts show that every chunk of every step and ELBO check went
-   through the kernels;
-5. two fresh same-seed models, one step each, bitwise equal;
-6. one JSON line per kernel, the card again, and last
-   ``{"ok": true, "device": {...}}``.
+   ``topicmodelsvb_jl_torch/kernels/csrc`` (one nvcc per source, in
+   parallel) and its time;
+2. the corpora: the synthetic NSF-scale corpus (128,804 docs, V = 25,319,
+   seed 7), bucketized as ``LDA``/``fLDA`` do (chunk 1024, width multiple
+   8), and the synthetic CiteULike-scale corpus (16,980 docs, V = 8,000,
+   U = 5,551, seed 7) packed with its readers, with its host time;
+3. each kernel against its plain PyTorch version on the card at K = 100:
+   one 1024-document chunk of the widest bucket (of the CiteULike corpus
+   for CTPF) and one synthetic chunk whose rows do not fit shared memory;
+   then, for each family, a small model trained on the card (f32,
+   kernels) and on the CPU (f64, plain versions) from one init;
+4. the main paths, each with its kernels' launch counts set to 0 just
+   before and read just after: ``LDA`` and ``fLDA`` at NSF scale and
+   ``CTPF`` at CiteULike scale, K = 100, ``train(iter=4, checkelbo=1)``:
+   ∆elbo > 0, ``check_model`` passes, every chunk of every step went
+   through the E-step kernel, and the times;
+5. for each family, two fresh same-seed models, one step each, bitwise
+   equal in the global parameters and the per-document state;
+6. one JSON line with every kernel's launches, error and times, the card
+   again, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
 
 
 def need(cond, msg: str) -> None:
@@ -56,6 +63,33 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def close(got, want, names, label) -> float:
+    """Every output finite and within RTOL/ATOL of the plain version;
+    returns the largest absolute difference."""
+    import torch
+
+    err = 0.0
+    for name, a, b in zip(names, got, want):
+        need(bool(torch.all(torch.isfinite(a))), f"{label}: {name} not finite")
+        excess = (a - b).abs() - (ATOL + RTOL * b.abs())
+        need(float(excess.max()) <= 0.0,
+             f"{label}: {name} off by {float((a - b).abs().max())}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def padded_kept(got, inputs, rows, doc_mask, label) -> None:
+    """Padded documents keep their state bit for bit and get zero rows
+    (the synthetic chunks end in 3 of them)."""
+    import torch
+
+    pad = doc_mask == 0
+    for a, b in zip(got, inputs):
+        need(torch.equal(a[pad], b[pad]), f"{label}: a padded document's state moved")
+    for w in rows:
+        need(bool(torch.all(w[pad] == 0)), f"{label}: a padded document got rows")
+
+
 def warm_state(K, B, dev, seed):
     """A converging per-document state: gamma > alpha, El = E[log theta]."""
     import torch
@@ -69,7 +103,7 @@ def warm_state(K, B, dev, seed):
 
 
 def compare_kernels(seg, V, K, dev, label):
-    """Both kernels against their plain versions on one chunk."""
+    """Both LDA kernels against their plain versions on one chunk."""
     import torch
 
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
@@ -89,13 +123,7 @@ def compare_kernels(seg, V, K, dev, label):
     got = lda_estep(*args, **kw)
     want = lda_estep_ref(*args, **kw)
     torch.cuda.synchronize()
-    err_e = 0.0
-    for name, a, b in zip(("gamma", "El", "El_old", "w"), got, want):
-        need(bool(torch.all(torch.isfinite(a))), f"lda_estep {label}: {name} not finite")
-        excess = (a - b).abs() - (1e-5 + 5e-3 * b.abs())
-        need(float(excess.max()) <= 0.0,
-             f"lda_estep {label}: {name} off by {float((a - b).abs().max())}")
-        err_e = max(err_e, float((a - b).abs().max()))
+    err_e = close(got, want, ("gamma", "El", "El_old", "w"), f"lda_estep {label}")
     need(bool(torch.all(got[3][doc_mask == 0] == 0)), f"lda_estep {label}: padded w")
     ms_e = cuda_ms(lambda: lda_estep(*args, **kw), 10)
     plain_e = cuda_ms(lambda: lda_estep_ref(*args, **kw), 5)
@@ -114,6 +142,160 @@ def compare_kernels(seg, V, K, dev, label):
     return dict(estep=(err_e, ms_e, plain_e), elbo=(abs(a - b), ms_b, plain_b))
 
 
+def compare_flda(seg, V, K, dev, label):
+    """flda_estep against its plain version on one chunk."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+
+    terms, counts, doc_mask = seg
+    B, L = terms.shape
+    g = torch.Generator().manual_seed(21)
+    logbetaT = torch.log(dirichlet_ones(g, V, (K,)) + EPSILON).T.contiguous().to(dev)
+    kappa = dirichlet_ones(g, V).to(dev)
+    tau, tau_old = (0.1 + 0.8 * torch.rand(B, L, generator=g)).to(dev), \
+        (0.1 + 0.8 * torch.rand(B, L, generator=g)).to(dev)
+    alpha, gamma, El, El_old = warm_state(K, B, dev, seed=22)
+    eta = torch.tensor(0.6, device=dev)
+    args = (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
+            tau, tau_old)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    got = flda_estep(*args, **kw)
+    want = flda_estep_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = close(got, want, ("gamma", "El", "El_old", "tau", "tau_old", "w"),
+                f"flda_estep {label}")
+    padded_kept(got[:5], (gamma, El, El_old, tau, tau_old), got[5:], doc_mask,
+                f"flda_estep {label}")
+    ms = cuda_ms(lambda: flda_estep(*args, **kw), 10)
+    plain = cuda_ms(lambda: flda_estep_ref(*args, **kw), 3)
+    print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {ms:.4f} ms "
+          f"(plain {plain:.4f} ms, max abs err {err:.3e})")
+    return err, ms, plain
+
+
+def compare_ctpf(tok, rd, V, U, K, dev, label):
+    """ctpf_estep against its plain version on one chunk."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
+
+    terms, counts, doc_mask = tok
+    readers, ratings = rd
+    B, L = terms.shape
+    g = torch.Generator().manual_seed(31)
+    gam = lambda *shape: 0.1 + 3.0 * torch.rand(*shape, generator=g)
+    ealefT = torch.exp(torch.special.digamma(gam(K, V))).T.contiguous().to(dev)
+    eheT = torch.exp(torch.special.digamma(gam(K, U))).T.contiguous().to(dev)
+    dalet, bet, vav, het = (0.5 + 2.5 * torch.rand(K, generator=g) for _ in range(4))
+    inv = [(1.0 / x).to(dev) for x in (dalet * bet, dalet * vav, het * vav)]
+    state = [gam(B, K).to(dev) for _ in range(4)]
+    args = (ealefT, eheT, terms, counts, readers, ratings, doc_mask, *inv, *state)
+    kw = dict(viter=10, vtol=1.0 / K**2, c_hyper=0.1, g_hyper=0.1)
+    got = ctpf_estep(*args, **kw)
+    want = ctpf_estep_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = close(got, want, ("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
+                f"ctpf_estep {label}")
+    padded_kept(got[:4], state, got[4:], doc_mask, f"ctpf_estep {label}")
+    ms = cuda_ms(lambda: ctpf_estep(*args, **kw), 10)
+    plain = cuda_ms(lambda: ctpf_estep_ref(*args, **kw), 3)
+    print(f"kernels {label}: B={B} L={L} R={readers.shape[1]} K={K} | ctpf_estep "
+          f"{ms:.4f} ms (plain {plain:.4f} ms, max abs err {err:.3e})")
+    return err, ms, plain
+
+
+def card_vs_cpu(name, make, to_np, from_np, fields, dev) -> None:
+    """A small model trained 3 iterations on the card (f32, kernels) and
+    on the CPU (f64, plain versions) from one init."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+
+    gpu = make(tt.RuntimeConfig(chunk_docs=256), dev)
+    cpu = make(tt.RuntimeConfig(chunk_docs=256, dtype="float64"), "cpu")
+    cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
+    gpu.train(iter=3, checkelbo=1, printelbo=False)
+    cpu.train(iter=3, checkelbo=1, printelbo=False)
+    ge = [x.elbo for x in gpu.trainer.trace]
+    ce = [x.elbo for x in cpu.trainer.trace]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ge, ce))
+    need(rel <= 1e-4, f"small {name}: f32 card ELBO {ge} vs f64 CPU {ce}")
+    worst = 0.0
+    for f in fields:
+        a, b = np.asarray(getattr(gpu, f), np.float64), np.asarray(getattr(cpu, f))
+        need(np.allclose(a, b, rtol=1e-3, atol=1e-6), f"small {name}: {f}")
+        worst = max(worst, float(np.max(np.abs(a - b) / (1e-6 + np.abs(b)))))
+    print(f"small {name} (M={gpu.M}, K={gpu.K}, 3 iterations): card f32 vs CPU f64 "
+          f"ELBO rel diff {rel:.3e}, worst parameter rel diff {worst:.3e} "
+          f"({', '.join(fields)})")
+
+
+def main_path(model, label, kernels, smi, n_chunks, monotone_from=0):
+    """Train 4 iterations with checkelbo=1 with the launch counts zeroed
+    just before; checks and prints; returns the counts."""
+    import torch
+
+    from topicmodelsvb_jl_torch.validate import check_model
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    model.train(iter=4, checkelbo=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    trace = model.trainer.trace
+    deltas = [x.delta_elbo for x in trace]
+    need(len(trace) == 4, f"{label}: ran {len(trace)} of 4 iterations")
+    need(all(d > 0 for d in deltas[monotone_from:]), f"{label}: ∆elbo not positive: {deltas}")
+    check_model(model)
+    estep = kernels[0]
+    need(launches[estep.__name__] == n_chunks * len(trace),
+         f"{label}: {estep.__name__} launches {launches[estep.__name__]} != "
+         f"{n_chunks} x {len(trace)}")
+    step_s = statistics.median(x.step_time_s for x in trace[1:])
+    tr = model.trainer
+    state = model.state
+    pure = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = tr.step_fn(state, *tr.data)
+        torch.cuda.synchronize()
+        pure.append(time.perf_counter() - t1)
+    elbo_ms = cuda_ms(lambda: tr.elbo_fn(state, *tr.elbo_data), 3)
+    M = model.M
+    print(f"main path {label}: M={M} K={model.K} chunks={n_chunks} 4 iterations in "
+          f"{wall:.2f} s; first ∆elbo {deltas[0]:.3f}; median step+ELBO {step_s:.4f} s = "
+          f"{M / step_s:.0f} docs/s; step alone {statistics.median(pure):.4f} s = "
+          f"{M / statistics.median(pure):.0f} docs/s; ELBO pass {elbo_ms:.2f} ms; "
+          f"final elbo {model.elbo:.3f}; launches {launches}; peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
+    return launches
+
+
+def same_seed_steps(make, fields, label) -> None:
+    """Two fresh same-seed models, one step each, bitwise equal."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        m = make()
+        m.train(iter=1, checkelbo=float("inf"), printelbo=False)
+        runs.append(m.state)
+    for f in fields:
+        need(torch.equal(getattr(runs[0], f), getattr(runs[1], f)),
+             f"{label}: same-seed steps differ in {f}")
+    print(f"determinism {label}: two same-seed steps bitwise equal in {', '.join(fields)}")
+
+
+def n_chunks_of(model) -> int:
+    return sum(s.terms.shape[0] for s in model.packed.segments) // model.chunk_docs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -122,11 +304,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import topicmodelsvb_jl_torch as tt
-    from topicmodelsvb_jl_torch.convert import lda_state_from_numpy, lda_state_to_numpy
+    from topicmodelsvb_jl_torch import convert
     from topicmodelsvb_jl_torch.kernels import _build
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
-    from topicmodelsvb_jl_torch.validate import check_model
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -139,110 +322,130 @@ def main() -> int:
     print(smi)
     t0 = time.perf_counter()
     lib = _build.build()
-    fit = _build.function("tmvb_lda_estep_rows_in_smem", [ctypes.c_int64] * 2)
+    i64 = ctypes.c_int64
+    fit = {name: _build.function(f"tmvb_{name}_rows_in_smem", [i64] * n)
+           for name, n in (("lda_estep", 2), ("flda_estep", 2), ("ctpf_estep", 3))}
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "entry function" in line:
             print("ptxas:", line.strip())
 
-    # 2. corpus
+    # 2. corpora
     t0 = time.perf_counter()
     packed = tt.synth_packed_nsf_scale(seed=7)
     bucketed = tt.bucketize_packed(packed, chunk=1024, pad_multiple=8)
     K, V = 100, packed.V
-    print(f"corpus: M={packed.M} V={V} segments={len(bucketed.segments)} "
+    print(f"corpus NSF: M={packed.M} V={V} segments={len(bucketed.segments)} "
           f"widths={[s.L for s in bucketed.segments]} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    citeu = tt.synth_corpus(M=16_980, V=8_000, U=5_551, K=30, seed=7, mean_tokens=60,
+                            mean_terms=45, mean_readers=5)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpk = tt.pack_corpus(citeu, with_readers=True)
+    cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
+    print(f"corpus CiteULike: M={cpk.M} V={cpk.V} U={cpk.U} Rmax={cpk.Rmax} "
+          f"segments={len(cbk.segments)} widths={[s.L for s in cbk.segments]}; "
+          f"synth_corpus host time {synth_s:.2f} s, packing {time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel vs plain, then a small model on the card against the CPU
-    s0 = bucketed.segments[0]
+    # 3. kernel vs plain, then small models on the card against the CPU
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
-    wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
-            put(s0.doc_mask[:1024], torch.float32))
+    f32, i32 = torch.float32, torch.int32
+    s0 = bucketed.segments[0]
+    wide = (put(s0.terms[:1024], i32), put(s0.counts[:1024], f32),
+            put(s0.doc_mask[:1024], f32))
     r = np.random.default_rng(3)
     n = r.integers(600, 1025, size=1024)
     cnt = (1 + r.poisson(0.35, size=(1024, 1024))) * (np.arange(1024)[None, :] < n[:, None])
     trm = np.minimum((V * r.random((1024, 1024)) ** 3).astype(np.int32), V - 1) * (cnt > 0)
-    long_ = (put(trm, torch.int32), put(cnt, torch.float32),
-             torch.ones(1024, dtype=torch.float32, device=dev))
-    need(fit(s0.L, K) == 1 and fit(1024, K) == 0,
-         f"shared-memory rule: L={s0.L} -> {fit(s0.L, K)}, L=1024 -> {fit(1024, K)}")
+    long_ = (put(trm, i32), put(cnt, f32), torch.ones(1024, dtype=f32, device=dev))
+    # the fLDA/CTPF synthetic chunks end in 3 padded documents
+    mask_pad = torch.ones(1024, dtype=f32, device=dev)
+    mask_pad[-3:] = 0
+    cnt[-3:] = 0
+    long_pad = (put(trm * (cnt > 0), i32), put(cnt, f32), mask_pad)
+    rules = {"lda_estep": [(s0.L, K, 1), (1024, K, 0)],
+             "flda_estep": [(s0.L, K, 1), (1024, K, 0)],
+             "ctpf_estep": [(cbk.segments[0].L, cpk.Rmax, K, 1), (768, 256, K, 0)]}
+    for name, cases in rules.items():
+        for *shape, want_fit in cases:
+            need(fit[name](*shape) == want_fit,
+                 f"{name} shared-memory rule at {shape}: {fit[name](*shape)}")
     res_wide = compare_kernels(wide, V, K, dev, f"widest bucket L={s0.L}")
     res_long = compare_kernels(long_, V, K, dev, "L=1024 rows in device memory")
+    fl_wide = compare_flda(wide, V, K, dev, f"widest bucket L={s0.L}")
+    fl_long = compare_flda(long_pad, V, K, dev, "L=1024 rows in device memory")
+    c0 = cbk.segments[0]
+    rows0 = slice(c0.loc_start, c0.loc_start + 1024)
+    ct_wide = compare_ctpf(
+        (put(c0.terms[:1024], i32), put(c0.counts[:1024], f32), put(c0.doc_mask[:1024], f32)),
+        (put(cbk.readers[rows0], i32), put(cbk.ratings[rows0], f32)),
+        cpk.V, cpk.U, K, dev, f"CiteULike widest bucket L={c0.L} R={cpk.Rmax}")
+    rr = np.random.default_rng(4)
+    rat = (np.arange(256)[None, :] < rr.integers(100, 257, size=1024)[:, None]).astype(np.float32)
+    rat[-3:] = 0
+    rdr = rr.integers(0, cpk.U, size=(1024, 256)).astype(np.int32) * (rat > 0)
+    ct_long = compare_ctpf(
+        (long_pad[0][:, :768].contiguous(), long_pad[1][:, :768].contiguous(), mask_pad),
+        (put(rdr, i32), put(rat, f32)), V, cpk.U, K, dev,
+        "L=768 R=256 rows in device memory")
 
     small = tt.synth_packed_nsf_scale(M=2000, V=500, mean_terms=30, seed=5)
-    gpu = tt.LDA(small, 10, tt.RuntimeConfig(chunk_docs=256), device=dev, seed=1)
-    cpu = tt.LDA(small, 10, tt.RuntimeConfig(chunk_docs=256, dtype="float64"),
-                 device="cpu", seed=1)
-    cpu.state = lda_state_from_numpy(lda_state_to_numpy(gpu.state), "cpu", torch.float64)
-    gpu.train(iter=3, checkelbo=1, printelbo=False)
-    cpu.train(iter=3, checkelbo=1, printelbo=False)
-    ge = [x.elbo for x in gpu.trainer.trace]
-    ce = [x.elbo for x in cpu.trainer.trace]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(ge, ce))
-    need(rel <= 1e-4, f"small model: f32 card ELBO {ge} vs f64 CPU {ce}")
-    need(np.allclose(gpu.alpha, cpu.alpha, rtol=1e-3), "small model: alpha")
-    need(np.allclose(gpu.beta, cpu.beta, rtol=1e-3, atol=1e-6), "small model: beta")
-    print(f"small model (M=2000, K=10, 3 iterations): card f32 vs CPU f64 "
-          f"ELBO rel diff {rel:.3e}")
+    card_vs_cpu("LDA", lambda rt, d: tt.LDA(small, 10, rt, device=d, seed=1),
+                convert.lda_state_to_numpy, convert.lda_state_from_numpy,
+                ("alpha", "beta"), dev)
+    card_vs_cpu("fLDA", lambda rt, d: tt.fLDA(small, 10, rt, device=d, seed=1),
+                convert.flda_state_to_numpy, convert.flda_state_from_numpy,
+                ("alpha", "beta", "kappa", "eta"), dev)
+    small_c = tt.pack_corpus(tt.synth_corpus(M=1500, V=600, K=8, U=300, seed=3,
+                                             mean_tokens=40, mean_terms=25,
+                                             mean_readers=4), with_readers=True)
+    card_vs_cpu("CTPF", lambda rt, d: tt.CTPF(small_c, 10, rt, device=d, seed=1),
+                convert.ctpf_state_to_numpy, convert.ctpf_state_from_numpy,
+                ("alef", "bet", "dalet", "he", "vav", "het"), dev)
 
-    # 4. main path
-    model = tt.LDA(packed, K, runtime=tt.RuntimeConfig(chunk_docs=1024, dtype="float32"),
-                   device="cuda", seed=7)
-    n_chunks = sum(s.terms.shape[0] for s in model.packed.segments) // model.chunk_docs
-    lda_estep.launches = 0
-    lda_elbo_tok.launches = 0
-    t0 = time.perf_counter()
-    model.train(iter=4, checkelbo=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"lda_estep": lda_estep.launches, "lda_elbo_tok": lda_elbo_tok.launches}
-    trace = model.trainer.trace
-    need(len(trace) == 4, f"main path ran {len(trace)} of 4 iterations")
-    need(all(x.delta_elbo > 0 for x in trace),
-         f"∆elbo not positive: {[x.delta_elbo for x in trace]}")
-    check_model(model)
-    need(launches["lda_estep"] == n_chunks * len(trace),
-         f"lda_estep launches {launches['lda_estep']} != {n_chunks} x {len(trace)}")
-    need(launches["lda_elbo_tok"] == n_chunks * (len(trace) + 1),
-         f"lda_elbo_tok launches {launches['lda_elbo_tok']}")
-    gam = model.gamma
-    need(gam.shape == (packed.M, K) and np.isfinite(gam).all(), "gamma shape/finite")
-    step_s = statistics.median(x.step_time_s for x in trace[1:])
-    tr = model.trainer
-    state = model.state
-    pure = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state = tr.step_fn(state, *tr.data)
-        torch.cuda.synchronize()
-        pure.append(time.perf_counter() - t1)
-    elbo_ms = cuda_ms(lambda: tr.elbo_fn(state, *tr.elbo_data), 3)
-    print(f"main path: NSF M={packed.M} K={K} chunks={n_chunks} 4 iterations in "
-          f"{wall:.2f} s; median step+ELBO {step_s:.4f} s = "
-          f"{packed.M / step_s:.0f} docs/s; step alone {statistics.median(pure):.4f} s = "
-          f"{packed.M / statistics.median(pure):.0f} docs/s; ELBO pass {elbo_ms:.2f} ms; "
-          f"final elbo {model.elbo:.3f}; peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
+    # 4. main paths
+    rt = tt.RuntimeConfig(chunk_docs=1024, dtype="float32")
+    lda = tt.LDA(packed, K, runtime=rt, device="cuda", seed=7)
+    n_lda = n_chunks_of(lda)
+    launches = main_path(lda, "LDA NSF", [lda_estep, lda_elbo_tok], smi, n_lda)
+    need(launches["lda_elbo_tok"] == n_lda * 5,
+         f"lda_elbo_tok launches {launches['lda_elbo_tok']} != {n_lda} x 5")
+    flda = tt.fLDA(packed, K, runtime=rt, device="cuda", seed=7)
+    launches.update(main_path(flda, "fLDA NSF", [flda_estep], smi, n_chunks_of(flda),
+                              monotone_from=1))
+    need(lda.gamma.shape == (packed.M, K) and np.isfinite(lda.gamma).all(),
+         "LDA gamma shape/finite")
+    need(flda.gamma.shape == (packed.M, K) and np.isfinite(flda.gamma).all(),
+         "fLDA gamma shape/finite")
+    ctpf = tt.CTPF(cpk, K, runtime=rt, device="cuda", seed=7)
+    launches.update(main_path(ctpf, "CTPF CiteULike", [ctpf_estep], smi, n_chunks_of(ctpf),
+                              monotone_from=1))
+    own = [u + 1 for u in cpk.readers[0, : cpk.R[0]]]
+    need(sorted(ctpf.drecs[0] + own) == list(range(1, ctpf.U + 1)),
+         "CTPF drecs[0] is not a permutation of the users outside doc 1's readers")
+    need(sorted(ctpf.urecs[0] + ctpf.libs[0]) == list(range(1, ctpf.M + 1)),
+         "CTPF urecs[0] is not a permutation of the docs outside user 1's library")
+    print(f"CTPF recs: drecs[0][:5]={ctpf.drecs[0][:5]} urecs[0][:5]={ctpf.urecs[0][:5]}; "
+          f"scores {ctpf.scores.shape}")
 
     # 5. determinism
-    runs = []
-    for _ in range(2):
-        m = tt.LDA(model.packed, K, runtime=tt.RuntimeConfig(chunk_docs=1024),
-                   device="cuda", seed=7)
-        m.train(iter=1, checkelbo=float("inf"), printelbo=False)
-        runs.append(m.state)
-    for f in ("beta", "alpha", "gamma"):
-        need(torch.equal(getattr(runs[0], f), getattr(runs[1], f)),
-             f"same-seed steps differ in {f}")
-    print("determinism: two same-seed steps bitwise equal in beta, alpha, gamma")
+    same_seed_steps(lambda: tt.LDA(lda.packed, K, runtime=rt, device="cuda", seed=7),
+                    ("beta", "alpha", "gamma"), "LDA")
+    same_seed_steps(lambda: tt.fLDA(flda.packed, K, runtime=rt, device="cuda", seed=7),
+                    ("beta", "alpha", "kappa", "eta", "gamma", "Elogtheta", "tau"), "fLDA")
+    same_seed_steps(lambda: tt.CTPF(ctpf.packed, K, runtime=rt, device="cuda", seed=7),
+                    ("alef", "bet", "dalet", "he", "vav", "het", "gimel", "zayin"), "CTPF")
 
     # 6. results
     rows = []
-    for name, key, src, tpu in (
-            ("lda_estep", "estep", "lda_estep.cu", "lda_estep.py:157"),
-            ("lda_elbo_tok", "elbo", "lda_elbo.cu", "lda_elbo.py:119")):
-        (e1, ms, plain), (e2, _, _) = res_wide[key], res_long[key]
+    for name, src, tpu, (e1, ms, plain), (e2, _, _) in (
+            ("lda_estep", "lda_estep.cu", "lda_estep.py:157", res_wide["estep"],
+             res_long["estep"]),
+            ("lda_elbo_tok", "lda_elbo.cu", "lda_elbo.py:119", res_wide["elbo"],
+             res_long["elbo"]),
+            ("flda_estep", "flda_estep.cu", "flda_estep.py:112", fl_wide, fl_long),
+            ("ctpf_estep", "ctpf_estep.cu", "ctpf_estep.py:105", ct_wide, ct_long)):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": f"topicmodelsvb_jl_tpu/kernels/{tpu}",

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 import topicmodelsvb_jl_torch as tt
+from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
+from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
 from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
 from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
 from topicmodelsvb_jl_torch.ops.segment import count_scatter_into
@@ -127,3 +129,114 @@ def test_lda_trains_through_the_kernels(cuda):
     assert lda_estep.launches - e0 == 3 * n_chunks
     assert lda_elbo_tok.launches - k0 == 4 * n_chunks
     assert all(r.delta_elbo > 0 for r in m.trainer.trace)
+
+
+def _flda_chunk(K, B, L, V, dev, seed=0):
+    """fLDA E-step arguments for one chunk; the last 3 documents are padding."""
+    (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old), _ = _chunk(K, B, L, V, dev, seed)
+    r = np.random.default_rng(seed + 100)
+    kappa = torch.tensor(r.dirichlet(np.ones(V)), dtype=torch.float32, device=dev)
+    tau = torch.tensor(r.uniform(0.1, 0.9, size=(2, B, L)), dtype=torch.float32, device=dev)
+    eta = torch.tensor(0.6, device=dev)
+    return (torch.log(betaT), kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
+            tau[0].contiguous(), tau[1].contiguous())
+
+
+# (100, 128): the widest NSF bucket, rows in shared memory;
+# (100, 1024): rows beyond the shared-memory limit, read from the table
+@pytest.mark.parametrize("K,L", [(7, 24), (100, 128), (100, 1024), (160, 40)])
+def test_flda_estep_kernel_matches_plain(cuda, K, L):
+    args = _flda_chunk(K, 64, L, 3000, cuda)
+    before = flda_estep.launches
+    got = flda_estep(*args, viter=10, vtol=1.0 / K**2)
+    torch.cuda.synchronize()
+    assert flda_estep.launches == before + 1
+    want = flda_estep_ref(*args, viter=10, vtol=1.0 / K**2)
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    assert got[5].shape == (64, L, K + 1) and torch.all(got[5][-3:] == 0)
+    for a, b in zip(got[:5], args[7:]):
+        assert torch.equal(a[-3:], b[-3:])   # padded documents frozen
+
+
+def _ctpf_chunk(K, B, L, R, V, U, dev, seed=0):
+    """CTPF E-step arguments for one chunk; the last 3 documents are padding."""
+    r = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    gam = lambda *shape: 0.1 + r.gamma(2.0, 1.0, size=shape)
+    terms = (V * r.random((B, L)) ** 3).astype(np.int32)
+    counts = (1 + r.poisson(0.35, size=(B, L))) * (
+        np.arange(L)[None, :] < r.integers(1, L + 1, size=B)[:, None])
+    readers = r.integers(0, U, size=(B, R)).astype(np.int32)
+    ratings = np.arange(R)[None, :] < r.integers(1, R + 1, size=B)[:, None]
+    terms[counts == 0] = 0
+    readers[~ratings] = 0
+    counts[-3:] = 0
+    ratings[-3:] = False
+    doc_mask = np.ones(B)
+    doc_mask[-3:] = 0
+    g = torch.special.digamma(torch.tensor(gam(K, V)))
+    h = torch.special.digamma(torch.tensor(gam(K, U)))
+    dalet, bet, vav, het = (r.uniform(0.5, 3.0, K) for _ in range(4))
+    gimel, zayin = gam(B, K), gam(B, K)
+    return (t(torch.exp(g).T), t(torch.exp(h).T), t(terms, torch.int32), t(counts),
+            t(readers, torch.int32), t(ratings), t(doc_mask), t(1 / (dalet * bet)),
+            t(1 / (dalet * vav)), t(1 / (het * vav)), t(gimel), t(gimel * 1.1), t(zayin),
+            t(zayin * 0.9))
+
+
+HYP = dict(c_hyper=0.1, g_hyper=0.1)
+
+
+# (100, 80, 24): CiteULike-like, rows in shared memory; (100, 600, 64):
+# L + R beyond the shared-memory limit, rows read from the tables
+@pytest.mark.parametrize("K,L,R", [(9, 24, 8), (100, 80, 24), (100, 600, 64), (160, 40, 8)])
+def test_ctpf_estep_kernel_matches_plain(cuda, K, L, R):
+    args = _ctpf_chunk(K, 64, L, R, 3000, 500, cuda)
+    before = ctpf_estep.launches
+    got = ctpf_estep(*args, viter=10, vtol=1.0 / K**2, **HYP)
+    torch.cuda.synchronize()
+    assert ctpf_estep.launches == before + 1
+    want = ctpf_estep_ref(*args, viter=10, vtol=1.0 / K**2, **HYP)
+    for name, a, b in zip(("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
+                          got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    assert torch.all(got[4][-3:] == 0) and torch.all(got[5][-3:] == 0)
+    for a, b in zip(got[:4], args[10:]):
+        assert torch.equal(a[-3:], b[-3:])   # padded documents frozen
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    fargs = _flda_chunk(7, 16, 24, 100, cuda)
+    with pytest.raises(TypeError, match="eta"):
+        flda_estep(*fargs[:6], fargs[6].double(), *fargs[7:], viter=2, vtol=1e-3)
+    with pytest.raises(ValueError, match="tau"):
+        flda_estep(*fargs[:10], fargs[10].T.contiguous().T, fargs[11], viter=2, vtol=1e-3)
+    cargs = _ctpf_chunk(7, 16, 24, 8, 100, 50, cuda)
+    with pytest.raises(TypeError, match="readers"):
+        ctpf_estep(*cargs[:4], cargs[4].long(), *cargs[5:], viter=2, vtol=1e-3, **HYP)
+    e0, c0 = flda_estep.launches, ctpf_estep.launches
+    out = flda_estep(*(a[:0] if a.dim() and a.shape[0] == 16 else a for a in fargs),
+                     viter=2, vtol=1e-3)
+    assert out[5].shape == (0, 24, 8) and (flda_estep.launches, ctpf_estep.launches) == (e0, c0)
+
+
+def test_flda_and_ctpf_train_through_the_kernels(cuda):
+    p = tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=40, seed=2)
+    m = tt.fLDA(p, 16, tt.RuntimeConfig(chunk_docs=256), device=cuda, seed=1)
+    e0 = flda_estep.launches
+    m.train(iter=3, checkelbo=1, printelbo=False)
+    n_chunks = sum(s.terms.shape[0] for s in m.packed.segments) // m.chunk_docs
+    assert flda_estep.launches - e0 == 3 * n_chunks
+    assert all(r.delta_elbo > 0 for r in m.trainer.trace[1:])
+    corp = tt.synth_corpus(M=1500, V=600, K=8, U=300, seed=3, mean_tokens=40,
+                           mean_terms=25, mean_readers=4)
+    c = tt.CTPF(tt.pack_corpus(corp, with_readers=True), 16,
+                tt.RuntimeConfig(chunk_docs=256), device=cuda, seed=1)
+    e0 = ctpf_estep.launches
+    c.train(iter=3, checkelbo=1, printelbo=False)
+    n_chunks = sum(s.terms.shape[0] for s in c.packed.segments) // c.chunk_docs
+    assert ctpf_estep.launches - e0 == 3 * n_chunks
+    assert all(r.delta_elbo > 0 for r in c.trainer.trace[1:])
+    assert sorted(c.drecs[0] + [u + 1 for u in c.packed.readers[c._rows(0), :c.R[0]]]) \
+        == list(range(1, c.U + 1))

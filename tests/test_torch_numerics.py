@@ -40,6 +40,25 @@ def test_digamma_series_matches_special():
                                rtol=0, atol=5e-10)
 
 
+@pytest.mark.parametrize("name", ["categorical_entropy", "bernoulli_entropy",
+                                  "gamma_entropy"])
+def test_entropies_match_jax(name):
+    """The fLDA and CTPF bound's entropies, 0·log 0 = 0 included."""
+    r = np.random.default_rng(5)
+    if name == "categorical_entropy":
+        p = r.dirichlet(np.ones(6), size=20)
+        p[0] = [0.5, 0.5, 0, 0, 0, 0]
+        args = (p,)
+    elif name == "bernoulli_entropy":
+        args = (np.concatenate([[0.0, 1.0], r.uniform(0, 1, 30)]),)
+    else:
+        args = (0.1 + r.gamma(2.0, 1.0, size=(4, 7)), r.uniform(0.5, 3.0, size=(4, 1)))
+    got = getattr(tnum, name)(*map(_t, args)).numpy()
+    want = np.asarray(getattr(jnum, name)(*map(jnp.asarray, args)))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_kbn_matches_jax(seed):
     """Compensated accumulation is the same arithmetic: equal bit for bit."""

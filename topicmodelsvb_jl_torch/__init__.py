@@ -1,18 +1,20 @@
 """topicmodelsvb_jl_torch — variational-Bayes topic modeling in PyTorch.
 
 The PyTorch and CUDA port of ``topicmodelsvb_jl_tpu`` for one NVIDIA
-Hopper GPU (or the CPU).  This slice covers LDA's main path: a packed,
-length-bucketed corpus, batch-synchronous CAVI with hand-written CUDA
-kernels for the E-step and the ELBO's token terms, and plain PyTorch
-versions of both for CPU tensors.  It imports no JAX.
+Hopper GPU (or the CPU).  It covers the main paths of LDA, fLDA and CTPF:
+a packed, length-bucketed corpus, batch-synchronous CAVI with
+hand-written CUDA kernels for the E-steps and LDA's ELBO token terms, and
+plain PyTorch versions of each kernel for CPU tensors.  It imports no JAX.
 """
 
-from .api import LDA
-from .datasets import synth_packed_nsf_scale
-from .ops.packing import PackedCorpus, bucketize_packed
+from .api import CTPF, LDA, fLDA
+from .corpus import Corpus, Document
+from .datasets import synth_corpus, synth_packed_nsf_scale
+from .ops.packing import PackedCorpus, bucketize_packed, pack_corpus
 from .utils.config import RuntimeConfig, TrainConfig
 
 __all__ = [
-    "LDA", "TrainConfig", "RuntimeConfig", "PackedCorpus",
-    "bucketize_packed", "synth_packed_nsf_scale",
+    "LDA", "fLDA", "CTPF", "Corpus", "Document", "TrainConfig", "RuntimeConfig",
+    "PackedCorpus", "bucketize_packed", "pack_corpus", "synth_corpus",
+    "synth_packed_nsf_scale",
 ]

@@ -2,8 +2,8 @@
 
 ``torch.Generator`` and ``jax.random`` draw different numbers from the
 same seed, so a comparison between the two packages starts both from one
-state: the JAX package's ``LDAState`` fields, read as NumPy arrays, become
-this package's :class:`~.models.lda.LDAState`, and back.
+state: the JAX package's state fields, read as NumPy arrays by name,
+become this package's state dataclass, and back.
 """
 
 from __future__ import annotations
@@ -13,18 +13,48 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .models.ctpf import CTPFState
+from .models.flda import FLDAState
 from .models.lda import LDAState
 
 LDA_FIELDS = tuple(LDAState.__dataclass_fields__)
+FLDA_FIELDS = tuple(FLDAState.__dataclass_fields__)
+CTPF_FIELDS = tuple(CTPFState.__dataclass_fields__)
+
+
+def _from_numpy(cls, arrays: Mapping, device, dtype):
+    return cls(**{f: torch.tensor(np.array(arrays[f]), dtype=dtype, device=device)
+                  for f in cls.__dataclass_fields__})
+
+
+def _to_numpy(state) -> dict:
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in type(state).__dataclass_fields__}
 
 
 def lda_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> LDAState:
     """``arrays`` maps each LDAState field name to an array (anything
     ``np.asarray`` reads, e.g. a JAX state's ``_asdict()``)."""
-    return LDAState(**{
-        f: torch.tensor(np.array(arrays[f]), dtype=dtype, device=device)
-        for f in LDA_FIELDS})
+    return _from_numpy(LDAState, arrays, device, dtype)
 
 
 def lda_state_to_numpy(state: LDAState) -> dict:
-    return {f: getattr(state, f).detach().cpu().numpy() for f in LDA_FIELDS}
+    return _to_numpy(state)
+
+
+def flda_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> FLDAState:
+    """As :func:`lda_state_from_numpy`, for the 12 FLDAState fields."""
+    return _from_numpy(FLDAState, arrays, device, dtype)
+
+
+def flda_state_to_numpy(state: FLDAState) -> dict:
+    return _to_numpy(state)
+
+
+def ctpf_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> CTPFState:
+    """As :func:`lda_state_from_numpy`, for the 17 CTPFState fields."""
+    return _from_numpy(CTPFState, arrays, device, dtype)
+
+
+def ctpf_state_to_numpy(state: CTPFState) -> dict:
+    return _to_numpy(state)

@@ -43,11 +43,16 @@ class IterationRecord:
     span: int = 1
 
 
-def _synchronize(state) -> None:
-    """Wait for the device that holds ``state``."""
-    dev = state.beta.device
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _synchronize(state, device=None) -> None:
+    """Wait for ``device``, or else for the device of the state's first
+    tensor field."""
+    if device is None:
+        device = next(v.device for v in (getattr(state, f.name)
+                                          for f in dataclasses.fields(state))
+                      if isinstance(v, torch.Tensor))
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class Trainer:
@@ -56,11 +61,12 @@ class Trainer:
     ``step_fn(state, *data) -> state`` runs one full outer iteration;
     ``elbo_fn(state, *elbo_data) -> (2,) tensor`` evaluates the bound
     with the reference's *_old semantics as a compensated (hi, lo) pair.
+    ``device``, when given, is the device the end-of-run wait is for.
     """
 
     def __init__(self, step_fn: Callable, elbo_fn: Callable, data: tuple,
                  elbo_data: Optional[tuple] = None, M: int = 0, C: int = 0,
-                 printer: Callable[[str], None] = print):
+                 printer: Callable[[str], None] = print, device=None):
         self.step_fn = step_fn
         self.elbo_fn = elbo_fn
         self.data = tuple(data)
@@ -68,6 +74,7 @@ class Trainer:
         self.M = M
         self.C = C   # corpus token count (reference model.C, LDA.jl:31)
         self.printer = printer
+        self.device = device
         self.trace: List[IterationRecord] = []
 
     def train(self, state, cfg: TrainConfig, corpus_all_empty: bool = False,
@@ -107,7 +114,7 @@ class Trainer:
                         self.printer(f"{k} ∆elbo: {round(delta, 3)}")
                 else:
                     sync_t0 = time.perf_counter()
-                    _synchronize(state)
+                    _synchronize(state, self.device)
                     rec.host_sync_s = time.perf_counter() - sync_t0
                 span = time.perf_counter() - span_start
                 per = span / len(span_recs)

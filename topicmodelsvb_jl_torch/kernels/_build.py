@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with
-``ctypes``.  No PyTorch header is included, so a build takes seconds.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
+into ONE shared library with a plain C interface, loaded with ``ctypes``.
+No PyTorch header is included, so a build takes seconds.
 
 * The build happens at first use, from this package's sources only, into
   ``topicmodelsvb_jl_torch/_build/``.  The library's file name carries a
@@ -25,8 +26,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -66,14 +67,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(text)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".log").write_text("".join(log) + proc.stdout + proc.stderr)
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     return out
 

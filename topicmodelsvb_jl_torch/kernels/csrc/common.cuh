@@ -1,7 +1,9 @@
-// Helpers shared by the LDA kernels: block layout and block-wide sums.
+// Helpers shared by the E-step and ELBO kernels: block layout, block-wide
+// sums, the digamma series and the shared-memory opt-in.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace tmvb {
@@ -20,6 +22,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Sum of v over the block, returned to every thread.  Every thread adds
 // the per-warp partials in the same order, so all see the same bits and
 // a loop that branches on the result stays uniform.  `red` holds
@@ -35,6 +43,22 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// psi(x) for x > 0: psi(x) = psi(x + 8) - sum_{i<8} 1/(x + i), then the
+// asymptotic series at t = x + 8 (truncation ~2.5e-10 at t = 8).  The
+// TPU kernels' digamma_series (topicmodelsvb_jl_tpu/kernels/
+// lda_estep.py:58-76), in f32 with IEEE division and logf.
+__device__ __forceinline__ float digamma_series(float x) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc += 1.0f / (x + static_cast<float>(i));
+  const float t = x + 8.0f;
+  const float inv = 1.0f / t;
+  const float inv2 = inv * inv;
+  const float series = logf(t) - 0.5f * inv -
+      inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
+  return series - acc;
+}
+
 // Clears a failed setup call's error so the next launch check does not
 // report it again.
 inline int fail(cudaError_t err) {
@@ -42,16 +66,42 @@ inline int fail(cudaError_t err) {
   return static_cast<int>(err);
 }
 
+// The device's opt-in shared-memory limit per block, or -1 when it
+// cannot be queried.
+inline int smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+      cudaSuccess)
+    return -1;
+  return optin;
+}
+
+// 1 when `bytes` of shared memory fit the opt-in limit, 0 when they do
+// not, or a negative value when the device cannot be queried (the CUDA
+// error stays set for the caller's check).
+inline int fits_smem(size_t bytes) {
+  const int optin = smem_optin();
+  if (optin < 0) return -1;
+  return bytes <= static_cast<size_t>(optin) ? 1 : 0;
+}
+
+// The error that left smem_optin() at -1, or cudaErrorUnknown.
+inline int query_error() {
+  const cudaError_t err = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+}
+
 // Dynamic shared memory of `bytes` for `kernel`: above the 48 KB default
 // only after opting in, and never past the device's opt-in limit.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  const int optin = smem_optin();
+  if (optin < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorUnknown;
+  }
   if (bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

@@ -30,23 +30,11 @@
 // reference's per-document break, and it gives the masked tile's result
 // because a converged document's state is frozen there.  K is not padded.
 // psi is the same shift-by-8 asymptotic series as the TPU kernel
-// (lda_estep.py:58-76), in f32 with IEEE division and logf.
+// (digamma_series in common.cuh).
 
 #include "common.cuh"
 
 namespace tmvb {
-
-__device__ __forceinline__ float digamma_series(float x) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc += 1.0f / (x + static_cast<float>(i));
-  const float t = x + 8.0f;
-  const float inv = 1.0f / t;
-  const float inv2 = inv * inv;
-  const float series = logf(t) - 0.5f * inv -
-      inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
-  return series - acc;
-}
 
 // Shared memory: gam, el, elo, e [K] each, red [32], then (rows in
 // shared memory only) cs [L] and rows [L * K].
@@ -171,15 +159,6 @@ __global__ void __launch_bounds__(kThreads) lda_estep_kernel(
   }
 }
 
-inline int smem_optin() {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-      cudaSuccess)
-    return -1;
-  return optin;
-}
-
 }  // namespace tmvb
 
 extern "C" {
@@ -191,9 +170,7 @@ const char* tmvb_error_string(int err) {
 // 1 when a document of L slots keeps its rows in shared memory, 0 when it
 // re-reads them from the table, -1 when the device cannot be queried.
 int tmvb_lda_estep_rows_in_smem(int64_t L, int64_t K) {
-  const int optin = tmvb::smem_optin();
-  if (optin < 0) return -1;
-  return tmvb::estep_smem_rows(L, K) <= static_cast<size_t>(optin) ? 1 : 0;
+  return tmvb::fits_smem(tmvb::estep_smem_rows(L, K));
 }
 
 int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
@@ -204,10 +181,7 @@ int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
                    void* stream) {
   if (B == 0) return 0;
   const int rows_in_smem = tmvb_lda_estep_rows_in_smem(L, K);
-  if (rows_in_smem < 0) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
-  }
+  if (rows_in_smem < 0) return tmvb::query_error();
   const size_t bytes =
       rows_in_smem ? tmvb::estep_smem_rows(L, K) : tmvb::estep_smem_base(K);
   cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_kernel, bytes);

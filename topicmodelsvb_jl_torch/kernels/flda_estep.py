@@ -1,0 +1,121 @@
+"""fLDA E-step: the CUDA kernel's wrapper and its plain PyTorch version.
+
+The kernel (``csrc/flda_estep.cu``) replaces the JAX package's Pallas
+kernel ``flda_estep``.  Both versions here take the same arguments:
+
+  logbetaT: [V, K]  log(beta + EPSILON)ᵀ; each document's rows are
+                    gathered by ``terms`` inside the function
+  kappa:    [V]     background distribution
+  terms:    [B, L]  int32 0-based vocab ids
+  counts:   [B, L]  token counts, 0 on padding
+  doc_mask: [B]     1 for real documents
+  alpha:    [K];  eta: 0-dim tensor on the same device
+  gamma, El, El_old: [B, K];  tau, tau_old: [B, L] per-document state
+
+and return ``(gamma, El, El_old, tau, tau_old, w)`` with ``w`` [B, L, K+1]:
+``w[..., :K] = phi·tau·counts`` (phi taken from the final ``tau_old`` and
+``El_old``) and ``w[..., K] = (1 − tau)·counts``, the beta and kappa
+M-step statistics side by side for one scatter.  A document with
+``doc_mask = 0`` keeps its state; tau is updated on every slot of a real
+document, padding slots included, as the JAX package does.
+
+phi ∝ exp(tau·log beta + El) over K (fLDA.jl:204-207) and
+tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
+(fLDA.jl:195-200); ψ is the kernels' shift-by-8 series.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.numerics import EPSILON, masked_fixpoint
+from . import _build
+from ._build import check, require
+from .lda_estep import digamma_series
+
+
+def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
+                   gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float):
+    """Plain PyTorch version of the kernel: the batch of documents runs
+    the fixpoint together, each document frozen once it converges."""
+    lb = logbetaT[terms]                               # [B, L, K]
+    kap = kappa[terms]                                 # [B, L]
+    vtol2 = vtol * vtol
+
+    def phi(t, e):
+        logits = t[:, :, None] * lb + e[:, None, :]
+        p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+        return p, torch.sum(p, dim=-1)
+
+    def body(_, carry):
+        gamma, El, El_old, tau, tau_old, active = carry
+        p, s = phi(tau, El)
+        philog = torch.sum(p * lb, dim=-1) / s
+        tau_new = eta / (eta + (1.0 - eta) * kap * torch.exp(-philog) + EPSILON)
+        cs = counts / s
+        gamma_new = alpha + torch.sum(p * cs[:, :, None], dim=1) + EPSILON
+        El_new = (digamma_series(gamma_new)
+                  - digamma_series(torch.sum(gamma_new, -1, keepdim=True)))
+        upd = active[:, None]
+        gamma2 = torch.where(upd, gamma_new, gamma)
+        El_old2 = torch.where(upd, El, El_old)
+        El2 = torch.where(upd, El_new, El)
+        tau_old2 = torch.where(upd, tau, tau_old)
+        tau2 = torch.where(upd, tau_new, tau)
+        d = El2 - El_old2
+        return (gamma2, El2, El_old2, tau2, tau_old2,
+                active & (torch.sum(d * d, -1) >= vtol2))
+
+    gamma, El, El_old, tau, tau_old, _ = masked_fixpoint(
+        body, (gamma, El, El_old, tau, tau_old, doc_mask > 0), viter)
+    p, s = phi(tau_old, El_old)
+    wb = p * ((tau * counts) / s)[:, :, None]
+    wk = (1.0 - tau) * counts
+    return gamma, El, El_old, tau, tau_old, torch.cat([wb, wk[:, :, None]], dim=-1)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 3 + [
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
+               gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float):
+    """Run the fLDA E-step over a chunk of documents (arguments: module
+    doc).  CPU tensors take :func:`flda_estep_ref`; CUDA tensors launch
+    the kernel (f32 only) or raise."""
+    if logbetaT.device.type == "cpu":
+        return flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
+                              gamma, El, El_old, tau, tau_old, viter=viter, vtol=vtol)
+    if logbetaT.device.type != "cuda":
+        raise ValueError(f"flda_estep: no kernel for device {logbetaT.device}")
+    if terms.dim() != 2 or logbetaT.dim() != 2:
+        raise ValueError("flda_estep: terms and logbetaT must be 2-D")
+    B, L = terms.shape
+    V, K = logbetaT.shape
+    f32 = torch.float32
+    require("flda_estep", logbetaT.device, {
+        "logbetaT": (logbetaT, (V, K), f32), "kappa": (kappa, (V,), f32),
+        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), f32),
+        "doc_mask": (doc_mask, (B,), f32), "alpha": (alpha, (K,), f32),
+        "eta": (eta, (), f32), "gamma": (gamma, (B, K), f32),
+        "El": (El, (B, K), f32), "El_old": (El_old, (B, K), f32),
+        "tau": (tau, (B, L), f32), "tau_old": (tau_old, (B, L), f32)})
+    outs = [torch.empty_like(gamma) for _ in range(3)]
+    taus = [torch.empty_like(tau) for _ in range(2)]
+    w = torch.empty((B, L, K + 1), dtype=f32, device=logbetaT.device)
+    if B == 0:
+        return (*outs, *taus, w)
+    fn = _build.function("tmvb_flda_estep", _ARGTYPES)
+    with torch.cuda.device(logbetaT.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (
+            logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
+            tau, tau_old, *outs, *taus, w)), B, L, K, int(viter), float(vtol), stream)
+    check(err, "flda_estep")
+    flda_estep.launches += 1
+    return (*outs, *taus, w)
+
+
+flda_estep.launches = 0   # kernel launches (the plain version is not counted)

@@ -1,0 +1,182 @@
+"""Filtered latent Dirichlet allocation — batch-synchronous CAVI on one device.
+
+PyTorch port of the JAX package's ``models/flda.py`` on its bucketed
+single-device path (reference ``src/fLDA.jl``): LDA plus a per-token
+Bernoulli switch between a content word (drawn from a topic) and a
+background word (drawn from the corpus-wide ``kappa``), with global
+mixture weight ``eta``.
+
+* The per-document E-step fixpoint (fLDA.jl:181-207) runs chunk by chunk
+  over the length-bucketed segments through ``kernels/flda_estep``.
+* tau/tau_old stay dense ``[M_pad, L]`` at the corpus width before
+  bucketing; each segment reads ``tau[rows, :Ls]`` and every column past
+  a segment's width is 0.5 after the sweep, as in the JAX package.
+* The beta and kappa statistics share ONE deterministic scatter over
+  ``[T, K+1]`` rows, the kappa weight in the last column.
+* eta, M_total and C_total stay on the device; the step reads none of
+  them back to the host.
+
+The ELBO is plain PyTorch: the JAX package has no kernel for it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels.flda_estep import flda_estep
+from ..ops.newton import dirichlet_newton
+from ..ops.segment import count_scatter_into
+from ..utils.numerics import (
+    EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_entropy,
+    dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_zero, kbn_zeros, lgamma,
+)
+from .lda import _chunks
+
+
+@dataclasses.dataclass
+class FLDAState:
+    eta: torch.Tensor            # [] global content-word weight
+    alpha: torch.Tensor          # [K]
+    kappa: torch.Tensor          # [V] background distribution
+    kappa_old: torch.Tensor      # [V]
+    beta: torch.Tensor           # [K, V] right-stochastic rows
+    beta_old: torch.Tensor       # [K, V]
+    gamma: torch.Tensor          # [M_pad, K]
+    Elogtheta: torch.Tensor      # [M_pad, K]
+    Elogtheta_old: torch.Tensor  # [M_pad, K]
+    tau: torch.Tensor            # [M_pad, L] per-token content responsibility
+    tau_old: torch.Tensor        # [M_pad, L]
+    elbo: torch.Tensor           # compensated (hi, lo) bound, shape (2,)
+
+
+def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
+         device="cpu") -> FLDAState:
+    """Constructor state (reference fLDA.jl:30-58).  beta and kappa are
+    drawn on ``generator``'s device and then moved to ``device``."""
+    M_pad, V, L = packed.M_pad, packed.V, packed.L
+    beta = dirichlet_ones(generator, V, (K,), dtype).to(device)
+    kappa = dirichlet_ones(generator, V, (), dtype).to(device)
+    eta = torch.tensor(0.5, dtype=dtype, device=device)
+    # ψ(K) = −γ + H_{K−1} ⇒ el0 = −H_{K−1}, computed on the host
+    el0 = -sum(1.0 / i for i in range(1, K))
+    El = torch.full((M_pad, K), el0, dtype=dtype, device=device)
+    tau = torch.full((M_pad, L), 0.5, dtype=dtype, device=device)
+    return FLDAState(
+        eta=eta, alpha=torch.ones((K,), dtype=dtype, device=device),
+        kappa=kappa, kappa_old=kappa, beta=beta, beta_old=beta,
+        gamma=torch.ones((M_pad, K), dtype=dtype, device=device),
+        Elogtheta=El, Elogtheta_old=El, tau=tau, tau_old=tau,
+        elbo=torch.zeros((2,), dtype=dtype, device=device),
+    )
+
+
+def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
+              chunk_docs: int):
+    """Build the outer-iteration step (one full CAVI sweep).
+
+    ``step(state, terms, counts, doc_mask, M_total, C_total)`` takes the
+    per-segment tuples of device tensors and two 0-dim device tensors,
+    and returns the next state.
+    """
+    V = packed.V
+    chunks = _chunks(packed, chunk_docs)
+
+    def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total) -> FLDAState:
+        dtype, dev = state.beta.dtype, state.beta.device
+        logbetaT = torch.log(state.beta + EPSILON).T.contiguous()   # [V, K]
+        stat = torch.zeros((V, K + 1), dtype=dtype, device=dev)
+        El_sum = kbn_zeros((K,), dtype, dev)          # see models/lda.py
+        tau_counts = torch.zeros((), dtype=dtype, device=dev)
+        gamma = torch.empty_like(state.gamma)
+        El = torch.empty_like(state.Elogtheta)
+        El_old = torch.empty_like(state.Elogtheta_old)
+        # columns past each segment's width are reset to 0.5
+        tau = torch.full_like(state.tau, 0.5)
+        tau_old = torch.full_like(state.tau_old, 0.5)
+        for rows, j, sl in chunks:
+            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            Ls = t.shape[1]
+            g2, el2, elo2, ta2, tao2, w = flda_estep(
+                logbetaT, state.kappa, t, c, dm, state.alpha, state.eta,
+                state.gamma[rows], state.Elogtheta[rows], state.Elogtheta_old[rows],
+                state.tau[rows, :Ls].contiguous(), state.tau_old[rows, :Ls].contiguous(),
+                viter=viter, vtol=vtol)
+            # beta_temp += phi .* (tau .* counts)' (fLDA.jl:174-177) and
+            # kappa_temp[terms] += (1 - tau) .* counts (fLDA.jl:160-163)
+            count_scatter_into(stat, w.reshape(-1, K + 1), t.reshape(-1))
+            El_sum = kbn_add(El_sum, torch.sum(el2 * dm[:, None], dim=0))
+            tau_counts = tau_counts + torch.sum(ta2 * c)   # update_eta! (fLDA.jl:122-124)
+            gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
+            tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
+
+        bt = stat[:, :K].T.contiguous()
+        beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+        kappa_temp = stat[:, K]
+        kappa_new = kappa_temp / torch.sum(kappa_temp)              # fLDA.jl:152-156
+        alpha_new = dirichlet_newton(state.alpha, El_sum[0], M_total,
+                                     niter, ntol, Elogtheta_sum_lo=El_sum[1])
+        return FLDAState(
+            eta=tau_counts / C_total, alpha=alpha_new,
+            kappa=kappa_new, kappa_old=state.kappa, beta=beta_new, beta_old=state.beta,
+            gamma=gamma, Elogtheta=El, Elogtheta_old=El_old, tau=tau, tau_old=tau_old,
+            elbo=state.elbo,
+        )
+
+    return step
+
+
+def make_elbo(packed, K: int, chunk_docs: int):
+    """ELBO with the reference's *_old recompute semantics (fLDA.jl:109-118).
+
+    phi is recomputed from (tau_old, beta_old, Elogtheta_old); the terms
+    use the current parameters.  Doc-level and token-level terms ride two
+    compensated (hi, lo) accumulators, as in the JAX package.
+    """
+    chunks = _chunks(packed, chunk_docs)
+
+    def elbo(state: FLDAState, terms, counts, doc_mask) -> torch.Tensor:
+        dtype, dev = state.beta.dtype, state.beta.device
+        logbeta_oldT = torch.log(state.beta_old + EPSILON).T
+        logbetaT = torch.log(state.beta + EPSILON).T
+        logkappa = torch.log(state.kappa + EPSILON)
+        a, eta = state.alpha, state.eta
+        theta_const = finite(lgamma(torch.sum(a))) - finite(torch.sum(lgamma(a)))
+        log_eps = torch.log(torch.tensor(EPSILON, dtype=dtype, device=dev))
+        log_eta = torch.log(eta + EPSILON)
+        log_1m_eta = torch.log(1.0 - eta + EPSILON)
+        acc_doc, acc_tok = kbn_zero(dtype, dev), kbn_zero(dtype, dev)
+        for rows, j, sl in chunks:
+            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            Ls = t.shape[1]
+            ta, tao = state.tau[rows, :Ls], state.tau_old[rows, :Ls]
+            el, elo = state.Elogtheta[rows], state.Elogtheta_old[rows]
+            # phi recompute from tau_old/beta_old/Elogtheta_old (fLDA.jl:113)
+            p = torch.softmax(tao[:, :, None] * logbeta_oldT[t] + elo[:, None, :], dim=-1)
+            C_d = torch.sum(c, -1)
+            tau_c = torch.sum(ta * c, -1)
+            pc = torch.einsum("bl,blk->bk", c, p)
+            # Elogptheta (fLDA.jl:62-65)
+            e_ptheta = theta_const + torch.sum((a - 1.0) * el, -1)
+            # Elogpc (fLDA.jl:68-71): log(eta^a (1-eta)^b + EPS), the
+            # reference's @boink saturation through logaddexp
+            s = tau_c * log_eta + (C_d - tau_c) * log_1m_eta
+            e_pc = torch.logaddexp(s, log_eps)
+            # Elogpz (fLDA.jl:74-78)
+            e_pz = torch.sum(pc * el, -1)
+            # Elogpw (fLDA.jl:82-86)
+            e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[:, :, None], dim=(1, 2))
+                    + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
+            # −Elogqtheta (fLDA.jl:89-92)
+            e_qtheta = dirichlet_entropy(state.gamma[rows])
+            # −Elogqc (fLDA.jl:95-98)
+            e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)
+            # −Elogqz (fLDA.jl:102-105)
+            e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)
+            acc_doc = kbn_add(acc_doc, torch.sum(dm * (e_ptheta + e_pc + e_pz + e_qtheta)))
+            acc_tok = kbn_add(acc_tok, torch.sum(dm * (e_pw + e_qc + e_qz)))
+        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+
+    return elbo
+

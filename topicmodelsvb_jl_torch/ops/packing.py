@@ -8,9 +8,10 @@ into equal-width segments so token-axis work runs at each segment's own
 width.
 
 This is a copy of the NumPy-only part of the JAX package's
-``ops/packing.py``: importing any submodule of that package first runs
-its ``__init__``, which imports JAX.  ``tests/test_torch_lda.py`` holds
-both copies to byte-identical output.
+``ops/packing.py`` (``pack_corpus`` without its native C++ fill):
+importing any submodule of that package first runs its ``__init__``,
+which imports JAX.  ``tests/test_torch_lda.py`` and
+``tests/test_torch_ctpf.py`` hold both copies to byte-identical output.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from ..corpus import Corpus
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,6 +68,63 @@ class PackedCorpus:
     @property
     def M_pad(self) -> int:
         return self.terms.shape[0]
+
+
+def pack_corpus(
+    corp: Corpus,
+    pad_multiple: int = 64,
+    docs_multiple: int = 8,
+    with_readers: bool = False,
+    dtype=np.float32,
+) -> PackedCorpus:
+    """Pack a checked corpus into dense padded arrays.
+
+    ``pad_multiple`` rounds the token axis L; ``docs_multiple`` rounds the
+    doc axis.  With ``with_readers`` the reader arrays (readers, ratings,
+    R, U, Rmax) are packed too, for CTPF.
+    """
+    M, V, U = corp.shape
+    N = np.array([len(doc) for doc in corp.docs], dtype=np.int32)
+    L = _round_up(int(N.max()) if M else 1, pad_multiple)
+    M_pad = _round_up(max(M, 1), docs_multiple)
+
+    terms = np.zeros((M_pad, L), dtype=np.int32)
+    counts = np.zeros((M_pad, L), dtype=dtype)
+    for d, doc in enumerate(corp.docs):
+        n = len(doc.terms)
+        if n:
+            terms[d, :n] = np.asarray(doc.terms, dtype=np.int64) - 1
+            counts[d, :n] = doc.counts
+
+    doc_mask = np.zeros(M_pad, dtype=dtype)
+    doc_mask[:M] = 1.0
+    N_full = np.zeros(M_pad, dtype=np.int32)
+    N_full[:M] = N
+    C = counts.sum(axis=1).astype(dtype)
+    max_count = int(counts.max()) if M else 0
+
+    kw = {}
+    Rmax = 0
+    max_rating = 0
+    if with_readers:
+        Rv = np.array([len(doc.readers) for doc in corp.docs], dtype=np.int32)
+        Rmax = _round_up(int(Rv.max()) if M and Rv.size and Rv.max() > 0 else 1, 8)
+        readers = np.zeros((M_pad, Rmax), dtype=np.int32)
+        ratings = np.zeros((M_pad, Rmax), dtype=dtype)
+        for d, doc in enumerate(corp.docs):
+            r = len(doc.readers)
+            if r:
+                readers[d, :r] = np.asarray(doc.readers, dtype=np.int64) - 1
+                ratings[d, :r] = doc.ratings
+        R_full = np.zeros(M_pad, dtype=np.int32)
+        R_full[:M] = Rv
+        max_rating = int(ratings.max()) if M else 0
+        kw = dict(readers=readers, ratings=ratings, R=R_full, U=U, Rmax=Rmax)
+
+    return PackedCorpus(
+        terms=terms, counts=counts, doc_mask=doc_mask, N=N_full, C=C,
+        M=M, V=V, L=L, max_count=max_count, max_rating=max_rating, **kw
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 * ``EPSILON`` underflow guard (utils.jl:3) — ``eps(1e-14) ≈ 1.6e-30``.
 * ``finite`` overflow clamp (utils.jl:107).
-* Dirichlet entropy closed form (utils.jl:163-180).
+* Dirichlet entropy closed form (utils.jl:163-180), and the categorical,
+  Bernoulli and Gamma entropies of the fLDA and CTPF bounds.
 * digamma/lgamma/trigamma from ``torch.special``: unlike a TPU's vector
   unit, CUDA and CPU evaluate ``log``/``lgamma`` to within a few ULP, so
   no hand-built transcendentals are needed.
@@ -56,6 +57,31 @@ def dirichlet_entropy(alpha: torch.Tensor, dim: int = -1) -> torch.Tensor:
     lmnb = torch.sum(lgamma(alpha), dim=dim) - lgamma(a0)
     return (lmnb + (a0 - k) * digamma(a0)
             - torch.sum((alpha - 1.0) * digamma(alpha), dim=dim))
+
+
+def xlogx(v: torch.Tensor) -> torch.Tensor:
+    """v·log v with 0·log 0 = 0."""
+    pos = v > 0
+    return torch.where(pos, v * torch.log(torch.where(pos, v, torch.ones_like(v))),
+                       torch.zeros_like(v))
+
+
+def categorical_entropy(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """−Σ p log p with 0·log 0 = 0 (reference Elogqz terms, LDA.jl:76-80)."""
+    return -torch.sum(xlogx(p), dim=dim)
+
+
+def bernoulli_entropy(t: torch.Tensor) -> torch.Tensor:
+    """Entropy of Bernoulli(t) with 0·log 0 = 0 (fLDA Elogqc, fLDA.jl:95-98)."""
+    return -(xlogx(t) + xlogx(1.0 - t))
+
+
+def gamma_entropy(shape: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+    """Entropy of Gamma(shape, scale=1/rate) (CTPF Elogq* terms, CTPF.jl:198-231).
+
+    H = shape − log(rate) + lnΓ(shape) + (1 − shape)·ψ(shape).
+    """
+    return shape - torch.log(rate) + lgamma(shape) + (1.0 - shape) * digamma(shape)
 
 
 def dirichlet_ones(generator: torch.Generator, n: int, shape: tuple = (),

@@ -24,19 +24,34 @@ def _stochastic(x, dim, atol=1e-3):
     return torch.all(torch.abs(torch.sum(x, dim=dim) - 1.0) <= atol) & torch.all(x >= 0)
 
 
+def _unit_interval(x):
+    return torch.all((x >= 0) & (x <= 1)) & _finite(x)
+
+
 def state_violations(model) -> list:
     """Names of violated invariants for a model's current state."""
-    from .api import LDA
+    from .api import CTPF, LDA, fLDA
 
-    if not isinstance(model, LDA):
-        raise TypeError(type(model))
     s = model.state
-    checks = {                                  # modelutils.jl:39-67
-        "alpha must be positive": _positive(s.alpha),
-        "beta must be a stochastic matrix": _stochastic(s.beta, dim=1),
-        "gamma must be positive": _positive(s.gamma),
-        "Elogtheta must be finite": _finite(s.Elogtheta),
-    }
+    if isinstance(model, (LDA, fLDA)):          # modelutils.jl:39-67, 69-106
+        checks = {
+            "alpha must be positive": _positive(s.alpha),
+            "beta must be a stochastic matrix": _stochastic(s.beta, dim=1),
+            "gamma must be positive": _positive(s.gamma),
+            "Elogtheta must be finite": _finite(s.Elogtheta),
+        }
+        if isinstance(model, fLDA):
+            checks.update({
+                "eta must be in [0, 1]": _unit_interval(s.eta),
+                "kappa must be a stochastic matrix": _stochastic(s.kappa, dim=0),
+                "tau must be in [0, 1]": _unit_interval(s.tau),
+            })
+    elif isinstance(model, CTPF):               # modelutils.jl:181-253
+        checks = {f"{name} must be positive": _positive(getattr(s, name))
+                  for name in ("alef", "bet", "gimel", "dalet", "he", "vav",
+                               "zayin", "het")}
+    else:
+        raise TypeError(type(model))
     flags = torch.stack(list(checks.values())).cpu().tolist()
     return [name for name, ok in zip(checks, flags) if not ok]
 
