@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA and CTPF main paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM and fCTM main paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -16,13 +16,22 @@ printing its own lines; any failure exits non-zero:
 3. each kernel against its plain PyTorch version on the card at K = 100:
    one 1024-document chunk of the widest bucket (of the CiteULike corpus
    for CTPF) and one synthetic chunk whose rows do not fit shared memory;
-   then, for each family, a small model trained on the card (f32,
-   kernels) and on the CPU (f64, plain versions) from one init;
+   the M-step scatter on the real rows of those chunks (LDA W = 100, fLDA
+   W = 101, CTPF's term and reader scatters), on a chunk whose rows are
+   all one id and on an empty chunk; then, for each family, a small model
+   trained on the card (f32, kernels) and on the CPU (f64, plain versions)
+   from one init;
 4. the main paths, each with its kernels' launch counts set to 0 just
    before and read just after: ``LDA`` and ``fLDA`` at NSF scale and
-   ``CTPF`` at CiteULike scale, K = 100, ``train(iter=4, checkelbo=1)``:
-   ∆elbo > 0, ``check_model`` passes, every chunk of every step went
-   through the E-step kernel, and the times;
+   ``CTPF`` at CiteULike scale, K = 100, ``train(iter=4, checkelbo=1)``;
+   ``CTM`` and ``fCTM`` at NSF scale, K = 50, 2048-document chunks, the
+   same ``train``: ∆elbo > 0, ``check_model`` passes, every chunk of every
+   step went through each kernel of the path, and the times; then, on the
+   first chunk of the widest bucket of the trained CTM and fCTM, the
+   scatter on the rows of their E-step (W = 50, 51) and ``lda_elbo_tok``
+   on CTM's bound tables (the raw beta_old), as they are and with the
+   chunk's zero-count slots at an id whose beta_old row is exact zeros,
+   against their plain versions;
 5. for each family, two fresh same-seed models, one step each, bitwise
    equal in the global parameters and the per-document state;
 6. one JSON line with every kernel's launches, error and times, the card
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -139,7 +149,7 @@ def compare_kernels(seg, V, K, dev, label):
           f"{ms_e:.4f} ms (plain {plain_e:.4f} ms, max abs err {err_e:.3e}) | "
           f"lda_elbo_tok {ms_b:.4f} ms (plain {plain_b:.4f} ms, "
           f"rel err {abs(a - b) / abs(b):.3e})")
-    return dict(estep=(err_e, ms_e, plain_e), elbo=(abs(a - b), ms_b, plain_b))
+    return dict(estep=(err_e, ms_e, plain_e), elbo=(abs(a - b), ms_b, plain_b), w=got[3])
 
 
 def compare_flda(seg, V, K, dev, label):
@@ -172,7 +182,7 @@ def compare_flda(seg, V, K, dev, label):
     plain = cuda_ms(lambda: flda_estep_ref(*args, **kw), 3)
     print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {ms:.4f} ms "
           f"(plain {plain:.4f} ms, max abs err {err:.3e})")
-    return err, ms, plain
+    return (err, ms, plain), got[5]
 
 
 def compare_ctpf(tok, rd, V, U, K, dev, label):
@@ -203,6 +213,39 @@ def compare_ctpf(tok, rd, V, U, K, dev, label):
     plain = cuda_ms(lambda: ctpf_estep_ref(*args, **kw), 3)
     print(f"kernels {label}: B={B} L={L} R={readers.shape[1]} K={K} | ctpf_estep "
           f"{ms:.4f} ms (plain {plain:.4f} ms, max abs err {err:.3e})")
+    return (err, ms, plain), got[4], got[5]
+
+
+def compare_scatter(V, w, ids, keep, dev, label):
+    """scatter_rows against its plain version on one chunk's rows [T, W];
+    also times the all-rows ``index_put_`` scatter the port used before."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import (
+        build_plan, scatter_rows, scatter_rows_ref,
+    )
+
+    ids, keep = ids.reshape(-1), keep.reshape(-1)
+    plan = build_plan(ids.cpu().numpy(), keep.cpu().numpy()).to(dev)
+    W = w.shape[1]
+    acc = torch.rand((V, W), device=dev)
+    n0 = scatter_rows.launches
+    got = scatter_rows(acc.clone(), w, plan)
+    want = scatter_rows_ref(acc.clone(), w, plan)
+    torch.cuda.synchronize()
+    need(scatter_rows.launches == n0 + (plan.n_pieces > 0), f"scatter_rows {label}: launches")
+    err = close([got], [want], ["acc"], f"scatter_rows {label}")
+    need(torch.equal(got, scatter_rows(acc.clone(), w, plan)),
+         f"scatter_rows {label}: not bitwise repeatable")
+    need(bool(torch.all(w[~keep] == 0)), f"scatter_rows {label}: a left-out row is not 0")
+    ms = cuda_ms(lambda: scatter_rows(acc, w, plan), 10)
+    plain = cuda_ms(lambda: scatter_rows_ref(acc, w, plan), 10)
+    ids_l = ids.long()
+    put = cuda_ms(lambda: acc.index_put_((ids_l,), w, accumulate=True), 3)
+    runs = plan.run_id.shape[0]
+    print(f"scatter {label}: T={plan.T} kept={plan.rows.shape[0]} W={W} pieces={plan.n_pieces} "
+          f"split runs={runs} | scatter_rows {ms:.4f} ms (plain {plain:.4f} ms, all-rows "
+          f"index_put_ {put:.4f} ms, max abs err {err:.3e})")
     return err, ms, plain
 
 
@@ -233,34 +276,39 @@ def card_vs_cpu(name, make, to_np, from_np, fields, dev) -> None:
           f"({', '.join(fields)})")
 
 
-def main_path(model, label, kernels, smi, n_chunks, monotone_from=0):
+def main_path(model, label, expect, smi, monotone_from=0, pure_steps=3):
     """Train 4 iterations with checkelbo=1 with the launch counts zeroed
-    just before; checks and prints; returns the counts."""
+    just before; checks and prints; returns the counts.
+
+    ``expect`` maps each kernel of the path to its launches (per step,
+    per ELBO pass), given the model and its chunk count."""
     import torch
 
     from topicmodelsvb_jl_torch.validate import check_model
 
-    for k in kernels:
+    for k in expect:
         k.launches = 0
     t0 = time.perf_counter()
     model.train(iter=4, checkelbo=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: k.launches for k in expect}
     trace = model.trainer.trace
     deltas = [x.delta_elbo for x in trace]
     need(len(trace) == 4, f"{label}: ran {len(trace)} of 4 iterations")
     need(all(d > 0 for d in deltas[monotone_from:]), f"{label}: ∆elbo not positive: {deltas}")
     check_model(model)
-    estep = kernels[0]
-    need(launches[estep.__name__] == n_chunks * len(trace),
-         f"{label}: {estep.__name__} launches {launches[estep.__name__]} != "
-         f"{n_chunks} x {len(trace)}")
+    n_chunks = n_chunks_of(model)
+    for k, rule in expect.items():
+        per_step, per_elbo = rule(model, n_chunks)
+        want = per_step * len(trace) + per_elbo * (len(trace) + 1)
+        need(launches[k.__name__] == want,
+             f"{label}: {k.__name__} launches {launches[k.__name__]} != {want}")
     step_s = statistics.median(x.step_time_s for x in trace[1:])
     tr = model.trainer
     state = model.state
     pure = []
-    for _ in range(3):
+    for _ in range(pure_steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         state = tr.step_fn(state, *tr.data)
@@ -296,6 +344,83 @@ def n_chunks_of(model) -> int:
     return sum(s.terms.shape[0] for s in model.packed.segments) // model.chunk_docs
 
 
+def scatters_of(model, readers: bool = False) -> int:
+    """Scatter launches per step: one per chunk with a count > 0 and, with
+    ``readers`` (CTPF), one more per chunk with a rating > 0."""
+    import numpy as np
+
+    p, n = model.packed, 0
+    for s in p.segments:
+        B = min(model.chunk_docs, s.terms.shape[0])
+        for lo in range(0, s.terms.shape[0], B):
+            n += bool(np.any(s.counts[lo:lo + B] > 0))
+            if readers:
+                n += bool(np.any(p.ratings[s.loc_start + lo:s.loc_start + lo + B] > 0))
+    return n
+
+
+def compare_ctm_chunk(model, dev, label):
+    """On the first chunk of the widest bucket of a trained CTM or fCTM:
+    the scatter on the rows w of that chunk's E-step and, for CTM,
+    ``lda_elbo_tok`` on the bound's tables, each against its plain version.
+    Returns the scatter's and the bound's (error, ms, plain ms)."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
+    from topicmodelsvb_jl_torch.models import ctm as ctm_mod, fctm as fctm_mod
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
+
+    st, K, segs = model.state, model.K, model.packed.segments
+    j = max(range(len(segs)), key=lambda i: segs[i].L)
+    B, L = min(model.chunk_docs, segs[j].terms.shape[0]), segs[j].L
+    rows = slice(segs[j].loc_start, segs[j].loc_start + B)
+    t, c, dm = (x[j][:B] for x in model.trainer.data[:3])
+    kw = dict(viter=10, vtol=1.0 / K**2, niter=1000, ntol=1.0 / K**2)
+    doc = (st.lam[rows], st.lam_old[rows], st.vsq[rows], st.logzeta[rows])
+    if isinstance(st, fctm_mod.FCTMState):
+        logbetaT = torch.log(st.beta + EPSILON).T.contiguous()
+        w = fctm_mod.estep_chunk(logbetaT, st.kappa, st.eta, st.mu, st.invsigma, t, c, dm,
+                                 *doc, st.tau[rows, :L], st.tau_old[rows, :L], **kw)[-1]
+    else:
+        logbetaT = torch.log(st.beta).T.contiguous()
+        w = ctm_mod.estep_chunk(logbetaT, st.mu, st.invsigma, t, c, dm, *doc, **kw)[-1]
+    sc = compare_scatter(model.V, w.reshape(B * L, -1), t, c > 0, dev,
+                         f"{label} w, widest bucket B={B} L={L}")
+    if isinstance(st, fctm_mod.FCTMState):
+        return sc, None
+    boT, g2T = ctm_mod.elbo_tables(st)
+    # also the chunk with its zero-count slots pointing at an id it does not
+    # use, that id's raw beta_old row exact zeros (as for a word no document
+    # holds): s = 0 on those slots, which both versions must mask
+    used = torch.zeros(model.V, dtype=torch.bool, device=dev)
+    used[t[c > 0].long()] = True
+    free = torch.nonzero(~used)
+    need(free.numel() > 0, f"{label}: the chunk uses every id")
+    z = int(free[0])
+    boZ, g2Z = boT.clone(), g2T.clone()
+    boZ[z], g2Z[z] = 0.0, 0.0
+    tZ = torch.where(c > 0, t, z).to(torch.int32).contiguous()
+    err = 0.0
+    for tables, terms, what in (
+            ((boT, g2T), t, f"beta_old with {int((boT == 0).sum())} exact zeros"),
+            ((boZ, g2Z), tZ, f"zero-count slots at id {z}, its beta_old row 0")):
+        eargs = (*tables, terms, c, dm, st.lam[rows], st.lam_old[rows])
+        n0 = lda_elbo_tok.launches
+        a = float(lda_elbo_tok(*eargs))
+        need(lda_elbo_tok.launches == n0 + 1, f"lda_elbo_tok {label}: no launch")
+        b = float(lda_elbo_tok_ref(*eargs))
+        need(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b),
+             f"lda_elbo_tok {label}, {what}: {a} vs {b}")
+        err = max(err, abs(a - b))
+        print(f"kernels {label} bound, widest bucket: B={B} L={L} K={K}, {what} | "
+              f"rel err {abs(a - b) / abs(b):.3e}")
+    eargs = (boT, g2T, t, c, dm, st.lam[rows], st.lam_old[rows])
+    ms, plain = cuda_ms(lambda: lda_elbo_tok(*eargs), 10), cuda_ms(
+        lambda: lda_elbo_tok_ref(*eargs), 5)
+    print(f"kernels {label} bound: lda_elbo_tok {ms:.4f} ms (plain {plain:.4f} ms)")
+    return sc, (err, ms, plain)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -310,6 +435,7 @@ def main() -> int:
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -373,22 +499,38 @@ def main() -> int:
                  f"{name} shared-memory rule at {shape}: {fit[name](*shape)}")
     res_wide = compare_kernels(wide, V, K, dev, f"widest bucket L={s0.L}")
     res_long = compare_kernels(long_, V, K, dev, "L=1024 rows in device memory")
-    fl_wide = compare_flda(wide, V, K, dev, f"widest bucket L={s0.L}")
-    fl_long = compare_flda(long_pad, V, K, dev, "L=1024 rows in device memory")
+    fl_wide, fl_w = compare_flda(wide, V, K, dev, f"widest bucket L={s0.L}")
+    fl_long, _ = compare_flda(long_pad, V, K, dev, "L=1024 rows in device memory")
     c0 = cbk.segments[0]
     rows0 = slice(c0.loc_start, c0.loc_start + 1024)
-    ct_wide = compare_ctpf(
+    c_rd = (put(cbk.readers[rows0], i32), put(cbk.ratings[rows0], f32))
+    ct_wide, ct_wa, ct_wh = compare_ctpf(
         (put(c0.terms[:1024], i32), put(c0.counts[:1024], f32), put(c0.doc_mask[:1024], f32)),
-        (put(cbk.readers[rows0], i32), put(cbk.ratings[rows0], f32)),
-        cpk.V, cpk.U, K, dev, f"CiteULike widest bucket L={c0.L} R={cpk.Rmax}")
+        c_rd, cpk.V, cpk.U, K, dev, f"CiteULike widest bucket L={c0.L} R={cpk.Rmax}")
     rr = np.random.default_rng(4)
     rat = (np.arange(256)[None, :] < rr.integers(100, 257, size=1024)[:, None]).astype(np.float32)
     rat[-3:] = 0
     rdr = rr.integers(0, cpk.U, size=(1024, 256)).astype(np.int32) * (rat > 0)
-    ct_long = compare_ctpf(
+    ct_long, _, _ = compare_ctpf(
         (long_pad[0][:, :768].contiguous(), long_pad[1][:, :768].contiguous(), mask_pad),
         (put(rdr, i32), put(rat, f32)), V, cpk.U, K, dev,
         "L=768 R=256 rows in device memory")
+    # the M-step scatter on the real rows of those chunks
+    sc = [compare_scatter(V, res_wide["w"].reshape(-1, K), wide[0], wide[1] > 0, dev,
+                          f"LDA w, widest NSF bucket L={s0.L}"),
+          compare_scatter(V, fl_w.reshape(-1, K + 1), wide[0], wide[1] > 0, dev,
+                          f"fLDA w, widest NSF bucket L={s0.L}"),
+          compare_scatter(cpk.V, ct_wa.reshape(-1, K), put(c0.terms[:1024], i32),
+                          put(c0.counts[:1024], f32) > 0, dev,
+                          f"CTPF term rows, CiteULike widest bucket L={c0.L}"),
+          compare_scatter(max(cpk.U, 1), ct_wh.reshape(-1, K), c_rd[0], c_rd[1] > 0, dev,
+                          f"CTPF reader rows, CiteULike widest bucket R={cpk.Rmax}")]
+    one_id = torch.rand((1024 * 128, K), device=dev)
+    sc.append(compare_scatter(V, one_id, torch.full((1024 * 128,), 5, dtype=i32, device=dev),
+                              torch.ones(1024 * 128, dtype=torch.bool, device=dev), dev,
+                              "every row one id"))
+    sc.append(compare_scatter(V, torch.zeros((wide[0].numel(), K), device=dev), wide[0],
+                              wide[1] < 0, dev, "empty chunk"))
 
     small = tt.synth_packed_nsf_scale(M=2000, V=500, mean_terms=30, seed=5)
     card_vs_cpu("LDA", lambda rt, d: tt.LDA(small, 10, rt, device=d, seed=1),
@@ -403,24 +545,39 @@ def main() -> int:
     card_vs_cpu("CTPF", lambda rt, d: tt.CTPF(small_c, 10, rt, device=d, seed=1),
                 convert.ctpf_state_to_numpy, convert.ctpf_state_from_numpy,
                 ("alef", "bet", "dalet", "he", "vav", "het"), dev)
+    card_vs_cpu("CTM", lambda rt, d: tt.CTM(small, 10, rt, device=d, seed=1),
+                convert.ctm_state_to_numpy, convert.ctm_state_from_numpy,
+                ("mu", "sigma", "beta"), dev)
+    card_vs_cpu("fCTM", lambda rt, d: tt.fCTM(small, 10, rt, device=d, seed=1),
+                convert.fctm_state_to_numpy, convert.fctm_state_from_numpy,
+                ("mu", "sigma", "beta", "kappa"), dev)
 
-    # 4. main paths
+    # 4. main paths; launches per (step, ELBO pass) of each kernel
+    per_chunk = lambda m, n: (n, 0)
+    per_elbo = lambda m, n: (0, n)
+    scatter = lambda m, n: (scatters_of(m), 0)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
     rt = tt.RuntimeConfig(chunk_docs=1024, dtype="float32")
     lda = tt.LDA(packed, K, runtime=rt, device="cuda", seed=7)
-    n_lda = n_chunks_of(lda)
-    launches = main_path(lda, "LDA NSF", [lda_estep, lda_elbo_tok], smi, n_lda)
-    need(launches["lda_elbo_tok"] == n_lda * 5,
-         f"lda_elbo_tok launches {launches['lda_elbo_tok']} != {n_lda} x 5")
+    add(main_path(lda, "LDA NSF", {lda_estep: per_chunk, lda_elbo_tok: per_elbo,
+                                   scatter_rows: scatter}, smi))
     flda = tt.fLDA(packed, K, runtime=rt, device="cuda", seed=7)
-    launches.update(main_path(flda, "fLDA NSF", [flda_estep], smi, n_chunks_of(flda),
-                              monotone_from=1))
+    add(main_path(flda, "fLDA NSF", {flda_estep: per_chunk, scatter_rows: scatter}, smi,
+                  monotone_from=1))
     need(lda.gamma.shape == (packed.M, K) and np.isfinite(lda.gamma).all(),
          "LDA gamma shape/finite")
     need(flda.gamma.shape == (packed.M, K) and np.isfinite(flda.gamma).all(),
          "fLDA gamma shape/finite")
     ctpf = tt.CTPF(cpk, K, runtime=rt, device="cuda", seed=7)
-    launches.update(main_path(ctpf, "CTPF CiteULike", [ctpf_estep], smi, n_chunks_of(ctpf),
-                              monotone_from=1))
+    add(main_path(ctpf, "CTPF CiteULike", {ctpf_estep: per_chunk,
+                                           scatter_rows: lambda m, n: (scatters_of(m, True), 0)},
+                  smi, monotone_from=1))
+    need(scatters_of(ctpf, True) > n_chunks_of(ctpf), "CTPF: one scatter per chunk, not two")
     own = [u + 1 for u in cpk.readers[0, : cpk.R[0]]]
     need(sorted(ctpf.drecs[0] + own) == list(range(1, ctpf.U + 1)),
          "CTPF drecs[0] is not a permutation of the users outside doc 1's readers")
@@ -428,6 +585,25 @@ def main() -> int:
          "CTPF urecs[0] is not a permutation of the docs outside user 1's library")
     print(f"CTPF recs: drecs[0][:5]={ctpf.drecs[0][:5]} urecs[0][:5]={ctpf.urecs[0][:5]}; "
           f"scores {ctpf.scores.shape}")
+    # CTM and fCTM at the JAX package's bench_ctm.py/bench_filtered.py
+    # settings: K = 50 and the 2048-document chunks a model takes when no
+    # RuntimeConfig is given
+    Kc = 50
+    ctm = tt.CTM(packed, Kc, device="cuda", seed=7)
+    need(ctm.chunk_docs == 2048, f"CTM chunk {ctm.chunk_docs}")
+    add(main_path(ctm, "CTM NSF", {lda_elbo_tok: per_elbo, scatter_rows: scatter}, smi,
+                  monotone_from=1, pure_steps=1))
+    sc_ctm, elbo_ctm = compare_ctm_chunk(ctm, dev, "CTM NSF")
+    fctm = tt.fCTM(packed, Kc, device="cuda", seed=7)
+    add(main_path(fctm, "fCTM NSF", {scatter_rows: scatter}, smi, monotone_from=1,
+                  pure_steps=1))
+    sc_fctm, _ = compare_ctm_chunk(fctm, dev, "fCTM NSF")
+    sc += [sc_ctm, sc_fctm]
+    for m in (ctm, fctm):
+        need(m.lam.shape == (packed.M, Kc) and np.isfinite(m.lam).all(), "lambda shape/finite")
+        td = m.topicdist([1, packed.M])
+        need(td.shape == (2, Kc) and np.allclose(td.sum(-1), 1.0, atol=1e-5), "topicdist")
+        need(np.all(np.linalg.eigvalsh(m.sigma.astype(np.float64)) > 0), "sigma not SPD")
 
     # 5. determinism
     same_seed_steps(lambda: tt.LDA(lda.packed, K, runtime=rt, device="cuda", seed=7),
@@ -436,21 +612,27 @@ def main() -> int:
                     ("beta", "alpha", "kappa", "eta", "gamma", "Elogtheta", "tau"), "fLDA")
     same_seed_steps(lambda: tt.CTPF(ctpf.packed, K, runtime=rt, device="cuda", seed=7),
                     ("alef", "bet", "dalet", "he", "vav", "het", "gimel", "zayin"), "CTPF")
+    ctm_fields = ("mu", "sigma", "beta", "lam", "vsq", "logzeta")
+    same_seed_steps(lambda: tt.CTM(ctm.packed, Kc, device="cuda", seed=7), ctm_fields, "CTM")
+    same_seed_steps(lambda: tt.fCTM(fctm.packed, Kc, device="cuda", seed=7),
+                    ctm_fields + ("kappa", "tau"), "fCTM")
 
     # 6. results
     rows = []
-    for name, src, tpu, (e1, ms, plain), (e2, _, _) in (
-            ("lda_estep", "lda_estep.cu", "lda_estep.py:157", res_wide["estep"],
+    tpu = "topicmodelsvb_jl_tpu/kernels/"
+    for name, src, where, (e1, ms, plain), (e2, _, _) in (
+            ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", res_wide["estep"],
              res_long["estep"]),
-            ("lda_elbo_tok", "lda_elbo.cu", "lda_elbo.py:119", res_wide["elbo"],
-             res_long["elbo"]),
-            ("flda_estep", "flda_estep.cu", "flda_estep.py:112", fl_wide, fl_long),
-            ("ctpf_estep", "ctpf_estep.cu", "ctpf_estep.py:105", ct_wide, ct_long)):
+            ("lda_elbo_tok", "lda_elbo.cu", tpu + "lda_elbo.py:119", res_wide["elbo"],
+             (max(res_long["elbo"][0], elbo_ctm[0]), 0, 0)),
+            ("flda_estep", "flda_estep.cu", tpu + "flda_estep.py:112", fl_wide, fl_long),
+            ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", ct_wide, ct_long),
+            ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0],
+             (max(e for e, _, _ in sc), 0, 0))):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
-                     "replaces": f"topicmodelsvb_jl_tpu/kernels/{tpu}",
-                     "launches": launches[name], "max_abs_err": max(e1, e2),
-                     "ms": ms, "plain_ms": plain})
+                     "replaces": where, "launches": launches[name],
+                     "max_abs_err": max(e1, e2), "ms": ms, "plain_ms": plain})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -96,7 +96,7 @@ def test_step_and_elbo_match_jax_every_iteration():
     kw = dict(viter=10, vtol=1.0 / K**2, chunk_docs=CHUNK)
     jstep = jax.jit(jax_ctpf.make_step(p, K, axis_name=None, use_pallas=False, **kw))
     jelbo = jax.jit(jax_ctpf.make_elbo(p, K, chunk_docs=CHUNK))
-    tstep = torch_ctpf.make_step(pm.packed, K, **kw)
+    tstep = torch_ctpf.make_step(pm.packed, K, device="cpu", **kw)
     telbo = torch_ctpf.make_elbo(pm.packed, K, chunk_docs=CHUNK)
     seg = lambda f: tuple(jnp.asarray(getattr(s, f)) for s in p.segments)
     jdata = (seg("terms"), seg("counts"), jnp.asarray(p.readers), jnp.asarray(p.ratings),

@@ -16,6 +16,8 @@ from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
 from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
 from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
 from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
+from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows, scatter_rows_ref
+from topicmodelsvb_jl_torch.models.lda import token_plans
 from topicmodelsvb_jl_torch.ops.segment import count_scatter_into
 from topicmodelsvb_jl_torch.utils.numerics import EPSILON
 
@@ -109,15 +111,60 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_count_scatter_is_bitwise_repeatable(cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    ids = torch.randint(0, 500, (200_000,), generator=g, device=cuda, dtype=torch.int32)
-    w = torch.rand((200_000, 100), generator=g, device=cuda)
-    a = count_scatter_into(torch.zeros(500, 100, device=cuda), w, ids)
-    b = count_scatter_into(torch.zeros(500, 100, device=cuda), w, ids)
+    r = np.random.default_rng(0)
+    ids = (500 * r.random(200_000) ** 3).astype(np.int32)     # Zipf head: long runs
+    keep = r.random(200_000) > 0.2
+    w = torch.rand((200_000, 100), device=cuda) * torch.tensor(keep, device=cuda)[:, None]
+    plan = build_plan(ids, keep).to(cuda)
+    a = count_scatter_into(torch.zeros(500, 100, device=cuda), w, plan)
+    b = count_scatter_into(torch.zeros(500, 100, device=cuda), w, plan)
     assert torch.equal(a, b)
     ref = torch.zeros(500, 100, dtype=torch.float64).index_add_(
-        0, ids.cpu().long(), w.cpu().double())
+        0, torch.from_numpy(ids).long(), w.cpu().double())
     torch.testing.assert_close(a.cpu().double(), ref, rtol=1e-5, atol=1e-3)
+
+
+# W = K (LDA, CTPF, CTM), K + 1 (fLDA, fCTM), narrow rows, rows wider than
+# a block; pieces of 256 rows and of 5 (many split runs)
+@pytest.mark.parametrize("W,piece_rows", [(100, 256), (101, 256), (7, 5), (300, 5)])
+def test_scatter_rows_kernel_matches_plain(cuda, W, piece_rows):
+    r = np.random.default_rng(W)
+    T, V = 50_000, 2000
+    ids = np.minimum((V * r.random(T) ** 3).astype(np.int32), V - 1)
+    keep = r.random(T) > 0.3
+    ids[~keep] = 0
+    w = torch.tensor(r.random((T, W)) * keep[:, None], dtype=torch.float32, device=cuda)
+    plan = build_plan(ids, keep, piece_rows).to(cuda)
+    acc0 = torch.rand((V, W), device=cuda)
+    before = scatter_rows.launches
+    got = scatter_rows(acc0.clone(), w, plan)
+    torch.cuda.synchronize()
+    assert scatter_rows.launches == before + 1
+    want = scatter_rows_ref(acc0.clone(), w, plan)
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=1e-5)
+    assert torch.equal(got, scatter_rows(acc0.clone(), w, plan))   # no atomics
+
+
+def test_scatter_rows_edge_cases(cuda):
+    """One id for every kept row; nothing kept (no launch); ids past acc."""
+    w = torch.rand((9000, 100), device=cuda)
+    one = build_plan(np.full(9000, 3, np.int32), np.ones(9000, bool)).to(cuda)
+    got = scatter_rows(torch.zeros(10, 100, device=cuda), w, one)
+    torch.testing.assert_close(got[3], w.double().sum(0).float(), rtol=1e-5, atol=1e-3)
+    assert torch.all(got[torch.arange(10, device=cuda) != 3] == 0)
+    before = scatter_rows.launches
+    empty = build_plan(np.zeros(0, np.int32), np.zeros(0, bool)).to(cuda)
+    acc = torch.ones(10, 100, device=cuda)
+    assert torch.equal(scatter_rows(acc, w[:0], empty), torch.ones(10, 100, device=cuda))
+    none = build_plan(np.zeros(9000, np.int32), np.zeros(9000, bool)).to(cuda)
+    assert torch.equal(scatter_rows(acc, w, none), torch.ones(10, 100, device=cuda))
+    assert scatter_rows.launches == before
+    with pytest.raises(ValueError, match="reach 3"):
+        scatter_rows(torch.zeros(3, 100, device=cuda), w, one)
+    with pytest.raises(ValueError, match="weights"):
+        scatter_rows(torch.zeros(10, 100, device=cuda), w[:100], one)
+    with pytest.raises(ValueError, match="rows is on cpu"):
+        scatter_rows(torch.zeros(10, 100, device=cuda), w, one.to("cpu"))
 
 
 def test_lda_trains_through_the_kernels(cuda):
@@ -221,13 +268,20 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     assert out[5].shape == (0, 24, 8) and (flda_estep.launches, ctpf_estep.launches) == (e0, c0)
 
 
+def _scatters(m):
+    """Scatter launches per step of a model without readers: one per
+    chunk whose plan keeps a slot."""
+    return sum(q.n_pieces > 0 for q in token_plans(m.packed, m.chunk_docs, "cpu"))
+
+
 def test_flda_and_ctpf_train_through_the_kernels(cuda):
     p = tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=40, seed=2)
     m = tt.fLDA(p, 16, tt.RuntimeConfig(chunk_docs=256), device=cuda, seed=1)
-    e0 = flda_estep.launches
+    e0, s0 = flda_estep.launches, scatter_rows.launches
     m.train(iter=3, checkelbo=1, printelbo=False)
     n_chunks = sum(s.terms.shape[0] for s in m.packed.segments) // m.chunk_docs
     assert flda_estep.launches - e0 == 3 * n_chunks
+    assert scatter_rows.launches - s0 == 3 * _scatters(m)
     assert all(r.delta_elbo > 0 for r in m.trainer.trace[1:])
     corp = tt.synth_corpus(M=1500, V=600, K=8, U=300, seed=3, mean_tokens=40,
                            mean_terms=25, mean_readers=4)
@@ -240,3 +294,41 @@ def test_flda_and_ctpf_train_through_the_kernels(cuda):
     assert all(r.delta_elbo > 0 for r in c.trainer.trace[1:])
     assert sorted(c.drecs[0] + [u + 1 for u in c.packed.readers[c._rows(0), :c.R[0]]]) \
         == list(range(1, c.U + 1))
+
+
+def test_ctm_and_fctm_train_through_the_kernels(cuda):
+    """CTM's bound goes through lda_elbo_tok, both M-steps through the
+    scatter; ∆elbo after the first is positive and sigma stays SPD."""
+    p = tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=40, seed=2)
+    for cls in (tt.CTM, tt.fCTM):
+        m = cls(p, 12, tt.RuntimeConfig(chunk_docs=512), device=cuda, seed=1)
+        k0, s0 = lda_elbo_tok.launches, scatter_rows.launches
+        m.train(iter=3, checkelbo=1, printelbo=False)
+        n_chunks = sum(s.terms.shape[0] for s in m.packed.segments) // m.chunk_docs
+        assert scatter_rows.launches - s0 == 3 * _scatters(m)
+        assert lda_elbo_tok.launches - k0 == (4 * n_chunks if cls is tt.CTM else 0)
+        assert all(r.delta_elbo > 0 for r in m.trainer.trace[1:])
+        assert np.all(np.linalg.eigvalsh(m.sigma.astype(np.float64)) > 0)
+
+
+def test_cg_graph_blocks_match_eager(cuda, monkeypatch):
+    """CG through replayed CUDA graphs of 4 iterations (and an eager tail
+    when maxiter is not a multiple of 4) against the eager loop."""
+    from topicmodelsvb_jl_torch.ops import newton
+
+    r = np.random.default_rng(5)
+    B, K = 512, 50
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=cuda)
+    a = r.normal(size=(K, K))
+    invsigma = t(a @ a.T / K + np.eye(K))
+    expo = t(r.uniform(0.1, 30.0, size=(B, K)))
+    args = (invsigma, expo, t(r.normal(size=(B, K))),
+            1.0 / (torch.diagonal(invsigma) + expo), t(r.random(B) < 0.9, torch.bool))
+    for maxiter in (K + 8, 6, 3):
+        graphed = newton.spd_cg_solve(*args, maxiter, 1e-5)
+        assert torch.equal(graphed, newton.spd_cg_solve(*args, maxiter, 1e-5))
+        with monkeypatch.context() as mp:
+            mp.setattr(newton, "_cg_graphed", newton._cg_eager)
+            eager = newton.spd_cg_solve(*args, maxiter, 1e-5)
+        torch.testing.assert_close(graphed, eager, rtol=1e-4, atol=1e-6)
+    assert sum(key[:2] == (B, K) for key in newton._CG_BLOCKS) == 1

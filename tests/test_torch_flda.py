@@ -81,7 +81,7 @@ def test_step_and_elbo_match_jax_every_iteration():
               chunk_docs=CHUNK)
     jstep = jax.jit(jax_flda.make_step(p, K, axis_name=None, use_pallas=False, **kw))
     jelbo = jax.jit(jax_flda.make_elbo(p, K, chunk_docs=CHUNK))
-    tstep = torch_flda.make_step(pm.packed, K, **kw)
+    tstep = torch_flda.make_step(pm.packed, K, device="cpu", **kw)
     telbo = torch_flda.make_elbo(pm.packed, K, chunk_docs=CHUNK)
     jdata = tuple(tuple(jnp.asarray(getattr(s, f)) for s in p.segments)
                   for f in ("terms", "counts", "doc_mask"))

@@ -13,6 +13,7 @@ from topicmodelsvb_jl_tpu.kernels.lda_estep import digamma_series as jax_digamma
 from topicmodelsvb_jl_tpu.ops.newton import dirichlet_newton as jax_newton
 from topicmodelsvb_jl_tpu.utils import numerics as jnum
 from topicmodelsvb_jl_torch.kernels.lda_estep import digamma_series
+from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan
 from topicmodelsvb_jl_torch.ops.newton import dirichlet_newton
 from topicmodelsvb_jl_torch.ops.segment import count_scatter_into
 from topicmodelsvb_jl_torch.utils import numerics as tnum
@@ -147,9 +148,9 @@ def test_masked_fixpoint_stops_when_all_lanes_stop():
 
 def test_count_scatter_into_sums_duplicates():
     acc = torch.zeros(4, 2, dtype=torch.float64)
-    ids = torch.tensor([0, 3, 3, 1, 3], dtype=torch.int32)
+    ids = np.array([0, 3, 3, 1, 3], dtype=np.int32)
     w = torch.arange(10, dtype=torch.float64).reshape(5, 2)
-    out = count_scatter_into(acc, w, ids)
+    out = count_scatter_into(acc, w, build_plan(ids, np.ones(5, bool), piece_rows=2))
     assert out is acc
     np.testing.assert_array_equal(
         acc.numpy(), [[0, 1], [6, 7], [0, 0], [2 + 4 + 8, 3 + 5 + 9]])
@@ -160,5 +161,7 @@ def test_count_scatter_into_is_bitwise_repeatable_in_f32():
     g = torch.Generator().manual_seed(0)
     ids = (torch.rand(200_000, generator=g) ** 3 * 1000).to(torch.int32)
     w = torch.rand(200_000, 64, generator=g)
-    a, b = (count_scatter_into(torch.zeros(1000, 64), w, ids) for _ in range(2))
+    plan = build_plan(ids.numpy(), np.ones(200_000, bool))
+    a, b = (count_scatter_into(torch.zeros(1000, 64), w, plan) for _ in range(2))
     assert torch.equal(a, b)
+    assert torch.equal(a, torch.zeros(1000, 64).index_add_(0, ids, w))

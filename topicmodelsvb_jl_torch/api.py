@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from .engine import Trainer
+from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
+from .models import fctm as fctm_mod
 from .models import flda as flda_mod
 from .models import lda as lda_mod
 from .ops.packing import PackedCorpus, _round_up, bucketize_packed
@@ -36,6 +38,9 @@ class TopicModel:
 
     _uses_readers = False
     _bucketed = False   # length-bucketed token packing
+    # chunk_docs when the caller passes no RuntimeConfig, as in the JAX
+    # package (api.py:52-55): the Newton-heavy CTM and fCTM take 2048
+    _preferred_chunk = 1024
 
     def __init__(self, corp: PackedCorpus, K: int,
                  runtime: Optional[RuntimeConfig] = None, *, device,
@@ -49,7 +54,8 @@ class TopicModel:
                             f"Corpus is not available yet (got {type(corp)})")
 
         self.K = int(K)
-        self.runtime = runtime if runtime is not None else RuntimeConfig()
+        self.runtime = (runtime if runtime is not None
+                        else RuntimeConfig(chunk_docs=self._preferred_chunk))
         self.device = torch.device(device)
         self.dtype = getattr(torch, self.runtime.dtype)
         self.seed = seed
@@ -224,12 +230,11 @@ class LDA(_DirichletAccessors, TopicModel):
         p = self.packed
         step = lda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs)
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
         elbo = lda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data,
                        M=self.M, C=int(sum(self.C)), device=self.device)
-
 
 
 class fLDA(_DirichletAccessors, TopicModel):
@@ -249,7 +254,7 @@ class fLDA(_DirichletAccessors, TopicModel):
         p = self.packed
         step = flda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs)
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
         elbo = flda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._data_arrays()
         C = sum(self.C)
@@ -423,7 +428,7 @@ class CTPF(TopicModel):
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
         p = self.packed
         step = ctpf_mod.make_step(p, self.K, viter=cfg.viter, vtol=cfg.vtol,
-                                  chunk_docs=self.chunk_docs)
+                                  chunk_docs=self.chunk_docs, device=self.device)
         elbo = ctpf_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._step_data()
         return Trainer(step, elbo, data, data, M=self.M, C=int(sum(self.C)),
@@ -491,3 +496,99 @@ class CTPF(TopicModel):
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         g = _host(self.state.gimel)[rows]
         return g / g.sum(axis=-1, keepdims=True)
+
+
+class CTM(TopicModel):
+    """Correlated topic model (reference src/CTM.jl, src/gpuCTM.jl).
+
+    ``identify=True`` opts into the projection normalisation the
+    reference's todo.txt:25 proposes for the logistic normal's
+    unidentified direction (see ``models/ctm.py:gaussian_update``).
+    Default off: the reference's exact semantics."""
+
+    _bucketed = True
+    _preferred_chunk = 2048
+    _model = ctm_mod
+
+    def __init__(self, corp: PackedCorpus, K: int,
+                 runtime: Optional[RuntimeConfig] = None, *, device, seed: int = 0,
+                 identify: bool = False):
+        self.identify = bool(identify)
+        super().__init__(corp, K, runtime, device=device, seed=seed)
+
+    def __repr__(self):
+        return f"Correlated topic model with {self.K} topics."
+
+    def _init_state(self):
+        gen = torch.Generator().manual_seed(self.seed)
+        self.state = self._model.init(gen, self.packed, self.K, self.dtype, self.device)
+
+    def _build_trainer(self, cfg: TrainConfig) -> Trainer:
+        p = self.packed
+        step = self._model.make_step(
+            p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter, ntol=cfg.ntol,
+            chunk_docs=self.chunk_docs, device=self.device, identify=self.identify)
+        elbo = self._model.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+        data = self._data_arrays()
+        return Trainer(step, elbo, data + (float(self.M),), data, M=self.M,
+                       C=int(sum(self.C)), device=self.device)
+
+    @property
+    def mu(self) -> np.ndarray:
+        return _host(self.state.mu)
+
+    @property
+    def sigma(self) -> np.ndarray:
+        return _host(self.state.sigma)
+
+    @property
+    def invsigma(self) -> np.ndarray:
+        return _host(self.state.invsigma)
+
+    @property
+    def beta(self) -> np.ndarray:
+        return _host(self.state.beta)
+
+    @property
+    def lam(self) -> np.ndarray:
+        return _host(self.state.lam)[self._doc_rows()]
+
+    lambda_ = lam   # the reference's field name
+
+    @property
+    def vsq(self) -> np.ndarray:
+        return _host(self.state.vsq)[self._doc_rows()]
+
+    @property
+    def logzeta(self) -> np.ndarray:
+        return _host(self.state.logzeta)[self._doc_rows()]
+
+    def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
+        rows = torch.as_tensor(rows, device=self.device)
+        return _host(ctm_mod.topicdist(self.state.lam[rows], self.state.vsq[rows]))
+
+
+class fCTM(CTM):
+    """Filtered correlated topic model (reference src/fCTM.jl).
+
+    ``identify=True`` gauge-fixes the Gaussian channel as CTM's does."""
+
+    _model = fctm_mod
+
+    def __repr__(self):
+        return f"Filtered correlated topic model with {self.K} topics."
+
+    @property
+    def eta(self) -> float:
+        return float(self.state.eta)
+
+    @property
+    def kappa(self) -> np.ndarray:
+        return _host(self.state.kappa)
+
+    @property
+    def tau(self):
+        """Ragged view: list of per-doc tau vectors (reference fCTM.jl:28)."""
+        t = _host(self.state.tau)
+        rows = self._doc_rows()
+        return [t[rows[d], : self.N[d]] for d in range(self.M)]

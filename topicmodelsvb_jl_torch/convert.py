@@ -13,13 +13,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .models.ctm import CTMState
 from .models.ctpf import CTPFState
+from .models.fctm import FCTMState
 from .models.flda import FLDAState
 from .models.lda import LDAState
 
 LDA_FIELDS = tuple(LDAState.__dataclass_fields__)
 FLDA_FIELDS = tuple(FLDAState.__dataclass_fields__)
 CTPF_FIELDS = tuple(CTPFState.__dataclass_fields__)
+CTM_FIELDS = tuple(CTMState.__dataclass_fields__)
+FCTM_FIELDS = tuple(FCTMState.__dataclass_fields__)
 
 
 def _from_numpy(cls, arrays: Mapping, device, dtype):
@@ -57,4 +61,22 @@ def ctpf_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> CTPFS
 
 
 def ctpf_state_to_numpy(state: CTPFState) -> dict:
+    return _to_numpy(state)
+
+
+def ctm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> CTMState:
+    """As :func:`lda_state_from_numpy`, for the 10 CTMState fields."""
+    return _from_numpy(CTMState, arrays, device, dtype)
+
+
+def ctm_state_to_numpy(state: CTMState) -> dict:
+    return _to_numpy(state)
+
+
+def fctm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> FCTMState:
+    """As :func:`lda_state_from_numpy`, for the 15 FCTMState fields."""
+    return _from_numpy(FCTMState, arrays, device, dtype)
+
+
+def fctm_state_to_numpy(state: FCTMState) -> dict:
     return _to_numpy(state)

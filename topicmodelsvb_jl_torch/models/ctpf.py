@@ -14,8 +14,9 @@ zayin/het (doc offset).
 * Only the token axis is bucketed: the reader arrays stay dense
   ``[M_pad, Rmax]`` and are row-sliced per chunk.
 * Two deterministic scatters: the alef statistic over term ids, the he
-  statistic over reader ids.  A corpus without users runs with one
-  placeholder user and all ratings 0, as in the JAX package.
+  statistic over reader ids, each along the chunk's plan
+  (``lda.token_plans``, :func:`reader_plans`).  A corpus without users
+  runs with one placeholder user and all ratings 0, as in the JAX package.
 * The ELBO is the closed form with the E[lnΓ(y+1)] cancellation
   (see the JAX module's docstring), in plain PyTorch.
 """
@@ -27,12 +28,13 @@ import dataclasses
 import torch
 
 from ..kernels.ctpf_estep import ctpf_estep
+from ..kernels.scatter_rows import build_plan
 from ..ops.segment import count_scatter_into
 from ..utils.numerics import (
     digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge, kbn_pack, kbn_zero,
     lgamma, xlogx,
 )
-from .lda import _chunks
+from .lda import _chunks, token_plans
 
 # Gamma hyperpriors a..h = 0.1 (CTPF.jl:81)
 HYPER = dict(a=0.1, b=0.1, c=0.1, d=0.1, e=0.1, f=0.1, g=0.1, h=0.1)
@@ -76,17 +78,28 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
     )
 
 
-def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int):
+def reader_plans(packed, chunk_docs: int, device) -> list:
+    """One scatter plan per chunk, in sweep order, over its reader slots
+    with ``ratings > 0``: built from the host arrays, put on ``device``."""
+    return [build_plan(packed.readers[rows], packed.ratings[rows] > 0).to(device)
+            for rows, _, _ in _chunks(packed, chunk_docs)]
+
+
+def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, readers, ratings, doc_mask)`` takes the
     per-segment tuples of terms/counts/doc_mask and the dense reader
-    arrays on the device, and returns the next state.
+    arrays on ``device``, and returns the next state; the chunks' two
+    scatter plans (``lda.token_plans``, :func:`reader_plans`) are built
+    here and put on ``device``.
     """
     V, U = packed.V, packed.U
     U_seg = max(U, 1)
     a, b, c, d, e, f, g, h = (HYPER[k] for k in "abcdefgh")
     chunks = _chunks(packed, chunk_docs)
+    tplans = token_plans(packed, chunk_docs, device)
+    rplans = reader_plans(packed, chunk_docs, device)
 
     def step(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> CTPFState:
         dt, dev = state.alef.dtype, state.alef.device
@@ -101,7 +114,7 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int):
         zayin_sum = torch.zeros((K,), dtype=dt, device=dev)
         new = {f_: torch.empty_like(getattr(state, f_))
                for f_ in ("gimel", "gimel_old", "zayin", "zayin_old")}
-        for rows, j, sl in chunks:
+        for (rows, j, sl), tplan, rplan in zip(chunks, tplans, rplans):
             t, cnt, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             rd, rt = readers[rows], ratings[rows]
             gi2, gio2, za2, zao2, wa, wh = ctpf_estep(
@@ -109,8 +122,8 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int):
                 state.gimel[rows], state.gimel_old[rows],
                 state.zayin[rows], state.zayin_old[rows],
                 viter=viter, vtol=vtol, c_hyper=c, g_hyper=g)
-            count_scatter_into(alef_temp, wa.reshape(-1, K), t.reshape(-1))
-            count_scatter_into(he_temp, wh.reshape(-1, K), rd.reshape(-1))
+            count_scatter_into(alef_temp, wa.reshape(-1, K), tplan)
+            count_scatter_into(he_temp, wh.reshape(-1, K), rplan)
             gimel_sum = gimel_sum + torch.sum(gi2 * dm[:, None], dim=0)
             zayin_sum = zayin_sum + torch.sum(za2 * dm[:, None], dim=0)
             for f_, v in zip(new, (gi2, gio2, za2, zao2)):

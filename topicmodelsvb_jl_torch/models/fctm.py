@@ -1,0 +1,213 @@
+"""Filtered correlated topic model — batch-synchronous CAVI on one device.
+
+PyTorch port of the JAX package's ``models/fctm.py`` on its bucketed
+single-device path (reference ``src/fCTM.jl``): CTM plus fLDA's per-token
+Bernoulli switch between a topic word and a background word (tau, kappa).
+Two reference quirks are mirrored on purpose:
+
+* the viter order is phi, tau, logzeta, **lambda, then vsq**
+  (fCTM.jl:250-256; CTM runs vsq before lambda);
+* ``update_eta!`` is commented out of the train loop (fCTM.jl:267), so eta
+  stays at its 0.5 initialisation.
+
+tau/tau_old stay dense ``[M_pad, L]`` at the corpus width; each segment
+reads ``tau[rows, :Ls]`` and every column past a segment's width is 0.5
+after the sweep, as in the JAX package.  The beta and kappa statistics
+share one scatter over ``[T, K+1]`` rows, kappa's weight in column K.
+The bound is plain PyTorch: the JAX package has no kernel for it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
+from ..ops.segment import count_scatter_into
+from ..utils.numerics import (
+    EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_ones, kbn_add, kbn_merge,
+    kbn_pack, kbn_zero, l2norm, logsumexp, masked_fixpoint,
+)
+from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma
+from .lda import _chunks, token_plans
+
+
+@dataclasses.dataclass
+class FCTMState:
+    eta: torch.Tensor         # [] fixed at 0.5 (fCTM.jl:267)
+    mu: torch.Tensor          # [K]
+    sigma: torch.Tensor       # [K, K]
+    invsigma: torch.Tensor    # [K, K]
+    kappa: torch.Tensor       # [V] background distribution
+    kappa_old: torch.Tensor   # [V]
+    beta: torch.Tensor        # [K, V] right-stochastic rows
+    beta_old: torch.Tensor    # [K, V]
+    lam: torch.Tensor         # [M_pad, K]
+    lam_old: torch.Tensor     # [M_pad, K]
+    vsq: torch.Tensor         # [M_pad, K]
+    logzeta: torch.Tensor     # [M_pad]
+    tau: torch.Tensor         # [M_pad, L] per-token topic-word responsibility
+    tau_old: torch.Tensor     # [M_pad, L]
+    elbo: torch.Tensor        # compensated (hi, lo) bound, shape (2,)
+
+
+def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
+         device="cpu") -> FCTMState:
+    """Constructor state (reference fCTM.jl:33-64).  beta and kappa are
+    drawn on ``generator``'s device and then moved to ``device``."""
+    M_pad, V, L = packed.M_pad, packed.V, packed.L
+    beta = dirichlet_ones(generator, V, (K,), dtype).to(device)
+    kappa = dirichlet_ones(generator, V, (), dtype).to(device)
+    eye = torch.eye(K, dtype=dtype, device=device)
+    zeros = torch.zeros((M_pad, K), dtype=dtype, device=device)
+    tau = torch.full((M_pad, L), 0.5, dtype=dtype, device=device)
+    return FCTMState(
+        eta=torch.tensor(0.5, dtype=dtype, device=device),
+        mu=torch.zeros((K,), dtype=dtype, device=device), sigma=eye, invsigma=eye,
+        kappa=kappa, kappa_old=kappa, beta=beta, beta_old=beta, lam=zeros, lam_old=zeros,
+        vsq=torch.ones((M_pad, K), dtype=dtype, device=device),
+        logzeta=torch.full((M_pad,), 0.5, dtype=dtype, device=device),
+        tau=tau, tau_old=tau, elbo=torch.zeros((2,), dtype=dtype, device=device),
+    )
+
+
+def _phi(logbeta_d, tau, lam):
+    """phi ∝ exp(tau·log(beta + EPSILON) + lambda), over K (fCTM.jl:230-233)."""
+    return torch.softmax(tau[..., None] * logbeta_d + lam[:, None, :], dim=-1)
+
+
+def estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam,
+                lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol):
+    """One chunk's E-step; returns its new per-document state and the rows
+    [B, L, K+1] of the fused beta/kappa statistic."""
+    C = torch.sum(counts, dim=-1)
+    logbeta_d = logbetaT[terms]                     # [B, L, K]
+    kappa_d = kappa[terms]                          # [B, L]
+    isd = torch.diagonal(invsigma)
+
+    def body(_, carry):
+        lam, lam_old, vsq, logzeta, tau, tau_old, active = carry
+        upd = active[:, None]
+        p = _phi(logbeta_d, tau, lam)                                   # fCTM.jl:230-233
+        s = torch.sum(p * logbeta_d, dim=-1)                            # fCTM.jl:221-226
+        tau_new = eta / (eta + (1.0 - eta) * kappa_d * torch.exp(-s) + EPSILON)
+        tau_old2 = torch.where(upd, tau, tau_old)
+        tau2 = torch.where(upd, tau_new, tau)
+        logzeta2 = torch.where(active, logsumexp(lam + 0.5 * vsq), logzeta)
+        # update_lambda! BEFORE update_vsq!, unlike CTM (fCTM.jl:175-188)
+        pc = torch.einsum("bl,blk->bk", counts, p)
+        lam_new = ctm_lambda_newton(lam, vsq, logzeta2, pc, C, mu, invsigma, active,
+                                    niter, ntol)
+        lam_old2 = torch.where(upd, lam, lam_old)
+        lam2 = torch.where(upd, lam_new, lam)
+        vsq2 = ctm_vsq_newton(lam2, vsq, logzeta2, C, isd, active, niter, ntol)  # :192-211
+        vsq2 = torch.where(upd, vsq2, vsq)
+        return (lam2, lam_old2, vsq2, logzeta2, tau2, tau_old2,
+                active & (l2norm(lam2 - lam_old2) >= vtol))
+
+    lam, lam_old, vsq, logzeta, tau, tau_old, _ = masked_fixpoint(
+        body, (lam, lam_old, vsq, logzeta, tau, tau_old, doc_mask > 0), viter)
+    # statistics with the last phi = f(beta, tau_old, lambda_old): beta
+    # weighted by tau·counts (fCTM.jl:168-171), kappa by (1 − tau)·counts
+    # (fCTM.jl:154-157), in one [B, L, K+1] block
+    w = torch.cat([_phi(logbeta_d, tau_old, lam_old) * (tau * counts)[..., None],
+                   ((1.0 - tau) * counts)[..., None]], dim=-1)
+    return lam, lam_old, vsq, logzeta, tau, tau_old, w
+
+
+def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
+              chunk_docs: int, device, identify: bool = False):
+    """Build the outer-iteration step (one full CAVI sweep).
+
+    ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
+    segment tuples of device tensors on ``device`` and returns the next
+    state; the chunks' scatter plans are built here and put on ``device``.
+    ``identify``: as in ``ctm.make_step``.
+    """
+    V = packed.V
+    chunks = _chunks(packed, chunk_docs)
+    plans = token_plans(packed, chunk_docs, device)
+
+    def step(state: FCTMState, terms, counts, doc_mask, M_total) -> FCTMState:
+        dt, dev = state.beta.dtype, state.beta.device
+        logbetaT = torch.log(state.beta + EPSILON).T.contiguous()   # fCTM.jl:232
+        stat = torch.zeros((V, K + 1), dtype=dt, device=dev)
+        vsq_sum = torch.zeros((K,), dtype=dt, device=dev)
+        lam_sum = torch.zeros((K,), dtype=dt, device=dev)
+        lam_outer = torch.zeros((K, K), dtype=dt, device=dev)
+        new = {f: torch.empty_like(getattr(state, f))
+               for f in ("lam", "lam_old", "vsq", "logzeta")}
+        # columns past each segment's width are reset to 0.5
+        tau = torch.full_like(state.tau, 0.5)
+        tau_old = torch.full_like(state.tau_old, 0.5)
+        for (rows, j, sl), plan in zip(chunks, plans):
+            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            Ls = t.shape[1]
+            *out, ta2, tao2, w = estep_chunk(
+                logbetaT, state.kappa, state.eta, state.mu, state.invsigma, t, c, dm,
+                state.lam[rows], state.lam_old[rows], state.vsq[rows], state.logzeta[rows],
+                state.tau[rows, :Ls], state.tau_old[rows, :Ls], viter, vtol, niter, ntol)
+            count_scatter_into(stat, w.reshape(-1, K + 1), plan)
+            la, v = out[0], out[2]
+            lam_sum = lam_sum + torch.sum(la * dm[:, None], dim=0)
+            vsq_sum = vsq_sum + torch.sum(v * dm[:, None], dim=0)
+            lam_outer = lam_outer + (la * dm[:, None]).T @ la
+            for f, x in zip(new, out):
+                new[f][rows] = x
+            tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
+
+        beta_new = beta_rows(stat[:, :K].T.contiguous())
+        kappa_temp = stat[:, K]
+        kappa_new = kappa_temp / torch.sum(kappa_temp)              # fCTM.jl:146-150
+        mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
+                                              M_total, identify)
+        # update_eta! deliberately not run (fCTM.jl:267)
+        return FCTMState(eta=state.eta, mu=mu, sigma=sigma, invsigma=invsigma,
+                         kappa=kappa_new, kappa_old=state.kappa, beta=beta_new,
+                         beta_old=state.beta, tau=tau, tau_old=tau_old, elbo=state.elbo,
+                         **new)
+
+    return step
+
+
+def make_elbo(packed, K: int, chunk_docs: int):
+    """ELBO (fCTM.jl:67-124): phi recomputed from (tau_old, beta_old,
+    lambda_old), the terms with the current parameters; doc-level and
+    token-level terms ride two compensated accumulators."""
+    chunks = _chunks(packed, chunk_docs)
+
+    def elbo(state: FCTMState, terms, counts, doc_mask) -> torch.Tensor:
+        dt, dev = state.beta.dtype, state.beta.device
+        logbeta_oldT = torch.log(state.beta_old + EPSILON).T
+        logbetaT = torch.log(state.beta + EPSILON).T
+        logkappa = torch.log(state.kappa + EPSILON)
+        eta = state.eta
+        log_eps = torch.log(torch.tensor(EPSILON, dtype=dt, device=dev))
+        log_eta, log_1m_eta = torch.log(eta + EPSILON), torch.log(1.0 - eta + EPSILON)
+        logdet_inv = logdet_invsigma(state)
+        acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
+        for rows, j, sl in chunks:
+            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            Ls = t.shape[1]
+            ta, tao = state.tau[rows, :Ls], state.tau_old[rows, :Ls]
+            la, lao = state.lam[rows], state.lam_old[rows]
+            cd = torch.sum(c, dim=-1)
+            p = _phi(logbeta_oldT[t], tao, lao)
+            tau_c = torch.sum(ta * c, -1)
+            pc = torch.einsum("bl,blk->bk", c, p)
+            # Elogpc (fCTM.jl:74-78): log(eta^a (1-eta)^b + EPS) by logaddexp
+            e_pc = torch.logaddexp(tau_c * log_eta + (cd - tau_c) * log_1m_eta, log_eps)
+            # Elogpeta − Elogqeta (fCTM.jl:68-71, 95-98) and Elogpz (fCTM.jl:81-85)
+            e_gauss = gaussian_terms(state, la, state.vsq[rows], state.logzeta[rows], cd, K,
+                                     logdet_inv) + torch.sum(pc * la, -1)
+            # Elogpw (fCTM.jl:88-92)
+            e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[..., None], dim=(1, 2))
+                    + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
+            e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)         # fCTM.jl:101-105
+            e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)        # fCTM.jl:108-112
+            acc_doc = kbn_add(acc_doc, torch.sum(dm * (e_gauss + e_pc)))
+            acc_tok = kbn_add(acc_tok, torch.sum(dm * (e_pw + e_qc + e_qz)))
+        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+
+    return elbo

@@ -12,7 +12,8 @@ mixture weight ``eta``.
   bucketing; each segment reads ``tau[rows, :Ls]`` and every column past
   a segment's width is 0.5 after the sweep, as in the JAX package.
 * The beta and kappa statistics share ONE deterministic scatter over
-  ``[T, K+1]`` rows, the kappa weight in the last column.
+  ``[T, K+1]`` rows, the kappa weight in the last column, along the
+  chunk's plan (``lda.token_plans``).
 * eta, M_total and C_total stay on the device; the step reads none of
   them back to the host.
 
@@ -32,7 +33,7 @@ from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_entropy,
     dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_zero, kbn_zeros, lgamma,
 )
-from .lda import _chunks
+from .lda import _chunks, token_plans
 
 
 @dataclasses.dataclass
@@ -73,15 +74,16 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int):
+              chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total, C_total)`` takes the
-    per-segment tuples of device tensors and two 0-dim device tensors,
-    and returns the next state.
+    per-segment tuples of tensors and two 0-dim tensors on ``device``, and
+    returns the next state; the scatter plans: as in ``lda.make_step``.
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
+    plans = token_plans(packed, chunk_docs, device)
 
     def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total) -> FLDAState:
         dtype, dev = state.beta.dtype, state.beta.device
@@ -95,7 +97,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         # columns past each segment's width are reset to 0.5
         tau = torch.full_like(state.tau, 0.5)
         tau_old = torch.full_like(state.tau_old, 0.5)
-        for rows, j, sl in chunks:
+        for (rows, j, sl), plan in zip(chunks, plans):
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             Ls = t.shape[1]
             g2, el2, elo2, ta2, tao2, w = flda_estep(
@@ -105,7 +107,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 viter=viter, vtol=vtol)
             # beta_temp += phi .* (tau .* counts)' (fLDA.jl:174-177) and
             # kappa_temp[terms] += (1 - tau) .* counts (fLDA.jl:160-163)
-            count_scatter_into(stat, w.reshape(-1, K + 1), t.reshape(-1))
+            count_scatter_into(stat, w.reshape(-1, K + 1), plan)
             El_sum = kbn_add(El_sum, torch.sum(el2 * dm[:, None], dim=0))
             tau_counts = tau_counts + torch.sum(ta2 * c)   # update_eta! (fLDA.jl:122-124)
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2

@@ -10,12 +10,13 @@ path (reference ``src/LDA.jl`` and its GPU twin ``src/gpuLDA.jl``):
 * phi is never stored across iterations; it is recomputed from
   (beta, Elogtheta), the warm-start identity of LDA.jl:87.
 * The M-step statistic ``beta_temp[:, terms] += phi .* counts'``
-  (LDA.jl:129-132) is a deterministic scatter (ops/segment.py), and
-  alpha's Newton (LDA.jl:97-118) runs on the same device.
+  (LDA.jl:129-132) is a deterministic scatter (ops/segment.py) along one
+  plan per chunk, built once per trainer (:func:`token_plans`), and alpha's Newton
+  (LDA.jl:97-118) runs on the same device.
 
-The E-step and the ELBO's token terms go through ``kernels/``: a CUDA
-tensor launches the hand-written kernel, a CPU tensor runs its plain
-PyTorch version.  Nothing else selects a path.
+The E-step, the scatter and the ELBO's token terms go through
+``kernels/``: a CUDA tensor launches the hand-written kernel, a CPU
+tensor runs its plain PyTorch version.  Nothing else selects a path.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from ..kernels.lda_elbo import lda_elbo_tok
 from ..kernels.lda_estep import lda_estep
+from ..kernels.scatter_rows import build_plan
 from ..ops.newton import dirichlet_newton
 from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter_into
@@ -90,15 +92,25 @@ def _chunks(packed, chunk_docs: int):
     return out
 
 
+def token_plans(packed, chunk_docs: int, device) -> list:
+    """One scatter plan per chunk, in sweep order, over its token slots
+    with ``counts > 0``: built from the host arrays, put on ``device``."""
+    segs = packed.segments
+    return [build_plan(segs[j].terms[sl], segs[j].counts[sl] > 0).to(device)
+            for _, j, sl in _chunks(packed, chunk_docs)]
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int):
+              chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
-    segment tuples of device tensors and returns the next state.
+    segment tuples of device tensors on ``device`` and returns the next
+    state; the chunks' scatter plans are built here and put on ``device``.
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
+    plans = token_plans(packed, chunk_docs, device)
 
     def step(state: LDAState, terms, counts, doc_mask, M_total) -> LDAState:
         dtype, dev = state.beta.dtype, state.beta.device
@@ -112,13 +124,13 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         gamma = torch.empty_like(state.gamma)
         El = torch.empty_like(state.Elogtheta)
         El_old = torch.empty_like(state.Elogtheta_old)
-        for rows, j, sl in chunks:
+        for (rows, j, sl), plan in zip(chunks, plans):
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             g2, el2, elo2, w = lda_estep(
                 betaT, t, c, dm, state.alpha, state.gamma[rows],
                 state.Elogtheta[rows], state.Elogtheta_old[rows],
                 viter=viter, vtol=vtol)
-            count_scatter_into(beta_temp, w.reshape(-1, K), t.reshape(-1))
+            count_scatter_into(beta_temp, w.reshape(-1, K), plan)
             El_sum = kbn_add(El_sum, torch.sum(el2 * dm[:, None], dim=0))
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
 

@@ -2,33 +2,27 @@
 
 The reference makes its OpenCL scatter-adds race-free with a precomputed
 inverted index (modelutils.jl:371-397, gpuLDA.jl:170-175), and the JAX
-package promises that same-seed runs are bitwise equal.  Each device
-gets the scatter whose order of additions does not depend on scheduling,
-without turning on PyTorch's process-wide deterministic mode:
-
-* CUDA: ``index_add_`` accumulates with atomics in an order that changes
-  from run to run; ``index_put_(..., accumulate=True)`` takes PyTorch's
-  sort-based path instead — a stable sort of the ids, then each run of
-  equal ids summed in order.  ``chip_smoke.py`` confirms the bitwise
-  repeat on the card.
-* CPU: ``index_put_(..., accumulate=True)`` on f32 adds with atomics
-  across threads once the scatter is large; ``index_add_`` adds the rows
-  serially in token order.
+package promises that same-seed runs are bitwise equal.  The port does as
+the reference does: the inverted index of each chunk is a
+:class:`~..kernels.scatter_rows.ScatterPlan`, built once on the host from
+the chunk's ids, and the scatter itself is the ``scatter_rows`` kernel
+(CUDA tensors) or its plain version (CPU tensors).  Neither adds with
+float atomics, so the order of additions does not depend on scheduling.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.scatter_rows import ScatterPlan, scatter_rows
+
 
 def count_scatter_into(acc: torch.Tensor, weights: torch.Tensor,
-                       ids: torch.Tensor) -> torch.Tensor:
-    """``acc[ids[t], :] += weights[t, :]`` for every token ``t``, in place.
+                       plan: ScatterPlan) -> torch.Tensor:
+    """``acc[ids[t], :] += weights[t, :]`` for every token ``t`` the plan
+    keeps, in place; returns ``acc``.
 
-    acc: [V, K]; weights: [T, K] per-token rows; ids: [T] 0-based vocab
-    ids.  The reference's ``beta_temp[:, terms] += phi .* counts'``
-    (LDA.jl:129-132).  Returns ``acc``.
-    """
-    if acc.device.type == "cuda":
-        return acc.index_put_((ids,), weights, accumulate=True)
-    return acc.index_add_(0, ids, weights)
+    acc: [V, W]; weights: [T, W] per-token rows, exactly 0 on the slots
+    the plan leaves out.  The reference's ``beta_temp[:, terms] += phi .*
+    counts'`` (LDA.jl:129-132)."""
+    return scatter_rows(acc, weights, plan)

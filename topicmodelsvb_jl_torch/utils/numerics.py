@@ -2,8 +2,10 @@
 
 * ``EPSILON`` underflow guard (utils.jl:3) — ``eps(1e-14) ≈ 1.6e-30``.
 * ``finite`` overflow clamp (utils.jl:107).
+* ``logsumexp`` (utils.jl:110).
 * Dirichlet entropy closed form (utils.jl:163-180), and the categorical,
-  Bernoulli and Gamma entropies of the fLDA and CTPF bounds.
+  Bernoulli, Gamma and diagonal-normal entropies of the fLDA, CTPF and
+  CTM bounds.
 * digamma/lgamma/trigamma from ``torch.special``: unlike a TPU's vector
   unit, CUDA and CPU evaluate ``log``/``lgamma`` to within a few ULP, so
   no hand-built transcendentals are needed.
@@ -15,6 +17,8 @@ Everything is dtype-polymorphic: f32 on the GPU, f64 for the CPU oracle
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -32,6 +36,12 @@ def finite(x: torch.Tensor) -> torch.Tensor:
 
 def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim))
+
+
+def logsumexp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Overflow-safe log-sum-exp over ``dim`` (reference utils.jl:110)."""
+    m = torch.amax(x, dim=dim, keepdim=True)
+    return (torch.log(torch.sum(torch.exp(x - m), dim=dim, keepdim=True)) + m).squeeze(dim)
 
 
 def digamma(x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +94,15 @@ def gamma_entropy(shape: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
     return shape - torch.log(rate) + lgamma(shape) + (1.0 - shape) * digamma(shape)
 
 
+def mvnormal_diag_entropy(vsq: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Entropy of N(·, diag(vsq)) (CTM Elogqeta, CTM.jl:76-79).
+
+    H = K/2·(1 + log 2π) + ½·Σ log vsq.
+    """
+    k = vsq.shape[dim]
+    return 0.5 * k * (1.0 + math.log(2.0 * math.pi)) + 0.5 * torch.sum(torch.log(vsq), dim=dim)
+
+
 def dirichlet_ones(generator: torch.Generator, n: int, shape: tuple = (),
                    dtype=torch.float32) -> torch.Tensor:
     """Dirichlet(1,…,1) rows of width ``n``: normalised iid Exp(1) draws,
@@ -93,19 +112,25 @@ def dirichlet_ones(generator: torch.Generator, n: int, shape: tuple = (),
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
-def masked_fixpoint(body, carry: tuple, viter: int) -> tuple:
+def masked_fixpoint(body, carry: tuple, viter: int, check_every: int = 1) -> tuple:
     """Run ``body(i, carry)`` up to ``viter`` times, stopping once the
     carry's LAST entry (a per-lane ``active`` bool mask) is all False.
 
     The per-document viter loop of the reference runs batch-synchronously
-    with converged lanes frozen by the body (the break at LDA.jl:175);
-    passes after every lane has stopped are no-ops, so stopping early is
-    trajectory-neutral.  Each test of the mask reads one value back to
-    the host."""
-    for i in range(viter):
-        if not bool(torch.any(carry[-1])):
-            break
-        carry = body(i, carry)
+    with converged lanes frozen by the body (the break at LDA.jl:175), and
+    so do the CTM Newtons and their CG solve; passes after every lane has
+    stopped leave the results as they were, so stopping early is
+    trajectory-neutral.  Each test of the mask reads one value back to the
+    host, which waits for the device.  The mask is tested before every
+    ``check_every``-th pass only: the passes between two tests are queued
+    without a wait, and the result is bit-identical to testing every pass."""
+    if check_every < 1:
+        raise ValueError("check_every must be positive")
+    i = 0
+    while i < viter and bool(torch.any(carry[-1])):
+        for _ in range(min(check_every, viter - i)):
+            carry = body(i, carry)
+            i += 1
     return carry
 
 

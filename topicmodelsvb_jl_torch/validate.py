@@ -3,11 +3,13 @@
 The reference validates every variational parameter at the top of each
 ``train!`` (modelutils.jl:39-360).  Here each predicate is a reduction on
 the state's device; the flags are stacked into one bool tensor and read
-back once.
+back once.  CTM and fCTM add a Cholesky test of sigma on the host in f64
+([K, K] is small).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,7 +32,7 @@ def _unit_interval(x):
 
 def state_violations(model) -> list:
     """Names of violated invariants for a model's current state."""
-    from .api import CTPF, LDA, fLDA
+    from .api import CTM, CTPF, LDA, fCTM, fLDA
 
     s = model.state
     if isinstance(model, (LDA, fLDA)):          # modelutils.jl:39-67, 69-106
@@ -46,6 +48,23 @@ def state_violations(model) -> list:
                 "kappa must be a stochastic matrix": _stochastic(s.kappa, dim=0),
                 "tau must be in [0, 1]": _unit_interval(s.tau),
             })
+    elif isinstance(model, CTM):                # modelutils.jl:108-178, fCTM included
+        checks = {
+            "mu must be finite": _finite(s.mu),
+            "sigma must be finite": _finite(s.sigma),
+            # the reference never requires invsigma finite (its todo.txt:7)
+            "invsigma must be finite": _finite(s.invsigma),
+            "beta must be a stochastic matrix": _stochastic(s.beta, dim=1),
+            "lambda must be finite": _finite(s.lam),
+            "vsq must be positive": _positive(s.vsq),
+            "logzeta must be finite": _finite(s.logzeta),
+        }
+        if isinstance(model, fCTM):
+            checks.update({
+                "eta must be in [0, 1]": _unit_interval(s.eta),
+                "kappa must be a stochastic matrix": _stochastic(s.kappa, dim=0),
+                "tau must be in [0, 1]": _unit_interval(s.tau),
+            })
     elif isinstance(model, CTPF):               # modelutils.jl:181-253
         checks = {f"{name} must be positive": _positive(getattr(s, name))
                   for name in ("alef", "bet", "gimel", "dalet", "he", "vav",
@@ -53,7 +72,13 @@ def state_violations(model) -> list:
     else:
         raise TypeError(type(model))
     flags = torch.stack(list(checks.values())).cpu().tolist()
-    return [name for name, ok in zip(checks, flags) if not ok]
+    bad = [name for name, ok in zip(checks, flags) if not ok]
+    if isinstance(model, CTM) and not bad:      # sigma posdef (modelutils.jl:116-118)
+        try:
+            np.linalg.cholesky(s.sigma.detach().cpu().double().numpy())
+        except np.linalg.LinAlgError:
+            bad.append("sigma must be positive definite")
+    return bad
 
 
 def check_model(model) -> None:
