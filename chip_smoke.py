@@ -18,9 +18,16 @@ printing its own lines; any failure exits non-zero:
    for CTPF) and one synthetic chunk whose rows do not fit shared memory;
    the M-step scatter on the real rows of those chunks (LDA W = 100, fLDA
    W = 101, CTPF's term and reader scatters), on a chunk whose rows are
-   all one id and on an empty chunk; then, for each family, a small model
-   trained on the card (f32, kernels) and on the CPU (f64, plain versions)
-   from one init;
+   all one id and on an empty chunk; each kernel's device time (CUDA
+   events around 20 launches queued behind a spin kernel, so no host gap
+   is counted), its call time (the host clock around 20 calls, up to a
+   synchronize), its plain version's, its bound (bytes over the HBM rate
+   or f32 operations over the f32 rate, whichever is larger, counted from
+   these inputs) and, for the scatter, ``index_add_`` over all rows, the
+   one PyTorch call that computes the same sums (a yardstick the port
+   never calls); each kernel twice, bitwise equal; then, for each family,
+   a small model trained on the card (f32, kernels) and on the CPU (f64,
+   plain versions) from one init;
 4. the main paths, each with its kernels' launch counts set to 0 just
    before and read just after: ``LDA`` and ``fLDA`` at NSF scale and
    ``CTPF`` at CiteULike scale, K = 100, ``train(iter=4, checkelbo=1)``;
@@ -34,8 +41,12 @@ printing its own lines; any failure exits non-zero:
    against their plain versions;
 5. for each family, two fresh same-seed models, one step each, bitwise
    equal in the global parameters and the per-document state;
-6. one JSON line with every kernel's launches, error and times, the card
-   again, and last ``{"ok": true, "device": {...}}``.
+6. the scatter against ``index_add_`` on every shape; one JSON line with
+   every kernel's launches, largest error, device and call times, plain
+   version's time, bound (``bound_ms``, ``bound_by``) and library call's
+   time (``library_ms``, null where no PyTorch call computes the same
+   function), each at its main path's widest chunk; the card again; and
+   last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +60,11 @@ import sys
 import time
 
 RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
+# NVIDIA's H100 SXM data sheet: the HBM rate and
+# the f32 rate outside the tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+SPIN_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep cycles a ms at ~2 GHz
+N_KERNEL, N_PLAIN = 20, 5   # calls between one pair of events
 
 
 def need(cond, msg: str) -> None:
@@ -56,21 +72,78 @@ def need(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, after one warm-up call."""
+def time_calls(fn, n: int = 20, reps: int = 3) -> tuple:
+    """(device ms, call ms) of one call of ``fn``, after two warm-up calls.
+
+    Call time: the host clock around ``n`` back-to-back calls, ended by a
+    synchronize, over ``n``: what a caller waits per call in a loop.
+    Device time: CUDA events around ``n`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``) that lasts longer than the host takes
+    to enqueue them, so the device runs them back to back and no host gap
+    is counted; the median of ``reps`` such runs, over ``n``.  A function
+    that reads a value back to the host (the plain versions' fixpoints)
+    waits out the spin and its device time counts its host gaps."""
     import torch
 
     fn()
-    times = []
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3 / n
+    spin = int(SPIN_CYCLES_PER_MS * (1.5 * call_ms * n + 1.0))
+    dev = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        dev.append(start.elapsed_time(end) / n)
+    return statistics.median(dev), call_ms
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops``
+    f32 operations outside the tensor cores: (ms, "bytes" or "operations")."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def fixpoint_work(module, ref, args, kw, per_doc) -> float:
+    """Sum over the passes of the plain version's fixpoint of ``per_doc``
+    [B] for the documents still active in each pass: the passes the data
+    needs, read from the plain version's own loop (``masked_fixpoint``,
+    whose carry ends in the active mask)."""
+    total = 0.0
+    orig = module.masked_fixpoint
+
+    def counting(body, carry, viter, *a, **k):
+        def counted(i, c):
+            nonlocal total
+            total += float((c[-1].to(per_doc.dtype) * per_doc).sum())
+            return body(i, c)
+        return orig(counted, carry, viter, *a, **k)
+
+    module.masked_fixpoint = counting
+    try:
+        ref(*args, **kw)
+    finally:
+        module.masked_fixpoint = orig
+    return total
+
+
+def n_unique(ids, keep) -> int:
+    """Distinct ids among the kept slots: the table rows a kernel must read."""
+    import torch
+
+    return int(torch.unique(ids[keep]).numel())
 
 
 def close(got, want, names, label) -> float:
@@ -112,16 +185,35 @@ def warm_state(K, B, dev, seed):
     return [t.to(dev).contiguous() for t in (alpha, gamma, El, El_old)]
 
 
+def record(err, timed, plain, bnd, library=None) -> dict:
+    """One kernel at one shape: its error against the plain version, its
+    device and call times, the plain version's, its bound and, for the
+    scatter, the library call's (device ms, call ms)."""
+    return {"max_abs_err": err, "ms": timed[0], "call_ms": timed[1], "plain_ms": plain[0],
+            "plain_call_ms": plain[1], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None if library is None else library[0],
+            "library_call_ms": None if library is None else library[1]}
+
+
+def times(r) -> str:
+    out = (f"{r['ms']:.4f} ms device, {r['call_ms']:.4f} ms a call (plain {r['plain_ms']:.4f}; "
+           f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    if r["library_ms"] is not None:
+        out += f"; library {r['library_ms']:.4f} ms device, {r['library_call_ms']:.4f} a call"
+    return out + f"; max abs err {r['max_abs_err']:.3e})"
+
+
 def compare_kernels(seg, V, K, dev, label):
     """Both LDA kernels against their plain versions on one chunk."""
     import torch
 
+    from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
 
     terms, counts, doc_mask = seg
-    B = terms.shape[0]
+    B, L = terms.shape
     g = torch.Generator().manual_seed(11)
     beta = dirichlet_ones(g, V, (K,)).to(dev)
     beta_old = dirichlet_ones(g, V, (K,)).to(dev)
@@ -135,27 +227,37 @@ def compare_kernels(seg, V, K, dev, label):
     torch.cuda.synchronize()
     err_e = close(got, want, ("gamma", "El", "El_old", "w"), f"lda_estep {label}")
     need(bool(torch.all(got[3][doc_mask == 0] == 0)), f"lda_estep {label}: padded w")
-    ms_e = cuda_ms(lambda: lda_estep(*args, **kw), 10)
-    plain_e = cuda_ms(lambda: lda_estep_ref(*args, **kw), 5)
+    again = lda_estep(*args, **kw)
+    need(all(torch.equal(a, b) for a, b in zip(got, again)),
+         f"lda_estep {label}: not bitwise repeatable")
+    keep = counts > 0
+    kept = int(keep.sum())
+    work = fixpoint_work(estep_mod, lda_estep_ref, args, kw, keep.sum(1).float())
+    uniq = n_unique(terms, keep)
+    est = record(err_e, time_calls(lambda: lda_estep(*args, **kw), N_KERNEL),
+                 time_calls(lambda: lda_estep_ref(*args, **kw), N_PLAIN, reps=1),
+                 bound_ms(4 * (uniq * K + 2 * B * L + B + K + 6 * B * K + B * L * K),
+                          4 * K * work + 2 * K * kept))
 
     boT = (beta_old + EPSILON).T.contiguous()
     g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
     eargs = (boT, g2T, terms, counts, doc_mask, El, El_old)
     a, b = float(lda_elbo_tok(*eargs)), float(lda_elbo_tok_ref(*eargs))
     need(abs(a - b) <= 1e-5 * abs(b), f"lda_elbo_tok {label}: {a} vs {b}")
-    ms_b = cuda_ms(lambda: lda_elbo_tok(*eargs), 10)
-    plain_b = cuda_ms(lambda: lda_elbo_tok_ref(*eargs), 5)
-    print(f"kernels {label}: B={B} L={terms.shape[1]} K={K} | lda_estep "
-          f"{ms_e:.4f} ms (plain {plain_e:.4f} ms, max abs err {err_e:.3e}) | "
-          f"lda_elbo_tok {ms_b:.4f} ms (plain {plain_b:.4f} ms, "
-          f"rel err {abs(a - b) / abs(b):.3e})")
-    return dict(estep=(err_e, ms_e, plain_e), elbo=(abs(a - b), ms_b, plain_b), w=got[3])
+    elb = record(abs(a - b), time_calls(lambda: lda_elbo_tok(*eargs), N_KERNEL),
+                 time_calls(lambda: lda_elbo_tok_ref(*eargs), N_PLAIN, reps=1),
+                 bound_ms(4 * (2 * uniq * K + 2 * B * L + 2 * B + 2 * B * K), 6 * K * kept))
+    print(f"kernels {label}: B={B} L={L} K={K} kept={kept} passes a kept slot "
+          f"{work / max(kept, 1):.2f} | lda_estep {times(est)} | lda_elbo_tok {times(elb)}, rel err "
+          f"{abs(a - b) / abs(b):.3e}")
+    return dict(estep=est, elbo=elb, w=got[3])
 
 
 def compare_flda(seg, V, K, dev, label):
     """flda_estep against its plain version on one chunk."""
     import torch
 
+    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
 
@@ -178,22 +280,29 @@ def compare_flda(seg, V, K, dev, label):
                 f"flda_estep {label}")
     padded_kept(got[:5], (gamma, El, El_old, tau, tau_old), got[5:], doc_mask,
                 f"flda_estep {label}")
-    ms = cuda_ms(lambda: flda_estep(*args, **kw), 10)
-    plain = cuda_ms(lambda: flda_estep_ref(*args, **kw), 3)
-    print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {ms:.4f} ms "
-          f"(plain {plain:.4f} ms, max abs err {err:.3e})")
-    return (err, ms, plain), got[5]
+    keep = counts > 0
+    kept = int(keep.sum())
+    work = fixpoint_work(flda_mod, flda_estep_ref, args, kw, keep.sum(1).float())
+    uniq = n_unique(terms, keep)
+    r = record(err, time_calls(lambda: flda_estep(*args, **kw), N_KERNEL),
+               time_calls(lambda: flda_estep_ref(*args, **kw), 3, reps=1),
+               bound_ms(4 * (uniq * (K + 1) + 4 * B * L + B + K + 1 + 6 * B * K + 2 * B * L
+                             + B * L * (K + 1)), 4 * K * work + 2 * (K + 1) * kept))
+    print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {times(r)}")
+    return r, got[5]
 
 
 def compare_ctpf(tok, rd, V, U, K, dev, label):
     """ctpf_estep against its plain version on one chunk."""
     import torch
 
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep as ctpf_mod
     from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
 
     terms, counts, doc_mask = tok
     readers, ratings = rd
     B, L = terms.shape
+    R = readers.shape[1]
     g = torch.Generator().manual_seed(31)
     gam = lambda *shape: 0.1 + 3.0 * torch.rand(*shape, generator=g)
     ealefT = torch.exp(torch.special.digamma(gam(K, V))).T.contiguous().to(dev)
@@ -209,16 +318,22 @@ def compare_ctpf(tok, rd, V, U, K, dev, label):
     err = close(got, want, ("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
                 f"ctpf_estep {label}")
     padded_kept(got[:4], state, got[4:], doc_mask, f"ctpf_estep {label}")
-    ms = cuda_ms(lambda: ctpf_estep(*args, **kw), 10)
-    plain = cuda_ms(lambda: ctpf_estep_ref(*args, **kw), 3)
-    print(f"kernels {label}: B={B} L={L} R={readers.shape[1]} K={K} | ctpf_estep "
-          f"{ms:.4f} ms (plain {plain:.4f} ms, max abs err {err:.3e})")
-    return (err, ms, plain), got[4], got[5]
+    kt, kr = counts > 0, ratings > 0
+    kept = int(kt.sum()) + int(kr.sum())
+    work = fixpoint_work(ctpf_mod, ctpf_estep_ref, args, kw, (kt.sum(1) + kr.sum(1)).float())
+    r = record(err, time_calls(lambda: ctpf_estep(*args, **kw), N_KERNEL),
+               time_calls(lambda: ctpf_estep_ref(*args, **kw), 3, reps=1),
+               bound_ms(4 * ((n_unique(terms, kt) + n_unique(readers, kr)) * K
+                             + 2 * B * (L + R) + B + 3 * K + 8 * B * K + B * (L + R) * K),
+                        4 * K * work + 2 * K * kept))
+    print(f"kernels {label}: B={B} L={L} R={R} K={K} | ctpf_estep {times(r)}")
+    return r, got[4], got[5]
 
 
 def compare_scatter(V, w, ids, keep, dev, label):
     """scatter_rows against its plain version on one chunk's rows [T, W];
-    also times the all-rows ``index_put_`` scatter the port used before."""
+    also times ``index_add_`` over all T rows, the one PyTorch call that
+    computes the same sums (atomic on the card, so a yardstick only)."""
     import torch
 
     from topicmodelsvb_jl_torch.kernels.scatter_rows import (
@@ -238,15 +353,16 @@ def compare_scatter(V, w, ids, keep, dev, label):
     need(torch.equal(got, scatter_rows(acc.clone(), w, plan)),
          f"scatter_rows {label}: not bitwise repeatable")
     need(bool(torch.all(w[~keep] == 0)), f"scatter_rows {label}: a left-out row is not 0")
-    ms = cuda_ms(lambda: scatter_rows(acc, w, plan), 10)
-    plain = cuda_ms(lambda: scatter_rows_ref(acc, w, plan), 10)
     ids_l = ids.long()
-    put = cuda_ms(lambda: acc.index_put_((ids_l,), w, accumulate=True), 3)
-    runs = plan.run_id.shape[0]
-    print(f"scatter {label}: T={plan.T} kept={plan.rows.shape[0]} W={W} pieces={plan.n_pieces} "
-          f"split runs={runs} | scatter_rows {ms:.4f} ms (plain {plain:.4f} ms, all-rows "
-          f"index_put_ {put:.4f} ms, max abs err {err:.3e})")
-    return err, ms, plain
+    kept, uniq = plan.rows.shape[0], n_unique(ids, keep)
+    r = record(err, time_calls(lambda: scatter_rows(acc, w, plan), N_KERNEL),
+               time_calls(lambda: scatter_rows_ref(acc, w, plan), N_KERNEL),
+               bound_ms(4 * (kept * W + kept + 3 * plan.n_pieces + 2 * uniq * W), kept * W),
+               time_calls(lambda: acc.index_add_(0, ids_l, w), N_KERNEL))
+    print(f"scatter {label}: T={plan.T} kept={kept} W={W} pieces={plan.n_pieces} "
+          f"split runs={plan.run_id.shape[0]} | scatter_rows {times(r)}")
+    r["label"] = label
+    return r
 
 
 def card_vs_cpu(name, make, to_np, from_np, fields, dev) -> None:
@@ -314,7 +430,7 @@ def main_path(model, label, expect, smi, monotone_from=0, pure_steps=3):
         state = tr.step_fn(state, *tr.data)
         torch.cuda.synchronize()
         pure.append(time.perf_counter() - t1)
-    elbo_ms = cuda_ms(lambda: tr.elbo_fn(state, *tr.elbo_data), 3)
+    elbo_ms = time_calls(lambda: tr.elbo_fn(state, *tr.elbo_data), 3, reps=1)[0]
     M = model.M
     print(f"main path {label}: M={M} K={model.K} chunks={n_chunks} 4 iterations in "
           f"{wall:.2f} s; first ∆elbo {deltas[0]:.3f}; median step+ELBO {step_s:.4f} s = "
@@ -363,7 +479,7 @@ def compare_ctm_chunk(model, dev, label):
     """On the first chunk of the widest bucket of a trained CTM or fCTM:
     the scatter on the rows w of that chunk's E-step and, for CTM,
     ``lda_elbo_tok`` on the bound's tables, each against its plain version.
-    Returns the scatter's and the bound's (error, ms, plain ms)."""
+    Returns the scatter's and the bound's records (``record``)."""
     import torch
 
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
@@ -415,46 +531,24 @@ def compare_ctm_chunk(model, dev, label):
         print(f"kernels {label} bound, widest bucket: B={B} L={L} K={K}, {what} | "
               f"rel err {abs(a - b) / abs(b):.3e}")
     eargs = (boT, g2T, t, c, dm, st.lam[rows], st.lam_old[rows])
-    ms, plain = cuda_ms(lambda: lda_elbo_tok(*eargs), 10), cuda_ms(
-        lambda: lda_elbo_tok_ref(*eargs), 5)
-    print(f"kernels {label} bound: lda_elbo_tok {ms:.4f} ms (plain {plain:.4f} ms)")
-    return sc, (err, ms, plain)
+    keep = c > 0
+    r = record(err, time_calls(lambda: lda_elbo_tok(*eargs), N_KERNEL),
+               time_calls(lambda: lda_elbo_tok_ref(*eargs), N_PLAIN, reps=1),
+               bound_ms(4 * (2 * n_unique(t, keep) * K + 2 * B * L + 2 * B + 2 * B * K),
+                        6 * K * int(keep.sum())))
+    print(f"kernels {label} bound: lda_elbo_tok {times(r)}")
+    return sc, r
 
 
-def main() -> int:
+def kernel_checks(dev) -> dict:
+    """Phases 2 and 3 up to the small models: the corpora, then every
+    kernel against its plain version at its main path's shapes (and the
+    E-steps beyond shared memory), with their times and bounds."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     import topicmodelsvb_jl_torch as tt
-    from topicmodelsvb_jl_torch import convert
     from topicmodelsvb_jl_torch.kernels import _build
-    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
-    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
-    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
-    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
-    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
-
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. card and build
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
-    print(smi)
-    t0 = time.perf_counter()
-    lib = _build.build()
-    i64 = ctypes.c_int64
-    fit = {name: _build.function(f"tmvb_{name}_rows_in_smem", [i64] * n)
-           for name, n in (("lda_estep", 2), ("flda_estep", 2), ("ctpf_estep", 3))}
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line or "entry function" in line:
-            print("ptxas:", line.strip())
 
     # 2. corpora
     t0 = time.perf_counter()
@@ -490,6 +584,9 @@ def main() -> int:
     mask_pad[-3:] = 0
     cnt[-3:] = 0
     long_pad = (put(trm * (cnt > 0), i32), put(cnt, f32), mask_pad)
+    i64 = ctypes.c_int64
+    fit = {name: _build.function(f"tmvb_{name}_rows_in_smem", [i64] * n)
+           for name, n in (("lda_estep", 2), ("flda_estep", 2), ("ctpf_estep", 3))}
     rules = {"lda_estep": [(s0.L, K, 1), (1024, K, 0)],
              "flda_estep": [(s0.L, K, 1), (1024, K, 0)],
              "ctpf_estep": [(cbk.segments[0].L, cpk.Rmax, K, 1), (768, 256, K, 0)]}
@@ -516,22 +613,64 @@ def main() -> int:
         (put(rdr, i32), put(rat, f32)), V, cpk.U, K, dev,
         "L=768 R=256 rows in device memory")
     # the M-step scatter on the real rows of those chunks
-    sc = [compare_scatter(V, res_wide["w"].reshape(-1, K), wide[0], wide[1] > 0, dev,
-                          f"LDA w, widest NSF bucket L={s0.L}"),
-          compare_scatter(V, fl_w.reshape(-1, K + 1), wide[0], wide[1] > 0, dev,
-                          f"fLDA w, widest NSF bucket L={s0.L}"),
-          compare_scatter(cpk.V, ct_wa.reshape(-1, K), put(c0.terms[:1024], i32),
-                          put(c0.counts[:1024], f32) > 0, dev,
-                          f"CTPF term rows, CiteULike widest bucket L={c0.L}"),
-          compare_scatter(max(cpk.U, 1), ct_wh.reshape(-1, K), c_rd[0], c_rd[1] > 0, dev,
-                          f"CTPF reader rows, CiteULike widest bucket R={cpk.Rmax}")]
     one_id = torch.rand((1024 * 128, K), device=dev)
-    sc.append(compare_scatter(V, one_id, torch.full((1024 * 128,), 5, dtype=i32, device=dev),
-                              torch.ones(1024 * 128, dtype=torch.bool, device=dev), dev,
-                              "every row one id"))
-    sc.append(compare_scatter(V, torch.zeros((wide[0].numel(), K), device=dev), wide[0],
-                              wide[1] < 0, dev, "empty chunk"))
+    scatter_cases = [
+        (V, res_wide["w"].reshape(-1, K), wide[0], wide[1] > 0, dev,
+         f"LDA w, widest NSF bucket L={s0.L}"),
+        (V, fl_w.reshape(-1, K + 1), wide[0], wide[1] > 0, dev,
+         f"fLDA w, widest NSF bucket L={s0.L}"),
+        (cpk.V, ct_wa.reshape(-1, K), put(c0.terms[:1024], i32),
+         put(c0.counts[:1024], f32) > 0, dev, f"CTPF term rows, CiteULike widest bucket L={c0.L}"),
+        (max(cpk.U, 1), ct_wh.reshape(-1, K), c_rd[0], c_rd[1] > 0, dev,
+         f"CTPF reader rows, CiteULike widest bucket R={cpk.Rmax}"),
+        (V, one_id, torch.full((1024 * 128,), 5, dtype=i32, device=dev),
+         torch.ones(1024 * 128, dtype=torch.bool, device=dev), dev, "every row one id"),
+        (V, torch.zeros((wide[0].numel(), K), device=dev), wide[0], wide[1] < 0, dev,
+         "empty chunk")]
+    sc = [compare_scatter(*case) for case in scatter_cases]
+    return dict(packed=packed, cpk=cpk, K=K, V=V, estep=(res_wide["estep"], res_long["estep"]),
+                elbo=(res_wide["elbo"], res_long["elbo"]), flda=(fl_wide, fl_long),
+                ctpf=(ct_wide, ct_long), scatter=sc, scatter_cases=scatter_cases)
 
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.kernels import _build
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card and build
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(smi)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line or "entry function" in line:
+            print("ptxas:", line.strip())
+
+    # 2-3. corpora, kernels against their plain versions
+    kc = kernel_checks(dev)
+    packed, cpk, K, V, sc = kc["packed"], kc["cpk"], kc["K"], kc["V"], kc["scatter"]
+
+    # 3. small models on the card against the CPU
     small = tt.synth_packed_nsf_scale(M=2000, V=500, mean_terms=30, seed=5)
     card_vs_cpu("LDA", lambda rt, d: tt.LDA(small, 10, rt, device=d, seed=1),
                 convert.lda_state_to_numpy, convert.lda_state_from_numpy,
@@ -617,22 +756,31 @@ def main() -> int:
     same_seed_steps(lambda: tt.fCTM(fctm.packed, Kc, device="cuda", seed=7),
                     ctm_fields + ("kappa", "tau"), "fCTM")
 
-    # 6. results
+    # 6. results: each kernel at its main path's widest chunk, with the
+    # largest error over every shape it was held at
+    slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
+              f"{r['call_ms']:.4f} vs {r['library_call_ms']:.4f} ms a call)"
+              for r in sc if r["ms"] > r["library_ms"] or r["call_ms"] > r["library_call_ms"]]
+    print(f"scatter_rows against index_add_ on {len(sc)} shapes: slower on "
+          f"{len(slower)}{': ' + '; '.join(slower) if slower else ''}")
     rows = []
     tpu = "topicmodelsvb_jl_tpu/kernels/"
-    for name, src, where, (e1, ms, plain), (e2, _, _) in (
-            ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", res_wide["estep"],
-             res_long["estep"]),
-            ("lda_elbo_tok", "lda_elbo.cu", tpu + "lda_elbo.py:119", res_wide["elbo"],
-             (max(res_long["elbo"][0], elbo_ctm[0]), 0, 0)),
-            ("flda_estep", "flda_estep.cu", tpu + "flda_estep.py:112", fl_wide, fl_long),
-            ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", ct_wide, ct_long),
-            ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0],
-             (max(e for e, _, _ in sc), 0, 0))):
+    for name, src, where, main_rec, others in (
+            ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", *kc["estep"][:1],
+             kc["estep"][1:]),
+            ("lda_elbo_tok", "lda_elbo.cu", tpu + "lda_elbo.py:119", kc["elbo"][0],
+             (kc["elbo"][1], elbo_ctm)),
+            ("flda_estep", "flda_estep.cu", tpu + "flda_estep.py:112", kc["flda"][0],
+             kc["flda"][1:]),
+            ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", kc["ctpf"][0],
+             kc["ctpf"][1:]),
+            ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0], sc[1:])):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],
-                     "max_abs_err": max(e1, e2), "ms": ms, "plain_ms": plain})
+                     "max_abs_err": max(r["max_abs_err"] for r in (main_rec, *others)),
+                     **{k: main_rec[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -56,10 +56,11 @@ def _chunk(K, B, L, V, dev, seed=0):
     return estep, elbo
 
 
-# (100, 136): the widest NSF bucket, rows in shared memory;
-# (100, 700): rows beyond the shared-memory limit, read from the table;
-# (160, 40): more topics than threads in a block
-@pytest.mark.parametrize("K,L", [(7, 24), (100, 136), (100, 700), (160, 40)])
+# K: one topic, CTM's 50, LDA's 100, fLDA's 101 (K % 4 != 0: 4-byte copies
+# and stores), wider than the block; L: short, the NSF buckets' 64 and 128
+# (rows in shared memory), 1024 (rows in tiles re-read from the table)
+@pytest.mark.parametrize("K", [1, 50, 100, 101, 257])
+@pytest.mark.parametrize("L", [8, 64, 128, 1024])
 def test_lda_estep_kernel_matches_plain(cuda, K, L):
     args, _ = _chunk(K, 64, L, 3000, cuda)
     before = lda_estep.launches
@@ -72,6 +73,33 @@ def test_lda_estep_kernel_matches_plain(cuda, K, L):
     assert torch.all(got[3][-3:] == 0)
     for a, b in zip(got[:3], args[5:]):
         assert torch.equal(a[-3:], b[-3:])   # padded documents frozen
+    again = lda_estep(*args, viter=10, vtol=1.0 / K**2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+# rows in shared memory (K % 4 == 0 and not), rows in tiles, and slots too
+# many for the slot list to stay in shared memory (a [B, 3 L] scratch)
+@pytest.mark.parametrize("K,L", [(100, 128), (101, 64), (100, 1024), (7, 6000)])
+@pytest.mark.parametrize("viter", [0, 3])
+def test_lda_estep_kernel_special_documents(cuda, K, L, viter):
+    """A document masked out but with counts (frozen state, w from its
+    El_old), a real document with no counts (gamma = alpha + eps, w = 0),
+    and viter 0 (no pass: w from the state as given)."""
+    (betaT, terms, counts, doc_mask, *rest), _ = _chunk(K, 16, L, 3000, cuda, seed=4)
+    doc_mask[0] = 0.0
+    counts[1] = 0.0
+    args = (betaT, terms, counts, doc_mask, *rest)
+    got = lda_estep(*args, viter=viter, vtol=1.0 / K**2)
+    want = lda_estep_ref(*args, viter=viter, vtol=1.0 / K**2)
+    for name, a, b in zip(("gamma", "El", "El_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    for a, b in zip(got[:3], rest[1:]):
+        assert torch.equal(a[0], b[0])
+    assert torch.any(got[3][0] != 0) and torch.all(got[3][1] == 0)
+    if viter:
+        torch.testing.assert_close(got[0][1], rest[0] + EPSILON, rtol=1e-6, atol=0)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], rest[1:]))
 
 
 @pytest.mark.parametrize("K,L", [(7, 24), (100, 136), (100, 700), (160, 40)])
@@ -124,9 +152,11 @@ def test_count_scatter_is_bitwise_repeatable(cuda):
     torch.testing.assert_close(a.cpu().double(), ref, rtol=1e-5, atol=1e-3)
 
 
-# W = K (LDA, CTPF, CTM), K + 1 (fLDA, fCTM), narrow rows, rows wider than
-# a block; pieces of 256 rows and of 5 (many split runs)
-@pytest.mark.parametrize("W,piece_rows", [(100, 256), (101, 256), (7, 5), (300, 5)])
+# W: one column, CTM's 50 and fCTM's 51, LDA's 100 (16-byte rows), fLDA's
+# 101, wider than a warp's 32 lanes; pieces of 1 row (every run split),
+# 7 and 300 rows
+@pytest.mark.parametrize("W", [1, 50, 51, 100, 101, 257])
+@pytest.mark.parametrize("piece_rows", [1, 7, 300])
 def test_scatter_rows_kernel_matches_plain(cuda, W, piece_rows):
     r = np.random.default_rng(W)
     T, V = 50_000, 2000
@@ -135,6 +165,7 @@ def test_scatter_rows_kernel_matches_plain(cuda, W, piece_rows):
     ids[~keep] = 0
     w = torch.tensor(r.random((T, W)) * keep[:, None], dtype=torch.float32, device=cuda)
     plan = build_plan(ids, keep, piece_rows).to(cuda)
+    assert plan.run_id.shape[0] > 0   # split runs
     acc0 = torch.rand((V, W), device=cuda)
     before = scatter_rows.launches
     got = scatter_rows(acc0.clone(), w, plan)

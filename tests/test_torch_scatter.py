@@ -68,6 +68,29 @@ def test_plan_rejects_bad_input():
         build_plan(np.zeros(4, np.int32), np.ones(4, bool), piece_rows=0)
 
 
+def test_plan_checks_its_index_tensors_once_and_keeps_its_scratch():
+    """A plan's index tensors are checked when it is built or moved; its
+    scratch rows are made once per width and not carried by ``to``."""
+    import dataclasses
+
+    ids, keep = _zipf_chunk(5000, 40, seed=9)
+    p = build_plan(ids, keep, piece_rows=8)
+    assert p.n_scratch > 0 and p.device == torch.device("cpu")
+    a = p.scratch_rows(7)
+    assert a.shape == (p.n_scratch, 7) and p.scratch_rows(7) is a
+    assert p.scratch_rows(3).shape == (p.n_scratch, 3)
+    moved = p.to("cpu")
+    assert moved.scratch == {} and torch.equal(moved.rows, p.rows)
+    with pytest.raises(TypeError, match="run_id"):
+        dataclasses.replace(p, run_id=p.run_id.long())
+    with pytest.raises(ValueError, match="run_start"):
+        dataclasses.replace(p, run_start=p.run_start[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        dataclasses.replace(p, rows=torch.stack([p.rows, p.rows], 1)[:, 0])
+    with pytest.raises(ValueError, match="piece_start is on meta"):
+        dataclasses.replace(p, piece_start=p.piece_start.to("meta"))
+
+
 def test_plain_matches_jax_count_scatter_in_f64():
     ids, keep = _zipf_chunk(20_000, 700, seed=1)
     r = np.random.default_rng(2)

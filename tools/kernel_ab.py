@@ -1,0 +1,77 @@
+"""Time the port's five kernels at chip_smoke.py's shapes, from the package
+of another checkout, with this checkout's timer.
+
+    python3 tools/kernel_ab.py ROOT LABEL
+
+ROOT holds a checkout of this repository: ``.`` for this one, or a
+``git archive`` of another commit unpacked into a directory that
+``.gitignore`` lists.  ROOT's ``topicmodelsvb_jl_torch`` is imported and
+built; the corpora, shapes, checks and timer are those of THIS checkout's
+``chip_smoke.py`` (``kernel_checks``): each kernel against its plain
+version, its device time over many launches, its call time and its bound,
+and the scatter beside ``index_add_``.  Then the LDA main path (NSF scale, K = 100, 1024-document
+chunks): one warm-up iteration, then three steps alone, each timed by the
+host clock up to a synchronize.  Prints one JSON line tagged LABEL and appends it to
+``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
+call on one card, in turns: parent, change, change, parent.  Needs one
+CUDA GPU.
+"""
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+
+def main(root: str, label: str) -> int:
+    here = pathlib.Path(__file__).resolve().parents[1]
+    root_path = pathlib.Path(root).resolve()
+    sys.path.insert(0, str(root_path))
+    spec = importlib.util.spec_from_file_location("chip_smoke_timer", here / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    if not pathlib.Path(_build.__file__).resolve().is_relative_to(root_path):
+        raise SystemExit(f"kernel_ab: imported {_build.__file__}, not ROOT's package")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    _build.build()
+    dev = torch.device("cuda", 0)
+    kc = smoke.kernel_checks(dev)
+    out = {"label": label, "root": str(root_path), "card": smi,
+           **{k: kc[k] for k in ("estep", "elbo", "flda", "ctpf", "scatter")}}
+    import topicmodelsvb_jl_torch as tt
+
+    lda = tt.LDA(kc["packed"], 100, tt.RuntimeConfig(chunk_docs=1024), device="cuda", seed=7)
+    lda.train(iter=1, checkelbo=float("inf"), printelbo=False)
+    tr, state, steps = lda.trainer, lda.state, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.step_fn(state, *tr.data)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    out["lda_step_s"] = steps
+    line = json.dumps(out)
+    print(line)
+    dest = here / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    with open(dest / "kernel_ab.jsonl", "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        raise SystemExit(__doc__)
+    sys.exit(main(sys.argv[1], sys.argv[2]))

@@ -31,6 +31,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=
 
 _lock = threading.Lock()
 _lib = None
+_functions = {}   # name -> the C entry point, its argument types declared
 
 
 def _sources() -> list:
@@ -110,12 +111,28 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: list):
-    """The C entry point ``name`` with its argument types declared."""
-    fn = getattr(_load(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry point ``name`` with its argument and result types
+    declared; looked up once per process."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(_load(), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _functions[name] = fn
     return fn
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of the CUDA ``device``,
+    made the current device only when it is not already; returns the C
+    entry point's error code."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def require(what: str, device, specs: dict) -> None:

@@ -8,8 +8,9 @@
 
 namespace tmvb {
 
-// One block per document.  128 threads cover K = 100 topics in one
-// pass; larger K loops.
+// One block per document in the ELBO, fLDA and CTPF kernels.  128
+// threads cover K = 100 topics in one pass; larger K loops.  (lda_estep.cu
+// has its own 256-thread layout.)
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
@@ -41,6 +42,36 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) s += red[w];
   return s;
+}
+
+// Sum of v over a block of kN warps, returned to every thread, with ONE
+// barrier: the caller gives each call site its own `red` (kN floats), so
+// no barrier is needed before the write.  Per-warp partials are added in
+// warp order, so every thread sees the same bits.
+template <int kN>
+__device__ __forceinline__ float block_sum_once(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kN; ++w) s += red[w];
+  return s;
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async,
+// sm_80+): 16 bytes (both addresses 16-byte aligned) or 4 bytes.
+// cp_async_wait_all() waits for every copy the thread issued.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // psi(x) for x > 0: psi(x) = psi(x + 8) - sum_{i<8} 1/(x + i), then the

@@ -13,39 +13,215 @@
 //     stop once |El - El_old|^2 < vtol^2          (the break at LDA.jl:175)
 //   w[l, k] = b[t_l, k] * (exp(El_old_k) * c_l / s_l)   (phi * counts)
 //
-// What bounds it on an H100: each pass reads the document's L x K rows
-// twice (for s and for q) and does ~4 flops per row element, so it is
-// bound by how fast the block re-reads those rows.  The design keeps them
-// close: one block per document gathers its own rows from the [V, K]
-// table once into dynamic shared memory (no [B, L, K] gather in device
-// memory), and every pass of the fixpoint reads shared memory only.  A
-// document whose rows do not fit the opt-in shared-memory limit re-reads
-// them from the table in device memory, which at NSF scale (V x K x 4 =
-// 10 MB) stays resident in the 50 MB L2.  Token slots with c_l = 0
-// (bucket padding) are never read.  The write of w ([B, L, K], the one
-// large output) is coalesced along K.
+// What bounds it on an H100: bytes, through the write of w.  At the widest
+// NSF chunk (B = 1024, L = 128, K = 100, 114,090 kept slots) it must read
+// at most 10.1 MB of table rows, ~1 MB of terms and counts and 1.2 MB of
+// state, and write 52.4 MB of w and 1.2 MB of state: ~66 MB, ~20 us at
+// 3.35 TB/s.  The fixpoint is <= 10 passes x 4K flops per kept slot,
+// ~0.46 GFLOP, ~7 us at 67 TFLOP/s in f32.  No tensor cores: each pass is
+// two matrix-vector products on one document's own [L, K] rows (one
+// right-hand column), and wgmma needs at least 8 columns and would run f32
+// as TF32.
+//
+// Design (256 threads, one document per block):
+// - The slots with c_l != 0 are compacted, in slot order, into a list of
+//   (count, c / s, slot); padding is never read or computed.
+// - Their rows are copied from the table into shared memory with cp.async
+//   (16 bytes where K % 4 == 0 and the table is aligned, else 4 bytes),
+//   overlapped with the state loads.  The row stride Kp is K rounded up to
+//   an odd number of float4s, so the 8 threads of a 16-byte shared load
+//   that read 8 different slots' rows hit 32 different banks; the padding
+//   columns are zeros (and e is 0 there), so they add exact zeros.
+// - s: threads over slots, a loop over K in float4s with e broadcast from
+//   shared memory, four independent accumulators, no shuffle.
+// - q: threads over (float4 of topics, share of slots): each thread sums
+//   its share of slots for 4 topics; the shares' partials are then added
+//   in share order by the thread of each topic.
+// - Four barriers a pass: after s, after q, and one for each block sum
+//   (sum gamma, then the convergence sum), each sum's partials in warp
+//   order.  Every sum runs in one fixed order: same inputs, same bits.
+//   psi(gamma_k) is taken before the first sum's barrier, and psi(sum
+//   gamma) only by the threads that own a topic: with at most 4 documents
+//   an SM (shared memory and registers both cap it), the psi and sum chain
+//   of a pass costs about as much as the two products.
+// - w is written from the last pass's c_l / s_l and exp(El_old) (the e of
+//   that pass), with 16-byte stores where K % 4 == 0; s is recomputed only
+//   for a document that ran no pass (doc_mask 0, or viter 0).
+// - A document whose rows do not fit (L = 1024 at K = 100 is 400 KB) goes
+//   through shared memory in tiles of slots, re-read from the table (10 MB
+//   at NSF scale, resident in the 50 MB L2) on every pass, with the same
+//   thread mapping.  Its slot list stays in shared memory when it fits
+//   there, else in a [B, 3 L] scratch in device memory.
 //
 // Work is per document, not per 8-document tile as on the TPU: a block
 // leaves its loop as soon as its own document converges, which is the
 // reference's per-document break, and it gives the masked tile's result
-// because a converged document's state is frozen there.  K is not padded.
-// psi is the same shift-by-8 asymptotic series as the TPU kernel
-// (digamma_series in common.cuh).
+// because a converged document's state is frozen there.  psi is the same
+// shift-by-8 asymptotic series as the TPU kernel (digamma_series in
+// common.cuh).
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace tmvb {
 
-// Shared memory: gam, el, elo, e [K] each, red [32], then (rows in
-// shared memory only) cs [L] and rows [L * K].
-__host__ __device__ inline size_t estep_smem_base(int64_t K) {
-  return (4 * K + 32) * sizeof(float);
-}
-__host__ __device__ inline size_t estep_smem_rows(int64_t L, int64_t K) {
-  return estep_smem_base(K) + (L + L * K) * sizeof(float);
+constexpr int kEstepThreads = 256;
+constexpr int kEstepWarps = kEstepThreads / 32;
+constexpr int kMaxShares = 6;   // leaves the widest NSF document (L = 128,
+                                 // K = 100) in 56 KB: 4 blocks an SM
+
+// Row stride: K rounded up to a multiple of 4 floats that is an odd
+// number of float4s.
+__host__ __device__ inline int estep_stride(int K) {
+  const int g = (K + 3) / 4;
+  return 4 * (g | 1);
 }
 
-__global__ void __launch_bounds__(kThreads) lda_estep_kernel(
+// Shares of the slots in the q product: as many as 256 threads allow
+// over the stride's float4s, at most kMaxShares.
+__host__ __device__ inline int estep_shares(int Kp) {
+  const int g = Kp / 4;
+  return g >= kEstepThreads ? 1 : (kEstepThreads / g < kMaxShares ? kEstepThreads / g : kMaxShares);
+}
+
+// Shared memory in floats: rows [tile, Kp], e twice [Kp], q partials
+// [shares, Kp], gamma/El/El_old [K rounded to 4] each, 32 for the sums and
+// the compaction, then the slot list [3, L] when it is kept there.
+__host__ __device__ inline size_t estep_smem(int64_t L, int K, int64_t tile, bool meta) {
+  const int Kp = estep_stride(K);
+  const size_t base = (2 + estep_shares(Kp)) * static_cast<size_t>(Kp) + 3 * ((K + 3) / 4 * 4) + 32;
+  return (static_cast<size_t>(tile) * Kp + base + (meta ? 3 * L : 0)) * sizeof(float);
+}
+
+struct EstepShape {
+  int tile;          // slots whose rows are in shared memory at once
+  int meta_in_smem;  // the slot list in shared memory (else device scratch)
+  int resident;      // every slot fits: rows loaded once, no tiles
+  size_t bytes;
+};
+
+// 0, or a CUDA error code when the device cannot be queried or K is too
+// wide for one row in shared memory.  All rows stay in shared memory when
+// that leaves room for 2 blocks an SM; else tiles sized for 4 blocks (an
+// SM's 228 KB less 1 KB the device keeps per block).
+inline int estep_shape(int64_t L, int64_t K, EstepShape* s) {
+  const int optin = smem_optin();
+  if (optin < 0) return query_error();
+  const size_t full = estep_smem(L, static_cast<int>(K), L, true);
+  if (full <= static_cast<size_t>(optin) / 2) {
+    *s = {static_cast<int>(L), 1, 1, full};
+    return 0;
+  }
+  const size_t row = estep_stride(static_cast<int>(K)) * sizeof(float);
+  for (size_t budget : {static_cast<size_t>(optin) / 4 - 1024, static_cast<size_t>(optin)}) {
+    const bool meta = estep_smem(L, static_cast<int>(K), 32, true) <= budget;
+    const size_t base = estep_smem(L, static_cast<int>(K), 0, meta);
+    if (base + row > budget) continue;
+    const int64_t tile = std::min<int64_t>(L, static_cast<int64_t>((budget - base) / row));
+    *s = {static_cast<int>(tile), meta ? 1 : 0, 0, estep_smem(L, static_cast<int>(K), tile, meta)};
+    return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Rows of compact slots j0 .. j0 + m - 1 into rows[0 .. m), asynchronously;
+// the padding columns are zeroed.  The caller waits (cp_async_wait_all)
+// and syncs.
+__device__ __forceinline__ void load_rows(float* rows, const float* __restrict__ betaT,
+                                          const int* __restrict__ t, const int* mslot, int j0,
+                                          int m, int K, int Kp, bool vec) {
+  if (vec) {
+    const int G = Kp / 4, Gsrc = K / 4;
+    for (int idx = threadIdx.x; idx < m * G; idx += kEstepThreads) {
+      const int i = idx / G, g = idx - i * G;
+      float* dst = rows + static_cast<size_t>(i) * Kp + 4 * g;
+      if (g < Gsrc)
+        cp_async16(dst, betaT + static_cast<size_t>(t[mslot[j0 + i]]) * K + 4 * g);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < m * Kp; idx += kEstepThreads) {
+      const int i = idx / Kp, k = idx - i * Kp;
+      float* dst = rows + static_cast<size_t>(i) * Kp + k;
+      if (k < K)
+        cp_async4(dst, betaT + static_cast<size_t>(t[mslot[j0 + i]]) * K + k);
+      else
+        *dst = 0.f;
+    }
+  }
+}
+
+// cs_i = c_i / s_i, s_i = sum_k rows[i, k] e_k, for the m rows; threads
+// over slots.
+__device__ __forceinline__ void s_product(const float* rows, int m, const float* e,
+                                          const float* mc, float* mcs, int Kp) {
+  const int G = Kp / 4;
+  const float4* e4 = reinterpret_cast<const float4*>(e);
+  for (int i = threadIdx.x; i < m; i += kEstepThreads) {
+    const float4* r4 = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * Kp);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 5
+    for (int g = 0; g < G; ++g) {
+      const float4 x = r4[g], y = e4[g];
+      a.x = fmaf(x.x, y.x, a.x);
+      a.y = fmaf(x.y, y.y, a.y);
+      a.z = fmaf(x.z, y.z, a.z);
+      a.w = fmaf(x.w, y.w, a.w);
+    }
+    mcs[i] = mc[i] / ((a.x + a.y) + (a.z + a.w));
+  }
+}
+
+// qpart[h, k] (+)= sum over the rows i = h, h + nsh, ... < m of
+// cs_i rows[i, k]; thread (h, g) owns the float4 g of share h.
+__device__ __forceinline__ void q_product(const float* rows, int m, const float* mcs,
+                                          float* qpart, int Kp, int nsh, bool first) {
+  const int G = Kp / 4;
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  float4* q4 = reinterpret_cast<float4*>(qpart);
+  for (int o = threadIdx.x; o < nsh * G; o += kEstepThreads) {
+    const int h = o / G, g = o - h * G;
+    float4 q = first ? make_float4(0.f, 0.f, 0.f, 0.f) : q4[o];
+#pragma unroll 4
+    for (int i = h; i < m; i += nsh) {
+      const float r = mcs[i];
+      const float4 x = r4[static_cast<size_t>(i) * G + g];
+      q.x = fmaf(r, x.x, q.x);
+      q.y = fmaf(r, x.y, q.y);
+      q.z = fmaf(r, x.z, q.z);
+      q.w = fmaf(r, x.w, q.w);
+    }
+    q4[o] = q;
+  }
+}
+
+// w rows of compact slots j0 .. j0 + m - 1: rows[i, k] * (e_k * cs_i).
+__device__ __forceinline__ void write_rows(float* __restrict__ wd, const float* rows, int m,
+                                           const float* e, const float* mcs, const int* mslot,
+                                           int K, int Kp, bool vec) {
+  if (vec) {
+    const int G = Kp / 4, Gw = K / 4;
+    const float4* r4 = reinterpret_cast<const float4*>(rows);
+    const float4* e4 = reinterpret_cast<const float4*>(e);
+    float4* w4 = reinterpret_cast<float4*>(wd);
+    for (int idx = threadIdx.x; idx < m * Gw; idx += kEstepThreads) {
+      const int i = idx / Gw, g = idx - i * Gw;
+      const float r = mcs[i];
+      const float4 x = r4[static_cast<size_t>(i) * G + g], y = e4[g];
+      w4[static_cast<size_t>(mslot[i]) * Gw + g] =
+          make_float4(x.x * (y.x * r), x.y * (y.y * r), x.z * (y.z * r), x.w * (y.w * r));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < m * K; idx += kEstepThreads) {
+      const int i = idx / K, k = idx - i * K;
+      wd[static_cast<size_t>(mslot[i]) * K + k] = rows[static_cast<size_t>(i) * Kp + k] * (e[k] * mcs[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
     const float* __restrict__ betaT,     // [V, K] beta^T + eps
     const int* __restrict__ terms,       // [B, L]
     const float* __restrict__ counts,    // [B, L], 0 on padding
@@ -57,105 +233,155 @@ __global__ void __launch_bounds__(kThreads) lda_estep_kernel(
     float* __restrict__ gamma_out, float* __restrict__ el_out,
     float* __restrict__ elo_out,
     float* __restrict__ w,               // [B, L, K]
-    float* __restrict__ cs_scratch,      // [B, L], used when rows stay global
-    int L, int K, int viter, float vtol2, int rows_in_smem) {
-  extern __shared__ float smem[];
+    float* scratch,                      // [B, 3 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int viter, float vtol2,
+    int vec_in, int vec_out) {
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* gam = smem;
-  float* el = gam + K;
-  float* elo = el + K;
-  float* e = elo + K;
-  float* red = e + K;
-  float* cs = rows_in_smem ? red + 32 : cs_scratch + static_cast<size_t>(b) * L;
-  float* rows = red + 32 + L;
+  const int Kp = estep_stride(K), nsh = estep_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* e_cur = rows + static_cast<size_t>(tile) * Kp;
+  float* e_nxt = e_cur + Kp;
+  float* qpart = e_nxt + Kp;
+  float* gam = qpart + nsh * Kp;
+  float* el = gam + K4;
+  float* elo = el + K4;
+  float* red = elo + K4;  // [32]: Σγ [8], Σd² [8], compaction counts [8]
+  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
+  float* mc = meta;                                    // count of compact slot j
+  float* mcs = meta + L;                               // its c / s
+  int* mslot = reinterpret_cast<int*>(meta + 2 * L);   // its slot
   const int* t = terms + static_cast<size_t>(b) * L;
   const float* c = counts + static_cast<size_t>(b) * L;
   const size_t dk = static_cast<size_t>(b) * K;
 
-  for (int k = tid; k < K; k += kThreads) {
-    gam[k] = gamma_in[dk + k];
-    el[k] = el_in[dk + k];
-    elo[k] = elo_in[dk + k];
+  // the slots with a count, in slot order
+  int n = 0;
+  int* wcount = reinterpret_cast<int*>(red + 16);
+  for (int base = 0; base < L; base += kEstepThreads) {
+    const int l = base + tid;
+    const float cl = l < L ? c[l] : 0.f;
+    const unsigned ball = __ballot_sync(0xffffffffu, cl != 0.f);
+    if (lane == 0) wcount[warp] = __popc(ball);
+    __syncthreads();
+    int off = n, total = n;
+#pragma unroll
+    for (int i = 0; i < kEstepWarps; ++i) {
+      off += i < warp ? wcount[i] : 0;
+      total += wcount[i];
+    }
+    if (cl != 0.f) {
+      const int j = off + __popc(ball & ((1u << lane) - 1u));
+      mc[j] = cl;
+      mslot[j] = l;
+    }
+    n = total;
+    __syncthreads();  // the list is complete; wcount may be rewritten
   }
-  if (rows_in_smem) {
-    for (int l = warp; l < L; l += kWarps) {
-      if (c[l] == 0.f) continue;
-      const float* src = betaT + static_cast<size_t>(t[l]) * K;
-      for (int k = lane; k < K; k += 32) rows[static_cast<size_t>(l) * K + k] = src[k];
+
+  const bool vin = vec_in != 0;
+  if (resident) load_rows(rows, betaT, t, mslot, 0, n, K, Kp, vin);
+  for (int k = tid; k < Kp; k += kEstepThreads) {
+    if (k < K) {
+      gam[k] = gamma_in[dk + k];
+      const float x = el_in[dk + k];
+      el[k] = x;
+      elo[k] = elo_in[dk + k];
+      e_cur[k] = expf(x);
+    } else {
+      e_cur[k] = 0.f;
+      e_nxt[k] = 0.f;
     }
   }
+  cp_async_wait_all();
   __syncthreads();
-  auto row = [&](int l) -> const float* {
-    return rows_in_smem ? rows + static_cast<size_t>(l) * K
-                        : betaT + static_cast<size_t>(t[l]) * K;
-  };
 
   bool active = doc_mask[b] > 0.f;
-  for (int it = 0; it < viter && active; ++it) {
-    for (int k = tid; k < K; k += kThreads) e[k] = expf(el[k]);
-    __syncthreads();
-    // s_l = sum_k b e, one warp per token slot; cs_l = c_l / s_l
-    for (int l = warp; l < L; l += kWarps) {
-      const float cl = c[l];
-      float r = 0.f;
-      if (cl != 0.f) {
-        const float* br = row(l);
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += br[k] * e[k];
-        r = cl / warp_sum(s);
+  int it = 0;
+  float* e_last = e_cur;
+  for (; it < viter && active; ++it) {
+    for (int j0 = 0; j0 < n; j0 += tile) {
+      const int m = min(tile, n - j0);
+      if (!resident) {
+        load_rows(rows, betaT, t, mslot, j0, m, K, Kp, vin);
+        cp_async_wait_all();
+        __syncthreads();
       }
-      if (lane == 0) cs[l] = r;
+      s_product(rows, m, e_cur, mc + j0, mcs + j0, Kp);
+      __syncthreads();
+      q_product(rows, m, mcs + j0, qpart, Kp, nsh, j0 == 0);
+      __syncthreads();
     }
-    __syncthreads();
-    // q_k = sum_l cs_l b[l, k], one thread per topic; e[k] then holds
-    // gamma_new[k] (each k is read and written by its own thread only)
+    // gamma_new into gam and psi(gamma_new) into e_nxt, before the sum's
+    // barrier (owner k only; El_new then replaces e_nxt)
     float gpart = 0.f;
-    for (int k = tid; k < K; k += kThreads) {
+    for (int k = tid; k < K; k += kEstepThreads) {
       float q = 0.f;
-      for (int l = 0; l < L; ++l) {
-        const float r = cs[l];
-        if (r != 0.f) q += r * row(l)[k];
-      }
-      const float g = alpha[k] + e[k] * q + kEps;
-      e[k] = g;
+      if (n > 0)
+        for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+      const float g = alpha[k] + e_cur[k] * q + kEps;
+      gam[k] = g;
+      e_nxt[k] = digamma_series(g);
       gpart += g;
     }
-    const float dg_sum = digamma_series(block_sum(gpart, red));
+    const float g_sum = block_sum_once<kEstepWarps>(gpart, red);
     float dpart = 0.f;
-    for (int k = tid; k < K; k += kThreads) {
-      const float el_new = digamma_series(e[k]) - dg_sum;
-      const float d = el_new - el[k];
-      dpart += d * d;
-      gam[k] = e[k];
-      elo[k] = el[k];
-      el[k] = el_new;
+    if (tid < K) {  // the threads that own a topic
+      const float dg_sum = digamma_series(g_sum);
+      for (int k = tid; k < K; k += kEstepThreads) {
+        const float el_new = e_nxt[k] - dg_sum;
+        const float d = el_new - el[k];
+        dpart += d * d;
+        elo[k] = el[k];
+        el[k] = el_new;
+        e_nxt[k] = expf(el_new);
+      }
     }
-    active = block_sum(dpart, red) >= vtol2;
+    active = block_sum_once<kEstepWarps>(dpart, red + 8) >= vtol2;
+    e_last = e_cur;
+    e_cur = e_nxt;
+    e_nxt = e_last;
   }
 
   // M-step rows from phi(beta, El_old), the value phi held when the
-  // document stopped (the warm-start identity of LDA.jl:87)
-  for (int k = tid; k < K; k += kThreads) {
-    e[k] = expf(elo[k]);
+  // document stopped (the warm-start identity of LDA.jl:87): the last
+  // pass's e and c / s, or, when no pass ran, e = exp(El_old) and s anew
+  const bool ran = it > 0;
+  if (!ran) {
+    for (int k = tid; k < K; k += kEstepThreads) e_cur[k] = expf(elo[k]);
+    e_last = e_cur;
+    __syncthreads();
+  }
+  for (int k = tid; k < K; k += kEstepThreads) {
     gamma_out[dk + k] = gam[k];
     el_out[dk + k] = el[k];
     elo_out[dk + k] = elo[k];
   }
-  __syncthreads();
   float* wd = w + static_cast<size_t>(b) * L * K;
-  for (int l = warp; l < L; l += kWarps) {
-    const float cl = c[l];
-    float* wl = wd + static_cast<size_t>(l) * K;
-    if (cl == 0.f) {
-      for (int k = lane; k < K; k += 32) wl[k] = 0.f;
-      continue;
+  const bool vout = vec_out != 0;
+  const int Kq = vout ? K / 4 : K;
+  for (int idx = tid; idx < L * Kq; idx += kEstepThreads) {
+    const int l = idx / Kq;
+    if (c[l] != 0.f) continue;
+    if (vout)
+      reinterpret_cast<float4*>(wd)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      wd[idx] = 0.f;
+  }
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int m = min(tile, n - j0);
+    if (!resident) {
+      load_rows(rows, betaT, t, mslot, j0, m, K, Kp, vin);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    const float* br = row(l);
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32) s += br[k] * e[k];
-    const float r = cl / warp_sum(s);
-    for (int k = lane; k < K; k += 32) wl[k] = br[k] * (e[k] * r);
+    if (!ran) {
+      s_product(rows, m, e_last, mc + j0, mcs + j0, Kp);
+      __syncthreads();
+    }
+    write_rows(wd, rows, m, e_last, mcs + j0, mslot + j0, K, Kp, vout);
+    if (!resident) __syncthreads();  // before the next tile's rows land
   }
 }
 
@@ -167,30 +393,38 @@ const char* tmvb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 when a document of L slots keeps its rows in shared memory, 0 when it
-// re-reads them from the table, -1 when the device cannot be queried.
+// 1 when every row of a document of L slots stays in shared memory, 0
+// when its rows go through in tiles, -1 when the device cannot be queried.
 int tmvb_lda_estep_rows_in_smem(int64_t L, int64_t K) {
-  return tmvb::fits_smem(tmvb::estep_smem_rows(L, K));
+  tmvb::EstepShape s;
+  return tmvb::estep_shape(L, K, &s) != 0 ? -1 : s.resident;
+}
+
+// Floats of device scratch a document needs: 3 L when its slot list does
+// not fit shared memory, else 0; -1 on an error.
+int64_t tmvb_lda_estep_scratch(int64_t L, int64_t K) {
+  tmvb::EstepShape s;
+  return tmvb::estep_shape(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : 3 * L);
 }
 
 int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
                    const float* doc_mask, const float* alpha, const float* gamma_in,
                    const float* el_in, const float* elo_in, float* gamma_out,
-                   float* el_out, float* elo_out, float* w, float* cs_scratch,
-                   int64_t B, int64_t L, int64_t K, int viter, float vtol,
-                   void* stream) {
+                   float* el_out, float* elo_out, float* w, float* scratch,
+                   int64_t B, int64_t L, int64_t K, int viter, float vtol, int vec_in,
+                   int vec_out, void* stream) {
   if (B == 0) return 0;
-  const int rows_in_smem = tmvb_lda_estep_rows_in_smem(L, K);
-  if (rows_in_smem < 0) return tmvb::query_error();
-  const size_t bytes =
-      rows_in_smem ? tmvb::estep_smem_rows(L, K) : tmvb::estep_smem_base(K);
-  cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_kernel, bytes);
+  tmvb::EstepShape s;
+  int rc = tmvb::estep_shape(L, K, &s);
+  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_kernel, s.bytes);
   if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::lda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kThreads, bytes,
+  tmvb::lda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kEstepThreads, s.bytes,
                            static_cast<cudaStream_t>(stream)>>>(
-      betaT, terms, counts, doc_mask, alpha, gamma_in, el_in, elo_in, gamma_out,
-      el_out, elo_out, w, cs_scratch, static_cast<int>(L), static_cast<int>(K), viter,
-      vtol * vtol, rows_in_smem);
+      betaT, terms, counts, doc_mask, alpha, gamma_in, el_in, elo_in, gamma_out, el_out,
+      elo_out, w, scratch, static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem,
+      s.resident, viter, vtol * vtol, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 

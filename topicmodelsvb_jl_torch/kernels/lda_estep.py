@@ -25,6 +25,7 @@ and ψ is the shift-by-8 asymptotic series of the reference's OpenCL
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -83,7 +84,17 @@ def lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(L: int, K: int) -> int:
+    """Floats of device scratch one document of L slots needs: 0 when its
+    slot list fits shared memory (the main path's widths)."""
+    got = _build.function("tmvb_lda_estep_scratch", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+    if got < 0:
+        raise RuntimeError("lda_estep: cannot query the device's shared memory")
+    return got
 
 
 def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
@@ -111,13 +122,16 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
     w = torch.empty((B, L, K), dtype=torch.float32, device=betaT.device)
     if B == 0:
         return (*outs, w)
-    scratch = torch.empty((B, L), dtype=torch.float32, device=betaT.device)
-    fn = _build.function("tmvb_lda_estep", _ARGTYPES)
-    with torch.cuda.device(betaT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-            betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
-            *outs, w, scratch)), B, L, K, int(viter), float(vtol), stream)
+    n_scratch = _scratch_floats(L, K)
+    scratch = (torch.empty((B, n_scratch), dtype=torch.float32, device=betaT.device)
+               if n_scratch else None)
+    vec = K % 4 == 0
+    err = _build.launch(
+        _build.function("tmvb_lda_estep", _ARGTYPES), betaT.device,
+        *(t.data_ptr() for t in (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
+                                 *outs, w)),
+        None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
+        int(vec and betaT.data_ptr() % 16 == 0), int(vec and w.data_ptr() % 16 == 0))
     check(err, "lda_estep")
     lda_estep.launches += 1
     return (*outs, w)

@@ -14,7 +14,18 @@ is built once on the host (:func:`build_plan`) and uploaded with the data:
   zero changes no bit of a sum of nonnegative rows;
 * the kept slots are stably sorted by id and cut into runs of one id;
 * each run is cut into pieces of at most ``PIECE_ROWS`` rows, so a long
-  run (the Zipf head of the vocabulary) spreads over many blocks.
+  run (the Zipf head of the vocabulary) spreads over many warps; the
+  pieces of such a split run write partial rows, which a second launch
+  adds in a fixed order.
+
+Everything a call needs besides ``acc`` and the weights is set up once per
+plan, not once per call: the plan's index tensors are checked when the
+plan is built or moved (``ScatterPlan.__post_init__``), the scratch rows
+of the split runs' partials are allocated at the first call for a given
+width W and kept on the plan, and the C entry point is looked up once per
+process.  A call checks only ``acc`` and the weights.  A plan serves one
+stream at a time: two scatters along one plan must not run concurrently,
+since they share its scratch rows.
 
 Both versions take ``(acc, weights, plan)`` with acc [V, W] and weights
 [T, W], add into ``acc`` in place and return it.  The plain version adds
@@ -33,7 +44,10 @@ import torch
 from . import _build
 from ._build import check, require
 
-PIECE_ROWS = 256   # rows one block sums before a run is split
+PIECE_ROWS = 256   # rows one warp sums before a run is split
+
+_INDEX_FIELDS = ("rows", "ids", "piece_start", "piece_id", "piece_out", "run_start",
+                 "run_id")
 
 
 @dataclasses.dataclass
@@ -55,15 +69,35 @@ class ScatterPlan:
     piece_out: torch.Tensor    # [n_pieces]
     run_start: torch.Tensor    # [n_runs + 1] offsets into the scratch rows
     run_id: torch.Tensor       # [n_runs] ids of the split runs
+    scratch: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)   # W -> [n_scratch, W] f32
+
+    def __post_init__(self):
+        n, n_pc, n_runs = self.rows.shape[0], self.piece_id.shape[0], self.run_id.shape[0]
+        want = {"rows": n, "ids": n, "piece_start": n_pc + 1, "piece_id": n_pc,
+                "piece_out": n_pc, "run_start": n_runs + 1, "run_id": n_runs}
+        require("ScatterPlan", self.rows.device, {
+            f: (getattr(self, f), (want[f],), torch.int32) for f in _INDEX_FIELDS})
 
     @property
     def n_pieces(self) -> int:
         return self.piece_id.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
     def to(self, device) -> "ScatterPlan":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+        return dataclasses.replace(self, **{f: getattr(self, f).to(device)
+                                            for f in _INDEX_FIELDS})
+
+    def scratch_rows(self, W: int) -> torch.Tensor:
+        """The [n_scratch, W] f32 scratch of the split runs' partials."""
+        buf = self.scratch.get(W)
+        if buf is None:
+            buf = self.scratch[W] = torch.empty((self.n_scratch, W), dtype=torch.float32,
+                                                device=self.device)
+        return buf
 
 
 def build_plan(ids, keep, piece_rows: int = PIECE_ROWS) -> ScatterPlan:
@@ -107,7 +141,7 @@ def scatter_rows_ref(acc: torch.Tensor, weights: torch.Tensor,
     return acc.index_add_(0, plan.ids, weights[plan.rows])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
@@ -130,23 +164,21 @@ def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
                          f"acc has {V} rows")
     if W >= 2**31:
         raise ValueError("scatter_rows: rows of 2**31 columns or more")
-    n, n_pc, n_runs = plan.rows.shape[0], plan.n_pieces, plan.run_id.shape[0]
-    i32 = torch.int32
+    if plan.device != acc.device:
+        raise ValueError(f"scatter_rows: the plan's rows is on {plan.device}, "
+                         f"expected {acc.device}")
     require("scatter_rows", acc.device, {
         "acc": (acc, (V, W), torch.float32),
-        "weights": (weights, (plan.T, W), torch.float32),
-        "rows": (plan.rows, (n,), i32), "piece_start": (plan.piece_start, (n_pc + 1,), i32),
-        "piece_id": (plan.piece_id, (n_pc,), i32), "piece_out": (plan.piece_out, (n_pc,), i32),
-        "run_start": (plan.run_start, (n_runs + 1,), i32), "run_id": (plan.run_id, (n_runs,), i32)})
-    if n_pc == 0:
+        "weights": (weights, (plan.T, W), torch.float32)})
+    if plan.n_pieces == 0:
         return acc
-    scratch = torch.empty((plan.n_scratch, W), dtype=torch.float32, device=acc.device)
-    fn = _build.function("tmvb_scatter_rows", _ARGTYPES)
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-            weights, plan.rows, plan.piece_start, plan.piece_id, plan.piece_out,
-            plan.run_start, plan.run_id, acc, scratch)), n_pc, n_runs, W, stream)
+    scratch = plan.scratch_rows(W)
+    vec = W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (acc, weights, scratch))
+    err = _build.launch(
+        _build.function("tmvb_scatter_rows", _ARGTYPES), acc.device,
+        *(t.data_ptr() for t in (weights, plan.rows, plan.piece_start, plan.piece_id,
+                                 plan.piece_out, plan.run_start, plan.run_id, acc, scratch)),
+        plan.n_pieces, plan.run_id.shape[0], W, int(vec))
     check(err, "scatter_rows")
     scatter_rows.launches += 1
     return acc
