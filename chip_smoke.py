@@ -63,6 +63,9 @@ RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
 # NVIDIA's H100 SXM data sheet: the HBM rate and
 # the f32 rate outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# ex2 results a second: 16 a clock an SM (the CUDA C++ Programming Guide's
+# throughput table, compute capability 9.0), 132 SMs at the 1.98 GHz boost
+EX2_PER_S = 16 * 132 * 1.98e9
 SPIN_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep cycles a ms at ~2 GHz
 N_KERNEL, N_PLAIN = 20, 5   # calls between one pair of events
 
@@ -242,7 +245,9 @@ def compare_kernels(seg, V, K, dev, label):
     boT = (beta_old + EPSILON).T.contiguous()
     g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
     eargs = (boT, g2T, terms, counts, doc_mask, El, El_old)
-    a, b = float(lda_elbo_tok(*eargs)), float(lda_elbo_tok_ref(*eargs))
+    got_e = lda_elbo_tok(*eargs)
+    need(torch.equal(got_e, lda_elbo_tok(*eargs)), f"lda_elbo_tok {label}: not bitwise repeatable")
+    a, b = float(got_e), float(lda_elbo_tok_ref(*eargs))
     need(abs(a - b) <= 1e-5 * abs(b), f"lda_elbo_tok {label}: {a} vs {b}")
     elb = record(abs(a - b), time_calls(lambda: lda_elbo_tok(*eargs), N_KERNEL),
                  time_calls(lambda: lda_elbo_tok_ref(*eargs), N_PLAIN, reps=1),
@@ -280,15 +285,22 @@ def compare_flda(seg, V, K, dev, label):
                 f"flda_estep {label}")
     padded_kept(got[:5], (gamma, El, El_old, tau, tau_old), got[5:], doc_mask,
                 f"flda_estep {label}")
+    need(all(torch.equal(a, b) for a, b in zip(got, flda_estep(*args, **kw))),
+         f"flda_estep {label}: not bitwise repeatable")
     keep = counts > 0
     kept = int(keep.sum())
     work = fixpoint_work(flda_mod, flda_estep_ref, args, kw, keep.sum(1).float())
+    # every slot of an active document, padding included, takes K exps a pass
+    exps = K * fixpoint_work(flda_mod, flda_estep_ref, args, kw,
+                             torch.full((B,), float(L), device=dev))
     uniq = n_unique(terms, keep)
     r = record(err, time_calls(lambda: flda_estep(*args, **kw), N_KERNEL),
                time_calls(lambda: flda_estep_ref(*args, **kw), 3, reps=1),
                bound_ms(4 * (uniq * (K + 1) + 4 * B * L + B + K + 1 + 6 * B * K + 2 * B * L
                              + B * L * (K + 1)), 4 * K * work + 2 * (K + 1) * kept))
-    print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {times(r)}")
+    r["exp_floor_ms"] = exps / EX2_PER_S * 1e3
+    print(f"kernels {label}: B={B} L={L} K={K} | flda_estep {times(r)}; exp floor "
+          f"{r['exp_floor_ms']:.4f} ms ({exps:.3e} ex2)")
     return r, got[5]
 
 
@@ -522,8 +534,11 @@ def compare_ctm_chunk(model, dev, label):
             ((boZ, g2Z), tZ, f"zero-count slots at id {z}, its beta_old row 0")):
         eargs = (*tables, terms, c, dm, st.lam[rows], st.lam_old[rows])
         n0 = lda_elbo_tok.launches
-        a = float(lda_elbo_tok(*eargs))
+        got_e = lda_elbo_tok(*eargs)
         need(lda_elbo_tok.launches == n0 + 1, f"lda_elbo_tok {label}: no launch")
+        need(torch.equal(got_e, lda_elbo_tok(*eargs)),
+             f"lda_elbo_tok {label}: not bitwise repeatable")
+        a = float(got_e)
         b = float(lda_elbo_tok_ref(*eargs))
         need(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b),
              f"lda_elbo_tok {label}, {what}: {a} vs {b}")

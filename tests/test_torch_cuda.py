@@ -114,6 +114,53 @@ def test_lda_elbo_tok_kernel_matches_plain(cuda, K, L):
     assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
+# CTM's K = 50 (8-byte row loads) at the NSF width, LDA's K = 100 at
+# L = 1024 (one thread a slot), K = 7 at L = 8 (4-byte loads, 8 threads a
+# slot)
+@pytest.mark.parametrize("K,L", [(50, 128), (100, 1024), (7, 8)])
+def test_lda_elbo_tok_kernel_special_documents(cuda, K, L):
+    """A document masked out but with counts, and a real document with
+    no counts."""
+    _, (boT, g2T, terms, counts, doc_mask, El, El_old) = _chunk(K, 64, L, 3000, cuda, seed=2)
+    doc_mask[0] = 0.0
+    counts[1] = 0.0
+    args = (boT, g2T, terms, counts, doc_mask, El, El_old)
+    got = lda_elbo_tok(*args)
+    want = lda_elbo_tok_ref(*args)
+    assert torch.equal(got, lda_elbo_tok(*args))
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    # the masked document adds nothing; the empty one adds 0
+    doc_mask[1] = 0.0
+    torch.testing.assert_close(lda_elbo_tok(*args), got, rtol=1e-6, atol=0)
+
+
+def test_lda_elbo_tok_kernel_raw_beta_old_zero_row(cuda):
+    """CTM's tables from a raw beta_old: padding slots over an all-zero
+    row add nothing (no NaN); a real token over it is not finite in both
+    versions (s = 0: degeneracy surfaced, not masked)."""
+    K, B, L, V = 50, 32, 128, 3000
+    r = np.random.default_rng(7)
+    beta = r.dirichlet(np.ones(V), size=K)
+    bo = r.dirichlet(np.ones(V), size=K).T.copy()
+    z = 5
+    bo[z] = 0.0
+    g2 = np.where(bo > 0, bo * (np.log(beta.T + EPSILON) - np.log(np.where(bo > 0, bo, 1.0))), 0.0)
+    terms = np.where(r.random((B, L)) < 0.8, r.integers(6, V, size=(B, L)), z).astype(np.int32)
+    counts = (terms != z) * (1.0 + r.poisson(0.35, size=(B, L)))
+    el = r.normal(-4.0, 1.0, size=(B, K))
+    t = lambda a, dt=torch.float32: torch.tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
+    args = [t(bo), t(g2), t(terms, torch.int32), t(counts), t(np.ones(B)), t(el),
+            t(el + r.normal(0, 0.05, size=(B, K)))]
+    got, want = lda_elbo_tok(*args), lda_elbo_tok_ref(*args)
+    assert torch.isfinite(got) and torch.isfinite(want)
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    args[3] = args[3].clone()
+    args[3][0, int(np.argmax(terms[0] == z))] = 1.0
+    got, want = lda_elbo_tok(*args), lda_elbo_tok_ref(*args)
+    assert not torch.isfinite(got) and not torch.isfinite(want)
+    assert bool(torch.isnan(got)) == bool(torch.isnan(want))
+
+
 def test_empty_chunk_launches_nothing(cuda):
     args, eargs = _chunk(7, 3, 24, 100, cuda)
     e0, k0 = lda_estep.launches, lda_elbo_tok.launches
@@ -235,6 +282,36 @@ def test_flda_estep_kernel_matches_plain(cuda, K, L):
     assert got[5].shape == (64, L, K + 1) and torch.all(got[5][-3:] == 0)
     for a, b in zip(got[:5], args[7:]):
         assert torch.equal(a[-3:], b[-3:])   # padded documents frozen
+    again = flda_estep(*args, viter=10, vtol=1.0 / K**2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+# rows in shared memory (K % 4 == 0 and not), rows in tiles, and slots too
+# many for the slot list to stay in shared memory (a [B, 7 L] scratch)
+@pytest.mark.parametrize("K,L", [(7, 24), (100, 128), (7, 2000), (100, 1024), (7, 9000)])
+@pytest.mark.parametrize("viter", [0, 3])
+def test_flda_estep_kernel_special_documents(cuda, K, L, viter):
+    """A document masked out but with counts (frozen state, w from its
+    tau_old and El_old), a real document with no counts (gamma = alpha +
+    eps, w = 0, tau still updated on its padding slots), and viter 0 (no
+    pass: w from the state as given)."""
+    (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, *state) = _flda_chunk(
+        K, 16, L, 3000, cuda, seed=4)
+    doc_mask[0] = 0.0
+    counts[1] = 0.0
+    args = (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, *state)
+    got = flda_estep(*args, viter=viter, vtol=1.0 / K**2)
+    want = flda_estep_ref(*args, viter=viter, vtol=1.0 / K**2)
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    for a, b in zip(got[:5], state):
+        assert torch.equal(a[0], b[0])
+    assert torch.any(got[5][0] != 0) and torch.all(got[5][1] == 0)
+    if viter:
+        torch.testing.assert_close(got[0][1], alpha + EPSILON, rtol=1e-6, atol=0)
+        assert not torch.equal(got[3][1], state[3][1])
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got[:5], state))
 
 
 def _ctpf_chunk(K, B, L, R, V, U, dev, seed=0):

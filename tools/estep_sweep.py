@@ -1,17 +1,21 @@
-"""Time ``lda_estep`` at the widest NSF chunk and at L = 1024 for a range of
-``viter``, from the package of a given checkout, with chip_smoke.py's timer.
+"""Time ``lda_estep`` or ``flda_estep`` at the widest NSF chunk and at
+L = 1024 for a range of ``viter``, or ``lda_elbo_tok`` at those chunks and
+at CTM's (K = 50, 2048 documents), from the package of a given checkout,
+with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL
+    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|elbo]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
 ``topicmodelsvb_jl_torch`` is imported and built.  The chunks and the warm
 state are chip_smoke.py's (``kernel_checks``'s widest NSF bucket, 1024
-documents, K = 100, and its synthetic L = 1024 chunk).  viter = 0 runs no
-pass (the load and the w write alone); the slope over viter is the cost of
-a pass.  Prints one JSON line tagged LABEL with the device and call ms of
-each (shape, viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.
-Needs one CUDA GPU.
+documents, K = 100, and its synthetic L = 1024 chunk; for fLDA its tables,
+tau and eta as ``compare_flda`` draws them; for the bound ``compare_kernels``'s
+tables).  viter = 0 runs no pass (the load and the w write alone); the
+slope over viter is the cost of a pass.  Prints one JSON line tagged LABEL
+with the device and call ms of each (shape, viter), and appends it to
+``chiprun_out/estep_sweep.jsonl``.  The kernel defaults to ``lda``.  Needs
+one CUDA GPU.
 """
 import importlib.util
 import json
@@ -21,7 +25,7 @@ import sys
 VITERS = (0, 1, 2, 5, 10)
 
 
-def main(root: str, label: str) -> int:
+def main(root: str, label: str, kernel: str = "lda") -> int:
     here = pathlib.Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     spec = importlib.util.spec_from_file_location("chip_smoke_timer", here / "chip_smoke.py")
@@ -32,12 +36,16 @@ def main(root: str, label: str) -> int:
     import torch
 
     import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
 
     if not torch.cuda.is_available():
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
+    if kernel not in ("lda", "flda", "elbo"):
+        raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
     packed = tt.synth_packed_nsf_scale(seed=7)
     s0 = tt.bucketize_packed(packed, chunk=1024, pad_multiple=8).segments[0]
@@ -51,14 +59,40 @@ def main(root: str, label: str) -> int:
                             put(s0.doc_mask[:1024], torch.float32)),
               "L=1024": (put(trm, torch.int32), put(cnt, torch.float32),
                          torch.ones(1024, dtype=torch.float32, device=dev))}
-    g = torch.Generator().manual_seed(11)
-    betaT = (dirichlet_ones(g, V, (K,)).to(dev) + EPSILON).T.contiguous()
-    out = {"label": label, "card": torch.cuda.get_device_name(0)}
+    out = {"label": label, "kernel": kernel, "card": torch.cuda.get_device_name(0)}
+    if kernel == "elbo":
+        s2 = tt.bucketize_packed(packed, chunk=2048, pad_multiple=8).segments[0]
+        chunks["K=50 B=2048"] = (put(s2.terms[:2048], torch.int32),
+                                 put(s2.counts[:2048], torch.float32),
+                                 put(s2.doc_mask[:2048], torch.float32))
+        for name, (terms, counts, doc_mask) in chunks.items():
+            Kc = 50 if name.startswith("K=50") else K
+            g = torch.Generator().manual_seed(11)
+            beta = dirichlet_ones(g, V, (Kc,)).to(dev)
+            boT = (dirichlet_ones(g, V, (Kc,)).to(dev) + EPSILON).T.contiguous()
+            g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
+            _, _, El, El_old = smoke.warm_state(Kc, terms.shape[0], dev, seed=12)
+            args = (boT, g2T, terms, counts, doc_mask, El, El_old)
+            out[name] = list(smoke.time_calls(lambda: lda_elbo_tok(*args)))
+        chunks = {}
     for name, (terms, counts, doc_mask) in chunks.items():
-        state = smoke.warm_state(K, 1024, dev, seed=12)
+        B, L = terms.shape
+        if kernel == "lda":
+            g = torch.Generator().manual_seed(11)
+            betaT = (dirichlet_ones(g, V, (K,)).to(dev) + EPSILON).T.contiguous()
+            args = (betaT, terms, counts, doc_mask, *smoke.warm_state(K, B, dev, seed=12))
+            fn = lda_estep
+        else:
+            g = torch.Generator().manual_seed(21)
+            logbetaT = torch.log(dirichlet_ones(g, V, (K,)) + EPSILON).T.contiguous().to(dev)
+            kappa = dirichlet_ones(g, V).to(dev)
+            tau, tau_old = ((0.1 + 0.8 * torch.rand(B, L, generator=g)).to(dev) for _ in range(2))
+            alpha, gamma, El, El_old = smoke.warm_state(K, B, dev, seed=22)
+            args = (logbetaT, kappa, terms, counts, doc_mask, alpha,
+                    torch.tensor(0.6, device=dev), gamma, El, El_old, tau, tau_old)
+            fn = flda_estep
         for viter in VITERS:
-            args = (betaT, terms, counts, doc_mask, *state)
-            ms, call = smoke.time_calls(lambda: lda_estep(*args, viter=viter, vtol=1.0 / K**2))
+            ms, call = smoke.time_calls(lambda: fn(*args, viter=viter, vtol=1.0 / K**2))
             out[f"{name} viter={viter}"] = [ms, call]
     line = json.dumps(out)
     print(line)
@@ -70,6 +104,6 @@ def main(root: str, label: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
+    if len(sys.argv) not in (3, 4):
         raise SystemExit(__doc__)
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    sys.exit(main(*sys.argv[1:]))

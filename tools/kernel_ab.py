@@ -9,9 +9,10 @@ ROOT holds a checkout of this repository: ``.`` for this one, or a
 built; the corpora, shapes, checks and timer are those of THIS checkout's
 ``chip_smoke.py`` (``kernel_checks``): each kernel against its plain
 version, its device time over many launches, its call time and its bound,
-and the scatter beside ``index_add_``.  Then the LDA main path (NSF scale, K = 100, 1024-document
-chunks): one warm-up iteration, then three steps alone, each timed by the
-host clock up to a synchronize.  Prints one JSON line tagged LABEL and appends it to
+and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
+(NSF scale, K = 100, 1024-document chunks): one warm-up iteration each,
+then three steps alone, each timed by the host clock up to a synchronize.
+Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
 CUDA GPU.
@@ -52,16 +53,17 @@ def main(root: str, label: str) -> int:
            **{k: kc[k] for k in ("estep", "elbo", "flda", "ctpf", "scatter")}}
     import topicmodelsvb_jl_torch as tt
 
-    lda = tt.LDA(kc["packed"], 100, tt.RuntimeConfig(chunk_docs=1024), device="cuda", seed=7)
-    lda.train(iter=1, checkelbo=float("inf"), printelbo=False)
-    tr, state, steps = lda.trainer, lda.state, []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = tr.step_fn(state, *tr.data)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-    out["lda_step_s"] = steps
+    for name, cls in (("lda", tt.LDA), ("flda", tt.fLDA)):
+        m = cls(kc["packed"], 100, tt.RuntimeConfig(chunk_docs=1024), device="cuda", seed=7)
+        m.train(iter=1, checkelbo=float("inf"), printelbo=False)
+        tr, state, steps = m.trainer, m.state, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = tr.step_fn(state, *tr.data)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        out[f"{name}_step_s"] = steps
     line = json.dumps(out)
     print(line)
     dest = here / "chiprun_out"

@@ -6,7 +6,7 @@
 // background distribution kappa [V]:
 //
 //   repeat up to viter times:
-//     p_lk     = exp(tau_l lb[t_l, k] + El_k - m_l)     (m_l = max over k)
+//     p_lk     = exp(tau_l lb[t_l, k] + El_k - m)       (m: any shift)
 //     s_l      = sum_k p_lk
 //     tau_new  = eta / (eta + (1 - eta) kappa[t_l] exp(-sum_k p_lk lb[t_l, k] / s_l) + eps)
 //     gamma    = alpha + sum_l p_lk c_l / s_l + eps
@@ -16,38 +16,271 @@
 //   w[l, :K] = p_l(tau_old, El_old) * (tau_l c_l / s_l)   (beta statistic)
 //   w[l, K]  = (1 - tau_l) c_l                            (kappa statistic)
 //
-// tau is updated on every slot of the document, padding slots included,
+// tau is updated on every slot of a real document, padding slots included,
 // as the TPU kernel does: it is part of the state the two packages compare.
 //
-// What bounds it on an H100: unlike LDA, phi cannot be formed
-// multiplicatively, because tau rescales log beta per token on every
-// pass, so each pass costs L x K expf plus a max and two sums over K per
-// token.  One warp per token slot with its lanes over K computes those;
-// each warp keeps its own gamma partial in shared memory, and the
-// partials are added in warp order, so the result is deterministic.  The
-// block gathers its L rows of lb from the [V, K] table into dynamic
-// shared memory once (L = 128, K = 100: 51 KB) and every pass reads
-// shared memory only; a document whose rows do not fit the opt-in limit
-// re-reads them from the table, which at NSF scale (10 MB) stays resident
-// in the 50 MB L2.  tau and tau_old are updated in place in the output
-// arrays, kappa is read from its [V] table, and eta from device memory
-// (a host float would cost a sync per chunk).  One block per document,
-// which leaves its loop when its own document converges; K is not padded.
+// What bounds it on an H100.  Bytes: at the widest NSF chunk (B = 1024,
+// L = 128, K = 100) it must read ~10 MB of table rows, ~2.6 MB of terms,
+// counts and tau, 1.2 MB of state, and write 53 MB of w and ~2.2 MB of tau
+// and state: ~68 MB, ~20 us at 3.35 TB/s.  Exps: unlike LDA, phi cannot be
+// formed multiplicatively, because tau rescales log beta per token on
+// every pass, so a pass costs one exp per (slot, topic), padding slots
+// included: 10 passes x 1024 x 128 x 100 = 1.3e8 ex2 at the widest chunk,
+// ~31 us at 16 ex2 a clock per SM (132 SMs, 1.98 GHz).  Beside each ex2 a
+// pass spends ~6 more f32 instructions per element (the FFMA of the
+// exponent, the sums, the gamma product), so the floor is ~35-45 us.
+//
+// Design (256 threads, one document per block; the layout of
+// lda_estep.cu):
+// - The slots are compacted into a list: those with c_l != 0 first, in
+//   slot order, then the padding slots, which need tau but add nothing to
+//   gamma or w.  Per compact slot the list holds c, c / s, (1 - eta)
+//   kappa[t], the slot and three tau buffers (tau_old, tau, the next tau),
+//   rotated by pointer each pass; tau and tau_old go back to device
+//   memory once, at the end.  Nothing is read from device memory inside a
+//   pass when the rows fit.
+// - Rows are copied with cp.async through L1 (.ca): the padding slots all
+//   name one id, and around L1 (.cg) every block of every SM asked one L2
+//   slice for that row on every pass: at L = 1024 a pass took 518 us a
+//   chunk that way, 205 us through L1.  The stride is 2 x an odd number
+//   of float4s (104 floats at K = 100), so the 2 threads a slot of a
+//   16-byte shared load hit 32 different banks.
+// - Base-2 exps: the exponent is fma(tau log2(e), lb, e) with
+//   e_k = (El_k - m) log2(e), so each element costs one FFMA and one
+//   ex2.approx.  The shift m is max_k El_k of the document, not a max per
+//   slot: tau lb <= 0 (lb = log(beta + eps) <= 0, tau in (0, 1]), so every
+//   exponent is <= 0 (no overflow) and the argmax topic's term is >=
+//   e^{log eps} = eps ~ 1.6e-30 > 0 (s > 0); what flushes to zero is below
+//   1e-8 of s.  max_k El_new = psi(max gamma) - psi(sum gamma), so the
+//   shift comes out of the sum-gamma barrier (a max beside the sum) and
+//   costs no barrier of its own.
+// - Per slot: threads over slots, 2 threads a slot (their float4s of
+//   topics interleaved, two shuffles to add s and sum p lb), e broadcast
+//   from shared memory; c / s and tau_new are then thread-local.
+// - p of the pass is kept in a second [L, Kp] buffer (2 blocks an SM), so
+//   the gamma product reads it instead of taking every exp again, and the
+//   statistics are written from the last pass's p and c / s, which are
+//   phi(tau_old, El_old); only a document that ran no pass (viter 0, or
+//   masked), or whose rows go through in tiles, computes them anew.
+// - gamma product: threads over (float4 of topics, share of slots), the
+//   shares added in share order by each topic's thread; psi(gamma_k)
+//   before the barrier of the sum, psi(sum gamma) after it, by the
+//   topics' threads.  Four barriers a pass; every sum in one fixed order:
+//   same inputs, same bits.
+// - A document whose rows do not fit (L = 1024 at K = 100) goes through
+//   shared memory in tiles of compact slots, re-read from the table (10 MB
+//   at NSF scale, resident in the 50 MB L2) on every pass.  Its slot list
+//   stays in shared memory when it fits there, else in a [B, 7 L] scratch.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_ab.py and
+// tools/estep_sweep.py, in turns):
+// 208 us at the widest NSF chunk and 2.44 ms at L = 1024 (viter 10; the
+// previous design, a warp a slot and 128 threads, took 1.16 and 6.66 ms).  A pass costs ~14.7 us a chunk at L = 128:
+// not the exps (a copy without them was as fast), psi about a sixth of it.
+// Dropped, each as fast or slower: 1 or 4 threads a slot, p taken anew in
+// the gamma product instead of kept (3 blocks an SM), lda_estep.cu's
+// odd-float4 stride (226 us), rows around L1 (235 us; 5.61 ms at L = 1024).
+//
+// One block per document, which leaves its loop when its own document
+// converges; K is not padded beyond the stride, whose columns are zero
+// rows and e = -inf (p = 0 there).
 
-#include "common.cuh"
+#include <algorithm>
+
+#include "rows.cuh"
 
 namespace tmvb {
 
-// Shared memory: gam, el, elo [K] each, gacc and pbuf [kWarps * K] each,
-// red [32], then (rows in shared memory only) rows [L * K].
-__host__ __device__ inline size_t flda_smem_base(int64_t K) {
-  return (3 * K + 2 * kWarps * K + 32) * sizeof(float);
-}
-__host__ __device__ inline size_t flda_smem_rows(int64_t L, int64_t K) {
-  return flda_smem_base(K) + L * K * sizeof(float);
+constexpr int kFThreads = 256;
+constexpr int kFWarps = kFThreads / 32;
+constexpr int kFMaxShares = 8;
+constexpr int kTps = 2;             // threads a slot in the per-slot pass
+constexpr int kFMeta = 7;           // per-slot arrays of the slot list
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kThreads) flda_estep_kernel(
+// Max of v over the block with one barrier, as block_sum_once.
+__device__ __forceinline__ float block_max_once(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kFWarps; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// Row stride in floats: a number of float4s that is kTps times an odd
+// number, so the 8 threads of a 16-byte shared load (8 / kTps slots, kTps
+// neighbouring float4s each) hit 32 different banks.
+__host__ __device__ inline int flda_stride(int K) {
+  const int s = ((K + 3) / 4 + kTps - 1) / kTps;
+  return 4 * kTps * (s | 1);
+}
+
+__host__ __device__ inline int flda_shares(int Kp) {
+  const int g = Kp / 4;
+  return g >= kFThreads ? 1 : (kFThreads / g < kFMaxShares ? kFThreads / g : kFMaxShares);
+}
+
+// Shared memory in floats: rows and p [tile, Kp] each,
+// e twice [Kp], gamma partials [shares, Kp], gamma/El/El_old [K rounded to
+// 4] each, 64 for the sums and the compaction, then the slot list [7, L]
+// when it is kept there.
+__host__ __device__ inline size_t flda_smem(int64_t L, int K, int64_t tile, bool meta) {
+  const int Kp = flda_stride(K);
+  const size_t base = (2 + flda_shares(Kp)) * static_cast<size_t>(Kp) + 3 * ((K + 3) / 4 * 4) + 64;
+  return (2 * static_cast<size_t>(tile) * Kp + base + (meta ? kFMeta * L : 0)) * sizeof(float);
+}
+
+struct FldaShape {
+  int tile;          // compact slots whose rows are in shared memory at once
+  int meta_in_smem;  // the slot list in shared memory (else device scratch)
+  int resident;      // every slot fits: rows loaded once, no tiles
+  size_t bytes;
+};
+
+// 0, or a CUDA error code when the device cannot be queried or K is too
+// wide for one row in shared memory.  All rows stay in shared memory when
+// that leaves room for 2 blocks an SM; else tiles, with the slot list and
+// at least 32 rows sized for 4 blocks an SM (an SM's 228 KB less 1 KB the
+// device keeps per block), or 2, or 1; else the slot list in device
+// scratch and tiles of what fits.
+inline int flda_shape(int64_t L, int64_t K, FldaShape* s) {
+  const int optin = smem_optin();
+  if (optin < 0) return query_error();
+  const int k = static_cast<int>(K);
+  const size_t full = flda_smem(L, k, L, true);
+  if (full <= static_cast<size_t>(optin) / 2) {
+    *s = {static_cast<int>(L), 1, 1, full};
+    return 0;
+  }
+  const size_t row = 2 * flda_stride(k) * sizeof(float);
+  const size_t o = static_cast<size_t>(optin);
+  for (size_t budget : {o / 4 - 1024, o / 2 - 1024, o}) {
+    if (flda_smem(L, k, std::min<int64_t>(L, 32), true) > budget) continue;
+    const int64_t tile = std::min<int64_t>(L, (budget - flda_smem(L, k, 0, true)) / row);
+    *s = {static_cast<int>(tile), 1, 0, flda_smem(L, k, tile, true)};
+    return 0;
+  }
+  const size_t base = flda_smem(L, k, 0, false);
+  if (base + row > o) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tile = std::min<int64_t>(L, (o - base) / row);
+  *s = {static_cast<int>(tile), 0, 0, flda_smem(L, k, tile, false)};
+  return 0;
+}
+
+// The per-slot pass over compact slots j0 .. j0 + m - 1 (rows[0 .. m)):
+// p = 2^(tau log2(e) lb + e), s and sum p lb with kTps threads a slot;
+// writes c / s to mcs and, when `tn` is given, tau_new to tn; stores p to
+// pb for the slots below `nkeep`.
+__device__ __forceinline__ void slot_pass(const float* rows, float* pb, int m, int j0, int nkeep,
+                                          const float* e, const float* tau, float* tn,
+                                          const float* mc, float* mcs, const float* mkap,
+                                          float eta, int Kp) {
+  const int G = Kp / 4;
+  const int sub = threadIdx.x % kTps;
+  const float4* e4 = reinterpret_cast<const float4*>(e);
+  for (int base = 0; base < m; base += kFThreads / kTps) {
+    const int i = base + threadIdx.x / kTps;
+    const int j = j0 + i;
+    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f), l4 = s4;
+    if (i < m) {
+      const float t2 = tau[j] * kLog2e;
+      const float4* r4 = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * Kp);
+      float4* p4 = j < nkeep ? reinterpret_cast<float4*>(pb + static_cast<size_t>(i) * Kp)
+                             : nullptr;
+#pragma unroll 4
+      for (int g = sub; g < G; g += kTps) {
+        const float4 x = r4[g], y = e4[g];
+        float4 p;
+        p.x = ex2(fmaf(t2, x.x, y.x));
+        p.y = ex2(fmaf(t2, x.y, y.y));
+        p.z = ex2(fmaf(t2, x.z, y.z));
+        p.w = ex2(fmaf(t2, x.w, y.w));
+        s4.x += p.x;
+        s4.y += p.y;
+        s4.z += p.z;
+        s4.w += p.w;
+        l4.x = fmaf(p.x, x.x, l4.x);
+        l4.y = fmaf(p.y, x.y, l4.y);
+        l4.z = fmaf(p.z, x.z, l4.z);
+        l4.w = fmaf(p.w, x.w, l4.w);
+        if (p4 != nullptr) p4[g] = p;
+      }
+    }
+    float s = (s4.x + s4.y) + (s4.z + s4.w);
+    float sl = (l4.x + l4.y) + (l4.z + l4.w);
+#pragma unroll
+    for (int o = 1; o < kTps; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      sl += __shfl_xor_sync(0xffffffffu, sl, o);
+    }
+    if (i < m && sub == 0) {
+      mcs[j] = mc[j] / s;
+      // update_tau! (fLDA.jl:195-200): exp(-sum p lb / s) as a base-2 exp
+      if (tn != nullptr) tn[j] = eta / (eta + mkap[j] * ex2(-(sl / s) * kLog2e) + kEps);
+    }
+  }
+}
+
+// gamma partials: qpart[h, k] (+)= sum over compact slots i = h, h + nsh,
+// ... < m of (c / s)_i p_ik; thread (h, g) owns the float4 g of share h.
+__device__ __forceinline__ void q_pass(const float* pb, int m, int j0, const float* mcs,
+                                       float* qpart, int Kp, int nsh, bool first) {
+  const int G = Kp / 4;
+  const float4* src = reinterpret_cast<const float4*>(pb);
+  float4* q4 = reinterpret_cast<float4*>(qpart);
+  for (int o = threadIdx.x; o < nsh * G; o += kFThreads) {
+    const int h = o / G, g = o - h * G;
+    float4 q = first ? make_float4(0.f, 0.f, 0.f, 0.f) : q4[o];
+#pragma unroll 4
+    for (int i = h; i < m; i += nsh) {
+      const float r = mcs[j0 + i];
+      const float4 x = src[static_cast<size_t>(i) * G + g];
+      q.x = fmaf(r, x.x, q.x);
+      q.y = fmaf(r, x.y, q.y);
+      q.z = fmaf(r, x.z, q.z);
+      q.w = fmaf(r, x.w, q.w);
+    }
+    q4[o] = q;
+  }
+}
+
+// w rows of compact slots j0 .. j0 + m - 1: p * (tau c / s) in columns
+// 0 .. K - 1 and (1 - tau) c in column K; zeros when `zero`.  Threads over
+// the flattened (slot, column) so that neighbours store neighbours.
+__device__ __forceinline__ void write_w(float* __restrict__ wd, const float* pb, int m, int j0,
+                                        const float* tcur, const float* mc, const float* mcs,
+                                        const int* mslot, int K, int Kp, bool zero) {
+  const int K1 = K + 1;
+  const int di = kFThreads / K1, dk = kFThreads - di * K1;
+  int i = threadIdx.x / K1, k = threadIdx.x - i * K1;
+  while (i < m) {
+    const int j = j0 + i;
+    float v = 0.f;
+    if (!zero) {
+      if (k < K)
+        v = pb[static_cast<size_t>(i) * Kp + k] * (tcur[j] * mcs[j]);
+      else
+        v = (1.0f - tcur[j]) * mc[j];
+    }
+    wd[static_cast<size_t>(mslot[j]) * K1 + k] = v;
+    i += di;
+    k += dk;
+    if (k >= K1) {
+      k -= K1;
+      ++i;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
     const float* __restrict__ kappa,     // [V]
     const int* __restrict__ terms,       // [B, L]
@@ -61,22 +294,34 @@ __global__ void __launch_bounds__(kThreads) flda_estep_kernel(
     const float* __restrict__ tau_in,    // [B, L]
     const float* __restrict__ tauo_in,   // [B, L]
     float* __restrict__ gamma_out, float* __restrict__ el_out,
-    float* __restrict__ elo_out, float* __restrict__ tau,  // [B, L], in place
-    float* __restrict__ tauo,            // [B, L], in place
+    float* __restrict__ elo_out, float* __restrict__ tau_out,  // [B, L]
+    float* __restrict__ tauo_out,        // [B, L]
     float* __restrict__ w,               // [B, L, K + 1]
-    int L, int K, int viter, float vtol2, int rows_in_smem) {
-  extern __shared__ float smem[];
+    float* scratch,                      // [B, 7 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int viter, float vtol2,
+    int vec_in) {
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* gam = smem;
-  float* el = gam + K;
-  float* elo = el + K;
-  float* gacc = elo + K;           // [kWarps, K] per-warp gamma partials
-  float* pbuf = gacc + kWarps * K; // [kWarps, K] one token's p per warp
-  float* red = pbuf + kWarps * K;
-  float* rows = red + 32;
-  float* ga = gacc + warp * K;
-  float* pb = pbuf + warp * K;
+  const int Kp = flda_stride(K), nsh = flda_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* pbuf = rows + static_cast<size_t>(tile) * Kp;   // p [tile, Kp]
+  float* e_cur = pbuf + static_cast<size_t>(tile) * Kp;
+  float* e_nxt = e_cur + Kp;
+  float* qpart = e_nxt + Kp;
+  float* gam = qpart + nsh * Kp;
+  float* el = gam + K4;
+  float* elo = el + K4;
+  // [64]: sum gamma [8], max psi [8], sum d^2 [8], max El [8], compaction [16]
+  float* red = elo + K4;
+  float* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
+  float* mc = meta;                                    // count of compact slot j
+  float* mcs = meta + L;                               // its c / s
+  float* mkap = meta + 2 * L;                          // its (1 - eta) kappa[t]
+  int* mslot = reinterpret_cast<int*>(meta + 3 * L);   // its slot
+  float* told = meta + 4 * L;                          // tau_old, tau, the next tau
+  float* tcur = meta + 5 * L;
+  float* tnxt = meta + 6 * L;
   const size_t dl = static_cast<size_t>(b) * L;
   const int* t = terms + dl;
   const float* c = counts + dl;
@@ -84,123 +329,192 @@ __global__ void __launch_bounds__(kThreads) flda_estep_kernel(
   const float eta = *eta_p;
   const float one_m_eta = 1.0f - eta;
 
-  for (int k = tid; k < K; k += kThreads) {
-    gam[k] = gamma_in[dk + k];
-    el[k] = el_in[dk + k];
-    elo[k] = elo_in[dk + k];
-  }
-  for (int l = tid; l < L; l += kThreads) {
-    tau[dl + l] = tau_in[dl + l];
-    tauo[dl + l] = tauo_in[dl + l];
-  }
-  if (rows_in_smem) {
-    for (int l = warp; l < L; l += kWarps) {
-      const float* src = logbetaT + static_cast<size_t>(t[l]) * K;
-      for (int k = lane; k < K; k += 32) rows[static_cast<size_t>(l) * K + k] = src[k];
-    }
-  }
-  __syncthreads();
-  auto row = [&](int l) -> const float* {
-    return rows_in_smem ? rows + static_cast<size_t>(l) * K
-                        : logbetaT + static_cast<size_t>(t[l]) * K;
-  };
-  // p_l(tl, e) into this warp's pbuf; returns s_l to every lane and
-  // sum_k p lb (unnormalised) through `pl_sum`
-  auto phi_row = [&](const float* lb, float tl, const float* e, float* pl_sum) -> float {
-    float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, tl * lb[k] + e[k]);
-    m = warp_max(m);
-    float s = 0.f, sl = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float p = expf(tl * lb[k] + e[k] - m);
-      pb[k] = p;
-      s += p;
-      sl += p * lb[k];
-    }
-    *pl_sum = warp_sum(sl);
-    return warp_sum(s);
-  };
-
-  bool active = doc_mask[b] > 0.f;
-  for (int it = 0; it < viter && active; ++it) {
-    for (int k = lane; k < K; k += 32) ga[k] = 0.f;
-    for (int l = warp; l < L; l += kWarps) {
-      const float* lb = row(l);
-      const float tl = tau[dl + l];
-      float sl;
-      const float s = phi_row(lb, tl, el, &sl);
-      // update_tau! (fLDA.jl:195-200)
-      const float tn = eta / (eta + one_m_eta * kappa[t[l]] * expf(-(sl / s)) + kEps);
-      if (lane == 0) {
-        tauo[dl + l] = tl;
-        tau[dl + l] = tn;
-      }
-      const float cl = c[l];
-      if (cl != 0.f) {
-        const float cs = cl / s;
-        for (int k = lane; k < K; k += 32) ga[k] += pb[k] * cs;
-      }
+  // the slots with a count from the front in slot order, the padding slots
+  // from the back (their order adds to no sum)
+  int n = 0, npad = 0;
+  int* wcount = reinterpret_cast<int*>(red + 32);
+  for (int base = 0; base < L; base += kFThreads) {
+    const int l = base + tid;
+    const bool in = l < L;
+    const float cl = in ? c[l] : 0.f;
+    const unsigned real = __ballot_sync(0xffffffffu, in && cl != 0.f);
+    const unsigned pad = __ballot_sync(0xffffffffu, in && cl == 0.f);
+    if (lane == 0) {
+      wcount[warp] = __popc(real);
+      wcount[kFWarps + warp] = __popc(pad);
     }
     __syncthreads();
-    // update_gamma! (fLDA.jl:188-191): warp partials in warp order; the
-    // new gamma goes to warp 0's row of gacc (each k is its own thread's)
-    float gpart = 0.f;
-    for (int k = tid; k < K; k += kThreads) {
-      float q = 0.f;
-      for (int v = 0; v < kWarps; ++v) q += gacc[v * K + k];
-      const float g = alpha[k] + q + kEps;
-      gacc[k] = g;
-      gpart += g;
+    int offr = n, offp = npad, totr = n, totp = npad;
+#pragma unroll
+    for (int i = 0; i < kFWarps; ++i) {
+      offr += i < warp ? wcount[i] : 0;
+      offp += i < warp ? wcount[kFWarps + i] : 0;
+      totr += wcount[i];
+      totp += wcount[kFWarps + i];
     }
-    // update_Elogtheta! (fLDA.jl:181-184)
-    const float dg_sum = digamma_series(block_sum(gpart, red));
-    float dpart = 0.f;
-    for (int k = tid; k < K; k += kThreads) {
-      const float g = gacc[k];
-      const float el_new = digamma_series(g) - dg_sum;
-      const float d = el_new - el[k];
-      dpart += d * d;
-      gam[k] = g;
-      elo[k] = el[k];
-      el[k] = el_new;
+    if (in) {
+      const unsigned below = (1u << lane) - 1u;
+      const int j = cl != 0.f ? offr + __popc(real & below) : L - 1 - (offp + __popc(pad & below));
+      mc[j] = cl;
+      mslot[j] = l;
+      mkap[j] = one_m_eta * kappa[t[l]];
+      tcur[j] = tau_in[dl + l];
+      told[j] = tauo_in[dl + l];
     }
-    active = block_sum(dpart, red) >= vtol2;
+    n = totr;
+    npad = totp;
+    __syncthreads();  // the list is complete; wcount may be rewritten
   }
 
-  for (int k = tid; k < K; k += kThreads) {
+  const bool vin = vec_in != 0;
+  if (resident) load_rows<kFThreads, true>(rows, logbetaT, t, mslot, 0, L, K, Kp, vin);
+  // e = (El - max El) log2(e), -inf on the stride's padding columns
+  float mx = -INFINITY;
+  for (int k = tid; k < K; k += kFThreads) {
+    gam[k] = gamma_in[dk + k];
+    const float x = el_in[dk + k];
+    el[k] = x;
+    elo[k] = elo_in[dk + k];
+    mx = fmaxf(mx, x);
+  }
+  mx = block_max_once(mx, red + 24);
+  for (int k = tid; k < Kp; k += kFThreads) {
+    e_cur[k] = k < K ? (el[k] - mx) * kLog2e : -INFINITY;
+    e_nxt[k] = k < K ? 0.f : -INFINITY;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  bool active = doc_mask[b] > 0.f;
+  int it = 0;
+  float* e_last = e_cur;
+  for (; it < viter && active; ++it) {
+    for (int j0 = 0; j0 < L; j0 += tile) {
+      const int m = min(tile, L - j0);
+      if (!resident) {
+        load_rows<kFThreads, true>(rows, logbetaT, t, mslot, j0, m, K, Kp, vin);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      slot_pass(rows, pbuf, m, j0, n, e_cur, tcur, tnxt, mc, mcs, mkap, eta, Kp);
+      __syncthreads();
+      if (j0 < n) {
+        q_pass(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
+        __syncthreads();
+      }
+    }
+    // update_gamma! (fLDA.jl:188-191) into gam, psi(gamma) into e_nxt,
+    // before the barrier of the sum and the max
+    float gpart = 0.f, pmax = -INFINITY;
+    for (int k = tid; k < K; k += kFThreads) {
+      float q = 0.f;
+      if (n > 0)
+        for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+      const float g = alpha[k] + q + kEps;
+      gam[k] = g;
+      const float ps = digamma_series(g);
+      e_nxt[k] = ps;
+      gpart += g;
+      pmax = fmaxf(pmax, ps);
+    }
+    float g_sum, p_max;
+    {
+      gpart = warp_sum(gpart);
+      pmax = warp_max(pmax);
+      if (lane == 0) {
+        red[warp] = gpart;
+        red[8 + warp] = pmax;
+      }
+      __syncthreads();
+      g_sum = 0.f;
+      p_max = -INFINITY;
+#pragma unroll
+      for (int v = 0; v < kFWarps; ++v) {
+        g_sum += red[v];
+        p_max = fmaxf(p_max, red[8 + v]);
+      }
+    }
+    // update_Elogtheta! (fLDA.jl:181-184); the next e shifted by
+    // max El_new = psi(max gamma) - psi(sum gamma)
+    float dpart = 0.f;
+    if (tid < K) {
+      const float dg_sum = digamma_series(g_sum);
+      for (int k = tid; k < K; k += kFThreads) {
+        const float ps = e_nxt[k];
+        const float el_new = ps - dg_sum;
+        const float d = el_new - el[k];
+        dpart += d * d;
+        elo[k] = el[k];
+        el[k] = el_new;
+        e_nxt[k] = (ps - p_max) * kLog2e;
+      }
+    }
+    active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
+    e_last = e_cur;
+    e_cur = e_nxt;
+    e_nxt = e_last;
+    float* tr = told;
+    told = tcur;
+    tcur = tnxt;
+    tnxt = tr;
+  }
+
+  // statistics from phi(tau_old, El_old) (fLDA.jl:160-177): the last
+  // pass's p and c / s, or, when no pass ran, anew from the given state
+  const bool ran = it > 0;
+  if (!ran) {
+    float mo = -INFINITY;
+    for (int k = tid; k < K; k += kFThreads) mo = fmaxf(mo, elo[k]);
+    mo = block_max_once(mo, red + 24);
+    for (int k = tid; k < K; k += kFThreads) e_cur[k] = (elo[k] - mo) * kLog2e;
+    e_last = e_cur;
+    __syncthreads();
+  }
+  for (int k = tid; k < K; k += kFThreads) {
     gamma_out[dk + k] = gam[k];
     el_out[dk + k] = el[k];
     elo_out[dk + k] = elo[k];
   }
-  __syncthreads();
-  // statistics: phi from (tau_old, El_old), weights from the current tau
-  // (fLDA.jl:160-177)
-  const int K1 = K + 1;
-  float* wd = w + dl * K1;
-  for (int l = warp; l < L; l += kWarps) {
-    const float cl = c[l];
-    float* wl = wd + static_cast<size_t>(l) * K1;
-    if (cl == 0.f) {
-      for (int k = lane; k < K1; k += 32) wl[k] = 0.f;
-      continue;
-    }
-    const float tc = tau[dl + l];
-    float sl;
-    const float s = phi_row(row(l), tauo[dl + l], elo, &sl);
-    const float r = (tc * cl) / s;
-    for (int k = lane; k < K; k += 32) wl[k] = pb[k] * r;
-    if (lane == 0) wl[K] = (1.0f - tc) * cl;
+  for (int j = tid; j < L; j += kFThreads) {
+    tau_out[dl + mslot[j]] = tcur[j];
+    tauo_out[dl + mslot[j]] = told[j];
   }
+  float* wd = w + dl * (K + 1);
+  // p and c / s anew where the last pass's are not at hand
+  const bool again = !ran || !resident;
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int m = min(tile, n - j0);
+    if (!resident) {
+      load_rows<kFThreads, true>(rows, logbetaT, t, mslot, j0, m, K, Kp, vin);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (again) {
+      slot_pass(rows, pbuf, m, j0, n, e_last, told, nullptr, mc, mcs, mkap, eta, Kp);
+      __syncthreads();
+    }
+    write_w(wd, pbuf, m, j0, tcur, mc, mcs, mslot, K, Kp, false);
+    if (!resident) __syncthreads();  // before the next tile's rows land
+  }
+  write_w(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
 }
 
 }  // namespace tmvb
 
 extern "C" {
 
-// 1 when a document of L slots keeps its rows in shared memory, 0 when it
-// re-reads them from the table, -1 when the device cannot be queried.
+// 1 when every row of a document of L slots stays in shared memory, 0
+// when its rows go through in tiles, -1 when the device cannot be queried.
 int tmvb_flda_estep_rows_in_smem(int64_t L, int64_t K) {
-  return tmvb::fits_smem(tmvb::flda_smem_rows(L, K));
+  tmvb::FldaShape s;
+  return tmvb::flda_shape(L, K, &s) != 0 ? -1 : s.resident;
+}
+
+// Floats of device scratch a document needs: 7 L when its slot list does
+// not fit shared memory, else 0; -1 on an error.
+int64_t tmvb_flda_estep_scratch(int64_t L, int64_t K) {
+  tmvb::FldaShape s;
+  return tmvb::flda_shape(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
 }
 
 int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
@@ -208,20 +522,21 @@ int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
                     const float* eta, const float* gamma_in, const float* el_in,
                     const float* elo_in, const float* tau_in, const float* tauo_in,
                     float* gamma_out, float* el_out, float* elo_out, float* tau_out,
-                    float* tauo_out, float* w, int64_t B, int64_t L, int64_t K,
-                    int viter, float vtol, void* stream) {
+                    float* tauo_out, float* w, float* scratch, int64_t B, int64_t L,
+                    int64_t K, int viter, float vtol, int vec_in, void* stream) {
   if (B == 0) return 0;
-  const int rows_in_smem = tmvb_flda_estep_rows_in_smem(L, K);
-  if (rows_in_smem < 0) return tmvb::query_error();
-  const size_t bytes =
-      rows_in_smem ? tmvb::flda_smem_rows(L, K) : tmvb::flda_smem_base(K);
-  const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_kernel, bytes);
+  tmvb::FldaShape s;
+  const int rc = tmvb::flda_shape(L, K, &s);
+  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_kernel, s.bytes);
   if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::flda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kThreads, bytes,
+  tmvb::flda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
                             static_cast<cudaStream_t>(stream)>>>(
-      logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in, el_in, elo_in,
-      tau_in, tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w,
-      static_cast<int>(L), static_cast<int>(K), viter, vtol * vtol, rows_in_smem);
+      logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in, el_in, elo_in, tau_in,
+      tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w, scratch,
+      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, viter,
+      vtol * vtol, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 

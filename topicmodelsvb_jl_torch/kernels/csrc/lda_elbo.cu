@@ -10,26 +10,71 @@
 //   q_k = sum_l r_l bo[t_l, k],  a2_k = sum_l r_l g2[t_l, k],  r_l = c_l / s_l
 //
 // with r_l and c_l log s_l taken as 0 where c_l = 0 (lda_elbo.py:97-98).
+// The partial is a scalar, so the two per-topic sums fold into per-slot
+// dot products: with d = e * (El - El_old),
 //
-// What bounds it on an H100: it reads each real token's two K-wide rows
-// (bo twice, g2 once) and does ~6 flops per row element, so it is bound by
-// those gathered reads.  The rows come straight from the two [V, K]
-// tables, which at NSF scale (2 x 10 MB) stay resident in the 50 MB L2;
-// no [B, L, 2K] gather is written to device memory, and padding slots are
-// never read.  Each block writes its document's partial to out[d]; the
-// caller sums the partials, so there are no float atomics and the bound
-// is bitwise reproducible.  log is logf, not the TPU's bit-level series.
+//   partial = sum_{l: c_l > 0} c_l (u_l / s_l + log s_l),
+//   u_l = sum_k bo[t_l, k] d_k + sum_k g2[t_l, k] e_k.
+//
+// A real token over an all-zero bo row (CTM's raw beta_old) gives s = 0
+// and a non-finite partial, as in the plain version: degeneracy is
+// surfaced, not masked.
+//
+// What bounds it on an H100: bytes.  It must read the distinct rows of
+// the two tables its kept slots name (2 x ~10 MB at the widest NSF chunk,
+// fewer on a Zipf head), the terms and counts and 2 [B, K] states: ~25 MB,
+// ~6 us at 3.35 TB/s; ~6 flops per row element is ~0.14 GFLOP, ~2 us at
+// 67 TFLOP/s.  Each kept slot reads its two rows once, from L2 (the tables
+// stay resident in the 50 MB L2) or L1.
+//
+// Design (256 threads, one document per block): threads over slots, 8
+// threads a slot, their vectors of topics interleaved, so that a warp's
+// load touches 4 rows (4 lines of 128 bytes) and not 32, with 16-byte
+// loads of both rows where K % 4 == 0 and the tables are aligned (8-byte
+// where K % 2 == 0: CTM's K = 50), through L1 (__ldg), e and d broadcast
+// from shared memory; the group's sums are added by shuffles, and
+// c (u / s + log s) is thread-local.  Padding slots read their count only.
+// The block's partials are added in warp order, each document's into
+// out[d]; the caller sums them, so there are no float atomics and the
+// bound is bitwise reproducible.  Shared memory is 2K + 8 floats.  log is
+// logf, not the TPU's bit-level series.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/estep_sweep.py, in turns):
+// 24.6 us at the widest NSF chunk, 133 us at L = 1024, 26.8 us on a
+// 2048-document K = 50 chunk (the previous design, a thread a topic
+// walking every slot, took 58, 454 and 69.5 us).
+// Dropped: 1 or 2 threads a slot (32 rows a warp load: 32.2 us and 299 us),
+// 4, 16 and 32 threads a slot (26.6, 28.6 and 40.1 us), and the 8 as a
+// compile-time constant (27.1-27.8 us): the kernel takes it as an argument.
 
 #include "common.cuh"
 
 namespace tmvb {
 
-// Shared memory: e [K], red [32], then r [L] when it fits.
-__host__ __device__ inline size_t elbo_smem(int64_t L, int64_t K, bool r_in_smem) {
-  return (K + 32 + (r_in_smem ? L : 0)) * sizeof(float);
-}
+constexpr int kElboThreads = 256;
+constexpr int kElboWarps = kElboThreads / 32;
+constexpr int kElboTpsLog2 = 3;   // 8 threads a slot
 
-__global__ void __launch_bounds__(kThreads) lda_elbo_tok_kernel(
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static float dot(T a, T b) { return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w); }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static float dot(T a, T b) { return a.x * b.x + a.y * b.y; }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static float dot(T a, T b) { return a * b; }
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kElboThreads) lda_elbo_tok_kernel(
     const float* __restrict__ boT,       // [V, K]
     const float* __restrict__ g2T,       // [V, K]
     const int* __restrict__ terms,       // [B, L]
@@ -38,69 +83,79 @@ __global__ void __launch_bounds__(kThreads) lda_elbo_tok_kernel(
     const float* __restrict__ el,        // [B, K] current Elogtheta
     const float* __restrict__ elo,       // [B, K] old Elogtheta
     float* __restrict__ out,             // [B] per-document partials
-    float* __restrict__ r_scratch,       // [B, L], used when r is not in smem
-    int L, int K, int r_in_smem) {
-  extern __shared__ float smem[];
+    int L, int K, int tps_log2) {
+  using T = typename Vec<kVec>::T;
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* e = smem;
-  float* red = e + K;
-  float* r = r_in_smem ? red + 32 : r_scratch + static_cast<size_t>(b) * L;
+  const int tid = threadIdx.x;
+  float* e = smem;         // [K] exp(El_old)
+  float* d = e + K;        // [K] exp(El_old) (El - El_old)
+  float* red = d + K;      // [kElboWarps]
   const int* t = terms + static_cast<size_t>(b) * L;
   const float* c = counts + static_cast<size_t>(b) * L;
   const size_t dk = static_cast<size_t>(b) * K;
 
-  for (int k = tid; k < K; k += kThreads) e[k] = expf(elo[dk + k]);
-  __syncthreads();
-
-  float part = 0.f;  // lane 0 of each warp collects sum_l c log s
-  for (int l = warp; l < L; l += kWarps) {
-    const float cl = c[l];
-    float rl = 0.f;
-    if (cl > 0.f) {
-      const float* br = boT + static_cast<size_t>(t[l]) * K;
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += br[k] * e[k];
-      s = warp_sum(s);
-      rl = cl / s;
-      if (lane == 0) part += cl * logf(s);
-    }
-    if (lane == 0) r[l] = rl;
+  for (int k = tid; k < K; k += kElboThreads) {
+    const float x = elo[dk + k];
+    const float ek = expf(x);
+    e[k] = ek;
+    d[k] = ek * (el[dk + k] - x);
   }
   __syncthreads();
 
-  for (int k = tid; k < K; k += kThreads) {
-    float q = 0.f, a2 = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const float rl = r[l];
-      if (rl != 0.f) {
-        const size_t row = static_cast<size_t>(t[l]) * K + k;
-        q += rl * boT[row];
-        a2 += rl * g2T[row];
+  const int tps = 1 << tps_log2, sub = tid & (tps - 1), G = K / kVec;
+  const T* e4 = reinterpret_cast<const T*>(e);
+  const T* d4 = reinterpret_cast<const T*>(d);
+  float part = 0.f;
+  for (int base = 0; base < L; base += kElboThreads >> tps_log2) {
+    const int l = base + (tid >> tps_log2);
+    const float cl = l < L ? c[l] : 0.f;
+    float s = 0.f, u = 0.f;
+    if (cl > 0.f) {
+      const size_t row = static_cast<size_t>(t[l]) * K;
+      const T* bo = reinterpret_cast<const T*>(boT + row);
+      const T* g2 = reinterpret_cast<const T*>(g2T + row);
+#pragma unroll 4
+      for (int g = sub; g < G; g += tps) {
+        const T x = __ldg(bo + g), y = __ldg(g2 + g), ev = e4[g];
+        s += Vec<kVec>::dot(x, ev);
+        u += Vec<kVec>::dot(x, d4[g]) + Vec<kVec>::dot(y, ev);
       }
     }
-    const float ek = e[k];
-    part += (ek * q) * (el[dk + k] - elo[dk + k]) + ek * a2;
+    for (int o = 1; o < tps; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      u += __shfl_xor_sync(0xffffffffu, u, o);
+    }
+    if (sub == 0 && cl > 0.f) part += cl * (u / s + logf(s));
   }
-  const float total = block_sum(part, red);
+  const float total = block_sum_once<kElboWarps>(part, red);
   if (tid == 0) out[b] = total * doc_mask[b];
 }
 
 }  // namespace tmvb
 
+// vec: 4 (16-byte loads: K % 4 == 0, both tables 16-byte aligned), 2
+// (K % 2 == 0, 8-byte aligned) or 1.
 extern "C" int tmvb_lda_elbo_tok(const float* boT, const float* g2T, const int* terms,
                                  const float* counts, const float* doc_mask,
-                                 const float* el, const float* elo, float* out,
-                                 float* r_scratch, int64_t B, int64_t L, int64_t K,
-                                 void* stream) {
+                                 const float* el, const float* elo, float* out, int64_t B,
+                                 int64_t L, int64_t K, int vec, void* stream) {
   if (B == 0) return 0;
-  const int r_in_smem = tmvb::elbo_smem(L, K, true) <= 48 * 1024;
-  const size_t bytes = tmvb::elbo_smem(L, K, r_in_smem);
-  const cudaError_t err = tmvb::allow_smem(tmvb::lda_elbo_tok_kernel, bytes);
-  if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::lda_elbo_tok_kernel<<<static_cast<unsigned>(B), tmvb::kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      boT, g2T, terms, counts, doc_mask, el, elo, out, r_scratch,
-      static_cast<int>(L), static_cast<int>(K), r_in_smem);
-  return static_cast<int>(cudaGetLastError());
+  if (K % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (2 * K + tmvb::kElboWarps) * sizeof(float);
+  auto launch = [&](auto kernel) -> int {
+    const cudaError_t err = tmvb::allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return tmvb::fail(err);
+    kernel<<<static_cast<unsigned>(B), tmvb::kElboThreads, bytes,
+             static_cast<cudaStream_t>(stream)>>>(boT, g2T, terms, counts, doc_mask, el, elo,
+                                                  out, static_cast<int>(L),
+                                                  static_cast<int>(K), tmvb::kElboTpsLog2);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (vec) {
+    case 4: return launch(tmvb::lda_elbo_tok_kernel<4>);
+    case 2: return launch(tmvb::lda_elbo_tok_kernel<2>);
+    case 1: return launch(tmvb::lda_elbo_tok_kernel<1>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

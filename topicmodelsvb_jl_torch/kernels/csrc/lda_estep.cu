@@ -62,7 +62,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "rows.cuh"
 
 namespace tmvb {
 
@@ -123,34 +123,6 @@ inline int estep_shape(int64_t L, int64_t K, EstepShape* s) {
     return 0;
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Rows of compact slots j0 .. j0 + m - 1 into rows[0 .. m), asynchronously;
-// the padding columns are zeroed.  The caller waits (cp_async_wait_all)
-// and syncs.
-__device__ __forceinline__ void load_rows(float* rows, const float* __restrict__ betaT,
-                                          const int* __restrict__ t, const int* mslot, int j0,
-                                          int m, int K, int Kp, bool vec) {
-  if (vec) {
-    const int G = Kp / 4, Gsrc = K / 4;
-    for (int idx = threadIdx.x; idx < m * G; idx += kEstepThreads) {
-      const int i = idx / G, g = idx - i * G;
-      float* dst = rows + static_cast<size_t>(i) * Kp + 4 * g;
-      if (g < Gsrc)
-        cp_async16(dst, betaT + static_cast<size_t>(t[mslot[j0 + i]]) * K + 4 * g);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < m * Kp; idx += kEstepThreads) {
-      const int i = idx / Kp, k = idx - i * Kp;
-      float* dst = rows + static_cast<size_t>(i) * Kp + k;
-      if (k < K)
-        cp_async4(dst, betaT + static_cast<size_t>(t[mslot[j0 + i]]) * K + k);
-      else
-        *dst = 0.f;
-    }
-  }
 }
 
 // cs_i = c_i / s_i, s_i = sum_k rows[i, k] e_k, for the m rows; threads
@@ -281,7 +253,7 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
   }
 
   const bool vin = vec_in != 0;
-  if (resident) load_rows(rows, betaT, t, mslot, 0, n, K, Kp, vin);
+  if (resident) load_rows<kEstepThreads>(rows, betaT, t, mslot, 0, n, K, Kp, vin);
   for (int k = tid; k < Kp; k += kEstepThreads) {
     if (k < K) {
       gam[k] = gamma_in[dk + k];
@@ -304,7 +276,7 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
     for (int j0 = 0; j0 < n; j0 += tile) {
       const int m = min(tile, n - j0);
       if (!resident) {
-        load_rows(rows, betaT, t, mslot, j0, m, K, Kp, vin);
+        load_rows<kEstepThreads>(rows, betaT, t, mslot, j0, m, K, Kp, vin);
         cp_async_wait_all();
         __syncthreads();
       }
@@ -372,7 +344,7 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
   for (int j0 = 0; j0 < n; j0 += tile) {
     const int m = min(tile, n - j0);
     if (!resident) {
-      load_rows(rows, betaT, t, mslot, j0, m, K, Kp, vin);
+      load_rows<kEstepThreads>(rows, betaT, t, mslot, j0, m, K, Kp, vin);
       cp_async_wait_all();
       __syncthreads();
     }

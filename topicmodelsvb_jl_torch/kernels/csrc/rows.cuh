@@ -1,0 +1,45 @@
+// Table rows of a document's slots into shared memory: the asynchronous
+// gather shared by the LDA and fLDA E-steps.
+#pragma once
+
+#include "common.cuh"
+
+namespace tmvb {
+
+// Rows of compact slots j0 .. j0 + m - 1 into rows[0 .. m), asynchronously,
+// by a block of kN threads (16-byte copies when `vec`: K % 4 == 0 and the
+// table 16-byte aligned; through L1 when kL1, else around it); the
+// padding columns are zeroed.  The caller waits (cp_async_wait_all) and
+// syncs.
+template <int kN, bool kL1 = false>
+__device__ __forceinline__ void load_rows(float* rows, const float* __restrict__ table,
+                                          const int* __restrict__ t, const int* mslot, int j0,
+                                          int m, int K, int Kp, bool vec) {
+  if (vec) {
+    const int G = Kp / 4, Gsrc = K / 4;
+    for (int idx = threadIdx.x; idx < m * G; idx += kN) {
+      const int i = idx / G, g = idx - i * G;
+      float* dst = rows + static_cast<size_t>(i) * Kp + 4 * g;
+      if (g < Gsrc) {
+        const float* src = table + static_cast<size_t>(t[mslot[j0 + i]]) * K + 4 * g;
+        if (kL1)
+          cp_async16_ca(dst, src);
+        else
+          cp_async16(dst, src);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < m * Kp; idx += kN) {
+      const int i = idx / Kp, k = idx - i * Kp;
+      float* dst = rows + static_cast<size_t>(i) * Kp + k;
+      if (k < K)
+        cp_async4(dst, table + static_cast<size_t>(t[mslot[j0 + i]]) * K + k);
+      else
+        *dst = 0.f;
+    }
+  }
+}
+
+}  // namespace tmvb

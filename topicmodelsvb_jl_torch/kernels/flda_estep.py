@@ -27,6 +27,7 @@ tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,8 +77,18 @@ def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
     return gamma, El, El_old, tau, tau_old, torch.cat([wb, wk[:, :, None]], dim=-1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 3 + [
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(L: int, K: int) -> int:
+    """Floats of device scratch one document of L slots needs: 0 when its
+    slot list fits shared memory (the main path's widths)."""
+    got = _build.function("tmvb_flda_estep_scratch", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+    if got < 0:
+        raise RuntimeError("flda_estep: cannot query the device's shared memory")
+    return got
 
 
 def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
@@ -107,12 +118,15 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
     w = torch.empty((B, L, K + 1), dtype=f32, device=logbetaT.device)
     if B == 0:
         return (*outs, *taus, w)
-    fn = _build.function("tmvb_flda_estep", _ARGTYPES)
-    with torch.cuda.device(logbetaT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-            logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
-            tau, tau_old, *outs, *taus, w)), B, L, K, int(viter), float(vtol), stream)
+    n_scratch = _scratch_floats(L, K)
+    scratch = (torch.empty((B, n_scratch), dtype=f32, device=logbetaT.device)
+               if n_scratch else None)
+    err = _build.launch(
+        _build.function("tmvb_flda_estep", _ARGTYPES), logbetaT.device,
+        *(t.data_ptr() for t in (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma,
+                                 El, El_old, tau, tau_old, *outs, *taus, w)),
+        None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
+        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0))
     check(err, "flda_estep")
     flda_estep.launches += 1
     return (*outs, *taus, w)

@@ -47,7 +47,16 @@ def lda_elbo_tok_ref(boT, g2T, terms, counts, doc_mask, El, El_old):
     return torch.sum(per_doc * doc_mask)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def _vec(K: int, *tables) -> int:
+    """Width of the kernel's row loads: 4 floats where K % 4 == 0 and every
+    table is 16-byte aligned, 2 where K % 2 == 0 and 8-byte aligned, else 1."""
+    for v in (4, 2):
+        if K % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tables):
+            return v
+    return 1
 
 
 def lda_elbo_tok(boT, g2T, terms, counts, doc_mask, El, El_old):
@@ -74,13 +83,10 @@ def lda_elbo_tok(boT, g2T, terms, counts, doc_mask, El, El_old):
     out = torch.empty((B,), dtype=torch.float32, device=boT.device)
     if B == 0:
         return torch.sum(out)
-    scratch = torch.empty((B, L), dtype=torch.float32, device=boT.device)
-    fn = _build.function("tmvb_lda_elbo_tok", _ARGTYPES)
-    with torch.cuda.device(boT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-            boT, g2T, terms, counts, doc_mask, El, El_old, out, scratch)),
-            B, L, K, stream)
+    err = _build.launch(
+        _build.function("tmvb_lda_elbo_tok", _ARGTYPES), boT.device,
+        *(t.data_ptr() for t in (boT, g2T, terms, counts, doc_mask, El, El_old, out)),
+        B, L, K, _vec(K, boT, g2T))
     check(err, "lda_elbo_tok")
     lda_elbo_tok.launches += 1
     return torch.sum(out)
