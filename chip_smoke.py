@@ -304,6 +304,26 @@ def compare_flda(seg, V, K, dev, label):
     return r, got[5]
 
 
+def ctpf_args(tok, rd, V, U, K, dev):
+    """``ctpf_estep``'s arguments and keywords on one chunk: random
+    exp(ψ) tables [V, K] and [U, K], hyperparameter vectors and state
+    (seed 31), viter 10."""
+    import torch
+
+    terms, counts, doc_mask = tok
+    readers, ratings = rd
+    B = terms.shape[0]
+    g = torch.Generator().manual_seed(31)
+    gam = lambda *shape: 0.1 + 3.0 * torch.rand(*shape, generator=g)
+    ealefT = torch.exp(torch.special.digamma(gam(K, V))).T.contiguous().to(dev)
+    eheT = torch.exp(torch.special.digamma(gam(K, U))).T.contiguous().to(dev)
+    dalet, bet, vav, het = (0.5 + 2.5 * torch.rand(K, generator=g) for _ in range(4))
+    inv = [(1.0 / x).to(dev) for x in (dalet * bet, dalet * vav, het * vav)]
+    state = [gam(B, K).to(dev) for _ in range(4)]
+    args = (ealefT, eheT, terms, counts, readers, ratings, doc_mask, *inv, *state)
+    return args, dict(viter=10, vtol=1.0 / K**2, c_hyper=0.1, g_hyper=0.1)
+
+
 def compare_ctpf(tok, rd, V, U, K, dev, label):
     """ctpf_estep against its plain version on one chunk."""
     import torch
@@ -315,21 +335,15 @@ def compare_ctpf(tok, rd, V, U, K, dev, label):
     readers, ratings = rd
     B, L = terms.shape
     R = readers.shape[1]
-    g = torch.Generator().manual_seed(31)
-    gam = lambda *shape: 0.1 + 3.0 * torch.rand(*shape, generator=g)
-    ealefT = torch.exp(torch.special.digamma(gam(K, V))).T.contiguous().to(dev)
-    eheT = torch.exp(torch.special.digamma(gam(K, U))).T.contiguous().to(dev)
-    dalet, bet, vav, het = (0.5 + 2.5 * torch.rand(K, generator=g) for _ in range(4))
-    inv = [(1.0 / x).to(dev) for x in (dalet * bet, dalet * vav, het * vav)]
-    state = [gam(B, K).to(dev) for _ in range(4)]
-    args = (ealefT, eheT, terms, counts, readers, ratings, doc_mask, *inv, *state)
-    kw = dict(viter=10, vtol=1.0 / K**2, c_hyper=0.1, g_hyper=0.1)
+    args, kw = ctpf_args(tok, rd, V, U, K, dev)
     got = ctpf_estep(*args, **kw)
     want = ctpf_estep_ref(*args, **kw)
     torch.cuda.synchronize()
     err = close(got, want, ("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
                 f"ctpf_estep {label}")
-    padded_kept(got[:4], state, got[4:], doc_mask, f"ctpf_estep {label}")
+    padded_kept(got[:4], args[10:], got[4:], doc_mask, f"ctpf_estep {label}")
+    need(all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw))),
+         f"ctpf_estep {label}: not bitwise repeatable")
     kt, kr = counts > 0, ratings > 0
     kept = int(kt.sum()) + int(kr.sum())
     work = fixpoint_work(ctpf_mod, ctpf_estep_ref, args, kw, (kt.sum(1) + kr.sum(1)).float())
@@ -338,7 +352,8 @@ def compare_ctpf(tok, rd, V, U, K, dev, label):
                bound_ms(4 * ((n_unique(terms, kt) + n_unique(readers, kr)) * K
                              + 2 * B * (L + R) + B + 3 * K + 8 * B * K + B * (L + R) * K),
                         4 * K * work + 2 * K * kept))
-    print(f"kernels {label}: B={B} L={L} R={R} K={K} | ctpf_estep {times(r)}")
+    print(f"kernels {label}: B={B} L={L} R={R} K={K} kept={kept} passes a kept slot "
+          f"{work / max(kept, 1):.2f} | ctpf_estep {times(r)}")
     return r, got[4], got[5]
 
 
@@ -555,6 +570,62 @@ def compare_ctm_chunk(model, dev, label):
     return sc, r
 
 
+def citeulike():
+    """The synthetic CiteULike-scale corpus (16,980 docs, V = 8,000, U =
+    5,551, seed 7) packed with its readers, its buckets (chunk 1024, width
+    multiple 8) and synth_corpus's host seconds."""
+    import topicmodelsvb_jl_torch as tt
+
+    t0 = time.perf_counter()
+    citeu = tt.synth_corpus(M=16_980, V=8_000, U=5_551, K=30, seed=7, mean_tokens=60,
+                            mean_terms=45, mean_readers=5)
+    synth_s = time.perf_counter() - t0
+    cpk = tt.pack_corpus(citeu, with_readers=True)
+    return cpk, tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8), synth_s
+
+
+def long_chunks(V, U, dev) -> dict:
+    """The synthetic 1024-document chunks whose rows do not fit shared
+    memory: ``long`` (L = 1024, term ids below V, seed 3), ``long_pad``
+    (the same ending in 3 padded documents) and ``ctpf_long`` (its first
+    768 token slots and 256 reader slots over U users, seed 4)."""
+    import numpy as np
+    import torch
+
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    f32, i32 = torch.float32, torch.int32
+    r = np.random.default_rng(3)
+    n = r.integers(600, 1025, size=1024)
+    cnt = (1 + r.poisson(0.35, size=(1024, 1024))) * (np.arange(1024)[None, :] < n[:, None])
+    trm = np.minimum((V * r.random((1024, 1024)) ** 3).astype(np.int32), V - 1) * (cnt > 0)
+    long_ = (put(trm, i32), put(cnt, f32), torch.ones(1024, dtype=f32, device=dev))
+    mask_pad = torch.ones(1024, dtype=f32, device=dev)
+    mask_pad[-3:] = 0
+    cnt[-3:] = 0
+    long_pad = (put(trm * (cnt > 0), i32), put(cnt, f32), mask_pad)
+    rr = np.random.default_rng(4)
+    rat = (np.arange(256)[None, :] < rr.integers(100, 257, size=1024)[:, None]).astype(np.float32)
+    rat[-3:] = 0
+    rdr = rr.integers(0, U, size=(1024, 256)).astype(np.int32) * (rat > 0)
+    ctpf_long = ((long_pad[0][:, :768].contiguous(), long_pad[1][:, :768].contiguous(), mask_pad),
+                 (put(rdr, i32), put(rat, f32)))
+    return dict(long=long_, long_pad=long_pad, ctpf_long=ctpf_long)
+
+
+def ctpf_bucket(cpk, cbk, dev, j: int = 0):
+    """The first 1024 documents of the CiteULike corpus's bucket ``j`` (0:
+    the widest): (terms, counts, doc_mask) and (readers, ratings)."""
+    import numpy as np
+    import torch
+
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    seg = cbk.segments[j]
+    rows = slice(seg.loc_start, seg.loc_start + 1024)
+    return ((put(seg.terms[:1024], torch.int32), put(seg.counts[:1024], torch.float32),
+             put(seg.doc_mask[:1024], torch.float32)),
+            (put(cbk.readers[rows], torch.int32), put(cbk.ratings[rows], torch.float32)))
+
+
 def kernel_checks(dev) -> dict:
     """Phases 2 and 3 up to the small models: the corpora, then every
     kernel against its plain version at its main path's shapes (and the
@@ -573,15 +644,11 @@ def kernel_checks(dev) -> dict:
     print(f"corpus NSF: M={packed.M} V={V} segments={len(bucketed.segments)} "
           f"widths={[s.L for s in bucketed.segments]} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    citeu = tt.synth_corpus(M=16_980, V=8_000, U=5_551, K=30, seed=7, mean_tokens=60,
-                            mean_terms=45, mean_readers=5)
-    synth_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpk = tt.pack_corpus(citeu, with_readers=True)
-    cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
+    cpk, cbk, synth_s = citeulike()
     print(f"corpus CiteULike: M={cpk.M} V={cpk.V} U={cpk.U} Rmax={cpk.Rmax} "
           f"segments={len(cbk.segments)} widths={[s.L for s in cbk.segments]}; "
-          f"synth_corpus host time {synth_s:.2f} s, packing {time.perf_counter() - t0:.2f} s")
+          f"synth_corpus host time {synth_s:.2f} s, packing "
+          f"{time.perf_counter() - t0 - synth_s:.2f} s")
 
     # 3. kernel vs plain, then small models on the card against the CPU
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
@@ -589,16 +656,8 @@ def kernel_checks(dev) -> dict:
     s0 = bucketed.segments[0]
     wide = (put(s0.terms[:1024], i32), put(s0.counts[:1024], f32),
             put(s0.doc_mask[:1024], f32))
-    r = np.random.default_rng(3)
-    n = r.integers(600, 1025, size=1024)
-    cnt = (1 + r.poisson(0.35, size=(1024, 1024))) * (np.arange(1024)[None, :] < n[:, None])
-    trm = np.minimum((V * r.random((1024, 1024)) ** 3).astype(np.int32), V - 1) * (cnt > 0)
-    long_ = (put(trm, i32), put(cnt, f32), torch.ones(1024, dtype=f32, device=dev))
-    # the fLDA/CTPF synthetic chunks end in 3 padded documents
-    mask_pad = torch.ones(1024, dtype=f32, device=dev)
-    mask_pad[-3:] = 0
-    cnt[-3:] = 0
-    long_pad = (put(trm * (cnt > 0), i32), put(cnt, f32), mask_pad)
+    lc = long_chunks(V, cpk.U, dev)
+    long_, long_pad = lc["long"], lc["long_pad"]
     i64 = ctypes.c_int64
     fit = {name: _build.function(f"tmvb_{name}_rows_in_smem", [i64] * n)
            for name, n in (("lda_estep", 2), ("flda_estep", 2), ("ctpf_estep", 3))}
@@ -614,19 +673,11 @@ def kernel_checks(dev) -> dict:
     fl_wide, fl_w = compare_flda(wide, V, K, dev, f"widest bucket L={s0.L}")
     fl_long, _ = compare_flda(long_pad, V, K, dev, "L=1024 rows in device memory")
     c0 = cbk.segments[0]
-    rows0 = slice(c0.loc_start, c0.loc_start + 1024)
-    c_rd = (put(cbk.readers[rows0], i32), put(cbk.ratings[rows0], f32))
-    ct_wide, ct_wa, ct_wh = compare_ctpf(
-        (put(c0.terms[:1024], i32), put(c0.counts[:1024], f32), put(c0.doc_mask[:1024], f32)),
-        c_rd, cpk.V, cpk.U, K, dev, f"CiteULike widest bucket L={c0.L} R={cpk.Rmax}")
-    rr = np.random.default_rng(4)
-    rat = (np.arange(256)[None, :] < rr.integers(100, 257, size=1024)[:, None]).astype(np.float32)
-    rat[-3:] = 0
-    rdr = rr.integers(0, cpk.U, size=(1024, 256)).astype(np.int32) * (rat > 0)
-    ct_long, _, _ = compare_ctpf(
-        (long_pad[0][:, :768].contiguous(), long_pad[1][:, :768].contiguous(), mask_pad),
-        (put(rdr, i32), put(rat, f32)), V, cpk.U, K, dev,
-        "L=768 R=256 rows in device memory")
+    c_tok, c_rd = ctpf_bucket(cpk, cbk, dev)
+    ct_wide, ct_wa, ct_wh = compare_ctpf(c_tok, c_rd, cpk.V, cpk.U, K, dev,
+                                         f"CiteULike widest bucket L={c0.L} R={cpk.Rmax}")
+    ct_long, _, _ = compare_ctpf(*lc["ctpf_long"], V, cpk.U, K, dev,
+                                 "L=768 R=256 rows in device memory")
     # the M-step scatter on the real rows of those chunks
     one_id = torch.rand((1024 * 128, K), device=dev)
     scatter_cases = [
@@ -634,8 +685,8 @@ def kernel_checks(dev) -> dict:
          f"LDA w, widest NSF bucket L={s0.L}"),
         (V, fl_w.reshape(-1, K + 1), wide[0], wide[1] > 0, dev,
          f"fLDA w, widest NSF bucket L={s0.L}"),
-        (cpk.V, ct_wa.reshape(-1, K), put(c0.terms[:1024], i32),
-         put(c0.counts[:1024], f32) > 0, dev, f"CTPF term rows, CiteULike widest bucket L={c0.L}"),
+        (cpk.V, ct_wa.reshape(-1, K), c_tok[0], c_tok[1] > 0, dev,
+         f"CTPF term rows, CiteULike widest bucket L={c0.L}"),
         (max(cpk.U, 1), ct_wh.reshape(-1, K), c_rd[0], c_rd[1] > 0, dev,
          f"CTPF reader rows, CiteULike widest bucket R={cpk.Rmax}"),
         (V, one_id, torch.full((1024 * 128,), 5, dtype=i32, device=dev),

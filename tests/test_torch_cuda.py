@@ -343,9 +343,20 @@ def _ctpf_chunk(K, B, L, R, V, U, dev, seed=0):
 HYP = dict(c_hyper=0.1, g_hyper=0.1)
 
 
-# (100, 80, 24): CiteULike-like, rows in shared memory; (100, 600, 64):
-# L + R beyond the shared-memory limit, rows read from the tables
-@pytest.mark.parametrize("K,L,R", [(9, 24, 8), (100, 80, 24), (100, 600, 64), (160, 40, 8)])
+CTPF_NAMES = ("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh")
+
+
+def _ctpf_close(got, want):
+    for name, a, b in zip(CTPF_NAMES, got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+
+
+# (100, 80, 24): CiteULike's widest chunk, rows in shared memory;
+# (100, 600, 64): L + R beyond the shared-memory limit, rows in tiles
+# re-read from the tables; K = 7 and 9 (4-byte copies and stores), 160 and
+# 300 (more topics than threads)
+@pytest.mark.parametrize("K,L,R", [(9, 24, 8), (100, 80, 24), (100, 600, 64), (160, 40, 8),
+                                   (7, 24, 8), (300, 40, 8)])
 def test_ctpf_estep_kernel_matches_plain(cuda, K, L, R):
     args = _ctpf_chunk(K, 64, L, R, 3000, 500, cuda)
     before = ctpf_estep.launches
@@ -353,12 +364,105 @@ def test_ctpf_estep_kernel_matches_plain(cuda, K, L, R):
     torch.cuda.synchronize()
     assert ctpf_estep.launches == before + 1
     want = ctpf_estep_ref(*args, viter=10, vtol=1.0 / K**2, **HYP)
-    for name, a, b in zip(("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
-                          got, want):
-        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    _ctpf_close(got, want)
     assert torch.all(got[4][-3:] == 0) and torch.all(got[5][-3:] == 0)
     for a, b in zip(got[:4], args[10:]):
         assert torch.equal(a[-3:], b[-3:])   # padded documents frozen
+    again = ctpf_estep(*args, viter=10, vtol=1.0 / K**2, **HYP)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+def test_ctpf_estep_shared_memory_rule(cuda):
+    """Which of the three layouts each test shape takes: rows resident,
+    rows in tiles, and tiles with the slot list in a [B, 3 (L + R)]
+    scratch."""
+    import ctypes
+
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    i64 = [ctypes.c_int64] * 3
+    fit = _build.function("tmvb_ctpf_estep_rows_in_smem", i64)
+    scratch = _build.function("tmvb_ctpf_estep_scratch", i64, ctypes.c_int64)
+    for (K, L, R), want in {(100, 80, 24): (1, 0), (9, 24, 8): (1, 0), (100, 600, 64): (0, 0),
+                            (100, 768, 256): (0, 0), (7, 5000, 1000): (0, 18000)}.items():
+        assert (fit(L, R, K), scratch(L, R, K)) == want, (K, L, R)
+
+
+# rows resident (K % 4 == 0 and not), in tiles, and in tiles with the slot
+# list in device scratch
+@pytest.mark.parametrize("K,L,R", [(100, 80, 24), (9, 24, 8), (100, 600, 64), (7, 5000, 1000)])
+@pytest.mark.parametrize("viter", [0, 1, 3])
+def test_ctpf_estep_kernel_special_documents(cuda, K, L, R, viter):
+    """A document masked out but with counts and ratings (frozen state,
+    wa/wh from its old state), one with tokens and no readers, one with
+    readers and no tokens, an empty real one (gimel = c, zayin = g, no
+    rows), and viter 0 and 1 (no pass: rows from the state as given; one
+    pass: rows from the pass)."""
+    args = list(_ctpf_chunk(K, 16, L, R, 3000, 500, cuda, seed=4))
+    terms, counts, readers, ratings, doc_mask = args[2], args[3], args[4], args[5], args[6]
+    doc_mask[0] = 0.0
+    ratings[1], readers[1] = 0.0, 0
+    counts[2], terms[2] = 0.0, 0
+    counts[3], terms[3], ratings[3], readers[3] = 0.0, 0, 0.0, 0
+    kw = dict(viter=viter, vtol=1.0 / K**2, **HYP)
+    got = ctpf_estep(*args, **kw)
+    _ctpf_close(got, ctpf_estep_ref(*args, **kw))
+    state = args[10:]
+    for a, b in zip(got[:4], state):
+        assert torch.equal(a[0], b[0])
+    wa, wh = got[4], got[5]
+    assert torch.any(wa[0] != 0) and torch.any(wh[0] != 0)
+    assert torch.all(wh[1] == 0) and torch.any(wa[1] != 0)
+    assert torch.all(wa[2] == 0) and torch.any(wh[2] != 0)
+    assert torch.all(wa[3] == 0) and torch.all(wh[3] == 0)
+    if viter:
+        assert torch.all(got[0][3] == HYP["c_hyper"]) and torch.all(got[2][3] == HYP["g_hyper"])
+        # one pass leaves the given state in the old; a second finds (c, g)
+        # again and stops there
+        old = (state[0][3], state[2][3]) if viter == 1 else (got[0][3], got[2][3])
+        assert torch.equal(got[1][3], old[0]) and torch.equal(got[3][3], old[1])
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got[:4], state))
+    assert all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw)))
+
+
+def test_ctpf_estep_kernel_empty_documents_stop_together(cuda):
+    """Empty real documents run one barrier a pass.  Pass 0 moves only the
+    topics of one warp (b % 8 of 8 warps at K = 256); pass 1 moves none and
+    stops.  Every warp must take pass 1: its topics' zayin_old is then g,
+    not the zayin given."""
+    B, K = 8192, 256
+    args = list(_ctpf_chunk(K, B, 8, 8, 100, 50, cuda, seed=6))
+    for a in args[2:6]:
+        a.zero_()
+    args[6].fill_(1.0)
+    moved = (torch.arange(K, device=cuda)[None, :] // 32
+             == torch.arange(B, device=cuda)[:, None] % 8)
+    args[10] = HYP["c_hyper"] + moved.float()
+    args[12] = torch.full((B, K), HYP["g_hyper"] + 1.0, device=cuda)
+    kw = dict(viter=3, vtol=1.0 / K**2, **HYP)
+    want = ctpf_estep_ref(*args, **kw)
+    for _ in range(5):
+        got = ctpf_estep(*args, **kw)
+        _ctpf_close(got, want)
+        assert torch.all(got[0] == HYP["c_hyper"]) and torch.all(got[1] == HYP["c_hyper"])
+        assert torch.all(got[2] == HYP["g_hyper"]) and torch.all(got[3] == HYP["g_hyper"])
+        assert torch.all(got[4] == 0) and torch.all(got[5] == 0)
+
+
+def test_ctpf_estep_kernel_without_users(cuda):
+    """A corpus without users: every rating 0 over the one placeholder
+    user's row; the reader rows are zeros and the tokens alone move
+    gimel."""
+    args = list(_ctpf_chunk(100, 64, 80, 8, 3000, 1, cuda, seed=5))
+    args[4].zero_()
+    args[5].zero_()
+    kw = dict(viter=10, vtol=1e-4, **HYP)
+    got = ctpf_estep(*args, **kw)
+    _ctpf_close(got, ctpf_estep_ref(*args, **kw))
+    assert args[1].shape == (1, 100) and torch.all(got[5] == 0)
+    assert torch.all(got[2][:-3] == HYP["g_hyper"])
+    assert all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw)))
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

@@ -21,6 +21,7 @@ import topicmodelsvb_jl_tpu as tm
 from topicmodelsvb_jl_tpu.datasets import synth_packed_nsf_scale as jax_synth
 from topicmodelsvb_jl_tpu.models import lda as jax_lda
 from topicmodelsvb_jl_tpu.ops.packing import bucketize_packed as jax_bucketize
+from topicmodelsvb_jl_tpu.ops.packing import pack_corpus as jax_pack
 from topicmodelsvb_jl_tpu.parallel.mesh import make_mesh
 from topicmodelsvb_jl_tpu.utils.config import RuntimeConfig as JaxRuntimeConfig
 import topicmodelsvb_jl_torch as tt
@@ -161,8 +162,32 @@ def test_model_rejects_bad_input():
     bad.segments[0].terms[0, 0] = p.V
     with pytest.raises(ValueError, match="term ids"):
         tt.LDA(bad, 3, device="cpu")
-    with pytest.raises(IndexError):
+    with pytest.raises(tt.CorpusError):
         tt.LDA(p, 3, device="cpu").topicdist(p.M + 1)
+
+
+@pytest.mark.parametrize("family", ["LDA", "fLDA", "CTM", "fCTM", "CTPF"])
+def test_topicdist_outside_the_corpus_raises_corpus_error(family):
+    """A document index outside 1..M raises CorpusError in both packages,
+    on the same corpus; the port's is its own ``corpus.CorpusError``."""
+    if family == "CTPF":
+        kw = dict(M=40, V=30, K=3, U=10, seed=2, mean_tokens=12, mean_terms=8,
+                  mean_readers=2)
+        jp = jax_pack(tm.synth_corpus(**kw), with_readers=True)
+        tp = tt.pack_corpus(tt.synth_corpus(**kw), with_readers=True)
+    else:
+        jp, tp = jax_synth(**CORPUS), tt.synth_packed_nsf_scale(**CORPUS)
+    jm = getattr(tm, family)(jp, 3, runtime=JaxRuntimeConfig(chunk_docs=CHUNK),
+                             mesh=make_mesh(n_devices=1), seed=1)
+    pm = getattr(tt, family)(tp, 3, tt.RuntimeConfig(chunk_docs=CHUNK), device="cpu", seed=1)
+    assert pm.M == jp.M
+    for d in (0, pm.M + 1, [1, pm.M + 1]):
+        with pytest.raises(tm.CorpusError):
+            jm.topicdist(d)
+        with pytest.raises(tt.CorpusError, match="outside corpus range"):
+            pm.topicdist(d)
+    assert tt.CorpusError is tt.corpus.CorpusError and tt.DocumentError is tt.corpus.DocumentError
+    assert pm.topicdist([1, pm.M]).shape == (2, 3)
 
 
 def test_convert_round_trip():

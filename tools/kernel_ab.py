@@ -10,8 +10,9 @@ built; the corpora, shapes, checks and timer are those of THIS checkout's
 ``chip_smoke.py`` (``kernel_checks``): each kernel against its plain
 version, its device time over many launches, its call time and its bound,
 and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
-(NSF scale, K = 100, 1024-document chunks): one warm-up iteration each,
-then three steps alone, each timed by the host clock up to a synchronize.
+(NSF scale) and the CTPF main path (CiteULike scale), K = 100,
+1024-document chunks: one warm-up iteration each, then three steps alone,
+each timed by the host clock up to a synchronize.
 Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
@@ -53,8 +54,9 @@ def main(root: str, label: str) -> int:
            **{k: kc[k] for k in ("estep", "elbo", "flda", "ctpf", "scatter")}}
     import topicmodelsvb_jl_torch as tt
 
-    for name, cls in (("lda", tt.LDA), ("flda", tt.fLDA)):
-        m = cls(kc["packed"], 100, tt.RuntimeConfig(chunk_docs=1024), device="cuda", seed=7)
+    for name, cls, corpus in (("lda", tt.LDA, kc["packed"]), ("flda", tt.fLDA, kc["packed"]),
+                              ("ctpf", tt.CTPF, kc["cpk"])):
+        m = cls(corpus, 100, tt.RuntimeConfig(chunk_docs=1024), device="cuda", seed=7)
         m.train(iter=1, checkelbo=float("inf"), printelbo=False)
         tr, state, steps = m.trainer, m.state, []
         for _ in range(3):

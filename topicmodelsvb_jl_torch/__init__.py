@@ -9,13 +9,14 @@ plain PyTorch versions of each kernel for CPU tensors.  It imports no JAX.
 """
 
 from .api import CTM, CTPF, LDA, fCTM, fLDA
-from .corpus import Corpus, Document
+from .corpus import Corpus, CorpusError, Document, DocumentError
 from .datasets import synth_corpus, synth_packed_nsf_scale
 from .ops.packing import PackedCorpus, bucketize_packed, pack_corpus
 from .utils.config import RuntimeConfig, TrainConfig
 
 __all__ = [
-    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "Corpus", "Document", "TrainConfig",
+    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "Corpus", "Document", "CorpusError",
+    "DocumentError", "TrainConfig",
     "RuntimeConfig",
     "PackedCorpus", "bucketize_packed", "pack_corpus", "synth_corpus",
     "synth_packed_nsf_scale",

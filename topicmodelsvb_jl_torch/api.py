@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .corpus import CorpusError
 from .engine import Trainer
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
@@ -167,7 +168,7 @@ class TopicModel:
         scalar = np.isscalar(d)
         idx = np.atleast_1d(np.asarray(d, dtype=np.int64))
         if np.any((idx < 1) | (idx > self.M)):
-            raise IndexError("some document indices outside corpus range.")
+            raise CorpusError("some document indices outside corpus range.")
         out = self._topicdist_rows(self._rows(idx - 1))
         return out[0] if scalar else out
 

@@ -1,5 +1,5 @@
-// Helpers shared by the E-step and ELBO kernels: block layout, block-wide
-// sums, the digamma series and the shared-memory opt-in.
+// Helpers shared by the E-step and ELBO kernels: warp and block-wide
+// sums, cp.async, the digamma series and the shared-memory opt-in.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -7,12 +7,6 @@
 #include <stdint.h>
 
 namespace tmvb {
-
-// One block per document in the ELBO, fLDA and CTPF kernels.  128
-// threads cover K = 100 topics in one pass; larger K loops.  (lda_estep.cu
-// has its own 256-thread layout.)
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 
 // The reference's EPSILON = eps(1e-14) (utils.jl:3), as f32.
 constexpr float kEps = 1.6033346880071782e-30f;
@@ -27,21 +21,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Sum of v over the block, returned to every thread.  Every thread adds
-// the per-warp partials in the same order, so all see the same bits and
-// a loop that branches on the result stays uniform.  `red` holds
-// kWarps floats of shared memory.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // the previous call's readers are done with `red`
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  return s;
 }
 
 // Sum of v over a block of kN warps, returned to every thread, with ONE
@@ -112,15 +91,6 @@ inline int smem_optin() {
       cudaSuccess)
     return -1;
   return optin;
-}
-
-// 1 when `bytes` of shared memory fit the opt-in limit, 0 when they do
-// not, or a negative value when the device cannot be queried (the CUDA
-// error stays set for the caller's check).
-inline int fits_smem(size_t bytes) {
-  const int optin = smem_optin();
-  if (optin < 0) return -1;
-  return bytes <= static_cast<size_t>(optin) ? 1 : 0;
 }
 
 // The error that left smem_optin() at -1, or cudaErrorUnknown.

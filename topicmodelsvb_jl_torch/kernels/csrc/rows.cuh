@@ -1,5 +1,6 @@
 // Table rows of a document's slots into shared memory: the asynchronous
-// gather shared by the LDA and fLDA E-steps.
+// gather shared by the LDA, fLDA and CTPF E-steps (CTPF calls it once per
+// table).
 #pragma once
 
 #include "common.cuh"

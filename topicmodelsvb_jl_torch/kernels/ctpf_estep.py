@@ -27,6 +27,7 @@ guard of the TPU kernel.  ψ is the kernels' shift-by-8 series.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -86,6 +87,18 @@ _ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 4 + [
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(L: int, R: int, K: int) -> int:
+    """Floats of device scratch one document of L token and R reader slots
+    needs: 0 when its slot list fits shared memory (the main path's
+    widths)."""
+    got = _build.function("tmvb_ctpf_estep_scratch", [ctypes.c_int64] * 3,
+                          ctypes.c_int64)(L, R, K)
+    if got < 0:
+        raise RuntimeError("ctpf_estep: cannot query the device's shared memory")
+    return got
+
+
 def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
                inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin, zayin_old,
                *, viter: int, vtol: float, c_hyper: float, g_hyper: float):
@@ -119,14 +132,16 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
     wh = torch.empty((B, R, K), dtype=f32, device=ealefT.device)
     if B == 0:
         return (*outs, wa, wh)
-    scratch = torch.empty((B, L + R), dtype=f32, device=ealefT.device)
-    fn = _build.function("tmvb_ctpf_estep", _ARGTYPES)
-    with torch.cuda.device(ealefT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-            ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv,
-            inv_hv, gimel, gimel_old, zayin, zayin_old, *outs, wa, wh, scratch)),
-            B, L, R, K, int(viter), float(vtol), float(c_hyper), float(g_hyper), stream)
+    n_scratch = _scratch_floats(L, R, K)
+    scratch = (torch.empty((B, n_scratch), dtype=f32, device=ealefT.device)
+               if n_scratch else None)
+    err = _build.launch(
+        _build.function("tmvb_ctpf_estep", _ARGTYPES), ealefT.device,
+        *(t.data_ptr() for t in (ealefT, eheT, terms, counts, readers, ratings, doc_mask,
+                                 inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin, zayin_old,
+                                 *outs, wa, wh)),
+        None if scratch is None else scratch.data_ptr(),
+        B, L, R, K, int(viter), float(vtol), float(c_hyper), float(g_hyper))
     check(err, "ctpf_estep")
     ctpf_estep.launches += 1
     return (*outs, wa, wh)
