@@ -41,7 +41,17 @@ printing its own lines; any failure exits non-zero:
    against their plain versions;
 5. for each family, two fresh same-seed models, one step each, bitwise
    equal in the global parameters and the per-document state;
-6. the scatter against ``index_add_`` on every shape; one JSON line with
+6. the Corpus path, through the entry points a user calls, with the launch
+   counts set to 0 before each step and read after: ``load_nsf`` (32,768
+   documents, the full width) through ``writecorp``/``readcorp`` (which
+   parser ran) and ``fixcorp``; ``LDA(train, 100)`` with no ``device=``,
+   trained as in phase 4; ``showtopics``; ``predict`` on 1,024 held-out
+   documents (against ``predict`` on the CPU in f64 from the same state)
+   and on 50; ``perplexity``, ``topic_coherence``, ``gencorp`` and one step
+   on what it drew; ``predict`` on an fLDA; then ``load_citeu``, held-out
+   readers, an LDA and a CTPF warm-started from it, its displays, the
+   held-out readers' ranks and recall; each step's time;
+7. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
    time (``library_ms``, null where no PyTorch call computes the same
@@ -51,15 +61,20 @@ printing its own lines; any failure exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's H100 SXM data sheet: the HBM rate and
 # the f32 rate outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -700,6 +715,170 @@ def kernel_checks(dev) -> dict:
 
 
 
+def corpus_path(smi) -> dict:
+    """Phase 6, the Corpus path: returns each kernel's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+    from topicmodelsvb_jl_torch.validate import check_model
+
+    kernels = (lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, scatter_rows)
+    launches = {k.__name__: 0 for k in kernels}
+    K = 100
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    def step(label, fn):
+        """``fn()`` with every launch count 0 before; prints its time and
+        launches; returns (result, launches)."""
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels if k.launches}
+        add(counts)
+        print(f"corpus path {label}: {time.perf_counter() - t0:.3f} s, launches {counts}")
+        return out, counts
+
+    def shown(fn) -> list:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        return buf.getvalue().splitlines()
+
+    def held_out(corp, n):
+        """The last ``n`` documents, keeping the terms some earlier
+        document holds (a term no training document holds has beta = 0
+        and scores log 1e-300), and the documents before them."""
+        seen = {t for d in corp.docs[:-n] for t in d.terms}
+        test = [tt.Document(terms=[t for t in d.terms if t in seen],
+                            counts=[c for t, c in zip(d.terms, d.counts) if t in seen])
+                for d in corp.docs[-n:]]
+        return (tt.Corpus(docs=corp.docs[:-n], vocab=corp.vocab),
+                tt.Corpus(docs=test, vocab=corp.vocab))
+
+    def sums_to_one(pred, label):
+        td = pred.topicdist(np.arange(1, pred.M + 1))
+        need(td.shape == (pred.M, pred.K) and np.all(np.isfinite(td))
+             and np.allclose(td.sum(-1), 1.0, atol=1e-5), f"{label}: topicdist rows")
+
+    # NSF: load, write, read back, clean
+    nsf, _ = step("load_nsf(subset=32_768)", lambda: tt.load_nsf(subset=32_768))
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        files = dict(docfile=os.path.join(tmp, "nsfdocs.txt"),
+                     vocabfile=os.path.join(tmp, "nsfvocab.txt"))
+        step("writecorp(counts=True)", lambda: tt.writecorp(nsf, counts=True, **files))
+        back, _ = step("readcorp(counts=True)", lambda: tt.readcorp(counts=True, **files))
+    need(back.docs == nsf.docs and back.vocab == nsf.vocab,
+         "readcorp: not the corpus writecorp wrote")
+    print(f"corpus path readcorp parse route: {tt.readcorp.route}")
+    step("fixcorp(trim=True)", lambda: tt.fixcorp(back, trim=True))
+    train, test = held_out(back, 1024)
+    print(f"corpus path NSF: M={len(back)} V={len(back.vocab)} after fixcorp; "
+          f"{len(train)} training and {len(test)} held-out documents")
+
+    # LDA with no device argument: the card
+    lda, _ = step("LDA(train, 100) built", lambda: tt.LDA(train, K, seed=7))
+    need(lda.device.type == "cuda" and lda.state.beta.is_cuda, "LDA without device= not on CUDA")
+    per_chunk = lambda m, n: (n, 0)
+    add(main_path(lda, "LDA NSF Corpus", {lda_estep: per_chunk, lda_elbo_tok: lambda m, n: (0, n),
+                                          scatter_rows: lambda m, n: (scatters_of(m), 0)}, smi))
+    check_model(lda)
+    lines, _ = step("showtopics(V=8, cols=4)", lambda: shown(lambda: lda.showtopics(V=8, cols=4)))
+    for line in lines[:8]:
+        print(f"  {line}")
+
+    pred, counts = step("predict(test, lda)", lambda: tt.predict(test, lda))
+    need(counts.get("lda_estep") == n_chunks_of(pred) and
+         counts.get("scatter_rows") == scatters_of(pred), f"predict launches {counts}")
+    sums_to_one(pred, "predict")
+    for f in ("alpha", "beta"):
+        need(torch.equal(getattr(pred.state, f), getattr(lda.state, f)), f"predict moved {f}")
+    cpu = tt.LDA(test, K, tt.RuntimeConfig(dtype="float64"), device="cpu", seed=7)
+    cpu.state = dataclasses.replace(cpu.state, alpha=lda.state.alpha.double().cpu(),
+                                    beta=lda.state.beta.double().cpu())
+    pc, _ = step("predict(test, lda on the CPU in f64)", lambda: tt.predict(test, cpu))
+    a, b = pred.gamma.astype(np.float64), pc.gamma
+    need(np.all(np.abs(a - b) <= ATOL + RTOL * np.abs(b)), "predict: card against CPU gamma "
+         f"off by {np.abs(a - b).max()}")
+    print(f"corpus path predict card f32 vs CPU f64: gamma max abs err {np.abs(a - b).max():.3e},"
+          f" max rel err {np.max(np.abs(a - b) / np.abs(b)):.3e} (rtol {RTOL}, atol {ATOL})")
+    small = tt.Corpus(docs=test.docs[:50], vocab=test.vocab)
+    p50, counts = step("predict(50 documents, lda)", lambda: tt.predict(small, lda))
+    need(p50.chunk_docs == 56 and counts.get("lda_estep") == n_chunks_of(p50),
+         f"predict on 50 documents: chunk {p50.chunk_docs}, launches {counts}")
+    sums_to_one(p50, "predict on 50 documents")
+    need(np.all(np.abs(p50.gamma - b[:50]) <= ATOL + RTOL * np.abs(b[:50])),
+         "predict on 50 documents: not the CPU's gamma")
+
+    ppl, _ = step("perplexity(test, lda)", lambda: tt.perplexity(test, lda))
+    need(math.isfinite(ppl) and 1.0 < ppl < lda.V, f"perplexity {ppl}")
+    coh, _ = step("topic_coherence(lda, N=8)", lambda: tt.topic_coherence(lda, N=8))
+    need(coh.shape == (K,) and np.all(np.isfinite(coh)), "topic_coherence")
+    print(f"corpus path perplexity {ppl:.2f} (V = {lda.V}); topic coherence mean "
+          f"{coh.mean():.3f}, range {coh.min():.3f} .. {coh.max():.3f}")
+    gen, _ = step("gencorp(lda, M=1000, laplace_smooth=1e-6, seed=1)",
+                  lambda: tt.gencorp(lda, M=1000, laplace_smooth=1e-6, seed=1))
+    need(len(gen) == 1000 and gen.vocab == lda.corp.vocab, "gencorp")
+    g, counts = step("LDA(gencorp) one step", lambda: tt.LDA(gen, K, seed=7).train(
+        iter=1, checkelbo=1, printelbo=False))
+    need(counts.get("lda_estep") == n_chunks_of(g) and math.isfinite(g.elbo),
+         f"one step on the drawn corpus: launches {counts}, elbo {g.elbo}")
+    flda, _ = step("fLDA(train, 100) train(iter=2)", lambda: tt.fLDA(train, K, seed=7).train(
+        iter=2, checkelbo=1, printelbo=False))
+    need(flda.trainer.trace[-1].delta_elbo > 0, "fLDA: ∆elbo not positive")
+    fpred, counts = step("predict(test, flda)", lambda: tt.predict(test, flda))
+    need(counts.get("flda_estep") == n_chunks_of(fpred), f"predict on fLDA: launches {counts}")
+    sums_to_one(fpred, "predict on fLDA")
+
+    # CiteULike: held-out readers, LDA, CTPF warm-started from it
+    citeu, _ = step("load_citeu()", tt.load_citeu)
+    need(citeu.shape == (16_980, 8_000, 5_551), f"CiteULike shape {citeu.shape}")
+    step("fixcorp(trim=True)", lambda: tt.fixcorp(citeu, trim=True))
+    (cc, held), _ = step("holdout_readers(seed=7)", lambda: tt.holdout_readers(citeu, seed=7))
+    print(f"corpus path CiteULike: (M, V, U) = {cc.shape} after fixcorp, "
+          f"{len(held)} held-out readers")
+    lda_c, _ = step("LDA(citeu, 100) train(iter=4)", lambda: tt.LDA(cc, K, seed=7).train(
+        iter=4, checkelbo=1, printelbo=False))
+    ctpf, _ = step("CTPF(citeu, 100).warm_start_from(lda)",
+                   lambda: tt.CTPF(cc, K, seed=7).warm_start_from(lda_c))
+    need(torch.allclose(ctpf.state.alef, torch.exp(lda_c.state.beta), rtol=1e-6, atol=0.0),
+         "warm_start_from: alef is not exp(beta)")
+    add(main_path(ctpf, "CTPF CiteULike Corpus, warm-started",
+                  {ctpf_estep: per_chunk,
+                   scatter_rows: lambda m, n: (scatters_of(m, True), 0)}, smi, monotone_from=1))
+    for label, fn in (("showurecs(users=1, M=5)", lambda: ctpf.showurecs(users=1, M=5)),
+                      ("showdrecs(docs=1, U=5)", lambda: ctpf.showdrecs(docs=1, U=5))):
+        lines, _ = step(label, lambda: shown(fn))
+        need(len(lines) >= 6, f"{label}: {lines}")
+        for line in lines:
+            print(f"  {line}")
+    recs, _ = step("ranked_users(ctpf, held)", lambda: tt.ranked_users(ctpf, held))
+    ranks = tt.heldout_reader_rank(ctpf, held, recs=recs)
+    r20 = tt.recall_at_k(ctpf, held, 20, recs=recs)
+    med = float(np.median(ranks))
+    need(0.0 <= med <= 1.0 and 0.0 <= r20 <= 1.0 and np.all(np.isfinite(ranks)),
+         f"held-out readers: median rank {med}, recall@20 {r20}")
+    print(f"corpus path CTPF held-out readers: median normalized rank {med:.4f}, "
+          f"recall@20 {r20:.4f} ({len(held)} readers)")
+    print(f"corpus path: phase wall {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+          f"card {smi}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -822,7 +1001,10 @@ def main() -> int:
     same_seed_steps(lambda: tt.fCTM(fctm.packed, Kc, device="cuda", seed=7),
                     ctm_fields + ("kappa", "tau"), "fCTM")
 
-    # 6. results: each kernel at its main path's widest chunk, with the
+    # 6. the Corpus path
+    add(corpus_path(smi))
+
+    # 7. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
               f"{r['call_ms']:.4f} vs {r['library_call_ms']:.4f} ms a call)"

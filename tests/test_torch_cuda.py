@@ -544,3 +544,75 @@ def test_cg_graph_blocks_match_eager(cuda, monkeypatch):
             eager = newton.spd_cg_solve(*args, maxiter, 1e-5)
         torch.testing.assert_close(graphed, eager, rtol=1e-4, atol=1e-6)
     assert sum(key[:2] == (B, K) for key in newton._CG_BLOCKS) == 1
+
+
+def _corpus_split(M=3000, n_test=500):
+    """(train, test) of one synthetic Corpus; the test documents keep
+    only the terms some training document holds."""
+    c = tt.synth_corpus(M=M, V=800, K=8, seed=2, mean_tokens=60, mean_terms=40)
+    seen = {t for d in c.docs[:-n_test] for t in d.terms}
+    test = [tt.Document(terms=[t for t in d.terms if t in seen],
+                        counts=[n for t, n in zip(d.terms, d.counts) if t in seen])
+            for d in c.docs[-n_test:]]
+    return (tt.Corpus(docs=c.docs[:-n_test], vocab=dict(c.vocab)),
+            tt.Corpus(docs=test, vocab=dict(c.vocab)))
+
+
+def test_corpus_built_lda_first_step_card_vs_cpu(cuda):
+    """A Corpus-built LDA's first step through the kernels (f32) against
+    the plain versions on the CPU (f64), from one init."""
+    from topicmodelsvb_jl_torch import convert
+
+    train, _ = _corpus_split()
+    gpu = tt.LDA(train, 16, tt.RuntimeConfig(chunk_docs=256), device=cuda, seed=1)
+    cpu = tt.LDA(train, 16, tt.RuntimeConfig(chunk_docs=256, dtype="float64"), device="cpu")
+    cpu.state = convert.lda_state_from_numpy(convert.lda_state_to_numpy(gpu.state), "cpu",
+                                             torch.float64)
+    e0 = lda_estep.launches
+    for m in (gpu, cpu):
+        m.train(iter=1, checkelbo=1, printelbo=False)
+    n_chunks = sum(s.terms.shape[0] for s in gpu.packed.segments) // gpu.chunk_docs
+    assert lda_estep.launches - e0 == n_chunks
+    assert gpu.elbo == pytest.approx(cpu.elbo, rel=1e-4)
+    for f in ("alpha", "beta", "gamma"):
+        np.testing.assert_allclose(getattr(gpu, f), getattr(cpu, f), rtol=5e-3, atol=1e-5,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("family", ["LDA", "fLDA"])
+def test_predict_card_vs_cpu(cuda, family):
+    """predict through the E-step kernel against the plain version on the
+    CPU in f64, from one trained state; the globals stay bit for bit."""
+    from topicmodelsvb_jl_torch import convert
+
+    train, test = _corpus_split()
+    to_np, from_np, kernel = {
+        "LDA": (convert.lda_state_to_numpy, convert.lda_state_from_numpy, lda_estep),
+        "fLDA": (convert.flda_state_to_numpy, convert.flda_state_from_numpy, flda_estep),
+    }[family]
+    gpu = getattr(tt, family)(train, 16, tt.RuntimeConfig(chunk_docs=256), device=cuda, seed=1)
+    gpu.train(iter=3, checkelbo=float("inf"), printelbo=False)
+    cpu = getattr(tt, family)(train, 16, tt.RuntimeConfig(chunk_docs=256, dtype="float64"),
+                              device="cpu")
+    cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
+    n0 = kernel.launches
+    pg, pc = tt.predict(test, gpu, iter=10), tt.predict(test, cpu, iter=10)
+    assert pg.device.type == "cuda" and pg.chunk_docs == 256
+    assert kernel.launches - n0 == sum(s.terms.shape[0] for s in pg.packed.segments) // 256
+    assert torch.equal(pg.state.beta, gpu.state.beta)
+    assert torch.equal(pg.state.alpha, gpu.state.alpha)
+    np.testing.assert_allclose(pg.gamma, pc.gamma, rtol=5e-3, atol=1e-5)
+    td = pg.topicdist(np.arange(1, pg.M + 1))
+    np.testing.assert_allclose(td.sum(-1), 1.0, atol=1e-5)
+
+
+def test_model_without_device_lands_on_cuda(cuda):
+    train, _ = _corpus_split(M=600, n_test=100)
+    m = tt.LDA(train, 4, tt.RuntimeConfig(chunk_docs=128), seed=1)
+    assert m.device.type == "cuda" and m.state.beta.is_cuda
+    m.train(iter=2, checkelbo=1, printelbo=False)
+    assert all(r.delta_elbo > 0 for r in m.trainer.trace)
+    corp = tt.synth_corpus(M=300, V=200, K=4, U=40, seed=3, mean_tokens=30, mean_terms=20,
+                           mean_readers=3)
+    c = tt.CTPF(corp, 4, tt.RuntimeConfig(chunk_docs=128), seed=1)
+    assert c.device.type == "cuda" and c.state.alef.is_cuda

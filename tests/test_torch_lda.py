@@ -152,8 +152,9 @@ def test_check_model_rejects_a_broken_state():
 
 def test_model_rejects_bad_input():
     p = tt.synth_packed_nsf_scale(**CORPUS)
-    with pytest.raises(TypeError, match="device"):
-        tt.LDA(p, 3)
+    if not torch.cuda.is_available():   # the default device is CUDA, and no fallback
+        with pytest.raises(RuntimeError, match="device 'cuda': no CUDA device"):
+            tt.LDA(p, 3)
     with pytest.raises(ValueError, match="positive"):
         tt.LDA(p, 0, device="cpu")
     with pytest.raises(TypeError, match="PackedCorpus"):
@@ -202,7 +203,10 @@ def test_convert_round_trip():
 
 def test_import_loads_no_jax():
     code = ("import sys, topicmodelsvb_jl_torch, topicmodelsvb_jl_torch.convert, "
-            "topicmodelsvb_jl_torch.validate, topicmodelsvb_jl_torch.engine; "
+            "topicmodelsvb_jl_torch.validate, topicmodelsvb_jl_torch.engine, "
+            "topicmodelsvb_jl_torch.corpus, topicmodelsvb_jl_torch.datasets, "
+            "topicmodelsvb_jl_torch.evaluate, topicmodelsvb_jl_torch.native, "
+            "topicmodelsvb_jl_torch.utils.display; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'topicmodelsvb_jl_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

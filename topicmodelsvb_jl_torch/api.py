@@ -1,32 +1,35 @@
 """User-facing model API.
 
 Mirrors the reference's public surface (src/TopicModelsVB.jl:11-18):
-``Model(corp, K)`` constructors, ``train(...)`` with the reference's
-kwargs and defaults, and the post-hoc ``topicdist``.  The model runs on
-the one device its caller names; nothing chooses a device for the user.
-
-This slice builds models from a :class:`~.ops.packing.PackedCorpus`
-only; the ``Corpus`` path (and with it ``showlibs``/``showdrecs``/
-``showurecs`` and ``warm_start_from``) comes with the corpus slice.
+``Model(corp, K)`` constructors on a :class:`~.corpus.Corpus` or a
+:class:`~.ops.packing.PackedCorpus`, ``train(...)`` with the reference's
+kwargs and defaults, and the post-hoc tools ``topicdist``,
+``showtopics``, ``predict``, ``gendoc``/``gencorp`` and, for CTPF,
+``showlibs``/``showdrecs``/``showurecs`` and ``warm_start_from``.  A
+model runs on the CUDA device unless its caller names another
+(``device="cpu"``); without a CUDA device it raises rather than fall back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .corpus import CorpusError
+from . import corpus as corpuslib
+from .corpus import Corpus, CorpusError, Document
 from .engine import Trainer
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
 from .models import fctm as fctm_mod
 from .models import flda as flda_mod
 from .models import lda as lda_mod
-from .ops.packing import PackedCorpus, _round_up, bucketize_packed
+from .ops.packing import PackedCorpus, _round_up, bucketize_packed, pack_corpus
 from .utils.config import RuntimeConfig, TrainConfig
+from .utils.display import bullet, juliadots
 from .utils.numerics import elbo_value
 
 
@@ -39,28 +42,43 @@ class TopicModel:
 
     _uses_readers = False
     _bucketed = False   # length-bucketed token packing
+    _per_doc_fields: tuple = ()   # state fields with a leading doc axis
     # chunk_docs when the caller passes no RuntimeConfig, as in the JAX
     # package (api.py:52-55): the Newton-heavy CTM and fCTM take 2048
     _preferred_chunk = 1024
 
-    def __init__(self, corp: PackedCorpus, K: int,
-                 runtime: Optional[RuntimeConfig] = None, *, device,
-                 seed: int = 0):
-        """``corp`` is a :class:`PackedCorpus` (dense, or bucketed for one
-        shard); ``device`` is where the state and the data live."""
+    def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
+                 device="cuda", seed: int = 0):
+        """``corp`` is a :class:`~.corpus.Corpus`, or a :class:`PackedCorpus`
+        (dense, or bucketed for one shard) for data that never existed as
+        Document objects; a model built from a PackedCorpus has no
+        corpus-text displays.  ``device`` is where the state and the data
+        live: the CUDA device unless the caller names another."""
         if K <= 0:
             raise ValueError("number of topics must be a positive integer.")
-        if not isinstance(corp, PackedCorpus):
-            raise TypeError("the model takes a PackedCorpus; building from a "
-                            f"Corpus is not available yet (got {type(corp)})")
+        if not isinstance(corp, (Corpus, PackedCorpus)):
+            raise TypeError(f"the model takes a Corpus or a PackedCorpus (got {type(corp)})")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(self.device)!r}: no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
 
         self.K = int(K)
         self.runtime = (runtime if runtime is not None
                         else RuntimeConfig(chunk_docs=self._preferred_chunk))
-        self.device = torch.device(device)
         self.dtype = getattr(torch, self.runtime.dtype)
         self.seed = seed
-        self.M, self.V, self.U = corp.M, corp.V, corp.U
+        self.corp = None
+        if isinstance(corp, Corpus):
+            corpuslib.check_corp(corp)
+            self.corp = corp.copy()   # corpus-level isolation (LDA.jl:44)
+            corp = pack_corpus(self.corp, pad_multiple=self.runtime.pad_multiple,
+                               docs_multiple=min(self.runtime.chunk_docs,
+                                                 _round_up(max(1, len(corp)), 8)),
+                               with_readers=self._uses_readers,
+                               dtype=np.dtype(self.runtime.dtype))
+        # a Corpus's users count even where the model packs no readers
+        self.M, self.V, self.U = (corp.M, corp.V, corp.U) if self.corp is None else self.corp.shape
         if corp.inv_order is not None:
             # already bucketized: rows are length-permuted and
             # interleaved with padding — index back to doc order
@@ -185,6 +203,67 @@ class TopicModel:
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    def infer(self, corp, iter: int = 10, tol: Optional[float] = None,
+              niter: int = 1000, ntol: Optional[float] = None):
+        """E-step-only inference on new documents with frozen globals, the
+        serve path (reference predict, modelutils.jl:831-855): the same
+        as :func:`predict`.  Nothing is cached between calls: a step's
+        scatter plans are built from its corpus's term ids."""
+        return predict(corp, self, iter=iter, tol=tol, niter=niter, ntol=ntol)
+
+    def showtopics(self, V: int = 15, topics=None, cols: int = 4):
+        """Aligned top-terms display (reference modelutils.jl:656-684)."""
+        if V <= 0:
+            raise ValueError("number of displayed terms must be a positive integer.")
+        if cols <= 0:
+            raise ValueError("cols must be a positive integer.")
+        if topics is None:
+            topics = range(1, self.K + 1)
+        if isinstance(topics, int):
+            topics = [topics]
+        topics = list(topics)
+        if not all(1 <= t <= self.K for t in topics):
+            raise ValueError("some topic indices are outside range.")
+        V = min(V, self.V)
+        cols = min(cols, len(topics))
+        vocab = self.corp.vocab if self.corp is not None else {}
+        rank = self.topics if self.topics is not None else lda_mod.topics_ranking(
+            self._topic_word_matrix())
+
+        blocks = [topics[i : i + cols] for i in range(0, len(topics), cols)]
+        for n, block in enumerate(blocks):
+            col_words = [[vocab.get(int(rank[t - 1, j]), f"#term{int(rank[t - 1, j])}")
+                          for j in range(V)] for t in block]
+            widths = [max(len(f"topic {t}"), max(len(w) for w in words)) + 3
+                      for t, words in zip(block, col_words)]
+            line = "".join(f"topic {t}".ljust(w) for t, w in zip(block, widths))
+            print(line.rstrip())
+            for j in range(V):
+                print("".join(words[j].ljust(w) for words, w in zip(col_words, widths)).rstrip())
+            if n < len(blocks) - 1:
+                print()
+
+    def _require_corp(self):
+        if self.corp is None:
+            raise TopicModelError("this model was built from a PackedCorpus; corpus-text "
+                                  "displays need a Corpus.")
+
+    def showdocs(self, docs=None):
+        self._require_corp()
+        corpuslib.showdocs(self.corp, docs)
+
+    def showtitles(self, docs=None):
+        self._require_corp()
+        corpuslib.showtitles(self.corp, docs)
+
+    def getvocab(self):
+        self._require_corp()
+        return corpuslib.getvocab(self.corp)
+
+    def getusers(self):
+        self._require_corp()
+        return corpuslib.getusers(self.corp)
+
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
@@ -218,6 +297,7 @@ class LDA(_DirichletAccessors, TopicModel):
     """Latent Dirichlet allocation (reference src/LDA.jl, src/gpuLDA.jl)."""
 
     _bucketed = True
+    _per_doc_fields = ("gamma", "Elogtheta", "Elogtheta_old")
 
     def __repr__(self):
         return f"Latent Dirichlet allocation model with {self.K} topics."
@@ -242,6 +322,7 @@ class fLDA(_DirichletAccessors, TopicModel):
     """Filtered LDA (reference src/fLDA.jl)."""
 
     _bucketed = True
+    _per_doc_fields = ("gamma", "Elogtheta", "Elogtheta_old", "tau", "tau_old")
 
     def __repr__(self):
         return f"Filtered latent Dirichlet allocation model with {self.K} topics."
@@ -320,13 +401,14 @@ class CTPF(TopicModel):
 
     _uses_readers = True
     _bucketed = True
+    _per_doc_fields = ("gimel", "gimel_old", "zayin", "zayin_old")
     # past this many M·U elements the dense score matrix is never built
     # (not even on the device): ranked rec rows come from O((M+U)·K)
     # matrix-vector products against the factor state instead
     _SCORES_DENSE_MAX = 100_000_000
 
-    def __init__(self, corp: PackedCorpus, K: int,
-                 runtime: Optional[RuntimeConfig] = None, *, device, seed: int = 0):
+    def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
+                 device="cuda", seed: int = 0):
         super().__init__(corp, K, runtime, device=device, seed=seed)
         # R and the user libraries (CTPF.jl:62-65, 1-based doc indices)
         # from the reader arrays: 0-based user ids, rows permuted by packing
@@ -498,6 +580,91 @@ class CTPF(TopicModel):
         g = _host(self.state.gimel)[rows]
         return g / g.sum(axis=-1, keepdims=True)
 
+    def warm_start_from(self, model: TopicModel) -> "CTPF":
+        """Seed alef from a trained LDA/CTM-family beta:
+        ``ctpf.alef = exp(beta)`` (reference README.md:669-674).  The step
+        builds its exp(ψ) tables from alef anew every iteration, so
+        nothing else needs to change."""
+        beta = np.asarray(model.beta)
+        if beta.shape != (self.K, self.V):
+            raise ValueError("warm-start model must share K and V.")
+        alef = torch.as_tensor(np.exp(beta), dtype=self.dtype).to(self.device)
+        self.state = dataclasses.replace(self.state, alef=alef, alef_old=alef)
+        return self
+
+    # ── recommender displays (modelutils.jl:691-824) ──
+    def showlibs(self, users=None):
+        self._require_corp()
+        if users is None:
+            users = range(1, self.U + 1)
+        if isinstance(users, int):
+            users = [users]
+        users = list(users)
+        if not all(1 <= u <= self.U for u in users):
+            raise ValueError("some user indices are outside range.")
+        for n, u in enumerate(users):
+            if not self.libs[u - 1]:
+                continue
+            juliadots(f"User {u}\n")
+            name = self.corp.users.get(u, "")
+            if name and not name.startswith("#user"):
+                juliadots(f"{name}\n")
+            for d in self.libs[u - 1]:
+                bullet(self.corp.docs[d - 1].title or f"Document {d}")
+            if n < len(users) - 1:
+                print()
+
+    def showdrecs(self, docs=None, U: int = 15):
+        """Top U user recommendations per document (modelutils.jl:729-770)."""
+        self._require_corp()
+        if U <= 0:
+            raise ValueError("number of displayed users must be a positive integer.")
+        if docs is None:
+            docs = range(1, self.M + 1)
+        if isinstance(docs, int):
+            docs = [docs]
+        docs = list(docs)
+        if not all(1 <= d <= self.M for d in docs):
+            raise ValueError("some document indices are outside range.")
+        U = min(U, self.U)
+        for n, d in enumerate(docs):
+            row = self.drecs[d - 1]
+            if not row:
+                continue
+            juliadots(f"Document {d}\n")
+            if self.corp.docs[d - 1].title:
+                juliadots(f"{self.corp.docs[d - 1].title}\n")
+            for rank, u in enumerate(row[:U], start=1):
+                print(f"{rank}. {self.corp.users.get(u, f'#user{u}')}")
+            if n < len(docs) - 1:
+                print()
+
+    def showurecs(self, users=None, M: int = 15):
+        """Top M document recommendations per user (modelutils.jl:777-821)."""
+        self._require_corp()
+        if M <= 0:
+            raise ValueError("number of displayed documents must be a positive integer.")
+        if users is None:
+            users = range(1, self.U + 1)
+        if isinstance(users, int):
+            users = [users]
+        users = list(users)
+        if not all(1 <= u <= self.U for u in users):
+            raise ValueError("some user indices are outside range.")
+        M = min(M, self.M)
+        for n, u in enumerate(users):
+            row = self.urecs[u - 1]
+            if not row:
+                continue
+            juliadots(f"User {u}\n")
+            name = self.corp.users.get(u, "")
+            if name and not name.startswith("#user"):
+                juliadots(f"{name}\n")
+            for rank, d in enumerate(row[:M], start=1):
+                print(f"{rank}. {self.corp.docs[d - 1].title or f'Document {d}'}")
+            if n < len(users) - 1:
+                print()
+
 
 class CTM(TopicModel):
     """Correlated topic model (reference src/CTM.jl, src/gpuCTM.jl).
@@ -509,11 +676,11 @@ class CTM(TopicModel):
 
     _bucketed = True
     _preferred_chunk = 2048
+    _per_doc_fields = ("lam", "lam_old", "vsq", "logzeta")
     _model = ctm_mod
 
-    def __init__(self, corp: PackedCorpus, K: int,
-                 runtime: Optional[RuntimeConfig] = None, *, device, seed: int = 0,
-                 identify: bool = False):
+    def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
+                 device="cuda", seed: int = 0, identify: bool = False):
         self.identify = bool(identify)
         super().__init__(corp, K, runtime, device=device, seed=seed)
 
@@ -574,6 +741,7 @@ class fCTM(CTM):
 
     ``identify=True`` gauge-fixes the Gaussian channel as CTM's does."""
 
+    _per_doc_fields = ("lam", "lam_old", "vsq", "logzeta", "tau", "tau_old")
     _model = fctm_mod
 
     def __repr__(self):
@@ -593,3 +761,138 @@ class fCTM(CTM):
         t = _host(self.state.tau)
         rows = self._doc_rows()
         return [t[rows[d], : self.N[d]] for d in range(self.M)]
+
+
+# ───────────────────── inference on new documents (predict) ─────────────────────
+
+def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
+            tol: Optional[float] = None, niter: int = 1000,
+            ntol: Optional[float] = None) -> TopicModel:
+    """E-step-only inference on a new corpus with frozen global parameters
+    (reference modelutils.jl:831-944).
+
+    Returns a new model of the trained class, on its device with its
+    runtime and seed, whose per-document variational state is fit against
+    the trained globals; call ``topicdist`` on it.  The per-document
+    fixpoint runs ``iter`` times with ``tol`` as the convergence break, as
+    in the reference, with the JAX package's two repairs: fLDA/fCTM use
+    the trained kappa/eta (the reference draws a fresh kappa) and no
+    undefined ``vtol`` (modelutils.jl:876,937).
+    """
+    corpuslib.check_corp(corp)
+    if train_model.corp is not None:
+        if corp.vocab != train_model.corp.vocab:
+            raise CorpusError(
+                "predict corpus and train_model corpus must have identical vocabularies.")
+    elif len(corp.vocab) != train_model.V:   # PackedCorpus-built model
+        raise CorpusError("predict corpus vocabulary size must match the trained model's V.")
+    if tol is not None and tol < 0:
+        raise ValueError("tolerance parameter must be nonnegative.")
+    if iter < 0:
+        raise ValueError("iteration parameter must be nonnegative.")
+    if isinstance(train_model, CTPF):
+        raise TopicModelError("predict is not defined for CTPF models (as in the reference).")
+
+    cls = type(train_model)
+    new = cls(corp, train_model.K, runtime=train_model.runtime, device=train_model.device,
+              seed=train_model.seed)
+    ts = train_model.state
+    # the frozen globals; fCTM subclasses CTM here, so it is tested first
+    if isinstance(train_model, LDA):
+        frozen = dict(alpha=ts.alpha, beta=ts.beta, beta_old=ts.beta)
+    elif isinstance(train_model, fLDA):
+        frozen = dict(eta=ts.eta, alpha=ts.alpha, kappa=ts.kappa, kappa_old=ts.kappa,
+                      beta=ts.beta, beta_old=ts.beta)
+    elif isinstance(train_model, fCTM):
+        frozen = dict(eta=ts.eta, mu=ts.mu, sigma=ts.sigma, invsigma=ts.invsigma,
+                      kappa=ts.kappa, kappa_old=ts.kappa, beta=ts.beta, beta_old=ts.beta)
+    elif isinstance(train_model, CTM):
+        frozen = dict(mu=ts.mu, sigma=ts.sigma, invsigma=ts.invsigma, beta=ts.beta,
+                      beta_old=ts.beta)
+    else:
+        raise TopicModelError(f"predict not implemented for {cls.__name__}")
+    new.state = dataclasses.replace(new.state, **frozen)
+
+    # one outer step with viter=iter/vtol=tol runs exactly the reference's
+    # per-document fixpoint; its M-step output is dropped below
+    cfg = TrainConfig(iter=1, viter=iter, vtol=tol, niter=niter, ntol=ntol,
+                      checkelbo=float("inf"), printelbo=False).resolved(train_model.K)
+    trainer = new._build_trainer(cfg)
+    stepped = trainer.step_fn(new.state, *trainer.data)
+    # keep the per-document fields of the step, every global of the frozen state
+    new.state = dataclasses.replace(
+        new.state, **{f: getattr(stepped, f) for f in cls._per_doc_fields})
+    new.topics = train_model.topics
+    return new
+
+
+# ───────────────── generative sampling (gendoc / gencorp) ─────────────────
+
+def _generator(model: TopicModel, laplace_smooth: float):
+    """What every draw of :func:`gendoc` reads from a fitted model: its
+    theta sampler, its mean document size and its smoothed topic rows
+    (reference modelutils.jl:594-633), taken from the model once."""
+    if laplace_smooth < 0:
+        raise ValueError("laplace_smooth parameter must be nonnegative.")
+    if model.M == 0:
+        raise TopicModelError("gendoc requires a model trained on a nonempty corpus.")
+    if isinstance(model, (LDA, fLDA)):
+        alpha = np.asarray(model.alpha, np.float64)
+        draw_theta = lambda rng: rng.dirichlet(alpha)
+    elif isinstance(model, CTM):   # fCTM included
+        mu = np.asarray(model.mu, np.float64)
+        sigma = np.asarray(model.sigma, np.float64)
+
+        def draw_theta(rng):
+            x = rng.multivariate_normal(mu, sigma)
+            e = np.exp(x - x.max())
+            return e / e.sum()
+    else:
+        raise TopicModelError(f"gendoc is not defined for {type(model).__name__} models.")
+    beta = np.asarray(model.beta, np.float64)
+    V = beta.shape[1]
+    beta_s = (beta + laplace_smooth) / (1.0 + laplace_smooth * V)
+    beta_s = beta_s / beta_s.sum(axis=1, keepdims=True)
+    return draw_theta, np.mean(model.C), beta_s
+
+
+def _draw_doc(rng, draw_theta, mean_C, beta_s) -> Document:
+    theta = draw_theta(rng)
+    C = rng.poisson(mean_C)
+    mix = theta @ beta_s
+    mix = mix / mix.sum()
+    counts = rng.multinomial(C, mix)
+    nz = np.nonzero(counts)[0]
+    return Document(terms=(nz + 1).tolist(), counts=counts[nz].tolist())
+
+
+def gendoc(model: TopicModel, laplace_smooth: float = 0.0, rng=None) -> Document:
+    """Sample an artificial document from the fitted generative model
+    (reference modelutils.jl:594-633), on the host in NumPy.
+
+    Token-level (z then w) sampling marginalises to one multinomial over
+    the smoothed mixture theta·beta, which is what is drawn.  The
+    reference's CTM variant has a latent NameError (``topicdist`` vs
+    ``topic_dist``, modelutils.jl:626); this is the corrected form.
+    """
+    gen = _generator(model, laplace_smooth)
+    return _draw_doc(np.random.default_rng() if rng is None else rng, *gen)
+
+
+def gencorp(model: TopicModel, M: int, laplace_smooth: float = 0.0,
+            seed: Optional[int] = None) -> Corpus:
+    """Sample an artificial corpus (reference modelutils.jl:642-649)."""
+    if M <= 0:
+        raise ValueError("corp_size parameter must be a positive integer.")
+    if laplace_smooth < 0:
+        raise ValueError("laplace_smooth parameter must be nonnegative.")
+    rng = np.random.default_rng(seed)
+    # the JAX package's draws, one gendoc a document, with the model read once
+    gen = _generator(model, laplace_smooth)
+    docs = [_draw_doc(rng, *gen) for _ in range(M)]
+    if model.corp is not None:
+        vocab, users = dict(model.corp.vocab), dict(model.corp.users)
+    else:  # PackedCorpus-built model: placeholder names
+        vocab = {j + 1: f"#term{j + 1}" for j in range(model.V)}
+        users = {u + 1: f"#user{u + 1}" for u in range(model.U)}
+    return Corpus(docs=docs, vocab=vocab, users=users)

@@ -1,27 +1,203 @@
-"""Synthetic corpus generators.
+"""Bundled word lists, dataset loaders and synthetic corpus generators.
 
 The reference ships the NSF abstracts corpus (128,804 docs / 25,319
 vocab, README.md:34-41) and CiteULike (16,980 docs / 8,000 vocab / 5,551
-users) through ``readcorp``.  The docfiles are not bundled here, so the
-inputs are seeded synthetic corpora at those scales:
+users), loadable through ``readcorp(:nsf)``/``readcorp(:citeu)``
+(Corpus.jl:337-359), and the v0.6 mac corpus.  Their docfiles are not
+bundled, so:
 
+* :func:`load_nsf`, :func:`load_citeu` and :func:`load_mac` read the real
+  files from the directory ``TMVB_DATASETS`` names, when it holds them,
+  and otherwise synthesize documents at the published scale, seeded;
 * :func:`synth_packed_nsf_scale` packs an NSF-scale corpus directly;
 * :func:`synth_corpus` samples a :class:`~.corpus.Corpus` from the
-  LDA(+readers) generative model — at ``M=16_980, V=8_000, U=5_551, K=30,
-  mean_tokens=60, mean_terms=45, mean_readers=5`` it is the JAX package's
-  synthetic CiteULike (``datasets.load_citeu``).
+  LDA(+readers) generative model.
 
-Both are copies of the JAX package's functions with the same numpy draws;
-``tests/test_torch_lda.py`` and ``tests/test_torch_ctpf.py`` hold each
-pair to byte-identical output for the same seed.
+All are copies of the JAX package's functions with the same numpy draws
+(its loaders also look for one fixed reference checkout, which the port
+does not); ``tests/test_torch_corpus.py``, ``tests/test_torch_lda.py``
+and ``tests/test_torch_ctpf.py`` hold each pair to equal output for the
+same seed.  The stop list and the English word list are copies of the
+JAX package's ``data/`` files, byte for byte.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
+from typing import Optional
+
 import numpy as np
 
-from .corpus import Corpus, Document
+from .corpus import Corpus, Document, readcorp
 from .ops.packing import PackedCorpus, _round_up
+
+_DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
+
+# Published corpus scales (reference README.md:34-41; mac from the v0.6
+# dataset files: 75,011 titles / 15,113-term lexicon).
+NSF_SCALE = dict(M=128_804, V=25_319)
+CITEU_SCALE = dict(M=16_980, V=8_000, U=5_551)
+MAC_SCALE = dict(M=75_011, V=15_113, T=12)
+
+
+def load_stopwords() -> list:
+    """The reference's exact stop list (datasets/stopwords.txt — 546
+    lines of which one is blank, i.e. 545 words; consumed by stop_corp!,
+    Corpus.jl:622-634), carried byte for byte so the preprocessing
+    pipeline produces identical corpora."""
+    with open(os.path.join(_DATA_DIR, "stopwords.txt")) as f:
+        return [w for w in f.read().split() if w]
+
+
+def load_englishwords() -> list:
+    """The reference's 58,110-entry English word list
+    (datasets/englishwords.txt), bundled for vocabulary filtering."""
+    with open(os.path.join(_DATA_DIR, "englishwords.txt")) as f:
+        return [w for w in f.read().split() if w]
+
+
+def _datasets_root() -> Optional[str]:
+    root = os.environ.get("TMVB_DATASETS")
+    if root and os.path.isdir(root):
+        return root
+    return None
+
+
+def _read_kv_file(path: str) -> dict:
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            k, _, v = line.partition("\t")
+            out[int(k)] = v
+    return out
+
+
+def load_nsf(seed: int = 7, subset: Optional[int] = None) -> Corpus:
+    """NSF abstracts corpus (reference ``readcorp(:nsf)``, Corpus.jl:340-344)."""
+    root = _datasets_root()
+    docfile = os.path.join(root, "nsf", "nsfdocs.txt") if root else ""
+    vocabfile = os.path.join(root, "nsf", "nsfvocab.txt") if root else ""
+    titlefile = os.path.join(root, "nsf", "nsftitles.txt") if root else ""
+
+    if docfile and os.path.exists(docfile):
+        corp = readcorp(
+            docfile=docfile,
+            vocabfile=vocabfile,
+            titlefile=titlefile if os.path.exists(titlefile) else "",
+            counts=True,
+        )
+        if subset:
+            corp.docs = corp.docs[:subset]
+        return corp
+
+    vocab = _read_kv_file(vocabfile) if vocabfile and os.path.exists(vocabfile) else None
+    V = max(vocab) if vocab else NSF_SCALE["V"]
+    M = subset or NSF_SCALE["M"]
+    warnings.warn(
+        "NSF docfile not available; generating a synthetic "
+        f"corpus at reference scale (M={M}, V={V}, seed={seed})."
+    )
+    corp = synth_corpus(M=M, V=V, K=50, seed=seed, mean_tokens=120, mean_terms=85)
+    if vocab:
+        corp.vocab = dict(vocab)
+    return corp
+
+
+def load_citeu(seed: int = 7, subset: Optional[int] = None) -> Corpus:
+    """CiteULike corpus (reference ``readcorp(:citeu)``, Corpus.jl:346-351)."""
+    root = _datasets_root()
+    base = os.path.join(root, "citeu") if root else ""
+    docfile = os.path.join(base, "citeudocs.txt") if base else ""
+    vocabfile = os.path.join(base, "citeuvocab.txt") if base else ""
+    userfile = os.path.join(base, "citeuusers.txt") if base else ""
+    titlefile = os.path.join(base, "citeutitles.txt") if base else ""
+
+    if docfile and os.path.exists(docfile):
+        corp = readcorp(
+            docfile=docfile, vocabfile=vocabfile, userfile=userfile,
+            titlefile=titlefile if os.path.exists(titlefile) else "", counts=True,
+            readers=True,
+        )
+        if subset:
+            corp.docs = corp.docs[:subset]
+        return corp
+
+    vocab = _read_kv_file(vocabfile) if vocabfile and os.path.exists(vocabfile) else None
+    users = _read_kv_file(userfile) if userfile and os.path.exists(userfile) else None
+    V = max(vocab) if vocab else CITEU_SCALE["V"]
+    U = max(users) if users else CITEU_SCALE["U"]
+    M = subset or CITEU_SCALE["M"]
+    if subset:
+        # scale the user pool with the doc subset so reads-per-user
+        # density stays at CiteULike's (~12): keeping all 5.5k users
+        # over a few hundred docs would leave most users with a single
+        # read, making recommender evaluation degenerate.  Never scale
+        # ABOVE the users file's id range: a reader id with no name
+        # entry would break every user-display path.
+        scaled = max(10, round(U * M / CITEU_SCALE["M"]))
+        U = min(U, scaled) if users else scaled
+    warnings.warn(
+        "CiteULike docfile not available; generating a synthetic "
+        f"corpus at reference scale (M={M}, V={V}, U={U}, seed={seed})."
+    )
+    corp = synth_corpus(
+        M=M, V=V, U=U, K=30, seed=seed, mean_tokens=60, mean_terms=45, mean_readers=5
+    )
+    if vocab:
+        corp.vocab = dict(vocab)
+    if users:
+        corp.users = {k: v for k, v in users.items() if k <= U}
+    return corp
+
+
+def load_mac(seed: int = 7, subset: Optional[int] = None) -> Corpus:
+    """Macintosh magazine corpus (v0.6 ``readcorp(:mac)``,
+    v0.6/src/Corpus.jl:429-434) — the time-stamped DTM dataset.
+
+    Reads the real files (maclex.txt vocab, mactitles.txt titles,
+    macdocs.txt doc blocks with counts+stamps) when a datasets directory
+    is available; otherwise a time-sliced synthetic corpus is generated at
+    the published scale against the real lexicon, where there is one.
+    """
+    root = _datasets_root()
+    base = os.path.join(root, "mac") if root else ""
+    docfile = os.path.join(base, "macdocs.txt") if base else ""
+    vocabfile = os.path.join(base, "maclex.txt") if base else ""
+    titlefile = os.path.join(base, "mactitles.txt") if base else ""
+
+    if docfile and os.path.exists(docfile):
+        corp = readcorp(
+            docfile=docfile, vocabfile=vocabfile,
+            titlefile=titlefile if os.path.exists(titlefile) else "",
+            counts=True, stamps=True,
+        )
+        if subset:
+            corp.docs = corp.docs[:subset]
+        return corp
+
+    vocab = _read_kv_file(vocabfile) if vocabfile and os.path.exists(vocabfile) else None
+    titles = None
+    if titlefile and os.path.exists(titlefile):
+        with open(titlefile) as f:
+            titles = f.read().splitlines()
+    V = max(vocab) if vocab else MAC_SCALE["V"]
+    M = subset or (len(titles) if titles else MAC_SCALE["M"])
+    warnings.warn(
+        "mac docfile not available; generating a synthetic "
+        f"time-sliced corpus at reference scale (M={M}, V={V}, seed={seed})."
+    )
+    corp = synth_corpus(M=M, V=V, K=20, seed=seed, mean_tokens=400,
+                        mean_terms=220, n_slices=MAC_SCALE["T"], drift=0.05)
+    if vocab:
+        corp.vocab = dict(vocab)
+    if titles:
+        for doc, title in zip(corp.docs, titles):
+            doc.title = title
+    return corp
 
 
 def synth_packed_nsf_scale(M=128_804, V=25_319, mean_terms=85, seed=7,
