@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM and fCTM main paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM and DTM paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -51,7 +51,25 @@ printing its own lines; any failure exits non-zero:
    on what it drew; ``predict`` on an fLDA; then ``load_citeu``, held-out
    readers, an LDA and a CTPF warm-started from it, its displays, the
    held-out readers' ranks and recall; each step's time;
-7. the scatter against ``index_add_`` on every shape; one JSON line with
+7. checkpoint and resume, with the launch counts set to 0 before and read
+   after: ``save_checkpoint``/``load_checkpoint`` of phase 4's LDA and CTPF
+   models (time and file size, with and without ``compress="f16"``); LDA
+   ``train(iter=3, checkelbo=1)`` with and without ``checkpoint_every=1``,
+   in turns (wall and step times, the async writer's cost); the resume of
+   2 iterations from the checkpoint of iteration 2, bitwise equal to
+   phase 4's straight 4-iteration run, for LDA and for CTPF (which
+   launches ``ctpf_estep`` after the load);
+8. DTM at mac scale (75,011 stamped documents from seeded numpy arrays, V
+   = 15,113, 12 slices, ~220 terms a document), ``DTM(corp, 20,
+   delta=1.0)`` with no ``device=``, ``train(iter=3, checkelbo=1, viter=10,
+   cgiter=10)`` with the counts set to 0 before: ∆elbo > 0, ``check_model``,
+   two scatters a chunk a step, the step, E-step, CG and ELBO-pass times,
+   the host reads of a step, ``showtopics(slices=1)``, the step bitwise
+   repeatable, the scatter on the first chunk's rows against its plain
+   version; then a small DTM on the card (f32) against the CPU (f64) from
+   one init, two same-seed one-step DTMs bitwise equal, and a DTM
+   checkpoint saved, loaded and resumed on the card;
+9. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
    time (``library_ms``, null where no PyTorch call computes the same
@@ -63,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
@@ -879,6 +898,342 @@ def corpus_path(smi) -> dict:
     return launches
 
 
+def equal_states(a, b, fields, label) -> None:
+    """Two states' fields bit for bit."""
+    import torch
+
+    for f in fields:
+        need(torch.equal(getattr(a, f), getattr(b, f)), f"{label}: {f} differs")
+
+
+def checkpoint_phase(lda, ctpf, packed, cpk, rt, smi) -> dict:
+    """Phase 7, checkpoint and resume on phase 4's LDA (NSF) and CTPF
+    (CiteULike) models: returns each kernel's launches."""
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+
+    kernels = (lda_estep, lda_elbo_tok, ctpf_estep, scatter_rows)
+    for k in kernels:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    K = lda.K
+    lda_fields = ("alpha", "beta", "beta_old", "gamma", "Elogtheta", "Elogtheta_old")
+    ctpf_fields = tuple(f for f in vars(ctpf.state) if f != "elbo")
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        # save and load, full and f16
+        for model, src, label, fields in ((lda, packed, "LDA NSF", lda_fields),
+                                          (ctpf, cpk, "CTPF CiteULike", ctpf_fields)):
+            t0 = time.perf_counter()
+            _ = model._fingerprint   # hashed once a model
+            fp_s = time.perf_counter() - t0
+            for compress in (None, "f16"):
+                path = os.path.join(tmp, f"{label.split()[0]}_{compress}.npz")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tt.save_checkpoint(path, model, compress=compress)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back = tt.load_checkpoint(path, src)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                need(back.device.type == "cuda" and back.trained_iters == model.trained_iters,
+                     f"{label} load: device {back.device}, iteration {back.trained_iters}")
+                if compress is None:
+                    equal_states(back.state, model.state, fields + ("elbo",), f"{label} load")
+                else:
+                    for f in fields:
+                        a, b = getattr(back.state, f), getattr(model.state, f)
+                        need(bool(torch.all((a - b).abs() <= 1e-3 * b.abs() + 1e-4)),
+                             f"{label} f16 load: {f}")
+                print(f"checkpoint {label} compress={compress}: save {save_s:.3f} s, "
+                      f"{os.path.getsize(path) / 2**20:.1f} MiB; load {load_s:.3f} s "
+                      f"(fingerprint {fp_s:.3f} s, once a model); card {smi}")
+                del back
+
+        # train(iter=3) with and without the auto-checkpoint, in turns
+        runs = {}
+        for i, every in enumerate((0, 1, 1, 0)):
+            d = os.path.join(tmp, f"auto{i}")
+            m = tt.LDA(packed, K, runtime=dataclasses.replace(
+                rt, checkpoint_every=every, checkpoint_dir=d if every else None), seed=7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.train(iter=3, checkelbo=1, printelbo=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = [x.step_time_s for x in m.trainer.trace]
+            runs.setdefault(every, []).append((wall, steps, m, d))
+            print(f"checkpoint LDA NSF train(iter=3, checkelbo=1) checkpoint_every={every}: "
+                  f"wall {wall:.3f} s, step+ELBO times {', '.join(f'{x:.4f}' for x in steps)} s"
+                  + (f", files {sorted(os.listdir(d))}" if every else ""))
+        plain, ck = runs[0][0][2], runs[1][0][2]
+        equal_states(ck.state, plain.state, lda_fields,
+                     "LDA with checkpoint_every=1 against without")
+        need(sorted(os.listdir(runs[1][0][3])) == [f"ckpt_iter{k:06d}" for k in (1, 2, 3)],
+             "checkpoint_every=1: files")
+        med = {e: statistics.median(r[0] for r in v) for e, v in runs.items()}
+        print(f"checkpoint LDA NSF async writer: median train wall {med[1]:.3f} s with, "
+              f"{med[0]:.3f} s without ({(med[1] / med[0] - 1) * 100:+.1f}%)")
+
+        # resume from iteration 2, against phase 4's straight 4-iteration run
+        r = tt.load_checkpoint(os.path.join(runs[1][0][3], "ckpt_iter000002"), packed)
+        n0 = lda_estep.launches
+        r.train(iter=2, checkelbo=1, printelbo=False)
+        need([x.k for x in r.trainer.trace] == [3, 4], "LDA resume: iteration numbers")
+        need(lda_estep.launches - n0 == 2 * n_chunks_of(r), "LDA resume: lda_estep launches")
+        equal_states(r.state, lda.state, ("alpha", "beta", "gamma"),
+                     "LDA resume against the straight run")
+        print(f"checkpoint LDA NSF resume 2 iterations from iteration 2: alpha, beta, gamma "
+              f"bitwise equal to the straight 4-iteration run; elbo {r.elbo:.3f} vs {lda.elbo:.3f}")
+        c2 = tt.CTPF(cpk, K, runtime=rt, seed=7)
+        c2.train(iter=2, checkelbo=1, printelbo=False)
+        path = os.path.join(tmp, "ctpf2.npz")
+        tt.save_checkpoint(path, c2)
+        rc = tt.load_checkpoint(path, cpk)
+        n0 = ctpf_estep.launches
+        rc.train(iter=2, checkelbo=1, printelbo=False)
+        need(ctpf_estep.launches - n0 == 2 * n_chunks_of(rc), "CTPF resume: ctpf_estep launches")
+        equal_states(rc.state, ctpf.state, ctpf_fields, "CTPF resume against the straight run")
+        need(rc.drecs[0] == ctpf.drecs[0], "CTPF resume: drecs[0]")
+        print(f"checkpoint CTPF CiteULike resume 2 iterations from iteration 2: "
+              f"{', '.join(ctpf_fields)} bitwise equal to the straight run")
+    launches = {k.__name__: k.launches for k in kernels}
+    for name in ("lda_estep", "lda_elbo_tok", "ctpf_estep", "scatter_rows"):
+        need(launches[name] > 0, f"checkpoint phase: {name} never launched")
+    print(f"checkpoint phase: wall {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+          f"card {smi}")
+    return launches
+
+
+def mac_corpus(M=75_011, V=15_113, T=12, K=20, seed=7):
+    """A stamped corpus at the mac corpus's shape (v0.6 ``readcorp(:mac)``:
+    75,011 documents, V = 15,113, 12 yearly slices) from seeded numpy
+    arrays: each document draws ~400 tokens, 80% from its topic's band of
+    the vocabulary (shifted a little a slice, so the topics drift) and the
+    rest from a skewed background, and keeps the distinct terms with their
+    counts (~220 a document).  ``load_mac()``'s synthetic build draws a
+    ``rng.choice`` over V for each document, as ``load_nsf``'s does."""
+    import numpy as np
+
+    import topicmodelsvb_jl_torch as tt
+
+    r = np.random.default_rng(seed)
+    stamps = r.uniform(0.0, T, M)
+    sl = np.minimum(stamps.astype(np.int64), T - 1)
+    z = r.integers(0, K, M)
+    doc = np.repeat(np.arange(M, dtype=np.int64), 1 + r.poisson(399, M))
+    band = V // K
+    topical = r.random(doc.size) < 0.8
+    t_top = (z[doc] * band + sl[doc] * (band // (2 * T))
+             + (band * r.random(doc.size) ** 5).astype(np.int64)) % V
+    t_bg = np.minimum((V * r.random(doc.size) ** 4).astype(np.int64), V - 1)
+    uniq, cnt = np.unique(doc * V + np.where(topical, t_top, t_bg), return_counts=True)
+    bounds = np.searchsorted(uniq // V, np.arange(M + 1)).tolist()
+    terms, counts = (uniq % V + 1).tolist(), cnt.tolist()
+    docs = [tt.Document(terms=terms[a:b], counts=counts[a:b], stamp=s)
+            for a, b, s in zip(bounds[:-1], bounds[1:], stamps.tolist())]
+    return tt.Corpus(docs=docs, vocab={j: f"term{j}" for j in range(1, V + 1)})
+
+
+def dtm_chunk_scatter(dtm, dev, label) -> list:
+    """The scatter on the first chunk of a DTM's state, both of its
+    plans (A's rows by slice·V + term, the per-slice rows by slice id),
+    against its plain version and ``index_add_``: the records."""
+    import torch
+
+    from topicmodelsvb_jl_torch.models import dtm as dtm_mod
+
+    K, T, V, B, st = dtm.K, dtm.T, dtm.V, dtm.chunk_docs, dtm.state
+    sid, terms, counts, dm = (x[:B] for x in dtm._step_data())
+    maxl, rowsum, mflat = dtm_mod._overflow_safe(st)
+    flat = sid[:, None] * V + terms
+    g, el, lz, w, pc = dtm_mod._estep_chunk(mflat, st.alpha, rowsum, maxl, sid, flat, counts,
+                                            dm, st.gamma[:B], st.Elogtheta[:B], st.lzeta[:B],
+                                            10, 1.0 / K**2)
+    per_doc = torch.cat([torch.exp(-lz)[:, None] * pc * dm[:, None], el * dm[:, None],
+                         dm[:, None]], dim=1).contiguous()
+    return [compare_scatter(T * V, w.reshape(-1, K).contiguous(), flat, counts > 0, dev,
+                            f"DTM A rows, {label} first chunk L={dtm.packed.L}"),
+            compare_scatter(T, per_doc, sid, dm > 0, dev,
+                            f"DTM per-slice rows, {label} first chunk")]
+
+
+def dtm_card_vs_cpu(corp, dev) -> None:
+    """A small DTM on the card (f32, the scatter kernel) against the CPU
+    (f64, plain versions) from one init, stage by stage:
+
+    1. one E-step sweep: every statistic of the M-step, per element within
+       rtol 1e-3, atol 1e-6, the other families' check (``card_vs_cpu``);
+    2. the M-step (alpha Newtons, 5 CG iterations) from the CPU's f64
+       statistics rounded to f32: alpha, betahat and mbeta, the same;
+    3. three iterations of ``train`` (cgiter 5, cgtol 0): the ELBO within
+       1e-4 and alpha per element, the same; betahat and mbeta by the norm
+       of the difference, within 2e-3 of the norm.  Three iterations of f32
+       rounding move a few of their entries past rtol 1e-3 on any device:
+       on the CPU one ulp of the initial betahat does
+       (``tools/dtm_f32_error.py``)."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.models import dtm as dtm_mod
+
+    make = lambda dtype, d: tt.DTM(corp, 10, delta=1.0, seed=1, device=d,
+                                   runtime=tt.RuntimeConfig(chunk_docs=256, dtype=dtype))
+    gpu, cpu = make("float32", dev), make("float64", "cpu")
+    cpu.state = convert.dtm_state_from_numpy(convert.dtm_state_to_numpy(gpu.state), "cpu",
+                                             torch.float64)
+    worst = {}
+
+    def per_element(stage, names, got, want):
+        for n, a, b in zip(names, got, want):
+            a, b = a.detach().cpu().double().numpy(), b.detach().numpy()
+            need(np.allclose(a, b, rtol=1e-3, atol=1e-6), f"small DTM card vs CPU, {stage}: {n}")
+            worst[stage] = max(worst.get(stage, 0.0),
+                               float(np.max(np.abs(a - b) / (1e-6 + np.abs(b)))))
+
+    stats = []
+    for m in (gpu, cpu):
+        sweep = dtm_mod.make_sweep(m.packed, m.K, m.T, 10, 1.0 / m.K**2, m.chunk_docs,
+                                   m.slice_id, m.device)
+        g, el, lz, A, wz, els, nd = sweep(m.state, *m._step_data())
+        stats.append((g, el, lz, A, wz, els[0], nd, els[1]))
+    per_element("one sweep", ("gamma", "Elogtheta", "lzeta", "A", "wz", "els", "nd"),
+                stats[0][:7], stats[1][:7])
+    update = dtm_mod.make_global_update(1000, 1.0 / gpu.K**2, 5, 0.0)
+    outs = []
+    for m in (gpu, cpu):
+        st = m.state
+        A, wz, els, nd, els_lo = (x.to(st.betahat.device, st.betahat.dtype)
+                                  for x in stats[1][3:])
+        outs.append(update(st.alpha, st.betahat, st.v_filt, st.vbeta, A, wz, els, els_lo, nd))
+    per_element("M-step", ("alpha", "betahat", "mbeta"), *outs)
+    for m in (gpu, cpu):
+        m.train(iter=3, checkelbo=1, printelbo=False, cgiter=5, cgtol=0.0)
+    ge = [x.elbo for x in gpu.trainer.trace]
+    ce = [x.elbo for x in cpu.trainer.trace]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ge, ce))
+    need(rel <= 1e-4, f"small DTM: f32 card ELBO {ge} vs f64 CPU {ce}")
+    per_element("3 iterations", ("alpha",), (gpu.state.alpha,), (cpu.state.alpha,))
+    norms = []
+    for f in ("betahat", "mbeta"):
+        a, b = np.asarray(getattr(gpu, f), np.float64), np.asarray(getattr(cpu, f))
+        norms.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        need(norms[-1] <= 2e-3, f"small DTM, 3 iterations: {f} differs by {norms[-1]:.3e} "
+             "of its norm")
+    print(f"small DTM (M={gpu.M}, T={gpu.T}, K={gpu.K}): card f32 vs CPU f64 from one init, "
+          f"worst rel diff per element: one sweep {worst['one sweep']:.3e}, the M-step from "
+          f"the CPU's statistics {worst['M-step']:.3e}; 3 iterations: ELBO {rel:.3e}, alpha "
+          f"{worst['3 iterations']:.3e}, betahat and mbeta {norms[0]:.3e} and {norms[1]:.3e} "
+          "by the norm of the difference over the norm")
+
+
+def dtm_phase(smi, dev) -> tuple:
+    """Phase 8, DTM at mac scale and a small DTM: returns each kernel's
+    launches and the scatter's records on DTM's first chunk."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.engine import HostReads
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+    from topicmodelsvb_jl_torch.validate import check_model
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    kernels = (lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, scatter_rows)
+    t_phase = time.perf_counter()
+    corp, build_s = timed(mac_corpus)
+    dtm, model_s = timed(lambda: tt.DTM(corp, 20, delta=1.0, seed=7))
+    K, T, V = dtm.K, dtm.T, dtm.V
+    n_chunks = dtm.packed.M_pad // dtm.chunk_docs
+    need(dtm.device.type == "cuda" and dtm.state.betahat.is_cuda, "DTM without device= not on CUDA")
+    need((dtm.M, V, T, dtm.chunk_docs) == (75_011, 15_113, 12, 1024),
+         f"DTM shape {(dtm.M, V, T, dtm.chunk_docs)}")
+    print(f"DTM mac: M={dtm.M} V={V} T={T} K={K} mean terms a document "
+          f"{np.mean(dtm.N):.1f}, tokens {np.mean(dtm.C):.1f}, L={dtm.packed.L}, "
+          f"{n_chunks} chunks of {dtm.chunk_docs}; corpus built in {build_s:.2f} s, "
+          f"DTM(corp, 20, delta=1.0) in {model_s:.2f} s")
+    for k in kernels:
+        k.launches = 0
+    _, wall = timed(lambda: dtm.train(iter=3, checkelbo=1, viter=10, cgiter=10))
+    launches = {k.__name__: k.launches for k in kernels}
+    deltas = [x.delta_elbo for x in dtm.trainer.trace]
+    need(len(deltas) == 3 and all(d > 0 for d in deltas), f"DTM: ∆elbo {deltas}")
+    check_model(dtm)
+    need(launches["scatter_rows"] == 3 * 2 * n_chunks and
+         sum(launches.values()) == launches["scatter_rows"],
+         f"DTM: launches {launches}, want 2 scatters a chunk a step ({n_chunks} chunks)")
+    tr, st = dtm.trainer, dtm.state
+    step = tr.step_fn
+    sweep_out, estep_s = timed(lambda: step.sweep(st, *tr.data))
+    _, cg_s = timed(lambda: step.update(st.alpha, st.betahat, st.v_filt, st.vbeta,
+                                        *sweep_out[3:5], *sweep_out[5], sweep_out[6]))
+    s1, step_s = timed(lambda: step(st, *tr.data))
+    with HostReads() as reads:
+        s2 = step(st, *tr.data)
+    _, elbo_s = timed(lambda: tr.elbo_fn(st, *tr.elbo_data))
+    equal_states(s1, s2, ("alpha", "betahat", "mbeta", "gamma", "Elogtheta", "lzeta"),
+                 "DTM mac: one step from one state, twice")
+    steps = [x.step_time_s for x in dtm.trainer.trace]
+    print(f"DTM mac train(iter=3, checkelbo=1, viter=10, cgiter=10): {wall:.2f} s; ∆elbo "
+          f"{', '.join(f'{d:.3f}' for d in deltas)}; step+ELBO {', '.join(f'{x:.3f}' for x in steps)}"
+          f" s; step alone {step_s:.3f} s (E-step sweep {estep_s:.3f} s, alpha Newtons and CG "
+          f"{cg_s:.3f} s), ELBO pass {elbo_s:.3f} s; host reads a step {reads.n}; "
+          f"launches {launches}; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"card {smi}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dtm.showtopics(V=8, slices=1, cols=5, topics=range(1, 6))
+    for line in buf.getvalue().splitlines():
+        print(f"  {line}")
+
+    sc = dtm_chunk_scatter(dtm, dev, "mac")
+    del dtm, corp, tr, st, s1, s2, sweep_out
+
+    # a small DTM: card against CPU, determinism, a checkpoint on the card
+    small = tt.synth_corpus(M=1500, V=600, K=8, seed=3, n_slices=5, drift=0.2, mean_tokens=60,
+                            mean_terms=40)
+    dtm_card_vs_cpu(small, dev)
+    same_seed_steps(lambda: tt.DTM(small, 10, delta=1.0, seed=7),
+                    ("alpha", "betahat", "mbeta", "gamma", "lzeta"), "DTM")
+    g = tt.DTM(small, 10, delta=1.0, runtime=tt.RuntimeConfig(chunk_docs=256), seed=1)
+    g.train(iter=2, checkelbo=1, printelbo=False, cgiter=5)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        path = os.path.join(tmp, "dtm.npz")
+        _, save_s = timed(lambda: tt.save_checkpoint(path, g))
+        back, load_s = timed(lambda: tt.load_checkpoint(path, small))
+        size = os.path.getsize(path)
+    need(back.device.type == "cuda" and back.T == g.T and back.trained_iters == 2,
+         "DTM checkpoint: model")
+    fields = tuple(vars(g.state))
+    equal_states(back.state, g.state, fields, "DTM checkpoint on the card")
+    for m in (g, back):
+        m.train(iter=1, checkelbo=1, printelbo=False, cgiter=5)
+    equal_states(back.state, g.state, fields, "DTM resumed on the card")
+    print(f"DTM checkpoint on the card (M={g.M}, T={g.T}, K={g.K}): save {save_s:.3f} s, "
+          f"{size / 2**20:.2f} MiB, load {load_s:.3f} s; bitwise equal, and after one more step")
+    print(f"DTM phase: wall {time.perf_counter() - t_phase:.1f} s; launches of the mac run "
+          f"{launches}; card {smi}")
+    return launches, sc
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1004,7 +1359,15 @@ def main() -> int:
     # 6. the Corpus path
     add(corpus_path(smi))
 
-    # 7. results: each kernel at its main path's widest chunk, with the
+    # 7. checkpoint and resume
+    add(checkpoint_phase(lda, ctpf, packed, cpk, rt, smi))
+
+    # 8. DTM at mac scale
+    dtm_launches, sc_dtm = dtm_phase(smi, dev)
+    add(dtm_launches)
+    sc += sc_dtm
+
+    # 9. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
               f"{r['call_ms']:.4f} vs {r['library_call_ms']:.4f} ms a call)"

@@ -616,3 +616,78 @@ def test_model_without_device_lands_on_cuda(cuda):
                            mean_readers=3)
     c = tt.CTPF(corp, 4, tt.RuntimeConfig(chunk_docs=128), seed=1)
     assert c.device.type == "cuda" and c.state.alef.is_cuda
+
+
+def _stamped_corpus(M=600, V=300, K=4, T=5, seed=3):
+    return tt.synth_corpus(M=M, V=V, K=K, seed=seed, n_slices=T, drift=0.2, mean_tokens=40,
+                           mean_terms=25)
+
+
+@pytest.mark.parametrize("W", [20, 41])
+def test_scatter_rows_at_dtm_shapes(cuda, W):
+    """DTM's M-step scatters: token rows into A [T·V, K] by slice·V + term
+    (W = K = 20, mac's T = 12 and V = 15,113), and one row a document into
+    [T, 2K + 1] by slice id."""
+    T, V, B, L = 12, 15_113, 1024, 256
+    r = np.random.default_rng(5)
+    sid = r.integers(0, T, size=B)
+    counts = (r.random((B, L)) < 0.85) * (1 + r.poisson(0.8, size=(B, L)))
+    counts[-3:] = 0
+    if W == 20:
+        terms = np.minimum((V * r.random((B, L)) ** 3).astype(np.int64), V - 1)
+        ids, keep, n_rows = sid[:, None] * V + terms, counts > 0, T * V
+    else:
+        ids, keep, n_rows = sid, np.arange(B) < B - 3, T
+    w = r.random((ids.size, W)).astype(np.float32) * keep.reshape(-1, 1)
+    plan = build_plan(ids, keep).to(cuda)
+    wt = torch.tensor(w, device=cuda)
+    acc = torch.rand((n_rows, W), device=cuda)
+    n0 = scatter_rows.launches
+    got = scatter_rows(acc.clone(), wt, plan)
+    assert scatter_rows.launches == n0 + 1
+    torch.testing.assert_close(got, scatter_rows_ref(acc.clone(), wt, plan), rtol=5e-3,
+                               atol=1e-5)
+    assert torch.equal(got, scatter_rows(acc.clone(), wt, plan))
+
+
+def test_dtm_step_is_bitwise_repeatable_through_the_scatter(cuda):
+    corp = _stamped_corpus()
+
+    def run():
+        m = tt.DTM(corp, 4, delta=1.0, runtime=tt.RuntimeConfig(chunk_docs=128), seed=2)
+        n0 = scatter_rows.launches
+        m.train(iter=1, checkelbo=float("inf"), printelbo=False, cgiter=4)
+        torch.cuda.synchronize()
+        return m, scatter_rows.launches - n0
+
+    (a, na), (b, nb) = run(), run()
+    assert a.device.type == "cuda" and a.state.betahat.is_cuda
+    assert na == nb == 2 * (a.packed.M_pad // 128)
+    for f in ("alpha", "betahat", "mbeta", "gamma", "Elogtheta", "lzeta"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+def test_checkpoint_card_to_cpu_and_back_is_bitwise(cuda, tmp_path):
+    from topicmodelsvb_jl_torch import checkpoint as ckptlib
+
+    corp = _stamped_corpus()
+    for fam, kw in (("LDA", {}), ("DTM", {"delta": 1.0})):
+        m = getattr(tt, fam)(corp, 4, runtime=tt.RuntimeConfig(chunk_docs=128), seed=1, **kw)
+        m.train(iter=2, checkelbo=1, printelbo=False)
+        snap = ckptlib.snapshot(m)
+        assert snap[4] is not None and all(x.is_pinned() for x in snap[1].values())
+        path = str(tmp_path / f"{fam}_card.npz")
+        ckptlib.write_snapshot(path, snap)
+        cpu = tt.load_checkpoint(path, corp, device="cpu")
+        back_path = str(tmp_path / f"{fam}_cpu.npz")
+        tt.save_checkpoint(back_path, cpu)
+        back = tt.load_checkpoint(back_path, corp)
+        assert back.device.type == "cuda" and back.trained_iters == 2
+        for f in m._per_doc_fields + ("elbo",):
+            assert torch.equal(getattr(cpu.state, f), getattr(m.state, f).cpu()), f
+        for f, x in vars(m.state).items():
+            assert torch.equal(getattr(back.state, f), x), f
+    f64 = tt.LDA(corp, 4, tt.RuntimeConfig(chunk_docs=128, dtype="float64"), device="cpu")
+    tt.save_checkpoint(str(tmp_path / "f64.npz"), f64)
+    with pytest.raises(TypeError, match="float64"):
+        tt.load_checkpoint(str(tmp_path / "f64.npz"), corp)

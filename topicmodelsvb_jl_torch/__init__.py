@@ -3,8 +3,10 @@
 The PyTorch and CUDA port of ``topicmodelsvb_jl_tpu`` for one NVIDIA
 Hopper GPU (or the CPU).  It covers the corpus pipeline (``readcorp``,
 ``fixcorp`` and its mutators), LDA, fLDA, CTPF, CTM and fCTM built from a
-``Corpus`` or a packed corpus, and the post-hoc surface (``showtopics``,
-``predict``, ``gencorp``, the CTPF displays, ``evaluate``).  Training is
+``Corpus`` or a packed corpus, the dynamic topic model DTM, checkpoint and
+resume (``save_checkpoint``/``load_checkpoint``, in the JAX package's
+format), and the post-hoc surface (``showtopics``, ``predict``,
+``gencorp``, the CTPF displays, ``evaluate``).  Training is
 batch-synchronous CAVI on a length-bucketed corpus, with hand-written CUDA
 kernels for the E-steps of LDA, fLDA and CTPF, the ELBO token terms of LDA
 and CTM and every family's M-step scatter, and plain PyTorch versions of
@@ -25,13 +27,16 @@ from .datasets import (
 from .utils.config import RuntimeConfig, TrainConfig
 
 from .api import (
-    CTM, CTPF, LDA, TopicModel, TopicModelError, fCTM, fLDA, gencorp, gendoc, predict,
+    CTM, CTPF, DTM, LDA, TopicModel, TopicModelError, fCTM, fLDA, gencorp, gendoc, predict,
 )
+from .checkpoint import load as load_checkpoint
+from .checkpoint import save as save_checkpoint
 from .evaluate import (
     heldout_reader_rank, holdout_readers, perplexity, ranked_users, recall_at_k,
     topic_coherence,
 )
 from .ops.packing import PackedCorpus, bucketize_packed, pack_corpus
+from .streaming import slices_from_stamps
 from .validate import check_model
 
 __all__ = [
@@ -40,8 +45,9 @@ __all__ = [
     "showdocs", "showtitles", "getvocab", "getusers",
     "load_nsf", "load_citeu", "load_mac", "load_stopwords", "load_englishwords",
     "synth_corpus", "synth_packed_nsf_scale",
-    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "TopicModel",
-    "predict", "gendoc", "gencorp",
+    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "DTM", "TopicModel",
+    "predict", "gendoc", "gencorp", "save_checkpoint", "load_checkpoint",
+    "slices_from_stamps",
     "perplexity", "topic_coherence", "holdout_readers",
     "heldout_reader_rank", "ranked_users", "recall_at_k",
     "check_model",

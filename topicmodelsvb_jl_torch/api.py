@@ -5,15 +5,19 @@ Mirrors the reference's public surface (src/TopicModelsVB.jl:11-18):
 :class:`~.ops.packing.PackedCorpus`, ``train(...)`` with the reference's
 kwargs and defaults, and the post-hoc tools ``topicdist``,
 ``showtopics``, ``predict``, ``gendoc``/``gencorp`` and, for CTPF,
-``showlibs``/``showdrecs``/``showurecs`` and ``warm_start_from``.  A
-model runs on the CUDA device unless its caller names another
-(``device="cpu"``); without a CUDA device it raises rather than fall back.
+``showlibs``/``showdrecs``/``showurecs`` and ``warm_start_from``, and the
+dynamic topic model ``DTM``.  A model runs on the CUDA device unless its
+caller names another (``device="cpu"``); without a CUDA device it raises
+rather than fall back.  ``RuntimeConfig.checkpoint_every`` and
+``checkpoint_dir`` checkpoint a run as it trains (``checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -24,6 +28,7 @@ from .corpus import Corpus, CorpusError, Document
 from .engine import Trainer
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
+from .models import dtm as dtm_mod
 from .models import fctm as fctm_mod
 from .models import flda as flda_mod
 from .models import lda as lda_mod
@@ -69,9 +74,13 @@ class TopicModel:
         self.dtype = getattr(torch, self.runtime.dtype)
         self.seed = seed
         self.corp = None
+        # what the checkpoint fingerprint hashes, lazily (_fingerprint): the
+        # corpus, or the packed object the caller holds, before bucketing
+        self._fp_src = corp
         if isinstance(corp, Corpus):
             corpuslib.check_corp(corp)
             self.corp = corp.copy()   # corpus-level isolation (LDA.jl:44)
+            self._fp_src = self.corp
             corp = pack_corpus(self.corp, pad_multiple=self.runtime.pad_multiple,
                                docs_multiple=min(self.runtime.chunk_docs,
                                                  _round_up(max(1, len(corp)), 8)),
@@ -120,8 +129,73 @@ class TopicModel:
         self.state = None
         self.trainer: Optional[Trainer] = None
         self.topics: Optional[np.ndarray] = None  # [K, V] 1-based rankings
+        # the global outer-iteration counter, carried by checkpoints
         self.trained_iters: int = 0
+        self._ckpt_writer = None   # checkpoint.AsyncWriter when auto-checkpointing
         self._init_state()
+
+    @property
+    def _fingerprint(self) -> str:
+        """The corpus fingerprint of a checkpoint, hashed at the first
+        checkpoint (seconds at NSF scale) and kept: the corpus does not
+        change during the model's life."""
+        if getattr(self, "_fingerprint_cache", None) is None:
+            from .checkpoint import corpus_fingerprint, packed_fingerprint
+
+            src = self._fp_src
+            self._fingerprint_cache = (corpus_fingerprint(src) if isinstance(src, Corpus)
+                                       else packed_fingerprint(src))
+            self._fp_src = None
+        return self._fingerprint_cache
+
+    def _ctor_kwargs(self) -> dict:
+        """Extra constructor arguments a checkpoint must replay."""
+        return {}
+
+    def _trainer_kw(self) -> dict:
+        """The Trainer's sinks: the JSONL metrics file and, with
+        ``checkpoint_every`` and ``checkpoint_dir`` set, the checkpoint
+        callback.  Each checkpoint is taken on the training thread (its
+        device-to-host copy started, not waited for) and written by a
+        background thread to a ``.tmp`` file, then renamed over
+        ``ckpt_iter{k:06d}``, so a kill mid-write never leaves a torn
+        checkpoint.  One write is in flight at a time."""
+        rt = self.runtime
+        kw = dict(metrics_path=rt.metrics_path)
+        if rt.checkpoint_every > 0 and rt.checkpoint_dir:
+            from . import checkpoint as ckptlib
+
+            def clear(p):
+                # a killed run's leftover: a file, or the directory of a
+                # multi-process run of the JAX package
+                if os.path.isdir(p):
+                    shutil.rmtree(p)
+                elif os.path.exists(p):
+                    os.remove(p)
+
+            def ckpt_cb(k, state):
+                self.state = state
+                self.trained_iters = int(k)   # the checkpoint carries global k
+                os.makedirs(rt.checkpoint_dir, exist_ok=True)
+                final = os.path.join(rt.checkpoint_dir, f"ckpt_iter{k:06d}")
+                tmp = final + ".tmp"
+                if self._ckpt_writer is None:
+                    self._ckpt_writer = ckptlib.AsyncWriter()
+                snap = ckptlib.snapshot(self, compress="f16" if rt.checkpoint_f16 else None)
+
+                def write():
+                    clear(tmp)
+                    ckptlib.write_snapshot(tmp, snap)
+                    # os.replace cannot replace a directory; a file it
+                    # replaces atomically, so a final file is never removed
+                    if os.path.isdir(final):
+                        clear(final)
+                    os.replace(tmp, final)
+
+                self._ckpt_writer.submit(write)
+
+            kw.update(checkpoint_cb=ckpt_cb, checkpoint_every=rt.checkpoint_every)
+        return kw
 
     # ── subclass hooks ──
     def _init_state(self):
@@ -168,9 +242,21 @@ class TopicModel:
         check_model(self)
         self.trainer = self._build_trainer(cfg)
         all_empty = all(n == 0 for n in self.N)
-        self.state = self.trainer.train(
-            self.state, cfg, corpus_all_empty=all_empty,
-            start_iter=self.trained_iters)
+        try:
+            self.state = self.trainer.train(
+                self.state, cfg, corpus_all_empty=all_empty,
+                start_iter=self.trained_iters)
+        except BaseException:
+            # drain the writer, but keep the training error primary: a
+            # deferred write error must not mask it
+            if self._ckpt_writer is not None:
+                try:
+                    self._ckpt_writer.wait()
+                except Exception:
+                    pass
+            raise
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()   # a deferred write error surfaces here
         if self.trainer.trace:
             self.trained_iters = self.trainer.trace[-1].k
         self._finalize()
@@ -315,7 +401,8 @@ class LDA(_DirichletAccessors, TopicModel):
         elbo = lda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data,
-                       M=self.M, C=int(sum(self.C)), device=self.device)
+                       M=self.M, C=int(sum(self.C)), device=self.device,
+                       **self._trainer_kw())
 
 
 class fLDA(_DirichletAccessors, TopicModel):
@@ -344,7 +431,7 @@ class fLDA(_DirichletAccessors, TopicModel):
         totals = tuple(torch.tensor(float(x), dtype=self.dtype, device=self.device)
                        for x in (self.M, C))
         return Trainer(step, elbo, data + totals, data, M=self.M, C=int(C),
-                       device=self.device)
+                       device=self.device, **self._trainer_kw())
 
     @property
     def eta(self) -> float:
@@ -515,7 +602,7 @@ class CTPF(TopicModel):
         elbo = ctpf_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._step_data()
         return Trainer(step, elbo, data, data, M=self.M, C=int(sum(self.C)),
-                       device=self.device)
+                       device=self.device, **self._trainer_kw())
 
     def train(self, iter: int = 150, tol: float = 1.0, viter: int = 10,
               vtol: Optional[float] = None, checkelbo: float = 1,
@@ -687,6 +774,10 @@ class CTM(TopicModel):
     def __repr__(self):
         return f"Correlated topic model with {self.K} topics."
 
+    def _ctor_kwargs(self) -> dict:
+        # rides the checkpoint so a resumed run keeps the same gauge
+        return {"identify": True} if self.identify else {}
+
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
         self.state = self._model.init(gen, self.packed, self.K, self.dtype, self.device)
@@ -699,7 +790,7 @@ class CTM(TopicModel):
         elbo = self._model.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data, M=self.M,
-                       C=int(sum(self.C)), device=self.device)
+                       C=int(sum(self.C)), device=self.device, **self._trainer_kw())
 
     @property
     def mu(self) -> np.ndarray:
@@ -763,6 +854,154 @@ class fCTM(CTM):
         return [t[rows[d], : self.N[d]] for d in range(self.M)]
 
 
+class DTM(TopicModel):
+    """Dynamic topic model (reference v0.6/src/DTM.jl).
+
+    Cuts the corpus into T slices of width ``delta`` by document stamp
+    (``Document.stamp``); the topic-word distributions evolve over the
+    slices through a variational Kalman smoother.  Warm-starts from a
+    trained LDA, fLDA, CTM or fCTM ``basemodel`` (DTM.jl:66-93).  The
+    corpus is packed dense, not bucketed."""
+
+    _per_doc_fields = ("gamma", "Elogtheta", "lzeta")
+
+    def __init__(self, corp, K: int, delta: float, basemodel=None,
+                 runtime: Optional[RuntimeConfig] = None, *, device="cuda", seed: int = 0):
+        if not isinstance(corp, Corpus):
+            raise TopicModelError("DTM requires a Corpus with per-document stamps; "
+                                  "PackedCorpus input is not supported.")
+        if not (np.isfinite(delta) and delta > 0):
+            raise ValueError("delta must be a positive finite number.")
+        if any(d.stamp is None or not np.isfinite(d.stamp) for d in corp.docs):
+            raise CorpusError("every document must carry a finite stamp.")
+        self.delta = float(delta)
+        self._basemodel = basemodel
+        super().__init__(corp, K, runtime, device=device, seed=seed)
+
+    def __repr__(self):
+        return f"Dynamic topic model with {self.K} topics and {self.T} time slices."
+
+    def _ctor_kwargs(self) -> dict:
+        return {"delta": self.delta}
+
+    def _init_state(self):
+        from .streaming import slices_from_stamps
+
+        stamps = np.array([doc.stamp for doc in self.corp.docs], dtype=np.float64)
+        # slice assignment (DTM.jl:58-63), 0-based; padding rows in slice 0
+        self.T, self.slice_id = slices_from_stamps(stamps, self.delta, self.packed.M_pad)
+        self.S = [list(np.nonzero(self.slice_id[: self.M] == t)[0] + 1) for t in range(self.T)]
+
+        bh0 = a0 = g0 = None
+        base = self._basemodel
+        if base is not None:   # warm start (DTM.jl:66-93), the JAX package's draws
+            if base.K != self.K or base.M != self.M:
+                raise TopicModelError(
+                    "basemodel must have matching number of topics and documents.")
+            rng = np.random.default_rng(self.seed)
+            M_pad = self.packed.M_pad
+            if isinstance(base, (LDA, fLDA)):
+                logb = np.log(np.asarray(base.beta) + 1e-30)
+                a0 = np.tile(np.asarray(base.alpha), (self.T, 1))
+                g0 = np.zeros((M_pad, self.K), np.float64)
+                g0[: self.M] = np.asarray(base.gamma)
+                g0[self.M:] = 1.0
+            elif isinstance(base, CTM):   # fCTM included
+                logb = np.log(np.asarray(base.beta) + 1e-30)
+                sm = np.exp(np.asarray(base.mu) - np.max(np.asarray(base.mu)))
+                a0 = np.tile(sm / sm.sum(), (self.T, 1))
+                lam = np.asarray(base.lam)
+                e = np.exp(lam - lam.max(axis=1, keepdims=True))
+                g0 = np.ones((M_pad, self.K), np.float64)
+                g0[: self.M] = e / e.sum(axis=1, keepdims=True)
+            else:
+                raise TopicModelError("basemodel must be an LDA, fLDA, CTM or fCTM model.")
+            bh0 = logb[None, :, :] + rng.standard_normal((self.T, self.K, self.V))
+        gen = torch.Generator().manual_seed(self.seed)
+        self.state = dtm_mod.init(gen, self.packed, self.K, self.T, self.dtype, self.device,
+                                  betahat0=bh0, alpha0=a0, gamma0=g0)
+
+    def _step_data(self) -> tuple:
+        """(slice_id, terms, counts, doc_mask): the dense packed arrays on
+        the device."""
+        p = self.packed
+        put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(self.device)
+        return (put(self.slice_id, torch.int64), put(p.terms, torch.int32),
+                put(p.counts, self.dtype), put(p.doc_mask, self.dtype))
+
+    def _build_trainer(self, cfg: TrainConfig) -> Trainer:
+        p = self.packed
+        step = dtm_mod.make_step(p, self.K, self.T, viter=cfg.viter, vtol=cfg.vtol,
+                                 niter=cfg.niter, ntol=cfg.ntol, cgiter=self._cgiter,
+                                 cgtol=self._cgtol, chunk_docs=self.chunk_docs,
+                                 slice_id=self.slice_id, device=self.device)
+        elbo = dtm_mod.make_elbo(p, self.K, self.T, chunk_docs=self.chunk_docs)
+        data = self._step_data()
+        return Trainer(step, elbo, data, data, M=self.M, C=int(sum(self.C)),
+                       device=self.device, **self._trainer_kw())
+
+    def train(self, iter: int = 150, tol: float = 1.0, niter: int = 1000,
+              ntol: Optional[float] = None, viter: int = 10, vtol: Optional[float] = None,
+              cgiter: int = 20, cgtol: Optional[float] = None, checkelbo: float = 1,
+              printelbo: bool = True):
+        """train! (DTM.jl:311-335), with cgiter/cgtol for the betahat CG."""
+        if cgiter <= 0:
+            raise ValueError("iteration parameters must be positive integers.")
+        self._cgiter = int(cgiter)
+        self._cgtol = float(cgtol) if cgtol is not None else 1.0 / self.T**2
+        return super().train(iter=iter, tol=tol, niter=niter, ntol=ntol, viter=viter,
+                             vtol=vtol, checkelbo=checkelbo, printelbo=printelbo)
+
+    def _finalize(self):
+        # per-slice topic rankings (DTM.jl:336)
+        self.topics = dtm_mod.topics_ranking_by_slice(self.state.mbeta)
+
+    def _topic_word_matrix(self) -> torch.Tensor:
+        return self.state.mbeta.mean(dim=0)
+
+    @property
+    def alpha(self) -> np.ndarray:
+        return _host(self.state.alpha)
+
+    @property
+    def mbeta(self) -> np.ndarray:
+        return _host(self.state.mbeta)
+
+    @property
+    def vbeta(self) -> np.ndarray:
+        return _host(self.state.vbeta)
+
+    @property
+    def betahat(self) -> np.ndarray:
+        return _host(self.state.betahat)
+
+    @property
+    def gamma(self) -> np.ndarray:
+        return _host(self.state.gamma)[: self.M]
+
+    def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
+        g = _host(self.state.gamma)[rows]
+        return g / g.sum(axis=-1, keepdims=True)
+
+    def showtopics(self, V: int = 15, topics=None, cols: int = 4, slices=None):
+        """Aligned top terms, slice by slice (the v0.6 display)."""
+        if slices is None:
+            slices = range(1, self.T + 1)
+        if isinstance(slices, int):
+            slices = [slices]
+        rank_all = (self.topics if self.topics is not None
+                    else dtm_mod.topics_ranking_by_slice(self.state.mbeta))
+        for t in slices:
+            if not 1 <= t <= self.T:
+                raise ValueError("some time-slice indices are outside range.")
+            print(f"─ time slice {t} ─")
+            saved, self.topics = self.topics, rank_all[t - 1]
+            try:
+                super().showtopics(V=V, topics=topics, cols=cols)
+            finally:
+                self.topics = saved
+
+
 # ───────────────────── inference on new documents (predict) ─────────────────────
 
 def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
@@ -792,6 +1031,8 @@ def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
         raise ValueError("iteration parameter must be nonnegative.")
     if isinstance(train_model, CTPF):
         raise TopicModelError("predict is not defined for CTPF models (as in the reference).")
+    if isinstance(train_model, DTM):
+        raise TopicModelError("predict is not defined for DTM models.")
 
     cls = type(train_model)
     new = cls(corp, train_model.K, runtime=train_model.runtime, device=train_model.device,

@@ -15,6 +15,7 @@ import torch
 
 from .models.ctm import CTMState
 from .models.ctpf import CTPFState
+from .models.dtm import DTMState
 from .models.fctm import FCTMState
 from .models.flda import FLDAState
 from .models.lda import LDAState
@@ -24,6 +25,7 @@ FLDA_FIELDS = tuple(FLDAState.__dataclass_fields__)
 CTPF_FIELDS = tuple(CTPFState.__dataclass_fields__)
 CTM_FIELDS = tuple(CTMState.__dataclass_fields__)
 FCTM_FIELDS = tuple(FCTMState.__dataclass_fields__)
+DTM_FIELDS = tuple(DTMState.__dataclass_fields__)
 
 
 def _from_numpy(cls, arrays: Mapping, device, dtype):
@@ -79,4 +81,13 @@ def fctm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> FCTMS
 
 
 def fctm_state_to_numpy(state: FCTMState) -> dict:
+    return _to_numpy(state)
+
+
+def dtm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> DTMState:
+    """As :func:`lda_state_from_numpy`, for the 9 DTMState fields."""
+    return _from_numpy(DTMState, arrays, device, dtype)
+
+
+def dtm_state_to_numpy(state: DTMState) -> dict:
     return _to_numpy(state)

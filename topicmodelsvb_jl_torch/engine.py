@@ -8,7 +8,11 @@ around a model's (step, elbo) pair:
 * ``check_elbo`` cadence, ∆elbo print format, and early stopping mirror
   ``check_elbo!`` (modelutils.jl:574-585);
 * per-iteration records (elbo, ∆elbo, docs/sec, step time) collected into
-  a trace.
+  a trace, and written as JSONL rows to ``metrics_path`` when one is set;
+* ``checkpoint_cb(k, state)`` every ``checkpoint_every`` outer iterations,
+  its wall time kept out of the step timings;
+* :class:`HostReads`, a counter of the values a block of code reads back
+  to the host, each of which waits for the device.
 
 Device work is queued asynchronously, so wall time is observable only
 where the host waits for the device: at the ELBO checks, whose value
@@ -19,11 +23,13 @@ back-filled as the average over each such span.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .utils.config import TrainConfig
 from .utils.numerics import elbo_value
@@ -55,6 +61,19 @@ def _synchronize(state, device=None) -> None:
         torch.cuda.synchronize(device)
 
 
+class HostReads(TorchDispatchMode):
+    """Counts, in ``n``, the values read back to the host
+    (``aten._local_scalar_dense``: ``bool``/``float``/``item`` of a
+    tensor) while the mode is entered."""
+
+    n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
 class Trainer:
     """Generic CAVI driver over a model's (step, elbo) pair.
 
@@ -66,7 +85,9 @@ class Trainer:
 
     def __init__(self, step_fn: Callable, elbo_fn: Callable, data: tuple,
                  elbo_data: Optional[tuple] = None, M: int = 0, C: int = 0,
-                 printer: Callable[[str], None] = print, device=None):
+                 printer: Callable[[str], None] = print, device=None,
+                 metrics_path: Optional[str] = None,
+                 checkpoint_cb: Optional[Callable] = None, checkpoint_every: int = 0):
         self.step_fn = step_fn
         self.elbo_fn = elbo_fn
         self.data = tuple(data)
@@ -76,11 +97,16 @@ class Trainer:
         self.printer = printer
         self.device = device
         self.trace: List[IterationRecord] = []
+        self.metrics_path = metrics_path
+        self.checkpoint_cb = checkpoint_cb
+        self.checkpoint_every = int(checkpoint_every)
 
     def train(self, state, cfg: TrainConfig, corpus_all_empty: bool = False,
               start_iter: int = 0):
         """Run ``cfg.iter`` outer iterations, numbered globally from
-        ``start_iter + 1``."""
+        ``start_iter + 1``: a resumed run continues the iteration counter,
+        so its JSONL rows and checkpoint names never collide with the
+        first run's."""
         cfg.validate()
         n_iter = 0 if corpus_all_empty else cfg.iter
 
@@ -123,12 +149,29 @@ class Trainer:
                     r.step_time_s = per
                     r.docs_per_s = self.M / max(per, 1e-12)
                     r.tokens_per_s = self.C / max(per, 1e-12)
+                    self._emit(r)   # once its timings are real
                 span_recs = []
                 span_start = time.perf_counter()
             self.trace.append(rec)
+            if (self.checkpoint_cb is not None and self.checkpoint_every > 0
+                    and k % self.checkpoint_every == 0):
+                # the callback's wall time does not count toward the
+                # back-filled step timings; the device work queued before
+                # it does, so an open span waits for it first
+                if span_recs:
+                    _synchronize(state, self.device)
+                cb_t0 = time.perf_counter()
+                self.checkpoint_cb(k, state)
+                span_start += time.perf_counter() - cb_t0
             if rec.delta_elbo is not None and rec.delta_elbo < cfg.tol:
                 break
         return state
+
+    def _emit(self, rec: IterationRecord) -> None:
+        if not self.metrics_path:
+            return
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps(dataclasses.asdict(rec)) + "\n")
 
     def summary(self) -> Dict[str, float]:
         if not self.trace:

@@ -1,9 +1,11 @@
 """Newton solvers, run on the device that holds their state.
 
-* :func:`dirichlet_newton` — the Dirichlet hyperparameter update of LDA
-  and fLDA (reference LDA.jl:97-118): interior-point Newton with a log
-  barrier and back-tracking.  Its ``done`` test reads one value back to
-  the host each iteration.
+* :func:`dirichlet_newton_batched` — the Dirichlet hyperparameter update
+  (reference LDA.jl:97-118): interior-point Newton with a log barrier and
+  back-tracking, for S independent Dirichlets at once (DTM's per-slice
+  alpha, DTM.jl:176-197), one stop mask a row and one host read an
+  iteration for all of them; :func:`dirichlet_newton` is its one-row
+  case, LDA's and fLDA's alpha.
 * :func:`ctm_lambda_newton` — the CTM per-document Newton (CTM.jl:129-142)
   batched over a chunk of documents, its K×K SPD solve done matrix-free
   by the Jacobi-preconditioned CG of :func:`spd_cg_solve`, as in the JAX
@@ -156,7 +158,25 @@ def dirichlet_newton(
     ntol: float,
     Elogtheta_sum_lo: torch.Tensor = None,
 ) -> torch.Tensor:
-    """Interior-point Newton for the Dirichlet parameter (LDA.jl:97-118).
+    """Interior-point Newton for one Dirichlet parameter [K]
+    (LDA.jl:97-118): :func:`dirichlet_newton_batched` on one row."""
+    M = torch.as_tensor(M, dtype=alpha.dtype, device=alpha.device).reshape(1)
+    lo = None if Elogtheta_sum_lo is None else Elogtheta_sum_lo[None]
+    return dirichlet_newton_batched(alpha[None], Elogtheta_sum[None], M, niter, ntol, lo)[0]
+
+
+def dirichlet_newton_batched(
+    alpha: torch.Tensor,
+    Elogtheta_sum: torch.Tensor,
+    M: torch.Tensor,
+    niter: int,
+    ntol: float,
+    Elogtheta_sum_lo: torch.Tensor = None,
+) -> torch.Tensor:
+    """Interior-point Newton for the Dirichlet parameter (LDA.jl:97-118)
+    on each row of ``alpha`` [S, K] at once, with its row of
+    ``Elogtheta_sum`` [S, K] (and ``_lo``) and its count ``M`` [S]: the
+    JAX package's ``jax.vmap(dirichlet_newton)`` over DTM's slices.
 
     The gradient is evaluated in MEAN form — ``M·(nu/(M·alpha) + ψ(Σa)
     − ψ(a_k) + Elogtheta_sum/M)`` — so the near-cancellation at the
@@ -164,23 +184,28 @@ def dirichlet_newton(
     O(M·|Elogtheta|).  ``Elogtheta_sum_lo`` carries the compensation
     half of a Kahan-accumulated sum (models/lda.py's step carry) into
     the mean at full precision.
-    """
-    K = alpha.shape[0]
+
+    A row that has stopped is frozen, so every row follows the iterations
+    it would run alone; the loop ends when all rows have stopped, read
+    back once an iteration.  Every row still running has run from the
+    first iteration, so the barrier weight ``nu`` is one number for all
+    of them."""
+    K = alpha.shape[-1]
     dtype = alpha.dtype
-    M = torch.as_tensor(M, dtype=dtype, device=alpha.device)
+    M = torch.as_tensor(M, dtype=dtype, device=alpha.device)[:, None]     # [S, 1]
     nu = float(K)
     el_mean = Elogtheta_sum / M
     if Elogtheta_sum_lo is not None:
         el_mean = el_mean + Elogtheta_sum_lo / M
 
-    prev_norm = torch.tensor(float("inf"), dtype=dtype, device=alpha.device)
+    prev_norm = torch.full(alpha.shape[:1], float("inf"), dtype=dtype, device=alpha.device)
+    done = torch.zeros(alpha.shape[:1], dtype=torch.bool, device=alpha.device)
     for i in range(niter):
-        a0 = torch.sum(alpha)
+        a0 = torch.sum(alpha, dim=-1, keepdim=True)
         grad = M * (nu / (M * alpha) + digamma(a0) - digamma(alpha) + el_mean)
         h_inv = -1.0 / (M * trigamma(alpha) + nu / alpha**2)
-        denom = 1.0 / (M * trigamma(a0)) + torch.sum(h_inv)
-        p = (grad - torch.dot(grad, h_inv) / denom) * h_inv
-
+        denom = 1.0 / (M * trigamma(a0)) + torch.sum(h_inv, dim=-1, keepdim=True)
+        p = (grad - torch.sum(grad * h_inv, dim=-1, keepdim=True) / denom) * h_inv
         # back-tracking: minimum(alpha - rho*p) must stay >= 0
         # (LDA.jl:107-109).  The reference halves rho from 1; the final
         # value is the largest 2^-m with rho <= min_k alpha_k/p_k over
@@ -188,31 +213,30 @@ def dirichlet_newton(
         pos = p > 0
         ratio = torch.where(pos, alpha / torch.where(pos, p, torch.ones_like(p)),
                             torch.full_like(p, float("inf")))
-        r_star = torch.min(ratio)
-        m = torch.clamp(torch.ceil(-torch.log2(torch.clamp(r_star, max=1.0))),
-                        min=0.0)
+        r_star = torch.amin(ratio, dim=-1, keepdim=True)
+        m = torch.clamp(torch.ceil(-torch.log2(torch.clamp(r_star, max=1.0))), min=0.0)
         rho = torch.exp2(-m)
         # division can round alpha/p up across the power-of-two boundary;
         # validate the actual step like the reference's while-condition
-        rho = torch.where(torch.min(alpha - rho * p) < 0, rho * 0.5, rho)
-
+        rho = torch.where(torch.amin(alpha - rho * p, dim=-1, keepdim=True) < 0, rho * 0.5, rho)
         alpha_new = finite(alpha - rho * p)
         # reference stopping rule (LDA.jl:113-115) — plus, on f32 only,
         # two numerical stops: a step below f32 resolution of alpha makes
         # no progress, and once the barrier has annealed away a step that
         # stops contracting is a limit cycle.  f64 keeps the reference's
         # own rule alone.
-        sn = rho * l2norm(p)
+        sn = rho[:, 0] * l2norm(p)
         annealed = nu / K < ntol
-        done = (rho * l2norm(grad) < ntol) & annealed
+        stop = (rho[:, 0] * l2norm(grad) < ntol) & annealed
         if dtype == torch.float32:
             stagnant = sn <= 1e-6 * (l2norm(alpha) + 1.0)
             cycling = (sn >= prev_norm) & (annealed and i >= 20)
-            done = done | stagnant | cycling
-        alpha = alpha_new
+            stop = stop | stagnant | cycling
+        alpha = torch.where(done[:, None], alpha, alpha_new)
+        done = done | stop
         nu *= 0.5
         prev_norm = sn
-        if bool(done):
+        if bool(torch.all(done)):
             break
     # @positive model.alpha (LDA.jl:117)
     return alpha + EPSILON

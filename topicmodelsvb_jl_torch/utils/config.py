@@ -8,8 +8,9 @@ those knobs:
   same names and defaults (``iter=150, tol=1.0, niter=1000, ntol=1/K²,
   viter=10, vtol=1/K², checkelbo=1, printelbo=True``).
 * :class:`RuntimeConfig` holds the execution knobs that have no reference
-  counterpart: doc-chunk size, padding multiples and the compute dtype.
-  The device is an explicit argument of the model, not a config field.
+  counterpart: doc-chunk size, padding multiples, the compute dtype, the
+  per-iteration metrics sink and the auto-checkpoint cadence.  The device
+  is an explicit argument of the model, not a config field.
 """
 
 from __future__ import annotations
@@ -58,3 +59,12 @@ class RuntimeConfig:
     pad_multiple: int = 64        # token-axis padding multiple of a dense corpus
     bucket_pad: int = 8           # per-segment token-width multiple under bucketing
     dtype: str = "float32"        # compute dtype; "float64" for the CPU oracle
+    metrics_path: Optional[str] = None  # JSONL sink: one row per outer iteration
+    # checkpoint every N outer iterations during train() to
+    # checkpoint_dir/ckpt_iter{k:06d}; 0 disables
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    # cast the per-document state leaves to f16 on the device before the
+    # checkpoint's device-to-host copy (half its bytes); a resume from it
+    # re-converges instead of reproducing the trace bit for bit
+    checkpoint_f16: bool = False

@@ -32,7 +32,7 @@ def _unit_interval(x):
 
 def state_violations(model) -> list:
     """Names of violated invariants for a model's current state."""
-    from .api import CTM, CTPF, LDA, fCTM, fLDA
+    from .api import CTM, CTPF, DTM, LDA, fCTM, fLDA
 
     s = model.state
     if isinstance(model, (LDA, fLDA)):          # modelutils.jl:39-67, 69-106
@@ -65,6 +65,15 @@ def state_violations(model) -> list:
                 "kappa must be a stochastic matrix": _stochastic(s.kappa, dim=0),
                 "tau must be in [0, 1]": _unit_interval(s.tau),
             })
+    elif isinstance(model, DTM):                # v0.6 fixmodel! analogue
+        checks = {
+            "alpha must be positive": _positive(s.alpha),
+            "betahat must be finite": _finite(s.betahat),
+            "mbeta must be finite": _finite(s.mbeta),
+            "vbeta must be positive": _positive(s.vbeta),
+            "gamma must be positive": _positive(s.gamma),
+            "lzeta must be finite": _finite(s.lzeta),
+        }
     elif isinstance(model, CTPF):               # modelutils.jl:181-253
         checks = {f"{name} must be positive": _positive(getattr(s, name))
                   for name in ("alef", "bet", "gimel", "dalet", "he", "vav",
