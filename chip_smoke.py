@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM and DTM paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM and HMTM paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,26 @@ printing its own lines; any failure exits non-zero:
    version; then a small DTM on the card (f32) against the CPU (f64) from
    one init, two same-seed one-step DTMs bitwise equal, and a DTM
    checkpoint saved, loaded and resumed on the card;
-9. the scatter against ``index_add_`` on every shape; one JSON line with
+9. HMTM: ``hmtm_estep`` and ``hmtm_logz`` against their plain versions
+   on four chunks (the widest NSF bucket with unit counts at K = 25 and
+   K = 100, 128 documents of L = 4,096 whose messages go to device
+   memory, and a chunk with an empty, a one-token, a padded-first and
+   doc_mask 0 documents), each twice, bitwise equal, with its times and
+   bound, the scatter on the first chunk's r rows; the NSF corpus with
+   ``unit_counts``, ``HMTM(packed, 25)`` with no ``device=``,
+   ``train(iter=3, checkelbo=1, viter=10)`` with the counts set to 0
+   before: ∆elbo > 0 from the second iteration, ``check_model``, one
+   ``hmtm_estep`` and one scatter a chunk a step and one ``hmtm_logz`` a
+   chunk a bound, the step, E-step, Newton and ELBO-pass times, the host
+   reads of a step, peak memory, a step repeated bitwise and two same-seed
+   one-step models bitwise equal; a small HMTM on the card against the
+   CPU in f64 per element; the user path: ``load_nsf(subset=4096)`` (its
+   condensed corpus refused), ``expand_corp``, ``HMTM(train, 25)``,
+   ``train(iter=2)``, ``showtopics``, ``transdist(1)``, ``predict`` on 256
+   held-out documents against the CPU's f64 ``predict``, ``perplexity``,
+   ``gencorp(M=100)`` and one step on it, and a checkpoint saved, loaded
+   and resumed on the card, bitwise equal to the straight run;
+10. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
    time (``library_ms``, null where no PyTorch call computes the same
@@ -151,6 +170,18 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     f32 operations outside the tensor cores: (ms, "bytes" or "operations")."""
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def timed(fn):
+    """(result, seconds) of one call of ``fn`` on the host clock, between
+    two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def fixpoint_work(module, ref, args, kw, per_doc) -> float:
@@ -728,7 +759,7 @@ def kernel_checks(dev) -> dict:
         (V, torch.zeros((wide[0].numel(), K), device=dev), wide[0], wide[1] < 0, dev,
          "empty chunk")]
     sc = [compare_scatter(*case) for case in scatter_cases]
-    return dict(packed=packed, cpk=cpk, K=K, V=V, estep=(res_wide["estep"], res_long["estep"]),
+    return dict(packed=packed, bucketed=bucketed, cpk=cpk, K=K, V=V, estep=(res_wide["estep"], res_long["estep"]),
                 elbo=(res_wide["elbo"], res_long["elbo"]), flda=(fl_wide, fl_long),
                 ctpf=(ct_wide, ct_long), scatter=sc, scatter_cases=scatter_cases)
 
@@ -1150,13 +1181,6 @@ def dtm_phase(smi, dev) -> tuple:
     from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
     from topicmodelsvb_jl_torch.validate import check_model
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     kernels = (lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, scatter_rows)
     t_phase = time.perf_counter()
     corp, build_s = timed(mac_corpus)
@@ -1232,6 +1256,289 @@ def dtm_phase(smi, dev) -> tuple:
     print(f"DTM phase: wall {time.perf_counter() - t_phase:.1f} s; launches of the mac run "
           f"{launches}; card {smi}")
     return launches, sc
+
+
+def hmtm_state(K, B, V, dev, seed):
+    """Random emission table (beta + eps)ᵀ [V, K], eta, alpha and a
+    per-document state tau [B, K], gamma [B, K, K] (seeded numpy)."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
+
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+    return (t(r.dirichlet(np.ones(V), size=K).T + EPSILON), t(r.uniform(0.5, 2.0, K)),
+            t(r.uniform(0.5, 2.0, (K, K))), t(r.uniform(0.5, 3.0, (B, K))),
+            t(r.uniform(0.5, 3.0, (B, K, K))))
+
+
+def hmtm_chunks(bucketed, V, dev) -> list:
+    """Phase 9's four chunks, each (label, K, viter, the shared-memory mode
+    the kernel must pick, hmtm_estep's arguments): the first 1024
+    documents of the widest NSF bucket with unit counts at K = 25 and at K
+    = 100, 128 synthetic documents of 3,000-4,096 tokens (L = 4,096, the
+    messages past shared memory), and 256 documents of L = 64 holding an
+    empty document, a one-token one, one whose first 5 slots are padding,
+    and 8 rows with doc_mask 0 (4 of them with tokens)."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    put = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    seg = unit_counts(bucketed).segments[0]
+    nsf = (put(seg.terms[:1024], torch.int32), put(seg.counts[:1024] > 0),
+           put(seg.doc_mask[:1024]))
+    r = np.random.default_rng(43)
+    n = r.integers(3000, 4097, size=128)
+    tm_long = (np.arange(4096)[None, :] < n[:, None])
+    long_ = (put(np.minimum((V * r.random((128, 4096)) ** 3).astype(np.int32), V - 1) * tm_long,
+                 torch.int32), put(tm_long), torch.ones(128, device=dev))
+    n = r.integers(20, 65, size=256)
+    n[0], n[1] = 0, 1
+    tm_sp = np.arange(64)[None, :] < n[:, None]
+    tm_sp[2, :5] = False
+    tm_sp[-4:] = False
+    dm = np.ones(256)
+    dm[-8:] = 0.0
+    special = (put((V * r.random((256, 64))).astype(np.int32) * tm_sp, torch.int32), put(tm_sp),
+               put(dm))
+    out = []
+    for label, (terms, tmask, doc_mask), K, viter, mode, seed in (
+            (f"widest NSF bucket L={seg.L}", nsf, 25, 10, 0, 44),
+            ("L=4096 messages in device memory", long_, 25, 3, 1, 45),
+            (f"widest NSF bucket L={seg.L}, K=100", nsf, 100, 10, 1, 46),
+            ("empty, one-token, padded-first and doc_mask 0 documents, L=64", special, 25, 10,
+             0, 47)):
+        betaT, eta, alpha, tau, gamma = hmtm_state(K, terms.shape[0], V, dev, seed)
+        out.append((label, K, viter, mode,
+                    (betaT, terms, tmask, doc_mask, eta, alpha, tau, gamma)))
+    return out
+
+
+def compare_hmtm(label, K, viter, mode, args, dev) -> tuple:
+    """hmtm_estep and hmtm_logz against their plain versions on one chunk:
+    the records (``record``) and the kernel's r."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import _build
+    from topicmodelsvb_jl_torch.kernels import hmtm_estep as hmtm_mod
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import (
+        hmtm_estep, hmtm_estep_ref, hmtm_logz, hmtm_logz_ref,
+    )
+
+    betaT, terms, tmask, doc_mask, eta, alpha, tau, gamma = args
+    B, L = terms.shape
+    got_mode = _build.function("tmvb_hmtm_estep_mode", [ctypes.c_int64] * 2)(L, K)
+    need(got_mode == mode, f"hmtm_estep {label}: shared-memory mode {got_mode}, want {mode}")
+    kw = dict(viter=viter, vtol=1.0 / K**2)
+    got = hmtm_estep(*args, **kw)
+    # the plain versions take seconds a call: timed on the run compared
+    want, plain_s = timed(lambda: hmtm_estep_ref(*args, **kw))
+    err = close(got, want, ("tau", "gamma", "r"), f"hmtm_estep {label}")
+    pad = doc_mask == 0   # no pass: the state as given (r is computed on every row)
+    need(torch.equal(got[0][pad], tau[pad]) and torch.equal(got[1][pad], gamma[pad]),
+         f"hmtm_estep {label}: a doc_mask 0 document's state moved")
+    need(bool(torch.all(got[2][tmask == 0] == 0)), f"hmtm_estep {label}: r on padding")
+    need(all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*args, **kw))),
+         f"hmtm_estep {label}: not bitwise repeatable")
+    zargs = (betaT, terms, tmask, got[0], got[1])
+    z = hmtm_logz(*zargs)
+    zr, zplain_s = timed(lambda: hmtm_logz_ref(*zargs))
+    need(torch.equal(z, hmtm_logz(*zargs)), f"hmtm_logz {label}: not bitwise repeatable")
+    zerr = float((z - zr).abs().max())
+    need(bool(torch.all(torch.isfinite(z))) and bool(torch.all((z - zr).abs() <= 1e-5 * zr.abs())),
+         f"hmtm_logz {label}: off by {zerr} (rel {float(((z - zr).abs() / zr.abs()).max())})")
+    # the work this run's data needs: each pass is 6 K² flops a real slot
+    # (the forward's A a, the backward's Aᵀ g and its S update), the final
+    # pass 4 K²; the passes each document ran come from the plain loop
+    real = tmask.sum(1)
+    n_real = float(real.sum())
+    work = fixpoint_work(hmtm_mod, hmtm_estep_ref, args, kw, real)
+    uniq = n_unique(terms, tmask > 0)
+    est = record(err, time_calls(lambda: hmtm_estep(*args, **kw), N_KERNEL),
+                 (plain_s * 1e3, plain_s * 1e3),
+                 bound_ms(4 * (uniq * K + 2 * B * L + B + K + K * K + 2 * B * K + 2 * B * K * K
+                               + B * L * K), 6 * K * K * work + 4 * K * K * n_real))
+    lz = record(zerr, time_calls(lambda: hmtm_logz(*zargs), N_KERNEL),
+                (zplain_s * 1e3, zplain_s * 1e3),
+                bound_ms(4 * (uniq * K + 2 * B * L + B * K + B * K * K + B), 2 * K * K * n_real))
+    print(f"kernels HMTM {label}: B={B} L={L} K={K} viter={viter} real slots={int(n_real)} "
+          f"shared-memory mode {got_mode}, passes a real slot {work / max(n_real, 1):.2f} | "
+          f"hmtm_estep {times(est)} | hmtm_logz {times(lz)}, rel err "
+          f"{float(((z - zr).abs() / zr.abs().clamp_min(1e-30)).max()):.3e} (plain: one call "
+          "on the host clock)")
+    return est, lz, got[2]
+
+
+def hmtm_held_out(corp, n):
+    """The last ``n`` documents in token order, keeping the terms an
+    earlier document holds, and the documents before them."""
+    import topicmodelsvb_jl_torch as tt
+
+    seen = {t for d in corp.docs[:-n] for t in d.terms}
+    test = []
+    for d in corp.docs[-n:]:
+        terms = [t for t in d.terms if t in seen]
+        test.append(tt.Document(terms=terms, counts=[1] * len(terms)))
+    return (tt.Corpus(docs=corp.docs[:-n], vocab=corp.vocab),
+            tt.Corpus(docs=test, vocab=corp.vocab))
+
+
+def hmtm_phase(kc, smi, dev) -> tuple:
+    """Phase 9, HMTM: the kernels on four chunks, the NSF-scale main path,
+    a small HMTM card against CPU and the user path; returns the main
+    path's launches and the kernels' and the scatter's records."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.engine import HostReads
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+    from topicmodelsvb_jl_torch.validate import check_model
+
+    t_phase = time.perf_counter()
+    V = kc["V"]
+    chunks = hmtm_chunks(kc["bucketed"], V, dev)
+    res = [compare_hmtm(*c, dev) for c in chunks]
+    terms, tmask = chunks[0][4][1:3]
+    sc = compare_scatter(V, res[0][2].reshape(-1, 25), terms, tmask > 0, dev,
+                         f"HMTM r rows, {chunks[0][0]} (W=25)")
+    est, lz = [r[0] for r in res], [r[1] for r in res]
+    del chunks, res, terms, tmask
+
+    # the main path: NSF with unit counts, K = 25, viter 10, no device=
+    kernels = (hmtm_estep, hmtm_logz, scatter_rows)
+
+    hpk = unit_counts(kc["packed"])
+    rt = tt.RuntimeConfig(chunk_docs=1024, dtype="float32")
+    model, build_s = timed(lambda: tt.HMTM(hpk, 25, rt, seed=7))
+    need(model.device.type == "cuda" and model.state.gamma.is_cuda, "HMTM without device= not on CUDA")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = timed(lambda: model.train(iter=3, checkelbo=1, viter=10))
+    launches = {k.__name__: k.launches for k in kernels}
+    trace = model.trainer.trace
+    deltas = [x.delta_elbo for x in trace]
+    need(len(deltas) == 3 and all(d > 0 for d in deltas[1:]), f"HMTM NSF: ∆elbo {deltas}")
+    check_model(model)
+    n_chunks = n_chunks_of(model)
+    want = {"hmtm_estep": 3 * n_chunks, "hmtm_logz": 4 * n_chunks,
+            "scatter_rows": 3 * scatters_of(model)}
+    need(launches == want, f"HMTM NSF: launches {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tr, st = model.trainer, model.state
+    step = tr.step_fn
+    sweep_out, estep_s = timed(lambda: step.sweep(st, *tr.data[:3]))
+    _, newton_s = timed(lambda: step.update(st.eta, st.alpha, *sweep_out[2:], tr.data[3]))
+    s1, step_s = timed(lambda: step(st, *tr.data))
+    with HostReads() as reads:
+        s2 = step(st, *tr.data)
+    _, elbo_s = timed(lambda: tr.elbo_fn(st, *tr.elbo_data))
+    fields = ("eta", "alpha", "beta", "tau", "gamma")
+    equal_states(s1, s2, fields, "HMTM NSF: one step from one state, twice")
+    need(model.tau.shape == (hpk.M, 25) and np.isfinite(model.gamma).all(), "HMTM tau/gamma")
+    print(f"main path HMTM NSF: M={model.M} V={model.V} K=25 chunks={n_chunks} widths="
+          f"{[s.L for s in model.packed.segments]}; HMTM(packed, 25) in {build_s:.2f} s; "
+          f"train(iter=3, checkelbo=1, viter=10) {wall:.2f} s; ∆elbo "
+          f"{', '.join(f'{d:.3f}' for d in deltas)}; step+ELBO "
+          f"{', '.join(f'{x.step_time_s:.4f}' for x in trace)} s; step alone {step_s:.4f} s "
+          f"= {model.M / step_s:.0f} docs/s (E-step sweep {estep_s:.4f} s, eta/alpha Newtons and "
+          f"beta {newton_s:.4f} s), ELBO pass {elbo_s * 1e3:.2f} ms; host reads a step "
+          f"{reads.n}; launches {launches}; peak mem {peak:.2f} GiB; card {smi}")
+    del sweep_out, s1, s2, tr, st
+    same_seed_steps(lambda: tt.HMTM(hpk, 25, rt, seed=7), fields, "HMTM")
+    del model
+
+    # a small HMTM on the card against the CPU in f64, from one init
+    small = unit_counts(tt.synth_packed_nsf_scale(M=2000, V=500, mean_terms=30, seed=5))
+    card_vs_cpu("HMTM", lambda rt_, d: tt.HMTM(small, 10, rt_, device=d, seed=1),
+                convert.hmtm_state_to_numpy, convert.hmtm_state_from_numpy, fields, dev)
+
+    # the user path: a Corpus, expanded to one entry a token
+    def step_(label, fn):
+        for k in kernels:
+            k.launches = 0
+        out, s = timed(fn)
+        counts = {k.__name__: k.launches for k in kernels if k.launches}
+        print(f"HMTM user path {label}: {s:.3f} s, launches {counts}")
+        return out, counts
+
+    nsf, _ = step_("load_nsf(subset=4096)", lambda: tt.load_nsf(subset=4096))
+    try:
+        tt.HMTM(nsf, 25)
+        need(False, "HMTM accepted a condensed corpus")
+    except ValueError as e:
+        need("order-preserving" in str(e), f"HMTM on a condensed corpus: {e}")
+    step_("expand_corp", lambda: tt.expand_corp(nsf))
+    train, test = hmtm_held_out(nsf, 256)
+    h, counts = step_("HMTM(train, 25) train(iter=2)",
+                      lambda: tt.HMTM(train, 25, seed=7).train(iter=2, printelbo=False))
+    n_ch = n_chunks_of(h)
+    need(h.device.type == "cuda" and counts.get("hmtm_estep") == 2 * n_ch
+         and counts.get("hmtm_logz") == 3 * n_ch, f"HMTM user path: launches {counts}")
+    need(h.trainer.trace[-1].delta_elbo > 0, "HMTM user path: ∆elbo not positive")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        h.showtopics(V=8, cols=5, topics=range(1, 6))
+    lines = buf.getvalue().splitlines()
+    need(len(lines) == 9, f"showtopics: {lines}")
+    for line in lines:
+        print(f"  {line}")
+    T = h.transdist(1)
+    need(T.shape == (25, 25) and np.allclose(T.sum(0), 1.0, atol=1e-5), "transdist(1)")
+    pred, counts = step_("predict(test, h)", lambda: tt.predict(test, h))
+    need(counts.get("hmtm_estep") == n_chunks_of(pred) and
+         counts.get("scatter_rows") == scatters_of(pred), f"HMTM predict launches {counts}")
+    cpu = tt.HMTM(test, 25, tt.RuntimeConfig(dtype="float64"), device="cpu", seed=7)
+    cpu.state = dataclasses.replace(cpu.state, **{f: getattr(h.state, f).double().cpu()
+                                                 for f in ("eta", "alpha", "beta")})
+    pc, _ = step_("predict(test, h on the CPU in f64)", lambda: tt.predict(test, cpu))
+    worst = {}
+    for f in ("tau", "gamma"):
+        a, b = getattr(pred, f).astype(np.float64), getattr(pc, f)
+        need(np.all(np.abs(a - b) <= ATOL + RTOL * np.abs(b)),
+             f"HMTM predict: card against CPU {f} off by {np.abs(a - b).max()}")
+        worst[f] = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"HMTM user path predict card f32 vs CPU f64: max rel err tau {worst['tau']:.3e}, "
+          f"gamma {worst['gamma']:.3e} (rtol {RTOL}, atol {ATOL})")
+    ppl, _ = step_("perplexity(test, h)", lambda: tt.perplexity(test, h))
+    need(math.isfinite(ppl) and 1.0 < ppl < h.V, f"HMTM perplexity {ppl}")
+    gen, _ = step_("gencorp(h, M=100, laplace_smooth=1e-6, seed=1)",
+                   lambda: tt.gencorp(h, M=100, laplace_smooth=1e-6, seed=1))
+    need(len(gen) == 100 and all(c == 1 for d in gen.docs for c in d.counts), "HMTM gencorp")
+    g, counts = step_("HMTM(gencorp) one step", lambda: tt.HMTM(gen, 25, seed=7).train(
+        iter=1, checkelbo=1, printelbo=False))
+    need(counts.get("hmtm_estep") == n_chunks_of(g) and math.isfinite(g.elbo),
+         f"HMTM one step on the drawn corpus: launches {counts}, elbo {g.elbo}")
+    print(f"HMTM user path: M={h.M} V={h.V} mean tokens {np.mean(h.N):.1f}, widths "
+          f"{[s.L for s in h.packed.segments]}; transdist(1) diagonal mean "
+          f"{float(np.mean(np.diag(T))):.4f}; perplexity {ppl:.2f}; gencorp mean length "
+          f"{np.mean([len(d) for d in gen.docs]):.1f}")
+
+    # a checkpoint on the card: iteration 1 saved, loaded, one more step
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        path = os.path.join(tmp, "hmtm.npz")
+        first = tt.HMTM(train, 25, seed=7).train(iter=1, printelbo=False)
+        _, save_s = timed(lambda: tt.save_checkpoint(path, first))
+        back, load_s = timed(lambda: tt.load_checkpoint(path, train))
+        size = os.path.getsize(path)
+    need(back.device.type == "cuda" and back.trained_iters == 1, "HMTM checkpoint: model")
+    equal_states(back.state, first.state, fields + ("elbo",), "HMTM checkpoint on the card")
+    back.train(iter=1, printelbo=False)
+    need([x.k for x in back.trainer.trace] == [2], "HMTM resume: iteration numbers")
+    equal_states(back.state, h.state, fields, "HMTM resume against the straight run")
+    print(f"HMTM checkpoint on the card: save {save_s:.3f} s, {size / 2**20:.2f} MiB, load "
+          f"{load_s:.3f} s; the resume of 1 iteration from iteration 1 bitwise equal to the "
+          f"straight 2-iteration run")
+    print(f"HMTM phase: wall {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    return launches, dict(estep=est, logz=lz, scatter=[sc])
 
 
 def main() -> int:
@@ -1367,7 +1674,12 @@ def main() -> int:
     add(dtm_launches)
     sc += sc_dtm
 
-    # 9. results: each kernel at its main path's widest chunk, with the
+    # 9. HMTM at NSF scale
+    hm_launches, hm = hmtm_phase(kc, smi, dev)
+    add(hm_launches)
+    sc += hm["scatter"]
+
+    # 10. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
               f"{r['call_ms']:.4f} vs {r['library_call_ms']:.4f} ms a call)"
@@ -1385,7 +1697,12 @@ def main() -> int:
              kc["flda"][1:]),
             ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", kc["ctpf"][0],
              kc["ctpf"][1:]),
-            ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0], sc[1:])):
+            ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0], sc[1:]),
+            # no Pallas kernel behind these two: the JAX package's lax.scans
+            ("hmtm_estep", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
+             hm["estep"][0], hm["estep"][1:]),
+            ("hmtm_logz", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
+             hm["logz"][0], hm["logz"][1:])):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],

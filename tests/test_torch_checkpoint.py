@@ -163,7 +163,7 @@ def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
             ("f64", lambda m: m["runtime"].update(elogtheta_f64=True), "elogtheta_f64"),
             ("mesh", lambda m: m["runtime"].update(mesh_shape=[2, 2]), "mesh_shape"),
             ("knob", lambda m: m["runtime"].update(warp_speed=9), "warp_speed"),
-            ("model", lambda m: m.update(model="HMTM"), "HMTM")):
+            ("model", lambda m: m.update(model="SLDA"), "SLDA")):
         bad = _rewrite(path, str(tmp_path / f"{name}.npz"), edit)
         with pytest.raises(ValueError, match=match):
             tt.load_checkpoint(bad, corpora["torch"], device="cpu")

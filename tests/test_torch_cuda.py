@@ -14,6 +14,9 @@ import torch
 import topicmodelsvb_jl_torch as tt
 from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
 from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+from topicmodelsvb_jl_torch.kernels.hmtm_estep import (
+    hmtm_estep, hmtm_estep_ref, hmtm_logz, hmtm_logz_ref,
+)
 from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
 from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
 from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows, scatter_rows_ref
@@ -691,3 +694,126 @@ def test_checkpoint_card_to_cpu_and_back_is_bitwise(cuda, tmp_path):
     tt.save_checkpoint(str(tmp_path / "f64.npz"), f64)
     with pytest.raises(TypeError, match="float64"):
         tt.load_checkpoint(str(tmp_path / "f64.npz"), corp)
+
+
+def _hmtm_chunk(K, B, L, V, dev, seed=0):
+    """hmtm_estep's arguments on one chunk: random table and state,
+    documents of random lengths with trailing padding, an empty document
+    (row 1), a one-token document (row 2), interior padding (row 3) and 3
+    padded rows at the end (doc_mask 0)."""
+    r = np.random.default_rng(seed)
+    n = r.integers(1, L + 1, size=B)
+    n[1], n[2] = 0, 1
+    tmask = (np.arange(L)[None, :] < n[:, None]).astype(np.float32)
+    tmask[3, : L // 3] = 0.0
+    tmask[-3:] = 0.0
+    terms = (V * r.random((B, L)) ** 3).astype(np.int32) * (tmask > 0)
+    doc_mask = np.ones(B, np.float32)
+    doc_mask[-3:] = 0.0
+    t = lambda a, dt=torch.float32: torch.tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    return (t(r.dirichlet(np.ones(V), size=K).T + EPSILON), t(terms, torch.int32), t(tmask),
+            t(doc_mask), t(r.uniform(0.5, 2.0, K)), t(r.uniform(0.5, 2.0, (K, K))),
+            t(r.uniform(0.5, 3.0, (B, K))), t(r.uniform(0.5, 3.0, (B, K, K))))
+
+
+def _hmtm_mode(L, K):
+    import ctypes
+
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    return _build.function("tmvb_hmtm_estep_mode", [ctypes.c_int64] * 2)(L, K)
+
+
+# K: NSF's 25 (one warp, not a multiple of 32), 32, 40 and 100 (several
+# warps), 200 (S in scratch); L: NSF's widths, and 5000 (messages in
+# scratch); viter 0 (the final pass only), 3 and 10
+@pytest.mark.parametrize("K,L,viter", [(25, 128, 10), (25, 64, 0), (32, 24, 10), (40, 72, 3),
+                                       (100, 128, 3), (200, 16, 3), (25, 5000, 2), (1, 40, 3)])
+def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
+    B = 16 if L > 1000 else 64
+    args = _hmtm_chunk(K, B, L, 2000, cuda, seed=K + L)
+    kw = dict(viter=viter, vtol=1.0 / K**2)
+    e0, z0 = hmtm_estep.launches, hmtm_logz.launches
+    got = hmtm_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert hmtm_estep.launches == e0 + 1
+    want = hmtm_estep_ref(*args, **kw)
+    for name, a, b in zip(("tau", "gamma", "r"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    tmask = args[2]
+    assert torch.all(got[2][tmask == 0] == 0)
+    assert torch.equal(got[0][-3:], args[6][-3:]) and torch.equal(got[1][-3:], args[7][-3:])
+    if viter == 0:
+        assert torch.equal(got[0], args[6]) and torch.equal(got[1], args[7])
+    assert all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*args, **kw)))
+    zargs = (*args[:3], got[0], got[1])
+    z = hmtm_logz(*zargs)
+    assert hmtm_logz.launches == z0 + 1 and torch.equal(z, hmtm_logz(*zargs))
+    zr = hmtm_logz_ref(*zargs)
+    assert float(z[1]) == 0.0 and torch.all(torch.isfinite(z))
+    assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
+
+
+def test_hmtm_shared_memory_rule_and_widest_k(cuda):
+    """Messages in shared memory at the NSF widths, in scratch past them;
+    S in scratch past K ~ 168; K = 239 the widest the chain matrix fits
+    (H100's 227 KB opt-in), K = 240 raises."""
+    assert [_hmtm_mode(L, 25) for L in (64, 128, 5000)] == [0, 0, 1]
+    assert _hmtm_mode(128, 100) == 1 and _hmtm_mode(128, 200) == 2
+    assert _hmtm_mode(8, 239) == 2 and _hmtm_mode(8, 240) == -2
+    args = _hmtm_chunk(239, 4, 8, 300, cuda)
+    got = hmtm_estep(*args, viter=1, vtol=0.0)
+    torch.testing.assert_close(got[1], hmtm_estep_ref(*args, viter=1, vtol=0.0)[1],
+                               rtol=5e-3, atol=1e-5)
+    wide = _hmtm_chunk(240, 4, 8, 300, cuda)
+    with pytest.raises(ValueError, match="K = 240"):
+        hmtm_estep(*wide, viter=1, vtol=0.0)
+    with pytest.raises(ValueError, match="K = 240"):
+        hmtm_logz(*wide[:3], wide[6], wide[7])
+
+
+def test_hmtm_kernels_reject_what_they_do_not_take(cuda):
+    args = _hmtm_chunk(25, 16, 24, 100, cuda)
+    kw = dict(viter=2, vtol=1e-3)
+    with pytest.raises(TypeError, match="betaT_eps"):
+        hmtm_estep(args[0].double(), *args[1:], **kw)
+    with pytest.raises(TypeError, match="terms"):
+        hmtm_estep(args[0], args[1].long(), *args[2:], **kw)
+    with pytest.raises(ValueError, match="gamma"):
+        hmtm_estep(*args[:7], args[7][:, :5].contiguous(), **kw)
+    with pytest.raises(ValueError, match="alpha"):
+        hmtm_estep(*args[:5], args[5].cpu(), *args[6:], **kw)
+    with pytest.raises(ValueError, match="tmask"):
+        hmtm_logz(args[0], args[1], args[2][:, :10].contiguous(), args[6], args[7])
+    e0 = hmtm_estep.launches
+    out = hmtm_estep(*(a[:0] if a.dim() and a.shape[0] == 16 else a for a in args), **kw)
+    assert out[2].shape == (0, 24, 25) and hmtm_estep.launches == e0
+
+
+def test_hmtm_trains_through_the_kernels(cuda):
+    """The HMTM step launches hmtm_estep and the scatter once a chunk, the
+    bound hmtm_logz once a chunk; ∆elbo after the first is positive; the
+    card's f32 run stays near the CPU's f64 one from the same init."""
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    p = unit_counts(tt.synth_packed_nsf_scale(M=1500, V=600, mean_terms=40, seed=2))
+    m = tt.HMTM(p, 10, tt.RuntimeConfig(chunk_docs=256), seed=1)
+    assert m.device.type == "cuda" and m.state.beta.is_cuda
+    cpu = tt.HMTM(p, 10, tt.RuntimeConfig(chunk_docs=256, dtype="float64"), device="cpu",
+                  seed=1)
+    cpu.state = convert.hmtm_state_from_numpy(convert.hmtm_state_to_numpy(m.state), "cpu",
+                                              torch.float64)
+    e0, z0, s0 = hmtm_estep.launches, hmtm_logz.launches, scatter_rows.launches
+    m.train(iter=3, checkelbo=1, printelbo=False)
+    cpu.train(iter=3, checkelbo=1, printelbo=False)
+    n_chunks = sum(s.terms.shape[0] for s in m.packed.segments) // m.chunk_docs
+    assert hmtm_estep.launches - e0 == 3 * n_chunks
+    assert hmtm_logz.launches - z0 == 4 * n_chunks
+    assert scatter_rows.launches - s0 == 3 * _scatters(m)
+    assert all(r.delta_elbo > 0 for r in m.trainer.trace[1:])
+    for a, b in zip(m.trainer.trace, cpu.trainer.trace):
+        assert abs(a.elbo - b.elbo) <= 1e-4 * abs(b.elbo)
+    for f in ("eta", "alpha", "beta"):
+        np.testing.assert_allclose(getattr(m, f), getattr(cpu, f), rtol=1e-3, atol=1e-6,
+                                   err_msg=f)

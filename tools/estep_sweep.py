@@ -1,10 +1,10 @@
-"""Time ``lda_estep``, ``flda_estep`` or ``ctpf_estep`` at their main
-path's widest chunk and at a chunk whose rows do not fit shared memory for
-a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and at CTM's
-(K = 50, 2048 documents), from the package of a given checkout, with
-chip_smoke.py's timer.
+"""Time ``lda_estep``, ``flda_estep``, ``ctpf_estep`` or ``hmtm_estep`` at
+their main path's widest chunk and at a chunk whose rows do not fit shared
+memory for a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and
+at CTM's (K = 50, 2048 documents), from the package of a given checkout,
+with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|ctpf|elbo]
+    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|ctpf|elbo|hmtm]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
@@ -15,7 +15,9 @@ chunk, with fLDA's tables, tau and eta as ``compare_flda`` draws them; for
 CTPF the CiteULike corpus's widest bucket (L = 80, R = 24) and the
 synthetic L = 768, R = 256 chunk, with ``ctpf_args``'s tables and state,
 then the first chunk of each narrower bucket at viter 0 and 10;
-for the bound ``compare_kernels``'s tables.  viter = 0 runs no pass (the
+for the bound ``compare_kernels``'s tables; for HMTM ``hmtm_chunks``'s
+first three chunks (the widest NSF bucket with unit counts at K = 25 and
+K = 100, and L = 4,096) with ``hmtm_logz`` beside each.  viter = 0 runs no pass (the
 loads and the row writes alone); the slope over viter is the cost of a
 pass.  Prints one JSON line tagged LABEL with the device and call ms of
 each (shape, viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.
@@ -49,7 +51,7 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     if not torch.cuda.is_available():
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
-    if kernel not in ("lda", "flda", "ctpf", "elbo"):
+    if kernel not in ("lda", "flda", "ctpf", "elbo", "hmtm"):
         raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
     packed = tt.synth_packed_nsf_scale(seed=7)
@@ -57,6 +59,17 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     V, K = packed.V, 100
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
     out = {"label": label, "kernel": kernel, "card": torch.cuda.get_device_name(0)}
+    if kernel == "hmtm":
+        from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+
+        bucketed = tt.bucketize_packed(packed, chunk=1024, pad_multiple=8)
+        for label_, Kh, _, _, args in smoke.hmtm_chunks(bucketed, V, dev)[:3]:
+            for viter in VITERS:
+                out[f"{label_} viter={viter}"] = list(smoke.time_calls(
+                    lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2)))
+            out[f"{label_} logz"] = list(smoke.time_calls(
+                lambda: hmtm_logz(*args[:3], args[6], args[7])))
+        return emit(here, out)
     if kernel == "ctpf":
         cpk, cbk, _ = smoke.citeulike()
         lc = smoke.long_chunks(V, cpk.U, dev)

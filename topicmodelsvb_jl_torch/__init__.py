@@ -2,15 +2,16 @@
 
 The PyTorch and CUDA port of ``topicmodelsvb_jl_tpu`` for one NVIDIA
 Hopper GPU (or the CPU).  It covers the corpus pipeline (``readcorp``,
-``fixcorp`` and its mutators), LDA, fLDA, CTPF, CTM and fCTM built from a
-``Corpus`` or a packed corpus, the dynamic topic model DTM, checkpoint and
-resume (``save_checkpoint``/``load_checkpoint``, in the JAX package's
-format), and the post-hoc surface (``showtopics``, ``predict``,
-``gencorp``, the CTPF displays, ``evaluate``).  Training is
-batch-synchronous CAVI on a length-bucketed corpus, with hand-written CUDA
-kernels for the E-steps of LDA, fLDA and CTPF, the ELBO token terms of LDA
-and CTM and every family's M-step scatter, and plain PyTorch versions of
-each kernel for CPU tensors.  It imports no JAX.
+``fixcorp`` and its mutators), LDA, fLDA, CTPF, CTM, fCTM and the hidden
+Markov topic model HMTM built from a ``Corpus`` or a packed corpus, the
+dynamic topic model DTM, checkpoint and resume
+(``save_checkpoint``/``load_checkpoint``, in the JAX package's format),
+and the post-hoc surface (``showtopics``, ``predict``, ``gencorp``, the
+CTPF displays, ``evaluate``).  Training is batch-synchronous CAVI on a
+length-bucketed corpus, with hand-written CUDA kernels for the E-steps of
+LDA, fLDA, CTPF and HMTM, the ELBO token terms of LDA and CTM, HMTM's
+forward normaliser and every family's M-step scatter, and plain PyTorch
+versions of each kernel for CPU tensors.  It imports no JAX.
 """
 
 from .corpus import (
@@ -27,7 +28,8 @@ from .datasets import (
 from .utils.config import RuntimeConfig, TrainConfig
 
 from .api import (
-    CTM, CTPF, DTM, LDA, TopicModel, TopicModelError, fCTM, fLDA, gencorp, gendoc, predict,
+    CTM, CTPF, DTM, HMTM, LDA, TopicModel, TopicModelError, fCTM, fLDA, gencorp, gendoc,
+    predict,
 )
 from .checkpoint import load as load_checkpoint
 from .checkpoint import save as save_checkpoint
@@ -45,7 +47,7 @@ __all__ = [
     "showdocs", "showtitles", "getvocab", "getusers",
     "load_nsf", "load_citeu", "load_mac", "load_stopwords", "load_englishwords",
     "synth_corpus", "synth_packed_nsf_scale",
-    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "DTM", "TopicModel",
+    "LDA", "fLDA", "CTM", "fCTM", "CTPF", "DTM", "HMTM", "TopicModel",
     "predict", "gendoc", "gencorp", "save_checkpoint", "load_checkpoint",
     "slices_from_stamps",
     "perplexity", "topic_coherence", "holdout_readers",

@@ -5,10 +5,11 @@ Mirrors the reference's public surface (src/TopicModelsVB.jl:11-18):
 :class:`~.ops.packing.PackedCorpus`, ``train(...)`` with the reference's
 kwargs and defaults, and the post-hoc tools ``topicdist``,
 ``showtopics``, ``predict``, ``gendoc``/``gencorp`` and, for CTPF,
-``showlibs``/``showdrecs``/``showurecs`` and ``warm_start_from``, and the
-dynamic topic model ``DTM``.  A model runs on the CUDA device unless its
-caller names another (``device="cpu"``); without a CUDA device it raises
-rather than fall back.  ``RuntimeConfig.checkpoint_every`` and
+``showlibs``/``showdrecs``/``showurecs`` and ``warm_start_from``, the
+dynamic topic model ``DTM`` and the hidden Markov topic model ``HMTM``.
+A model runs on the CUDA device unless its caller names another
+(``device="cpu"``); without a CUDA device it raises rather than fall
+back.  ``RuntimeConfig.checkpoint_every`` and
 ``checkpoint_dir`` checkpoint a run as it trains (``checkpoint.py``).
 """
 
@@ -31,6 +32,7 @@ from .models import ctpf as ctpf_mod
 from .models import dtm as dtm_mod
 from .models import fctm as fctm_mod
 from .models import flda as flda_mod
+from .models import hmtm as hmtm_mod
 from .models import lda as lda_mod
 from .ops.packing import PackedCorpus, _round_up, bucketize_packed, pack_corpus
 from .utils.config import RuntimeConfig, TrainConfig
@@ -1002,6 +1004,69 @@ class DTM(TopicModel):
                 self.topics = saved
 
 
+class HMTM(TopicModel):
+    """Hidden Markov topic model: the completed form of the reference's
+    unfinished research stub (HMTM/HMTM.jl, whose ``updatePhi!`` was never
+    solved).  Word order matters: every entry of a document's terms vector
+    is one token in order and counts are ignored (HMTM.jl:63-67), so the
+    corpus must not be condensed (``expand_corp``).  See models/hmtm.py."""
+
+    _bucketed = True
+    _per_doc_fields = ("tau", "gamma")
+
+    def __repr__(self):
+        # reference Base.show (HMTM.jl:42)
+        return f"Hidden Markov topic model with {self.K} topics."
+
+    def _init_state(self):
+        gen = torch.Generator().manual_seed(self.seed)
+        self.state = hmtm_mod.init(gen, self.packed, self.K, self.dtype, self.device)
+
+    def _build_trainer(self, cfg: TrainConfig) -> Trainer:
+        p = self.packed
+        step = hmtm_mod.make_step(
+            p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
+        elbo = hmtm_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+        data = self._data_arrays()
+        return Trainer(step, elbo, data + (float(self.M),), data,
+                       M=self.M, C=int(sum(self.C)), device=self.device,
+                       **self._trainer_kw())
+
+    @property
+    def eta(self) -> np.ndarray:
+        return _host(self.state.eta)
+
+    @property
+    def alpha(self) -> np.ndarray:
+        return _host(self.state.alpha)
+
+    @property
+    def beta(self) -> np.ndarray:
+        return _host(self.state.beta)
+
+    @property
+    def tau(self) -> np.ndarray:
+        return _host(self.state.tau)[self._doc_rows()]
+
+    @property
+    def gamma(self) -> np.ndarray:
+        return _host(self.state.gamma)[self._doc_rows()]
+
+    def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
+        return _host(hmtm_mod.topicdist(self.state, torch.as_tensor(rows)))
+
+    def transdist(self, d):
+        """Expected per-document topic-transition matrix E_q[theta_d]
+        (columns sum to 1), 1-based document index like topicdist."""
+        scalar = np.isscalar(d)
+        idx = np.atleast_1d(np.asarray(d, dtype=np.int64))
+        if np.any((idx < 1) | (idx > self.M)):
+            raise CorpusError("some document indices outside corpus range.")
+        out = hmtm_mod.transdist(self.state, torch.as_tensor(self._rows(idx - 1)))
+        return out[0] if scalar else out
+
+
 # ───────────────────── inference on new documents (predict) ─────────────────────
 
 def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
@@ -1050,6 +1115,8 @@ def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
     elif isinstance(train_model, CTM):
         frozen = dict(mu=ts.mu, sigma=ts.sigma, invsigma=ts.invsigma, beta=ts.beta,
                       beta_old=ts.beta)
+    elif isinstance(train_model, HMTM):
+        frozen = dict(eta=ts.eta, alpha=ts.alpha, beta=ts.beta)
     else:
         raise TopicModelError(f"predict not implemented for {cls.__name__}")
     new.state = dataclasses.replace(new.state, **frozen)
@@ -1069,14 +1136,41 @@ def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
 
 # ───────────────── generative sampling (gendoc / gencorp) ─────────────────
 
+def _smoothed(beta: np.ndarray, laplace_smooth: float) -> np.ndarray:
+    V = beta.shape[1]
+    beta_s = (beta + laplace_smooth) / (1.0 + laplace_smooth * V)
+    return beta_s / beta_s.sum(axis=1, keepdims=True)
+
+
 def _generator(model: TopicModel, laplace_smooth: float):
-    """What every draw of :func:`gendoc` reads from a fitted model: its
-    theta sampler, its mean document size and its smoothed topic rows
-    (reference modelutils.jl:594-633), taken from the model once."""
+    """``draw(rng) -> Document``: what every draw of :func:`gendoc` reads
+    from a fitted model (its priors, its mean document size and its
+    smoothed topic rows, reference modelutils.jl:594-633), taken from the
+    model once, and the JAX package's draws from ``rng`` in its order."""
     if laplace_smooth < 0:
         raise ValueError("laplace_smooth parameter must be nonnegative.")
     if model.M == 0:
         raise TopicModelError("gendoc requires a model trained on a nonempty corpus.")
+    if isinstance(model, HMTM):
+        # an ordered token sequence: the chain (pi, the document's
+        # transition columns, z_1..z_N), one token a draw, counts all 1
+        # (HMTM.jl:18-39)
+        eta = np.asarray(model.eta, np.float64)
+        alpha = np.asarray(model.alpha, np.float64)
+        K = model.K
+        beta_s = _smoothed(np.asarray(model.beta, np.float64), laplace_smooth)
+        V, mean_N = beta_s.shape[1], np.mean(model.N)
+
+        def draw_chain(rng) -> Document:
+            pi_d = rng.dirichlet(eta)
+            theta_d = np.stack([rng.dirichlet(alpha[:, l]) for l in range(K)], axis=1)
+            terms, z = [], 0
+            for n in range(rng.poisson(mean_N)):
+                z = rng.choice(K, p=pi_d if n == 0 else theta_d[:, z])
+                terms.append(int(rng.choice(V, p=beta_s[z])) + 1)
+            return Document(terms=terms, counts=[1] * len(terms))
+
+        return draw_chain
     if isinstance(model, (LDA, fLDA)):
         alpha = np.asarray(model.alpha, np.float64)
         draw_theta = lambda rng: rng.dirichlet(alpha)
@@ -1090,34 +1184,30 @@ def _generator(model: TopicModel, laplace_smooth: float):
             return e / e.sum()
     else:
         raise TopicModelError(f"gendoc is not defined for {type(model).__name__} models.")
-    beta = np.asarray(model.beta, np.float64)
-    V = beta.shape[1]
-    beta_s = (beta + laplace_smooth) / (1.0 + laplace_smooth * V)
-    beta_s = beta_s / beta_s.sum(axis=1, keepdims=True)
-    return draw_theta, np.mean(model.C), beta_s
+    beta_s = _smoothed(np.asarray(model.beta, np.float64), laplace_smooth)
+    mean_C = np.mean(model.C)
 
+    def draw_mixture(rng) -> Document:
+        # token-level (z then w) sampling marginalises to one multinomial
+        # over the smoothed mixture theta·beta
+        theta = draw_theta(rng)
+        mix = theta @ beta_s
+        counts = rng.multinomial(rng.poisson(mean_C), mix / mix.sum())
+        nz = np.nonzero(counts)[0]
+        return Document(terms=(nz + 1).tolist(), counts=counts[nz].tolist())
 
-def _draw_doc(rng, draw_theta, mean_C, beta_s) -> Document:
-    theta = draw_theta(rng)
-    C = rng.poisson(mean_C)
-    mix = theta @ beta_s
-    mix = mix / mix.sum()
-    counts = rng.multinomial(C, mix)
-    nz = np.nonzero(counts)[0]
-    return Document(terms=(nz + 1).tolist(), counts=counts[nz].tolist())
+    return draw_mixture
 
 
 def gendoc(model: TopicModel, laplace_smooth: float = 0.0, rng=None) -> Document:
     """Sample an artificial document from the fitted generative model
-    (reference modelutils.jl:594-633), on the host in NumPy.
-
-    Token-level (z then w) sampling marginalises to one multinomial over
-    the smoothed mixture theta·beta, which is what is drawn.  The
-    reference's CTM variant has a latent NameError (``topicdist`` vs
-    ``topic_dist``, modelutils.jl:626); this is the corrected form.
+    (reference modelutils.jl:594-633), on the host in NumPy: an ordered
+    token chain for HMTM, else one multinomial over the smoothed mixture
+    theta·beta.  The reference's CTM variant has a latent NameError
+    (``topicdist`` vs ``topic_dist``, modelutils.jl:626); this is the
+    corrected form.
     """
-    gen = _generator(model, laplace_smooth)
-    return _draw_doc(np.random.default_rng() if rng is None else rng, *gen)
+    return _generator(model, laplace_smooth)(np.random.default_rng() if rng is None else rng)
 
 
 def gencorp(model: TopicModel, M: int, laplace_smooth: float = 0.0,
@@ -1129,8 +1219,8 @@ def gencorp(model: TopicModel, M: int, laplace_smooth: float = 0.0,
         raise ValueError("laplace_smooth parameter must be nonnegative.")
     rng = np.random.default_rng(seed)
     # the JAX package's draws, one gendoc a document, with the model read once
-    gen = _generator(model, laplace_smooth)
-    docs = [_draw_doc(rng, *gen) for _ in range(M)]
+    draw = _generator(model, laplace_smooth)
+    docs = [draw(rng) for _ in range(M)]
     if model.corp is not None:
         vocab, users = dict(model.corp.vocab), dict(model.corp.users)
     else:  # PackedCorpus-built model: placeholder names

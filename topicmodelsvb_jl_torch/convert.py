@@ -18,6 +18,7 @@ from .models.ctpf import CTPFState
 from .models.dtm import DTMState
 from .models.fctm import FCTMState
 from .models.flda import FLDAState
+from .models.hmtm import HMTMState
 from .models.lda import LDAState
 
 LDA_FIELDS = tuple(LDAState.__dataclass_fields__)
@@ -26,6 +27,7 @@ CTPF_FIELDS = tuple(CTPFState.__dataclass_fields__)
 CTM_FIELDS = tuple(CTMState.__dataclass_fields__)
 FCTM_FIELDS = tuple(FCTMState.__dataclass_fields__)
 DTM_FIELDS = tuple(DTMState.__dataclass_fields__)
+HMTM_FIELDS = tuple(HMTMState.__dataclass_fields__)
 
 
 def _from_numpy(cls, arrays: Mapping, device, dtype):
@@ -90,4 +92,13 @@ def dtm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> DTMSta
 
 
 def dtm_state_to_numpy(state: DTMState) -> dict:
+    return _to_numpy(state)
+
+
+def hmtm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> HMTMState:
+    """As :func:`lda_state_from_numpy`, for the 6 HMTMState fields."""
+    return _from_numpy(HMTMState, arrays, device, dtype)
+
+
+def hmtm_state_to_numpy(state: HMTMState) -> dict:
     return _to_numpy(state)

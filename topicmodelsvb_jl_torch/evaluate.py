@@ -24,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from .api import CTM, LDA, fCTM, fLDA, predict
+from .api import CTM, HMTM, LDA, fCTM, fLDA, predict
 from .corpus import Corpus
 
 
@@ -33,16 +33,20 @@ def perplexity(corp: Corpus, train_model, iter: int = 10,
     """Held-out per-word perplexity of ``corp`` under ``train_model``.
 
     Defined for LDA, fLDA, CTM and fCTM (the models with a document-topic
-    simplex and a topic-word matrix).  fLDA and fCTM use the full mixture
-    ``eta·(θβ)_w + (1−eta)·κ_w`` (fLDA.jl's generative story).
+    simplex and a topic-word matrix) and HMTM.  fLDA and fCTM use the full
+    mixture ``eta·(θβ)_w + (1−eta)·κ_w`` (fLDA.jl's generative story).
+    HMTM is order-aware: each held-out document is scored by the HMM
+    forward algorithm under its fitted posterior means.
 
     Scores from the packed dense arrays, one beta gather and einsum per
     ``chunk`` documents, padding masked by counts, in f64; never the dense
     [M, V] mixture.
     """
-    if not isinstance(train_model, (LDA, fLDA, CTM, fCTM)):
+    if not isinstance(train_model, (LDA, fLDA, CTM, fCTM, HMTM)):
         raise TypeError(f"perplexity is not defined for {type(train_model).__name__}")
     pred = predict(corp, train_model, iter=iter, tol=tol)
+    if isinstance(train_model, HMTM):
+        return _hmtm_perplexity(train_model, pred, chunk)
 
     beta = np.asarray(train_model.beta, np.float64)        # [K, V]
     rows = pred._doc_rows()
@@ -69,6 +73,41 @@ def perplexity(corp: Corpus, train_model, iter: int = 10,
         live = c > 0
         ll += float(np.sum(c * np.log(np.where(live, mix, 1.0)), where=live))
         n_tokens += float(c.sum())
+    if n_tokens == 0:
+        raise ValueError("perplexity needs at least one token.")
+    return float(np.exp(-ll / n_tokens))
+
+
+def _hmtm_perplexity(train_model, pred, chunk: int) -> float:
+    """Plug-in HMM forward likelihood of each document's ordered tokens,
+    p(w_1..w_N) with pi = E_q[pi_d], A = E_q[theta_d] and emissions beta,
+    over the documents in f64; the token axis is a loop at the held-out
+    corpus's padded width.  One token is one terms entry, as in training
+    (HMTM.jl:63-67): counts give only the padding mask."""
+    rows = pred._doc_rows()
+    tau = np.asarray(pred.state.tau.detach().cpu(), np.float64)[rows]        # [M, K]
+    gamma = np.asarray(pred.state.gamma.detach().cpu(), np.float64)[rows]    # [M, K, K]
+    pi = tau / tau.sum(-1, keepdims=True)
+    A = gamma / gamma.sum(-2, keepdims=True)
+    betaT = np.asarray(train_model.beta, np.float64).T + 1e-300             # [V, K]
+
+    p = pred.packed
+    terms = p.terms[rows]
+    counts = p.counts[rows]
+
+    ll = 0.0
+    n_tokens = 0.0
+    for lo in range(0, terms.shape[0], chunk):
+        t = terms[lo:lo + chunk]
+        live = counts[lo:lo + chunk] > 0                        # [B, L]
+        Bv = betaT[t]                                           # [B, L, K]
+        a = pi[lo:lo + chunk]
+        for n in range(t.shape[1]):
+            f = Bv[:, n] * (a if n == 0 else np.einsum("bil,bl->bi", A[lo:lo + chunk], a))
+            c = np.maximum(f.sum(-1), 1e-300)
+            a = np.where(live[:, n, None], f / c[:, None], a)
+            ll += float(np.sum(np.log(c), where=live[:, n]))
+        n_tokens += float(live.sum())
     if n_tokens == 0:
         raise ValueError("perplexity needs at least one token.")
     return float(np.exp(-ll / n_tokens))

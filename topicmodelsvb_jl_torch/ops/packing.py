@@ -266,3 +266,22 @@ def bucketize_packed(
         segments=segments, order=order, inv_order=inv_order,
         n_shards=n_shards, chunk=chunk,
     )
+
+
+def unit_counts(packed: PackedCorpus) -> PackedCorpus:
+    """Copy of ``packed`` with every real term count set to 1 (padding
+    stays 0), on dense and bucketed layouts, with ``C`` and ``max_count``
+    recomputed.  It discards multiplicity, so it is not the
+    order-preserving expansion HMTM needs for real data (that is
+    ``corpus.expand_corp``, applied before packing); it turns synthetic
+    packed corpora, whose counts carry no order, into HMTM's input."""
+    def unit(c):
+        return (c > 0).astype(c.dtype)
+
+    counts = unit(packed.counts)
+    segments = packed.segments
+    if segments is not None:
+        segments = tuple(dataclasses.replace(s, counts=unit(s.counts)) for s in segments)
+    return dataclasses.replace(
+        packed, counts=counts, C=counts.sum(axis=1),
+        max_count=int(counts.max()) if counts.size else 0, segments=segments)

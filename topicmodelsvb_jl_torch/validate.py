@@ -32,7 +32,7 @@ def _unit_interval(x):
 
 def state_violations(model) -> list:
     """Names of violated invariants for a model's current state."""
-    from .api import CTM, CTPF, DTM, LDA, fCTM, fLDA
+    from .api import CTM, CTPF, DTM, HMTM, LDA, fCTM, fLDA
 
     s = model.state
     if isinstance(model, (LDA, fLDA)):          # modelutils.jl:39-67, 69-106
@@ -73,6 +73,14 @@ def state_violations(model) -> list:
             "vbeta must be positive": _positive(s.vbeta),
             "gamma must be positive": _positive(s.gamma),
             "lzeta must be finite": _finite(s.lzeta),
+        }
+    elif isinstance(model, HMTM):               # the completed HMTM stub
+        checks = {
+            "eta must be positive": _positive(s.eta),
+            "alpha must be positive": _positive(s.alpha),
+            "beta must be a stochastic matrix": _stochastic(s.beta, dim=1),
+            "tau must be positive": _positive(s.tau),
+            "gamma must be positive": _positive(s.gamma),
         }
     elif isinstance(model, CTPF):               # modelutils.jl:181-253
         checks = {f"{name} must be positive": _positive(getattr(s, name))
