@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM and HMTM paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM and streaming paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -88,7 +88,29 @@ printing its own lines; any failure exits non-zero:
    held-out documents against the CPU's f64 ``predict``, ``perplexity``,
    ``gencorp(M=100)`` and one step on it, and a checkpoint saved, loaded
    and resumed on the card, bitwise equal to the straight run;
-10. the scatter against ``index_add_`` on every shape; one JSON line with
+10. host-streamed training, with the counts set to 0 before each main
+   run and read after: the dense NSF corpus (128,804 documents padded to
+   131,072, L = 128), ``lda_estep``/``lda_elbo_tok`` and the scatter
+   against their plain versions on its first 1024-document chunk;
+   ``StreamingLDA(packed, 100)`` with no ``device=`` (batch_docs 8192,
+   chunk 1024: 16 batches of 8 chunks), ``train(iter=3, checkelbo=1)``:
+   ∆elbo > 0, its launches, each sweep's wall, bytes copied each way, the
+   copies' device ms and the host's seconds blocked on them, the plans'
+   build seconds and bytes, the peak device memory under a printed
+   O(batch) bound; against the in-memory ``LDA`` from the same init
+   (beta by the norm, alpha, the bound); bitwise equal: ``batch_docs``
+   16384, a same-seed rerun, a ``save`` at iteration 2 then ``load`` and
+   one iteration, a ``state_dir`` run on a ``load_packed`` memory map;
+   ``train_online(epochs=1)`` raising the bound; ``to_model()``'s
+   ``topicdist`` against the streamed gamma; then StreamingFLDA (NSF V,
+   16,384 documents, K = 100), StreamingCTPF (the CiteULike corpus in
+   full, K = 100), StreamingCTM and StreamingFCTM (NSF V, 8,192 documents,
+   K = 50), StreamingHMTM (NSF unit counts, 16,384 documents, K = 25) and
+   StreamingDTM (mac V, T = 12, 8,192 documents, K = 20): 3 iterations,
+   ∆elbo > 0 (from the second for all but DTM), their kernels' launches,
+   two same-seed runs bitwise equal, sweep walls; each family small on the
+   card against the CPU in f64 from one init;
+11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
    time (``library_ms``, null where no PyTorch call computes the same
@@ -524,6 +546,7 @@ def main_path(model, label, expect, smi, monotone_from=0, pure_steps=3):
         pure.append(time.perf_counter() - t1)
     elbo_ms = time_calls(lambda: tr.elbo_fn(state, *tr.elbo_data), 3, reps=1)[0]
     M = model.M
+    model.smoke_step_s = statistics.median(pure)   # phase 10 prints it beside its sweep
     print(f"main path {label}: M={M} K={model.K} chunks={n_chunks} 4 iterations in "
           f"{wall:.2f} s; first ∆elbo {deltas[0]:.3f}; median step+ELBO {step_s:.4f} s = "
           f"{M / step_s:.0f} docs/s; step alone {statistics.median(pure):.4f} s = "
@@ -1541,6 +1564,389 @@ def hmtm_phase(kc, smi, dev) -> tuple:
     return launches, dict(estep=est, logz=lz, scatter=[sc])
 
 
+def stream_equal(a, b, label) -> None:
+    """Two streaming models bitwise equal: globals, host state and trace."""
+    import numpy as np
+    import torch
+
+    for n in a._globals:
+        need(torch.equal(getattr(a, n), getattr(b, n)), f"{label}: {n} differs")
+    for n in a._doc_state:
+        need(np.array_equal(getattr(a, n), getattr(b, n)), f"{label}: {n} differs")
+    need(a.trace == b.trace, f"{label}: traces differ: {a.trace} vs {b.trace}")
+
+
+def instrument(model) -> dict:
+    """Wrap a streaming model's sweep and bound pass: each call's wall
+    (between synchronizes) and, for the sweep, its copies (bytes each way,
+    the host's seconds blocked on copy events)."""
+    import torch
+
+    rec = dict(sweep=[], elbo=[])
+    sweep, bound = model._streamed_sweep, model._sweep_elbo
+
+    def timed_sweep(stats):
+        stage = model._stage
+        torch.cuda.synchronize()
+        stage.reset_counters()
+        t0 = time.perf_counter()
+        out = sweep(stats)
+        torch.cuda.synchronize()
+        rec["sweep"].append(dict(wall=time.perf_counter() - t0, h2d=stage.h2d_bytes,
+                                 d2h=stage.d2h_bytes, wait_s=stage.wait_s))
+        return out
+
+    def timed_bound():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bound()
+        rec["elbo"].append(time.perf_counter() - t0)
+        return out
+
+    model._streamed_sweep, model._sweep_elbo = timed_sweep, timed_bound
+    return rec
+
+
+def profiled_copies(model) -> str:
+    """One more sweep of ``model`` under ``torch.profiler``: the device time
+    of its copies each way, from the profiler's Memcpy rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model._streamed_sweep(model._zero_stats())
+        torch.cuda.synchronize()
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    out = []
+    for way in ("HtoD", "DtoH"):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key.startswith(f"Memcpy {way}")]
+        us = sum(dev_us(e) for e in rows)
+        out.append(f"{way} {us / 1e3:.2f} ms device in {sum(e.count for e in rows)} copies"
+                   if us else f"{way} not measured (no device rows)")
+    return ", ".join(out)
+
+
+def scatter_plans_launching(model) -> int:
+    """Scatter launches a sweep: the plans of the model's batches that keep
+    a slot (a plan that keeps nothing launches nothing)."""
+    return sum(p.n_pieces > 0 for _, _, host in model._plans.values()
+               for ps in host for p in ps)
+
+
+def pad_rows(packed, M_pad: int):
+    """A dense PackedCorpus with padding rows appended up to ``M_pad``."""
+    import numpy as np
+
+    def pad(a):
+        if a is None:
+            return None
+        out = np.zeros((M_pad,) + a.shape[1:], a.dtype)
+        out[: a.shape[0]] = a
+        return out
+
+    return dataclasses.replace(packed, **{f: pad(getattr(packed, f)) for f in (
+        "terms", "counts", "doc_mask", "N", "C", "readers", "ratings", "R")})
+
+
+def stream_card_vs_cpu(label, make, norm_fields=(), train_kw=None) -> None:
+    """A small streaming model trained 2 iterations on the card (f32,
+    kernels) and on the CPU (f64, plain versions) from one init: the
+    bound to 1e-4, each global at rtol 1e-3 / atol 1e-6 (as phase 3), the
+    ``norm_fields`` by the norm of the difference to 2e-3 (as phase 8)."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch import convert
+
+    card = make("cuda", torch.float32)
+    cpu = make("cpu", torch.float64)
+    convert.streaming_from(cpu, card)
+    card.train(iter=2, checkelbo=1, printelbo=False, **(train_kw or {}))
+    cpu.train(iter=2, checkelbo=1, printelbo=False, **(train_kw or {}))
+    ge, ce = [t[1] for t in card.trace], [t[1] for t in cpu.trace]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ge, ce))
+    need(rel <= 1e-4, f"small {label}: f32 card bound {ge} vs f64 CPU {ce}")
+    worst = 0.0
+    for n in card._globals:
+        a = getattr(card, n).double().cpu().numpy()
+        b = getattr(cpu, n).cpu().numpy()
+        if n in norm_fields:
+            err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            need(err <= 2e-3, f"small {label}: {n} off by {err:.3e} by the norm")
+        else:
+            need(np.allclose(a, b, rtol=1e-3, atol=1e-6), f"small {label}: {n} off by "
+                 f"{float(np.max(np.abs(a - b)))}")
+            err = float(np.max(np.abs(a - b) / (1e-6 + np.abs(b))))
+        worst = max(worst, err)
+    print(f"small {label} (M={card.M}, K={card.K}, 2 iterations, batch {card.batch_docs}): "
+          f"card f32 vs CPU f64 bound rel diff {rel:.3e}, worst global rel diff {worst:.3e}")
+
+
+def streaming_phase(smi, dev, kc, lda_step_s) -> tuple:
+    """Phase 10, host-streamed training: StreamingLDA at NSF scale (the
+    main path) with its checks, then the six other families; returns the
+    main runs' launches and the records of the kernels held on a dense
+    NSF chunk."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import streaming as st
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+    from topicmodelsvb_jl_torch.ops.packing import load_packed, save_packed, unit_counts
+
+    t_phase = time.perf_counter()
+    kernels = (lda_estep, lda_elbo_tok, scatter_rows, flda_estep, ctpf_estep, hmtm_estep,
+               hmtm_logz)
+    launches = {k.__name__: 0 for k in kernels}
+
+    def run(fn) -> dict:
+        """``fn()`` with every count set to 0 just before and read just after."""
+        for k in kernels:
+            k.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels if k.launches}
+        for n, v in got.items():
+            launches[n] += v
+        return got
+
+    def sweeps(rec) -> str:
+        return "; ".join(f"{r['wall']:.3f} s" for r in rec["sweep"])
+
+    # the corpus: dense, 8192-document padding (16 batches of 8 chunks)
+    t0 = time.perf_counter()
+    packed = tt.synth_packed_nsf_scale(chunk_docs=8192)
+    K, V, M = 100, packed.V, packed.M
+    need((M, packed.M_pad, V) == (128_804, 131_072, 25_319),
+         f"streaming corpus: M={M} M_pad={packed.M_pad} V={V}")
+    n_chunks = packed.M_pad // 1024
+    print(f"streaming corpus NSF dense: M={M} M_pad={packed.M_pad} V={V} L={packed.L} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the path's kernels against their plain versions on a dense chunk
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    dense = (put(packed.terms[:1024], torch.int32), put(packed.counts[:1024], torch.float32),
+             put(packed.doc_mask[:1024], torch.float32))
+    kr = compare_kernels(dense, V, K, dev, f"dense NSF chunk 1024 x {packed.L}")
+    sc = compare_scatter(V, kr.pop("w").reshape(-1, K), dense[0], dense[1] > 0, dev,
+                         f"LDA w, dense NSF chunk L={packed.L}")
+    del dense
+
+    # the main path: StreamingLDA(packed, 100), f32, JAX package defaults
+    make = lambda **kw: st.StreamingLDA(packed, K, chunk_docs=1024, seed=7, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = make(batch_docs=8192)
+    need(a.device.type == "cuda" and a.beta.is_cuda, "StreamingLDA without device= not on CUDA")
+    rec = instrument(a)
+    got = run(lambda: a.train(iter=3, checkelbo=1, printelbo=False))
+    peak = torch.cuda.max_memory_allocated() - base
+    deltas = [t[2] for t in a.trace]
+    need(len(deltas) == 3 and all(d > 0 for d in deltas), f"StreamingLDA NSF: ∆elbo {deltas}")
+    want = {"lda_estep": 3 * n_chunks, "lda_elbo_tok": 4 * n_chunks,
+            "scatter_rows": 3 * scatter_plans_launching(a)}
+    need(got == want, f"StreamingLDA NSF: launches {got}, want {want}")
+    need(np.isfinite(a.gamma).all() and np.isfinite(a.beta.cpu().numpy()).all(),
+         "StreamingLDA NSF: state not finite")
+    # O(batch) bound from the inputs: globals, statistic and tables, two
+    # staging slots (a batch's terms, counts, doc_mask, 3 state rows and
+    # its largest flattened plans up, the 3 state rows down, each array
+    # padded to 256 bytes), two chunks' rows w
+    VK = 4 * V * K
+    plan_b = max(flat.nbytes for flat, _, _ in a._plans.values())
+    slot_in = 8192 * (packed.L * (4 + 4) + 4 + 3 * K * 4) + plan_b + 7 * 256
+    slot_out = 8192 * 3 * K * 4 + 3 * 256
+    staged = sum(s["cap_in"] + s["cap_out"] for s in a._stage.slots)
+    need(len(a._plans) == packed.M_pad // 8192 and staged <= 2 * (slot_in + slot_out),
+         f"StreamingLDA NSF: staging slots {staged} bytes above two batches "
+         f"{2 * (slot_in + slot_out)}")
+    w_chunk = 4 * 1024 * packed.L * K
+    bound = 8 * VK + 2 * (slot_in + slot_out) + 2 * w_chunk
+    resident = (packed.terms.nbytes + packed.counts.nbytes + packed.doc_mask.nbytes
+                + 3 * packed.M_pad * K * 4)
+    need(peak <= bound, f"StreamingLDA NSF: peak {peak} bytes above the O(batch) bound {bound}")
+    mib = lambda x: f"{x / 2**20:.1f} MiB"
+    r2 = rec["sweep"][1:]
+    sweep_s = statistics.median(r["wall"] for r in r2)
+    print(f"main path StreamingLDA NSF: batch_docs 8192 (16 batches of 8 chunks), K={K}, "
+          f"train(iter=3, checkelbo=1): ∆elbo {', '.join(f'{d:.3f}' for d in deltas)}; "
+          f"final elbo {a.elbo:.3f}; launches {got}; card {smi}")
+    print(f"StreamingLDA sweeps {sweeps(rec)} (the first builds the plans: "
+          f"{a.plan_build_s:.3f} s on the host, {mib(a.plan_cache_bytes)} kept in host "
+          f"memory); bound passes {', '.join(f'{x:.3f}' for x in rec['elbo'])} s; sweep "
+          f"{sweep_s:.3f} s = {M / sweep_s:.0f} docs/s against the in-memory LDA step's "
+          f"{lda_step_s:.4f} s = {M / lda_step_s:.0f} docs/s (phase 4); card {smi}")
+    print("StreamingLDA copies a sweep (sweeps 2-3): " + "; ".join(
+        f"up {mib(r['h2d'])}, down {mib(r['d2h'])}, host blocked on copy events "
+        f"{r['wait_s']:.3f} s of {r['wall']:.3f} s"
+        for r in r2) + f"; card {smi}")
+    print(f"StreamingLDA device memory: peak {mib(peak)} above the {mib(base)} already "
+          f"allocated; O(batch) bound 8·V·K·4 (globals, statistic, the sweep's and the "
+          f"bound's tables) {mib(8 * VK)} + two staging slots 2·({mib(slot_in)} up with "
+          f"{mib(plan_b)} of plans, {mib(slot_out)} down) (allocated {mib(staged)}) + two "
+          f"chunks' rows w {mib(2 * w_chunk)} = {mib(bound)}; the in-memory LDA keeps "
+          f"{mib(resident)} of corpus and state resident; card {smi}")
+
+    # against the in-memory LDA from the same init, after 3 iterations
+    mem = tt.LDA(packed, K, tt.RuntimeConfig(chunk_docs=1024), seed=7)
+    mem.train(iter=3, checkelbo=1, printelbo=False)
+    b_err = float(torch.linalg.norm(a.beta - mem.state.beta) / torch.linalg.norm(mem.state.beta))
+    al_err = float(torch.max(torch.abs(a.alpha - mem.state.alpha) / mem.state.alpha))
+    e_err = abs(a.elbo - mem.elbo) / abs(mem.elbo)
+    need(b_err <= 1e-3 and al_err <= 1e-3 and e_err <= 1e-5,
+         f"StreamingLDA against the in-memory LDA: beta {b_err:.3e} by the norm, alpha "
+         f"{al_err:.3e}, elbo {e_err:.3e}")
+    print(f"StreamingLDA against the in-memory LDA (bucketed, same init) after 3 iterations: "
+          f"beta {b_err:.3e} by the norm (tolerance 1e-3), alpha max rel {al_err:.3e} "
+          f"(1e-3), elbo rel {e_err:.3e} (1e-5); card {smi}")
+    del mem
+
+    b = make(batch_docs=16384)
+    b.train(iter=3, checkelbo=1, printelbo=False)
+    stream_equal(b, a, "StreamingLDA batch_docs 16384 against 8192")
+    del b
+    e = make(batch_docs=8192)
+    e.train(iter=3, checkelbo=1, printelbo=False)
+    stream_equal(e, a, "StreamingLDA: two same-seed runs")
+    print(f"StreamingLDA copies of a 4th sweep under torch.profiler: {profiled_copies(e)}; "
+          f"card {smi}")
+    del e
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        c = make(batch_docs=8192)
+        c.train(iter=2, checkelbo=1, printelbo=False)
+        path = os.path.join(tmp, "stream.npz")
+        _, save_s = timed(lambda: c.save(path))
+        size = os.path.getsize(path)
+        c, load_s = timed(lambda: st.load(path, packed))
+        need(c.device.type == "cuda" and c.trained_iters == 2, "StreamingLDA load")
+        c.train(iter=1, checkelbo=1, printelbo=False)
+        stream_equal(c, a, "StreamingLDA resumed from iteration 2")
+        del c
+        _, pack_s = timed(lambda: save_packed(os.path.join(tmp, "corpus"), packed))
+        disk = load_packed(os.path.join(tmp, "corpus"))
+        need(isinstance(disk.terms, np.memmap), "load_packed did not memory-map")
+        d = st.StreamingLDA(disk, K, batch_docs=8192, chunk_docs=1024, seed=7,
+                            state_dir=os.path.join(tmp, "state"))
+        need(isinstance(d.gamma, np.memmap), "state_dir did not memory-map the state")
+        drec = instrument(d)
+        d.train(iter=3, checkelbo=1, printelbo=False)
+        stream_equal(d, a, "StreamingLDA state_dir on a load_packed corpus against RAM")
+        del d
+    print(f"StreamingLDA: batch_docs 16384 bitwise equal to 8192; two same-seed runs bitwise "
+          f"equal; save after iteration 2 ({save_s:.2f} s, {mib(size)}), load ({load_s:.2f} "
+          f"s) and one more iteration bitwise equal to the straight run; save_packed "
+          f"{pack_s:.2f} s, the state_dir run on the load_packed memory maps bitwise equal "
+          f"to the RAM run (sweeps {sweeps(drec)}); card {smi}")
+
+    o = make(batch_docs=8192)
+    _, online_s = timed(lambda: o.train_online(epochs=1, checkelbo=1, printelbo=False))
+    need(len(o.trace) == 1 and o.trace[0][2] > 0, f"StreamingLDA train_online: {o.trace}")
+    online_delta = o.trace[0][2]
+    del o
+    m = a.to_model()
+    td = m.topicdist(np.arange(1, M + 1))
+    g = a.gamma[:M] / a.gamma[:M].sum(1, keepdims=True)
+    need(np.allclose(td, g, rtol=1e-5, atol=1e-7), "StreamingLDA to_model topicdist")
+    need(np.array_equal(m.gamma, a.gamma[:M]), "StreamingLDA to_model gamma")
+    print(f"StreamingLDA: train_online(epochs=1) {online_s:.2f} s, ∆elbo {online_delta:.3f}; "
+          f"to_model() topicdist equal to the streamed gamma (max abs diff "
+          f"{float(np.max(np.abs(td - g))):.2e}); card {smi}")
+    del a, m, td, g
+
+    # the other six families, each at its configuration's width
+    fam = {}
+
+    def family(label, model_fn, train_kw, expect, monotone_from=1):
+        m1 = model_fn()
+        rec_ = instrument(m1)
+        got_ = run(lambda: m1.train(iter=3, checkelbo=1, printelbo=False, **train_kw))
+        d_ = [t[2] for t in m1.trace]
+        need(len(d_) == 3 and all(x > 0 for x in d_[monotone_from:]), f"{label}: ∆elbo {d_}")
+        ch = m1.M_rows // m1.chunk_docs
+        for k, (per_sweep, per_bound) in expect.items():
+            w = 3 * per_sweep(m1, ch) + 4 * per_bound(ch)
+            need(got_.get(k) == w, f"{label}: {k} launches {got_.get(k)}, want {w}")
+        m2 = model_fn()
+        m2.train(iter=3, checkelbo=1, printelbo=False, **train_kw)
+        stream_equal(m2, m1, f"{label}: two same-seed runs")
+        fam[label] = statistics.median(r["wall"] for r in rec_["sweep"][1:])
+        print(f"{label}: M={m1.M} V={m1.V} K={m1.K} batch_docs {m1.batch_docs} chunk "
+              f"{m1.chunk_docs}: ∆elbo {', '.join(f'{x:.3f}' for x in d_)}; sweeps "
+              f"{sweeps(rec_)}; bound passes {', '.join(f'{x:.3f}' for x in rec_['elbo'])} s; "
+              f"plans {m1.plan_build_s:.3f} s; launches {got_}; same-seed runs bitwise "
+              f"equal; card {smi}")
+
+    per_chunk = lambda m_, ch: ch
+    no = lambda ch: 0
+    scat = lambda m_, ch: scatter_plans_launching(m_)
+    fpk = tt.synth_packed_nsf_scale(M=16_384, chunk_docs=8192)
+    family("StreamingFLDA NSF V, 16,384 documents",
+           lambda: st.StreamingFLDA(fpk, 100, batch_docs=8192, chunk_docs=1024, seed=7), {},
+           {"flda_estep": (per_chunk, no), "scatter_rows": (scat, no)})
+    cpk = pad_rows(kc["cpk"], 18_432)
+    family("StreamingCTPF CiteULike", lambda: st.StreamingCTPF(
+        cpk, 100, batch_docs=6144, chunk_docs=1024, seed=7), {},
+        {"ctpf_estep": (per_chunk, no), "scatter_rows": (scat, no)})
+    mpk = tt.synth_packed_nsf_scale(M=8192, chunk_docs=4096)
+    family("StreamingCTM NSF V, 8,192 documents", lambda: st.StreamingCTM(
+        mpk, 50, batch_docs=4096, seed=7), {},
+        {"lda_elbo_tok": (lambda m_, ch: 0, lambda ch: ch), "scatter_rows": (scat, no)})
+    family("StreamingFCTM NSF V, 8,192 documents", lambda: st.StreamingFCTM(
+        mpk, 50, batch_docs=4096, seed=7), {}, {"scatter_rows": (scat, no)})
+    hpk = unit_counts(fpk)
+    family("StreamingHMTM NSF unit counts, 16,384 documents", lambda: st.StreamingHMTM(
+        hpk, 25, batch_docs=8192, chunk_docs=1024, seed=7), {},
+        {"hmtm_estep": (per_chunk, no), "hmtm_logz": (lambda m_, ch: 0, lambda ch: ch),
+         "scatter_rows": (scat, no)})
+    mac = mac_corpus(M=8192)
+    dpk = tt.pack_corpus(mac, docs_multiple=4096)
+    T, sid = st.slices_from_stamps([doc.stamp for doc in mac.docs], 1.0, dpk.M_pad)
+    need(T == 12, f"mac slices {T}")
+    family("StreamingDTM mac V, T=12, 8,192 documents", lambda: st.StreamingDTM(
+        dpk, 20, T, sid, batch_docs=4096, chunk_docs=1024, seed=7), dict(cgiter=10),
+        {"scatter_rows": (scat, no)}, monotone_from=0)
+
+    # each family small, on the card against the CPU in f64, from one init
+    small = tt.synth_packed_nsf_scale(M=2000, V=500, mean_terms=30, seed=5)
+    kw = lambda dev_, dt: dict(batch_docs=1024, chunk_docs=256, dtype=dt, device=dev_, seed=1)
+    stream_card_vs_cpu("StreamingLDA", lambda d_, t_: st.StreamingLDA(small, 10, **kw(d_, t_)))
+    stream_card_vs_cpu("StreamingFLDA", lambda d_, t_: st.StreamingFLDA(small, 10, **kw(d_, t_)))
+    stream_card_vs_cpu("StreamingCTM", lambda d_, t_: st.StreamingCTM(small, 10, **kw(d_, t_)))
+    stream_card_vs_cpu("StreamingFCTM", lambda d_, t_: st.StreamingFCTM(small, 10, **kw(d_, t_)))
+    stream_card_vs_cpu("StreamingHMTM", lambda d_, t_: st.StreamingHMTM(
+        unit_counts(small), 10, **kw(d_, t_)))
+    small_c = tt.pack_corpus(tt.synth_corpus(M=1500, V=600, K=8, U=300, seed=3,
+                                             mean_tokens=40, mean_terms=25, mean_readers=4),
+                             with_readers=True, docs_multiple=512)
+    stream_card_vs_cpu("StreamingCTPF", lambda d_, t_: st.StreamingCTPF(
+        small_c, 10, batch_docs=512, chunk_docs=256, dtype=t_, device=d_, seed=1))
+    # phase 8's small stamped corpus and its card-vs-CPU settings
+    small_dtm = tt.synth_corpus(M=1500, V=600, K=8, seed=3, n_slices=5, drift=0.2,
+                                mean_tokens=60, mean_terms=40)
+    smpk = tt.pack_corpus(small_dtm, docs_multiple=512)
+    Ts, ssid = st.slices_from_stamps([doc.stamp for doc in small_dtm.docs], 1.0, smpk.M_pad)
+    stream_card_vs_cpu("StreamingDTM", lambda d_, t_: st.StreamingDTM(
+        smpk, 10, Ts, ssid, batch_docs=512, chunk_docs=256, dtype=t_, device=d_, seed=1),
+        norm_fields=("betahat", "mbeta"), train_kw=dict(cgiter=5, cgtol=0.0))
+
+    print(f"streaming sweeps (median of sweeps 2-3): " + "; ".join(
+        f"{k} {v:.3f} s" for k, v in fam.items()) + f"; card {smi}")
+    print(f"streaming phase: wall {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+          f"card {smi}")
+    return launches, dict(estep=kr["estep"], elbo=kr["elbo"], scatter=sc)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1679,7 +2085,14 @@ def main() -> int:
     add(hm_launches)
     sc += hm["scatter"]
 
-    # 10. results: each kernel at its main path's widest chunk, with the
+    # 10. host-streamed training
+    st_launches, st = streaming_phase(smi, dev, kc, lda.smoke_step_s)
+    add(st_launches)
+    need(all(st_launches[k] > 0 for k in st_launches),
+         f"streaming phase: a kernel never launched: {st_launches}")
+    sc.append(st["scatter"])
+
+    # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
               f"{r['call_ms']:.4f} vs {r['library_call_ms']:.4f} ms a call)"
@@ -1689,10 +2102,10 @@ def main() -> int:
     rows = []
     tpu = "topicmodelsvb_jl_tpu/kernels/"
     for name, src, where, main_rec, others in (
-            ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", *kc["estep"][:1],
-             kc["estep"][1:]),
+            ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", kc["estep"][0],
+             (*kc["estep"][1:], st["estep"])),
             ("lda_elbo_tok", "lda_elbo.cu", tpu + "lda_elbo.py:119", kc["elbo"][0],
-             (kc["elbo"][1], elbo_ctm)),
+             (kc["elbo"][1], elbo_ctm, st["elbo"])),
             ("flda_estep", "flda_estep.cu", tpu + "flda_estep.py:112", kc["flda"][0],
              kc["flda"][1:]),
             ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", kc["ctpf"][0],

@@ -817,3 +817,127 @@ def test_hmtm_trains_through_the_kernels(cuda):
     for f in ("eta", "alpha", "beta"):
         np.testing.assert_allclose(getattr(m, f), getattr(cpu, f), rtol=1e-3, atol=1e-6,
                                    err_msg=f)
+
+
+# ── host-streamed training (streaming.py) ──
+
+def _stream_case(name, M=2000):
+    """A small corpus, the constructor arguments and the train arguments
+    of streaming ``name``.  DTM's is chip_smoke.py phase 8's small stamped
+    corpus, its slices from the stamps, trained at cgiter = 5, cgtol = 0:
+    at the default CG (20 iterations, cgtol = 1/T²) f32 and f64 runs part
+    by 0.5-8% of betahat's norm within one iteration on the CPU alone, on
+    this corpus and on one without time structure
+    (tools/dtm_f32_error.py, stage 5)."""
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    if name == "StreamingCTPF":
+        pk = tt.pack_corpus(tt.synth_corpus(M=M, V=600, K=8, U=300, seed=3, mean_tokens=40,
+                                            mean_terms=25, mean_readers=4),
+                            with_readers=True, docs_multiple=1024)
+        return pk, {}, {}
+    if name == "StreamingDTM":
+        corp = tt.synth_corpus(M=M, V=600, K=8, seed=3, n_slices=5, drift=0.2, mean_tokens=60,
+                               mean_terms=40)
+        pk = tt.pack_corpus(corp, docs_multiple=1024)
+        T, sid = tt.slices_from_stamps([d.stamp for d in corp.docs], 1.0, pk.M_pad)
+        return pk, dict(T=T, slice_id=sid), dict(cgiter=5, cgtol=0.0)
+    pk = tt.synth_packed_nsf_scale(M=M, V=800, mean_terms=30, seed=5, chunk_docs=1024)
+    if name == "StreamingHMTM":
+        return unit_counts(pk), {}, {}
+    return pk, {}, {}
+
+
+STREAMING = ["StreamingLDA", "StreamingFLDA", "StreamingCTPF", "StreamingCTM", "StreamingFCTM",
+             "StreamingHMTM", "StreamingDTM"]
+
+
+def _streamer(name, pk, ctor, dev, batch_docs=1024, dtype=torch.float32, **kw):
+    return getattr(tt, name)(pk, 8, batch_docs=batch_docs, chunk_docs=256, dtype=dtype,
+                             seed=1, device=dev, **ctor, **kw)
+
+
+def _stream_equal(a, b, what):
+    for n in a._globals:
+        assert torch.equal(getattr(a, n), getattr(b, n)), f"{what}: {n}"
+    for n in a._doc_state:
+        assert np.array_equal(getattr(a, n), getattr(b, n)), f"{what}: {n}"
+    assert a.trace == b.trace, what
+
+
+@pytest.mark.parametrize("name", STREAMING)
+def test_streamed_sweep_matches_plain_on_the_card(cuda, name):
+    """One streamed sweep through the kernels on the card against the same
+    sweep through the plain versions on the CPU, both f32 from one init."""
+    from topicmodelsvb_jl_torch import convert
+
+    pk, ctor, kw = _stream_case(name)
+    card = _streamer(name, pk, ctor, cuda)
+    cpu = _streamer(name, pk, ctor, "cpu")
+    convert.streaming_from(cpu, card)
+    card.train(iter=1, checkelbo=1, printelbo=False, **kw)
+    cpu.train(iter=1, checkelbo=1, printelbo=False, **kw)
+    for (_, a, _), (_, b, _) in zip(card.trace, cpu.trace):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    for n in card._globals:
+        a, b = getattr(card, n).cpu(), getattr(cpu, n)
+        if name == "StreamingDTM" and n in ("betahat", "mbeta"):
+            # f32 rounding moves the CG's trial steps: by the norm
+            assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 2e-3, n
+        else:
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=n)
+    for n in card._doc_state:
+        torch.testing.assert_close(torch.as_tensor(getattr(card, n)),
+                                   torch.as_tensor(getattr(cpu, n)), rtol=5e-3, atol=1e-5,
+                                   msg=n)
+
+
+@pytest.mark.parametrize("name", STREAMING)
+def test_streaming_is_bitwise_repeatable_and_batch_invariant_on_the_card(cuda, name):
+    pk, ctor, kw = _stream_case(name)
+    runs = []
+    for batch in (1024, 1024, 2048):
+        m = _streamer(name, pk, ctor, cuda, batch_docs=batch)
+        m.train(iter=2, checkelbo=1, printelbo=False, **kw)
+        runs.append(m)
+    _stream_equal(runs[1], runs[0], f"{name}: same seed")
+    _stream_equal(runs[2], runs[0], f"{name}: batch_docs 2048 against 1024")
+
+
+@pytest.mark.parametrize("name", STREAMING)
+def test_streaming_checkpoint_resume_on_the_card(cuda, name, tmp_path):
+    pk, ctor, kw = _stream_case(name)
+    ref = _streamer(name, pk, ctor, cuda)
+    ref.train(iter=3, checkelbo=1, printelbo=False, **kw)
+    half = _streamer(name, pk, ctor, cuda)
+    half.train(iter=2, checkelbo=1, printelbo=False, **kw)
+    half.save(str(tmp_path / "s.npz"))
+    back = tt.load_streaming_checkpoint(str(tmp_path / "s.npz"), pk)
+    assert back.device.type == "cuda" and back.trained_iters == 2
+    back.train(iter=1, checkelbo=1, printelbo=False, **kw)
+    _stream_equal(back, ref, f"{name}: resume")
+
+
+@pytest.mark.parametrize("name", STREAMING)
+def test_streaming_device_memory_does_not_grow_with_the_corpus(cuda, name):
+    """O(batch): the peak device memory of a sweep at one batch size is the
+    same for a corpus four times as large."""
+    peaks = []
+    for M in (2000, 8000):
+        pk, ctor, kw = _stream_case(name, M=M)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = _streamer(name, pk, ctor, cuda)
+        m.train(iter=1, checkelbo=1, printelbo=False, **kw)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del m
+    assert peaks[1] <= 1.1 * peaks[0] + 2**20, peaks
+
+
+def test_streaming_float64_on_cuda_raises(cuda):
+    pk, _, _ = _stream_case("StreamingLDA")
+    with pytest.raises(TypeError, match="float32"):
+        tt.StreamingLDA(pk, 8, dtype=torch.float64, device=cuda)

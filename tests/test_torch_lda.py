@@ -208,6 +208,10 @@ def test_import_loads_no_jax():
             "topicmodelsvb_jl_torch.evaluate, topicmodelsvb_jl_torch.native, "
             "topicmodelsvb_jl_torch.utils.display, topicmodelsvb_jl_torch.checkpoint, "
             "topicmodelsvb_jl_torch.models.dtm, topicmodelsvb_jl_torch.streaming; "
+            "from topicmodelsvb_jl_torch.streaming import (StreamingLDA, StreamingCTPF, "
+            "StreamingFLDA, StreamingCTM, StreamingFCTM, StreamingHMTM, StreamingDTM, load); "
+            "from topicmodelsvb_jl_torch.ops.packing import save_packed, load_packed, "
+            "trim_packed; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'topicmodelsvb_jl_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

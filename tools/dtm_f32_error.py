@@ -25,13 +25,22 @@ over the norm):
    that records each objective value;
 4. the same 3 iterations in f32 from the f32 init with every betahat
    moved by one ulp, against the run from the init itself on the same
-   device: how far f32 rounding alone carries the result.
+   device: how far f32 rounding alone carries the result;
+5. the streamed DTM of ``tests/test_torch_cuda.py`` (K = 8, batches of
+   1,024, chunks of 256) at the defaults (cgiter = 20, cgtol = 1/T²) and
+   at the test's cgiter = 5, cgtol = 0, on a corpus without time
+   structure (``synth_packed_nsf_scale(M=2000, V=800)``, row i in slice
+   i mod 4) and on the stamped corpus that test uses: betahat and the
+   ELBO after 1 and 2 iterations in f32 against f64 on the CPU, all from
+   the f64 model's init, then all from the CPU f32 model's (the test
+   copies one f32 model's init into the other).
 
 ``--objective-f64`` evaluates the CG objective in f64 from the f32
 betahat (its gradient comes back in f32), to see whether the f32 rounding
 of the objective's sums decides the line searches.  Prints one JSON line
 last and appends it to ``chiprun_out/dtm_f32_error.jsonl``.
 """
+import itertools
 import json
 import pathlib
 import subprocess
@@ -215,6 +224,45 @@ def main(argv) -> int:
         print(f"one ulp on the f32 init's betahat, 3 iterations, {dev} f32 against itself: "
               + ", ".join(f"{n} rel {c['rel']:.2e} out {c['n_out']}/{c['n']} norm {c['norm']:.2e}"
                           for n, c in cmp.items()))
+    # 5. the streamed DTM, on corpora without and with time structure
+    pk = tt.synth_packed_nsf_scale(M=2000, V=800, mean_terms=30, seed=5, chunk_docs=1024)
+    stamped = tt.synth_corpus(M=2000, V=600, K=8, seed=3, n_slices=5, drift=0.2,
+                              mean_tokens=60, mean_terms=40)
+    spk = tt.pack_corpus(stamped, docs_multiple=1024)
+    corpora = {
+        "no time structure": (pk, 4, (np.arange(pk.M_pad) % 4).astype(np.int32)),
+        "stamped": (spk,) + tuple(tt.slices_from_stamps([d.stamp for d in stamped.docs], 1.0,
+                                                          spk.M_pad))}
+    out["streamed"] = {}
+    cg_runs = {"cgiter=20, cgtol=1/T²": {}, "cgiter=5, cgtol=0": dict(cgiter=5, cgtol=0.0)}
+    for (label, (p, T_s, sid)), start, (cg, cg_kw) in itertools.product(
+            corpora.items(), ("f64 init", "f32 init"), cg_runs.items()):
+        mk = lambda dt, dev: tt.StreamingDTM(p, 8, T_s, sid, batch_docs=1024, chunk_docs=256,
+                                             dtype=dt, seed=1, device=dev)
+        runs = {"cpu f64": mk(torch.float64, "cpu")}
+        for dev in devs:
+            runs[f"{dev} f32"] = mk(torch.float32, dev)
+        src = runs["cpu f64" if start == "f64 init" else "cpu f32"]
+        for m in runs.values():
+            if m is not src:
+                convert.streaming_from(m, src)
+        betas = {k: [] for k in runs}
+        for _ in range(2):
+            for k, m in runs.items():
+                m.train(iter=1, checkelbo=1, printelbo=False, **cg_kw)
+                betas[k].append(m.betahat.double().cpu().numpy())
+        ref64 = runs.pop("cpu f64")
+        key = f"{label}, {start}, {cg}"
+        out["streamed"][key] = {}
+        for k, m in runs.items():
+            rows = [{"betahat_norm": compare(b32, b64)["norm"],
+                     "elbo_rel": abs(x[1] - y[1]) / abs(y[1])}
+                    for b32, b64, x, y in zip(betas[k], betas["cpu f64"], m.trace,
+                                              ref64.trace)]
+            out["streamed"][key][k] = rows
+            print(f"streamed DTM, {key}, {k} against cpu f64: " + "; ".join(
+                f"iteration {i + 1} betahat norm {r['betahat_norm']:.2e}, ELBO rel "
+                f"{r['elbo_rel']:.2e}" for i, r in enumerate(rows)))
     line = json.dumps(out)
     dst = ROOT / "chiprun_out"
     dst.mkdir(exist_ok=True)

@@ -37,8 +37,14 @@ from .evaluate import (
     heldout_reader_rank, holdout_readers, perplexity, ranked_users, recall_at_k,
     topic_coherence,
 )
-from .ops.packing import PackedCorpus, bucketize_packed, pack_corpus
-from .streaming import slices_from_stamps
+from .ops.packing import (
+    PackedCorpus, bucketize_packed, load_packed, pack_corpus, save_packed, trim_packed,
+)
+from .streaming import (
+    StreamingCTM, StreamingCTPF, StreamingDTM, StreamingFCTM, StreamingFLDA, StreamingHMTM,
+    StreamingLDA, slices_from_stamps,
+)
+from .streaming import load as load_streaming_checkpoint
 from .validate import check_model
 
 __all__ = [
@@ -50,9 +56,12 @@ __all__ = [
     "LDA", "fLDA", "CTM", "fCTM", "CTPF", "DTM", "HMTM", "TopicModel",
     "predict", "gendoc", "gencorp", "save_checkpoint", "load_checkpoint",
     "slices_from_stamps",
+    "StreamingLDA", "StreamingFLDA", "StreamingCTM", "StreamingFCTM", "StreamingCTPF",
+    "StreamingHMTM", "StreamingDTM", "load_streaming_checkpoint",
     "perplexity", "topic_coherence", "holdout_readers",
     "heldout_reader_rank", "ranked_users", "recall_at_k",
     "check_model",
     "TrainConfig", "RuntimeConfig",
-    "PackedCorpus", "bucketize_packed", "pack_corpus",
+    "PackedCorpus", "bucketize_packed", "pack_corpus", "save_packed", "load_packed",
+    "trim_packed",
 ]

@@ -3,7 +3,8 @@
 ``torch.Generator`` and ``jax.random`` draw different numbers from the
 same seed, so a comparison between the two packages starts both from one
 state: the JAX package's state fields, read as NumPy arrays by name,
-become this package's state dataclass, and back.
+become this package's state dataclass, and back; a streaming model's
+globals, host arrays and counters go across by :func:`streaming_from`.
 """
 
 from __future__ import annotations
@@ -102,3 +103,23 @@ def hmtm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> HMTMS
 
 def hmtm_state_to_numpy(state: HMTMState) -> dict:
     return _to_numpy(state)
+
+
+
+def streaming_from(model, src):
+    """Set a streaming model's globals, host per-document arrays and
+    counters from ``src``, the same-family streaming model of either
+    package.  The names are the model's ``_globals``, ``_doc_state`` and
+    ``_counters``, which are the JAX package's.  Returns ``model``."""
+    def get(n):
+        v = getattr(src, n)
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    for n in model._globals:
+        setattr(model, n, torch.tensor(np.array(get(n)), dtype=model.dtype,
+                                       device=model.device))
+    for n in model._doc_state:
+        getattr(model, n)[...] = np.asarray(get(n))
+    for n in model._counters:
+        setattr(model, n, get(n))
+    return model

@@ -199,12 +199,31 @@ def holdout_readers(corp: Corpus, seed: int = 0, min_readers: int = 2,
     return corp, held
 
 
+def _ranked_users(model, d: int) -> list:
+    """Ranked non-reader users for 1-based doc ``d`` (1-based ids).
+
+    ``api.CTPF`` exposes this as its lazy ``drecs`` row; a
+    ``StreamingCTPF`` exposes per-document ``scores`` and the packed
+    reader arrays, ranked here in the same stable order."""
+    if hasattr(model, "drecs"):
+        return model.drecs[d - 1]
+    p = model.packed
+    row = np.asarray(model.scores(slice(d - 1, d))[0])
+    order = np.argsort(-row, kind="stable")
+    mask = np.ones(row.shape[0], dtype=bool)
+    r = int(p.R[d - 1])
+    if r:
+        mask[p.readers[d - 1, :r]] = False
+    return (order[mask[order]] + 1).tolist()
+
+
 def ranked_users(model, held) -> dict:
-    """Ranked non-reader lists (the model's lazy ``drecs`` rows) for every
-    distinct doc in ``held``, each computed exactly once: share the result
-    between :func:`heldout_reader_rank` and :func:`recall_at_k` instead of
+    """Ranked non-reader lists for every distinct doc in ``held`` (the
+    model's lazy ``drecs`` rows, or a ``StreamingCTPF``'s scores), each
+    computed exactly once: share the result between
+    :func:`heldout_reader_rank` and :func:`recall_at_k` instead of
     re-ranking per metric call."""
-    return {d: model.drecs[d - 1] for d in dict.fromkeys(d for d, _ in held)}
+    return {d: _ranked_users(model, d) for d in dict.fromkeys(d for d, _ in held)}
 
 
 def heldout_reader_rank(model, held, recs: Optional[dict] = None) -> np.ndarray:

@@ -131,6 +131,33 @@ def estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam, lam_old, v
     return lam, lam_old, vsq, logzeta, w
 
 
+def moment_sums(lam, vsq, doc_mask) -> tuple:
+    """A chunk's lambda sum [K], vsq sum [K] and Σ lambda·lambdaᵀ [K, K]
+    over real documents: the statistics of mu and sigma."""
+    return (torch.sum(lam * doc_mask[:, None], dim=0), torch.sum(vsq * doc_mask[:, None], dim=0),
+            (lam * doc_mask[:, None]).T @ lam)
+
+
+def sweep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam, lam_old, vsq, logzeta,
+                plan, beta_temp, viter, vtol, niter, ntol) -> tuple:
+    """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint of
+    :func:`estep_chunk`, its rows added into ``beta_temp`` [V, K] along
+    ``plan``, in place.  Returns the chunk's new (lam, lam_old, vsq,
+    logzeta) and its :func:`moment_sums`."""
+    la, lao, v, lz, w = estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam,
+                                    lam_old, vsq, logzeta, viter, vtol, niter, ntol)
+    count_scatter_into(beta_temp, w.reshape(-1, w.shape[-1]), plan)
+    return (la, lao, v, lz, *moment_sums(la, v, doc_mask))
+
+
+def global_update(g, beta_temp, vsq_sum, lam_sum, lam_outer, M_total, identify: bool) -> tuple:
+    """(mu, sigma, invsigma, beta) from a sweep's statistics; ``g`` holds
+    the previous mu (CTM.jl:102-118, order CTM.jl:206-208)."""
+    beta_new = beta_rows(beta_temp.T.contiguous())     # CTM.jl:114-118
+    mu, sigma, invsigma = gaussian_update(g, vsq_sum, lam_sum, lam_outer, M_total, identify)
+    return mu, sigma, invsigma, beta_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device, identify: bool = False):
     """Build the outer-iteration step (one full CAVI sweep).
@@ -153,22 +180,18 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         new = {f: torch.empty_like(getattr(state, f))
                for f in ("lam", "lam_old", "vsq", "logzeta")}
         for (rows, j, sl), plan in zip(chunks, plans):
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            *out, w = estep_chunk(
-                logbetaT, state.mu, state.invsigma, t, c, dm, state.lam[rows],
-                state.lam_old[rows], state.vsq[rows], state.logzeta[rows],
-                viter, vtol, niter, ntol)
-            count_scatter_into(beta_temp, w.reshape(-1, K), plan)
-            la, v = out[0], out[2]
-            lam_sum = lam_sum + torch.sum(la * dm[:, None], dim=0)
-            vsq_sum = vsq_sum + torch.sum(v * dm[:, None], dim=0)
-            lam_outer = lam_outer + (la * dm[:, None]).T @ la
+            *out, ls, vs, lo = sweep_chunk(
+                logbetaT, state.mu, state.invsigma, terms[j][sl], counts[j][sl],
+                doc_mask[j][sl], state.lam[rows], state.lam_old[rows], state.vsq[rows],
+                state.logzeta[rows], plan, beta_temp, viter, vtol, niter, ntol)
+            lam_sum = lam_sum + ls
+            vsq_sum = vsq_sum + vs
+            lam_outer = lam_outer + lo
             for f, x in zip(new, out):
                 new[f][rows] = x
 
-        beta_new = beta_rows(beta_temp.T.contiguous())     # CTM.jl:114-118
-        mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
-                                              M_total, identify)
+        mu, sigma, invsigma, beta_new = global_update(state, beta_temp, vsq_sum, lam_sum,
+                                                      lam_outer, M_total, identify)
         return CTMState(mu=mu, sigma=sigma, invsigma=invsigma, beta=beta_new,
                         beta_old=state.beta, elbo=state.elbo, **new)
 
@@ -211,20 +234,27 @@ def make_elbo(packed, K: int, chunk_docs: int):
 
     def elbo(state: CTMState, terms, counts, doc_mask) -> torch.Tensor:
         dt, dev = state.beta.dtype, state.beta.device
-        boT, g2T = elbo_tables(state)
-        logdet_inv = logdet_invsigma(state)
+        tables = (*elbo_tables(state), logdet_invsigma(state), state)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            la, lao = state.lam[rows], state.lam_old[rows]
-            tok = lda_elbo_tok(boT, g2T, t, c, dm, la, lao)
-            doc = gaussian_terms(state, la, state.vsq[rows], state.logzeta[rows],
-                                 torch.sum(c, dim=-1), K, logdet_inv)
-            acc_doc = kbn_add(acc_doc, torch.sum(dm * doc))
+            doc, tok = elbo_chunk(tables, terms[j][sl], counts[j][sl], doc_mask[j][sl],
+                                  state.lam[rows], state.lam_old[rows], state.vsq[rows],
+                                  state.logzeta[rows])
+            acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
         return kbn_pack(kbn_merge(acc_doc, acc_tok))
 
     return elbo
+
+
+def elbo_chunk(tables, t, c, dm, la, lao, v, lz) -> tuple:
+    """One chunk's bound, on any [B, L] chunk: (doc terms, token terms),
+    each summed over its real documents.  ``tables`` is
+    (boT, g2T, log det Σ⁻¹, the globals)."""
+    boT, g2T, logdet_inv, g = tables
+    tok = lda_elbo_tok(boT, g2T, t, c, dm, la, lao)
+    doc = gaussian_terms(g, la, v, lz, torch.sum(c, dim=-1), la.shape[1], logdet_inv)
+    return torch.sum(dm * doc), tok
 
 
 def topicdist(lam: torch.Tensor, vsq: torch.Tensor) -> torch.Tensor:

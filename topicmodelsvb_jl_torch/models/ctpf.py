@@ -85,6 +85,56 @@ def reader_plans(packed, chunk_docs: int, device) -> list:
             for rows, _, _ in _chunks(packed, chunk_docs)]
 
 
+def estep_tables(g) -> tuple:
+    """The E-step's tables from the globals ``g`` (any object with the
+    CTPFState global fields): exp(ψ(alef))ᵀ [V, K], exp(ψ(he))ᵀ [U_seg, K]
+    and the [K] vectors 1/(dalet·bet), 1/(dalet·vav), 1/(het·vav)."""
+    ealefT = torch.exp(digamma(g.alef)).T.contiguous()          # [V, K]
+    eheT = torch.exp(digamma(g.he)).T.contiguous()              # [U_seg, K]
+    return (ealefT, eheT, 1.0 / (g.dalet * g.bet), 1.0 / (g.dalet * g.vav),
+            1.0 / (g.het * g.vav))
+
+
+def sweep_chunk(tables, t, cnt, rd, rt, dm, gimel, gimel_old, zayin, zayin_old, tplan, rplan,
+                alef_temp, he_temp, viter: int, vtol: float) -> tuple:
+    """One chunk of the E-step sweep, on any chunk of [B, L] tokens and
+    [B, R] readers: the fixpoint through ``ctpf_estep``, its term rows
+    added into ``alef_temp`` [V, K] along ``tplan`` and its reader rows
+    into ``he_temp`` [U_seg, K] along ``rplan``, in place.  Returns the
+    chunk's new (gimel, gimel_old, zayin, zayin_old) and its gimel and
+    zayin sums [K] over real documents."""
+    ealefT, eheT, inv_db, inv_dv, inv_hv = tables
+    gi2, gio2, za2, zao2, wa, wh = ctpf_estep(
+        ealefT, eheT, t, cnt, rd, rt, dm, inv_db, inv_dv, inv_hv, gimel, gimel_old,
+        zayin, zayin_old, viter=viter, vtol=vtol, c_hyper=HYPER["c"], g_hyper=HYPER["g"])
+    K = wa.shape[-1]
+    count_scatter_into(alef_temp, wa.reshape(-1, K), tplan)
+    count_scatter_into(he_temp, wh.reshape(-1, K), rplan)
+    return (gi2, gio2, za2, zao2, torch.sum(gi2 * dm[:, None], dim=0),
+            torch.sum(za2 * dm[:, None], dim=0))
+
+
+def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int) -> tuple:
+    """(alef, bet, dalet, he, vav, het) from a sweep's statistics, in the
+    reference's order (CTPF.jl:366-371)."""
+    a, b, c, d, e, f, g, h = (HYPER[k] for k in "abcdefgh")
+    # he (CTPF.jl:266-270), alef (CTPF.jl:251-255)
+    he_new = (e + he_temp.T).contiguous()
+    alef_new = (a + alef_temp.T).contiguous()
+    # dalet (CTPF.jl:295-298): new alef/he, OLD bet/vav
+    he_sum = (torch.sum(he_new, dim=1) if U > 0
+              else torch.zeros(gimel_sum.shape, dtype=gimel_sum.dtype, device=gimel_sum.device))
+    alef_sum = torch.sum(alef_new, dim=1)
+    dalet_new = d + alef_sum / bet + he_sum / vav
+    # het (CTPF.jl:302-305): old vav
+    het_new = h + he_sum / vav
+    # bet (CTPF.jl:281-284): NEW dalet
+    bet_new = b + gimel_sum / dalet_new
+    # vav (CTPF.jl:288-291): NEW dalet and het
+    vav_new = f + gimel_sum / dalet_new + zayin_sum / het_new
+    return alef_new, bet_new, dalet_new, he_new, vav_new, het_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
 
@@ -96,18 +146,13 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
     """
     V, U = packed.V, packed.U
     U_seg = max(U, 1)
-    a, b, c, d, e, f, g, h = (HYPER[k] for k in "abcdefgh")
     chunks = _chunks(packed, chunk_docs)
     tplans = token_plans(packed, chunk_docs, device)
     rplans = reader_plans(packed, chunk_docs, device)
 
     def step(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> CTPFState:
         dt, dev = state.alef.dtype, state.alef.device
-        ealefT = torch.exp(digamma(state.alef)).T.contiguous()      # [V, K]
-        eheT = torch.exp(digamma(state.he)).T.contiguous()          # [U_seg, K]
-        inv_db = 1.0 / (state.dalet * state.bet)
-        inv_dv = 1.0 / (state.dalet * state.vav)
-        inv_hv = 1.0 / (state.het * state.vav)
+        tables = estep_tables(state)
         alef_temp = torch.zeros((V, K), dtype=dt, device=dev)
         he_temp = torch.zeros((U_seg, K), dtype=dt, device=dev)
         gimel_sum = torch.zeros((K,), dtype=dt, device=dev)
@@ -115,35 +160,18 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
         new = {f_: torch.empty_like(getattr(state, f_))
                for f_ in ("gimel", "gimel_old", "zayin", "zayin_old")}
         for (rows, j, sl), tplan, rplan in zip(chunks, tplans, rplans):
-            t, cnt, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            rd, rt = readers[rows], ratings[rows]
-            gi2, gio2, za2, zao2, wa, wh = ctpf_estep(
-                ealefT, eheT, t, cnt, rd, rt, dm, inv_db, inv_dv, inv_hv,
-                state.gimel[rows], state.gimel_old[rows],
-                state.zayin[rows], state.zayin_old[rows],
-                viter=viter, vtol=vtol, c_hyper=c, g_hyper=g)
-            count_scatter_into(alef_temp, wa.reshape(-1, K), tplan)
-            count_scatter_into(he_temp, wh.reshape(-1, K), rplan)
-            gimel_sum = gimel_sum + torch.sum(gi2 * dm[:, None], dim=0)
-            zayin_sum = zayin_sum + torch.sum(za2 * dm[:, None], dim=0)
-            for f_, v in zip(new, (gi2, gio2, za2, zao2)):
+            *out, gs, zs = sweep_chunk(
+                tables, terms[j][sl], counts[j][sl], readers[rows], ratings[rows],
+                doc_mask[j][sl], state.gimel[rows], state.gimel_old[rows],
+                state.zayin[rows], state.zayin_old[rows], tplan, rplan, alef_temp, he_temp,
+                viter, vtol)
+            gimel_sum = gimel_sum + gs
+            zayin_sum = zayin_sum + zs
+            for f_, v in zip(new, out):
                 new[f_][rows] = v
 
-        # global updates, reference order (CTPF.jl:366-371):
-        # he (CTPF.jl:266-270), alef (CTPF.jl:251-255)
-        he_new = (e + he_temp.T).contiguous()
-        alef_new = (a + alef_temp.T).contiguous()
-        # dalet (CTPF.jl:295-298): new alef/he, OLD bet/vav
-        he_sum = (torch.sum(he_new, dim=1) if U > 0
-                  else torch.zeros((K,), dtype=dt, device=dev))
-        alef_sum = torch.sum(alef_new, dim=1)
-        dalet_new = d + alef_sum / state.bet + he_sum / state.vav
-        # het (CTPF.jl:302-305): old vav
-        het_new = h + he_sum / state.vav
-        # bet (CTPF.jl:281-284): NEW dalet
-        bet_new = b + gimel_sum / dalet_new
-        # vav (CTPF.jl:288-291): NEW dalet and het
-        vav_new = f + gimel_sum / dalet_new + zayin_sum / het_new
+        alef_new, bet_new, dalet_new, he_new, vav_new, het_new = global_update(
+            alef_temp, he_temp, gimel_sum, zayin_sum, state.bet, state.vav, U)
         return CTPFState(
             alef=alef_new, alef_old=state.alef, bet=bet_new, bet_old=state.bet,
             dalet=dalet_new, dalet_old=state.dalet, he=he_new, he_old=state.he,
@@ -166,94 +194,121 @@ def _xi(dg_he_d, dg_gimel, dg_zayin, log_dalet, log_het, log_vav):
     return et / z, eb / z
 
 
+def _prior(n, shape, rate, dt, dev):
+    """Gamma prior normaliser n·(shape·log rate − lnΓ(shape))."""
+    const = lambda x: torch.tensor(x, dtype=dt, device=dev)
+    return n * (shape * torch.log(const(rate)) - lgamma(const(shape)))
+
+
+def elbo_tables(g, U: int) -> dict:
+    """What every chunk of the bound shares, from the globals ``g`` (any
+    object with the CTPFState global fields): phi/xi come from the *_old
+    parameter set (CTPF.jl:240-241), the terms from the current one."""
+    K = g.alef.shape[0]
+    dt, dev = g.alef.dtype, g.alef.device
+    dg_alef, dg_he = digamma(g.alef), digamma(g.he)
+    return dict(
+        K=K, U=U, alef=g.alef, he=g.he, bet=g.bet, vav=g.vav, dalet=g.dalet, het=g.het,
+        dg_alef=dg_alef, dg_he=dg_he,
+        log_bet_o=torch.log(g.bet_old), log_vav_o=torch.log(g.vav_old),
+        log_dalet_o=torch.log(g.dalet_old), log_het_o=torch.log(g.het_old),
+        log_bet=torch.log(g.bet), log_vav=torch.log(g.vav),
+        log_dalet=torch.log(g.dalet), log_het=torch.log(g.het),
+        alef_sum=torch.sum(g.alef, dim=1),                               # Σ_j alef [K]
+        he_sum=(torch.sum(g.he, dim=1) if U > 0
+                else torch.zeros((K,), dtype=dt, device=dev)),
+        # [V, 2K] / [U, 2K] tables: old- and current-param rows side by side
+        vtab=torch.cat([digamma(g.alef_old).T, dg_alef.T], dim=1),
+        utab=torch.cat([digamma(g.he_old).T, dg_he.T], dim=1))
+
+
+def global_terms(tb: dict) -> torch.Tensor:
+    """The data-independent bound terms: Elogpbeta − Elogqbeta
+    (CTPF.jl:144-150, 198-204) and Elogpeta − Elogqeta (CTPF.jl:162-168,
+    216-222)."""
+    a, b, e, f = (HYPER[k] for k in "abef")
+    K, U, alef, he, bet, vav = tb["K"], tb["U"], tb["alef"], tb["he"], tb["bet"], tb["vav"]
+    dt, dev = alef.dtype, alef.device
+    V = alef.shape[1]
+    e_pbeta = _prior(V * K, a, b, dt, dev) + torch.sum(
+        (a - 1.0) * (tb["dg_alef"] - tb["log_bet"][:, None]) - b * alef / bet[:, None])
+    e_qbeta_ent = torch.sum(gamma_entropy(alef, bet[:, None]))
+    if U > 0:
+        e_peta = _prior(U * K, e, f, dt, dev) + torch.sum(
+            (e - 1.0) * (tb["dg_he"] - tb["log_vav"][:, None]) - f * he / vav[:, None])
+        e_qeta_ent = torch.sum(gamma_entropy(he, vav[:, None]))
+    else:
+        e_peta = e_qeta_ent = torch.zeros((), dtype=dt, device=dev)
+    return e_pbeta + e_qbeta_ent + e_peta + e_qeta_ent
+
+
+def elbo_chunk(tb: dict, t, cnt, rd, rt, dm, gi, gio, za, zao) -> tuple:
+    """One chunk's bound, on any chunk of [B, L] tokens and [B, R]
+    readers: (doc terms, token terms), each summed over its real
+    documents (CTPF.jl:110-247 with the E[lnΓ(y+1)] cancellation)."""
+    c, d, g, h = (HYPER[k] for k in "cdgh")
+    K = tb["K"]
+    dalet, het, vav, bet = tb["dalet"], tb["het"], tb["vav"], tb["bet"]
+    log_dalet, log_het, log_vav, log_bet = (tb["log_dalet"], tb["log_het"], tb["log_vav"],
+                                            tb["log_bet"])
+    dt, dev = gi.dtype, gi.device
+    vt, ut = tb["vtab"][t], tb["utab"][rd]                   # [B, L, 2K], [B, R, 2K]
+    dg_gi_o, dg_za_o = digamma(gio), digamma(zao)
+    p = torch.softmax(vt[..., :K] + (dg_gi_o - tb["log_dalet_o"] - tb["log_bet_o"])[:, None, :],
+                      dim=-1)
+    xi_top, xi_bot = _xi(ut[..., :K], dg_gi_o, dg_za_o,
+                         tb["log_dalet_o"], tb["log_het_o"], tb["log_vav_o"])
+    dg_gi, dg_za = digamma(gi), digamma(za)
+
+    # Elogpya + Elogpyb − Elogqy, E[lnΓ] cancelled (CTPF.jl:111-130, 180-186)
+    lin_top = (dg_gi - log_dalet)[:, None, :] + ut[..., K:] - log_vav
+    lin_bot = (dg_za - log_het)[:, None, :] + ut[..., K:] - log_vav
+    rate_lin = torch.sum(rt[..., None] * (xi_top * lin_top + xi_bot * lin_bot), dim=(1, 2))
+    xi_ent = torch.sum(xlogx(xi_top) + xlogx(xi_bot), dim=-1)   # Σ xi ln xi
+    rate_q = torch.sum(lgamma(rt + 1.0) + rt * xi_ent, dim=1)
+    dot_ya = torch.sum((gi / (dalet * vav)) * tb["he_sum"], -1)
+    dot_yb = torch.sum((za / (het * vav)) * tb["he_sum"], -1)
+
+    # Elogpz − Elogqz, E[lnΓ] cancelled (CTPF.jl:133-141, 189-195)
+    lin_z = (dg_gi - log_dalet)[:, None, :] + vt[..., K:] - log_bet
+    tok_lin = torch.sum(cnt[..., None] * p * lin_z, dim=(1, 2))
+    p_ent = torch.sum(xlogx(p), dim=-1)
+    tok_q = torch.sum(lgamma(cnt + 1.0) + cnt * p_ent, dim=1)
+    dot_z = torch.sum((gi / (dalet * bet)) * tb["alef_sum"], -1)
+
+    # Elogptheta (CTPF.jl:153-159) − Elogqtheta (CTPF.jl:207-213)
+    e_pth = _prior(K, c, d, dt, dev) + torch.sum(
+        (c - 1.0) * (dg_gi - log_dalet) - d * gi / dalet, -1)
+    e_qth = torch.sum(gamma_entropy(gi, dalet[None, :]), -1)
+    # Elogpepsilon (CTPF.jl:171-177) − Elogqepsilon (CTPF.jl:225-231)
+    e_pep = _prior(K, g, h, dt, dev) + torch.sum(
+        (g - 1.0) * (dg_za - log_het) - h * za / het, -1)
+    e_qep = torch.sum(gamma_entropy(za, het[None, :]), -1)
+    return (torch.sum(dm * (-dot_ya - dot_yb - dot_z + e_pth + e_qth + e_pep + e_qep)),
+            torch.sum(dm * (rate_lin - rate_q + tok_lin - tok_q)))
+
+
 def make_elbo(packed, K: int, chunk_docs: int):
     """Closed-form ELBO (CTPF.jl:110-247 with the E[lnΓ(y+1)] cancellation).
 
     phi/xi are recomputed from the *_old parameter set (CTPF.jl:240-241);
     all bound terms use the current parameters.
     """
-    V, U = packed.V, packed.U
-    a, b, c, d, e, f, g, h = (HYPER[k] for k in "abcdefgh")
+    U = packed.U
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> torch.Tensor:
         dt, dev = state.alef.dtype, state.alef.device
-        const = lambda x: torch.tensor(x, dtype=dt, device=dev)
-        # Gamma prior normaliser n·(shape·log rate − lnΓ(shape))
-        prior = lambda n, shape, rate: n * (shape * torch.log(const(rate))
-                                            - lgamma(const(shape)))
-        alef, he, het = state.alef, state.he, state.het
-        # old-param responsibilities (CTPF.jl:240-241)
-        log_bet_o, log_vav_o = torch.log(state.bet_old), torch.log(state.vav_old)
-        log_dalet_o, log_het_o = torch.log(state.dalet_old), torch.log(state.het_old)
-        # current params for the bound
-        dg_alef, dg_he = digamma(alef), digamma(he)
-        log_bet, log_vav = torch.log(state.bet), torch.log(state.vav)
-        log_dalet, log_het = torch.log(state.dalet), torch.log(het)
-        alef_sum = torch.sum(alef, dim=1)                              # Σ_j alef [K]
-        he_sum = torch.sum(he, dim=1) if U > 0 else torch.zeros((K,), dtype=dt, device=dev)
-
-        # Elogpbeta (CTPF.jl:144-150) − Elogqbeta (CTPF.jl:198-204)
-        e_pbeta = prior(V * K, a, b) + torch.sum(
-            (a - 1.0) * (dg_alef - log_bet[:, None]) - b * alef / state.bet[:, None])
-        e_qbeta_ent = torch.sum(gamma_entropy(alef, state.bet[:, None]))
-        # Elogpeta (CTPF.jl:162-168) − Elogqeta (CTPF.jl:216-222)
-        if U > 0:
-            e_peta = prior(U * K, e, f) + torch.sum(
-                (e - 1.0) * (dg_he - log_vav[:, None]) - f * he / state.vav[:, None])
-            e_qeta_ent = torch.sum(gamma_entropy(he, state.vav[:, None]))
-        else:
-            e_peta = e_qeta_ent = torch.zeros((), dtype=dt, device=dev)
-
-        # [V, 2K] / [U, 2K] tables: old- and current-param rows side by side
-        vtab = torch.cat([digamma(state.alef_old).T, dg_alef.T], dim=1)
-        utab = torch.cat([digamma(state.he_old).T, dg_he.T], dim=1)
+        tb = elbo_tables(state, U)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
-            t, cnt, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            rd, rt = readers[rows], ratings[rows]
-            gi, gio = state.gimel[rows], state.gimel_old[rows]
-            za, zao = state.zayin[rows], state.zayin_old[rows]
-            vt, ut = vtab[t], utab[rd]                      # [B, L, 2K], [B, R, 2K]
-            dg_gi_o, dg_za_o = digamma(gio), digamma(zao)
-            p = torch.softmax(vt[..., :K] + (dg_gi_o - log_dalet_o - log_bet_o)[:, None, :],
-                              dim=-1)
-            xi_top, xi_bot = _xi(ut[..., :K], dg_gi_o, dg_za_o,
-                                 log_dalet_o, log_het_o, log_vav_o)
-            dg_gi, dg_za = digamma(gi), digamma(za)
-
-            # Elogpya + Elogpyb − Elogqy, E[lnΓ] cancelled (CTPF.jl:111-130, 180-186)
-            lin_top = (dg_gi - log_dalet)[:, None, :] + ut[..., K:] - log_vav
-            lin_bot = (dg_za - log_het)[:, None, :] + ut[..., K:] - log_vav
-            rate_lin = torch.sum(rt[..., None] * (xi_top * lin_top + xi_bot * lin_bot),
-                                 dim=(1, 2))
-            xi_ent = torch.sum(xlogx(xi_top) + xlogx(xi_bot), dim=-1)   # Σ xi ln xi
-            rate_q = torch.sum(lgamma(rt + 1.0) + rt * xi_ent, dim=1)
-            dot_ya = torch.sum((gi / (state.dalet * state.vav)) * he_sum, -1)
-            dot_yb = torch.sum((za / (het * state.vav)) * he_sum, -1)
-
-            # Elogpz − Elogqz, E[lnΓ] cancelled (CTPF.jl:133-141, 189-195)
-            lin_z = (dg_gi - log_dalet)[:, None, :] + vt[..., K:] - log_bet
-            tok_lin = torch.sum(cnt[..., None] * p * lin_z, dim=(1, 2))
-            p_ent = torch.sum(xlogx(p), dim=-1)
-            tok_q = torch.sum(lgamma(cnt + 1.0) + cnt * p_ent, dim=1)
-            dot_z = torch.sum((gi / (state.dalet * state.bet)) * alef_sum, -1)
-
-            # Elogptheta (CTPF.jl:153-159) − Elogqtheta (CTPF.jl:207-213)
-            e_pth = prior(K, c, d) + torch.sum(
-                (c - 1.0) * (dg_gi - log_dalet) - d * gi / state.dalet, -1)
-            e_qth = torch.sum(gamma_entropy(gi, state.dalet[None, :]), -1)
-            # Elogpepsilon (CTPF.jl:171-177) − Elogqepsilon (CTPF.jl:225-231)
-            e_pep = prior(K, g, h) + torch.sum(
-                (g - 1.0) * (dg_za - log_het) - h * za / het, -1)
-            e_qep = torch.sum(gamma_entropy(za, het[None, :]), -1)
-
-            acc_doc = kbn_add(acc_doc, torch.sum(dm * (
-                -dot_ya - dot_yb - dot_z + e_pth + e_qth + e_pep + e_qep)))
-            acc_tok = kbn_add(acc_tok, torch.sum(dm * (
-                rate_lin - rate_q + tok_lin - tok_q)))
-        total = kbn_merge(acc_doc, acc_tok)
-        return kbn_pack(kbn_add(total, e_pbeta + e_qbeta_ent + e_peta + e_qeta_ent))
+            doc, tok = elbo_chunk(tb, terms[j][sl], counts[j][sl], readers[rows],
+                                  ratings[rows], doc_mask[j][sl], state.gimel[rows],
+                                  state.gimel_old[rows], state.zayin[rows],
+                                  state.zayin_old[rows])
+            acc_doc = kbn_add(acc_doc, doc)
+            acc_tok = kbn_add(acc_tok, tok)
+        return kbn_pack(kbn_add(kbn_merge(acc_doc, acc_tok), global_terms(tb)))
 
     return elbo
 

@@ -284,6 +284,28 @@ def scatter_plans(packed, slice_id: np.ndarray, chunk_docs: int, device) -> list
     return out
 
 
+def sweep_chunk(prep, alpha, sid, terms, counts, doc_mask, gamma, El, lzeta, tplan, splan, A,
+                viter: int, vtol: float) -> tuple:
+    """One chunk of the E-step sweep, on any [B, L] chunk with its slice
+    ids ``sid`` [B] (int64); ``prep`` is :func:`_overflow_safe`'s (maxl,
+    rowsum, mbeta_flat).  A[t·V + v, k] += Σ phi·counts (the per-slice
+    Elogpw linear term) along ``tplan``, in place.  Returns the chunk's new
+    (gamma, El, lzeta) and its per-slice sums [T, 2K+1] along ``splan``:
+    wz = Σ e^{−lzeta}·(phi@counts), the Elogtheta sums and the document
+    counts (the alpha Newtons' inputs)."""
+    maxl, rowsum, mbeta_flat = prep
+    T, K = rowsum.shape
+    flat = sid[:, None] * (mbeta_flat.shape[0] // T) + terms
+    g2, el2, lz2, w, pc = _estep_chunk(mbeta_flat, alpha, rowsum, maxl, sid, flat, counts,
+                                       doc_mask, gamma, El, lzeta, viter, vtol)
+    count_scatter_into(A, w.reshape(-1, K), tplan)
+    dm = doc_mask[:, None]
+    per_doc = torch.cat([torch.exp(-lz2)[:, None] * pc * dm, el2 * dm, dm], dim=1)
+    s = count_scatter_into(torch.zeros((T, 2 * K + 1), dtype=A.dtype, device=A.device),
+                           per_doc, splan)
+    return g2, el2, lz2, s
+
+
 def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
                slice_id: np.ndarray, device):
     """The E-step sweep over every chunk:
@@ -306,19 +328,10 @@ def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
         El = torch.empty_like(state.Elogtheta)
         lzeta = torch.empty_like(state.lzeta)
         for rows, (tplan, splan) in zip(chunks, plans):
-            sid, dm = slice_id[rows], doc_mask[rows]
-            flat = sid[:, None] * V + terms[rows]
-            g2, el2, lz2, w, pc = _estep_chunk(
-                mbeta_flat, state.alpha, rowsum, maxl, sid, flat, counts[rows], dm,
-                state.gamma[rows], state.Elogtheta[rows], state.lzeta[rows], viter, vtol)
-            # A[t·V + v, k] = Σ phi·counts (the per-slice Elogpw linear term)
-            count_scatter_into(A, w.reshape(-1, K), tplan)
-            # per slice: wz = Σ e^{−lzeta}·(phi@counts), the Elogtheta sums
-            # and the document counts (the alpha Newtons' inputs)
-            per_doc = torch.cat([torch.exp(-lz2)[:, None] * pc * dm[:, None],
-                                 el2 * dm[:, None], dm[:, None]], dim=1)
-            s = count_scatter_into(torch.zeros((T, 2 * K + 1), dtype=dt, device=dev),
-                                   per_doc, splan)
+            g2, el2, lz2, s = sweep_chunk(
+                (maxl, rowsum, mbeta_flat), state.alpha, slice_id[rows], terms[rows],
+                counts[rows], doc_mask[rows], state.gamma[rows], state.Elogtheta[rows],
+                state.lzeta[rows], tplan, splan, A, viter, vtol)
             wz = wz + s[:, :K]
             els = kbn_add(els, s[:, K:2 * K])
             nd = nd + s[:, 2 * K]
@@ -372,35 +385,42 @@ def slice_elbo_terms(state: DTMState) -> torch.Tensor:
 def make_elbo(packed, K: int, T: int, chunk_docs: int):
     """The full ELBO (updateELBO!, DTM.jl:161-174), as a compensated
     (hi, lo) pair."""
-    V = packed.V
     chunks = _chunk_rows(packed, chunk_docs)
 
     def elbo(state: DTMState, slice_id, terms, counts, doc_mask) -> torch.Tensor:
         dt, dev = state.betahat.dtype, state.betahat.device
         maxl, rowsum, mbeta_flat = _overflow_safe(state)
-        a = state.alpha
         total = kbn_zero(dt, dev)
         for rows in chunks:
-            sid, c, dm = slice_id[rows], counts[rows], doc_mask[rows]
-            g, el, lz = state.gamma[rows], state.Elogtheta[rows], state.lzeta[rows]
-            mbeta_d = mbeta_flat[sid[:, None] * V + terms[rows]]
-            rs_d, e_ml = rowsum[sid], torch.exp(maxl[sid] - lz)
-            p = _phi(mbeta_d, e_ml[:, None] * rs_d, el)
-            a_d = a[sid]
-            # Elogptheta (DTM.jl:128-131)
-            e_pt = (finite(lgamma(torch.sum(a_d, -1))) - torch.sum(finite(lgamma(a_d)), -1)
-                    + torch.sum((a_d - 1.0) * el, -1))
-            pc = torch.einsum("bl,blk->bk", c, p)
-            e_pz = torch.sum(pc * el, -1)                              # Elogpz (DTM.jl:133-137)
-            e_pw = (torch.sum(p * mbeta_d * c[..., None], dim=(1, 2))  # Elogpw (DTM.jl:139-143)
-                    - torch.sum(pc * rs_d, -1) * e_ml - lz + 1.0)
-            # −Elogqtheta, −Elogqz (DTM.jl:150-159)
-            e_qt = dirichlet_entropy(g)
-            e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)
-            total = kbn_add(total, torch.sum(dm * (e_pt + e_pz + e_pw + e_qt + e_qz)))
+            total = kbn_add(total, elbo_chunk(
+                (maxl, rowsum, mbeta_flat), state.alpha, slice_id[rows], terms[rows],
+                counts[rows], doc_mask[rows], state.gamma[rows], state.Elogtheta[rows],
+                state.lzeta[rows]))
         return kbn_pack(kbn_add(total, slice_elbo_terms(state)))
 
     return elbo
+
+
+def elbo_chunk(prep, a, sid, terms, c, dm, g, el, lz) -> torch.Tensor:
+    """One chunk's document and token bound terms, on any [B, L] chunk,
+    summed over its real documents; ``prep`` as in :func:`sweep_chunk`."""
+    maxl, rowsum, mbeta_flat = prep
+    T = rowsum.shape[0]
+    mbeta_d = mbeta_flat[sid[:, None] * (mbeta_flat.shape[0] // T) + terms]
+    rs_d, e_ml = rowsum[sid], torch.exp(maxl[sid] - lz)
+    p = _phi(mbeta_d, e_ml[:, None] * rs_d, el)
+    a_d = a[sid]
+    # Elogptheta (DTM.jl:128-131)
+    e_pt = (finite(lgamma(torch.sum(a_d, -1))) - torch.sum(finite(lgamma(a_d)), -1)
+            + torch.sum((a_d - 1.0) * el, -1))
+    pc = torch.einsum("bl,blk->bk", c, p)
+    e_pz = torch.sum(pc * el, -1)                              # Elogpz (DTM.jl:133-137)
+    e_pw = (torch.sum(p * mbeta_d * c[..., None], dim=(1, 2))  # Elogpw (DTM.jl:139-143)
+            - torch.sum(pc * rs_d, -1) * e_ml - lz + 1.0)
+    # −Elogqtheta, −Elogqz (DTM.jl:150-159)
+    e_qt = dirichlet_entropy(g)
+    e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)
+    return torch.sum(dm * (e_pt + e_pz + e_pw + e_qt + e_qz))
 
 
 def topics_ranking_by_slice(mbeta: torch.Tensor) -> np.ndarray:

@@ -29,7 +29,7 @@ from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_ones, kbn_add, kbn_merge,
     kbn_pack, kbn_zero, l2norm, logsumexp, masked_fixpoint,
 )
-from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma
+from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma, moment_sums
 from .lda import _chunks, token_plans
 
 
@@ -116,6 +116,32 @@ def estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam
     return lam, lam_old, vsq, logzeta, tau, tau_old, w
 
 
+def sweep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam, lam_old,
+                vsq, logzeta, tau, tau_old, plan, stat, viter, vtol, niter, ntol) -> tuple:
+    """One chunk of the E-step sweep, on any [B, L] chunk with its
+    tau/tau_old at the chunk's width: the fixpoint of :func:`estep_chunk`,
+    its [B·L, K+1] rows added into ``stat`` along ``plan``, in place.
+    Returns the chunk's new (lam, lam_old, vsq, logzeta, tau, tau_old) and
+    its ``ctm.moment_sums``."""
+    *out, w = estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam,
+                          lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol)
+    count_scatter_into(stat, w.reshape(-1, w.shape[-1]), plan)
+    return (*out, *moment_sums(out[0], out[2], doc_mask))
+
+
+def global_update(g, stat, vsq_sum, lam_sum, lam_outer, M_total, identify: bool) -> tuple:
+    """(mu, sigma, invsigma, kappa, beta) from a sweep's statistics
+    (fCTM.jl:122-150); ``stat`` [V, K+1] holds beta_temp and kappa_temp in
+    its last column, ``g`` the previous mu.  update_eta! is deliberately
+    not run (fCTM.jl:267)."""
+    K = stat.shape[1] - 1
+    beta_new = beta_rows(stat[:, :K].T.contiguous())
+    kappa_temp = stat[:, K]
+    kappa_new = kappa_temp / torch.sum(kappa_temp)              # fCTM.jl:146-150
+    mu, sigma, invsigma = gaussian_update(g, vsq_sum, lam_sum, lam_outer, M_total, identify)
+    return mu, sigma, invsigma, kappa_new, beta_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device, identify: bool = False):
     """Build the outer-iteration step (one full CAVI sweep).
@@ -142,27 +168,22 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         tau = torch.full_like(state.tau, 0.5)
         tau_old = torch.full_like(state.tau_old, 0.5)
         for (rows, j, sl), plan in zip(chunks, plans):
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            t = terms[j][sl]
             Ls = t.shape[1]
-            *out, ta2, tao2, w = estep_chunk(
-                logbetaT, state.kappa, state.eta, state.mu, state.invsigma, t, c, dm,
-                state.lam[rows], state.lam_old[rows], state.vsq[rows], state.logzeta[rows],
-                state.tau[rows, :Ls], state.tau_old[rows, :Ls], viter, vtol, niter, ntol)
-            count_scatter_into(stat, w.reshape(-1, K + 1), plan)
-            la, v = out[0], out[2]
-            lam_sum = lam_sum + torch.sum(la * dm[:, None], dim=0)
-            vsq_sum = vsq_sum + torch.sum(v * dm[:, None], dim=0)
-            lam_outer = lam_outer + (la * dm[:, None]).T @ la
+            *out, ta2, tao2, ls, vs, lo = sweep_chunk(
+                logbetaT, state.kappa, state.eta, state.mu, state.invsigma, t, counts[j][sl],
+                doc_mask[j][sl], state.lam[rows], state.lam_old[rows], state.vsq[rows],
+                state.logzeta[rows], state.tau[rows, :Ls], state.tau_old[rows, :Ls], plan,
+                stat, viter, vtol, niter, ntol)
+            lam_sum = lam_sum + ls
+            vsq_sum = vsq_sum + vs
+            lam_outer = lam_outer + lo
             for f, x in zip(new, out):
                 new[f][rows] = x
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
-        beta_new = beta_rows(stat[:, :K].T.contiguous())
-        kappa_temp = stat[:, K]
-        kappa_new = kappa_temp / torch.sum(kappa_temp)              # fCTM.jl:146-150
-        mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
-                                              M_total, identify)
-        # update_eta! deliberately not run (fCTM.jl:267)
+        mu, sigma, invsigma, kappa_new, beta_new = global_update(
+            state, stat, vsq_sum, lam_sum, lam_outer, M_total, identify)
         return FCTMState(eta=state.eta, mu=mu, sigma=sigma, invsigma=invsigma,
                          kappa=kappa_new, kappa_old=state.kappa, beta=beta_new,
                          beta_old=state.beta, tau=tau, tau_old=tau_old, elbo=state.elbo,
@@ -179,35 +200,48 @@ def make_elbo(packed, K: int, chunk_docs: int):
 
     def elbo(state: FCTMState, terms, counts, doc_mask) -> torch.Tensor:
         dt, dev = state.beta.dtype, state.beta.device
-        logbeta_oldT = torch.log(state.beta_old + EPSILON).T
-        logbetaT = torch.log(state.beta + EPSILON).T
-        logkappa = torch.log(state.kappa + EPSILON)
-        eta = state.eta
-        log_eps = torch.log(torch.tensor(EPSILON, dtype=dt, device=dev))
-        log_eta, log_1m_eta = torch.log(eta + EPSILON), torch.log(1.0 - eta + EPSILON)
-        logdet_inv = logdet_invsigma(state)
+        tables = elbo_tables(state)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            t = terms[j][sl]
             Ls = t.shape[1]
-            ta, tao = state.tau[rows, :Ls], state.tau_old[rows, :Ls]
-            la, lao = state.lam[rows], state.lam_old[rows]
-            cd = torch.sum(c, dim=-1)
-            p = _phi(logbeta_oldT[t], tao, lao)
-            tau_c = torch.sum(ta * c, -1)
-            pc = torch.einsum("bl,blk->bk", c, p)
-            # Elogpc (fCTM.jl:74-78): log(eta^a (1-eta)^b + EPS) by logaddexp
-            e_pc = torch.logaddexp(tau_c * log_eta + (cd - tau_c) * log_1m_eta, log_eps)
-            # Elogpeta − Elogqeta (fCTM.jl:68-71, 95-98) and Elogpz (fCTM.jl:81-85)
-            e_gauss = gaussian_terms(state, la, state.vsq[rows], state.logzeta[rows], cd, K,
-                                     logdet_inv) + torch.sum(pc * la, -1)
-            # Elogpw (fCTM.jl:88-92)
-            e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[..., None], dim=(1, 2))
-                    + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
-            e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)         # fCTM.jl:101-105
-            e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)        # fCTM.jl:108-112
-            acc_doc = kbn_add(acc_doc, torch.sum(dm * (e_gauss + e_pc)))
-            acc_tok = kbn_add(acc_tok, torch.sum(dm * (e_pw + e_qc + e_qz)))
+            doc, tok = elbo_chunk(tables, t, counts[j][sl], doc_mask[j][sl], state.lam[rows],
+                                  state.lam_old[rows], state.vsq[rows], state.logzeta[rows],
+                                  state.tau[rows, :Ls], state.tau_old[rows, :Ls])
+            acc_doc = kbn_add(acc_doc, doc)
+            acc_tok = kbn_add(acc_tok, tok)
         return kbn_pack(kbn_merge(acc_doc, acc_tok))
 
     return elbo
+
+
+def elbo_tables(g) -> tuple:
+    """What every chunk of the bound shares, from the globals ``g`` (any
+    object with the FCTMState global fields)."""
+    dt, dev = g.beta.dtype, g.beta.device
+    log_eps = torch.log(torch.tensor(EPSILON, dtype=dt, device=dev))
+    return (torch.log(g.beta_old + EPSILON).T, torch.log(g.beta + EPSILON).T,
+            torch.log(g.kappa + EPSILON), log_eps, torch.log(g.eta + EPSILON),
+            torch.log(1.0 - g.eta + EPSILON), logdet_invsigma(g), g)
+
+
+def elbo_chunk(tables, t, c, dm, la, lao, v, lz, ta, tao) -> tuple:
+    """One chunk's bound, on any [B, L] chunk with its tau/tau_old at the
+    chunk's width: (doc terms, token terms), each summed over its real
+    documents."""
+    logbeta_oldT, logbetaT, logkappa, log_eps, log_eta, log_1m_eta, logdet_inv, g = tables
+    K = la.shape[1]
+    cd = torch.sum(c, dim=-1)
+    p = _phi(logbeta_oldT[t], tao, lao)
+    tau_c = torch.sum(ta * c, -1)
+    pc = torch.einsum("bl,blk->bk", c, p)
+    # Elogpc (fCTM.jl:74-78): log(eta^a (1-eta)^b + EPS) by logaddexp
+    e_pc = torch.logaddexp(tau_c * log_eta + (cd - tau_c) * log_1m_eta, log_eps)
+    # Elogpeta − Elogqeta (fCTM.jl:68-71, 95-98) and Elogpz (fCTM.jl:81-85)
+    e_gauss = gaussian_terms(g, la, v, lz, cd, K, logdet_inv) + torch.sum(pc * la, -1)
+    # Elogpw (fCTM.jl:88-92)
+    e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[..., None], dim=(1, 2))
+            + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
+    e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)         # fCTM.jl:101-105
+    e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)        # fCTM.jl:108-112
+    return torch.sum(dm * (e_gauss + e_pc)), torch.sum(dm * (e_pw + e_qc + e_qz))

@@ -73,6 +73,36 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
     )
 
 
+def sweep_chunk(logbetaT, kappa, alpha, eta, terms, counts, doc_mask, gamma, El, El_old,
+                tau, tau_old, plan, stat, viter: int, vtol: float):
+    """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
+    through ``flda_estep``, then beta_temp += phi .* (tau .* counts)'
+    (fLDA.jl:174-177) and kappa_temp[terms] += (1 - tau) .* counts
+    (fLDA.jl:160-163) as one scatter into ``stat`` [V, K+1] in place.
+    Returns the chunk's new (gamma, El, El_old, tau, tau_old), its
+    Elogtheta sum [K] and its Σ tau·counts (update_eta!, fLDA.jl:122-124)."""
+    g2, el2, elo2, ta2, tao2, w = flda_estep(
+        logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old, tau,
+        tau_old, viter=viter, vtol=vtol)
+    count_scatter_into(stat, w.reshape(-1, w.shape[-1]), plan)
+    return (g2, el2, elo2, ta2, tao2, torch.sum(el2 * doc_mask[:, None], dim=0),
+            torch.sum(ta2 * counts))
+
+
+def global_update(stat, alpha, El_sum, tau_counts, M_total, C_total, niter: int,
+                  ntol: float, El_sum_lo=None):
+    """(eta, alpha, kappa, beta) from a sweep's statistics (fLDA.jl:97-156):
+    ``stat`` [V, K+1] holds beta_temp and kappa_temp in its last column."""
+    K = stat.shape[1] - 1
+    bt = stat[:, :K].T.contiguous()
+    beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+    kappa_temp = stat[:, K]
+    kappa_new = kappa_temp / torch.sum(kappa_temp)              # fLDA.jl:152-156
+    alpha_new = dirichlet_newton(alpha, El_sum, M_total, niter, ntol,
+                                 Elogtheta_sum_lo=El_sum_lo)
+    return tau_counts / C_total, alpha_new, kappa_new, beta_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
@@ -100,27 +130,21 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         for (rows, j, sl), plan in zip(chunks, plans):
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             Ls = t.shape[1]
-            g2, el2, elo2, ta2, tao2, w = flda_estep(
-                logbetaT, state.kappa, t, c, dm, state.alpha, state.eta,
+            g2, el2, elo2, ta2, tao2, el_part, tau_part = sweep_chunk(
+                logbetaT, state.kappa, state.alpha, state.eta, t, c, dm,
                 state.gamma[rows], state.Elogtheta[rows], state.Elogtheta_old[rows],
                 state.tau[rows, :Ls].contiguous(), state.tau_old[rows, :Ls].contiguous(),
-                viter=viter, vtol=vtol)
-            # beta_temp += phi .* (tau .* counts)' (fLDA.jl:174-177) and
-            # kappa_temp[terms] += (1 - tau) .* counts (fLDA.jl:160-163)
-            count_scatter_into(stat, w.reshape(-1, K + 1), plan)
-            El_sum = kbn_add(El_sum, torch.sum(el2 * dm[:, None], dim=0))
-            tau_counts = tau_counts + torch.sum(ta2 * c)   # update_eta! (fLDA.jl:122-124)
+                plan, stat, viter, vtol)
+            El_sum = kbn_add(El_sum, el_part)
+            tau_counts = tau_counts + tau_part
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
-        bt = stat[:, :K].T.contiguous()
-        beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
-        kappa_temp = stat[:, K]
-        kappa_new = kappa_temp / torch.sum(kappa_temp)              # fLDA.jl:152-156
-        alpha_new = dirichlet_newton(state.alpha, El_sum[0], M_total,
-                                     niter, ntol, Elogtheta_sum_lo=El_sum[1])
+        eta_new, alpha_new, kappa_new, beta_new = global_update(
+            stat, state.alpha, El_sum[0], tau_counts, M_total, C_total, niter, ntol,
+            El_sum[1])
         return FLDAState(
-            eta=tau_counts / C_total, alpha=alpha_new,
+            eta=eta_new, alpha=alpha_new,
             kappa=kappa_new, kappa_old=state.kappa, beta=beta_new, beta_old=state.beta,
             gamma=gamma, Elogtheta=El, Elogtheta_old=El_old, tau=tau, tau_old=tau_old,
             elbo=state.elbo,
@@ -140,45 +164,64 @@ def make_elbo(packed, K: int, chunk_docs: int):
 
     def elbo(state: FLDAState, terms, counts, doc_mask) -> torch.Tensor:
         dtype, dev = state.beta.dtype, state.beta.device
-        logbeta_oldT = torch.log(state.beta_old + EPSILON).T
-        logbetaT = torch.log(state.beta + EPSILON).T
-        logkappa = torch.log(state.kappa + EPSILON)
-        a, eta = state.alpha, state.eta
-        theta_const = finite(lgamma(torch.sum(a))) - finite(torch.sum(lgamma(a)))
-        log_eps = torch.log(torch.tensor(EPSILON, dtype=dtype, device=dev))
-        log_eta = torch.log(eta + EPSILON)
-        log_1m_eta = torch.log(1.0 - eta + EPSILON)
+        tables = elbo_tables(state.beta, state.beta_old, state.kappa, state.alpha, state.eta)
         acc_doc, acc_tok = kbn_zero(dtype, dev), kbn_zero(dtype, dev)
         for rows, j, sl in chunks:
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
+            t = terms[j][sl]
             Ls = t.shape[1]
-            ta, tao = state.tau[rows, :Ls], state.tau_old[rows, :Ls]
-            el, elo = state.Elogtheta[rows], state.Elogtheta_old[rows]
-            # phi recompute from tau_old/beta_old/Elogtheta_old (fLDA.jl:113)
-            p = torch.softmax(tao[:, :, None] * logbeta_oldT[t] + elo[:, None, :], dim=-1)
-            C_d = torch.sum(c, -1)
-            tau_c = torch.sum(ta * c, -1)
-            pc = torch.einsum("bl,blk->bk", c, p)
-            # Elogptheta (fLDA.jl:62-65)
-            e_ptheta = theta_const + torch.sum((a - 1.0) * el, -1)
-            # Elogpc (fLDA.jl:68-71): log(eta^a (1-eta)^b + EPS), the
-            # reference's @boink saturation through logaddexp
-            s = tau_c * log_eta + (C_d - tau_c) * log_1m_eta
-            e_pc = torch.logaddexp(s, log_eps)
-            # Elogpz (fLDA.jl:74-78)
-            e_pz = torch.sum(pc * el, -1)
-            # Elogpw (fLDA.jl:82-86)
-            e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[:, :, None], dim=(1, 2))
-                    + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
-            # −Elogqtheta (fLDA.jl:89-92)
-            e_qtheta = dirichlet_entropy(state.gamma[rows])
-            # −Elogqc (fLDA.jl:95-98)
-            e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)
-            # −Elogqz (fLDA.jl:102-105)
-            e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)
-            acc_doc = kbn_add(acc_doc, torch.sum(dm * (e_ptheta + e_pc + e_pz + e_qtheta)))
-            acc_tok = kbn_add(acc_tok, torch.sum(dm * (e_pw + e_qc + e_qz)))
+            doc, tok = elbo_chunk(tables, t, counts[j][sl], doc_mask[j][sl],
+                                  state.gamma[rows], state.Elogtheta[rows],
+                                  state.Elogtheta_old[rows], state.tau[rows, :Ls],
+                                  state.tau_old[rows, :Ls])
+            acc_doc = kbn_add(acc_doc, doc)
+            acc_tok = kbn_add(acc_tok, tok)
         return kbn_pack(kbn_merge(acc_doc, acc_tok))
 
     return elbo
+
+
+def elbo_tables(beta, beta_old, kappa, alpha, eta) -> tuple:
+    """What every chunk of the bound shares: the log tables and the
+    constants of the current parameters."""
+    dtype, dev = beta.dtype, beta.device
+    logbeta_oldT = torch.log(beta_old + EPSILON).T
+    logbetaT = torch.log(beta + EPSILON).T
+    logkappa = torch.log(kappa + EPSILON)
+    theta_const = finite(lgamma(torch.sum(alpha))) - finite(torch.sum(lgamma(alpha)))
+    log_eps = torch.log(torch.tensor(EPSILON, dtype=dtype, device=dev))
+    log_eta = torch.log(eta + EPSILON)
+    log_1m_eta = torch.log(1.0 - eta + EPSILON)
+    return (logbeta_oldT, logbetaT, logkappa, alpha, theta_const, log_eps, log_eta,
+            log_1m_eta)
+
+
+def elbo_chunk(tables, t, c, dm, gamma, el, elo, ta, tao) -> tuple:
+    """One chunk's bound, on any [B, L] chunk with its tau/tau_old at the
+    chunk's width: (doc terms, token terms), each summed over its real
+    documents."""
+    logbeta_oldT, logbetaT, logkappa, a, theta_const, log_eps, log_eta, log_1m_eta = tables
+    # phi recompute from tau_old/beta_old/Elogtheta_old (fLDA.jl:113)
+    p = torch.softmax(tao[:, :, None] * logbeta_oldT[t] + elo[:, None, :], dim=-1)
+    C_d = torch.sum(c, -1)
+    tau_c = torch.sum(ta * c, -1)
+    pc = torch.einsum("bl,blk->bk", c, p)
+    # Elogptheta (fLDA.jl:62-65)
+    e_ptheta = theta_const + torch.sum((a - 1.0) * el, -1)
+    # Elogpc (fLDA.jl:68-71): log(eta^a (1-eta)^b + EPS), the
+    # reference's @boink saturation through logaddexp
+    s = tau_c * log_eta + (C_d - tau_c) * log_1m_eta
+    e_pc = torch.logaddexp(s, log_eps)
+    # Elogpz (fLDA.jl:74-78)
+    e_pz = torch.sum(pc * el, -1)
+    # Elogpw (fLDA.jl:82-86)
+    e_pw = (torch.sum(p * logbetaT[t] * (c * ta)[:, :, None], dim=(1, 2))
+            + torch.sum(c * (1.0 - ta) * logkappa[t], dim=-1))
+    # −Elogqtheta (fLDA.jl:89-92)
+    e_qtheta = dirichlet_entropy(gamma)
+    # −Elogqc (fLDA.jl:95-98)
+    e_qc = torch.sum(bernoulli_entropy(ta) * c, dim=-1)
+    # −Elogqz (fLDA.jl:102-105)
+    e_qz = torch.sum(categorical_entropy(p) * c, dim=-1)
+    return (torch.sum(dm * (e_ptheta + e_pc + e_pz + e_qtheta)),
+            torch.sum(dm * (e_pw + e_qc + e_qz)))
 

@@ -83,6 +83,39 @@ def _elog(tau, gamma):
             digamma(gamma) - digamma(torch.sum(gamma, -2, keepdim=True)))
 
 
+def sweep_chunk(betaT_eps, eta, alpha, terms, counts, doc_mask, tau, gamma, plan, beta_temp,
+                viter: int, vtol: float) -> tuple:
+    """One chunk of the E-step sweep, on any [B, L] chunk: the chain
+    fixpoint through ``hmtm_estep``, then updateBeta!'s rows r = q(z_n)
+    (HMTM.jl:149-158; exactly 0 on padding) added into ``beta_temp``
+    [V, K] along ``plan``, in place.  Returns the chunk's new (tau, gamma)
+    and its E[log pi] [K] and E[log theta] [K, K] sums over real
+    documents."""
+    tau2, gamma2, r = hmtm_estep(betaT_eps, terms, (counts > 0).to(betaT_eps.dtype), doc_mask,
+                                 eta, alpha, tau, gamma, viter=viter, vtol=vtol)
+    count_scatter_into(beta_temp, r.reshape(-1, r.shape[-1]), plan)
+    Elogpi, Elogth = _elog(tau2, gamma2)
+    return (tau2, gamma2, torch.sum(Elogpi * doc_mask[:, None], dim=0),
+            torch.sum(Elogth * doc_mask[:, None, None], dim=0))
+
+
+def global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float, niter: int,
+                  ntol: float) -> tuple:
+    """(eta, alpha, beta) from a sweep's statistics; ``pi_sum`` and
+    ``th_sum`` are (hi, lo) pairs."""
+    K = eta.shape[0]
+    bt = beta_temp.T
+    beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+    # updateEta!/updateAlpha! (HMTM.jl:103-147): eta and alpha's K
+    # columns are independent Dirichlet Newtons, each row of one
+    # batched call running the iterations it would run alone
+    el = torch.cat([pi_sum[0][None], th_sum[0].T])
+    el_lo = torch.cat([pi_sum[1][None], th_sum[1].T])
+    M = torch.full((K + 1,), float(M_total), dtype=eta.dtype, device=eta.device)
+    new = dirichlet_newton_batched(torch.cat([eta[None], alpha.T]), el, M, niter, ntol, el_lo)
+    return new[0], new[1:].T.contiguous(), beta_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep, reference
@@ -107,31 +140,18 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         pi_sum, th_sum = kbn_zeros((K,), dtype, dev), kbn_zeros((K, K), dtype, dev)
         tau, gamma = torch.empty_like(state.tau), torch.empty_like(state.gamma)
         for (rows, j, sl), plan in zip(chunks, plans):
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            tau2, gamma2, r = hmtm_estep(
-                betaT_eps, t, (c > 0).to(dtype), dm, state.eta, state.alpha,
-                state.tau[rows], state.gamma[rows], viter=viter, vtol=vtol)
-            # updateBeta! (HMTM.jl:149-158): r is exactly 0 on padding
-            count_scatter_into(beta_temp, r.reshape(-1, K), plan)
-            Elogpi, Elogth = _elog(tau2, gamma2)
-            pi_sum = kbn_add(pi_sum, torch.sum(Elogpi * dm[:, None], dim=0))
-            th_sum = kbn_add(th_sum, torch.sum(Elogth * dm[:, None, None], dim=0))
+            tau2, gamma2, pi_part, th_part = sweep_chunk(
+                betaT_eps, state.eta, state.alpha, terms[j][sl], counts[j][sl],
+                doc_mask[j][sl], state.tau[rows], state.gamma[rows], plan, beta_temp,
+                viter, vtol)
+            pi_sum = kbn_add(pi_sum, pi_part)
+            th_sum = kbn_add(th_sum, th_part)
             tau[rows], gamma[rows] = tau2, gamma2
         return tau, gamma, beta_temp, pi_sum, th_sum
 
     def update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float):
         """(eta, alpha, beta) from the sweep's statistics."""
-        bt = beta_temp.T
-        beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
-        # updateEta!/updateAlpha! (HMTM.jl:103-147): eta and alpha's K
-        # columns are independent Dirichlet Newtons, each row of one
-        # batched call running the iterations it would run alone
-        el = torch.cat([pi_sum[0][None], th_sum[0].T])
-        el_lo = torch.cat([pi_sum[1][None], th_sum[1].T])
-        M = torch.full((K + 1,), float(M_total), dtype=eta.dtype, device=eta.device)
-        new = dirichlet_newton_batched(torch.cat([eta[None], alpha.T]), el, M, niter, ntol,
-                                       el_lo)
-        return new[0], new[1:].T.contiguous(), beta_new
+        return global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total, niter, ntol)
 
     def step(state: HMTMState, terms, counts, doc_mask, M_total) -> HMTMState:
         tau, gamma, *stats = sweep(state, terms, counts, doc_mask)
@@ -154,25 +174,36 @@ def make_elbo(packed, K: int, chunk_docs: int):
 
     def elbo(state: HMTMState, terms, counts, doc_mask) -> torch.Tensor:
         dtype, dev = state.beta.dtype, state.beta.device
-        betaT_eps = (state.beta.T + EPSILON).contiguous()
-        eta, alpha = state.eta, state.alpha
-        # the documents' constant Dirichlet normalisers
-        pi_const = lgamma(torch.sum(eta)) - torch.sum(lgamma(eta))
-        th_const = torch.sum(lgamma(torch.sum(alpha, 0)) - torch.sum(lgamma(alpha), 0))
+        tables = elbo_tables(state.beta, state.eta, state.alpha)
         acc = kbn_zero(dtype, dev)
         for rows, j, sl in chunks:
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            tau, gamma = state.tau[rows], state.gamma[rows]
-            logZ = hmtm_logz(betaT_eps, t, (c > 0).to(dtype), tau, gamma)
-            Elogpi, Elogth = _elog(tau, gamma)
-            e_ppi = pi_const + torch.sum((eta - 1.0) * Elogpi, -1)
-            e_pth = th_const + torch.sum((alpha - 1.0) * Elogth, (-2, -1))
-            e_qpi = dirichlet_entropy(tau)
-            e_qth = torch.sum(dirichlet_entropy(gamma, dim=-2), -1)
-            acc = kbn_add(acc, torch.sum(dm * (logZ + e_ppi + e_pth + e_qpi + e_qth)))
+            acc = kbn_add(acc, elbo_chunk(tables, terms[j][sl], counts[j][sl],
+                                          doc_mask[j][sl], state.tau[rows], state.gamma[rows]))
         return kbn_pack(acc)
 
     return elbo
+
+
+def elbo_tables(beta, eta, alpha) -> tuple:
+    """What every chunk of the bound shares: (beta + EPSILON)ᵀ, eta,
+    alpha and the documents' constant Dirichlet normalisers."""
+    betaT_eps = (beta.T + EPSILON).contiguous()
+    pi_const = lgamma(torch.sum(eta)) - torch.sum(lgamma(eta))
+    th_const = torch.sum(lgamma(torch.sum(alpha, 0)) - torch.sum(lgamma(alpha), 0))
+    return betaT_eps, eta, alpha, pi_const, th_const
+
+
+def elbo_chunk(tables, t, c, dm, tau, gamma) -> torch.Tensor:
+    """One chunk's bound, on any [B, L] chunk, summed over its real
+    documents."""
+    betaT_eps, eta, alpha, pi_const, th_const = tables
+    logZ = hmtm_logz(betaT_eps, t, (c > 0).to(betaT_eps.dtype), tau, gamma)
+    Elogpi, Elogth = _elog(tau, gamma)
+    e_ppi = pi_const + torch.sum((eta - 1.0) * Elogpi, -1)
+    e_pth = th_const + torch.sum((alpha - 1.0) * Elogth, (-2, -1))
+    e_qpi = dirichlet_entropy(tau)
+    e_qth = torch.sum(dirichlet_entropy(gamma, dim=-2), -1)
+    return torch.sum(dm * (logZ + e_ppi + e_pth + e_qpi + e_qth))
 
 
 def topicdist(state: HMTMState, d=None) -> torch.Tensor:

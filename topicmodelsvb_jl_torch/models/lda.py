@@ -100,6 +100,30 @@ def token_plans(packed, chunk_docs: int, device) -> list:
             for _, j, sl in _chunks(packed, chunk_docs)]
 
 
+def sweep_chunk(betaT, alpha, terms, counts, doc_mask, gamma, El, El_old, plan, beta_temp,
+                viter: int, vtol: float):
+    """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
+    through ``lda_estep``, its rows ``phi·counts`` added into
+    ``beta_temp`` [V, K] in place along ``plan``.  Returns the chunk's new
+    (gamma, El, El_old) and its Elogtheta sum [K] over real documents."""
+    g2, el2, elo2, w = lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
+                                 viter=viter, vtol=vtol)
+    count_scatter_into(beta_temp, w.reshape(-1, w.shape[-1]), plan)
+    return g2, el2, elo2, torch.sum(el2 * doc_mask[:, None], dim=0)
+
+
+def global_update(beta_temp, alpha, El_sum, M_total, niter: int, ntol: float,
+                  El_sum_lo=None):
+    """(beta, alpha) from a sweep's statistics: update_beta!'s reset
+    (LDA.jl:121-125) and update_alpha!'s Newton (LDA.jl:97-118), the lo
+    half of a compensated El_sum entering its mean-form gradient."""
+    bt = beta_temp.T.contiguous()
+    beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+    alpha_new = dirichlet_newton(alpha, El_sum, M_total, niter, ntol,
+                                 Elogtheta_sum_lo=El_sum_lo)
+    return beta_new, alpha_new
+
+
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device):
     """Build the outer-iteration step (one full CAVI sweep).
@@ -126,21 +150,14 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         El_old = torch.empty_like(state.Elogtheta_old)
         for (rows, j, sl), plan in zip(chunks, plans):
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            g2, el2, elo2, w = lda_estep(
-                betaT, t, c, dm, state.alpha, state.gamma[rows],
-                state.Elogtheta[rows], state.Elogtheta_old[rows],
-                viter=viter, vtol=vtol)
-            count_scatter_into(beta_temp, w.reshape(-1, K), plan)
-            El_sum = kbn_add(El_sum, torch.sum(el2 * dm[:, None], dim=0))
+            g2, el2, elo2, el_part = sweep_chunk(
+                betaT, state.alpha, t, c, dm, state.gamma[rows], state.Elogtheta[rows],
+                state.Elogtheta_old[rows], plan, beta_temp, viter, vtol)
+            El_sum = kbn_add(El_sum, el_part)
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
 
-        # update_beta! reset (LDA.jl:121-125)
-        bt = beta_temp.T.contiguous()
-        beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
-        # update_alpha! (LDA.jl:97-118); the lo half of the compensated
-        # El_sum enters the Newton's mean-form gradient at full precision
-        alpha_new = dirichlet_newton(state.alpha, El_sum[0], M_total,
-                                     niter, ntol, Elogtheta_sum_lo=El_sum[1])
+        beta_new, alpha_new = global_update(beta_temp, state.alpha, El_sum[0], M_total,
+                                            niter, ntol, El_sum[1])
         return LDAState(
             alpha=alpha_new, beta=beta_new, beta_old=state.beta,
             gamma=gamma, Elogtheta=El, Elogtheta_old=El_old, elbo=state.elbo,
@@ -162,26 +179,40 @@ def make_elbo(packed, K: int, chunk_docs: int):
 
     def elbo(state: LDAState, terms, counts, doc_mask) -> torch.Tensor:
         dtype, dev = state.beta.dtype, state.beta.device
-        boT = (state.beta_old + EPSILON).T.contiguous()         # [V, K]
-        dlogT = torch.log(state.beta + EPSILON).T - torch.log(boT)
-        g2T = (boT * dlogT).contiguous()
-        a = state.alpha
-        # Elogptheta doc-constant part (LDA.jl:50-53)
-        theta_const = finite(lgamma(torch.sum(a))) - finite(torch.sum(lgamma(a)))
+        tables = elbo_tables(state.beta, state.beta_old, state.alpha)
         # the bound rides a compensated (hi, lo) pair end to end, so the
         # reference's tol=1.0 stop (LDA.jl:161) stays reachable in f32
         acc_doc, acc_tok = kbn_zero(dtype, dev), kbn_zero(dtype, dev)
         for rows, j, sl in chunks:
-            t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
-            el, elo = state.Elogtheta[rows], state.Elogtheta_old[rows]
-            tok = lda_elbo_tok(boT, g2T, t, c, dm, el, elo)
-            e_ptheta = theta_const + torch.sum((a - 1.0) * el, -1)
-            e_qtheta = dirichlet_entropy(state.gamma[rows])
-            acc_doc = kbn_add(acc_doc, torch.sum(dm * (e_ptheta + e_qtheta)))
+            doc, tok = elbo_chunk(tables, terms[j][sl], counts[j][sl], doc_mask[j][sl],
+                                  state.gamma[rows], state.Elogtheta[rows],
+                                  state.Elogtheta_old[rows])
+            acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
         return kbn_pack(kbn_merge(acc_doc, acc_tok))
 
     return elbo
+
+
+def elbo_tables(beta, beta_old, alpha) -> tuple:
+    """What every chunk of the bound shares: ``lda_elbo_tok``'s tables
+    (beta_old + EPSILON)ᵀ and boT·(log(beta + EPSILON) − log boT), alpha
+    and Elogptheta's doc-constant part (LDA.jl:50-53)."""
+    boT = (beta_old + EPSILON).T.contiguous()               # [V, K]
+    dlogT = torch.log(beta + EPSILON).T - torch.log(boT)
+    g2T = (boT * dlogT).contiguous()
+    theta_const = finite(lgamma(torch.sum(alpha))) - finite(torch.sum(lgamma(alpha)))
+    return boT, g2T, alpha, theta_const
+
+
+def elbo_chunk(tables, terms, counts, doc_mask, gamma, El, El_old) -> tuple:
+    """One chunk's bound, on any [B, L] chunk: (doc terms, token terms),
+    each summed over its real documents."""
+    boT, g2T, a, theta_const = tables
+    tok = lda_elbo_tok(boT, g2T, terms, counts, doc_mask, El, El_old)
+    e_ptheta = theta_const + torch.sum((a - 1.0) * El, -1)
+    e_qtheta = dirichlet_entropy(gamma)
+    return torch.sum(doc_mask * (e_ptheta + e_qtheta)), tok
 
 
 def topicdist(state: LDAState, d=None) -> torch.Tensor:

@@ -8,7 +8,9 @@ into equal-width segments so token-axis work runs at each segment's own
 width.
 
 This is a copy of the NumPy-only part of the JAX package's
-``ops/packing.py`` (``pack_corpus`` without its native C++ fill):
+``ops/packing.py`` (``pack_corpus`` without its native C++ fill, and
+the disk-backed ``save_packed``/``load_packed``/``trim_packed`` that the
+streaming models read):
 importing any submodule of that package first runs its ``__init__``,
 which imports JAX.  ``tests/test_torch_lda.py`` and
 ``tests/test_torch_ctpf.py`` hold both copies to byte-identical output.
@@ -285,3 +287,95 @@ def unit_counts(packed: PackedCorpus) -> PackedCorpus:
     return dataclasses.replace(
         packed, counts=counts, C=counts.sum(axis=1),
         max_count=int(counts.max()) if counts.size else 0, segments=segments)
+
+
+# ── disk-backed packed corpora (reference todo.txt:6, "stream docs from
+# disk").  A PackedCorpus saved with save_packed loads back as read-only
+# np.memmap views: a batch slice touches only its own pages, so the
+# streaming models train corpora larger than host RAM.  Dense layouts
+# only: bucketing permutes rows in memory.  The directory format is the
+# JAX package's, byte for byte. ──
+
+_PACKED_ARRAYS = ("terms", "counts", "doc_mask", "N", "C", "readers", "ratings", "R")
+_PACKED_SCALARS = ("M", "V", "L", "U", "Rmax", "max_count", "max_rating")
+
+
+def trim_packed(packed: PackedCorpus, chunk_rows: int = 65536, users: bool = False) -> tuple:
+    """Drop the vocabulary ids no document uses: the PackedCorpus analogue
+    of ``fixcorp(corp, trim=True)`` (reference trimcorp!,
+    Corpus.jl:520-529) for corpora that never existed as a ``Corpus``.
+
+    Returns ``(trimmed, used_ids)``: ``trimmed.terms`` are re-keyed densely
+    to ``[0, len(used_ids))`` and ``used_ids`` maps new → old id, so a
+    trained topic matrix expands back with ``beta_full[:, used_ids] =
+    beta_trim``.  ``terms`` is scanned ``chunk_rows`` rows at a time, so a
+    memmapped corpus trims without being read whole (the outputs are in
+    RAM).  Padding slots stay id 0 / count 0.  ``users=True`` trims the
+    reader axis the same way (reference trimcorp!, Corpus.jl:647-651) and
+    returns ``(trimmed, used_ids, used_users)``."""
+    def trim_axis(ids, weights, n):
+        present = np.zeros(n, dtype=bool)
+        for lo in range(0, packed.M_pad, chunk_rows):
+            i = np.asarray(ids[lo:lo + chunk_rows])
+            w = np.asarray(weights[lo:lo + chunk_rows])
+            present[i[w > 0]] = True
+        used = np.flatnonzero(present).astype(np.int64)
+        remap = np.zeros(n, dtype=np.int32)    # padding id 0 → 0
+        remap[used] = np.arange(len(used), dtype=np.int32)
+        out = np.empty_like(np.asarray(ids))
+        for lo in range(0, packed.M_pad, chunk_rows):
+            i = np.asarray(ids[lo:lo + chunk_rows])
+            w = np.asarray(weights[lo:lo + chunk_rows])
+            ni = remap[i]
+            ni[w <= 0] = 0
+            out[lo:lo + chunk_rows] = ni
+        return out, used
+
+    new_terms, used_ids = trim_axis(packed.terms, packed.counts, packed.V)
+    repl = dict(terms=new_terms, V=int(len(used_ids)))
+    if users:
+        if packed.readers is None:
+            raise ValueError("users=True needs a packed corpus with "
+                             "reader arrays (pack_corpus with_readers)")
+        new_readers, used_users = trim_axis(packed.readers, packed.ratings, packed.U)
+        repl.update(readers=new_readers, U=int(len(used_users)))
+        return dataclasses.replace(packed, **repl), used_ids, used_users
+    return dataclasses.replace(packed, **repl), used_ids
+
+
+def save_packed(path: str, packed: PackedCorpus) -> None:
+    """Write a dense PackedCorpus as ``<path>/meta.json`` and one ``.npy``
+    per array (uncompressed, so it loads as a memory map)."""
+    import json
+    import os
+
+    if packed.segments is not None:
+        raise ValueError("save_packed takes a dense (non-bucketed) "
+                         "PackedCorpus; save before bucketizing.")
+    os.makedirs(path, exist_ok=True)
+    present = []
+    for name in _PACKED_ARRAYS:
+        a = getattr(packed, name)
+        if a is not None:
+            np.save(os.path.join(path, f"{name}.npy"), np.ascontiguousarray(a))
+            present.append(name)
+    meta = {s: int(getattr(packed, s)) for s in _PACKED_SCALARS}
+    meta["arrays"] = present
+    meta["counts_dtype"] = str(packed.counts.dtype)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def load_packed(path: str, mmap: bool = True) -> PackedCorpus:
+    """Load a :func:`save_packed` directory.  With ``mmap=True`` (the
+    default) every array is a read-only memory map: building the corpus
+    costs no corpus-sized RAM, and a streamed batch reads only its pages."""
+    import json
+    import os
+
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    kw = {s: meta[s] for s in _PACKED_SCALARS}
+    for name in meta["arrays"]:
+        kw[name] = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r" if mmap else None)
+    return PackedCorpus(**kw)
