@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM and streaming paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming and multi-process paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -110,6 +110,22 @@ printing its own lines; any failure exits non-zero:
    ∆elbo > 0 (from the second for all but DTM), their kernels' launches,
    two same-seed runs bitwise equal, sweep walls; each family small on the
    card against the CPU in f64 from one init;
+12. (run before 11's results) the data axis across processes, the
+   counts set to 0 before each run in each process and read after: two
+   processes of a gloo group sharing the card (``chip_smoke.py --p12``,
+   ``parallel_child``) build ``LDA(packed, 100)`` with no ``device=`` and
+   no ``mesh=`` on the dense NSF corpus (phase 10's), ``train(iter=3,
+   checkelbo=1)``: ∆elbo > 0, each rank's launches (every chunk of its
+   slab), one step alone with its collectives' time; a checkpoint
+   directory and one iteration more; StreamingLDA, 2 iterations, a save,
+   1 more; fLDA, CTPF, CTM, fCTM, HMTM and DTM at phase 10's depths,
+   ``train(iter=2, checkelbo=1)``; here: every global and bound bitwise
+   equal across the ranks, LDA and StreamingLDA against one process from
+   the same init (rtol 5e-3 / atol 1e-5 on beta and alpha, 1e-5 on the
+   bound per iteration), the checkpoint directory loaded and resumed in one
+   process against the two ranks' resume, the streaming checkpoint loaded
+   in one process; then one process of an NCCL group: LDA on its mesh
+   bitwise equal to LDA with no collective;
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -127,6 +143,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1947,6 +1964,329 @@ def streaming_phase(smi, dev, kc, lda_step_s) -> tuple:
     return launches, dict(estep=kr["estep"], elbo=kr["elbo"], scatter=sc)
 
 
+P12_KERNELS = ("lda_estep", "lda_elbo_tok", "flda_estep", "ctpf_estep", "scatter_rows",
+               "hmtm_estep", "hmtm_logz")
+
+
+def p12_counters() -> dict:
+    """The seven kernel wrappers by name (each counts its launches)."""
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep, flda_estep, hmtm_estep, lda_elbo
+    from topicmodelsvb_jl_torch.kernels import lda_estep, scatter_rows
+
+    return {"lda_estep": lda_estep.lda_estep, "lda_elbo_tok": lda_elbo.lda_elbo_tok,
+            "flda_estep": flda_estep.flda_estep, "ctpf_estep": ctpf_estep.ctpf_estep,
+            "scatter_rows": scatter_rows.scatter_rows, "hmtm_estep": hmtm_estep.hmtm_estep,
+            "hmtm_logz": hmtm_estep.hmtm_logz}
+
+
+def p12_local(model):
+    """What n_chunks_of/scatters_of read, for this process's slab."""
+    import types
+
+    return types.SimpleNamespace(packed=model.local_packed, chunk_docs=model.chunk_docs)
+
+
+def parallel_child(mode: str, rank: int, world: int, port: int, tmp: str) -> int:
+    """One process of phase 12 (``chip_smoke.py --p12 MODE RANK WORLD PORT
+    DIR``): ``gloo`` is one of two ranks sharing the card, ``nccl`` the
+    one rank of an NCCL group.  Writes ``DIR/MODE{rank}.npz`` (globals,
+    for the bitwise comparison across ranks) and ``.json`` (launches,
+    bounds, times, printed lines); any failed check exits non-zero."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.parallel import multihost, shard
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend=mode)
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+    from topicmodelsvb_jl_torch.parallel.mesh import make_mesh
+
+    kern = p12_counters()
+    arrays, info, lines = {}, {"launches": {}}, []
+    tag = f"[{mode} rank {rank}/{world}]"
+
+    def run(fn) -> dict:
+        for k in kern.values():
+            k.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kern.items() if k.launches}
+        for n, v in got.items():
+            info["launches"][n] = info["launches"].get(n, 0) + v
+        return got
+
+    def keep(prefix, model):
+        for f in model.state.__dataclass_fields__:
+            if f not in model._per_doc_fields:
+                arrays[f"{prefix}/{f}"] = getattr(model.state, f).cpu().numpy()
+        info[f"{prefix}/trace"] = [r.elbo for r in model.trainer.trace]
+
+    spk = tt.load_packed(os.path.join(tmp, "nsf"))
+    if mode == "nccl":
+        # the same model on a mesh of every rank (one, over NCCL) and on
+        # this device with no collective: bit for bit equal
+        runs = {}
+        for name, mesh in (("local", make_mesh(local=True)), ("nccl", None)):
+            shard.STATS.reset()
+            m = tt.LDA(spk, 100, mesh=mesh, seed=7)
+            got = run(lambda: m.train(iter=2, checkelbo=1, printelbo=False))
+            runs[name] = (m, dict(shard.STATS.routes), got)
+        (a, ra, ga), (b, rb, gb) = runs["local"], runs["nccl"]
+        need(ra == {} and set(rb) == {"nccl:cuda"} and sum(rb.values()) > 0,
+             f"{tag} collective routes: local {ra}, mesh {rb}")
+        need(b._red_mesh is not None and b._n_shards == 1, f"{tag} no NCCL mesh")
+        need(ga == gb, f"{tag} launches differ: {ga} vs {gb}")
+        for f in a.state.__dataclass_fields__:
+            need(torch.equal(getattr(a.state, f), getattr(b.state, f)),
+                 f"{tag} LDA {f}: the one-rank NCCL mesh differs from no mesh")
+        lines.append(f"{tag} LDA NSF K=100, 2 iterations on the one-rank NCCL mesh: every "
+                     f"state field bitwise equal to mesh=None; collectives {rb}; launches {gb}")
+    else:
+        # 1. LDA at full width, no device= and no mesh=
+        m = tt.LDA(spk, 100, seed=7)
+        need(m.device.type == "cuda" and m._n_shards == world and m._shard == rank,
+             f"{tag} LDA not sharded over the ranks on CUDA")
+        loc = p12_local(m)
+        n_ch = n_chunks_of(loc)
+        got = run(lambda: m.train(iter=3, checkelbo=1, printelbo=False))
+        deltas = [r.delta_elbo for r in m.trainer.trace]
+        need(len(deltas) == 3 and all(d > 0 for d in deltas), f"{tag} LDA ∆elbo {deltas}")
+        want = {"lda_estep": 3 * n_ch, "lda_elbo_tok": 4 * n_ch,
+                "scatter_rows": 3 * scatters_of(loc)}
+        need(got == want, f"{tag} LDA launches {got}, want {want}")
+        need(np.isfinite(m.state.gamma.cpu().numpy()).all(), f"{tag} LDA gamma not finite")
+        keep("lda", m)
+        steps = [r.step_time_s for r in m.trainer.trace]
+        # one more step alone, its collectives timed (the device waited for
+        # around each), then put back: the checkpoint is of iteration 3
+        tr, st0 = m.trainer, m.state
+        shard.STATS.reset()
+        shard.STATS.timed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step_fn(st0, *tr.data)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        shard.STATS.timed = False
+        coll = dict(calls=shard.STATS.calls, bytes=shard.STATS.bytes,
+                    seconds=shard.STATS.seconds, routes=dict(shard.STATS.routes))
+        info["lda_step_s"], info["lda_coll"] = step_s, coll
+        lines.append(
+            f"{tag} LDA NSF K=100: {m.local_packed.M_pad} of {m.packed.M_pad} rows, {n_ch} "
+            f"chunks; ∆elbo {', '.join(f'{d:.3f}' for d in deltas)}; launches {got}; step+ELBO "
+            f"{', '.join(f'{x:.4f}' for x in steps)} s; one step alone {step_s:.4f} s, of "
+            f"which collectives {coll['seconds']:.4f} s ({coll['calls']} calls, "
+            f"{coll['bytes'] / 2**20:.1f} MiB sent, routes {coll['routes']})")
+        # 4. the directory checkpoint of iteration 3, then one iteration more
+        t0 = time.perf_counter()
+        tt.save_checkpoint(os.path.join(tmp, "ckpt"), m)
+        save_s = time.perf_counter() - t0
+        got = run(lambda: m.train(iter=1, checkelbo=1, printelbo=False))
+        need(m.trained_iters == 4, f"{tag} LDA resumed to {m.trained_iters}")
+        keep("lda_resumed", m)
+        lines.append(f"{tag} LDA checkpoint directory written in {save_s:.2f} s; one "
+                     f"iteration more: launches {got}")
+        del m, tr, st0
+        # 5. StreamingLDA, 2 iterations, a save, 1 more
+        sm = tt.StreamingLDA(spk, 100, chunk_docs=1024, seed=7)
+        need(sm._nproc == world and sm.batch_docs * world == 8192, f"{tag} StreamingLDA rows")
+        got = run(lambda: sm.train(iter=2, checkelbo=1, printelbo=False))
+        t0 = time.perf_counter()
+        sm.save(os.path.join(tmp, "sckpt"))
+        ssave_s = time.perf_counter() - t0
+        got2 = run(lambda: sm.train(iter=1, checkelbo=1, printelbo=False))
+        deltas = [t[2] for t in sm.trace]
+        need(len(deltas) == 3 and all(d > 0 for d in deltas), f"{tag} StreamingLDA ∆elbo {deltas}")
+        n_sc = sm.M_rows // sm.chunk_docs
+        want = {"lda_estep": 2 * n_sc, "lda_elbo_tok": 3 * n_sc,
+                "scatter_rows": 2 * scatter_plans_launching(sm)}
+        need(got == want, f"{tag} StreamingLDA launches {got}, want {want}")
+        for n in sm._globals:
+            arrays[f"stream/{n}"] = getattr(sm, n).cpu().numpy()
+        info["stream/trace"] = [t[1] for t in sm.trace]
+        lines.append(f"{tag} StreamingLDA NSF K=100: {sm.M_rows} of {spk.M_pad} rows, batch "
+                     f"{sm.batch_docs} of {sm._batch_docs_global}; ∆elbo "
+                     f"{', '.join(f'{d:.3f}' for d in deltas)}; launches {got} then {got2}; "
+                     f"save at iteration 2 {ssave_s:.2f} s")
+        del sm
+        # 3. the six other families at phase 10's depths, 2 iterations
+        fpk = tt.synth_packed_nsf_scale(M=16_384, chunk_docs=8192)
+        mpk = tt.synth_packed_nsf_scale(M=8192, chunk_docs=4096)
+        cases = (
+            ("fLDA NSF V, 16,384 documents", lambda: tt.fLDA(fpk, 100, seed=7), {}, 1,
+             lambda m_, n_: {"flda_estep": 2 * n_, "scatter_rows": 2 * scatters_of(p12_local(m_))}),
+            ("CTPF CiteULike", lambda: tt.CTPF(tt.load_packed(os.path.join(tmp, "citeu")),
+                                               100, seed=7), {}, 1,
+             lambda m_, n_: {"ctpf_estep": 2 * n_,
+                             "scatter_rows": 2 * scatters_of(p12_local(m_), True)}),
+            ("CTM NSF V, 8,192 documents", lambda: tt.CTM(mpk, 50, seed=7), {}, 1,
+             lambda m_, n_: {"lda_elbo_tok": 3 * n_,
+                             "scatter_rows": 2 * scatters_of(p12_local(m_))}),
+            ("fCTM NSF V, 8,192 documents", lambda: tt.fCTM(mpk, 50, seed=7), {}, 1,
+             lambda m_, n_: {"scatter_rows": 2 * scatters_of(p12_local(m_))}),
+            ("HMTM NSF unit counts, 16,384 documents",
+             lambda: tt.HMTM(unit_counts(fpk), 25, seed=7), {}, 1,
+             lambda m_, n_: {"hmtm_estep": 2 * n_, "hmtm_logz": 3 * n_,
+                             "scatter_rows": 2 * scatters_of(p12_local(m_))}),
+            ("DTM mac V, T=12, 8,192 documents",
+             lambda: tt.DTM(mac_corpus(M=8192), 20, delta=1.0, seed=7), dict(cgiter=10), 0,
+             lambda m_, n_: {"scatter_rows": 4 * n_}))
+        for label, make, kw, mono, expect in cases:
+            t0 = time.perf_counter()
+            fm = make()
+            build_s = time.perf_counter() - t0
+            need(fm._n_shards == world, f"{tag} {label}: not sharded")
+            n_ch = (fm.local_packed.M_pad // fm.chunk_docs if fm.local_packed.segments is None
+                    else n_chunks_of(p12_local(fm)))
+            t0 = time.perf_counter()
+            got = run(lambda: fm.train(iter=2, checkelbo=1, printelbo=False, **kw))
+            wall = time.perf_counter() - t0
+            deltas = [r.delta_elbo for r in fm.trainer.trace]
+            need(len(deltas) == 2 and all(d > 0 for d in deltas[mono:]),
+                 f"{tag} {label}: ∆elbo {deltas}")
+            want = expect(fm, n_ch)
+            need(got == want, f"{tag} {label}: launches {got}, want {want}")
+            fam = label.split()[0]
+            keep(fam, fm)
+            info.setdefault("families", []).append(fam)
+            lines.append(f"{tag} {label} K={fm.K}: {n_ch} chunks; ∆elbo "
+                         f"{', '.join(f'{d:.3f}' for d in deltas)}; launches {got}; built in "
+                         f"{build_s:.2f} s, 2 iterations in {wall:.2f} s")
+            del fm
+    info["lines"] = lines
+    np.savez(os.path.join(tmp, f"{mode}{rank}.npz"), **arrays)
+    with open(os.path.join(tmp, f"{mode}{rank}.json"), "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def parallel_phase(smi, kc) -> dict:
+    """Phase 12, the data axis across processes: two ranks over gloo
+    sharing the card, then one rank over NCCL (``parallel_child``); here
+    the checks across ranks and against one process from the same init.
+    Returns the ranks' launches."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tmvb_p12_")
+    spk = tt.synth_packed_nsf_scale(chunk_docs=8192)
+    tt.save_packed(os.path.join(tmp, "nsf"), spk)
+    tt.save_packed(os.path.join(tmp, "citeu"), kc["cpk"])
+
+    def spawn(mode, world):
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p12", mode,
+                                   str(r), str(world), str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  cwd=ROOT) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-6000:])
+            need(p.returncode == 0, f"phase 12: {mode} rank {r} exited {p.returncode}")
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{mode}{r}.json")) as f:
+                info = json.load(f)
+            info["arrays"] = dict(np.load(os.path.join(tmp, f"{mode}{r}.npz")))
+            for line in info["lines"]:
+                print(f"{line}; card {smi}")
+            res.append(info)
+        print(f"phase 12 {mode}: {world} process(es) in {wall:.1f} s; card {smi}")
+        return res
+
+    g = spawn("gloo", 2)
+    spawn("nccl", 1)
+    g0, g1 = g
+    # the ranks agree bit for bit on every global and on the bound
+    for key in sorted(g0["arrays"]):
+        need(np.array_equal(g0["arrays"][key], g1["arrays"][key]),
+             f"phase 12: ranks differ on {key}")
+    for key in [k for k in g0 if k.endswith("/trace")]:
+        need(g0[key] == g1[key], f"phase 12: ranks' {key} differ")
+
+    # against one process from the same init
+    def against(label, got, want, got_trace, want_trace):
+        err_b = float(np.linalg.norm(got["beta"] - want["beta"]) / np.linalg.norm(want["beta"]))
+        need(np.allclose(got["beta"], want["beta"], rtol=RTOL, atol=ATOL),
+             f"{label}: beta beyond rtol {RTOL} / atol {ATOL}")
+        if "alpha" in want:
+            need(np.allclose(got["alpha"], want["alpha"], rtol=RTOL, atol=ATOL),
+                 f"{label}: alpha beyond rtol {RTOL} / atol {ATOL}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got_trace, want_trace)]
+        need(len(got_trace) == len(want_trace) and max(rel) <= 1e-5,
+             f"{label}: bound per iteration {rel}")
+        d_el = (float(np.max(np.abs(got["alpha"] - want["alpha"]))) if "alpha" in want
+                else float("nan"))
+        print(f"{label}: beta relative norm of the difference {err_b:.3e}, max abs "
+              f"{float(np.max(np.abs(got['beta'] - want['beta']))):.3e}; alpha max abs "
+              f"{d_el:.3e}; bound relative per iteration {', '.join(f'{x:.2e}' for x in rel)}; "
+              f"card {smi}")
+
+    a = g0["arrays"]
+    one = tt.LDA(spk, 100, seed=7)
+    one.train(iter=3, checkelbo=1, printelbo=False)
+    against("phase 12 LDA two ranks vs one process",
+            {"beta": a["lda/beta"], "alpha": a["lda/alpha"]},
+            {"beta": one.beta, "alpha": one.alpha}, g0["lda/trace"],
+            [r.elbo for r in one.trainer.trace])
+    t0 = time.perf_counter()
+    back = tt.load_checkpoint(os.path.join(tmp, "ckpt"), spk)
+    load_s = time.perf_counter() - t0
+    need(back.trained_iters == 3 and back._n_shards == 1, "phase 12: checkpoint load")
+    back.train(iter=1, checkelbo=1, printelbo=False)
+    against("phase 12 LDA two-rank checkpoint resumed in one process vs resumed on two ranks",
+            {"beta": back.beta, "alpha": back.alpha},
+            {"beta": a["lda_resumed/beta"], "alpha": a["lda_resumed/alpha"]},
+            [r.elbo for r in back.trainer.trace], g0["lda_resumed/trace"])
+    del one, back
+    st1 = tt.StreamingLDA(spk, 100, chunk_docs=1024, seed=7)
+    st1.train(iter=2, checkelbo=1, printelbo=False)
+    sback = tt.load_streaming_checkpoint(os.path.join(tmp, "sckpt"), spk)
+    need(sback._nproc == 1 and sback.trained_iters == 2, "phase 12: streaming load")
+    against("phase 12 StreamingLDA two-rank checkpoint of iteration 2 loaded in one process "
+            "vs one process", {"beta": sback.beta.cpu().numpy(), "alpha": sback.alpha.cpu().numpy()},
+            {"beta": st1.beta.cpu().numpy(), "alpha": st1.alpha.cpu().numpy()},
+            [t[1] for t in sback.trace], [t[1] for t in st1.trace])
+    st1.train(iter=1, checkelbo=1, printelbo=False)
+    against("phase 12 StreamingLDA two ranks vs one process, 3 iterations",
+            {"beta": a["stream/beta"], "alpha": a["stream/alpha"]},
+            {"beta": st1.beta.cpu().numpy(), "alpha": st1.alpha.cpu().numpy()},
+            g0["stream/trace"], [t[1] for t in st1.trace])
+    del st1, sback
+    torch.cuda.empty_cache()
+    launches = {}
+    for info in g:
+        for n, v in info["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    for r, info in enumerate(g):
+        c = info["lda_coll"]
+        print(f"phase 12 rank {r}: LDA step alone {info['lda_step_s']:.4f} s, collectives "
+              f"{c['seconds']:.4f} s of it over {c['routes']}; launches {info['launches']}; "
+              f"card {smi}")
+    print(f"phase 12: checkpoint directory loaded in one process in {load_s:.2f} s; "
+          f"families on two ranks: {g0['families']}; wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}; card {smi}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2092,6 +2432,12 @@ def main() -> int:
          f"streaming phase: a kernel never launched: {st_launches}")
     sc.append(st["scatter"])
 
+    # 12. the data axis across processes
+    p12 = parallel_phase(smi, kc)
+    need(all(p12.get(k, 0) > 0 for k in P12_KERNELS),
+         f"phase 12: a kernel never launched on the ranks: {p12}")
+    add(p12)
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -2131,4 +2477,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--p12"]:
+        sys.exit(parallel_child(sys.argv[2], *map(int, sys.argv[3:6]), sys.argv[6]))
     sys.exit(main())

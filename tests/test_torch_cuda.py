@@ -941,3 +941,58 @@ def test_streaming_float64_on_cuda_raises(cuda):
     pk, _, _ = _stream_case("StreamingLDA")
     with pytest.raises(TypeError, match="float32"):
         tt.StreamingLDA(pk, 8, dtype=torch.float64, device=cuda)
+
+
+_TWO_RANKS = r"""
+import os, sys
+import numpy as np
+import torch
+from topicmodelsvb_jl_torch.parallel import multihost
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+import topicmodelsvb_jl_torch as tt
+from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+m = tt.LDA(tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=30, seed=2), 8, seed=1)
+assert m.device.type == "cuda" and m._n_shards == 2
+lda_estep.launches = 0
+m.train(iter=2, checkelbo=1, printelbo=False)
+np.savez(os.path.join(out, f"r{rank}.npz"), beta=m.state.beta.cpu().numpy(),
+         alpha=m.state.alpha.cpu().numpy(), launches=lda_estep.launches,
+         trace=np.array([r.elbo for r in m.trainer.trace]))
+"""
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two processes of a gloo group on the one card: LDA with no device=
+    and no mesh= shards over them, each launches its kernels, and the two
+    agree bit for bit and with one process to the f32 tolerance."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), str(port),
+                               str(tmp_path)], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    r0, r1 = (np.load(tmp_path / f"r{r}.npz") for r in range(2))
+    for f in ("beta", "alpha", "trace"):
+        np.testing.assert_array_equal(r0[f], r1[f])
+    assert int(r0["launches"]) > 0 and int(r1["launches"]) > 0
+    one = tt.LDA(tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=30, seed=2), 8, seed=1)
+    one.train(iter=2, checkelbo=1, printelbo=False)
+    np.testing.assert_allclose(r0["beta"], one.beta, rtol=5e-3, atol=1e-5)
+    np.testing.assert_allclose(r0["alpha"], one.alpha, rtol=5e-3, atol=1e-5)
+    np.testing.assert_allclose(r0["trace"], [r.elbo for r in one.trainer.trace], rtol=1e-5)

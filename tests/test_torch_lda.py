@@ -207,7 +207,9 @@ def test_import_loads_no_jax():
             "topicmodelsvb_jl_torch.corpus, topicmodelsvb_jl_torch.datasets, "
             "topicmodelsvb_jl_torch.evaluate, topicmodelsvb_jl_torch.native, "
             "topicmodelsvb_jl_torch.utils.display, topicmodelsvb_jl_torch.checkpoint, "
-            "topicmodelsvb_jl_torch.models.dtm, topicmodelsvb_jl_torch.streaming; "
+            "topicmodelsvb_jl_torch.models.dtm, topicmodelsvb_jl_torch.streaming, "
+            "topicmodelsvb_jl_torch.parallel.multihost, topicmodelsvb_jl_torch.parallel.mesh, "
+            "topicmodelsvb_jl_torch.parallel.shard; "
             "from topicmodelsvb_jl_torch.streaming import (StreamingLDA, StreamingCTPF, "
             "StreamingFLDA, StreamingCTM, StreamingFCTM, StreamingHMTM, StreamingDTM, load); "
             "from topicmodelsvb_jl_torch.ops.packing import save_packed, load_packed, "

@@ -35,6 +35,10 @@ from .models import flda as flda_mod
 from .models import hmtm as hmtm_mod
 from .models import lda as lda_mod
 from .ops.packing import PackedCorpus, _round_up, bucketize_packed, pack_corpus
+from .parallel import multihost, shard
+from .parallel.mesh import (
+    axis_index, axis_size, check_data_only, data_shape, is_local, make_mesh,
+)
 from .utils.config import RuntimeConfig, TrainConfig
 from .utils.display import bullet, juliadots
 from .utils.numerics import elbo_value
@@ -55,12 +59,20 @@ class TopicModel:
     _preferred_chunk = 1024
 
     def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
-                 device="cuda", seed: int = 0):
+                 mesh=None, device="cuda", seed: int = 0):
         """``corp`` is a :class:`~.corpus.Corpus`, or a :class:`PackedCorpus`
-        (dense, or bucketed for one shard) for data that never existed as
-        Document objects; a model built from a PackedCorpus has no
-        corpus-text displays.  ``device`` is where the state and the data
-        live: the CUDA device unless the caller names another."""
+        (dense, or bucketed for the mesh's data-axis size) for data that
+        never existed as Document objects; a model built from a
+        PackedCorpus has no corpus-text displays.  ``device`` is where the
+        state and the data live: the CUDA device unless the caller names
+        another.
+
+        ``mesh`` shards the documents over its data axis
+        (``runtime.data_axis``), one process a shard (``parallel/``): every
+        process builds the model from the same corpus and keeps only its
+        own slab of the packed rows and of the per-document state.  With
+        no mesh, it is every process of an initialised process group
+        (``parallel.multihost.initialize``), or else this one device."""
         if K <= 0:
             raise ValueError("number of topics must be a positive integer.")
         if not isinstance(corp, (Corpus, PackedCorpus)):
@@ -75,17 +87,30 @@ class TopicModel:
                         else RuntimeConfig(chunk_docs=self._preferred_chunk))
         self.dtype = getattr(torch, self.runtime.dtype)
         self.seed = seed
+        ax = self.runtime.data_axis
+        shape = data_shape(self.runtime.mesh_shape)
+        if mesh is None and (multihost.is_initialized() or shape is not None):
+            mesh = make_mesh(axis_names=(ax,), shape=shape)
+        if mesh is not None:
+            check_data_only(mesh, ax)
+        self.mesh = mesh
+        # the mesh the steps reduce over: None when there is nothing to reduce
+        self._red_mesh = None if is_local(mesh) else mesh
+        n_sh = axis_size(mesh, ax)
+        self._n_shards, self._shard = n_sh, axis_index(mesh, ax)
         self.corp = None
         # what the checkpoint fingerprint hashes, lazily (_fingerprint): the
         # corpus, or the packed object the caller holds, before bucketing
         self._fp_src = corp
+        per_shard = max(1, math.ceil(max(len(corp.docs) if isinstance(corp, Corpus)
+                                         else corp.M, 1) / n_sh))
         if isinstance(corp, Corpus):
             corpuslib.check_corp(corp)
             self.corp = corp.copy()   # corpus-level isolation (LDA.jl:44)
             self._fp_src = self.corp
             corp = pack_corpus(self.corp, pad_multiple=self.runtime.pad_multiple,
                                docs_multiple=min(self.runtime.chunk_docs,
-                                                 _round_up(max(1, len(corp)), 8)),
+                                                 _round_up(per_shard, 8)) * n_sh,
                                with_readers=self._uses_readers,
                                dtype=np.dtype(self.runtime.dtype))
         # a Corpus's users count even where the model packs no readers
@@ -99,15 +124,18 @@ class TopicModel:
         else:
             self.N = corp.N[: corp.M].tolist()
             self.C = corp.C[: corp.M].tolist()
-        if corp.segments is not None and corp.n_shards != 1:
+        if corp.segments is not None and corp.n_shards != n_sh:
+            # bucketed rows are shard-major for corp.n_shards shards: another
+            # data-axis size would pair each shard's segment rows with the
+            # wrong per-document state rows
             raise TopicModelError(
                 f"pre-bucketed corpus was laid out for n_shards="
-                f"{corp.n_shards}; this model runs on one device, "
-                f"re-bucketize with n_shards=1.")
-        cand = min(self.runtime.chunk_docs, _round_up(max(1, self.M), 8))
+                f"{corp.n_shards} but the mesh data axis has {n_sh} "
+                f"shards; re-bucketize with n_shards={n_sh}.")
+        cand = min(self.runtime.chunk_docs, _round_up(per_shard, 8))
         if corp.segments is not None and corp.chunk:
-            # pre-bucketed rows come in multiples of corp.chunk: clamp
-            # to a divisor so the chunks tile evenly
+            # pre-bucketed rows come in multiples of corp.chunk per shard:
+            # clamp to a divisor so the chunks tile evenly
             cand = (corp.chunk if cand >= corp.chunk
                     else math.gcd(cand, corp.chunk))
         self.chunk_docs = cand
@@ -118,9 +146,12 @@ class TopicModel:
                              "in the packed corpus.")
         if self._bucketed and self.packed.segments is None:
             self.packed = bucketize_packed(
-                self.packed, chunk=self.chunk_docs, n_shards=1,
+                self.packed, chunk=self.chunk_docs, n_shards=n_sh,
                 pad_multiple=min(self.runtime.bucket_pad,
                                  self.runtime.pad_multiple))
+        elif not self._bucketed and self.packed.M_pad % (self.chunk_docs * n_sh):
+            raise ValueError(f"packed doc axis {self.packed.M_pad} must divide into "
+                             f"chunk_docs×shards = {self.chunk_docs}×{n_sh}")
         for s in self.packed.segments or ():
             # the kernels index the [V, K] table with these ids unchecked
             if s.terms.size and (s.terms.min() < 0 or s.terms.max() >= self.V):
@@ -128,6 +159,10 @@ class TopicModel:
         r = self.packed.readers
         if self._uses_readers and r.size and (r.min() < 0 or r.max() >= max(self.U, 1)):
             raise ValueError(f"reader ids must lie in [0, {max(self.U, 1)})")
+        # this process's slab of the packed rows (the whole corpus on one
+        # shard); the state holds its rows, global rows [_row_lo, _row_lo + M_pad)
+        self.local_packed = multihost.local_packed(self.packed, n_sh, self._shard)
+        self._row_lo = self._shard * self.local_packed.M_pad
         self.state = None
         self.trainer: Optional[Trainer] = None
         self.topics: Optional[np.ndarray] = None  # [K, V] 1-based rankings
@@ -154,22 +189,47 @@ class TopicModel:
         """Extra constructor arguments a checkpoint must replay."""
         return {}
 
+    def _dp(self) -> dict:
+        """The mesh and axis a step and a bound reduce over."""
+        return dict(mesh=self._red_mesh, axis_name=self.runtime.data_axis)
+
+    def _local_rows(self, a):
+        """This process's rows of a whole per-row array (packed-row order)."""
+        return multihost.local_rows(a, self._n_shards, self._shard)
+
+    def _require_whole(self) -> None:
+        """Raise on a model sharded over processes: each holds its own rows
+        of the per-document state, never to be passed off as the whole."""
+        if self._n_shards > 1:
+            raise TopicModelError(
+                f"the per-document state is sharded over {self._n_shards} processes, "
+                "each holding its own rows; save a checkpoint (save_checkpoint) and "
+                "load it in one process to read it.")
+
+    def _whole(self, t: torch.Tensor) -> np.ndarray:
+        """A per-document state field on the host, every packed row of it."""
+        self._require_whole()
+        return _host(t)
+
     def _trainer_kw(self) -> dict:
         """The Trainer's sinks: the JSONL metrics file and, with
         ``checkpoint_every`` and ``checkpoint_dir`` set, the checkpoint
-        callback.  Each checkpoint is taken on the training thread (its
-        device-to-host copy started, not waited for) and written by a
-        background thread to a ``.tmp`` file, then renamed over
-        ``ckpt_iter{k:06d}``, so a kill mid-write never leaves a torn
-        checkpoint.  One write is in flight at a time."""
+        callback.  On one process each checkpoint is taken on the training
+        thread (its device-to-host copy started, not waited for) and
+        written by a background thread to a ``.tmp`` file, then renamed
+        over ``ckpt_iter{k:06d}``, so a kill mid-write never leaves a torn
+        checkpoint; one write is in flight at a time.  A model sharded over
+        processes writes the directory format synchronously (every
+        process its own rows, ``checkpoint.save``); process 0 renames it.
+        Only the data axis's first process prints and writes metrics."""
         rt = self.runtime
-        kw = dict(metrics_path=rt.metrics_path)
+        kw = dict(metrics_path=rt.metrics_path, main=self._shard == 0)
         if rt.checkpoint_every > 0 and rt.checkpoint_dir:
             from . import checkpoint as ckptlib
 
             def clear(p):
                 # a killed run's leftover: a file, or the directory of a
-                # multi-process run of the JAX package
+                # multi-process run
                 if os.path.isdir(p):
                     shutil.rmtree(p)
                 elif os.path.exists(p):
@@ -181,6 +241,19 @@ class TopicModel:
                 os.makedirs(rt.checkpoint_dir, exist_ok=True)
                 final = os.path.join(rt.checkpoint_dir, f"ckpt_iter{k:06d}")
                 tmp = final + ".tmp"
+                if self._n_shards > 1:
+                    # no process writes into a stale tmp that process 0 is
+                    # still removing
+                    if self._shard == 0:
+                        clear(tmp)
+                    shard.barrier(self.mesh)
+                    ckptlib.save(tmp, self,
+                                 compress="f16" if rt.checkpoint_f16 else None)
+                    if self._shard == 0:
+                        # a directory cannot be renamed over a non-empty one
+                        clear(final)
+                        os.replace(tmp, final)
+                    return
                 if self._ckpt_writer is None:
                     self._ckpt_writer = ckptlib.AsyncWriter()
                 snap = ckptlib.snapshot(self, compress="f16" if rt.checkpoint_f16 else None)
@@ -214,8 +287,9 @@ class TopicModel:
         return self.state.beta
 
     def _data_arrays(self) -> tuple:
-        """Per-segment (terms, counts, doc_mask) tensors on the device."""
-        segs = self.packed.segments
+        """This process's per-segment (terms, counts, doc_mask) tensors on
+        the device."""
+        segs = self.local_packed.segments
         put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(self.device)
         return (tuple(put(s.terms, torch.int32) for s in segs),
                 tuple(put(s.counts, self.dtype) for s in segs),
@@ -241,6 +315,12 @@ class TopicModel:
         # check_model: every train! entry validates the full variational
         # state (reference modelutils.jl:39-360)
         from .validate import check_model
+        n_rows = self.local_packed.M_pad
+        for f in self._per_doc_fields:
+            if getattr(self.state, f).shape[0] != n_rows:
+                raise TopicModelError(
+                    f"state field {f} has {getattr(self.state, f).shape[0]} rows; this "
+                    f"process holds {n_rows} (convert.state_for gives a process its rows)")
         check_model(self)
         self.trainer = self._build_trainer(cfg)
         all_empty = all(n == 0 for n in self.N)
@@ -275,6 +355,7 @@ class TopicModel:
         idx = np.atleast_1d(np.asarray(d, dtype=np.int64))
         if np.any((idx < 1) | (idx > self.M)):
             raise CorpusError("some document indices outside corpus range.")
+        self._require_whole()
         out = self._topicdist_rows(self._rows(idx - 1))
         return out[0] if scalar else out
 
@@ -371,11 +452,11 @@ class _DirichletAccessors:
 
     @property
     def gamma(self) -> np.ndarray:
-        return _host(self.state.gamma)[self._doc_rows()]
+        return self._whole(self.state.gamma)[self._doc_rows()]
 
     @property
     def Elogtheta(self) -> np.ndarray:
-        return _host(self.state.Elogtheta)[self._doc_rows()]
+        return self._whole(self.state.Elogtheta)[self._doc_rows()]
 
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         return _host(lda_mod.topicdist(self.state, torch.as_tensor(rows)))
@@ -392,15 +473,15 @@ class LDA(_DirichletAccessors, TopicModel):
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = lda_mod.init(gen, self.packed, self.K, self.dtype,
+        self.state = lda_mod.init(gen, self.local_packed, self.K, self.dtype,
                                   self.device)
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = lda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
-        elbo = lda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+        elbo = lda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data,
                        M=self.M, C=int(sum(self.C)), device=self.device,
@@ -418,15 +499,15 @@ class fLDA(_DirichletAccessors, TopicModel):
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = flda_mod.init(gen, self.packed, self.K, self.dtype,
+        self.state = flda_mod.init(gen, self.local_packed, self.K, self.dtype,
                                    self.device)
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = flda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
-        elbo = flda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+        elbo = flda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         C = sum(self.C)
         # M_total and C_total stay on the device, like eta
@@ -446,7 +527,7 @@ class fLDA(_DirichletAccessors, TopicModel):
     @property
     def tau(self):
         """Ragged view: list of per-doc tau vectors (reference fLDA.jl:25)."""
-        t = _host(self.state.tau)
+        t = self._whole(self.state.tau)
         rows = self._doc_rows()
         return [t[rows[d], : self.N[d]] for d in range(self.M)]
 
@@ -497,8 +578,8 @@ class CTPF(TopicModel):
     _SCORES_DENSE_MAX = 100_000_000
 
     def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
-                 device="cuda", seed: int = 0):
-        super().__init__(corp, K, runtime, device=device, seed=seed)
+                 mesh=None, device="cuda", seed: int = 0):
+        super().__init__(corp, K, runtime, mesh=mesh, device=device, seed=seed)
         # R and the user libraries (CTPF.jl:62-65, 1-based doc indices)
         # from the reader arrays: 0-based user ids, rows permuted by packing
         rows = self._doc_rows()
@@ -523,6 +604,7 @@ class CTPF(TopicModel):
 
     @property
     def scores(self) -> np.ndarray:
+        self._require_whole()
         if self._scores_np is None:
             if self._scores_dev is not None:
                 self._scores_np = _host(self._scores_dev)
@@ -558,6 +640,7 @@ class CTPF(TopicModel):
 
     def _rec_row(self, kind: str, i: int) -> list:
         """Ranked recommendation row (0-based i), computed on demand."""
+        self._require_whole()
         if kind == "d":   # users for document i
             n = self.U
             p = self.packed
@@ -585,23 +668,23 @@ class CTPF(TopicModel):
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = ctpf_mod.init(gen, self.packed, self.K, self.dtype,
+        self.state = ctpf_mod.init(gen, self.local_packed, self.K, self.dtype,
                                    self.device)
 
     def _step_data(self) -> tuple:
         """(terms, counts, readers, ratings, doc_mask): per-segment token
         tuples and the dense reader arrays, on the device."""
         terms, counts, doc_mask = self._data_arrays()
-        p = self.packed
+        p = self.local_packed
         put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(self.device)
         return (terms, counts, put(p.readers, torch.int32), put(p.ratings, self.dtype),
                 doc_mask)
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = ctpf_mod.make_step(p, self.K, viter=cfg.viter, vtol=cfg.vtol,
-                                  chunk_docs=self.chunk_docs, device=self.device)
-        elbo = ctpf_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+                                  chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+        elbo = ctpf_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._step_data()
         return Trainer(step, elbo, data, data, M=self.M, C=int(sum(self.C)),
                        device=self.device, **self._trainer_kw())
@@ -622,7 +705,10 @@ class CTPF(TopicModel):
         # scores Eeta'·(Etheta+Eepsilon) (CTPF.jl:381-386): one product on
         # the device, kept there; past _SCORES_DENSE_MAX elements rec rows
         # come from per-row products instead
-        if self.M * self.U > self._SCORES_DENSE_MAX:
+        if self._n_shards > 1:   # the scores need every document's state
+            self._scores_dev = None
+            self._lazy_scores = False
+        elif self.M * self.U > self._SCORES_DENSE_MAX:
             self._scores_dev = None
             self._lazy_scores = True
         else:
@@ -643,7 +729,7 @@ class CTPF(TopicModel):
 
     @property
     def gimel(self) -> np.ndarray:
-        return _host(self.state.gimel)[self._doc_rows()]
+        return self._whole(self.state.gimel)[self._doc_rows()]
 
     @property
     def dalet(self) -> np.ndarray:
@@ -659,7 +745,7 @@ class CTPF(TopicModel):
 
     @property
     def zayin(self) -> np.ndarray:
-        return _host(self.state.zayin)[self._doc_rows()]
+        return self._whole(self.state.zayin)[self._doc_rows()]
 
     @property
     def het(self) -> np.ndarray:
@@ -769,9 +855,9 @@ class CTM(TopicModel):
     _model = ctm_mod
 
     def __init__(self, corp, K: int, runtime: Optional[RuntimeConfig] = None, *,
-                 device="cuda", seed: int = 0, identify: bool = False):
+                 mesh=None, device="cuda", seed: int = 0, identify: bool = False):
         self.identify = bool(identify)
-        super().__init__(corp, K, runtime, device=device, seed=seed)
+        super().__init__(corp, K, runtime, mesh=mesh, device=device, seed=seed)
 
     def __repr__(self):
         return f"Correlated topic model with {self.K} topics."
@@ -782,14 +868,14 @@ class CTM(TopicModel):
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = self._model.init(gen, self.packed, self.K, self.dtype, self.device)
+        self.state = self._model.init(gen, self.local_packed, self.K, self.dtype, self.device)
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = self._model.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter, ntol=cfg.ntol,
-            chunk_docs=self.chunk_docs, device=self.device, identify=self.identify)
-        elbo = self._model.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+            chunk_docs=self.chunk_docs, device=self.device, identify=self.identify, **self._dp())
+        elbo = self._model.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data, M=self.M,
                        C=int(sum(self.C)), device=self.device, **self._trainer_kw())
@@ -812,17 +898,17 @@ class CTM(TopicModel):
 
     @property
     def lam(self) -> np.ndarray:
-        return _host(self.state.lam)[self._doc_rows()]
+        return self._whole(self.state.lam)[self._doc_rows()]
 
     lambda_ = lam   # the reference's field name
 
     @property
     def vsq(self) -> np.ndarray:
-        return _host(self.state.vsq)[self._doc_rows()]
+        return self._whole(self.state.vsq)[self._doc_rows()]
 
     @property
     def logzeta(self) -> np.ndarray:
-        return _host(self.state.logzeta)[self._doc_rows()]
+        return self._whole(self.state.logzeta)[self._doc_rows()]
 
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         rows = torch.as_tensor(rows, device=self.device)
@@ -851,7 +937,7 @@ class fCTM(CTM):
     @property
     def tau(self):
         """Ragged view: list of per-doc tau vectors (reference fCTM.jl:28)."""
-        t = _host(self.state.tau)
+        t = self._whole(self.state.tau)
         rows = self._doc_rows()
         return [t[rows[d], : self.N[d]] for d in range(self.M)]
 
@@ -868,7 +954,8 @@ class DTM(TopicModel):
     _per_doc_fields = ("gamma", "Elogtheta", "lzeta")
 
     def __init__(self, corp, K: int, delta: float, basemodel=None,
-                 runtime: Optional[RuntimeConfig] = None, *, device="cuda", seed: int = 0):
+                 runtime: Optional[RuntimeConfig] = None, *, mesh=None, device="cuda",
+                 seed: int = 0):
         if not isinstance(corp, Corpus):
             raise TopicModelError("DTM requires a Corpus with per-document stamps; "
                                   "PackedCorpus input is not supported.")
@@ -878,7 +965,7 @@ class DTM(TopicModel):
             raise CorpusError("every document must carry a finite stamp.")
         self.delta = float(delta)
         self._basemodel = basemodel
-        super().__init__(corp, K, runtime, device=device, seed=seed)
+        super().__init__(corp, K, runtime, mesh=mesh, device=device, seed=seed)
 
     def __repr__(self):
         return f"Dynamic topic model with {self.K} topics and {self.T} time slices."
@@ -920,24 +1007,26 @@ class DTM(TopicModel):
                 raise TopicModelError("basemodel must be an LDA, fLDA, CTM or fCTM model.")
             bh0 = logb[None, :, :] + rng.standard_normal((self.T, self.K, self.V))
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = dtm_mod.init(gen, self.packed, self.K, self.T, self.dtype, self.device,
-                                  betahat0=bh0, alpha0=a0, gamma0=g0)
+        self.state = dtm_mod.init(gen, self.local_packed, self.K, self.T, self.dtype, self.device,
+                                  betahat0=bh0, alpha0=a0,
+                                  gamma0=None if g0 is None else self._local_rows(g0))
 
     def _step_data(self) -> tuple:
         """(slice_id, terms, counts, doc_mask): the dense packed arrays on
         the device."""
-        p = self.packed
+        p = self.local_packed
         put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(self.device)
-        return (put(self.slice_id, torch.int64), put(p.terms, torch.int32),
+        return (put(self._local_rows(self.slice_id), torch.int64), put(p.terms, torch.int32),
                 put(p.counts, self.dtype), put(p.doc_mask, self.dtype))
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = dtm_mod.make_step(p, self.K, self.T, viter=cfg.viter, vtol=cfg.vtol,
                                  niter=cfg.niter, ntol=cfg.ntol, cgiter=self._cgiter,
                                  cgtol=self._cgtol, chunk_docs=self.chunk_docs,
-                                 slice_id=self.slice_id, device=self.device)
-        elbo = dtm_mod.make_elbo(p, self.K, self.T, chunk_docs=self.chunk_docs)
+                                 slice_id=self._local_rows(self.slice_id), device=self.device,
+                                 **self._dp())
+        elbo = dtm_mod.make_elbo(p, self.K, self.T, chunk_docs=self.chunk_docs, **self._dp())
         data = self._step_data()
         return Trainer(step, elbo, data, data, M=self.M, C=int(sum(self.C)),
                        device=self.device, **self._trainer_kw())
@@ -979,7 +1068,7 @@ class DTM(TopicModel):
 
     @property
     def gamma(self) -> np.ndarray:
-        return _host(self.state.gamma)[: self.M]
+        return self._whole(self.state.gamma)[: self.M]
 
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         g = _host(self.state.gamma)[rows]
@@ -1020,14 +1109,14 @@ class HMTM(TopicModel):
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
-        self.state = hmtm_mod.init(gen, self.packed, self.K, self.dtype, self.device)
+        self.state = hmtm_mod.init(gen, self.local_packed, self.K, self.dtype, self.device)
 
     def _build_trainer(self, cfg: TrainConfig) -> Trainer:
-        p = self.packed
+        p = self.local_packed
         step = hmtm_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device)
-        elbo = hmtm_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs)
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+        elbo = hmtm_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data,
                        M=self.M, C=int(sum(self.C)), device=self.device,
@@ -1047,11 +1136,11 @@ class HMTM(TopicModel):
 
     @property
     def tau(self) -> np.ndarray:
-        return _host(self.state.tau)[self._doc_rows()]
+        return self._whole(self.state.tau)[self._doc_rows()]
 
     @property
     def gamma(self) -> np.ndarray:
-        return _host(self.state.gamma)[self._doc_rows()]
+        return self._whole(self.state.gamma)[self._doc_rows()]
 
     def _topicdist_rows(self, rows: np.ndarray) -> np.ndarray:
         return _host(hmtm_mod.topicdist(self.state, torch.as_tensor(rows)))
@@ -1063,6 +1152,7 @@ class HMTM(TopicModel):
         idx = np.atleast_1d(np.asarray(d, dtype=np.int64))
         if np.any((idx < 1) | (idx > self.M)):
             raise CorpusError("some document indices outside corpus range.")
+        self._require_whole()
         out = hmtm_mod.transdist(self.state, torch.as_tensor(self._rows(idx - 1)))
         return out[0] if scalar else out
 
@@ -1100,7 +1190,8 @@ def predict(corp: Corpus, train_model: TopicModel, iter: int = 10,
         raise TopicModelError("predict is not defined for DTM models.")
 
     cls = type(train_model)
-    new = cls(corp, train_model.K, runtime=train_model.runtime, device=train_model.device,
+    new = cls(corp, train_model.K, runtime=train_model.runtime, mesh=train_model.mesh,
+              device=train_model.device,
               seed=train_model.seed)
     ts = train_model.state
     # the frozen globals; fCTM subclasses CTM here, so it is tested first

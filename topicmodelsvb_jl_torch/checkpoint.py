@@ -16,10 +16,12 @@ both directions:
   the two halves of the asynchronous checkpoint: the snapshot starts the
   device-to-host copy on the training thread, the writer thread waits for
   it and writes the file.
-* :func:`load` also reads the directory format that a multi-process run of
-  the JAX package writes (``proc{i}.npz`` shards plus ``manifest.json``),
-  so such a run resumes on one device.  Writing that format waits for the
-  port's parallel axes.
+* A model sharded over processes (``parallel/``) saves to the directory
+  format of the JAX package's multi-process runs: one ``proc{i}.npz`` a
+  process, its per-document leaves as (document id, value) pairs, the
+  globals from process 0, and ``manifest.json`` written last, after a
+  barrier.  :func:`load` reads it, and the JAX package's, at any process
+  count.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import math
 import os
 import threading
 
@@ -39,8 +40,9 @@ from .ops.packing import PackedCorpus
 
 _FORMAT_VERSION = 2   # v2: the corpus fingerprint includes Document.stamp
 _MANIFEST = "manifest.json"
-# knobs of the JAX package's RuntimeConfig that change nothing on one device
-_IGNORED_RUNTIME = ("use_pallas", "data_axis", "vocab_axis", "peak_flops", "profile_steps")
+# knobs of the JAX package's RuntimeConfig that change nothing here (the
+# vocab axis only matters through a mesh_shape that makes it larger than 1)
+_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "profile_steps")
 # per-document leaves whose second axis is the packing's token width
 _TOKEN_FIELDS = ("tau", "tau_old")
 
@@ -108,11 +110,65 @@ def _model_meta(model) -> dict:
 
 
 def save(path: str, model, compress: str = None) -> None:
-    """Save a model's state and metadata to the file ``path``.
+    """Save a model's state and metadata to the file ``path``; for a model
+    sharded over processes, to the directory ``path`` (call it on every
+    process: it waits for all of them).
 
     ``compress="f16"`` halves the bytes of the per-document leaves (see
     :func:`snapshot`)."""
+    if model._n_shards > 1:
+        _save_multihost(path, model, compress=compress)
+        return
     write_snapshot(path, snapshot(model, compress=compress))
+
+
+def _row_to_doc(model) -> np.ndarray:
+    """Packed state row → original 0-based document id (−1 for padding)."""
+    row2doc = np.full(model.packed.M_pad, -1, dtype=np.int64)
+    row2doc[model._doc_rows()] = np.arange(model.M, dtype=np.int64)
+    return row2doc
+
+
+def _save_multihost(path: str, model, compress: str = None) -> None:
+    """Directory checkpoint of a model sharded over processes, as the JAX
+    package's ``_save_multihost`` writes it: every process writes
+    ``proc{i}.npz`` with the documents of its rows as (id, value) pairs,
+    process 0 adds the globals (the same on every process) and, after a
+    barrier, ``manifest.json``, so a manifest certifies a whole
+    checkpoint."""
+    from .parallel.shard import barrier
+
+    if compress not in (None, "f16"):
+        raise ValueError(f"unknown checkpoint compression {compress!r}")
+    pid = model._shard
+    fields = _fields(model.state)
+    doc_fields = set(model._per_doc_fields)
+    row2doc = _row_to_doc(model)
+    arrays = {}
+    for i, name in enumerate(fields):
+        x = getattr(model.state, name).detach().cpu().numpy()
+        if name in doc_fields:
+            ids = row2doc[model._row_lo:model._row_lo + x.shape[0]]
+            keep = ids >= 0
+            vals = x[keep]
+            if (compress == "f16" and np.issubdtype(vals.dtype, np.floating) and vals.size
+                    and np.max(np.abs(vals)) < 65504.0):
+                vals = vals.astype(np.float16)   # snapshot()'s range guard
+            arrays[f"leaf_{i}_ids"] = ids[keep]
+            arrays[f"leaf_{i}"] = vals
+        elif pid == 0:
+            arrays[f"leaf_{i}"] = x
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, f"proc{pid}.npz"), "wb") as f:
+        np.savez(f, **arrays)
+    barrier(model.mesh)
+    if pid == 0:
+        manifest = dict(meta=_model_meta(model), n_procs=model._n_shards)
+        tmp = os.path.join(path, _MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(path, _MANIFEST))
+    barrier(model.mesh)
 
 
 def snapshot(model, compress: str = None) -> tuple:
@@ -221,9 +277,12 @@ def _runtime(meta: dict, cls):
                 raise ValueError("the checkpoint was trained with elogtheta_f64=True, "
                                  "which this package does not implement")
         elif k == "mesh_shape":
-            if math.prod(v) > 1:
-                raise ValueError(f"the checkpoint's runtime has mesh_shape={v}; this "
-                                 "package runs on one device")
+            # a data-axis layout loads at any world size (the mesh is the
+            # loading run's); a tensor-parallel one is not ported
+            if any(int(s) > 1 for s in v[1:]):
+                raise ValueError(f"the checkpoint's runtime has mesh_shape={v}, a "
+                                 "tensor-parallel layout; this package ports the data "
+                                 "axis only (ROADMAP queue 1 item 8b)")
         elif k in known:
             kw[k] = v
         else:
@@ -231,7 +290,7 @@ def _runtime(meta: dict, cls):
     return RuntimeConfig(**kw)
 
 
-def _rebuild_model(meta: dict, corp, strict_corpus: bool, device):
+def _rebuild_model(meta: dict, corp, strict_corpus: bool, device, mesh=None):
     from . import api
 
     if meta["format"] != _FORMAT_VERSION:
@@ -249,7 +308,7 @@ def _rebuild_model(meta: dict, corp, strict_corpus: bool, device):
     if rt.dtype == "float64" and torch.device(device).type == "cuda":
         raise TypeError("a float64 checkpoint cannot run on CUDA (the kernels are "
                         "float32 only); load it with device='cpu'")
-    model = cls(corp, meta["K"], runtime=rt, device=device, seed=meta["seed"],
+    model = cls(corp, meta["K"], runtime=rt, mesh=mesh, device=device, seed=meta["seed"],
                 **meta.get("ctor", {}))
     model._fingerprint_cache = fp   # the same contents the model would hash
     model.trained_iters = int(meta.get("iteration", 0))
@@ -262,7 +321,7 @@ def _restore_state(model, meta: dict, global_leaves: dict, doc_chunks: dict) -> 
     ``global_leaves[name]`` is the full array; ``doc_chunks[name]`` a list
     of (doc_ids, values) pairs whose union covers documents 0..M-1,
     scattered into this model's packed rows (padding rows keep their init
-    values).  The token-width axis of ``tau``/``tau_old`` follows the
+    values): on a model sharded over processes, the rows of this process.  The token-width axis of ``tau``/``tau_old`` follows the
     packing: columns past the narrower width are padding slots."""
     names = _fields(model.state)
     if sorted(names) != sorted(meta["fields"]):
@@ -270,6 +329,7 @@ def _restore_state(model, meta: dict, global_leaves: dict, doc_chunks: dict) -> 
                          f"{type(model).__name__} state's {names}")
     doc_fields = set(meta.get("doc_fields", []))
     rows = model._doc_rows()
+    lo = model._row_lo
     fixed = {}
     for name in names:
         ref = getattr(model.state, name)
@@ -278,11 +338,13 @@ def _restore_state(model, meta: dict, global_leaves: dict, doc_chunks: dict) -> 
             covered = 0
             for ids, vals in doc_chunks[name]:
                 vals = np.asarray(vals)
+                r = rows[ids] - lo
+                mine = (r >= 0) & (r < out.shape[0])
                 if vals.shape[1:] == out.shape[1:]:
-                    out[rows[ids]] = vals
+                    out[r[mine]] = vals[mine]
                 elif name in _TOKEN_FIELDS and vals.ndim == out.ndim == 2:
                     w = min(vals.shape[1], out.shape[1])
-                    out[rows[ids], :w] = vals[:, :w]
+                    out[r[mine], :w] = vals[mine, :w]
                 else:
                     raise ValueError(f"checkpoint field {name} row shape {vals.shape[1:]} "
                                      f"incompatible with {out.shape[1:]}")
@@ -306,19 +368,21 @@ def _restore_state(model, meta: dict, global_leaves: dict, doc_chunks: dict) -> 
         model._finalize()
 
 
-def load(path: str, corp, strict_corpus: bool = True, device="cuda"):
+def load(path: str, corp, strict_corpus: bool = True, device="cuda", mesh=None):
     """Rebuild the model of a checkpoint on ``device`` from the corpus it
     was trained on.
 
     ``strict_corpus=True`` checks the corpus fingerprint, so a resumed run
     trains on the data it left off with.  Reads the single-file format and
-    the JAX package's multi-process directory format."""
+    the multi-process directory format, whatever the process count that
+    wrote it; ``mesh`` is the model's (see ``api.TopicModel``), so under an
+    initialised process group every process loads its own rows."""
     if os.path.isdir(path):
-        return _load_multihost(path, corp, strict_corpus, device)
+        return _load_multihost(path, corp, strict_corpus, device, mesh)
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         leaves = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
-    model = _rebuild_model(meta, corp, strict_corpus, device)
+    model = _rebuild_model(meta, corp, strict_corpus, device, mesh)
     all_ids = np.arange(model.M, dtype=np.int64)
     doc_fields = set(meta.get("doc_fields", []))
     global_leaves, doc_chunks = {}, {}
@@ -334,14 +398,14 @@ def load(path: str, corp, strict_corpus: bool = True, device="cuda"):
     return model
 
 
-def _load_multihost(path: str, corp, strict_corpus: bool, device):
+def _load_multihost(path: str, corp, strict_corpus: bool, device, mesh=None):
     """Load a directory checkpoint: ``manifest.json`` and one
     ``proc{i}.npz`` a process, whose per-document leaves come with their
     document ids (``leaf_{i}_ids``); the globals are process 0's."""
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     meta = manifest["meta"]
-    model = _rebuild_model(meta, corp, strict_corpus, device)
+    model = _rebuild_model(meta, corp, strict_corpus, device, mesh)
     doc_fields = set(meta.get("doc_fields", []))
     global_leaves = {}
     doc_chunks = {name: [] for name in doc_fields}

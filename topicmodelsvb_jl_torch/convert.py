@@ -5,6 +5,8 @@ same seed, so a comparison between the two packages starts both from one
 state: the JAX package's state fields, read as NumPy arrays by name,
 become this package's state dataclass, and back; a streaming model's
 globals, host arrays and counters go across by :func:`streaming_from`.
+:func:`state_for` gives a model sharded over processes its own rows of a
+whole state, such as the JAX package's state on an n-device mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .models.fctm import FCTMState
 from .models.flda import FLDAState
 from .models.hmtm import HMTMState
 from .models.lda import LDAState
+from .parallel.mesh import put_replicated, put_sharded
 
 LDA_FIELDS = tuple(LDAState.__dataclass_fields__)
 FLDA_FIELDS = tuple(FLDAState.__dataclass_fields__)
@@ -104,6 +107,20 @@ def hmtm_state_from_numpy(arrays: Mapping, device, dtype=torch.float32) -> HMTMS
 def hmtm_state_to_numpy(state: HMTMState) -> dict:
     return _to_numpy(state)
 
+
+
+def state_for(model, arrays: Mapping, dtype=None):
+    """The state of an api ``model`` from the arrays of a whole state
+    (each field by name, per-document fields in shard-major packed rows,
+    as the JAX package holds them on a mesh of as many devices as the
+    model's data axis has shards): this process's rows of every
+    per-document field, every global whole, on the model's device, in
+    ``dtype`` (default the model's)."""
+    cls = type(model.state)
+    kw = dict(device=model.device, dtype=dtype or model.dtype)
+    return cls(**{f: (put_sharded(arrays[f], model.mesh, model.runtime.data_axis, **kw)
+                      if f in model._per_doc_fields else put_replicated(arrays[f], **kw))
+                  for f in cls.__dataclass_fields__})
 
 
 def streaming_from(model, src):

@@ -11,6 +11,9 @@ around a model's (step, elbo) pair:
   a trace, and written as JSONL rows to ``metrics_path`` when one is set;
 * ``checkpoint_cb(k, state)`` every ``checkpoint_every`` outer iterations,
   its wall time kept out of the step timings;
+* on a model sharded over processes, every process runs the same loop:
+  the bound is reduced over them, so the trace and the stop test agree
+  bit for bit, and only the ``main`` process prints and writes JSONL;
 * :class:`HostReads`, a counter of the values a block of code reads back
   to the host, each of which waits for the device.
 
@@ -81,13 +84,16 @@ class Trainer:
     ``elbo_fn(state, *elbo_data) -> (2,) tensor`` evaluates the bound
     with the reference's *_old semantics as a compensated (hi, lo) pair.
     ``device``, when given, is the device the end-of-run wait is for.
+    ``main=False`` silences the printer and the JSONL sink (every process
+    but the first of a data axis).
     """
 
     def __init__(self, step_fn: Callable, elbo_fn: Callable, data: tuple,
                  elbo_data: Optional[tuple] = None, M: int = 0, C: int = 0,
                  printer: Callable[[str], None] = print, device=None,
                  metrics_path: Optional[str] = None,
-                 checkpoint_cb: Optional[Callable] = None, checkpoint_every: int = 0):
+                 checkpoint_cb: Optional[Callable] = None, checkpoint_every: int = 0,
+                 main: bool = True):
         self.step_fn = step_fn
         self.elbo_fn = elbo_fn
         self.data = tuple(data)
@@ -100,6 +106,7 @@ class Trainer:
         self.metrics_path = metrics_path
         self.checkpoint_cb = checkpoint_cb
         self.checkpoint_every = int(checkpoint_every)
+        self.main = bool(main)
 
     def train(self, state, cfg: TrainConfig, corpus_all_empty: bool = False,
               start_iter: int = 0):
@@ -136,7 +143,7 @@ class Trainer:
                     rec.host_sync_s = time.perf_counter() - sync_t0
                     state = dataclasses.replace(state, elbo=new_elbo)
                     rec.elbo, rec.delta_elbo = new_val, delta
-                    if cfg.printelbo:
+                    if cfg.printelbo and self.main:
                         self.printer(f"{k} ∆elbo: {round(delta, 3)}")
                 else:
                     sync_t0 = time.perf_counter()
@@ -168,7 +175,7 @@ class Trainer:
         return state
 
     def _emit(self, rec: IterationRecord) -> None:
-        if not self.metrics_path:
+        if not self.metrics_path or not self.main:
             return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(dataclasses.asdict(rec)) + "\n")

@@ -28,8 +28,10 @@ import torch
 from ..kernels.lda_elbo import lda_elbo_tok
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
-    EPSILON, dirichlet_ones, kbn_add, kbn_merge, kbn_pack, kbn_zero, l2norm, logsumexp,
+    EPSILON, dirichlet_ones, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, l2norm,
+    logsumexp,
     masked_fixpoint, mvnormal_diag_entropy,
 )
 from .lda import _chunks, token_plans
@@ -159,12 +161,15 @@ def global_update(g, beta_temp, vsq_sum, lam_sum, lam_outer, M_total, identify: 
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, identify: bool = False):
+              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
     segment tuples of device tensors on ``device`` and returns the next
     state; the chunks' scatter plans are built here and put on ``device``.
+    With a ``mesh`` (``packed`` this process's slab), the moments (vsq_sum,
+    lam_sum, lam_outer) and the beta statistic are summed over
+    ``axis_name`` before the M-step.
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
@@ -190,6 +195,8 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             for f, x in zip(new, out):
                 new[f][rows] = x
 
+        vsq_sum, lam_sum, lam_outer, beta_temp = (
+            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer, beta_temp))
         mu, sigma, invsigma, beta_new = global_update(state, beta_temp, vsq_sum, lam_sum,
                                                       lam_outer, M_total, identify)
         return CTMState(mu=mu, sigma=sigma, invsigma=invsigma, beta=beta_new,
@@ -224,7 +231,7 @@ def elbo_tables(state):
     return boT, g2T
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     """ELBO (CTM.jl:55-98): phi recomputed from (beta_old, lambda_old), the
     terms with the current parameters.  The token terms Elogpz (its
     Σ φc·λ part) + Elogpw − Elogqz are ``lda_elbo_tok`` on the tables of
@@ -242,7 +249,7 @@ def make_elbo(packed, K: int, chunk_docs: int):
                                   state.logzeta[rows])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
 
     return elbo
 

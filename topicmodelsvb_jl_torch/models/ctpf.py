@@ -30,8 +30,9 @@ import torch
 from ..kernels.ctpf_estep import ctpf_estep
 from ..kernels.scatter_rows import build_plan
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
-    digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge, kbn_pack, kbn_zero,
+    digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero,
     lgamma, xlogx,
 )
 from .lda import _chunks, token_plans
@@ -135,14 +136,17 @@ def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int) ->
     return alef_new, bet_new, dalet_new, he_new, vav_new, het_new
 
 
-def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
+def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
+              mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, readers, ratings, doc_mask)`` takes the
     per-segment tuples of terms/counts/doc_mask and the dense reader
     arrays on ``device``, and returns the next state; the chunks' two
     scatter plans (``lda.token_plans``, :func:`reader_plans`) are built
-    here and put on ``device``.
+    here and put on ``device``.  With a ``mesh`` (``packed`` this process's
+    slab), gimel_sum, zayin_sum, alef_temp and he_temp are summed over
+    ``axis_name`` before the global update.
     """
     V, U = packed.V, packed.U
     U_seg = max(U, 1)
@@ -170,6 +174,8 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device):
             for f_, v in zip(new, out):
                 new[f_][rows] = v
 
+        gimel_sum, zayin_sum, alef_temp, he_temp = (
+            psum(x, mesh, axis_name) for x in (gimel_sum, zayin_sum, alef_temp, he_temp))
         alef_new, bet_new, dalet_new, he_new, vav_new, het_new = global_update(
             alef_temp, he_temp, gimel_sum, zayin_sum, state.bet, state.vav, U)
         return CTPFState(
@@ -288,11 +294,13 @@ def elbo_chunk(tb: dict, t, cnt, rd, rt, dm, gi, gio, za, zao) -> tuple:
             torch.sum(dm * (rate_lin - rate_q + tok_lin - tok_q)))
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     """Closed-form ELBO (CTPF.jl:110-247 with the E[lnΓ(y+1)] cancellation).
 
     phi/xi are recomputed from the *_old parameter set (CTPF.jl:240-241);
-    all bound terms use the current parameters.
+    all bound terms use the current parameters.  With a ``mesh``, the
+    document and token sums are reduced over ``axis_name`` before the
+    global terms are added.
     """
     U = packed.U
     chunks = _chunks(packed, chunk_docs)
@@ -308,6 +316,8 @@ def make_elbo(packed, K: int, chunk_docs: int):
                                   state.zayin_old[rows])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
+        acc_doc = kbn_psum(acc_doc, mesh, axis_name)
+        acc_tok = kbn_psum(acc_tok, mesh, axis_name)
         return kbn_pack(kbn_add(kbn_merge(acc_doc, acc_tok), global_terms(tb)))
 
     return elbo

@@ -38,9 +38,10 @@ import torch
 from ..kernels.scatter_rows import build_plan
 from ..ops.newton import dirichlet_newton_batched
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
     EPSILON, categorical_entropy, digamma, dirichlet_entropy, finite, kbn_add, kbn_pack,
-    kbn_zero, kbn_zeros, l2norm, lgamma, masked_fixpoint,
+    kbn_psum, kbn_zero, kbn_zeros, l2norm, lgamma, masked_fixpoint,
 )
 
 
@@ -307,10 +308,12 @@ def sweep_chunk(prep, alpha, sid, terms, counts, doc_mask, gamma, El, lzeta, tpl
 
 
 def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
-               slice_id: np.ndarray, device):
+               slice_id: np.ndarray, device, mesh=None, axis_name=None):
     """The E-step sweep over every chunk:
     ``sweep(state, slice_id, terms, counts, doc_mask) -> (gamma, El,
-    lzeta, A, wz, els, nd)``, ``els`` a compensated (hi, lo) pair."""
+    lzeta, A, wz, els, nd)``, ``els`` a compensated (hi, lo) pair.  With a
+    ``mesh`` (``packed`` and ``slice_id`` this process's rows), wz, els,
+    nd and A are summed over ``axis_name`` at the end."""
     V = packed.V
     chunks = _chunk_rows(packed, chunk_docs)
     plans = scatter_plans(packed, slice_id, chunk_docs, device)
@@ -336,21 +339,28 @@ def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
             els = kbn_add(els, s[:, K:2 * K])
             nd = nd + s[:, 2 * K]
             gamma[rows], El[rows], lzeta[rows] = g2, el2, lz2
+        wz = psum(wz, mesh, axis_name)
+        els = kbn_psum(els, mesh, axis_name)
+        nd = psum(nd, mesh, axis_name)
+        A = psum(A, mesh, axis_name)
         return gamma, El, lzeta, A, wz, els, nd
 
     return sweep
 
 
 def make_step(packed, K: int, T: int, viter: int, vtol: float, niter: int, ntol: float,
-              cgiter: int, cgtol: float, chunk_docs: int, slice_id: np.ndarray, device):
+              cgiter: int, cgtol: float, chunk_docs: int, slice_id: np.ndarray, device,
+              mesh=None, axis_name=None):
     """One full CAVI sweep (train!, DTM.jl:311-335): the per-document
     fixpoints, the per-slice alpha Newtons, then the betahat CG.
 
     ``step(state, slice_id, terms, counts, doc_mask)`` takes the dense
     packed tensors on ``device`` (``slice_id`` int64 [M_pad], the host copy
     of which builds the scatter plans here).  ``step.sweep`` and
-    ``step.update`` are its two halves."""
-    sweep = make_sweep(packed, K, T, viter, vtol, chunk_docs, slice_id, device)
+    ``step.update`` are its two halves; ``mesh``: as in :func:`make_sweep`
+    (the update then runs alike on every process)."""
+    sweep = make_sweep(packed, K, T, viter, vtol, chunk_docs, slice_id, device,
+                       mesh=mesh, axis_name=axis_name)
     update = make_global_update(niter, ntol, cgiter, cgtol)
 
     def step(state: DTMState, slice_id, terms, counts, doc_mask) -> DTMState:
@@ -382,9 +392,10 @@ def slice_elbo_terms(state: DTMState) -> torch.Tensor:
     return e_pb + e_qb
 
 
-def make_elbo(packed, K: int, T: int, chunk_docs: int):
+def make_elbo(packed, K: int, T: int, chunk_docs: int, mesh=None, axis_name=None):
     """The full ELBO (updateELBO!, DTM.jl:161-174), as a compensated
-    (hi, lo) pair."""
+    (hi, lo) pair; with a ``mesh`` the document terms are reduced over
+    ``axis_name`` before the slice terms are added."""
     chunks = _chunk_rows(packed, chunk_docs)
 
     def elbo(state: DTMState, slice_id, terms, counts, doc_mask) -> torch.Tensor:
@@ -396,6 +407,7 @@ def make_elbo(packed, K: int, T: int, chunk_docs: int):
                 (maxl, rowsum, mbeta_flat), state.alpha, slice_id[rows], terms[rows],
                 counts[rows], doc_mask[rows], state.gamma[rows], state.Elogtheta[rows],
                 state.lzeta[rows]))
+        total = kbn_psum(total, mesh, axis_name)
         return kbn_pack(kbn_add(total, slice_elbo_terms(state)))
 
     return elbo

@@ -25,9 +25,10 @@ import torch
 
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_ones, kbn_add, kbn_merge,
-    kbn_pack, kbn_zero, l2norm, logsumexp, masked_fixpoint,
+    kbn_pack, kbn_psum, kbn_zero, l2norm, logsumexp, masked_fixpoint,
 )
 from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma, moment_sums
 from .lda import _chunks, token_plans
@@ -143,13 +144,13 @@ def global_update(g, stat, vsq_sum, lam_sum, lam_outer, M_total, identify: bool)
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, identify: bool = False):
+              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
     segment tuples of device tensors on ``device`` and returns the next
     state; the chunks' scatter plans are built here and put on ``device``.
-    ``identify``: as in ``ctm.make_step``.
+    ``identify`` and ``mesh``: as in ``ctm.make_step``.
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
@@ -182,6 +183,8 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 new[f][rows] = x
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
+        vsq_sum, lam_sum, lam_outer, stat = (
+            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer, stat))
         mu, sigma, invsigma, kappa_new, beta_new = global_update(
             state, stat, vsq_sum, lam_sum, lam_outer, M_total, identify)
         return FCTMState(eta=state.eta, mu=mu, sigma=sigma, invsigma=invsigma,
@@ -192,7 +195,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     """ELBO (fCTM.jl:67-124): phi recomputed from (tau_old, beta_old,
     lambda_old), the terms with the current parameters; doc-level and
     token-level terms ride two compensated accumulators."""
@@ -210,7 +213,7 @@ def make_elbo(packed, K: int, chunk_docs: int):
                                   state.tau[rows, :Ls], state.tau_old[rows, :Ls])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
 
     return elbo
 

@@ -29,9 +29,11 @@ import torch
 from ..kernels.flda_estep import flda_estep
 from ..ops.newton import dirichlet_newton
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_entropy,
-    dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_zero, kbn_zeros, lgamma,
+    dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, kbn_zeros,
+    lgamma,
 )
 from .lda import _chunks, token_plans
 
@@ -104,12 +106,14 @@ def global_update(stat, alpha, El_sum, tau_counts, M_total, C_total, niter: int,
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device):
+              chunk_docs: int, device, mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total, C_total)`` takes the
     per-segment tuples of tensors and two 0-dim tensors on ``device``, and
-    returns the next state; the scatter plans: as in ``lda.make_step``.
+    returns the next state; the scatter plans and ``mesh``: as in
+    ``lda.make_step`` (Elogtheta_sum, tau_counts and the [V, K+1]
+    beta/kappa statistic are summed over ``axis_name``).
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
@@ -140,6 +144,9 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
+        El_sum = kbn_psum(El_sum, mesh, axis_name)
+        tau_counts = psum(tau_counts, mesh, axis_name)
+        stat = psum(stat, mesh, axis_name)
         eta_new, alpha_new, kappa_new, beta_new = global_update(
             stat, state.alpha, El_sum[0], tau_counts, M_total, C_total, niter, ntol,
             El_sum[1])
@@ -153,12 +160,13 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     """ELBO with the reference's *_old recompute semantics (fLDA.jl:109-118).
 
     phi is recomputed from (tau_old, beta_old, Elogtheta_old); the terms
     use the current parameters.  Doc-level and token-level terms ride two
-    compensated (hi, lo) accumulators, as in the JAX package.
+    compensated (hi, lo) accumulators, as in the JAX package, reduced over
+    ``axis_name`` with a ``mesh``.
     """
     chunks = _chunks(packed, chunk_docs)
 
@@ -175,7 +183,7 @@ def make_elbo(packed, K: int, chunk_docs: int):
                                   state.tau_old[rows, :Ls])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
 
     return elbo
 

@@ -33,9 +33,10 @@ import torch
 from ..kernels.hmtm_estep import hmtm_estep, hmtm_logz
 from ..ops.newton import dirichlet_newton_batched
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
-    EPSILON, digamma, dirichlet_entropy, dirichlet_ones, kbn_add, kbn_pack, kbn_zero,
-    kbn_zeros, lgamma,
+    EPSILON, digamma, dirichlet_entropy, dirichlet_ones, kbn_add, kbn_pack, kbn_psum,
+    kbn_zero, kbn_zeros, lgamma,
 )
 from .lda import _chunks, token_plans
 
@@ -117,14 +118,16 @@ def global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float, niter: 
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device):
+              chunk_docs: int, device, mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep, reference
     train!, HMTM.jl:189-215).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
     segment tuples of device tensors and returns the next state; it is
     ``step.sweep`` (the E-step over the chunks, with the M-step
-    statistics) then ``step.update`` (beta and the Newtons)."""
+    statistics) then ``step.update`` (beta and the Newtons).  With a
+    ``mesh`` (``packed`` this process's slab), the sweep ends by summing
+    pi_sum, th_sum and beta_temp over ``axis_name``."""
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
@@ -147,6 +150,9 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             pi_sum = kbn_add(pi_sum, pi_part)
             th_sum = kbn_add(th_sum, th_part)
             tau[rows], gamma[rows] = tau2, gamma2
+        pi_sum = kbn_psum(pi_sum, mesh, axis_name)
+        th_sum = kbn_psum(th_sum, mesh, axis_name)
+        beta_temp = psum(beta_temp, mesh, axis_name)
         return tau, gamma, beta_temp, pi_sum, th_sum
 
     def update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float):
@@ -163,8 +169,9 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
-    """Build the full-corpus ELBO.
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+    """Build the full-corpus ELBO (reduced over ``axis_name`` with a
+    ``mesh``).
 
     For the structured family the z and w terms collapse to the forward
     log-normaliser: ELBO_d = log Z̃_d + E[log p(pi)] − E[log q(pi)] +
@@ -179,7 +186,7 @@ def make_elbo(packed, K: int, chunk_docs: int):
         for rows, j, sl in chunks:
             acc = kbn_add(acc, elbo_chunk(tables, terms[j][sl], counts[j][sl],
                                           doc_mask[j][sl], state.tau[rows], state.gamma[rows]))
-        return kbn_pack(acc)
+        return kbn_pack(kbn_psum(acc, mesh, axis_name))
 
     return elbo
 

@@ -32,9 +32,10 @@ from ..kernels.scatter_rows import build_plan
 from ..ops.newton import dirichlet_newton
 from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter_into
+from ..parallel.shard import psum
 from ..utils.numerics import (
     EPSILON, dirichlet_entropy, dirichlet_ones, finite, kbn_add, kbn_merge,
-    kbn_pack, kbn_zero, kbn_zeros, lgamma,
+    kbn_pack, kbn_psum, kbn_zero, kbn_zeros, lgamma,
 )
 
 
@@ -125,12 +126,15 @@ def global_update(beta_temp, alpha, El_sum, M_total, niter: int, ntol: float,
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device):
+              chunk_docs: int, device, mesh=None, axis_name=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
     segment tuples of device tensors on ``device`` and returns the next
     state; the chunks' scatter plans are built here and put on ``device``.
+    With a ``mesh``, ``packed`` is this process's slab, and the
+    statistics (Elogtheta_sum, beta_temp) are summed over ``axis_name``
+    before the M-step, which every process then runs alike.
     """
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
@@ -156,6 +160,8 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             El_sum = kbn_add(El_sum, el_part)
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
 
+        El_sum = kbn_psum(El_sum, mesh, axis_name)
+        beta_temp = psum(beta_temp, mesh, axis_name)
         beta_new, alpha_new = global_update(beta_temp, state.alpha, El_sum[0], M_total,
                                             niter, ntol, El_sum[1])
         return LDAState(
@@ -166,14 +172,16 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     """Build the full-corpus ELBO (reference LDA.jl:50-93).
 
     phi is recomputed from (beta_old, Elogtheta_old) exactly as
     update_elbo! does (LDA.jl:83-93); the five terms use the *current*
     alpha/beta/gamma/Elogtheta, mirroring check_elbo! running after the
     M-step (modelutils.jl:574-585).  The token terms go through
-    ``lda_elbo_tok``; the doc-level terms are [B, K] tensor ops.
+    ``lda_elbo_tok``; the doc-level terms are [B, K] tensor ops.  With a
+    ``mesh``, each process sums its slab and the pairs are reduced over
+    ``axis_name`` (``kbn_psum``).
     """
     chunks = _chunks(packed, chunk_docs)
 
@@ -189,7 +197,7 @@ def make_elbo(packed, K: int, chunk_docs: int):
                                   state.Elogtheta_old[rows])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_merge(acc_doc, acc_tok))
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
 
     return elbo
 

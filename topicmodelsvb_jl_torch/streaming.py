@@ -55,6 +55,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import time
 from typing import Optional
 
@@ -69,8 +70,13 @@ from .models import fctm as fctm_mod
 from .models import flda as flda_mod
 from .models import hmtm as hmtm_mod
 from .models import lda as lda_mod
+from .parallel import multihost
+from .parallel.mesh import axis_size, is_local, make_mesh
+from .parallel.shard import psum
 from .utils.config import TrainConfig
-from .utils.numerics import EPSILON, dirichlet_ones, elbo_value, kbn_add, kbn_merge, kbn_zero
+from .utils.numerics import (
+    EPSILON, dirichlet_ones, elbo_value, kbn_add, kbn_merge, kbn_psum, kbn_zero,
+)
 
 _CKPT_FORMAT = 1
 _ALIGN = 256          # byte alignment of each array in a staging buffer
@@ -281,7 +287,7 @@ class _StreamingModel:
     _svi_first_step_whole = True
 
     def _init_common(self, packed, K, batch_docs, chunk_docs, dtype, seed, device,
-                     state_dir=None):
+                     state_dir=None, mesh=None, data_axis="data"):
         if packed.segments is not None:
             raise ValueError(f"{type(self).__name__} takes a dense (non-bucketed) "
                              "PackedCorpus.")
@@ -298,13 +304,41 @@ class _StreamingModel:
         self._state_dir = state_dir
         if state_dir is not None:
             os.makedirs(state_dir, exist_ok=True)
+        # ── several processes (parallel/multihost) ──
+        # Process p owns the p-th L-row slice of every global batch of G =
+        # L·n_proc rows: global rows [bG + pL, bG + (p+1)L) for every
+        # batch b.  Global batch b is the union of the processes' local
+        # batches b, so the batch partition, and the batch-CAVI and online
+        # trajectories, do not depend on the process count.  The host state
+        # covers the owned rows only; the statistics and the bound are
+        # reduced over the processes once a sweep (online: once a global
+        # minibatch), gathered and folded in rank order.
+        self._nproc, self._pid = multihost.process_count(), multihost.process_index()
+        if mesh is not None and not is_local(mesh) and axis_size(mesh, data_axis) > 1:
+            raise ValueError("multi-process streaming takes a local mesh (this process's "
+                             "one device, parallel.mesh.make_mesh(local=True)): each "
+                             "process streams its own rows, and the processes reduce once "
+                             "a sweep")
+        if self._nproc > 1:
+            if packed.M_pad % self._nproc:
+                raise ValueError(f"process count {self._nproc} must divide the padded doc "
+                                 f"count {packed.M_pad} (choose docs_multiple accordingly)")
+            if batch_docs % self._nproc:
+                raise ValueError(f"process count {self._nproc} must divide batch_docs "
+                                 f"({batch_docs}), the global batch size")
+        self.data_axis = data_axis
+        # the processes' mesh the reductions run over (None on one process)
+        self._proc_mesh = (make_mesh(axis_names=(data_axis,)) if self._nproc > 1
+                           else None)
         self.packed = packed
         self.K = int(K)
         self.M, self.V = packed.M, packed.V
-        self.M_rows = packed.M_pad
-        self.batch_docs = min(int(batch_docs), packed.M_pad)
+        self.M_rows = packed.M_pad // self._nproc
+        G = min(int(batch_docs), packed.M_pad)
+        self.batch_docs = min(G // self._nproc, self.M_rows)
+        self._batch_docs_global = self.batch_docs * self._nproc
         if self.M_rows % self.batch_docs:
-            raise ValueError(f"batch_docs must divide the padded doc count {self.M_rows} "
+            raise ValueError(f"batch_docs must divide the per-process doc rows {self.M_rows} "
                              f"(got {self.batch_docs})")
         self.chunk_docs = min(int(chunk_docs), self.batch_docs)
         if self.batch_docs % self.chunk_docs:
@@ -335,7 +369,8 @@ class _StreamingModel:
             return np.full(shape, fill, self.np_dtype)
         from numpy.lib.format import open_memmap
 
-        a = open_memmap(os.path.join(self._state_dir, f"{name}.npy"), mode="w+",
+        fname = f"{name}.npy" if self._nproc == 1 else f"{name}.proc{self._pid}.npy"
+        a = open_memmap(os.path.join(self._state_dir, fname), mode="w+",
                         dtype=self.np_dtype, shape=shape)
         a[...] = fill
         return a
@@ -344,15 +379,37 @@ class _StreamingModel:
         for b in range(self.M_rows // self.batch_docs):
             yield b, slice(b * self.batch_docs, (b + 1) * self.batch_docs)
 
+    def _gsl(self, sl) -> slice:
+        """Local batch-aligned row slice → global packed-row slice: local
+        batch b (rows [bL, (b+1)L)) is the p-th L-row slice of global
+        batch b (rows [bG + pL, bG + (p+1)L))."""
+        L, G = self.batch_docs, self._batch_docs_global
+        b, o = sl.start // L, sl.start % L
+        g0 = b * G + self._pid * L + o
+        return slice(g0, g0 + (sl.stop - sl.start))
+
+    @staticmethod
+    def _local_to_global_rows(n_rows: int, L: int, G: int, pid: int) -> np.ndarray:
+        """Global packed row of each of process ``pid``'s ``n_rows`` state
+        rows, under local batches of L rows in global batches of G."""
+        r = np.arange(n_rows, dtype=np.int64)
+        return (r // L) * G + pid * L + (r % L)
+
+    def _reduce_stats(self, stats) -> tuple:
+        """The statistics summed over the processes (themselves on one)."""
+        if self._proc_mesh is None:
+            return stats
+        return tuple(psum(x, self._proc_mesh, self.data_axis) for x in stats)
+
     def _chunk_slices(self) -> list:
         B = self.chunk_docs
         return [slice(i * B, (i + 1) * B) for i in range(self.batch_docs // B)]
 
     # ── the corpus side of a batch ──
     def _data_arrays(self, sl) -> list:
-        p = self.packed
-        return [("terms", p.terms[sl], np.int32), ("counts", p.counts[sl], self.np_dtype),
-                ("doc_mask", p.doc_mask[sl], self.np_dtype)]
+        p, g = self.packed, self._gsl(sl)
+        return [("terms", p.terms[g], np.int32), ("counts", p.counts[g], self.np_dtype),
+                ("doc_mask", p.doc_mask[g], self.np_dtype)]
 
     def _chunk_plans(self, data: dict, c) -> tuple:
         """One plan over the chunk's token slots with counts > 0."""
@@ -437,6 +494,7 @@ class _StreamingModel:
         total = accs[0]
         for a in accs[1:]:
             total = kbn_merge(total, a)
+        total = kbn_psum(total, self._proc_mesh, self.data_axis)
         extra = self._elbo_extra(tables)
         if extra is not None:
             total = kbn_add(total, extra)
@@ -444,6 +502,13 @@ class _StreamingModel:
 
     def _elbo_extra(self, tables):
         return None
+
+    def _require_whole(self, what: str) -> None:
+        if self._nproc > 1:
+            raise ValueError(f"{what} needs every document's state, and each of the "
+                             f"{self._nproc} processes holds its own rows; save() a "
+                             "checkpoint and load it in one process (the directory "
+                             "format loads at any process count)")
 
     def _finalize(self):
         self.topics = lda_mod.topics_ranking(self.beta)
@@ -480,12 +545,16 @@ class _StreamingModel:
         """One ``.npz`` file with the full streaming run state: the host
         per-document arrays, the device globals, the ELBO trace and the
         online counters and running statistics.  The JAX package's format
-        1: the file loads there and back."""
+        1: the file loads there and back.  On several processes (call it on
+        every one), ``path`` is a directory of one ``proc{p}.npz`` a
+        process, each with its own rows and their (L, G, p) row map, and
+        ``manifest.json`` written last, after a barrier, as the JAX
+        package writes it; it loads at any process count."""
         from .checkpoint import packed_fingerprint
 
         meta = dict(
             format=_CKPT_FORMAT, cls=type(self).__name__, K=self.K,
-            batch_docs=self.batch_docs, chunk_docs=self.chunk_docs,
+            batch_docs=self._batch_docs_global, chunk_docs=self.chunk_docs,
             dtype=self._dtype_name, seed=self.seed,
             corpus=packed_fingerprint(self.packed),
             trace=self.trace,
@@ -500,22 +569,51 @@ class _StreamingModel:
         if self._svi_stats is not None:
             for i, leaf in enumerate(self._stats_to_leaves(self._svi_stats)):
                 arrays[f"svi_{i}"] = leaf.detach().cpu().numpy()
-        with open(path, "wb") as f:
+        if self._nproc == 1:
+            with open(path, "wb") as f:
+                np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+                         **arrays)
+            return
+        from .parallel.shard import barrier
+
+        meta["nproc"] = self._nproc
+        meta["row_map"] = dict(L=self.batch_docs, G=self._batch_docs_global, pid=self._pid)
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, f"proc{self._pid}.npz"), "wb") as f:
             np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8), **arrays)
+        barrier(self._proc_mesh)
+        if self._pid == 0:
+            # a directory a larger process count once used: its stale
+            # proc{p >= nproc}.npz would scatter a dead run's rows on load
+            for f in glob.glob(os.path.join(path, "proc*.npz")):
+                name = os.path.basename(f)[4:-4]
+                if not (name.isdigit() and int(name) < self._nproc):
+                    os.remove(f)
+            manifest = dict(format=_CKPT_FORMAT, nproc=self._nproc, cls=type(self).__name__)
+            tmp = os.path.join(path, "manifest.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(manifest, f)
+            os.replace(tmp, os.path.join(path, "manifest.json"))
+        barrier(self._proc_mesh)
 
     def _restore_doc_shard(self, z, row_map: dict) -> None:
         """Scatter one checkpoint shard's per-document arrays into this
-        model's rows.  A shard of the JAX package's multi-process run holds
-        the p-th L-row slice of every G-row global batch."""
+        process's rows.  The shard of process ``pid`` holds the pid-th
+        L-row slice of every G-row global batch; the saving and the
+        loading process counts (and global batch sizes) may differ."""
         n_saved = z[f"doc_{self._doc_state[0]}"].shape[0]
-        L, G, pid = int(row_map["L"]), int(row_map["G"]), int(row_map["pid"])
-        r = np.arange(n_saved, dtype=np.int64)
-        rows = (r // L) * G + pid * L + (r % L)
+        g_saved = self._local_to_global_rows(n_saved, int(row_map["L"]), int(row_map["G"]),
+                                             int(row_map["pid"]))
+        # which saved rows are this process's, and where they land
+        L, G = self.batch_docs, self._batch_docs_global
+        o = g_saved % G
+        sel = (o >= self._pid * L) & (o < (self._pid + 1) * L)
+        local = (g_saved[sel] // G) * L + (o[sel] - self._pid * L)
         for n in self._doc_state:
             saved = z[f"doc_{n}"]
             if saved.shape[1:] != getattr(self, n).shape[1:]:
                 raise ValueError(f"checkpoint field {n} shape mismatch")
-            getattr(self, n)[rows] = saved
+            getattr(self, n)[local] = saved[sel]
 
     def _restore_common(self, z, meta) -> None:
         for n in self._globals:
@@ -539,7 +637,18 @@ class _StreamingModel:
         final = os.path.join(ckpt_dir, f"ckpt_iter{k:06d}")
         tmp = final + ".tmp"
         self.save(tmp)            # atomic: a SIGKILL mid-write never
-        os.replace(tmp, final)    # leaves a torn latest checkpoint
+        if self._nproc == 1:      # leaves a torn latest checkpoint
+            os.replace(tmp, final)
+            return
+        # the directory format: save() waited for every process, and
+        # process 0 renames (the manifest already certifies the tmp)
+        from .parallel.shard import barrier
+
+        if self._pid == 0:
+            if os.path.isdir(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+        barrier(self._proc_mesh)
 
     def to_model(self, runtime=None):
         """The trained streaming state as the matching in-memory ``api``
@@ -548,6 +657,7 @@ class _StreamingModel:
         parameters.  Use it once the per-document state fits device
         memory; the streamed rows are scattered through the api model's
         length-bucketed row permutation (``_doc_rows``)."""
+        self._require_whole("to_model")
         from . import api
         from .utils.config import RuntimeConfig
 
@@ -597,7 +707,7 @@ class _StreamingModel:
         # rows and ckpt_iterNNNNNN names never repeat
         k0 = self.trained_iters
         for k in range(k0 + 1, k0 + cfg.iter + 1):
-            stats = self._streamed_sweep(self._zero_stats())
+            stats = self._reduce_stats(self._streamed_sweep(self._zero_stats()))
             self._global_update(stats)
             self.trained_iters = k
             delta = self._check(k, cfg)
@@ -631,9 +741,15 @@ class _StreamingModel:
         self._compile(cfg)
         p = self.packed
         n_batches = self.M_rows // self.batch_docs
+        # global batch b is every process's local batch b: its real
+        # documents are summed over the processes
         real_docs = np.array([
-            float(p.doc_mask[b * self.batch_docs:(b + 1) * self.batch_docs].sum())
+            float(p.doc_mask[self._gsl(slice(b * self.batch_docs,
+                                             (b + 1) * self.batch_docs))].sum())
             for b in range(n_batches)])
+        if self._proc_mesh is not None:
+            real_docs = psum(torch.as_tensor(real_docs, device=self.device),
+                             self._proc_mesh, self.data_axis).cpu().numpy()
         live = np.nonzero(real_docs > 0)[0]
         if self._svi_stats is None:
             self._svi_stats = self._svi_init_stats()
@@ -653,6 +769,7 @@ class _StreamingModel:
                 slot, dev, out, plans = self._stage_batch(b, sl, plans=True, out=True)
                 self._run_batch(self._sweep_prep(), dev, out, plans, batch_stats)
                 self._stage.finish(slot, download=True)
+                batch_stats = self._reduce_stats(batch_stats)
                 self._store(slot, sl)
                 # a zero-seeded running statistic takes the first batch
                 # whole (ρ=1); prior-seeded classes keep the schedule
@@ -714,8 +831,10 @@ class StreamingLDA(_StreamingModel):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 1024,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         el0 = -sum(1.0 / i for i in range(1, self.K))   # ψ(1) − ψ(K) = −H_{K−1}
         shape = (self.M_rows, self.K)
         self.gamma = self._host_full("gamma", shape, 1.0)
@@ -778,13 +897,15 @@ class StreamingCTPF(_StreamingModel):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 1024,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
         if packed.readers is None or packed.ratings is None:
             raise ValueError("StreamingCTPF needs reader arrays "
                              "(pack with with_readers=True).")
         self.U = packed.U
         self.U_seg = max(packed.U, 1)
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         shape = (self.M_rows, self.K)
         for n in self._doc_state:
             setattr(self, n, self._host_full(n, shape, 1.0))
@@ -801,9 +922,9 @@ class StreamingCTPF(_StreamingModel):
         self.he_old = self.he
 
     def _data_arrays(self, sl) -> list:
-        p = self.packed
-        return super()._data_arrays(sl) + [("readers", p.readers[sl], np.int32),
-                                           ("ratings", p.ratings[sl], self.np_dtype)]
+        p, g = self.packed, self._gsl(sl)
+        return super()._data_arrays(sl) + [("readers", p.readers[g], np.int32),
+                                           ("ratings", p.ratings[g], self.np_dtype)]
 
     def _chunk_plans(self, data, c) -> tuple:
         return (build_plan(data["terms"][c], np.asarray(data["counts"][c]) > 0),
@@ -852,6 +973,7 @@ class StreamingCTPF(_StreamingModel):
         """Recommendation scores Eeta'·(Etheta+Eepsilon) (CTPF.jl:381-386)
         for a document slice (default: the whole corpus; [M, U] is host
         memory, so pass a slice to bound it)."""
+        self._require_whole("scores")
         sl = docs if docs is not None else slice(0, self.M)
         host = lambda t: t.detach().cpu().numpy()
         Eeta = host(self.he / self.vav[:, None])                   # [K, U]
@@ -894,8 +1016,10 @@ class StreamingFLDA(_StreamingModel):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 1024,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         el0 = -sum(1.0 / i for i in range(1, self.K))
         shape, L = (self.M_rows, self.K), packed.L
         self.gamma = self._host_full("gamma", shape, 1.0)
@@ -973,8 +1097,10 @@ class StreamingCTM(_StreamingModel):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 2048,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         self._init_moments()
 
     def _init_moments(self):
@@ -1048,8 +1174,10 @@ class StreamingFCTM(StreamingCTM):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 2048,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         self._init_moments()
         self.tau = self._host_full("tau", (self.M_rows, packed.L), 0.5)
         self.tau_old = self._host_full("tau_old", (self.M_rows, packed.L), 0.5)
@@ -1129,9 +1257,11 @@ class StreamingHMTM(_StreamingModel):
 
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 1024,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None,
+                 data_axis: str = "data"):
         hmtm_mod.check_order_preserving(packed)
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         self.tau = self._host_full("tau", (self.M_rows, self.K), 1.0)
         self.gamma = self._host_full("gamma", (self.M_rows, self.K, self.K), 1.0)
 
@@ -1191,7 +1321,8 @@ class StreamingDTM(_StreamingModel):
 
     def __init__(self, packed, K: int, T: int, slice_id, batch_docs: int = 8192,
                  chunk_docs: int = 1024, dtype=torch.float32, seed: int = 0,
-                 state_dir: Optional[str] = None, device="cuda"):
+                 state_dir: Optional[str] = None, device="cuda", mesh=None,
+                 data_axis: str = "data"):
         self.T = int(T)
         slice_id = np.asarray(slice_id, np.int32)
         if slice_id.shape != (packed.M_pad,):
@@ -1201,7 +1332,8 @@ class StreamingDTM(_StreamingModel):
             raise ValueError("slice_id entries must lie in [0, T).")
         self.slice_full = slice_id
         self._cgiter, self._cgtol = 20, 1.0 / self.T**2
-        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir)
+        self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
+                          mesh, data_axis)
         el0 = -sum(1.0 / i for i in range(1, self.K))   # gamma = 1
         self.gamma = self._host_full("gamma", (self.M_rows, self.K), 1.0)
         self.Elogtheta = self._host_full("Elogtheta", (self.M_rows, self.K), el0)
@@ -1222,7 +1354,8 @@ class StreamingDTM(_StreamingModel):
         return {"slice_id": self.slice_full}
 
     def _data_arrays(self, sl) -> list:
-        return [("slice_id", self.slice_full[sl], np.int64)] + super()._data_arrays(sl)
+        return [("slice_id", self.slice_full[self._gsl(sl)], np.int64)] + \
+            super()._data_arrays(sl)
 
     def _chunk_plans(self, data, c) -> tuple:
         # as models/dtm.scatter_plans: token slots by slice·V + term, and

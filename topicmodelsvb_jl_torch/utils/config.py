@@ -9,8 +9,9 @@ those knobs:
   viter=10, vtol=1/K², checkelbo=1, printelbo=True``).
 * :class:`RuntimeConfig` holds the execution knobs that have no reference
   counterpart: doc-chunk size, padding multiples, the compute dtype, the
-  per-iteration metrics sink and the auto-checkpoint cadence.  The device
-  is an explicit argument of the model, not a config field.
+  mesh's data axis and shape, the per-iteration metrics sink and the
+  auto-checkpoint cadence.  The device is an explicit argument of the
+  model, not a config field.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ class RuntimeConfig:
     pad_multiple: int = 64        # token-axis padding multiple of a dense corpus
     bucket_pad: int = 8           # per-segment token-width multiple under bucketing
     dtype: str = "float32"        # compute dtype; "float64" for the CPU oracle
+    data_axis: str = "data"       # mesh axis the documents are sharded over
+    # None → every process on the data axis; else the mesh's shape, whose
+    # axes past the first (tensor parallelism) must be 1 until they are ported
+    mesh_shape: Optional[tuple] = None
     metrics_path: Optional[str] = None  # JSONL sink: one row per outer iteration
     # checkpoint every N outer iterations during train() to
     # checkpoint_dir/ckpt_iter{k:06d}; 0 disables

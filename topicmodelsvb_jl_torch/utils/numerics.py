@@ -168,6 +168,25 @@ def kbn_merge(a: tuple, b: tuple) -> tuple:
     return kbn_add((a[0], a[1] + b[1]), b[0])
 
 
+def kbn_psum(acc: tuple, mesh=None, axes=()) -> tuple:
+    """Compensated reduction of a (hi, lo) pair over a mesh axis
+    (elementwise, any shape), as the JAX package's ``kbn_psum``: the hi
+    parts are gathered and folded in rank order with two-sum, starting
+    from zeros, and the lo parts, far below ulp(total), are summed.
+    Returns ``acc`` itself when nothing is reduced; over one process the
+    result equals ``acc`` bit for bit."""
+    from ..parallel import shard
+
+    if shard._group(mesh, axes) is None:
+        return acc
+    hi, lo = acc
+    hs = shard.all_gather(hi, mesh, axes)
+    out = (torch.zeros_like(hi), shard.psum(lo, mesh, axes))
+    for i in range(hs.shape[0]):
+        out = kbn_add(out, hs[i])
+    return out
+
+
 def kbn_pack(acc: tuple) -> torch.Tensor:
     """(hi, lo) pair → shape-(2,) tensor (the ELBO return convention)."""
     return torch.stack([acc[0], acc[1]])

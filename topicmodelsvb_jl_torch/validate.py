@@ -2,8 +2,8 @@
 
 The reference validates every variational parameter at the top of each
 ``train!`` (modelutils.jl:39-360).  Here each predicate is a reduction on
-the state's device; the flags are stacked into one bool tensor and read
-back once.  CTM and fCTM add a Cholesky test of sigma on the host in f64
+the state's device; the flags are stacked into one bool tensor (combined
+over the processes of a sharded model) and read back once.  CTM and fCTM add a Cholesky test of sigma on the host in f64
 ([K, K] is small).
 """
 
@@ -88,7 +88,15 @@ def state_violations(model) -> list:
                                "zayin", "het")}
     else:
         raise TypeError(type(model))
-    flags = torch.stack(list(checks.values())).cpu().tolist()
+    ok = torch.stack(list(checks.values()))
+    mesh = getattr(model, "_red_mesh", None)
+    if mesh is not None:
+        # the per-document checks see this process's rows: combine them, so
+        # every process raises alike and none waits in a later collective
+        from .parallel.shard import psum
+
+        ok = psum((~ok).to(torch.int32), mesh, model.runtime.data_axis) == 0
+    flags = ok.cpu().tolist()
     bad = [name for name, ok in zip(checks, flags) if not ok]
     if isinstance(model, CTM) and not bad:      # sigma posdef (modelutils.jl:116-118)
         try:
