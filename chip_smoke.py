@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming and multi-process paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process and tensor-parallel paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -126,6 +126,27 @@ printing its own lines; any failure exits non-zero:
    process against the two ranks' resume, the streaming checkpoint loaded
    in one process; then one process of an NCCL group: LDA on its mesh
    bitwise equal to LDA with no collective;
+13. (run before 11's results) tensor and sequence parallelism, the counts
+   set to 0 before each run in each process and read after: here, the
+   E-step's pass mode (``lda_estep_pass``) against its plain version on a
+   routed chunk (the first 1024 documents' slots of vocab block 0 of 2)
+   and a sequence-axis chunk (their first half of the token axis), K =
+   100, bitwise repeatable, its times and bound; then two processes of a
+   gloo group sharing the card (``chip_smoke.py --p13``, ``tp_child``)
+   run ``make_step``/``make_elbo`` from each family's init (seed 7, cut
+   by ``convert.shard_state``): LDA on the dense NSF corpus with V =
+   25,320 (NSF's 25,319 does not split into two vocab blocks) at K = 100
+   with beta's storage over the vocab axis (3 iterations), routed
+   (``route_packed(n_shards=2)``, 2 iterations) and on the sequence axis
+   (2 iterations), each with one step alone and its collectives' time,
+   calls and bytes; the vocab axis for fLDA, CTM, fCTM, HMTM (NSF V + 1),
+   DTM (mac V + 1) at phase 10's depths and CTPF on CiteULike (one empty
+   user more, U = 5,552, for the user axis) on the vocab and on the user
+   axis, 2 iterations; StreamingLDA with the vocab axis, 2 iterations:
+   ∆elbo > 0, every kernel of each path launched; here: every global and
+   bound bitwise equal across the ranks, and LDA's three modes against
+   one process from the same init (rtol 5e-3 / atol 1e-5 on beta and
+   alpha, 1e-5 on the bound per iteration);
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -2287,6 +2308,368 @@ def parallel_phase(smi, kc) -> dict:
     return launches
 
 
+P13_RANKS = 2
+P13_V = 25_320   # NSF's V = 25,319 does not split into two vocab blocks: one term wider
+
+
+def compare_pass(tok, Vs, K, dev, label):
+    """The LDA E-step's pass mode against its plain version on a chunk of
+    this rank's token slots (``tok``: terms with ids below ``Vs``, counts,
+    doc_mask) and a [Vs, K] table, with its times and bound."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass, lda_estep_pass_ref
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+
+    terms, counts, doc_mask = tok
+    B, L = terms.shape
+    betaT = (dirichlet_ones(torch.Generator().manual_seed(13), Vs, (K,)).to(dev)
+             + EPSILON).T.contiguous()
+    _, _, El, _ = warm_state(K, B, dev, seed=14)
+    args = (betaT, terms, counts, doc_mask, El)
+    got, want = lda_estep_pass(*args), lda_estep_pass_ref(*args)
+    torch.cuda.synchronize()
+    err = close((got,), (want,), ("pc",), f"lda_estep_pass {label}")
+    need(torch.equal(got, lda_estep_pass(*args)), f"lda_estep_pass {label}: not bitwise repeatable")
+    need(bool(torch.all(got[doc_mask == 0] == 0)), f"lda_estep_pass {label}: padded pc")
+    keep = counts > 0
+    kept, uniq = int(keep.sum()), n_unique(terms, keep)
+    # table rows, terms and counts, doc_mask, El in and pc out; 4 K flops a
+    # kept slot (its s and its share of q) and K exps a document
+    rec = record(err, time_calls(lambda: lda_estep_pass(*args), N_KERNEL),
+                 time_calls(lambda: lda_estep_pass_ref(*args), N_PLAIN, reps=1),
+                 bound_ms(4 * (uniq * K + 2 * B * L + B + 2 * B * K), 4 * K * kept + B * K))
+    print(f"lda_estep_pass {label}: B={B} L={L} K={K} Vs={Vs} kept={kept} | {times(rec)}")
+    return rec
+
+
+def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None, seq=None,
+             routed=False, slice_id=None, T=None, chunk=1024, step_kw=None, time_step=False):
+    """One family's make_step/make_elbo on this rank's slab of ``packed``
+    over ``mesh`` from the family's init (seed 7, drawn whole and cut by
+    ``convert.shard_state``), ``iters`` iterations, the launch counts set
+    to 0 before and read after.  Returns (launches, bounds from the init
+    on, the globals gathered whole, the step timed alone or None)."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.models import ctm, ctpf, dtm, fctm, flda, hmtm, lda
+    from topicmodelsvb_jl_torch.parallel import shard
+    from topicmodelsvb_jl_torch.parallel.mesh import local_block
+    from topicmodelsvb_jl_torch.parallel.multihost import local_slab
+    from topicmodelsvb_jl_torch.utils.numerics import elbo_value
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mod = {"LDA": lda, "fLDA": flda, "CTM": ctm, "fCTM": fctm, "CTPF": ctpf, "DTM": dtm,
+           "HMTM": hmtm}[fam]
+    cls = {"LDA": lda.LDAState, "fLDA": flda.FLDAState, "CTM": ctm.CTMState,
+           "fCTM": fctm.FCTMState, "CTPF": ctpf.CTPFState, "DTM": dtm.DTMState,
+           "HMTM": hmtm.HMTMState}[fam]
+    gen = torch.Generator().manual_seed(7)
+    whole = (mod.init(gen, packed, K, T) if fam == "DTM" else mod.init(gen, packed, K))
+    state = convert.shard_state(cls, {f: getattr(whole, f).numpy() for f in
+                                      cls.__dataclass_fields__}, mesh, data_axis=doc,
+                                vocab_axis=vocab, user_axis=user, device=dev)
+    del whole
+    slab = local_slab(packed, mesh, doc, vocab if routed else seq)
+    put = lambda a, dt: torch.as_tensor(np.array(a), dtype=dt).to(dev)
+    t, c, dm = (put(slab.terms, torch.int32), put(slab.counts, torch.float32),
+                put(slab.doc_mask, torch.float32))
+    tol = 1.0 / K ** 2
+    common = dict(viter=10, vtol=tol, niter=1000, ntol=tol, chunk_docs=chunk, device=dev)
+    kw = dict(mesh=mesh, axis_name=doc, vocab_axis=vocab)
+    M = float(packed.M)
+    if fam == "LDA":
+        kw.update(seq_axis=seq, vocab_routed=routed)
+        args, eargs = (t, c, dm, M), (t, c, dm)
+    elif fam == "fLDA":
+        args, eargs = (t, c, dm, torch.tensor(M, device=dev),
+                       torch.tensor(float(packed.C.sum()), device=dev)), (t, c, dm)
+    elif fam == "CTPF":
+        kw.update(user_axis=user)
+        common = dict(viter=10, vtol=tol, chunk_docs=chunk, device=dev)
+        args = eargs = (t, c, put(slab.readers, torch.int32), put(slab.ratings, torch.float32),
+                        dm)
+    elif fam == "DTM":
+        rows = local_block(slice_id, mesh, doc)
+        common.update(cgiter=10, cgtol=1.0 / T ** 2, slice_id=rows)
+        args = eargs = (put(rows, torch.int64), t, c, dm)
+    else:
+        args, eargs = (t, c, dm, M), (t, c, dm)
+    step = (mod.make_step(slab, K, T, **common, **kw) if fam == "DTM"
+            else mod.make_step(slab, K, **common, **kw))
+    elbo = (mod.make_elbo(slab, K, T, chunk, **kw) if fam == "DTM"
+            else mod.make_elbo(slab, K, chunk, **kw))
+    for k in kern.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = [elbo_value(elbo(state, *eargs))]
+    for _ in range(iters):
+        state = step(state, *args)
+        trace.append(elbo_value(elbo(state, *eargs)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kern.items() if k.launches}
+    alone = None
+    if time_step:   # one more step alone, its collectives timed
+        shard.STATS.reset()
+        shard.STATS.timed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *args)
+        torch.cuda.synchronize()
+        alone = dict(step_s=time.perf_counter() - t0, calls=shard.STATS.calls,
+                     bytes=shard.STATS.bytes, seconds=shard.STATS.seconds,
+                     routes=dict(shard.STATS.routes))
+        shard.STATS.timed = False
+    lay = convert.LAYOUT[cls]
+    glob = {}
+    for f in cls.__dataclass_fields__:
+        if f in lay["doc"]:
+            continue
+        x = getattr(state, f)
+        for key, axis in (("vocab", vocab), ("user", user)):
+            if axis is not None and f in lay.get(key, {}):
+                x = shard.all_gather(x, mesh, axis, dim=lay[key][f])
+        glob[f] = x.cpu().numpy()
+    need(all(np.isfinite(v).all() for v in glob.values()) and np.isfinite(trace).all(),
+         f"{tag} {fam}: a global or the bound is not finite")
+    return got, trace, glob, alone, wall
+
+
+def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
+    """One process of phase 13 (``chip_smoke.py --p13 RANK WORLD PORT
+    DIR``): a rank of a gloo group of two sharing the card.  Writes
+    ``DIR/tp{rank}.npz`` (every case's globals, gathered whole) and
+    ``.json`` (launches, bounds, times, printed lines); any failed check
+    exits non-zero."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.parallel import multihost, shard
+
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+    from topicmodelsvb_jl_torch.parallel.mesh import make_mesh
+    from topicmodelsvb_jl_torch.streaming import slices_from_stamps
+
+    kern = dict(p12_counters(), lda_estep_pass=estep_mod.lda_estep_pass)
+    tag = f"[tp rank {rank}/{world}]"
+    dv = make_mesh(axis_names=("data", "vocab"), shape=(1, 2))
+    ds = make_mesh(axis_names=("data", "seq"), shape=(1, 2))
+    dvu = {s: make_mesh(axis_names=("data", "vocab", "user"), shape=s)
+           for s in ((1, 2, 1), (1, 1, 2))}
+    arrays, info, lines = {}, {"launches": {}, "alone": {}}, []
+    spk = tt.load_packed(os.path.join(tmp, "nsf"))
+    routed = tt.route_packed(spk, n_shards=2)
+    fpk = tt.synth_packed_nsf_scale(M=16_384, V=P13_V, chunk_docs=8192)
+    mpk = tt.synth_packed_nsf_scale(M=8192, V=P13_V, chunk_docs=4096)
+    cpk = tt.load_packed(os.path.join(tmp, "citeu"))
+    mac = mac_corpus(M=8192, V=15_114)
+    dpk = tt.pack_corpus(mac, pad_multiple=8, docs_multiple=2048)
+    T, sid = slices_from_stamps(np.array([d.stamp for d in mac.docs]), 1.0, dpk.M_pad)
+    dvv = dict(doc=("data", "vocab"), vocab="vocab")
+    cases = (   # label, mesh, family, corpus, K, iterations, mono, keywords
+        ("LDA storage TP", dv, "LDA", spk, 100, 3, 0, dict(time_step=True, **dvv)),
+        # no document split: every rank runs all 128 chunks, a collective a
+        # pass (~7 s a step on one card), so two iterations
+        ("LDA routed", dv, "LDA", routed, 100, 2, 0,
+         dict(doc=("data",), vocab="vocab", routed=True, time_step=True)),
+        ("LDA seq", ds, "LDA", spk, 100, 2, 0, dict(doc=("data",), seq="seq", time_step=True)),
+        ("fLDA NSF V, 16,384 documents", dv, "fLDA", fpk, 100, 2, 1, dvv),
+        ("CTM NSF V, 8,192 documents", dv, "CTM", mpk, 50, 2, 1, dict(chunk=2048, **dvv)),
+        ("fCTM NSF V, 8,192 documents", dv, "fCTM", mpk, 50, 2, 1, dict(chunk=2048, **dvv)),
+        ("HMTM NSF unit counts, 16,384 documents", dv, "HMTM", unit_counts(fpk), 25, 2, 1,
+         dvv),
+        ("DTM mac V+1, T=12, 8,192 documents", dv, "DTM", dpk, 20, 2, 0,
+         dict(slice_id=sid, T=T, **dvv)),
+        ("CTPF CiteULike, vocab axis", dvu[(1, 2, 1)], "CTPF", cpk, 100, 2, 1,
+         dict(doc=("data", "vocab", "user"), vocab="vocab", user="user")),
+        ("CTPF CiteULike, user axis", dvu[(1, 1, 2)], "CTPF", cpk, 100, 2, 1,
+         dict(doc=("data", "vocab", "user"), vocab="vocab", user="user")))
+    for label, mesh, fam, pk, K, iters, mono, kw in cases:
+        got, trace, glob, alone, wall = p13_case(tag, mesh, fam, pk, K, iters, kern, **kw)
+        deltas = np.diff(trace).tolist()
+        need(all(d > 0 for d in deltas[mono:]), f"{tag} {label}: ∆elbo {deltas}")
+        path = {"LDA": ("lda_estep", "lda_elbo_tok", "scatter_rows"),
+                "fLDA": ("flda_estep", "scatter_rows"), "CTM": ("lda_elbo_tok", "scatter_rows"),
+                "fCTM": ("scatter_rows",), "HMTM": ("hmtm_estep", "hmtm_logz", "scatter_rows"),
+                "DTM": ("scatter_rows",), "CTPF": ("ctpf_estep", "scatter_rows")}[fam]
+        if kw.get("routed") or kw.get("seq"):
+            path += ("lda_estep_pass",)
+        need(all(got.get(n, 0) > 0 for n in path), f"{tag} {label}: launches {got}, path {path}")
+        for n, v in got.items():
+            info["launches"][n] = info["launches"].get(n, 0) + v
+        for f, v in glob.items():
+            arrays[f"{label}/{f}"] = v
+        info[f"{label}/trace"] = trace
+        line = (f"{tag} {label} K={K}: ∆elbo {', '.join(f'{d:.3f}' for d in deltas)}; "
+                f"launches {got}; {iters} iterations with their bounds in {wall:.2f} s")
+        if alone is not None:
+            info["alone"][label] = alone
+            line += (f"; one step alone {alone['step_s']:.4f} s, of which collectives "
+                     f"{alone['seconds']:.4f} s ({alone['calls']} calls, "
+                     f"{alone['bytes'] / 2**20:.1f} MiB sent, routes {alone['routes']})")
+        lines.append(line)
+    # StreamingLDA with beta's storage over the vocab axis
+    for k in kern.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    sm = tt.StreamingLDA(spk, 100, chunk_docs=1024, seed=7, mesh=dv, vocab_axis="vocab")
+    need(sm._nproc == world and sm.beta.shape == (100, P13_V // 2), f"{tag} StreamingLDA beta")
+    sm.train(iter=2, checkelbo=1, printelbo=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kern.items() if k.launches}
+    deltas = [x[2] for x in sm.trace]
+    need(len(deltas) == 2 and all(d > 0 for d in deltas), f"{tag} StreamingLDA ∆elbo {deltas}")
+    need(all(got.get(n, 0) > 0 for n in ("lda_estep", "lda_elbo_tok", "scatter_rows")),
+         f"{tag} StreamingLDA launches {got}")
+    for n, v in got.items():
+        info["launches"][n] = info["launches"].get(n, 0) + v
+    arrays["StreamingLDA/beta"] = shard.all_gather(sm.beta, dv, "vocab", dim=1).cpu().numpy()
+    arrays["StreamingLDA/alpha"] = sm.alpha.cpu().numpy()
+    info["StreamingLDA/trace"] = [x[1] for x in sm.trace]
+    lines.append(f"{tag} StreamingLDA NSF V+1 K=100, vocab axis: {sm.M_rows} of {spk.M_pad} "
+                 f"rows; ∆elbo {', '.join(f'{d:.3f}' for d in deltas)}; launches {got}; "
+                 f"2 iterations in {wall:.2f} s")
+    info["lines"] = lines
+    np.savez(os.path.join(tmp, f"tp{rank}.npz"), **arrays)
+    with open(os.path.join(tmp, f"tp{rank}.json"), "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def tp_phase(smi, kc) -> tuple:
+    """Phase 13, tensor and sequence parallelism: the pass mode against
+    its plain version here, then two gloo ranks sharing the card
+    (``tp_child``); here the checks across ranks and LDA's three modes
+    against one process from the same init.  Returns (the ranks'
+    launches, the pass mode's record)."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.models import lda
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="tmvb_p13_")
+    spk = tt.synth_packed_nsf_scale(V=P13_V, chunk_docs=8192)
+    tt.save_packed(os.path.join(tmp, "nsf"), spk)
+    cpk = kc["cpk"]   # U = 5,551 does not split into two user blocks: one (empty) user more
+    tt.save_packed(os.path.join(tmp, "citeu"),
+                   pad_rows(dataclasses.replace(cpk, U=cpk.U + 1), 18 * 1024))
+
+    # the pass mode on its main path's chunks: the first 1024 documents'
+    # slots of vocab block 0 (routed) and of the first half of the token
+    # axis (seq), K = 100
+    routed = tt.route_packed(spk, n_shards=2)
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    f32, i32 = torch.float32, torch.int32
+    rec = compare_pass((put(routed.terms[:1024, :routed.Ls], i32),
+                        put(routed.counts[:1024, :routed.Ls], f32),
+                        put(routed.doc_mask[:1024], f32)), routed.Vs, 100, dev,
+                       f"routed, vocab block 0 of 2, Ls={routed.Ls}")
+    h = spk.L // 2
+    rec_seq = compare_pass((put(spk.terms[:1024, :h], i32), put(spk.counts[:1024, :h], f32),
+                            put(spk.doc_mask[:1024], f32)), spk.V, 100, dev,
+                           f"seq, token half 0 of 2, L={h}")
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec_seq["max_abs_err"])
+    del routed
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p13", str(r),
+                               str(P13_RANKS), str(port), tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=ROOT) for r in range(P13_RANKS)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:])
+        need(p.returncode == 0, f"phase 13: rank {r} exited {p.returncode}")
+    res = []
+    for r in range(P13_RANKS):
+        with open(os.path.join(tmp, f"tp{r}.json")) as f:
+            info = json.load(f)
+        info["arrays"] = dict(np.load(os.path.join(tmp, f"tp{r}.npz")))
+        for line in info["lines"]:
+            print(f"{line}; card {smi}")
+        res.append(info)
+    print(f"phase 13: {P13_RANKS} processes in {wall:.1f} s; card {smi}")
+    g0, g1 = res
+    for key in sorted(g0["arrays"]):
+        need(np.array_equal(g0["arrays"][key], g1["arrays"][key]),
+             f"phase 13: ranks differ on {key}")
+    for key in [k for k in g0 if k.endswith("/trace")]:
+        need(g0[key] == g1[key], f"phase 13: ranks' {key} differ")
+
+    # LDA's three modes against one process with no mesh, from one init
+    gen = torch.Generator().manual_seed(7)
+    state = lda.init(gen, spk, 100, device=dev)
+    tol = 1.0 / 100 ** 2
+    step = lda.make_step(spk, 100, viter=10, vtol=tol, niter=1000, ntol=tol, chunk_docs=1024,
+                         device=dev)
+    elbo = lda.make_elbo(spk, 100, 1024)
+    data = (put(spk.terms, i32), put(spk.counts, f32), put(spk.doc_mask, f32))
+    from topicmodelsvb_jl_torch.utils.numerics import elbo_value
+
+    trace, ref = [elbo_value(elbo(state, *data))], []
+    for _ in range(3):
+        state = step(state, *data, float(spk.M))
+        trace.append(elbo_value(elbo(state, *data)))
+        ref.append((state.beta.cpu().numpy(), state.alpha.cpu().numpy()))
+    for label in ("LDA storage TP", "LDA routed", "LDA seq"):
+        a = g0["arrays"]
+        got_b, got_a = a[f"{label}/beta"], a[f"{label}/alpha"]
+        n = len(g0[f"{label}/trace"])
+        beta, alpha = ref[n - 2]
+        need(np.allclose(got_b, beta, rtol=RTOL, atol=ATOL),
+             f"phase 13 {label}: beta beyond rtol {RTOL} / atol {ATOL}")
+        need(np.allclose(got_a, alpha, rtol=RTOL, atol=ATOL),
+             f"phase 13 {label}: alpha beyond rtol {RTOL} / atol {ATOL}")
+        rel = [abs(x - y) / abs(y) for x, y in zip(g0[f"{label}/trace"], trace)]
+        need(n >= 3 and max(rel) <= 1e-5, f"phase 13 {label}: bound per iteration {rel}")
+        print(f"phase 13 {label} on two ranks vs one process, {n - 1} iterations: beta max abs "
+              f"{float(np.max(np.abs(got_b - beta))):.3e}, relative norm "
+              f"{float(np.linalg.norm(got_b - beta) / np.linalg.norm(beta)):.3e}; alpha max abs "
+              f"{float(np.max(np.abs(got_a - alpha))):.3e}; bound relative from the init on "
+              f"{', '.join(f'{x:.2e}' for x in rel)}; card {smi}")
+    del state, data
+    torch.cuda.empty_cache()
+    launches = {}
+    for info in res:
+        for n, v in info["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    for r, info in enumerate(res):
+        for label, c in info["alone"].items():
+            print(f"phase 13 rank {r} {label}: one step alone {c['step_s']:.4f} s, collectives "
+                  f"{c['seconds']:.4f} s, {c['calls']} calls, {c['bytes']} bytes sent; card {smi}")
+    print(f"phase 13: lda_estep_pass {rec['ms'] * 1e3:.1f} us device, "
+          f"{rec['call_ms'] * 1e3:.1f} us a call, bound {rec['bound_ms'] * 1e3:.1f} us by "
+          f"{rec['bound_by']}, plain {rec['plain_ms'] * 1e3:.1f} us, launches on the ranks "
+          f"{launches.get('lda_estep_pass', 0)}; wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}; card {smi}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rec
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2438,6 +2821,12 @@ def main() -> int:
          f"phase 12: a kernel never launched on the ranks: {p12}")
     add(p12)
 
+    # 13. tensor and sequence parallelism
+    p13, pass_rec = tp_phase(smi, kc)
+    need(all(p13.get(k, 0) > 0 for k in P12_KERNELS + ("lda_estep_pass",)),
+         f"phase 13: a kernel never launched on the ranks: {p13}")
+    add(p13)
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -2461,7 +2850,11 @@ def main() -> int:
             ("hmtm_estep", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
              hm["estep"][0], hm["estep"][1:]),
             ("hmtm_logz", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
-             hm["logz"][0], hm["logz"][1:])):
+             hm["logz"][0], hm["logz"][1:]),
+            # the per-pass body the JAX package runs in XLA under routing and
+            # on the sequence axis
+            ("lda_estep_pass", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
+             pass_rec, ())):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],
@@ -2479,4 +2872,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--p12"]:
         sys.exit(parallel_child(sys.argv[2], *map(int, sys.argv[3:6]), sys.argv[6]))
+    if sys.argv[1:2] == ["--p13"]:
+        sys.exit(tp_child(*map(int, sys.argv[2:5]), sys.argv[5]))
     sys.exit(main())

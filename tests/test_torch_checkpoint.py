@@ -145,8 +145,9 @@ def test_checkpoints_cross_between_packages(fam, corpora, tmp_path):
 
 
 def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
-    """The JAX-only knobs that change nothing on one device are skipped;
-    one the port cannot honour raises."""
+    """The JAX-only knobs that change nothing on one device are skipped, and
+    a mesh_shape of any axes loads; one knob the port cannot honour
+    raises."""
     jm = tm.LDA(corpora["jax"], K, runtime=JaxRuntimeConfig(chunk_docs=16, dtype="float64",
                 use_pallas=False, peak_flops=1.0, profile_steps=7),
                 mesh=make_mesh(n_devices=1), seed=3)
@@ -156,12 +157,15 @@ def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
     assert {"use_pallas", "data_axis", "vocab_axis", "peak_flops", "profile_steps"} <= set(rt)
     pm = tt.load_checkpoint(path, corpora["torch"], device="cpu")
     assert pm.runtime == tt.RuntimeConfig(chunk_docs=16, dtype="float64")
-    one_device = _rewrite(path, str(tmp_path / "one.npz"),
-                          lambda m: m["runtime"].update(mesh_shape=[1]))
-    assert tt.load_checkpoint(one_device, corpora["torch"], device="cpu").M == pm.M
+    # any mesh_shape loads (the loading run's mesh is its own; the JAX
+    # package never reads the field to build its mesh)
+    for name, shape in (("one", [1]), ("mesh", [2, 2])):
+        other = _rewrite(path, str(tmp_path / f"{name}.npz"),
+                         lambda m, shape=shape: m["runtime"].update(mesh_shape=shape))
+        back = tt.load_checkpoint(other, corpora["torch"], device="cpu")
+        assert back.M == pm.M and back.runtime == pm.runtime
     for name, edit, match in (
             ("f64", lambda m: m["runtime"].update(elogtheta_f64=True), "elogtheta_f64"),
-            ("mesh", lambda m: m["runtime"].update(mesh_shape=[2, 2]), "mesh_shape"),
             ("knob", lambda m: m["runtime"].update(warp_speed=9), "warp_speed"),
             ("model", lambda m: m.update(model="SLDA"), "SLDA")):
         bad = _rewrite(path, str(tmp_path / f"{name}.npz"), edit)

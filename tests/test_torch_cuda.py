@@ -18,7 +18,10 @@ from topicmodelsvb_jl_torch.kernels.hmtm_estep import (
     hmtm_estep, hmtm_estep_ref, hmtm_logz, hmtm_logz_ref,
 )
 from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
-from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
+from topicmodelsvb_jl_torch.kernels import lda_estep as lda_estep_mod
+from topicmodelsvb_jl_torch.kernels.lda_estep import (
+    lda_estep, lda_estep_pass, lda_estep_pass_ref, lda_estep_ref, split_fixpoint,
+)
 from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows, scatter_rows_ref
 from topicmodelsvb_jl_torch.models.lda import token_plans
 from topicmodelsvb_jl_torch.ops.segment import count_scatter_into
@@ -162,6 +165,89 @@ def test_lda_elbo_tok_kernel_raw_beta_old_zero_row(cuda):
     got, want = lda_elbo_tok(*args), lda_elbo_tok_ref(*args)
     assert not torch.isfinite(got) and not torch.isfinite(want)
     assert bool(torch.isnan(got)) == bool(torch.isnan(want))
+
+
+# the pass mode (routed tensor parallelism, the sequence axis): odd L and
+# K, rows in shared memory and (L = 1025 at K >= 100) in tiles
+@pytest.mark.parametrize("K", [3, 100, 257])
+@pytest.mark.parametrize("L", [7, 129, 1025])
+def test_lda_estep_pass_kernel_matches_plain(cuda, K, L):
+    (betaT, terms, counts, doc_mask, _, _, El, _), _ = _chunk(K, 40, L, 3000, cuda, seed=K + L)
+    counts[1] = 0.0                                     # a real document with no slots
+    before = lda_estep_pass.launches
+    got = lda_estep_pass(betaT, terms, counts, doc_mask, El)
+    torch.cuda.synchronize()
+    assert lda_estep_pass.launches == before + 1
+    want = lda_estep_pass_ref(betaT, terms, counts, doc_mask, El)
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=1e-5)
+    assert torch.all(got[-3:] == 0) and torch.all(got[1] == 0)
+    again = lda_estep_pass(betaT, terms, counts, doc_mask, El)
+    assert torch.equal(got, again)                      # bitwise repeatable
+
+
+def test_lda_estep_pass_kernel_empty_chunk_and_rejects(cuda):
+    (betaT, terms, counts, doc_mask, _, _, El, _), _ = _chunk(7, 5, 24, 100, cuda)
+    before = lda_estep_pass.launches
+    pc = lda_estep_pass(betaT, terms[:0], counts[:0], doc_mask[:0], El[:0])
+    assert pc.shape == (0, 7) and lda_estep_pass.launches == before
+    with pytest.raises(TypeError, match="El"):
+        lda_estep_pass(betaT, terms, counts, doc_mask, El.double())
+    with pytest.raises(TypeError, match="terms"):
+        lda_estep_pass(betaT, terms.long(), counts, doc_mask, El)
+
+
+@pytest.mark.parametrize("K,L", [(3, 13), (100, 129), (100, 1025)])
+def test_lda_estep_at_viter_zero_keeps_the_state_and_writes_the_rows(cuda, K, L):
+    """The split fixpoint's last call: no pass, the state returned as
+    given, w from exp(El_old) with each slot's own normaliser."""
+    args, _ = _chunk(K, 24, L, 3000, cuda, seed=3)
+    got = lda_estep(*args, viter=0, vtol=1.0 / K**2)
+    for a, b in zip(got[:3], args[5:]):
+        assert torch.equal(a, b)
+    want = lda_estep_ref(*args, viter=0, vtol=1.0 / K**2)
+    torch.testing.assert_close(got[3], want[3], rtol=5e-3, atol=1e-5)
+
+
+def test_split_fixpoint_runs_the_kernels_and_never_the_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors the split fixpoint launches the pass kernel a pass
+    and the E-step kernel once, and follows the plain fixpoint."""
+    args, _ = _chunk(100, 48, 129, 3000, cuda, seed=9)
+    want = lda_estep_ref(*args, viter=10, vtol=1e-4)
+
+    def refused(*a, **k):
+        raise AssertionError("a CUDA tensor ran a plain version")
+
+    monkeypatch.setattr(lda_estep_mod, "lda_estep_ref", refused)
+    monkeypatch.setattr(lda_estep_mod, "lda_estep_pass_ref", refused)
+    p0, e0 = lda_estep_pass.launches, lda_estep.launches
+    got = split_fixpoint(*args, viter=10, vtol=1e-4, reduce=lambda x: x)
+    assert lda_estep_pass.launches - p0 >= 1 and lda_estep.launches - e0 == 1
+    for name, a, b in zip(("gamma", "El", "El_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+
+
+def test_routed_and_seq_lda_steps_on_one_card_follow_the_plain_step(cuda):
+    """A one-rank routed step (one vocab block) and a sequence-axis step
+    with no mesh go through the pass kernel and follow the dense step."""
+    from topicmodelsvb_jl_torch.models import lda
+
+    pk = tt.synth_packed_nsf_scale(M=512, V=600, mean_terms=30, seed=5)
+    routed = tt.route_packed(pk, n_shards=1)
+    K, kw = 20, dict(viter=10, vtol=1.0 / 400, niter=100, ntol=1.0 / 400, chunk_docs=128,
+                     device=cuda)
+    state = lda.init(torch.Generator().manual_seed(1), pk, K, device=cuda)
+    put = lambda p: (torch.as_tensor(p.terms, dtype=torch.int32, device=cuda),
+                     torch.as_tensor(p.counts, dtype=torch.float32, device=cuda),
+                     torch.as_tensor(p.doc_mask, dtype=torch.float32, device=cuda))
+    want = lda.make_step(pk, K, **kw)(state, *put(pk), float(pk.M))
+    p0 = lda_estep_pass.launches
+    for p, modes in ((routed, dict(vocab_axis="vocab", vocab_routed=True)),
+                     (pk, dict(seq_axis="seq"))):
+        got = lda.make_step(p, K, **kw, **modes)(state, *put(p), float(pk.M))
+        for f in ("alpha", "beta", "gamma", "Elogtheta"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=5e-3,
+                                       atol=1e-5, msg=f)
+    assert lda_estep_pass.launches > p0
 
 
 def test_empty_chunk_launches_nothing(cuda):

@@ -23,7 +23,7 @@ from topicmodelsvb_jl_tpu.ops import packing as jpk
 import topicmodelsvb_jl_torch as tt
 
 import torch_mp_worker as W
-from test_torch_parallel import WORLD, finish, start
+from test_torch_parallel import TIMEOUT, WORLD
 
 RTOL = 1e-10
 CASES = [(name, mode) for name in ("StreamingLDA", "StreamingCTPF")
@@ -40,13 +40,13 @@ def one_process(name, mode, pk):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     job = str(tmp_path_factory.mktemp("stream"))
-    procs = start(job, "stream", WORLD)
+    launch = W.Launch(job, "stream", WORLD)
     try:
         pk_lda, pk_ctpf = W.stream_packed(tt)
         pks = {"StreamingLDA": pk_lda, "StreamingCTPF": pk_ctpf}
         single = {(n, mode): one_process(n, mode, pks[n]) for n, mode in CASES}
     finally:
-        outs = finish(procs, job)
+        outs = launch.finish(TIMEOUT)
     return dict(outs=outs, single=single, pk=pk_lda, job=job)
 
 

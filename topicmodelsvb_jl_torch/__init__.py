@@ -38,7 +38,8 @@ from .evaluate import (
     topic_coherence,
 )
 from .ops.packing import (
-    PackedCorpus, bucketize_packed, load_packed, pack_corpus, save_packed, trim_packed,
+    PackedCorpus, RoutedCorpus, bucketize_packed, load_packed, pack_corpus, route_packed,
+    save_packed, trim_packed,
 )
 from .streaming import (
     StreamingCTM, StreamingCTPF, StreamingDTM, StreamingFCTM, StreamingFLDA, StreamingHMTM,
@@ -63,5 +64,5 @@ __all__ = [
     "check_model",
     "TrainConfig", "RuntimeConfig",
     "PackedCorpus", "bucketize_packed", "pack_corpus", "save_packed", "load_packed",
-    "trim_packed",
+    "trim_packed", "RoutedCorpus", "route_packed",
 ]

@@ -37,7 +37,7 @@ from .models import lda as lda_mod
 from .ops.packing import PackedCorpus, _round_up, bucketize_packed, pack_corpus
 from .parallel import multihost, shard
 from .parallel.mesh import (
-    axis_index, axis_size, check_data_only, data_shape, is_local, make_mesh,
+    axis_index, axis_size, check_axes, data_shape, is_local, make_mesh,
 )
 from .utils.config import RuntimeConfig, TrainConfig
 from .utils.display import bullet, juliadots
@@ -70,7 +70,9 @@ class TopicModel:
         ``mesh`` shards the documents over its data axis
         (``runtime.data_axis``), one process a shard (``parallel/``): every
         process builds the model from the same corpus and keeps only its
-        own slab of the packed rows and of the per-document state.  With
+        own slab of the packed rows and of the per-document state.  The
+        mesh's other axes, if any, replicate the slabs, as in the JAX
+        package, whose api models shard over the data axis alone.  With
         no mesh, it is every process of an initialised process group
         (``parallel.multihost.initialize``), or else this one device."""
         if K <= 0:
@@ -92,12 +94,17 @@ class TopicModel:
         if mesh is None and (multihost.is_initialized() or shape is not None):
             mesh = make_mesh(axis_names=(ax,), shape=shape)
         if mesh is not None:
-            check_data_only(mesh, ax)
+            check_axes(mesh, ax)
         self.mesh = mesh
         # the mesh the steps reduce over: None when there is nothing to reduce
         self._red_mesh = None if is_local(mesh) else mesh
         n_sh = axis_size(mesh, ax)
         self._n_shards, self._shard = n_sh, axis_index(mesh, ax)
+        # a mesh's other axes replicate the documents, as the JAX package's
+        # api does (its steps shard over the data axis alone): this
+        # process's index among the replicas of its slab
+        others = tuple(a for a in getattr(mesh, "mesh_dim_names", ()) if a != ax)
+        self._replica = axis_index(mesh, others)
         self.corp = None
         # what the checkpoint fingerprint hashes, lazily (_fingerprint): the
         # corpus, or the packed object the caller holds, before bucketing
@@ -221,9 +228,10 @@ class TopicModel:
         checkpoint; one write is in flight at a time.  A model sharded over
         processes writes the directory format synchronously (every
         process its own rows, ``checkpoint.save``); process 0 renames it.
-        Only the data axis's first process prints and writes metrics."""
+        Only the first process prints and writes metrics."""
         rt = self.runtime
-        kw = dict(metrics_path=rt.metrics_path, main=self._shard == 0)
+        lead = self._shard == 0 and self._replica == 0
+        kw = dict(metrics_path=rt.metrics_path, main=lead)
         if rt.checkpoint_every > 0 and rt.checkpoint_dir:
             from . import checkpoint as ckptlib
 
@@ -244,12 +252,12 @@ class TopicModel:
                 if self._n_shards > 1:
                     # no process writes into a stale tmp that process 0 is
                     # still removing
-                    if self._shard == 0:
+                    if lead:
                         clear(tmp)
                     shard.barrier(self.mesh)
                     ckptlib.save(tmp, self,
                                  compress="f16" if rt.checkpoint_f16 else None)
-                    if self._shard == 0:
+                    if lead:
                         # a directory cannot be renamed over a non-empty one
                         clear(final)
                         os.replace(tmp, final)

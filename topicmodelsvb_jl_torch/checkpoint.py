@@ -40,9 +40,10 @@ from .ops.packing import PackedCorpus
 
 _FORMAT_VERSION = 2   # v2: the corpus fingerprint includes Document.stamp
 _MANIFEST = "manifest.json"
-# knobs of the JAX package's RuntimeConfig that change nothing here (the
-# vocab axis only matters through a mesh_shape that makes it larger than 1)
-_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "profile_steps")
+# knobs of the JAX package's RuntimeConfig that change nothing here; the
+# mesh is the loading run's, so mesh_shape (data or tensor-parallel axes)
+# loads at any world size, as the JAX package never reads it to build its mesh
+_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "profile_steps", "mesh_shape")
 # per-document leaves whose second axis is the packing's token width
 _TOKEN_FIELDS = ("tau", "tau_old")
 
@@ -141,6 +142,9 @@ def _save_multihost(path: str, model, compress: str = None) -> None:
     if compress not in (None, "f16"):
         raise ValueError(f"unknown checkpoint compression {compress!r}")
     pid = model._shard
+    # the replicas of a slab over a mesh's other axes hold the same rows:
+    # the first writes them
+    writes = model._replica == 0
     fields = _fields(model.state)
     doc_fields = set(model._per_doc_fields)
     row2doc = _row_to_doc(model)
@@ -158,11 +162,12 @@ def _save_multihost(path: str, model, compress: str = None) -> None:
             arrays[f"leaf_{i}"] = vals
         elif pid == 0:
             arrays[f"leaf_{i}"] = x
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, f"proc{pid}.npz"), "wb") as f:
-        np.savez(f, **arrays)
+    if writes:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, f"proc{pid}.npz"), "wb") as f:
+            np.savez(f, **arrays)
     barrier(model.mesh)
-    if pid == 0:
+    if pid == 0 and writes:
         manifest = dict(meta=_model_meta(model), n_procs=model._n_shards)
         tmp = os.path.join(path, _MANIFEST + ".tmp")
         with open(tmp, "w") as f:
@@ -276,13 +281,6 @@ def _runtime(meta: dict, cls):
             if v:
                 raise ValueError("the checkpoint was trained with elogtheta_f64=True, "
                                  "which this package does not implement")
-        elif k == "mesh_shape":
-            # a data-axis layout loads at any world size (the mesh is the
-            # loading run's); a tensor-parallel one is not ported
-            if any(int(s) > 1 for s in v[1:]):
-                raise ValueError(f"the checkpoint's runtime has mesh_shape={v}, a "
-                                 "tensor-parallel layout; this package ports the data "
-                                 "axis only (ROADMAP queue 1 item 8b)")
         elif k in known:
             kw[k] = v
         else:

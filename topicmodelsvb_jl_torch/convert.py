@@ -6,7 +6,10 @@ state: the JAX package's state fields, read as NumPy arrays by name,
 become this package's state dataclass, and back; a streaming model's
 globals, host arrays and counters go across by :func:`streaming_from`.
 :func:`state_for` gives a model sharded over processes its own rows of a
-whole state, such as the JAX package's state on an n-device mesh.
+whole state, such as the JAX package's state on an n-device mesh, and
+:func:`shard_state` gives a process its blocks of a whole state on any
+mesh: document rows, and the vocab- and user-axis blocks of tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from .models.fctm import FCTMState
 from .models.flda import FLDAState
 from .models.hmtm import HMTMState
 from .models.lda import LDAState
-from .parallel.mesh import put_replicated, put_sharded
+from .parallel.mesh import local_block, put_replicated
 
 LDA_FIELDS = tuple(LDAState.__dataclass_fields__)
 FLDA_FIELDS = tuple(FLDAState.__dataclass_fields__)
@@ -109,18 +112,60 @@ def hmtm_state_to_numpy(state: HMTMState) -> dict:
 
 
 
+# each state's fields that shard over the mesh: per-document rows (over
+# the data axes), and (field: dim) of the vocab- and user-axis
+# blocks, as the JAX package's partition_spec functions lay them out
+LAYOUT = {
+    LDAState: dict(doc=("gamma", "Elogtheta", "Elogtheta_old"),
+                   vocab={"beta": 1, "beta_old": 1}),
+    FLDAState: dict(doc=("gamma", "Elogtheta", "Elogtheta_old", "tau", "tau_old"),
+                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0}),
+    CTMState: dict(doc=("lam", "lam_old", "vsq", "logzeta"),
+                   vocab={"beta": 1, "beta_old": 1}),
+    FCTMState: dict(doc=("lam", "lam_old", "vsq", "logzeta", "tau", "tau_old"),
+                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0}),
+    CTPFState: dict(doc=("gimel", "gimel_old", "zayin", "zayin_old"),
+                    vocab={"alef": 1, "alef_old": 1}, user={"he": 1, "he_old": 1}),
+    DTMState: dict(doc=("gamma", "Elogtheta", "lzeta"),
+                   vocab={"betahat": 2, "mbeta": 2, "vbeta": 2, "v_filt": 2}),
+    HMTMState: dict(doc=("tau", "gamma"), vocab={"beta": 1}),
+}
+
+
+def shard_state(cls, arrays: Mapping, mesh, *, data_axis="data", vocab_axis=None,
+                user_axis=None, device="cpu", dtype=torch.float32):
+    """This process's blocks of a whole state of ``cls`` (each field by
+    name, as the JAX package holds it): the per-document fields' rows over
+    ``data_axis`` (a name or a tuple of names, the first major, JAX's
+    ``P(("data", "vocab"))`` order), the vocab-sharded fields' columns by
+    vocab coordinate (beta ``[K, V/n]``, kappa ``[V/n]``, DTM's
+    ``[T, K, V/n]``), CTPF's he by user coordinate, every other field
+    whole; on ``device`` in ``dtype``."""
+    lay = LAYOUT[cls]
+    kw = dict(device=device, dtype=dtype)
+    out = {}
+    for f in cls.__dataclass_fields__:
+        a = np.asarray(arrays[f])
+        if f in lay["doc"]:
+            a = local_block(a, mesh, data_axis)
+        for key, axis in (("vocab", vocab_axis), ("user", user_axis)):
+            if axis is not None and f in lay.get(key, {}):
+                a = local_block(a, mesh, axis, dim=lay[key][f])
+        out[f] = put_replicated(a, **kw)
+    return cls(**out)
+
+
 def state_for(model, arrays: Mapping, dtype=None):
     """The state of an api ``model`` from the arrays of a whole state
     (each field by name, per-document fields in shard-major packed rows,
     as the JAX package holds them on a mesh of as many devices as the
     model's data axis has shards): this process's rows of every
     per-document field, every global whole, on the model's device, in
-    ``dtype`` (default the model's)."""
-    cls = type(model.state)
-    kw = dict(device=model.device, dtype=dtype or model.dtype)
-    return cls(**{f: (put_sharded(arrays[f], model.mesh, model.runtime.data_axis, **kw)
-                      if f in model._per_doc_fields else put_replicated(arrays[f], **kw))
-                  for f in cls.__dataclass_fields__})
+    ``dtype`` (default the model's).  The api models shard over the data
+    axis alone (:func:`shard_state` takes the other axes)."""
+    return shard_state(type(model.state), arrays, model.mesh,
+                       data_axis=model.runtime.data_axis, device=model.device,
+                       dtype=dtype or model.dtype)
 
 
 def streaming_from(model, src):

@@ -193,44 +193,13 @@ __device__ __forceinline__ void write_rows(float* __restrict__ wd, const float* 
   }
 }
 
-__global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
-    const float* __restrict__ betaT,     // [V, K] beta^T + eps
-    const int* __restrict__ terms,       // [B, L]
-    const float* __restrict__ counts,    // [B, L], 0 on padding
-    const float* __restrict__ doc_mask,  // [B]
-    const float* __restrict__ alpha,     // [K]
-    const float* __restrict__ gamma_in,  // [B, K]
-    const float* __restrict__ el_in,     // [B, K]
-    const float* __restrict__ elo_in,    // [B, K]
-    float* __restrict__ gamma_out, float* __restrict__ el_out,
-    float* __restrict__ elo_out,
-    float* __restrict__ w,               // [B, L, K]
-    float* scratch,                      // [B, 3 L], the slot lists when not in smem
-    int L, int K, int tile, int meta_in_smem, int resident, int viter, float vtol2,
-    int vec_in, int vec_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x;
+// Compacts the slots l < L with c[l] != 0, in slot order, into mc (their
+// counts) and mslot (their slots); returns their number.  wcount: 8 ints
+// of shared memory.  Every thread of the block must call it.
+__device__ __forceinline__ int compact_slots(const float* c, int L, float* mc, int* mslot,
+                                             int* wcount) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Kp = estep_stride(K), nsh = estep_shares(Kp), K4 = (K + 3) / 4 * 4;
-  float* rows = smem;
-  float* e_cur = rows + static_cast<size_t>(tile) * Kp;
-  float* e_nxt = e_cur + Kp;
-  float* qpart = e_nxt + Kp;
-  float* gam = qpart + nsh * Kp;
-  float* el = gam + K4;
-  float* elo = el + K4;
-  float* red = elo + K4;  // [32]: Σγ [8], Σd² [8], compaction counts [8]
-  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
-  float* mc = meta;                                    // count of compact slot j
-  float* mcs = meta + L;                               // its c / s
-  int* mslot = reinterpret_cast<int*>(meta + 2 * L);   // its slot
-  const int* t = terms + static_cast<size_t>(b) * L;
-  const float* c = counts + static_cast<size_t>(b) * L;
-  const size_t dk = static_cast<size_t>(b) * K;
-
-  // the slots with a count, in slot order
   int n = 0;
-  int* wcount = reinterpret_cast<int*>(red + 16);
   for (int base = 0; base < L; base += kEstepThreads) {
     const int l = base + tid;
     const float cl = l < L ? c[l] : 0.f;
@@ -251,6 +220,46 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
     n = total;
     __syncthreads();  // the list is complete; wcount may be rewritten
   }
+  return n;
+}
+
+__global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
+    const float* __restrict__ betaT,     // [V, K] beta^T + eps
+    const int* __restrict__ terms,       // [B, L]
+    const float* __restrict__ counts,    // [B, L], 0 on padding
+    const float* __restrict__ doc_mask,  // [B]
+    const float* __restrict__ alpha,     // [K]
+    const float* __restrict__ gamma_in,  // [B, K]
+    const float* __restrict__ el_in,     // [B, K]
+    const float* __restrict__ elo_in,    // [B, K]
+    float* __restrict__ gamma_out, float* __restrict__ el_out,
+    float* __restrict__ elo_out,
+    float* __restrict__ w,               // [B, L, K]
+    float* scratch,                      // [B, 3 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int viter, float vtol2,
+    int vec_in, int vec_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int Kp = estep_stride(K), nsh = estep_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* e_cur = rows + static_cast<size_t>(tile) * Kp;
+  float* e_nxt = e_cur + Kp;
+  float* qpart = e_nxt + Kp;
+  float* gam = qpart + nsh * Kp;
+  float* el = gam + K4;
+  float* elo = el + K4;
+  float* red = elo + K4;  // [32]: Σγ [8], Σd² [8], compaction counts [8]
+  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
+  float* mc = meta;                                    // count of compact slot j
+  float* mcs = meta + L;                               // its c / s
+  int* mslot = reinterpret_cast<int*>(meta + 2 * L);   // its slot
+  const int* t = terms + static_cast<size_t>(b) * L;
+  const float* c = counts + static_cast<size_t>(b) * L;
+  const size_t dk = static_cast<size_t>(b) * K;
+
+  // the slots with a count, in slot order
+  const int n = compact_slots(c, L, mc, mslot, reinterpret_cast<int*>(red + 16));
 
   const bool vin = vec_in != 0;
   if (resident) load_rows<kEstepThreads>(rows, betaT, t, mslot, 0, n, K, Kp, vin);
@@ -357,6 +366,69 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
   }
 }
 
+// One pass of the fixpoint without its update: this rank's partial
+// document statistic pc[b, k] = e_k * q_k, e = exp(El[b]), q as above
+// over the document's own slots (their normaliser s_l over this rank's
+// table), for the modes whose token slots are split over ranks (routed
+// tensor parallelism, the sequence axis).  The caller sums pc over the
+// ranks and runs gamma, psi and the stop test on the [B, K] tiles
+// between passes.  Same block, slot list, rows and products as
+// lda_estep_kernel; a document with doc_mask 0 gets pc = 0 and reads
+// nothing.  One fixed order for every sum: same inputs, same bits.
+__global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_pass_kernel(
+    const float* __restrict__ betaT,     // [V, K] beta^T + eps (this rank's rows)
+    const int* __restrict__ terms,       // [B, L]
+    const float* __restrict__ counts,    // [B, L], 0 on padding
+    const float* __restrict__ doc_mask,  // [B]
+    const float* __restrict__ el_in,     // [B, K]
+    float* __restrict__ pc,              // [B, K]
+    float* scratch,                      // [B, 3 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int vec_in) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t dk = static_cast<size_t>(b) * K;
+  if (!(doc_mask[b] > 0.f)) {
+    for (int k = tid; k < K; k += kEstepThreads) pc[dk + k] = 0.f;
+    return;
+  }
+  const int Kp = estep_stride(K), nsh = estep_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* e = rows + static_cast<size_t>(tile) * Kp;
+  float* qpart = e + 2 * Kp;
+  float* red = qpart + nsh * Kp + 3 * K4;
+  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
+  float* mc = meta;
+  float* mcs = meta + L;
+  int* mslot = reinterpret_cast<int*>(meta + 2 * L);
+  const int* t = terms + static_cast<size_t>(b) * L;
+
+  const int n = compact_slots(counts + static_cast<size_t>(b) * L, L, mc, mslot,
+                              reinterpret_cast<int*>(red + 16));
+  const bool vin = vec_in != 0;
+  if (resident) load_rows<kEstepThreads>(rows, betaT, t, mslot, 0, n, K, Kp, vin);
+  for (int k = tid; k < Kp; k += kEstepThreads) e[k] = k < K ? expf(el_in[dk + k]) : 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int m = min(tile, n - j0);
+    if (!resident) {
+      load_rows<kEstepThreads>(rows, betaT, t, mslot, j0, m, K, Kp, vin);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    s_product(rows, m, e, mc + j0, mcs + j0, Kp);
+    __syncthreads();
+    q_product(rows, m, mcs + j0, qpart, Kp, nsh, j0 == 0);
+    __syncthreads();
+  }
+  for (int k = tid; k < K; k += kEstepThreads) {
+    float q = 0.f;
+    if (n > 0)
+      for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+    pc[dk + k] = e[k] * q;
+  }
+}
+
 }  // namespace tmvb
 
 extern "C" {
@@ -397,6 +469,25 @@ int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
       betaT, terms, counts, doc_mask, alpha, gamma_in, el_in, elo_in, gamma_out, el_out,
       elo_out, w, scratch, static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem,
       s.resident, viter, vtol * vtol, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode: pc [B, K] (see lda_estep_pass_kernel); scratch as for
+// tmvb_lda_estep.
+int tmvb_lda_estep_pass(const float* betaT, const int* terms, const float* counts,
+                        const float* doc_mask, const float* el_in, float* pc, float* scratch,
+                        int64_t B, int64_t L, int64_t K, int vec_in, void* stream) {
+  if (B == 0) return 0;
+  tmvb::EstepShape s;
+  int rc = tmvb::estep_shape(L, K, &s);
+  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_pass_kernel, s.bytes);
+  if (err != cudaSuccess) return tmvb::fail(err);
+  tmvb::lda_estep_pass_kernel<<<static_cast<unsigned>(B), tmvb::kEstepThreads, s.bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      betaT, terms, counts, doc_mask, el_in, pc, scratch, static_cast<int>(L),
+      static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 

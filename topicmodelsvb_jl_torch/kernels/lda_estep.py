@@ -16,6 +16,11 @@ and return ``(gamma, El, El_old, w)`` with ``w = phi·counts`` [B, L, K],
 phi taken from the final ``El_old``.  A document with ``doc_mask = 0``
 keeps its state.
 
+:func:`lda_estep_pass` is the kernel's pass mode, for the modes whose
+token slots are split over ranks (routed tensor parallelism, the
+sequence axis): one pass's partial document statistic, which the caller
+sums over the ranks between passes; :func:`split_fixpoint` drives it.
+
 phi is computed multiplicatively — ``phi ∝ (beta+eps)[:, terms]·exp(El)``
 — exactly the CPU reference's update (LDA.jl:150-154 under @positive),
 and ψ is the shift-by-8 asymptotic series of the reference's OpenCL
@@ -138,3 +143,90 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
 
 
 lda_estep.launches = 0   # kernel launches (the plain version is not counted)
+
+
+def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
+    """Plain PyTorch version of the pass mode: ``pc [B, K] = e ⊙ q``,
+    ``e = exp(El)``, ``q_k = Σ_l (c_l / s_l)·betaT[t_l, k]`` with each
+    token's own normaliser ``s_l = Σ_k betaT[t_l, k]·e_k`` over the slots
+    and the table given; 0 for a document with ``doc_mask`` 0."""
+    bd = betaT[terms]                                  # [B, L, K]
+    e = torch.exp(El)
+    s = torch.sum(bd * e[:, None, :], dim=-1)          # [B, L]
+    q = torch.sum(bd * (counts / s)[:, :, None], dim=1)
+    return torch.where((doc_mask > 0)[:, None], e * q, torch.zeros_like(q))
+
+
+_PASS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def lda_estep_pass(betaT, terms, counts, doc_mask, El):
+    """One pass of the E-step fixpoint without its update: this rank's
+    partial statistic ``pc [B, K]`` (see :func:`lda_estep_pass_ref`).
+
+    CPU tensors take :func:`lda_estep_pass_ref`; CUDA tensors launch the
+    kernel (f32 only) or raise."""
+    if betaT.device.type == "cpu":
+        return lda_estep_pass_ref(betaT, terms, counts, doc_mask, El)
+    if betaT.device.type != "cuda":
+        raise ValueError(f"lda_estep_pass: no kernel for device {betaT.device}")
+    if terms.dim() != 2 or betaT.dim() != 2:
+        raise ValueError("lda_estep_pass: terms and betaT must be 2-D")
+    B, L = terms.shape
+    V, K = betaT.shape
+    f32 = torch.float32
+    require("lda_estep_pass", betaT.device, {
+        "betaT": (betaT, (V, K), f32), "terms": (terms, (B, L), torch.int32),
+        "counts": (counts, (B, L), f32), "doc_mask": (doc_mask, (B,), f32),
+        "El": (El, (B, K), f32)})
+    pc = torch.empty((B, K), dtype=f32, device=betaT.device)
+    if B == 0:
+        return pc
+    n_scratch = _scratch_floats(L, K)
+    scratch = (torch.empty((B, n_scratch), dtype=f32, device=betaT.device)
+               if n_scratch else None)
+    err = _build.launch(
+        _build.function("tmvb_lda_estep_pass", _PASS_ARGTYPES), betaT.device,
+        *(t.data_ptr() for t in (betaT, terms, counts, doc_mask, El, pc)),
+        None if scratch is None else scratch.data_ptr(), B, L, K,
+        int(K % 4 == 0 and betaT.data_ptr() % 16 == 0))
+    check(err, "lda_estep_pass")
+    lda_estep_pass.launches += 1
+    return pc
+
+
+lda_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+
+
+def split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
+                   *, viter: int, vtol: float, reduce=None):
+    """The E-step over a chunk whose token slots are split over ranks:
+    :func:`lda_estep`'s fixpoint with each pass's statistic from
+    :func:`lda_estep_pass`, summed by ``reduce`` (the psum over the ranks
+    that hold the documents' other slots; None on one rank), and gamma,
+    ψ, the masks and the per-document stop test on the [B, K] tiles, as
+    the JAX package computes them outside any kernel on this path.
+    Returns ``(gamma, El, El_old, w)``, ``w = phi·counts`` over this
+    rank's slots from the kernel at ``viter = 0`` (the state unchanged,
+    phi from the final ``El_old``).  Every rank of a ``reduce`` group
+    holds the same documents, so they test the same mask and stop
+    together."""
+    vtol2 = vtol * vtol
+    active = doc_mask > 0
+    i = 0
+    while i < viter and bool(torch.any(active)):
+        pc = lda_estep_pass(betaT, terms, counts, active.to(counts.dtype), El)
+        if reduce is not None:
+            pc = reduce(pc)
+        gamma_new = alpha + pc + EPSILON
+        El_new = (digamma_series(gamma_new)
+                  - digamma_series(torch.sum(gamma_new, -1, keepdim=True)))
+        upd = active[:, None]
+        gamma = torch.where(upd, gamma_new, gamma)
+        El_old = torch.where(upd, El, El_old)
+        El = torch.where(upd, El_new, El)
+        d = El - El_old
+        active = active & (torch.sum(d * d, -1) >= vtol2)
+        i += 1
+    return lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
+                     viter=0, vtol=vtol)

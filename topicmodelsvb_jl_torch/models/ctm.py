@@ -28,13 +28,14 @@ import torch
 from ..kernels.lda_elbo import lda_elbo_tok
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, dirichlet_ones, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, l2norm,
     logsumexp,
     masked_fixpoint, mvnormal_diag_entropy,
 )
-from .lda import _chunks, token_plans
+from .lda import _chunks, as_segments, no_seq_axis, token_plans
 
 
 @dataclasses.dataclass
@@ -68,11 +69,14 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
     )
 
 
-def beta_rows(bt: torch.Tensor) -> torch.Tensor:
-    """Normalise the [K, V] statistic's rows; a dead topic (no mass, only
-    in degenerate regimes) becomes the uniform row instead of 0/0, which
-    would poison every topic's phi through log(beta) on the next sweep."""
-    row_sum = torch.sum(bt, dim=1, keepdim=True)
+def beta_rows(bt: torch.Tensor, row_sum=None) -> torch.Tensor:
+    """Normalise the [K, V] statistic's rows (by ``row_sum`` [K, 1] when
+    given: a vocab block's rows by the whole rows' sums); a dead topic
+    (no mass, only in degenerate regimes) becomes the uniform row instead
+    of 0/0, which would poison every topic's phi through log(beta) on the
+    next sweep."""
+    if row_sum is None:
+        row_sum = torch.sum(bt, dim=1, keepdim=True)
     return torch.where(row_sum > 0, bt / row_sum, 1.0 / bt.shape[1])
 
 
@@ -161,23 +165,31 @@ def global_update(g, beta_temp, vsq_sum, lam_sum, lam_outer, M_total, identify: 
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None):
+              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None,
+              vocab_axis=None, seq_axis=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
-    segment tuples of device tensors on ``device`` and returns the next
-    state; the chunks' scatter plans are built here and put on ``device``.
-    With a ``mesh`` (``packed`` this process's slab), the moments (vsq_sum,
-    lam_sum, lam_outer) and the beta statistic are summed over
-    ``axis_name`` before the M-step.
+    segment tuples of device tensors (one tensor each for a dense corpus)
+    on ``device`` and returns the next state; the chunks' scatter plans are
+    built here and put on ``device``.  With a ``mesh`` (``packed`` this
+    process's slab), the moments (vsq_sum, lam_sum, lam_outer) and the
+    beta statistic are summed over ``axis_name`` before the M-step.
+    ``vocab_axis`` shards beta's storage (``[K, V/n]`` blocks), gathered
+    whole for the E-step; the new block comes from ``tp_normalize_rows``.
     """
+    no_seq_axis("CTM", seq_axis)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
     def step(state: CTMState, terms, counts, doc_mask, M_total) -> CTMState:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.beta.dtype, state.beta.device
-        logbetaT = torch.log(state.beta).T.contiguous()   # raw log (CTM.jl:177)
+        beta = state.beta
+        if vocab_axis is not None:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+        logbetaT = torch.log(beta).T.contiguous()         # raw log (CTM.jl:177)
         beta_temp = torch.zeros((V, K), dtype=dt, device=dev)
         vsq_sum = torch.zeros((K,), dtype=dt, device=dev)
         lam_sum = torch.zeros((K,), dtype=dt, device=dev)
@@ -195,10 +207,17 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             for f, x in zip(new, out):
                 new[f][rows] = x
 
-        vsq_sum, lam_sum, lam_outer, beta_temp = (
-            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer, beta_temp))
-        mu, sigma, invsigma, beta_new = global_update(state, beta_temp, vsq_sum, lam_sum,
-                                                      lam_outer, M_total, identify)
+        vsq_sum, lam_sum, lam_outer = (
+            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer))
+        if vocab_axis is not None:
+            local, row_sum = tp_normalize_rows(beta_temp, mesh, vocab_axis, axis_tuple(axis_name))
+            beta_new = beta_rows(local.T.contiguous(), row_sum[:, None])
+            mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
+                                                  M_total, identify)
+        else:
+            mu, sigma, invsigma, beta_new = global_update(
+                state, psum(beta_temp, mesh, axis_name), vsq_sum, lam_sum, lam_outer,
+                M_total, identify)
         return CTMState(mu=mu, sigma=sigma, invsigma=invsigma, beta=beta_new,
                         beta_old=state.beta, elbo=state.elbo, **new)
 
@@ -221,27 +240,38 @@ def logdet_invsigma(state) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(torch.diagonal(torch.linalg.cholesky(state.invsigma))))
 
 
-def elbo_tables(state):
+def elbo_tables(state, beta=None, beta_old=None):
     """``lda_elbo_tok``'s tables for the CTM bound: the raw beta_old
     (CTM.jl:93) and ``g2 = bo·(log(beta + EPSILON) − log bo)``, 0 where
-    bo = 0, both [V, K]."""
-    boT = state.beta_old.T.contiguous()
-    logbetaT = torch.log(state.beta + EPSILON).T               # CTM.jl:71
+    bo = 0, both [V, K]; ``beta``/``beta_old`` replace the state's (the
+    gathered whole under a vocab axis)."""
+    beta = state.beta if beta is None else beta
+    beta_old = state.beta_old if beta_old is None else beta_old
+    boT = beta_old.T.contiguous()
+    logbetaT = torch.log(beta + EPSILON).T                     # CTM.jl:71
     g2T = torch.where(boT > 0, boT * (logbetaT - torch.log(boT)), 0.0).contiguous()
     return boT, g2T
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_axis=None,
+              seq_axis=None):
     """ELBO (CTM.jl:55-98): phi recomputed from (beta_old, lambda_old), the
     terms with the current parameters.  The token terms Elogpz (its
     Σ φc·λ part) + Elogpw − Elogqz are ``lda_elbo_tok`` on the tables of
     :func:`elbo_tables`; the doc terms are [B, K] tensor ops.
+    ``vocab_axis`` gathers beta and beta_old whole first.
     """
+    no_seq_axis("CTM", seq_axis)
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: CTMState, terms, counts, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.beta.dtype, state.beta.device
-        tables = (*elbo_tables(state), logdet_invsigma(state), state)
+        full = ()
+        if vocab_axis is not None:
+            full = tuple(all_gather(x, mesh, vocab_axis, dim=1)
+                         for x in (state.beta, state.beta_old))
+        tables = (*elbo_tables(state, *full), logdet_invsigma(state), state)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
             doc, tok = elbo_chunk(tables, terms[j][sl], counts[j][sl], doc_mask[j][sl],

@@ -30,12 +30,13 @@ import torch
 from ..kernels.ctpf_estep import ctpf_estep
 from ..kernels.scatter_rows import build_plan
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero,
     lgamma, xlogx,
 )
-from .lda import _chunks, token_plans
+from .lda import _chunks, as_segments, no_seq_axis, token_plans
 
 # Gamma hyperpriors a..h = 0.1 (CTPF.jl:81)
 HYPER = dict(a=0.1, b=0.1, c=0.1, d=0.1, e=0.1, f=0.1, g=0.1, h=0.1)
@@ -115,9 +116,12 @@ def sweep_chunk(tables, t, cnt, rd, rt, dm, gimel, gimel_old, zayin, zayin_old, 
             torch.sum(za2 * dm[:, None], dim=0))
 
 
-def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int) -> tuple:
+def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int,
+                  row_sums=None) -> tuple:
     """(alef, bet, dalet, he, vav, het) from a sweep's statistics, in the
-    reference's order (CTPF.jl:366-371)."""
+    reference's order (CTPF.jl:366-371).  ``row_sums(alef_sum, he_sum)``,
+    when given, completes the [K] row sums of sharded alef/he blocks over
+    their axes (the sums run over the whole V and U)."""
     a, b, c, d, e, f, g, h = (HYPER[k] for k in "abcdefgh")
     # he (CTPF.jl:266-270), alef (CTPF.jl:251-255)
     he_new = (e + he_temp.T).contiguous()
@@ -126,6 +130,8 @@ def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int) ->
     he_sum = (torch.sum(he_new, dim=1) if U > 0
               else torch.zeros(gimel_sum.shape, dtype=gimel_sum.dtype, device=gimel_sum.device))
     alef_sum = torch.sum(alef_new, dim=1)
+    if row_sums is not None:
+        alef_sum, he_sum = row_sums(alef_sum, he_sum)
     dalet_new = d + alef_sum / bet + he_sum / vav
     # het (CTPF.jl:302-305): old vav
     het_new = h + he_sum / vav
@@ -136,27 +142,60 @@ def global_update(alef_temp, he_temp, gimel_sum, zayin_sum, bet, vav, U: int) ->
     return alef_new, bet_new, dalet_new, he_new, vav_new, het_new
 
 
+def gathered(state: CTPFState, mesh, vocab_axis=None, user_axis=None,
+             fields=("alef", "he")) -> CTPFState:
+    """``state`` with the named alef/he fields whole: their ``[K, V/n]``
+    blocks gathered over ``vocab_axis``, the ``[K, U/n]`` ones over
+    ``user_axis``."""
+    rep = {}
+    for f in fields:
+        axis = vocab_axis if f.startswith("alef") else user_axis
+        if axis is not None:
+            rep[f] = all_gather(getattr(state, f), mesh, axis, dim=1)
+    return dataclasses.replace(state, **rep) if rep else state
+
+
 def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
-              mesh=None, axis_name=None):
+              mesh=None, axis_name=None, vocab_axis=None, user_axis=None, seq_axis=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, readers, ratings, doc_mask)`` takes the
-    per-segment tuples of terms/counts/doc_mask and the dense reader
-    arrays on ``device``, and returns the next state; the chunks' two
-    scatter plans (``lda.token_plans``, :func:`reader_plans`) are built
-    here and put on ``device``.  With a ``mesh`` (``packed`` this process's
-    slab), gimel_sum, zayin_sum, alef_temp and he_temp are summed over
-    ``axis_name`` before the global update.
+    per-segment tuples of terms/counts/doc_mask (one tensor each for a
+    dense corpus) and the dense reader arrays on ``device``, and returns
+    the next state; the chunks' two scatter plans (``lda.token_plans``,
+    :func:`reader_plans`) are built here and put on ``device``.  With a
+    ``mesh`` (``packed`` this process's slab), gimel_sum, zayin_sum,
+    alef_temp and he_temp are summed over ``axis_name`` before the global
+    update.  ``vocab_axis`` shards alef's storage (``[K, V/n]`` blocks)
+    and ``user_axis`` he's (``[K, U/n]``): both are gathered whole for the
+    E-step's tables, each statistic keeps its block through
+    ``tp_normalize_rows``, and the [K] row sums are completed over the
+    axis.
     """
+    no_seq_axis("CTPF", seq_axis)
     V, U = packed.V, packed.U
     U_seg = max(U, 1)
+    axes = axis_tuple(axis_name)
     chunks = _chunks(packed, chunk_docs)
     tplans = token_plans(packed, chunk_docs, device)
     rplans = reader_plans(packed, chunk_docs, device)
 
+    def reduce_stat(temp, shard_axis):
+        if shard_axis is None:
+            return psum(temp, mesh, axes)
+        return tp_normalize_rows(temp, mesh, shard_axis, axes)[0]
+
+    def row_sums(alef_sum, he_sum):
+        if vocab_axis is not None:
+            alef_sum = psum(alef_sum, mesh, vocab_axis)
+        if user_axis is not None and U > 0:
+            he_sum = psum(he_sum, mesh, user_axis)
+        return alef_sum, he_sum
+
     def step(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> CTPFState:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.alef.dtype, state.alef.device
-        tables = estep_tables(state)
+        tables = estep_tables(gathered(state, mesh, vocab_axis, user_axis))
         alef_temp = torch.zeros((V, K), dtype=dt, device=dev)
         he_temp = torch.zeros((U_seg, K), dtype=dt, device=dev)
         gimel_sum = torch.zeros((K,), dtype=dt, device=dev)
@@ -174,10 +213,10 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
             for f_, v in zip(new, out):
                 new[f_][rows] = v
 
-        gimel_sum, zayin_sum, alef_temp, he_temp = (
-            psum(x, mesh, axis_name) for x in (gimel_sum, zayin_sum, alef_temp, he_temp))
+        gimel_sum, zayin_sum = (psum(x, mesh, axes) for x in (gimel_sum, zayin_sum))
         alef_new, bet_new, dalet_new, he_new, vav_new, het_new = global_update(
-            alef_temp, he_temp, gimel_sum, zayin_sum, state.bet, state.vav, U)
+            reduce_stat(alef_temp, vocab_axis), reduce_stat(he_temp, user_axis), gimel_sum,
+            zayin_sum, state.bet, state.vav, U, row_sums)
         return CTPFState(
             alef=alef_new, alef_old=state.alef, bet=bet_new, bet_old=state.bet,
             dalet=dalet_new, dalet_old=state.dalet, he=he_new, he_old=state.he,
@@ -294,20 +333,25 @@ def elbo_chunk(tb: dict, t, cnt, rd, rt, dm, gi, gio, za, zao) -> tuple:
             torch.sum(dm * (rate_lin - rate_q + tok_lin - tok_q)))
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_axis=None,
+              user_axis=None, seq_axis=None):
     """Closed-form ELBO (CTPF.jl:110-247 with the E[lnΓ(y+1)] cancellation).
 
     phi/xi are recomputed from the *_old parameter set (CTPF.jl:240-241);
     all bound terms use the current parameters.  With a ``mesh``, the
     document and token sums are reduced over ``axis_name`` before the
-    global terms are added.
+    global terms are added; ``vocab_axis``/``user_axis`` gather alef and
+    alef_old, he and he_old whole first.
     """
+    no_seq_axis("CTPF", seq_axis)
     U = packed.U
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.alef.dtype, state.alef.device
-        tb = elbo_tables(state, U)
+        tb = elbo_tables(gathered(state, mesh, vocab_axis, user_axis,
+                                  ("alef", "alef_old", "he", "he_old")), U)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
             doc, tok = elbo_chunk(tb, terms[j][sl], counts[j][sl], readers[rows],

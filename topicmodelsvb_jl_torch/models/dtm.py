@@ -38,7 +38,8 @@ import torch
 from ..kernels.scatter_rows import build_plan
 from ..ops.newton import dirichlet_newton_batched
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, pmax, psum, psum_scatter
 from ..utils.numerics import (
     EPSILON, categorical_entropy, digamma, dirichlet_entropy, finite, kbn_add, kbn_pack,
     kbn_psum, kbn_zero, kbn_zeros, l2norm, lgamma, masked_fixpoint,
@@ -131,15 +132,21 @@ def _phi(mbeta_d, decay, El):
     return torch.softmax(mbeta_d - decay[:, None, :] + El[:, None, :], dim=-1)
 
 
-def _overflow_safe(state: DTMState):
+def _overflow_safe(state: DTMState, mesh=None, vocab_axis=None):
     """(maxl [T], rowsum [T, K]): overflow-safe pieces of
     Σ_v exp(mbeta + vbeta/2) (DTM.jl:225-228), and mbeta as [T·V, K]
-    (slice-major) so that one gather serves every document's slice."""
-    T, K, V = state.mbeta.shape
+    (slice-major) so that one gather serves every document's slice.
+    With ``vocab_axis`` (the state's [T, K, V/n] blocks) the max and the
+    sums span the whole vocabulary (a ``pmax`` and a ``psum``) and mbeta
+    is gathered whole."""
     x = state.mbeta + 0.5 * state.vbeta
-    maxl = torch.amax(x, dim=(1, 2))
-    rowsum = torch.sum(torch.exp(x - maxl[:, None, None]), dim=2)
-    mbeta_flat = state.mbeta.permute(0, 2, 1).reshape(T * V, K).contiguous()
+    maxl = pmax(torch.amax(x, dim=(1, 2)), mesh, vocab_axis)
+    rowsum = psum(torch.sum(torch.exp(x - maxl[:, None, None]), dim=2), mesh, vocab_axis)
+    mbeta = state.mbeta
+    if vocab_axis is not None:
+        mbeta = all_gather(mbeta, mesh, vocab_axis, dim=2)
+    T, K, V = mbeta.shape
+    mbeta_flat = mbeta.permute(0, 2, 1).reshape(T * V, K).contiguous()
     return maxl, rowsum, mbeta_flat
 
 
@@ -196,7 +203,8 @@ def cg_objective(betahat, v_filt, vbeta, A, wz):
     return lin - expterm + pbeta
 
 
-def make_global_update(niter: int, ntol: float, cgiter: int, cgtol: float):
+def make_global_update(niter: int, ntol: float, cgiter: int, cgtol: float, mesh=None,
+                       vocab_axis=None):
     """The DTM M-step as a function of the accumulated statistics: the
     per-slice alpha Newtons (updateAlpha!, DTM.jl:176-197) and the betahat
     Polak–Ribière CG with back-tracking (updateBetahat!, DTM.jl:244-304).
@@ -204,7 +212,12 @@ def make_global_update(niter: int, ntol: float, cgiter: int, cgtol: float):
     Returns ``update(alpha, betahat, v_filt, vbeta, A, wz, els_hi, els_lo,
     nd) -> (alpha_new, betahat_new, mbeta_new)``.  Each CG iteration reads
     the line search's test back to the host once a trial step, and the
-    stop flag once."""
+    stop flag once.  With ``vocab_axis`` the [T, K, V] tensors (and A's
+    rows) are this process's vocab block: the smoother runs on it alone
+    (it is elementwise over V), and the objective and every inner product
+    of the CG are summed over the axis outside the differentiated
+    function, so every process takes the same steps."""
+    gsum = lambda x: psum(x, mesh, vocab_axis)
 
     def value_and_grad(bh, obj):
         with torch.enable_grad():
@@ -217,25 +230,27 @@ def make_global_update(niter: int, ntol: float, cgiter: int, cgtol: float):
     def update(alpha, betahat, v_filt, vbeta, A, wz, els_hi, els_lo, nd):
         alpha_new = dirichlet_newton_batched(alpha, els_hi, torch.clamp(nd, min=1.0), niter,
                                              ntol, Elogtheta_sum_lo=els_lo)
-        obj = lambda b: cg_objective(b, v_filt, vbeta, A, wz)
+        obj_local = lambda b: cg_objective(b, v_filt, vbeta, A, wz)
+        obj = lambda b: gsum(obj_local(b))
         dt, dev = betahat.dtype, betahat.device
         bh, p_dir, g_old = betahat, torch.zeros_like(betahat), torch.ones_like(betahat)
         rho = torch.tensor(1.0, dtype=dt, device=dev)
         f0 = torch.tensor(float("inf"), dtype=dt, device=dev)
         done = torch.tensor(False, device=dev)
         for _ in range(cgiter):
-            f0_new, g = value_and_grad(bh, obj)
+            f0_new, g = value_and_grad(bh, obj_local)
+            f0_new = gsum(f0_new)
             f0 = torch.where(torch.isfinite(f0), f0, f0_new)   # the first iteration
-            denom = torch.sum(g_old * g_old)
-            pr = torch.clamp(torch.sum(g * (g - g_old)) / torch.clamp(denom, min=1e-30),
+            denom = gsum(torch.sum(g_old * g_old))
+            pr = torch.clamp(gsum(torch.sum(g * (g - g_old))) / torch.clamp(denom, min=1e-30),
                              0.0, 1.0)
             p_dir = g + pr * p_dir                               # ascent direction
-            slope = torch.sum(g * p_dir)
+            slope = gsum(torch.sum(g * p_dir))
             # a momentum-dominated direction can stop ascending: restart
             # from steepest ascent (the standard NCG safeguard)
             bad_dir = slope <= 0.0
             p_dir = torch.where(bad_dir, g, p_dir)
-            slope = torch.where(bad_dir, torch.sum(g * g), slope)
+            slope = torch.where(bad_dir, gsum(torch.sum(g * g)), slope)
             r = rho
             f = obj(bh + r * p_dir)
             it = 0
@@ -308,19 +323,24 @@ def sweep_chunk(prep, alpha, sid, terms, counts, doc_mask, gamma, El, lzeta, tpl
 
 
 def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
-               slice_id: np.ndarray, device, mesh=None, axis_name=None):
+               slice_id: np.ndarray, device, mesh=None, axis_name=None, vocab_axis=None):
     """The E-step sweep over every chunk:
     ``sweep(state, slice_id, terms, counts, doc_mask) -> (gamma, El,
     lzeta, A, wz, els, nd)``, ``els`` a compensated (hi, lo) pair.  With a
     ``mesh`` (``packed`` and ``slice_id`` this process's rows), wz, els,
-    nd and A are summed over ``axis_name`` at the end."""
+    nd and A are summed over ``axis_name`` at the end.  With
+    ``vocab_axis`` the state's [T, K, V] tensors are this process's
+    [T, K, V/n] blocks: mbeta is gathered whole, the plans scatter into
+    the whole [T·V, K] statistic, and the sum over ``vocab_axis`` keeps
+    this process's [T·V/n, K] rows of it (``psum_scatter``)."""
+    rest = tuple(a for a in axis_tuple(axis_name) if a != vocab_axis)
     V = packed.V
     chunks = _chunk_rows(packed, chunk_docs)
     plans = scatter_plans(packed, slice_id, chunk_docs, device)
 
     def sweep(state: DTMState, slice_id, terms, counts, doc_mask):
         dt, dev = state.betahat.dtype, state.betahat.device
-        maxl, rowsum, mbeta_flat = _overflow_safe(state)
+        maxl, rowsum, mbeta_flat = _overflow_safe(state, mesh, vocab_axis)
         A = torch.zeros((T * V, K), dtype=dt, device=dev)
         wz = torch.zeros((T, K), dtype=dt, device=dev)
         nd = torch.zeros((T,), dtype=dt, device=dev)
@@ -342,7 +362,11 @@ def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
         wz = psum(wz, mesh, axis_name)
         els = kbn_psum(els, mesh, axis_name)
         nd = psum(nd, mesh, axis_name)
-        A = psum(A, mesh, axis_name)
+        if vocab_axis is not None:
+            A = psum(psum_scatter(A.reshape(T, V, K), mesh, vocab_axis, dim=1), mesh, rest)
+            A = A.reshape(-1, K)
+        else:
+            A = psum(A, mesh, axis_name)
         return gamma, El, lzeta, A, wz, els, nd
 
     return sweep
@@ -350,18 +374,19 @@ def make_sweep(packed, K: int, T: int, viter: int, vtol: float, chunk_docs: int,
 
 def make_step(packed, K: int, T: int, viter: int, vtol: float, niter: int, ntol: float,
               cgiter: int, cgtol: float, chunk_docs: int, slice_id: np.ndarray, device,
-              mesh=None, axis_name=None):
+              mesh=None, axis_name=None, vocab_axis=None):
     """One full CAVI sweep (train!, DTM.jl:311-335): the per-document
     fixpoints, the per-slice alpha Newtons, then the betahat CG.
 
     ``step(state, slice_id, terms, counts, doc_mask)`` takes the dense
     packed tensors on ``device`` (``slice_id`` int64 [M_pad], the host copy
     of which builds the scatter plans here).  ``step.sweep`` and
-    ``step.update`` are its two halves; ``mesh``: as in :func:`make_sweep`
-    (the update then runs alike on every process)."""
+    ``step.update`` are its two halves; ``mesh`` and ``vocab_axis``: as in
+    :func:`make_sweep` and :func:`make_global_update` (the update then runs
+    alike on every process)."""
     sweep = make_sweep(packed, K, T, viter, vtol, chunk_docs, slice_id, device,
-                       mesh=mesh, axis_name=axis_name)
-    update = make_global_update(niter, ntol, cgiter, cgtol)
+                       mesh=mesh, axis_name=axis_name, vocab_axis=vocab_axis)
+    update = make_global_update(niter, ntol, cgiter, cgtol, mesh=mesh, vocab_axis=vocab_axis)
 
     def step(state: DTMState, slice_id, terms, counts, doc_mask) -> DTMState:
         gamma, El, lzeta, A, wz, els, nd = sweep(state, slice_id, terms, counts, doc_mask)
@@ -392,14 +417,20 @@ def slice_elbo_terms(state: DTMState) -> torch.Tensor:
     return e_pb + e_qb
 
 
-def make_elbo(packed, K: int, T: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, T: int, chunk_docs: int, mesh=None, axis_name=None,
+              vocab_axis=None):
     """The full ELBO (updateELBO!, DTM.jl:161-174), as a compensated
     (hi, lo) pair; with a ``mesh`` the document terms are reduced over
-    ``axis_name`` before the slice terms are added."""
+    ``axis_name`` before the slice terms are added.  ``vocab_axis``
+    gathers mbeta and vbeta whole first."""
     chunks = _chunk_rows(packed, chunk_docs)
 
     def elbo(state: DTMState, slice_id, terms, counts, doc_mask) -> torch.Tensor:
         dt, dev = state.betahat.dtype, state.betahat.device
+        if vocab_axis is not None:
+            state = dataclasses.replace(state, **{
+                f: all_gather(getattr(state, f), mesh, vocab_axis, dim=2)
+                for f in ("mbeta", "vbeta")})
         maxl, rowsum, mbeta_flat = _overflow_safe(state)
         total = kbn_zero(dt, dev)
         for rows in chunks:

@@ -25,13 +25,14 @@ import torch
 
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_ones, kbn_add, kbn_merge,
     kbn_pack, kbn_psum, kbn_zero, l2norm, logsumexp, masked_fixpoint,
 )
 from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma, moment_sums
-from .lda import _chunks, token_plans
+from .lda import _chunks, as_segments, no_seq_axis, token_plans
 
 
 @dataclasses.dataclass
@@ -144,21 +145,30 @@ def global_update(g, stat, vsq_sum, lam_sum, lam_outer, M_total, identify: bool)
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None):
+              chunk_docs: int, device, identify: bool = False, mesh=None, axis_name=None,
+              vocab_axis=None, seq_axis=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
-    segment tuples of device tensors on ``device`` and returns the next
-    state; the chunks' scatter plans are built here and put on ``device``.
-    ``identify`` and ``mesh``: as in ``ctm.make_step``.
+    segment tuples of device tensors (one tensor each for a dense corpus)
+    on ``device`` and returns the next state; the chunks' scatter plans are
+    built here and put on ``device``.  ``identify`` and ``mesh``: as in
+    ``ctm.make_step``; ``vocab_axis`` shards beta's and kappa's storage as
+    in ``flda.make_step``.
     """
+    no_seq_axis("fCTM", seq_axis)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
     def step(state: FCTMState, terms, counts, doc_mask, M_total) -> FCTMState:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.beta.dtype, state.beta.device
-        logbetaT = torch.log(state.beta + EPSILON).T.contiguous()   # fCTM.jl:232
+        beta, kappa = state.beta, state.kappa
+        if vocab_axis is not None:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+            kappa = all_gather(kappa, mesh, vocab_axis, dim=0)
+        logbetaT = torch.log(beta + EPSILON).T.contiguous()         # fCTM.jl:232
         stat = torch.zeros((V, K + 1), dtype=dt, device=dev)
         vsq_sum = torch.zeros((K,), dtype=dt, device=dev)
         lam_sum = torch.zeros((K,), dtype=dt, device=dev)
@@ -172,7 +182,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             t = terms[j][sl]
             Ls = t.shape[1]
             *out, ta2, tao2, ls, vs, lo = sweep_chunk(
-                logbetaT, state.kappa, state.eta, state.mu, state.invsigma, t, counts[j][sl],
+                logbetaT, kappa, state.eta, state.mu, state.invsigma, t, counts[j][sl],
                 doc_mask[j][sl], state.lam[rows], state.lam_old[rows], state.vsq[rows],
                 state.logzeta[rows], state.tau[rows, :Ls], state.tau_old[rows, :Ls], plan,
                 stat, viter, vtol, niter, ntol)
@@ -183,10 +193,18 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 new[f][rows] = x
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
-        vsq_sum, lam_sum, lam_outer, stat = (
-            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer, stat))
-        mu, sigma, invsigma, kappa_new, beta_new = global_update(
-            state, stat, vsq_sum, lam_sum, lam_outer, M_total, identify)
+        vsq_sum, lam_sum, lam_outer = (
+            psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer))
+        if vocab_axis is not None:
+            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, axis_tuple(axis_name))
+            beta_new = beta_rows(local[:, :K].T.contiguous(), sums[:K, None])
+            kappa_new = local[:, K] / sums[K]
+            mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
+                                                  M_total, identify)
+        else:
+            mu, sigma, invsigma, kappa_new, beta_new = global_update(
+                state, psum(stat, mesh, axis_name), vsq_sum, lam_sum, lam_outer, M_total,
+                identify)
         return FCTMState(eta=state.eta, mu=mu, sigma=sigma, invsigma=invsigma,
                          kappa=kappa_new, kappa_old=state.kappa, beta=beta_new,
                          beta_old=state.beta, tau=tau, tau_old=tau_old, elbo=state.elbo,
@@ -195,15 +213,25 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_axis=None,
+              seq_axis=None):
     """ELBO (fCTM.jl:67-124): phi recomputed from (tau_old, beta_old,
     lambda_old), the terms with the current parameters; doc-level and
-    token-level terms ride two compensated accumulators."""
+    token-level terms ride two compensated accumulators.  ``vocab_axis``
+    gathers beta, beta_old and kappa whole first."""
+    no_seq_axis("fCTM", seq_axis)
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: FCTMState, terms, counts, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.beta.dtype, state.beta.device
-        tables = elbo_tables(state)
+        g = state
+        if vocab_axis is not None:
+            g = dataclasses.replace(
+                state, beta=all_gather(state.beta, mesh, vocab_axis, dim=1),
+                beta_old=all_gather(state.beta_old, mesh, vocab_axis, dim=1),
+                kappa=all_gather(state.kappa, mesh, vocab_axis, dim=0))
+        tables = elbo_tables(g)
         acc_doc, acc_tok = kbn_zero(dt, dev), kbn_zero(dt, dev)
         for rows, j, sl in chunks:
             t = terms[j][sl]

@@ -29,13 +29,14 @@ import torch
 from ..kernels.flda_estep import flda_estep
 from ..ops.newton import dirichlet_newton
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_entropy,
     dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, kbn_zeros,
     lgamma,
 )
-from .lda import _chunks, token_plans
+from .lda import _chunks, as_segments, no_seq_axis, token_plans
 
 
 @dataclasses.dataclass
@@ -106,22 +107,32 @@ def global_update(stat, alpha, El_sum, tau_counts, M_total, C_total, niter: int,
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, mesh=None, axis_name=None):
+              chunk_docs: int, device, mesh=None, axis_name=None, vocab_axis=None,
+              seq_axis=None):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total, C_total)`` takes the
-    per-segment tuples of tensors and two 0-dim tensors on ``device``, and
-    returns the next state; the scatter plans and ``mesh``: as in
-    ``lda.make_step`` (Elogtheta_sum, tau_counts and the [V, K+1]
-    beta/kappa statistic are summed over ``axis_name``).
+    per-segment tuples of tensors (one tensor each for a dense corpus) and
+    two 0-dim tensors on ``device``, and returns the next state; the
+    scatter plans and ``mesh``: as in ``lda.make_step`` (Elogtheta_sum,
+    tau_counts and the [V, K+1] beta/kappa statistic are summed over
+    ``axis_name``).  ``vocab_axis`` shards beta's and kappa's storage
+    (``[K, V/n]`` and ``[V/n]`` blocks), gathered whole for the E-step;
+    the new blocks come from ``tp_normalize_rows`` of the statistic.
     """
+    no_seq_axis("fLDA", seq_axis)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
     def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total) -> FLDAState:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        logbetaT = torch.log(state.beta + EPSILON).T.contiguous()   # [V, K]
+        beta, kappa = state.beta, state.kappa
+        if vocab_axis is not None:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+            kappa = all_gather(kappa, mesh, vocab_axis, dim=0)
+        logbetaT = torch.log(beta + EPSILON).T.contiguous()         # [V, K]
         stat = torch.zeros((V, K + 1), dtype=dtype, device=dev)
         El_sum = kbn_zeros((K,), dtype, dev)          # see models/lda.py
         tau_counts = torch.zeros((), dtype=dtype, device=dev)
@@ -135,7 +146,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             Ls = t.shape[1]
             g2, el2, elo2, ta2, tao2, el_part, tau_part = sweep_chunk(
-                logbetaT, state.kappa, state.alpha, state.eta, t, c, dm,
+                logbetaT, kappa, state.alpha, state.eta, t, c, dm,
                 state.gamma[rows], state.Elogtheta[rows], state.Elogtheta_old[rows],
                 state.tau[rows, :Ls].contiguous(), state.tau_old[rows, :Ls].contiguous(),
                 plan, stat, viter, vtol)
@@ -146,10 +157,17 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
 
         El_sum = kbn_psum(El_sum, mesh, axis_name)
         tau_counts = psum(tau_counts, mesh, axis_name)
-        stat = psum(stat, mesh, axis_name)
-        eta_new, alpha_new, kappa_new, beta_new = global_update(
-            stat, state.alpha, El_sum[0], tau_counts, M_total, C_total, niter, ntol,
-            El_sum[1])
+        if vocab_axis is not None:
+            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, axis_tuple(axis_name))
+            beta_new = (local[:, :K].T / sums[:K, None]).contiguous()
+            kappa_new = local[:, K] / sums[K]
+            eta_new = tau_counts / C_total
+            alpha_new = dirichlet_newton(state.alpha, El_sum[0], M_total, niter, ntol,
+                                         Elogtheta_sum_lo=El_sum[1])
+        else:
+            eta_new, alpha_new, kappa_new, beta_new = global_update(
+                psum(stat, mesh, axis_name), state.alpha, El_sum[0], tau_counts, M_total,
+                C_total, niter, ntol, El_sum[1])
         return FLDAState(
             eta=eta_new, alpha=alpha_new,
             kappa=kappa_new, kappa_old=state.kappa, beta=beta_new, beta_old=state.beta,
@@ -160,19 +178,27 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_axis=None,
+              seq_axis=None):
     """ELBO with the reference's *_old recompute semantics (fLDA.jl:109-118).
 
     phi is recomputed from (tau_old, beta_old, Elogtheta_old); the terms
     use the current parameters.  Doc-level and token-level terms ride two
     compensated (hi, lo) accumulators, as in the JAX package, reduced over
-    ``axis_name`` with a ``mesh``.
+    ``axis_name`` with a ``mesh``; ``vocab_axis`` gathers beta, beta_old
+    and kappa whole first.
     """
+    no_seq_axis("fLDA", seq_axis)
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: FLDAState, terms, counts, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        tables = elbo_tables(state.beta, state.beta_old, state.kappa, state.alpha, state.eta)
+        beta, beta_old, kappa = state.beta, state.beta_old, state.kappa
+        if vocab_axis is not None:
+            beta, beta_old = (all_gather(x, mesh, vocab_axis, dim=1) for x in (beta, beta_old))
+            kappa = all_gather(kappa, mesh, vocab_axis, dim=0)
+        tables = elbo_tables(beta, beta_old, kappa, state.alpha, state.eta)
         acc_doc, acc_tok = kbn_zero(dtype, dev), kbn_zero(dtype, dev)
         for rows, j, sl in chunks:
             t = terms[j][sl]

@@ -33,12 +33,13 @@ import torch
 from ..kernels.hmtm_estep import hmtm_estep, hmtm_logz
 from ..ops.newton import dirichlet_newton_batched
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, psum_scatter
 from ..utils.numerics import (
     EPSILON, digamma, dirichlet_entropy, dirichlet_ones, kbn_add, kbn_pack, kbn_psum,
     kbn_zero, kbn_zeros, lgamma,
 )
-from .lda import _chunks, token_plans
+from .lda import _chunks, as_segments, token_plans
 
 
 @dataclasses.dataclass
@@ -101,12 +102,15 @@ def sweep_chunk(betaT_eps, eta, alpha, terms, counts, doc_mask, tau, gamma, plan
 
 
 def global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float, niter: int,
-                  ntol: float) -> tuple:
+                  ntol: float, row_sum=None) -> tuple:
     """(eta, alpha, beta) from a sweep's statistics; ``pi_sum`` and
-    ``th_sum`` are (hi, lo) pairs."""
+    ``th_sum`` are (hi, lo) pairs; ``row_sum`` [K], when given, divides
+    the rows (a vocab block's rows by the whole rows' sums)."""
     K = eta.shape[0]
     bt = beta_temp.T
-    beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+    if row_sum is None:
+        row_sum = torch.sum(bt, dim=1)
+    beta_new = (bt / row_sum[:, None]).contiguous()
     # updateEta!/updateAlpha! (HMTM.jl:103-147): eta and alpha's K
     # columns are independent Dirichlet Newtons, each row of one
     # batched call running the iterations it would run alone
@@ -118,7 +122,7 @@ def global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float, niter: 
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, mesh=None, axis_name=None):
+              chunk_docs: int, device, mesh=None, axis_name=None, vocab_axis=None):
     """Build the outer-iteration step (one full CAVI sweep, reference
     train!, HMTM.jl:189-215).
 
@@ -127,7 +131,10 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     ``step.sweep`` (the E-step over the chunks, with the M-step
     statistics) then ``step.update`` (beta and the Newtons).  With a
     ``mesh`` (``packed`` this process's slab), the sweep ends by summing
-    pi_sum, th_sum and beta_temp over ``axis_name``."""
+    pi_sum, th_sum and beta_temp over ``axis_name``.  ``vocab_axis``
+    shards beta's storage (``[K, V/n]`` blocks): the sweep gathers it
+    whole for the kernels and keeps its own block of beta_temp, whose
+    rows the update divides by the whole rows' sums."""
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
@@ -135,8 +142,12 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     def sweep(state: HMTMState, terms, counts, doc_mask):
         """(tau, gamma, beta_temp [V, K], pi_sum, th_sum): the new
         per-document state and the statistics, the sums as (hi, lo)."""
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        betaT_eps = (state.beta.T + EPSILON).contiguous()        # [V, K]
+        beta = state.beta
+        if vocab_axis is not None:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+        betaT_eps = (beta.T + EPSILON).contiguous()              # [V, K]
         beta_temp = torch.zeros((V, K), dtype=dtype, device=dev)
         # the pi and theta statistic sums ride compensated (hi, lo)
         # carries into both Newtons, as LDA's Elogtheta sum does
@@ -152,12 +163,20 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             tau[rows], gamma[rows] = tau2, gamma2
         pi_sum = kbn_psum(pi_sum, mesh, axis_name)
         th_sum = kbn_psum(th_sum, mesh, axis_name)
-        beta_temp = psum(beta_temp, mesh, axis_name)
+        if vocab_axis is not None:
+            beta_temp = psum(psum_scatter(beta_temp, mesh, vocab_axis),
+                             mesh, tuple(a for a in axis_tuple(axis_name) if a != vocab_axis))
+        else:
+            beta_temp = psum(beta_temp, mesh, axis_name)
         return tau, gamma, beta_temp, pi_sum, th_sum
 
     def update(eta, alpha, beta_temp, pi_sum, th_sum, M_total: float):
         """(eta, alpha, beta) from the sweep's statistics."""
-        return global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total, niter, ntol)
+        row_sum = None
+        if vocab_axis is not None:
+            row_sum = psum(torch.sum(beta_temp, dim=0), mesh, vocab_axis)
+        return global_update(eta, alpha, beta_temp, pi_sum, th_sum, M_total, niter, ntol,
+                             row_sum)
 
     def step(state: HMTMState, terms, counts, doc_mask, M_total) -> HMTMState:
         tau, gamma, *stats = sweep(state, terms, counts, doc_mask)
@@ -169,9 +188,9 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_axis=None):
     """Build the full-corpus ELBO (reduced over ``axis_name`` with a
-    ``mesh``).
+    ``mesh``; ``vocab_axis`` gathers beta whole first).
 
     For the structured family the z and w terms collapse to the forward
     log-normaliser: ELBO_d = log Z̃_d + E[log p(pi)] − E[log q(pi)] +
@@ -180,8 +199,12 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     chunks = _chunks(packed, chunk_docs)
 
     def elbo(state: HMTMState, terms, counts, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        tables = elbo_tables(state.beta, state.eta, state.alpha)
+        beta = state.beta
+        if vocab_axis is not None:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+        tables = elbo_tables(beta, state.eta, state.alpha)
         acc = kbn_zero(dtype, dev)
         for rows, j, sl in chunks:
             acc = kbn_add(acc, elbo_chunk(tables, terms[j][sl], counts[j][sl],

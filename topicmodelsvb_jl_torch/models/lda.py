@@ -27,12 +27,13 @@ import numpy as np
 import torch
 
 from ..kernels.lda_elbo import lda_elbo_tok
-from ..kernels.lda_estep import lda_estep
+from ..kernels.lda_estep import lda_estep, split_fixpoint
 from ..kernels.scatter_rows import build_plan
 from ..ops.newton import dirichlet_newton
-from ..ops.packing import seg_loc_starts
+from ..ops.packing import RoutedCorpus, seg_loc_starts
 from ..ops.segment import count_scatter_into
-from ..parallel.shard import psum
+from ..parallel.mesh import axis_tuple
+from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, dirichlet_entropy, dirichlet_ones, finite, kbn_add, kbn_merge,
     kbn_pack, kbn_psum, kbn_zero, kbn_zeros, lgamma,
@@ -73,11 +74,16 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
 
 def _chunks(packed, chunk_docs: int):
     """(state row range, segment index, segment row range) of every chunk
-    of a bucketed corpus, in sweep order."""
+    in sweep order: of each segment of a bucketed corpus, or of the rows
+    of a dense one (a PackedCorpus or a RoutedCorpus, one segment)."""
     seg_starts = seg_loc_starts(packed)
     if seg_starts is None:
-        raise ValueError("the LDA step runs on a bucketed corpus "
-                         "(ops/packing.bucketize_packed)")
+        n_rows = packed.terms.shape[0]
+        B = min(chunk_docs, n_rows)
+        if B == 0 or n_rows % B:
+            raise ValueError(f"the packed doc axis {n_rows} does not divide into "
+                             f"chunks of {B}")
+        return [(slice(lo, lo + B), 0, slice(lo, lo + B)) for lo in range(0, n_rows, B)]
     out = []
     for j, (lo, seg) in enumerate(zip(seg_starts, packed.segments)):
         n_rows = seg.terms.shape[0]
@@ -93,24 +99,77 @@ def _chunks(packed, chunk_docs: int):
     return out
 
 
+def segments(packed) -> list:
+    """The (terms, counts) host arrays of each segment: a bucketed
+    corpus's segments, or the whole of a dense one."""
+    if packed.segments is None:
+        return [(packed.terms, packed.counts)]
+    return [(s.terms, s.counts) for s in packed.segments]
+
+
+def as_segments(x) -> tuple:
+    """A step's per-segment tensors: a dense corpus's one tensor becomes
+    a tuple of one."""
+    return (x,) if isinstance(x, torch.Tensor) else x
+
+
 def token_plans(packed, chunk_docs: int, device) -> list:
     """One scatter plan per chunk, in sweep order, over its token slots
     with ``counts > 0``: built from the host arrays, put on ``device``."""
-    segs = packed.segments
-    return [build_plan(segs[j].terms[sl], segs[j].counts[sl] > 0).to(device)
+    segs = segments(packed)
+    return [build_plan(segs[j][0][sl], segs[j][1][sl] > 0).to(device)
             for _, j, sl in _chunks(packed, chunk_docs)]
 
 
+def no_seq_axis(family: str, seq_axis) -> None:
+    """The sequence axis is ported for LDA alone so far."""
+    if seq_axis is not None:
+        raise NotImplementedError(
+            f"seq_axis for {family}: the sequence axis is ported for LDA only; {family}'s "
+            "waits for ROADMAP queue 1 item 8c (with the flda_estep and ctpf_estep pass "
+            "modes)")
+
+
+def check_modes(vocab_axis, seq_axis, vocab_routed, packed) -> None:
+    """The JAX package's exclusivity rules for the tensor- and
+    sequence-parallel modes."""
+    if vocab_routed:
+        if vocab_axis is None:
+            raise ValueError("vocab_routed requires a vocab_axis")
+        if seq_axis is not None:
+            raise ValueError("vocab_routed and seq_axis are exclusive "
+                             "(routing already splits the token axis)")
+        if not isinstance(packed, RoutedCorpus):
+            raise ValueError("vocab_routed takes a RoutedCorpus (ops/packing.route_packed)")
+    if (vocab_routed or seq_axis is not None) and packed.segments is not None:
+        raise ValueError("token-axis sharding requires dense packing")
+
+
 def sweep_chunk(betaT, alpha, terms, counts, doc_mask, gamma, El, El_old, plan, beta_temp,
-                viter: int, vtol: float):
+                viter: int, vtol: float, tok_reduce=None):
     """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
     through ``lda_estep``, its rows ``phi·counts`` added into
     ``beta_temp`` [V, K] in place along ``plan``.  Returns the chunk's new
-    (gamma, El, El_old) and its Elogtheta sum [K] over real documents."""
-    g2, el2, elo2, w = lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
-                                 viter=viter, vtol=vtol)
+    (gamma, El, El_old) and its Elogtheta sum [K] over real documents.
+
+    ``tok_reduce`` (the token slots split over ranks: routed tensor
+    parallelism, the sequence axis) runs the fixpoint pass by pass
+    instead (``split_fixpoint``), each pass's statistic summed by it."""
+    if tok_reduce is None:
+        g2, el2, elo2, w = lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El,
+                                     El_old, viter=viter, vtol=vtol)
+    else:
+        g2, el2, elo2, w = split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El,
+                                          El_old, viter=viter, vtol=vtol, reduce=tok_reduce)
     count_scatter_into(beta_temp, w.reshape(-1, w.shape[-1]), plan)
     return g2, el2, elo2, torch.sum(el2 * doc_mask[:, None], dim=0)
+
+
+def global_beta(beta_temp) -> torch.Tensor:
+    """update_beta!'s reset (LDA.jl:121-125): beta [K, V] from beta_temp
+    [V, K], rows normalised."""
+    bt = beta_temp.T.contiguous()
+    return bt / torch.sum(bt, dim=1, keepdim=True)
 
 
 def global_update(beta_temp, alpha, El_sum, M_total, niter: int, ntol: float,
@@ -118,32 +177,68 @@ def global_update(beta_temp, alpha, El_sum, M_total, niter: int, ntol: float,
     """(beta, alpha) from a sweep's statistics: update_beta!'s reset
     (LDA.jl:121-125) and update_alpha!'s Newton (LDA.jl:97-118), the lo
     half of a compensated El_sum entering its mean-form gradient."""
-    bt = beta_temp.T.contiguous()
-    beta_new = bt / torch.sum(bt, dim=1, keepdim=True)
+    beta_new = global_beta(beta_temp)
     alpha_new = dirichlet_newton(alpha, El_sum, M_total, niter, ntol,
                                  Elogtheta_sum_lo=El_sum_lo)
     return beta_new, alpha_new
 
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
-              chunk_docs: int, device, mesh=None, axis_name=None):
+              chunk_docs: int, device, mesh=None, axis_name=None,
+              vocab_axis=None, seq_axis=None, vocab_routed: bool = False):
     """Build the outer-iteration step (one full CAVI sweep).
 
-    ``step(state, terms, counts, doc_mask, M_total)`` takes the per-
-    segment tuples of device tensors on ``device`` and returns the next
-    state; the chunks' scatter plans are built here and put on ``device``.
-    With a ``mesh``, ``packed`` is this process's slab, and the
-    statistics (Elogtheta_sum, beta_temp) are summed over ``axis_name``
-    before the M-step, which every process then runs alike.
+    ``step(state, terms, counts, doc_mask, M_total)`` takes device
+    tensors on ``device``: per-segment tuples for a bucketed corpus, one
+    tensor each for a dense one.  It returns the next state; the chunks'
+    scatter plans are built here and put on ``device``.  With a ``mesh``,
+    ``packed`` is this process's slab, and the statistics (Elogtheta_sum,
+    beta_temp) are summed over ``axis_name`` (a mesh axis or a tuple of
+    axes) before the M-step, which every process then runs alike.
+
+    The JAX package's tensor- and sequence-parallel modes, on a ``mesh``
+    carrying their axes:
+
+    * ``vocab_axis`` shards beta's storage: ``state.beta`` is this
+      process's ``[K, V/n]`` block, gathered whole for the E-step, and the
+      new block comes from ``tp_normalize_rows``.  The documents shard
+      over the data axes, so include the vocab axis in ``axis_name``.
+    * ``vocab_routed=True`` (with a ``vocab_axis``): ``packed`` is this
+      process's slab of a ``RoutedCorpus`` (its rows and its vocab
+      block's slot columns, shard-local ids), beta is never gathered,
+      each pass's ``[B, K]`` statistic is summed over the vocab axis
+      (``split_fixpoint``) and the statistic scatters into the local
+      ``[V/n, K]`` block.  ``axis_name`` names the data axes only.
+    * ``seq_axis`` splits every document's token slots: ``packed`` is
+      the slab of this process's rows and token columns (dense), and each
+      pass's statistic is summed over ``seq_axis``.
     """
-    V = packed.V
+    check_modes(vocab_axis, seq_axis, vocab_routed, packed)
+    # vocab extent of the gather table and the statistic: the local block
+    # under routing, the whole vocabulary otherwise
+    V_local = packed.Vs if vocab_routed else packed.V
+    # the per-pass [B, K] reduction: over the vocab axis under routing
+    # (each block holds only its tokens), the sequence axis under SP
+    tok_axis = vocab_axis if vocab_routed else seq_axis
+    tok_reduce = None if tok_axis is None else (lambda x: psum(x, mesh, tok_axis))
+    stat_axes = axis_tuple(axis_name)
+    if vocab_routed:
+        # documents replicate across the vocab axis: doc-level statistics
+        # reduce over the data axes alone
+        stat_axes = tuple(a for a in stat_axes if a != vocab_axis)
+    # the token-local statistic also sums the sequence shards
+    stat_axes_bt = stat_axes + ((seq_axis,) if seq_axis is not None else ())
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
     def step(state: LDAState, terms, counts, doc_mask, M_total) -> LDAState:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        betaT = (state.beta + EPSILON).T.contiguous()           # [V, K]
-        beta_temp = torch.zeros((V, K), dtype=dtype, device=dev)
+        beta = state.beta
+        if vocab_axis is not None and not vocab_routed:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+        betaT = (beta + EPSILON).T.contiguous()                 # [V_local, K]
+        beta_temp = torch.zeros((V_local, K), dtype=dtype, device=dev)
         # Elogtheta_sum rides a compensated (hi, lo) carry: its chunk-
         # sequential f32 accumulation is the dominant training-noise
         # channel, which the Newton amplifies by ~alpha² and the bound
@@ -156,23 +251,35 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             g2, el2, elo2, el_part = sweep_chunk(
                 betaT, state.alpha, t, c, dm, state.gamma[rows], state.Elogtheta[rows],
-                state.Elogtheta_old[rows], plan, beta_temp, viter, vtol)
+                state.Elogtheta_old[rows], plan, beta_temp, viter, vtol, tok_reduce)
             El_sum = kbn_add(El_sum, el_part)
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
 
-        El_sum = kbn_psum(El_sum, mesh, axis_name)
-        beta_temp = psum(beta_temp, mesh, axis_name)
-        beta_new, alpha_new = global_update(beta_temp, state.alpha, El_sum[0], M_total,
-                                            niter, ntol, El_sum[1])
+        El_sum = kbn_psum(El_sum, mesh, stat_axes)
+        if vocab_routed:
+            # every term id lives on one block: only the [K] row sums
+            # that make the rows stochastic over the whole vocabulary
+            # cross the vocab axis
+            beta_temp = psum(beta_temp, mesh, stat_axes)
+            row_sum = psum(torch.sum(beta_temp, dim=0), mesh, vocab_axis)
+            beta_new = beta_temp.T / row_sum[:, None]
+        elif vocab_axis is not None:
+            bt_local, row_sum = tp_normalize_rows(beta_temp, mesh, vocab_axis, stat_axes_bt)
+            beta_new = bt_local.T / row_sum[:, None]
+        else:
+            beta_new = global_beta(psum(beta_temp, mesh, stat_axes_bt))
+        alpha_new = dirichlet_newton(state.alpha, El_sum[0], M_total, niter, ntol,
+                                     Elogtheta_sum_lo=El_sum[1])
         return LDAState(
-            alpha=alpha_new, beta=beta_new, beta_old=state.beta,
+            alpha=alpha_new, beta=beta_new.contiguous(), beta_old=state.beta,
             gamma=gamma, Elogtheta=El, Elogtheta_old=El_old, elbo=state.elbo,
         )
 
     return step
 
 
-def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
+def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None,
+              vocab_axis=None, seq_axis=None, vocab_routed: bool = False):
     """Build the full-corpus ELBO (reference LDA.jl:50-93).
 
     phi is recomputed from (beta_old, Elogtheta_old) exactly as
@@ -182,12 +289,29 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
     ``lda_elbo_tok``; the doc-level terms are [B, K] tensor ops.  With a
     ``mesh``, each process sums its slab and the pairs are reduced over
     ``axis_name`` (``kbn_psum``).
+
+    The modes as in :func:`make_step`: ``vocab_axis`` gathers beta and
+    beta_old whole; under ``vocab_routed`` the tables are the local
+    blocks, and under either split of the token slots (routing,
+    ``seq_axis``) the token terms, linear in each slot's share, sum over
+    the data axes and the token axis while the document terms sum over
+    the data axes alone.
     """
+    check_modes(vocab_axis, seq_axis, vocab_routed, packed)
     chunks = _chunks(packed, chunk_docs)
+    axes = axis_tuple(axis_name)
+    tok_axis = vocab_axis if vocab_routed else seq_axis
+    if vocab_routed:
+        axes = tuple(a for a in axes if a != vocab_axis)
 
     def elbo(state: LDAState, terms, counts, doc_mask) -> torch.Tensor:
+        terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
-        tables = elbo_tables(state.beta, state.beta_old, state.alpha)
+        beta, beta_old = state.beta, state.beta_old
+        if vocab_axis is not None and not vocab_routed:
+            beta = all_gather(beta, mesh, vocab_axis, dim=1)
+            beta_old = all_gather(beta_old, mesh, vocab_axis, dim=1)
+        tables = elbo_tables(beta, beta_old, state.alpha)
         # the bound rides a compensated (hi, lo) pair end to end, so the
         # reference's tol=1.0 stop (LDA.jl:161) stays reachable in f32
         acc_doc, acc_tok = kbn_zero(dtype, dev), kbn_zero(dtype, dev)
@@ -197,7 +321,11 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None):
                                   state.Elogtheta_old[rows])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
+        if tok_axis is not None:
+            acc_tok = kbn_psum(acc_tok, mesh, axes + (tok_axis,))
+            acc_doc = kbn_psum(acc_doc, mesh, axes)
+            return kbn_pack(kbn_merge(acc_doc, acc_tok))
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axes))
 
     return elbo
 

@@ -10,7 +10,8 @@ width.
 This is a copy of the NumPy-only part of the JAX package's
 ``ops/packing.py`` (``pack_corpus`` without its native C++ fill, and
 the disk-backed ``save_packed``/``load_packed``/``trim_packed`` that the
-streaming models read):
+streaming models read, and ``route_packed`` with its ``RoutedCorpus``
+for routed tensor parallelism):
 importing any submodule of that package first runs its ``__init__``,
 which imports JAX.  ``tests/test_torch_lda.py`` and
 ``tests/test_torch_ctpf.py`` hold both copies to byte-identical output.
@@ -300,6 +301,113 @@ _PACKED_ARRAYS = ("terms", "counts", "doc_mask", "N", "C", "readers", "ratings",
 _PACKED_SCALARS = ("M", "V", "L", "U", "Rmax", "max_count", "max_rating")
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutedCorpus:
+    """Token slots routed to the vocab shard that OWNS them (routed TP).
+
+    Column layout: ``terms[:, s*Ls:(s+1)*Ls]`` holds the slots whose
+    global vocab id falls in shard ``s``'s contiguous block
+    ``[s*Vs, (s+1)*Vs)`` — stored as SHARD-LOCAL ids (``global − s·Vs``)
+    so the device code gathers/scatters straight into its local
+    ``[Vs, K]`` beta shard with no offset arithmetic.  Sharding the
+    column axis over the vocab mesh axis (``P(data, vocab)``) therefore
+    gives every device exactly the tokens its beta shard can serve:
+    the E-step's gather table, stat scatter, and M-step normalize all
+    become O(V/n) per device (see models/lda.py make_step
+    ``vocab_routed``).  Padding slots are local id 0 / count 0.
+    """
+
+    terms: np.ndarray       # [M_pad, n_shards·Ls] int32, shard-local ids
+    counts: np.ndarray      # [M_pad, n_shards·Ls] float, 0 on padding
+    doc_mask: np.ndarray    # [M_pad]
+    N: np.ndarray           # [M_pad] unique-term counts (unchanged)
+    C: np.ndarray           # [M_pad] Σcounts per doc (unchanged)
+    M: int
+    V: int                  # GLOBAL vocabulary size
+    Vs: int                 # per-shard vocab block = V // n_shards
+    n_shards: int
+    Ls: int                 # slot width per shard block
+    L: int                  # = n_shards · Ls
+    fill: float = 0.0       # real slots / (M·n_shards·Ls) — balance figure
+
+    # dense layout markers (seg_loc_starts → None; no reader arrays)
+    segments = None
+    readers = None
+    ratings = None
+    R = None
+    U = 0
+
+    @property
+    def M_pad(self) -> int:
+        return self.terms.shape[0]
+
+
+def route_packed(packed: PackedCorpus, n_shards: int,
+                 pad_multiple: int = 8) -> RoutedCorpus:
+    """Re-lay a dense PackedCorpus so each document's token slots are
+    grouped by the vocab shard that owns their id (routed tensor
+    parallelism — the design that divides the E-step's per-device O(V)
+    WORK by the shard count, where plain ``vocab_axis`` TP only divides
+    beta *storage* and all-gathers it back; RESULTS.md "when vocab-TP
+    pays").  Shard ``s`` owns the contiguous global-id block
+    ``[s·Vs, (s+1)·Vs)``, matching beta's ``P(None, vocab)`` storage
+    sharding, so no id permutation leaks into the model state.
+
+    ``Ls`` (the per-shard slot width) is the max per-document
+    per-shard slot count rounded up to ``pad_multiple``; vocab-block
+    load imbalance shows up as padding, reported in ``.fill``.
+    """
+    if packed.segments is not None:
+        raise ValueError("route_packed takes a dense (non-bucketed) "
+                         "PackedCorpus; route before bucketizing.")
+    if n_shards <= 0 or packed.V % n_shards:
+        raise ValueError(
+            f"V={packed.V} must divide evenly into n_shards={n_shards} "
+            f"vocab blocks (trim or pad the vocabulary first).")
+    S = int(n_shards)
+    Vs = packed.V // S
+    terms = np.asarray(packed.terms)
+    counts = np.asarray(packed.counts)
+    M_pad, L = terms.shape
+    valid = counts > 0
+    # padding slots sort to a virtual shard S (past every real block)
+    shard = np.where(valid, terms // Vs, S).astype(np.int32)
+    order = np.argsort(shard, axis=1, kind="stable")
+    s_sorted = np.take_along_axis(shard, order, 1)
+    t_sorted = np.take_along_axis(terms, order, 1)
+    c_sorted = np.take_along_axis(counts, order, 1)
+    # per-row per-shard slot counts and exclusive prefix starts
+    cnt = np.stack([(shard == s).sum(1) for s in range(S)], axis=1)
+    Ls = _round_up(int(cnt.max()) if M_pad else 0, pad_multiple)
+    starts = np.concatenate(
+        [np.zeros((M_pad, 1), np.int64), np.cumsum(cnt, 1)], axis=1)
+    j = np.arange(L, dtype=np.int64)[None, :]
+    real = s_sorted < S
+    s_idx = np.where(real, s_sorted, 0).astype(np.int64)
+    within = j - np.take_along_axis(starts, s_idx, 1)
+    dest = s_idx * Ls + within
+    rows = np.broadcast_to(np.arange(M_pad)[:, None], (M_pad, L))
+    out_t = np.zeros((M_pad, S * Ls), dtype=terms.dtype)
+    out_c = np.zeros((M_pad, S * Ls), dtype=counts.dtype)
+    out_t[rows[real], dest[real]] = (t_sorted[real]
+                                     - s_idx[real] * Vs).astype(terms.dtype)
+    out_c[rows[real], dest[real]] = c_sorted[real]
+    denom = max(1, packed.M * S * Ls)
+    return RoutedCorpus(
+        terms=out_t, counts=out_c,
+        doc_mask=np.asarray(packed.doc_mask).copy(),
+        N=np.asarray(packed.N).copy(), C=np.asarray(packed.C).copy(),
+        M=packed.M, V=packed.V, Vs=Vs, n_shards=S, Ls=Ls, L=S * Ls,
+        fill=float(valid.sum()) / denom,
+    )
+
+
+def _refuse_routed(packed, what: str) -> None:
+    if isinstance(packed, RoutedCorpus):
+        raise ValueError(f"{what} takes a PackedCorpus, not a RoutedCorpus: apply it to "
+                         "the dense corpus, then route_packed the result")
+
+
 def trim_packed(packed: PackedCorpus, chunk_rows: int = 65536, users: bool = False) -> tuple:
     """Drop the vocabulary ids no document uses: the PackedCorpus analogue
     of ``fixcorp(corp, trim=True)`` (reference trimcorp!,
@@ -313,6 +421,8 @@ def trim_packed(packed: PackedCorpus, chunk_rows: int = 65536, users: bool = Fal
     RAM).  Padding slots stay id 0 / count 0.  ``users=True`` trims the
     reader axis the same way (reference trimcorp!, Corpus.jl:647-651) and
     returns ``(trimmed, used_ids, used_users)``."""
+    _refuse_routed(packed, "trim_packed")
+
     def trim_axis(ids, weights, n):
         present = np.zeros(n, dtype=bool)
         for lo in range(0, packed.M_pad, chunk_rows):
@@ -349,6 +459,7 @@ def save_packed(path: str, packed: PackedCorpus) -> None:
     import json
     import os
 
+    _refuse_routed(packed, "save_packed")
     if packed.segments is not None:
         raise ValueError("save_packed takes a dense (non-bucketed) "
                          "PackedCorpus; save before bucketizing.")

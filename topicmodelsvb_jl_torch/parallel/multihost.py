@@ -125,3 +125,39 @@ def local_packed(packed, n_shards: int, index: int):
         doc_mask=rows(packed.doc_mask), N=rows(packed.N), C=rows(packed.C),
         readers=rows(packed.readers), ratings=rows(packed.ratings), R=rows(packed.R),
         segments=segments, order=None, inv_order=None, n_shards=1)
+
+
+def local_slab(packed, mesh, doc_axes, tok_axis=None):
+    """This process's slab of a dense corpus on ``mesh`` (a PackedCorpus
+    or a RoutedCorpus): its block of rows over ``doc_axes`` (a name or a
+    tuple of names, the first major), and with ``tok_axis`` its block of
+    every row's token slot columns: the sequence axis's share of a dense
+    corpus, or under routed tensor parallelism (``tok_axis`` the vocab
+    axis) the slots of its vocab block.  A step, a bound and their scatter
+    plans run on the slab unchanged."""
+    import dataclasses
+
+    from ..ops.packing import RoutedCorpus
+    from .mesh import axis_index, axis_size
+
+    if packed.segments is not None:
+        raise ValueError("local_slab takes a dense corpus")
+    n_d, i_d = axis_size(mesh, doc_axes), axis_index(mesh, doc_axes)
+    n_t, i_t = axis_size(mesh, tok_axis), axis_index(mesh, tok_axis)
+    if isinstance(packed, RoutedCorpus):
+        if n_t not in (1, packed.n_shards):
+            raise ValueError(f"a RoutedCorpus of {packed.n_shards} vocab blocks on a token "
+                             f"axis of {n_t}")
+        rows = lambda a: np.ascontiguousarray(local_rows(a, n_d, i_d))
+        slab = dataclasses.replace(packed, terms=rows(packed.terms), counts=rows(packed.counts),
+                                   doc_mask=rows(packed.doc_mask), N=rows(packed.N),
+                                   C=rows(packed.C))
+    else:
+        slab = local_packed(packed, n_d, i_d)
+    if n_t == 1:
+        return slab
+    if packed.L % n_t:
+        raise ValueError(f"{packed.L} token slots do not divide into {n_t} shards")
+    per = packed.L // n_t
+    cols = lambda a: np.ascontiguousarray(a[:, i_t * per:(i_t + 1) * per])
+    return dataclasses.replace(slab, terms=cols(slab.terms), counts=cols(slab.counts), L=per)

@@ -70,9 +70,10 @@ from .models import fctm as fctm_mod
 from .models import flda as flda_mod
 from .models import hmtm as hmtm_mod
 from .models import lda as lda_mod
+from .ops.newton import dirichlet_newton
 from .parallel import multihost
-from .parallel.mesh import axis_size, is_local, make_mesh
-from .parallel.shard import psum
+from .parallel.mesh import axis_size, is_local, local_block, make_mesh
+from .parallel.shard import all_gather, psum, psum_scatter
 from .utils.config import TrainConfig
 from .utils.numerics import (
     EPSILON, dirichlet_ones, elbo_value, kbn_add, kbn_merge, kbn_psum, kbn_zero,
@@ -314,7 +315,9 @@ class _StreamingModel:
         # reduced over the processes once a sweep (online: once a global
         # minibatch), gathered and folded in rank order.
         self._nproc, self._pid = multihost.process_count(), multihost.process_index()
-        if mesh is not None and not is_local(mesh) and axis_size(mesh, data_axis) > 1:
+        vocab_axis = getattr(self, "vocab_axis", None)
+        if (vocab_axis is None and mesh is not None and not is_local(mesh)
+                and axis_size(mesh, data_axis) > 1):
             raise ValueError("multi-process streaming takes a local mesh (this process's "
                              "one device, parallel.mesh.make_mesh(local=True)): each "
                              "process streams its own rows, and the processes reduce once "
@@ -327,9 +330,14 @@ class _StreamingModel:
                 raise ValueError(f"process count {self._nproc} must divide batch_docs "
                                  f"({batch_docs}), the global batch size")
         self.data_axis = data_axis
-        # the processes' mesh the reductions run over (None on one process)
-        self._proc_mesh = (make_mesh(axis_names=(data_axis,)) if self._nproc > 1
-                           else None)
+        # the processes' mesh the reductions run over (None on one process),
+        # and its axes that hold distinct documents: with a vocab axis
+        # (StreamingLDA) the caller's mesh, documents over both axes
+        self._doc_axes = data_axis if vocab_axis is None else (data_axis, vocab_axis)
+        self._proc_mesh = None
+        if self._nproc > 1:
+            self._proc_mesh = (mesh if vocab_axis is not None and not is_local(mesh)
+                               else make_mesh(axis_names=(data_axis,)))
         self.packed = packed
         self.K = int(K)
         self.M, self.V = packed.M, packed.V
@@ -399,7 +407,7 @@ class _StreamingModel:
         """The statistics summed over the processes (themselves on one)."""
         if self._proc_mesh is None:
             return stats
-        return tuple(psum(x, self._proc_mesh, self.data_axis) for x in stats)
+        return tuple(psum(x, self._proc_mesh, self._doc_axes) for x in stats)
 
     def _chunk_slices(self) -> list:
         B = self.chunk_docs
@@ -494,7 +502,7 @@ class _StreamingModel:
         total = accs[0]
         for a in accs[1:]:
             total = kbn_merge(total, a)
-        total = kbn_psum(total, self._proc_mesh, self.data_axis)
+        total = kbn_psum(total, self._proc_mesh, self._doc_axes)
         extra = self._elbo_extra(tables)
         if extra is not None:
             total = kbn_add(total, extra)
@@ -525,6 +533,10 @@ class _StreamingModel:
         if cfg.printelbo:
             print(f"{k} ∆elbo: {round(delta, 3)}")
         return delta
+
+    def _global_host(self, name: str) -> np.ndarray:
+        """A global as a checkpoint holds it: whole, on the host."""
+        return getattr(self, name).detach().cpu().numpy()
 
     # extra constructor arguments a checkpoint replays (StreamingDTM)
     def _ctor_meta(self) -> dict:
@@ -563,8 +575,7 @@ class _StreamingModel:
         )
         meta["ctor"] = self._ctor_meta()
         arrays = {f"doc_{n}": getattr(self, n) for n in self._doc_state}
-        arrays.update({f"glob_{n}": getattr(self, n).detach().cpu().numpy()
-                       for n in self._globals})
+        arrays.update({f"glob_{n}": self._global_host(n) for n in self._globals})
         arrays.update({f"ctor_{k}": np.asarray(v) for k, v in self._ctor_host_arrays().items()})
         if self._svi_stats is not None:
             for i, leaf in enumerate(self._stats_to_leaves(self._svi_stats)):
@@ -749,7 +760,7 @@ class _StreamingModel:
             for b in range(n_batches)])
         if self._proc_mesh is not None:
             real_docs = psum(torch.as_tensor(real_docs, device=self.device),
-                             self._proc_mesh, self.data_axis).cpu().numpy()
+                             self._proc_mesh, self._doc_axes).cpu().numpy()
         live = np.nonzero(real_docs > 0)[0]
         if self._svi_stats is None:
             self._svi_stats = self._svi_init_stats()
@@ -832,7 +843,17 @@ class StreamingLDA(_StreamingModel):
     def __init__(self, packed, K: int, batch_docs: int = 8192, chunk_docs: int = 1024,
                  dtype=torch.float32, seed: int = 0, state_dir: Optional[str] = None,
                  device="cuda", mesh=None,
-                 data_axis: str = "data"):
+                 data_axis: str = "data", vocab_axis: Optional[str] = None):
+        """``vocab_axis`` (a mesh over every process carrying that axis)
+        also shards beta's storage: each process holds its ``[K, V/n]``
+        block, gathered whole for the E-step and the bound, and the sweep's
+        statistic is summed over the processes keeping the process's block
+        (``psum_scatter``); the documents shard over the data and vocab
+        axes together, each process streaming its own rows."""
+        if vocab_axis is not None and (
+                mesh is None or vocab_axis not in tuple(mesh.mesh_dim_names or ())):
+            raise ValueError("vocab_axis needs a mesh carrying that axis")
+        self.vocab_axis = vocab_axis
         self._init_common(packed, K, batch_docs, chunk_docs, dtype, seed, device, state_dir,
                           mesh, data_axis)
         el0 = -sum(1.0 / i for i in range(1, self.K))   # ψ(1) − ψ(K) = −H_{K−1}
@@ -841,9 +862,21 @@ class StreamingLDA(_StreamingModel):
         self.Elogtheta = self._host_full("Elogtheta", shape, el0)
         self.Elogtheta_old = self._host_full("Elogtheta_old", shape, el0)
 
+    @property
+    def _tp(self) -> bool:
+        """beta is sharded over the vocab axis of the processes' mesh."""
+        return self.vocab_axis is not None and self._proc_mesh is not None
+
+    def _whole(self, beta) -> torch.Tensor:
+        return all_gather(beta, self._proc_mesh, self.vocab_axis, dim=1) if self._tp else beta
+
     def _init_globals(self, gen):
         # the in-memory init's draw (models/lda.init, LDA.jl:24-47)
-        self.beta = self._put(dirichlet_ones(gen, self.V, (self.K,), self.dtype))
+        beta = dirichlet_ones(gen, self.V, (self.K,), self.dtype)
+        if self._tp:
+            beta = torch.as_tensor(local_block(beta.numpy(), self._proc_mesh,
+                                               self.vocab_axis, dim=1))
+        self.beta = self._put(beta)
         self.beta_old = self.beta
         self.alpha = torch.ones((self.K,), dtype=self.dtype, device=self.device)
 
@@ -852,7 +885,7 @@ class StreamingLDA(_StreamingModel):
         return z(self.V, self.K), z(self.K)
 
     def _sweep_prep(self):
-        return (self.beta + EPSILON).T.contiguous()
+        return (self._whole(self.beta) + EPSILON).T.contiguous()
 
     def _run_chunk(self, betaT, d, c, plans, stats):
         bt, es = stats
@@ -863,9 +896,24 @@ class StreamingLDA(_StreamingModel):
         es.add_(el_part)   # plain-accumulated, as in the JAX streaming path
         return g2, el2, elo2
 
+    def _reduce_stats(self, stats) -> tuple:
+        if not self._tp:
+            return super()._reduce_stats(stats)
+        # the statistic summed over every process, each keeping its block
+        bt, es = stats
+        mesh = self._proc_mesh
+        return (psum(psum_scatter(bt, mesh, self.vocab_axis), mesh, self.data_axis),
+                psum(es, mesh, self._doc_axes))
+
     def _global_update(self, stats):
         bt, es = stats
         self.beta_old = self.beta
+        if self._tp:
+            row_sum = psum(torch.sum(bt, dim=0), self._proc_mesh, self.vocab_axis)
+            self.beta = (bt.T / row_sum[:, None]).contiguous()
+            self.alpha = dirichlet_newton(self.alpha, es, float(self.M), self._cfg.niter,
+                                          self._cfg.ntol)
+            return
         self.beta, self.alpha = lda_mod.global_update(
             bt, self.alpha, es, float(self.M), self._cfg.niter, self._cfg.ntol)
 
@@ -875,11 +923,25 @@ class StreamingLDA(_StreamingModel):
                                                      device=self.device)
 
     def _elbo_tables(self):
-        return lda_mod.elbo_tables(self.beta, self.beta_old, self.alpha)
+        return lda_mod.elbo_tables(self._whole(self.beta), self._whole(self.beta_old),
+                                   self.alpha)
 
     def _elbo_chunk(self, tables, d, c):
         return lda_mod.elbo_chunk(tables, d["terms"][c], d["counts"][c], d["doc_mask"][c],
                                   d["gamma"][c], d["Elogtheta"][c], d["Elogtheta_old"][c])
+
+    def _finalize(self):
+        self.topics = lda_mod.topics_ranking(self._whole(self.beta))
+
+    def _global_host(self, name: str) -> np.ndarray:
+        x = getattr(self, name)
+        return (self._whole(x) if name != "alpha" else x).detach().cpu().numpy()
+
+    def _stats_to_leaves(self, stats) -> tuple:
+        bt, es = stats
+        if self._tp:
+            bt = all_gather(bt, self._proc_mesh, self.vocab_axis, dim=0)
+        return bt, es
 
 
 # ─────────────────────────── StreamingCTPF ───────────────────────────
