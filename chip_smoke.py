@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process and tensor-parallel paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel and CLI paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -147,6 +147,24 @@ printing its own lines; any failure exits non-zero:
    bound bitwise equal across the ranks, and LDA's three modes against
    one process from the same init (rtol 5e-3 / atol 1e-5 on beta and
    alpha, 1e-5 on the bound per iteration);
+14. (run before 11's results) the CLI and the f64 Elogtheta channel: the
+   f64-channel modes of ``lda_estep`` and ``flda_estep`` against their
+   plain versions (ψ in float64) on phase 3's widest NSF chunk and its
+   L = 1024 chunk, bitwise repeatable, El not the f32 mode's, their times
+   and bounds; then ``train.run`` (what ``python -m
+   topicmodelsvb_jl_torch.train`` calls), the counts set to 0 before each
+   run and read after: ``--model lda --corpus nsf-scale --k 100 --iter 5
+   --checkelbo 1`` with ``--metrics`` and ``--save`` (∆elbo > 0, the rows
+   number the iterations, ``flops_per_step`` from the bucketed corpus, an
+   ``mfu`` in (0, 1] against the card's own peak, which is printed, every
+   chunk's launches); 2 iterations on 16,384 documents with
+   ``--profile-dir`` (the trace's ``cavi_step`` of iteration 2 and its
+   E-step kernels); the checkpoint
+   loaded and resumed one iteration; the same LDA with ``--elogtheta-f64`` (only the f64 mode
+   launched) and fLDA with it (4 iterations); ``--model ctpf --corpus
+   citeu --iter 3``; ``--streaming`` LDA on the NSF corpus (2 iterations);
+   and ``python -m topicmodelsvb_jl_torch.train`` as one rank of an NCCL
+   group (``--coordinator``, 16,384 documents, 2 iterations);
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -331,6 +349,22 @@ def times(r) -> str:
     return out + f"; max abs err {r['max_abs_err']:.3e})"
 
 
+def lda_args(seg, V, K, dev) -> tuple:
+    """``lda_estep``'s arguments on one chunk (random beta, seed 11; a warm
+    state, seed 12), and beta_old for the bound's tables."""
+    import torch
+
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+
+    terms, counts, doc_mask = seg
+    g = torch.Generator().manual_seed(11)
+    beta = dirichlet_ones(g, V, (K,)).to(dev)
+    beta_old = dirichlet_ones(g, V, (K,)).to(dev)
+    betaT = (beta + EPSILON).T.contiguous()
+    alpha, gamma, El, El_old = warm_state(K, terms.shape[0], dev, seed=12)
+    return (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old), beta, beta_old
+
+
 def compare_kernels(seg, V, K, dev, label):
     """Both LDA kernels against their plain versions on one chunk."""
     import torch
@@ -338,16 +372,12 @@ def compare_kernels(seg, V, K, dev, label):
     from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
-    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
 
     terms, counts, doc_mask = seg
     B, L = terms.shape
-    g = torch.Generator().manual_seed(11)
-    beta = dirichlet_ones(g, V, (K,)).to(dev)
-    beta_old = dirichlet_ones(g, V, (K,)).to(dev)
-    betaT = (beta + EPSILON).T.contiguous()
-    alpha, gamma, El, El_old = warm_state(K, B, dev, seed=12)
-    args = (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old)
+    args, beta, beta_old = lda_args(seg, V, K, dev)
+    El, El_old = args[6], args[7]
     kw = dict(viter=10, vtol=1.0 / K**2)
 
     got = lda_estep(*args, **kw)
@@ -383,12 +413,11 @@ def compare_kernels(seg, V, K, dev, label):
     return dict(estep=est, elbo=elb, w=got[3])
 
 
-def compare_flda(seg, V, K, dev, label):
-    """flda_estep against its plain version on one chunk."""
+def flda_args(seg, V, K, dev) -> tuple:
+    """``flda_estep``'s arguments on one chunk: random log beta, kappa and
+    tau (seed 21), a warm state (seed 22), eta 0.6."""
     import torch
 
-    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
-    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
 
     terms, counts, doc_mask = seg
@@ -400,8 +429,21 @@ def compare_flda(seg, V, K, dev, label):
         (0.1 + 0.8 * torch.rand(B, L, generator=g)).to(dev)
     alpha, gamma, El, El_old = warm_state(K, B, dev, seed=22)
     eta = torch.tensor(0.6, device=dev)
-    args = (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
+    return (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
             tau, tau_old)
+
+
+def compare_flda(seg, V, K, dev, label):
+    """flda_estep against its plain version on one chunk."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+
+    terms, counts, doc_mask = seg
+    B, L = terms.shape
+    args = flda_args(seg, V, K, dev)
+    gamma, El, El_old, tau, tau_old = args[7:]
     kw = dict(viter=10, vtol=1.0 / K**2)
     got = flda_estep(*args, **kw)
     want = flda_estep_ref(*args, **kw)
@@ -2670,6 +2712,225 @@ def tp_phase(smi, kc) -> tuple:
     return launches, rec
 
 
+
+def compare_f64(seg, V, K, dev, label) -> dict:
+    """Phase 14: the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``
+    against their plain versions (ψ in float64) on one chunk, with phase
+    3's arguments: within RTOL/ATOL, bitwise repeatable, El not the f32
+    mode's; times and bounds as phase 3's (the same bytes; the float64 ψ,
+    K + 1 a pass a document, is below the f32 operations counted)."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
+    from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
+
+    terms, counts, doc_mask = seg
+    B, L = terms.shape
+    keep = counts > 0
+    kept, uniq = int(keep.sum()), n_unique(terms, keep)
+    f32 = dict(viter=10, vtol=1.0 / K**2)
+    kw = dict(f32, elogtheta_f64=True)
+    cases = (
+        ("lda_estep_f64", lda_estep, lda_estep_ref, estep_mod, lda_args(seg, V, K, dev)[0],
+         ("gamma", "El", "El_old", "w"),
+         4 * (uniq * K + 2 * B * L + B + K + 6 * B * K + B * L * K), 2 * K * kept),
+        ("flda_estep_f64", flda_estep, flda_estep_ref, flda_mod, flda_args(seg, V, K, dev),
+         ("gamma", "El", "El_old", "tau", "tau_old", "w"),
+         4 * (uniq * (K + 1) + 4 * B * L + B + K + 1 + 6 * B * K + 2 * B * L
+              + B * L * (K + 1)), 2 * (K + 1) * kept))
+    out = {}
+    for name, kern, ref, mod, args, names, nbytes, ops in cases:
+        n0 = kern.launches_f64
+        got = kern(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        need(kern.launches_f64 == n0 + 1, f"{name} {label}: the f64 mode did not launch")
+        err = close(got, want, names, f"{name} {label}")
+        need(all(torch.equal(a, b) for a, b in zip(got, kern(*args, **kw))),
+             f"{name} {label}: not bitwise repeatable")
+        need(not torch.equal(got[1], kern(*args, **f32)[1]),
+             f"{name} {label}: El equals the f32 mode's")
+        work = fixpoint_work(mod, ref, args, kw, keep.sum(1).float())
+        out[name] = record(err, time_calls(lambda: kern(*args, **kw), N_KERNEL),
+                           time_calls(lambda: ref(*args, **kw), N_PLAIN, reps=1),
+                           bound_ms(nbytes, 4 * K * work + ops))
+        print(f"kernels {label}: B={B} L={L} K={K} | {name} {times(out[name])}")
+    return out
+
+
+def cli_phase(smi, kc, dev) -> tuple:
+    """Phase 14, the CLI (``train.run``, as ``python -m
+    topicmodelsvb_jl_torch.train`` calls it) on the card, the launch counts
+    set to 0 before each run and read after: returns them and the f64
+    modes' records (the widest NSF chunk, then the L = 1024 one)."""
+    import socket
+    import types
+
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import engine, train
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+
+    t_phase = time.perf_counter()
+    K, V, bucketed = kc["K"], kc["V"], kc["bucketed"]
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    s0 = bucketed.segments[0]
+    wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
+            put(s0.doc_mask[:1024], torch.float32))
+    recs = [compare_f64(wide, V, K, dev, f"widest bucket L={s0.L}"),
+            compare_f64(long_chunks(V, kc["cpk"].U, dev)["long_pad"], V, K, dev,
+                        "L=1024 rows in device memory")]
+    f64 = {name: tuple(r[name] for r in recs) for name in recs[0]}
+
+    kerns = (lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, scatter_rows)
+    launches = {}
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="p14_", dir=os.path.join(ROOT, "_tmp"))
+
+    def cli(label, argv, metrics=True):
+        """One in-process CLI run: (summary, its ∆elbo per iteration, its
+        launches by kernel and mode)."""
+        for k in kerns:
+            k.launches = 0
+        lda_estep.launches_f64 = flda_estep.launches_f64 = 0
+        rows_path = os.path.join(tmp, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        s = train.run(argv + ["--quiet"] + (["--metrics", rows_path] if metrics else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k.__name__: k.launches - getattr(k, "launches_f64", 0) for k in kerns}
+        got.update(lda_estep_f64=lda_estep.launches_f64, flda_estep_f64=flda_estep.launches_f64)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rows = ([json.loads(line) for line in open(rows_path)] if metrics else [])
+        need(not metrics or [r["k"] for r in rows] == list(range(1, s.get("iterations", 0) + 1)),
+             f"phase 14 {label}: metrics rows {[r['k'] for r in rows]}")
+        need(s.get("final_elbo") is not None and np.isfinite(s["final_elbo"]),
+             f"phase 14 {label}: final elbo {s.get('final_elbo')}")
+        print(f"phase 14 CLI {label}: {wall:.2f} s; " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in s.items())
+            + f"; launches {got}")
+        return s, [r["delta_elbo"] for r in rows], got
+
+    nsf = ["--corpus", "nsf-scale", "--k", str(K)]
+    chunks = types.SimpleNamespace(packed=bucketed, chunk_docs=1024)
+    n_chunks, n_scatter = n_chunks_of(chunks), scatters_of(chunks)
+    padded = sum(seg.terms.size for seg in bucketed.segments)
+    peak = engine.device_peak_flops(dev)
+    prof, ckpt = os.path.join(tmp, "prof"), os.path.join(tmp, "lda.ckpt")
+
+    # LDA at full width, with the metrics and a checkpoint: its steps' time,
+    # docs/s and MFU; the profiler's own cost would swamp them, so it
+    # captures a run of its own
+    s, deltas, got = cli("LDA NSF", ["--model", "lda", *nsf, "--iter", "5", "--checkelbo", "1",
+                                     "--save", ckpt])
+    need(s["iterations"] == 5 and all(d > 0 for d in deltas), f"phase 14 LDA: ∆elbo {deltas}")
+    need(s["docs_per_s"] > 0 and 0 < s.get("mfu", 0) <= 1, f"phase 14 LDA: mfu {s.get('mfu')}")
+    need(s["flops_per_step"] == float(10 * padded * 6 * K),
+         f"phase 14 LDA: flops_per_step {s['flops_per_step']}")
+    need(got["lda_estep"] == 5 * n_chunks and got["lda_elbo_tok"] == 6 * n_chunks
+         and got["scatter_rows"] == 5 * n_scatter and got["lda_estep_f64"] == 0,
+         f"phase 14 LDA: launches {got} for {n_chunks} chunks")
+    print(f"phase 14: peak {peak / 1e12:.2f} TFLOP/s (SMs x 128 x 2 x max SM clock), LDA "
+          f"NSF step+bound {s['mean_step_s']:.4f} s, {s['docs_per_s']:.0f} docs/s, "
+          f"{s['tflops_per_s']:.4f} TFLOP/s, mfu {s.get('mfu', 0.0):.4%}; card {smi}")
+    lda_elbo = s["final_elbo"]
+
+    # the profiler: iteration 2 of a 2-iteration run (and its bound), CPU
+    # and CUDA activity, on 16,384 of the documents (under the profiler a
+    # full NSF step takes ~5 s)
+    s, _, got = cli("LDA NSF profiled", ["--model", "lda", *nsf, "--subset", "16384", "--iter",
+                                         "2", "--checkelbo", "2", "--profile-dir", prof])
+    per_step = got["lda_estep"] // 2
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sum(e.get("name") == "cavi_step" and e.get("cat") == "user_annotation"
+                for e in events)
+    kern_events = sum("lda_estep_kernel" in e.get("name", "") for e in events)
+    # CUPTI may drop an activity record: the trace must hold the kernel,
+    # not every launch
+    need(trace == "trace_iter000002-000002.json" and steps == 1 and per_step > 0
+         and 0 < kern_events <= per_step,
+         f"phase 14 LDA: trace {trace} has {steps} cavi_step and {kern_events} lda_estep "
+         f"events; launches {got}")
+    print(f"phase 14: trace {trace} ({os.path.getsize(os.path.join(prof, trace)) / 2**20:.1f} "
+          f"MiB): {len(events)} events, {kern_events} lda_estep kernels of {per_step} "
+          f"launched; the profiled step {s['mean_step_s']:.4f} s")
+
+    # the checkpoint resumes
+    m = tt.load_checkpoint(ckpt, kc["packed"], device=dev)
+    need(m.trained_iters == 5 and m.elbo == lda_elbo, "phase 14: the CLI checkpoint's counters")
+    m.train(iter=1, checkelbo=1, printelbo=False)
+    r = m.trainer.trace[-1]
+    need(r.k == 6 and r.delta_elbo > 0, f"phase 14: resume k {r.k}, ∆elbo {r.delta_elbo}")
+    print(f"phase 14: the CLI's checkpoint ({os.path.getsize(ckpt) / 2**20:.1f} MiB) resumed "
+          f"at k = 6, ∆elbo {r.delta_elbo:.3f}")
+
+    # the f64 Elogtheta channel: LDA, then fLDA
+    s, deltas, got = cli("LDA NSF elogtheta-f64", ["--model", "lda", *nsf, "--iter", "5",
+                                                   "--checkelbo", "1", "--elogtheta-f64"])
+    need(all(d > 0 for d in deltas), f"phase 14 LDA f64: ∆elbo {deltas}")
+    need(got["lda_estep_f64"] == 5 * n_chunks and got["lda_estep"] == 0,
+         f"phase 14 LDA f64: launches {got}")
+    print(f"phase 14: final elbo f32 channel {lda_elbo:.3f}, f64 channel {s['final_elbo']:.3f}")
+    s, deltas, got = cli("fLDA NSF elogtheta-f64", ["--model", "flda", *nsf, "--iter", "4",
+                                                    "--checkelbo", "1", "--elogtheta-f64"])
+    need(all(d > 0 for d in deltas[1:]), f"phase 14 fLDA f64: ∆elbo {deltas}")
+    need(got["flda_estep_f64"] == 4 * n_chunks and got["flda_estep"] == 0
+         and got["scatter_rows"] == 4 * n_scatter, f"phase 14 fLDA f64: launches {got}")
+
+    # CTPF at CiteULike scale
+    s, deltas, got = cli("CTPF CiteULike", ["--model", "ctpf", "--corpus", "citeu", "--k",
+                                            str(K), "--iter", "3", "--checkelbo", "1"])
+    need(s["M"] == kc["cpk"].M and all(d > 0 for d in deltas[1:]),
+         f"phase 14 CTPF: M {s['M']}, ∆elbo {deltas}")
+    need(got["ctpf_estep"] > 0 and got["ctpf_estep"] % 3 == 0 and got["scatter_rows"] > 0,
+         f"phase 14 CTPF: launches {got}")
+
+    # streaming LDA on the NSF corpus
+    s, _, got = cli("StreamingLDA NSF", ["--model", "lda", *nsf, "--iter", "2", "--checkelbo",
+                                         "1", "--streaming"], metrics=False)
+    need(s["mode"] == "streaming" and got["lda_estep"] > 0 and got["scatter_rows"] > 0,
+         f"phase 14 streaming: {s}, launches {got}")
+
+    # python -m, one rank of an NCCL group
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, "-m", "topicmodelsvb_jl_torch.train", "--model", "lda",
+            "--corpus", "nsf-scale", "--subset", "16384", "--k", str(K), "--iter", "2",
+            "--json", "--coordinator", f"localhost:{port}", "--num-processes", "1",
+            "--process-id", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    need(proc.returncode == 0, f"phase 14 NCCL rank exited {proc.returncode}: {err[-3000:]}")
+    one = json.loads(out.strip().splitlines()[-1])
+    need(one["iterations"] == 2 and one["M"] == 16384 and np.isfinite(one["final_elbo"])
+         and 0 < one.get("mfu", 0) <= 1, f"phase 14 NCCL rank: {one}")
+    print(f"phase 14: python -m ... --coordinator (one NCCL rank) in "
+          f"{time.perf_counter() - t0:.1f} s: {one}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 14: wall {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+          f"card {smi}")
+    return launches, f64
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2827,6 +3088,13 @@ def main() -> int:
          f"phase 13: a kernel never launched on the ranks: {p13}")
     add(p13)
 
+    # 14. the CLI on the card, and the f64 Elogtheta modes
+    p14, f64 = cli_phase(smi, kc, dev)
+    need(all(p14.get(k, 0) > 0 for k in ("lda_estep", "lda_elbo_tok", "ctpf_estep",
+                                         "scatter_rows", "lda_estep_f64", "flda_estep_f64")),
+         f"phase 14: a kernel never launched: {p14}")
+    add(p14)
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -2854,7 +3122,13 @@ def main() -> int:
             # the per-pass body the JAX package runs in XLA under routing and
             # on the sequence axis
             ("lda_estep_pass", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
-             pass_rec, ())):
+             pass_rec, ()),
+            # the f64 Elogtheta modes: the JAX package turns its Pallas kernels
+            # off for them and runs its XLA chunk bodies
+            ("lda_estep_f64", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:137",
+             f64["lda_estep_f64"][0], f64["lda_estep_f64"][1:]),
+            ("flda_estep_f64", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:106",
+             f64["flda_estep_f64"][0], f64["flda_estep_f64"][1:])):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],

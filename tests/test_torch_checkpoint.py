@@ -145,9 +145,10 @@ def test_checkpoints_cross_between_packages(fam, corpora, tmp_path):
 
 
 def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
-    """The JAX-only knobs that change nothing on one device are skipped, and
-    a mesh_shape of any axes loads; one knob the port cannot honour
-    raises."""
+    """The JAX-only knobs that change nothing here are skipped (peak_flops:
+    the loading device computes its own), profile_steps and
+    elogtheta_f64 load, and a mesh_shape of any axes loads; an unknown
+    knob or model raises."""
     jm = tm.LDA(corpora["jax"], K, runtime=JaxRuntimeConfig(chunk_docs=16, dtype="float64",
                 use_pallas=False, peak_flops=1.0, profile_steps=7),
                 mesh=make_mesh(n_devices=1), seed=3)
@@ -156,7 +157,8 @@ def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
     rt = _meta(path)["runtime"]
     assert {"use_pallas", "data_axis", "vocab_axis", "peak_flops", "profile_steps"} <= set(rt)
     pm = tt.load_checkpoint(path, corpora["torch"], device="cpu")
-    assert pm.runtime == tt.RuntimeConfig(chunk_docs=16, dtype="float64")
+    assert pm.runtime == tt.RuntimeConfig(chunk_docs=16, dtype="float64", profile_steps=7)
+    assert pm.peak_flops == 0.0   # the CPU's, not the checkpoint's
     # any mesh_shape loads (the loading run's mesh is its own; the JAX
     # package never reads the field to build its mesh)
     for name, shape in (("one", [1]), ("mesh", [2, 2])):
@@ -164,13 +166,54 @@ def test_runtime_knobs_from_the_jax_package(corpora, tmp_path):
                          lambda m, shape=shape: m["runtime"].update(mesh_shape=shape))
         back = tt.load_checkpoint(other, corpora["torch"], device="cpu")
         assert back.M == pm.M and back.runtime == pm.runtime
+    f64 = _rewrite(path, str(tmp_path / "f64.npz"),
+                   lambda m: m["runtime"].update(elogtheta_f64=True))
+    back = tt.load_checkpoint(f64, corpora["torch"], device="cpu")
+    assert back.runtime == dataclasses.replace(pm.runtime, elogtheta_f64=True)
     for name, edit, match in (
-            ("f64", lambda m: m["runtime"].update(elogtheta_f64=True), "elogtheta_f64"),
             ("knob", lambda m: m["runtime"].update(warp_speed=9), "warp_speed"),
             ("model", lambda m: m.update(model="SLDA"), "SLDA")):
         bad = _rewrite(path, str(tmp_path / f"{name}.npz"), edit)
         with pytest.raises(ValueError, match=match):
             tt.load_checkpoint(bad, corpora["torch"], device="cpu")
+
+
+@pytest.mark.parametrize("fam", ["LDA", "fLDA"])
+def test_elogtheta_f64_checkpoints_cross_and_resume(corpora, tmp_path, fam):
+    """A float32 run with elogtheta_f64 checkpointed by either package
+    resumes in the other with the knob on: 2 iterations, a checkpoint,
+    then 2 more in both packages from it, the bounds within 1e-5 relative
+    and every field within rtol 1e-5 / atol 1e-6 (float32 rounding in two
+    summation orders; the knob's own effect is ~1e-7)."""
+    rt_j = JaxRuntimeConfig(chunk_docs=16, elogtheta_f64=True)
+    jm = getattr(tm, fam)(corpora["jax"], K, runtime=rt_j, mesh=make_mesh(n_devices=1), seed=3)
+    jm.train(iter=2, checkelbo=1, printelbo=False)
+    pm = getattr(tt, fam)(corpora["torch"], K, tt.RuntimeConfig(chunk_docs=16,
+                                                                 elogtheta_f64=True),
+                          device="cpu", seed=3)
+    pm.state = type(pm.state)(**{f: torch.tensor(np.asarray(v))
+                                 for f, v in jm.state._asdict().items()})
+    pm.trained_iters = 2
+    for src, save, load, corp in (
+            (jm, tm.save_checkpoint, lambda p, c: tt.load_checkpoint(p, c, device="cpu"),
+             corpora["torch"]),
+            (pm, tt.save_checkpoint, tm.checkpoint.load, corpora["jax"])):
+        path = str(tmp_path / f"{type(src).__module__.split('.')[0]}.npz")
+        save(path, src)
+        assert _meta(path)["runtime"]["elogtheta_f64"] is True
+        other = load(path, corp)
+        assert other.runtime.elogtheta_f64 and other.trained_iters == 2
+        assert other.runtime.dtype == "float32"
+        twin = (tt.load_checkpoint(path, corpora["torch"], device="cpu")
+                if src is jm else tm.checkpoint.load(path, corpora["jax"]))
+        for m in (other, twin):
+            m.train(iter=2, checkelbo=1, printelbo=False)
+        assert [r.k for r in other.trainer.trace] == [3, 4]
+        np.testing.assert_allclose([r.elbo for r in other.trainer.trace],
+                                   [r.elbo for r in twin.trainer.trace], rtol=1e-5)
+        for f in ("alpha", "beta", "gamma", "Elogtheta"):
+            np.testing.assert_allclose(getattr(other, f), getattr(twin, f), rtol=1e-5,
+                                       atol=1e-6, err_msg=f)
 
 
 def test_wrong_corpus_and_stamp_edit_fail_the_fingerprint(tmp_path):

@@ -1082,3 +1082,113 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     np.testing.assert_allclose(r0["beta"], one.beta, rtol=5e-3, atol=1e-5)
     np.testing.assert_allclose(r0["alpha"], one.alpha, rtol=5e-3, atol=1e-5)
     np.testing.assert_allclose(r0["trace"], [r.elbo for r in one.trainer.trace], rtol=1e-5)
+
+
+# ── the f64 Elogtheta channel: a mode of lda_estep and flda_estep ──
+
+# rows in shared memory and in tiles; K % 4 != 0; wider than the block
+@pytest.mark.parametrize("K,L", [(100, 128), (101, 64), (100, 1024), (257, 24), (1, 8)])
+def test_lda_estep_f64_mode_matches_plain(cuda, K, L):
+    """The f64-channel mode against the plain version's float64 psi: the
+    psi of both is exact to ~1e-14 before the cast, so El is held tighter
+    than the f32 mode (rtol 1e-5); bitwise repeatable; padded documents
+    frozen; it launches the kernel and differs from the f32 mode."""
+    args, _ = _chunk(K, 64, L, 3000, cuda, seed=3)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    before = lda_estep.launches
+    got = lda_estep(*args, **kw, elogtheta_f64=True)
+    torch.cuda.synchronize()
+    assert lda_estep.launches == before + 1
+    want = lda_estep_ref(*args, **kw, elogtheta_f64=True)
+    for name, a, b in zip(("gamma", "El", "El_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    for a, b in zip(got[:3], args[5:]):
+        assert torch.equal(a[-3:], b[-3:])
+    again = lda_estep(*args, **kw, elogtheta_f64=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if K > 1:
+        assert not torch.equal(got[1], lda_estep(*args, **kw)[1])
+
+
+@pytest.mark.parametrize("K,L", [(100, 128), (7, 24), (100, 1024), (160, 40)])
+def test_flda_estep_f64_mode_matches_plain(cuda, K, L):
+    args = _flda_chunk(K, 64, L, 3000, cuda, seed=5)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    before = flda_estep.launches
+    got = flda_estep(*args, **kw, elogtheta_f64=True)
+    torch.cuda.synchronize()
+    assert flda_estep.launches == before + 1
+    want = flda_estep_ref(*args, **kw, elogtheta_f64=True)
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    for a, b in zip(got[:5], args[7:]):
+        assert torch.equal(a[-3:], b[-3:])
+    again = flda_estep(*args, **kw, elogtheta_f64=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert not torch.equal(got[1], flda_estep(*args, **kw)[1])
+
+
+@pytest.mark.parametrize("viter", [0, 3])
+def test_f64_modes_special_documents(cuda, viter):
+    """A masked document with counts and a real one with none, in both
+    kernels' f64 modes."""
+    (betaT, terms, counts, doc_mask, *rest), _ = _chunk(100, 16, 128, 3000, cuda, seed=4)
+    doc_mask[0] = 0.0
+    counts[1] = 0.0
+    args = (betaT, terms, counts, doc_mask, *rest)
+    got = lda_estep(*args, viter=viter, vtol=1e-4, elogtheta_f64=True)
+    want = lda_estep_ref(*args, viter=viter, vtol=1e-4, elogtheta_f64=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5)
+    fargs = list(_flda_chunk(100, 16, 128, 3000, cuda, seed=4))
+    fargs[4][0] = 0.0
+    fargs[3][1] = 0.0
+    got = flda_estep(*fargs, viter=viter, vtol=1e-4, elogtheta_f64=True)
+    want = flda_estep_ref(*fargs, viter=viter, vtol=1e-4, elogtheta_f64=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5)
+
+
+def test_lda_and_flda_train_with_elogtheta_f64_on_the_card(cuda):
+    """RuntimeConfig(elogtheta_f64=True) goes through the kernels' f64
+    modes (never the plain versions), the bound rises, and the split
+    fixpoint's f64 tiles follow the fused mode."""
+    from topicmodelsvb_jl_torch.models.lda import _chunks
+
+    pk = tt.synth_packed_nsf_scale(M=3000, V=800, mean_terms=30, seed=2)
+    rt = tt.RuntimeConfig(elogtheta_f64=True)
+    for cls, kern in ((tt.LDA, lda_estep), (tt.fLDA, flda_estep)):
+        m = cls(pk, 16, rt, device=cuda, seed=1)
+        kern.launches = 0
+        m.train(iter=3, checkelbo=1, printelbo=False)
+        assert kern.launches == 3 * len(_chunks(m.local_packed, m.chunk_docs))
+        assert all(r.delta_elbo > 0 for r in m.trainer.trace[1:])
+    args, _ = _chunk(100, 48, 129, 3000, cuda, seed=9)
+    want = lda_estep(*args, viter=10, vtol=1e-4, elogtheta_f64=True)
+    got = split_fixpoint(*args, viter=10, vtol=1e-4, reduce=lambda x: x, elogtheta_f64=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5)
+
+
+def test_cli_on_the_card(cuda, tmp_path):
+    """The CLI at a small size on the card: an MFU from the card's own
+    peak, a profiler trace with CUDA kernels, and its refusals."""
+    import json
+    import os
+
+    from topicmodelsvb_jl_torch import train
+
+    prof = str(tmp_path / "prof")
+    s = train.run(["--model", "lda", "--corpus", "nsf-scale", "--subset", "4096", "--k", "20",
+                   "--iter", "5", "--quiet", "--profile-dir", prof, "--elogtheta-f64"])
+    assert 0 < s["mfu"] <= 1 and s["flops_per_step"] > 0
+    (name,) = os.listdir(prof)
+    with open(os.path.join(prof, name)) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert "cavi_step" in names
+    assert any("lda_estep_kernel" in n for n in names)
+    for bad, msg in ((["--no-pallas"], "no plain E-step"), (["--dtype", "float64"], "CPU only")):
+        with pytest.raises(SystemExit, match=msg):
+            train.run(["--model", "lda", "--corpus", "synth", "--k", "3"] + bad)

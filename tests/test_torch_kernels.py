@@ -181,3 +181,180 @@ def test_build_library_name_tracks_sources_and_needs_nvcc(monkeypatch, tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+# ── the f64 Elogtheta channel (RuntimeConfig.elogtheta_f64) ──
+#
+# The plain versions with elogtheta_f64=True on a float32 state against the
+# JAX package's XLA chunk bodies with elogtheta_f64=True (x64 enabled, as
+# tests/conftest.py sets it).  Both take psi in float64 from the float32
+# gamma and cast back; what separates them is float32 rounding elsewhere
+# (the port forms phi multiplicatively, JAX as a softmax of logs):
+# rtol 1e-5 / atol 1e-6 on every output.
+F64_RTOL, F64_ATOL = 1e-5, 1e-6
+
+
+def _edge_chunk(K, B=12, L=16, V=30, seed=8):
+    """_inputs with an empty real document (0), a one-token one (1) and
+    the last 3 masked."""
+    x = _inputs(K, B=B, L=L, V=V, seed=seed)
+    x["counts"][0] = 0.0
+    x["terms"][0] = 0
+    x["counts"][1] = 0.0
+    x["counts"][1, 0] = 3.0
+    return x
+
+
+def _scatter(w, terms, V):
+    out = np.zeros((V, w.shape[-1]), np.float64)
+    np.add.at(out, terms.reshape(-1), w.reshape(-1, w.shape[-1]).astype(np.float64))
+    return out
+
+
+def test_lda_estep_ref_f64_channel_matches_jax_xla():
+    from topicmodelsvb_jl_tpu.models.lda import _estep_chunk
+
+    K, V, viter = 6, 30, 8
+    x = _edge_chunk(K, V=V)
+    vtol = 1.0 / K**2
+    logbetaT = jnp.log(jnp.asarray(x["beta"]) + np.float32(EPSILON)).T
+    j = _estep_chunk(logbetaT, jnp.asarray(x["alpha"]), jnp.asarray(x["terms"]),
+                     jnp.asarray(x["counts"]), jnp.asarray(x["doc_mask"]),
+                     jnp.asarray(x["gamma"]), jnp.asarray(x["El"]), jnp.asarray(x["El_old"]),
+                     viter, vtol, V, elogtheta_f64=True)
+    assert all(np.asarray(a).dtype == np.float32 for a in j[:3])
+    got = lda_estep_ref(*_estep_args(x), viter=viter, vtol=vtol, elogtheta_f64=True)
+    assert all(a.dtype == torch.float32 for a in got)
+    for name, a, b in zip(("gamma", "El", "El_old"), got, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=F64_RTOL, atol=F64_ATOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(_scatter(got[3].numpy(), x["terms"], V), np.asarray(j[3]),
+                               rtol=F64_RTOL, atol=F64_ATOL, err_msg="beta_temp")
+    # the empty document moves to alpha + eps, the masked ones keep their state
+    np.testing.assert_allclose(got[0][0].numpy(), x["alpha"] + np.float32(EPSILON), rtol=1e-7)
+    np.testing.assert_array_equal(got[1][-3:].numpy(), x["El"][-3:])
+
+
+def test_lda_estep_f64_channel_is_honoured():
+    """The knob changes El (the float32 series and the float64 psi round
+    differently), through the wrapper too; the float32 mode is unchanged."""
+    x = _edge_chunk(7)
+    off = lda_estep(*_estep_args(x), viter=6, vtol=1e-3)
+    on = lda_estep(*_estep_args(x), viter=6, vtol=1e-3, elogtheta_f64=True)
+    assert not torch.equal(off[1], on[1])
+    for a, b in zip(off, lda_estep_ref(*_estep_args(x), viter=6, vtol=1e-3)):
+        assert torch.equal(a, b)
+    for a, b in zip(on, lda_estep_ref(*_estep_args(x), viter=6, vtol=1e-3,
+                                      elogtheta_f64=True)):
+        assert torch.equal(a, b)
+
+
+def _flda_args(x, seed=4):
+    r = np.random.default_rng(seed)
+    B, L = x["terms"].shape
+    V = x["beta"].shape[1]
+    kappa = r.dirichlet(np.ones(V)).astype(np.float32)
+    tau = r.uniform(0.1, 0.9, (B, L)).astype(np.float32)
+    tau_old = r.uniform(0.1, 0.9, (B, L)).astype(np.float32)
+    logbetaT = np.log(x["beta"].T + np.float32(EPSILON)).astype(np.float32)
+    return dict(logbetaT=logbetaT, kappa=kappa, eta=np.float32(0.6), tau=tau, tau_old=tau_old)
+
+
+def test_flda_estep_ref_f64_channel_matches_jax_xla():
+    from topicmodelsvb_jl_tpu.models.flda import _estep_chunk
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+
+    K, V, viter = 6, 30, 8
+    x = _edge_chunk(K, V=V, seed=9)
+    f = _flda_args(x)
+    vtol = 1.0 / K**2
+    J = jnp.asarray
+    j = _estep_chunk(J(f["logbetaT"]), J(f["kappa"]), J(f["eta"]), J(x["alpha"]),
+                     J(x["terms"]), J(x["counts"]), J(x["doc_mask"]), J(x["gamma"]),
+                     J(x["El"]), J(x["El_old"]), J(f["tau"]), J(f["tau_old"]), viter, vtol, V,
+                     elogtheta_f64=True)
+    t = torch.tensor
+    args = (t(f["logbetaT"]), t(f["kappa"]), t(x["terms"]), t(x["counts"]), t(x["doc_mask"]),
+            t(x["alpha"]), t(f["eta"]), t(x["gamma"]), t(x["El"]), t(x["El_old"]),
+            t(f["tau"]), t(f["tau_old"]))
+    got = flda_estep_ref(*args, viter=viter, vtol=vtol, elogtheta_f64=True)
+    assert all(a.dtype == torch.float32 for a in got)
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old"), got, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=F64_RTOL, atol=F64_ATOL,
+                                   err_msg=name)
+    stat = _scatter(got[5].numpy(), x["terms"], V)
+    np.testing.assert_allclose(stat[:, :K], np.asarray(j[5]), rtol=F64_RTOL, atol=F64_ATOL,
+                               err_msg="beta_temp")
+    np.testing.assert_allclose(stat[:, K], np.asarray(j[6]), rtol=F64_RTOL, atol=F64_ATOL,
+                               err_msg="kappa_temp")
+    off = flda_estep(*args, viter=viter, vtol=vtol)
+    on = flda_estep(*args, viter=viter, vtol=vtol, elogtheta_f64=True)
+    assert not torch.equal(off[1], on[1])
+    assert all(torch.equal(a, b) for a, b in zip(on, got))
+
+
+def test_split_fixpoint_f64_channel_equals_the_fused_plain_version():
+    """The pass mode's driver takes the same float64 psi on its tiles:
+    driven alone it gives the fused plain version's bits."""
+    from topicmodelsvb_jl_torch.kernels.lda_estep import split_fixpoint
+
+    x = _edge_chunk(5)
+    a = split_fixpoint(*_estep_args(x), viter=7, vtol=1e-3, elogtheta_f64=True)
+    b = lda_estep_ref(*_estep_args(x), viter=7, vtol=1e-3, elogtheta_f64=True)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("family", ["lda", "flda"])
+def test_make_step_f64_channel_matches_jax(family):
+    """LDA's and fLDA's make_step with elogtheta_f64 on a float32 state,
+    against the JAX package's (XLA body, x64 enabled), 3 iterations from
+    the JAX init.  Every field within rtol 1e-5 / atol 1e-6, as one chunk
+    (the largest relative gap measured, 2.4e-6, is kappa's)."""
+    import jax
+
+    import topicmodelsvb_jl_tpu as tm
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_tpu.datasets import synth_packed_nsf_scale as jax_synth
+    from topicmodelsvb_jl_tpu.models import flda as jax_flda
+    from topicmodelsvb_jl_tpu.models import lda as jax_lda
+    from topicmodelsvb_jl_tpu.parallel.mesh import make_mesh
+    from topicmodelsvb_jl_tpu.utils.config import RuntimeConfig as JaxRuntimeConfig
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.models import flda as torch_flda
+    from topicmodelsvb_jl_torch.models import lda as torch_lda
+
+    K, chunk = 5, 16
+    corpus = dict(M=120, V=80, mean_terms=15, seed=2, chunk_docs=chunk)
+    cls, jmod, tmod = {"lda": ("LDA", jax_lda, torch_lda),
+                       "flda": ("fLDA", jax_flda, torch_flda)}[family]
+    jm = getattr(tm, cls)(jax_synth(**corpus), K,
+                          runtime=JaxRuntimeConfig(chunk_docs=chunk, elogtheta_f64=True),
+                          mesh=make_mesh(n_devices=1), seed=4)
+    pm = getattr(tt, cls)(tt.synth_packed_nsf_scale(**corpus), K,
+                          tt.RuntimeConfig(chunk_docs=chunk, elogtheta_f64=True),
+                          device="cpu", seed=4)
+    pm.state = convert.state_for(pm, {k: np.asarray(v) for k, v in jm.state._asdict().items()})
+    p = jm.packed
+    kw = dict(viter=10, vtol=1.0 / K**2, niter=1000, ntol=1.0 / K**2, chunk_docs=chunk,
+              elogtheta_f64=True)
+    jstep = jax.jit(jmod.make_step(p, K, axis_name=None, use_pallas=False, **kw))
+    tstep = tmod.make_step(pm.packed, K, device="cpu", **kw)
+    jdata = tuple(tuple(jnp.asarray(getattr(s, f)) for s in p.segments)
+                  for f in ("terms", "counts", "doc_mask"))
+    tdata = pm._data_arrays()
+    if family == "lda":
+        jtot, ttot = (jnp.asarray(np.float32(p.M)),), (float(pm.M),)
+    else:
+        tot = (np.float32(p.M), np.float32(p.C.sum()))
+        jtot, ttot = tuple(jnp.asarray(v) for v in tot), tuple(torch.tensor(v) for v in tot)
+    js, ts = jm.state, pm.state
+    for it in range(3):
+        js = jstep(js, *jdata, *jtot)
+        ts = tstep(ts, *tdata, *ttot)
+    got = convert.lda_state_to_numpy(ts)
+    for f, want in js._asdict().items():
+        if f == "elbo":
+            continue
+        assert got[f].dtype == np.float32, f
+        np.testing.assert_allclose(got[f], np.asarray(want), rtol=F64_RTOL, atol=F64_ATOL,
+                                   err_msg=f)

@@ -12,18 +12,58 @@ version, its device time over many launches, its call time and its bound,
 and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 (NSF scale) and the CTPF main path (CiteULike scale), K = 100,
 1024-document chunks: one warm-up iteration each, then three steps alone,
-each timed by the host clock up to a synchronize.
+each timed by the host clock up to a synchronize.  Last, ``digests``:
+a sha256 of the outputs of the E-step kernels and ``lda_elbo_tok`` (f32,
+phase 3's arguments) on the widest NSF chunk and on the chunks whose rows
+do not fit shared memory; equal digests from two checkouts mean the
+kernels give the same bits.
 Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
 CUDA GPU.
 """
+import hashlib
 import importlib.util
 import json
 import pathlib
 import subprocess
 import sys
 import time
+
+
+def digests(smoke, kc, dev) -> dict:
+    """sha256 (16 hex digits) of each kernel's outputs at chip_smoke.py's
+    arguments: the widest NSF chunk, the L = 1024 chunk (rows in tiles)
+    and, for ``ctpf_estep``, the L = 768, R = 256 chunk."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
+
+    K, V = kc["K"], kc["V"]
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    s0 = kc["bucketed"].segments[0]
+    wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
+            put(s0.doc_mask[:1024], torch.float32))
+    lc = smoke.long_chunks(V, kc["cpk"].U, dev)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    outs = {}
+    for tag, seg in (("wide", wide), ("long", lc["long_pad"])):
+        args, beta, beta_old = smoke.lda_args(seg, V, K, dev)
+        outs[f"lda_estep_{tag}"] = lda_estep(*args, **kw)
+        boT = (beta_old + EPSILON).T.contiguous()
+        g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
+        outs[f"lda_elbo_tok_{tag}"] = (lda_elbo_tok(boT, g2T, *seg, args[6], args[7]),)
+        outs[f"flda_estep_{tag}"] = flda_estep(*smoke.flda_args(seg, V, K, dev), **kw)
+    cargs, ckw = smoke.ctpf_args(*lc["ctpf_long"], V, kc["cpk"].U, K, dev)
+    outs["ctpf_estep_long"] = ctpf_estep(*cargs, **ckw)
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in o)).hexdigest()[:16]
+            for name, o in outs.items()}
 
 
 def main(root: str, label: str) -> int:
@@ -66,6 +106,7 @@ def main(root: str, label: str) -> int:
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
         out[f"{name}_step_s"] = steps
+    out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)
     dest = here / "chiprun_out"

@@ -10,7 +10,10 @@ dynamic topic model ``DTM`` and the hidden Markov topic model ``HMTM``.
 A model runs on the CUDA device unless its caller names another
 (``device="cpu"``); without a CUDA device it raises rather than fall
 back.  ``RuntimeConfig.checkpoint_every`` and
-``checkpoint_dir`` checkpoint a run as it trains (``checkpoint.py``).
+``checkpoint_dir`` checkpoint a run as it trains (``checkpoint.py``);
+``profile_dir`` captures steps with ``torch.profiler``, and each model's
+``_flops_per_step`` (the JAX package's arithmetic) over the step time and
+``peak_flops`` gives the summary's MFU figure.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from . import corpus as corpuslib
 from .corpus import Corpus, CorpusError, Document
-from .engine import Trainer
+from .engine import Trainer, device_peak_flops
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
 from .models import dtm as dtm_mod
@@ -88,6 +91,9 @@ class TopicModel:
         self.runtime = (runtime if runtime is not None
                         else RuntimeConfig(chunk_docs=self._preferred_chunk))
         self.dtype = getattr(torch, self.runtime.dtype)
+        # the MFU figure's peak: the runtime's, else this device's own
+        self.peak_flops = (float(self.runtime.peak_flops) if self.runtime.peak_flops is not None
+                           else device_peak_flops(self.device))
         self.seed = seed
         ax = self.runtime.data_axis
         shape = data_shape(self.runtime.mesh_shape)
@@ -218,6 +224,27 @@ class TopicModel:
         self._require_whole()
         return _host(t)
 
+    def _padded_tokens(self) -> int:
+        """Token slots a sweep processes, padding included."""
+        p = self.packed
+        if p.segments is not None:
+            return int(sum(s.terms.size for s in p.segments))
+        return int(np.asarray(p.terms).size)
+
+    def _viter(self) -> int:
+        """The running train's viter (10 before any train)."""
+        return self._cfg.viter if getattr(self, "_cfg", None) else 10
+
+    def _flops_per_step(self) -> float:
+        """Arithmetic of one outer iteration for the MFU figure, the JAX
+        package's estimate (its api.py:241): ~6 flops per (token slot,
+        topic) in each of ``viter`` passes (the phi product and
+        normalisation, the gamma and beta statistics, LDA.jl:129-154).
+        The families add their deterministic extra work; iterations that
+        stop early are counted in full and data-dependent ones not at
+        all, so the figure is an estimate of the whole corpus's work."""
+        return float(self._viter() * self._padded_tokens() * 6 * self.K)
+
     def _trainer_kw(self) -> dict:
         """The Trainer's sinks: the JSONL metrics file and, with
         ``checkpoint_every`` and ``checkpoint_dir`` set, the checkpoint
@@ -228,10 +255,13 @@ class TopicModel:
         checkpoint; one write is in flight at a time.  A model sharded over
         processes writes the directory format synchronously (every
         process its own rows, ``checkpoint.save``); process 0 renames it.
-        Only the first process prints and writes metrics."""
+        Only the first process prints, writes metrics and profiles.  With
+        them, the step's flops and the peak of the MFU figure."""
         rt = self.runtime
         lead = self._shard == 0 and self._replica == 0
-        kw = dict(metrics_path=rt.metrics_path, main=lead)
+        kw = dict(metrics_path=rt.metrics_path, main=lead,
+                  flops_per_step=self._flops_per_step(), peak_flops=self.peak_flops,
+                  profile_dir=rt.profile_dir, profile_steps=rt.profile_steps)
         if rt.checkpoint_every > 0 and rt.checkpoint_dir:
             from . import checkpoint as ckptlib
 
@@ -330,6 +360,7 @@ class TopicModel:
                     f"state field {f} has {getattr(self.state, f).shape[0]} rows; this "
                     f"process holds {n_rows} (convert.state_for gives a process its rows)")
         check_model(self)
+        self._cfg = cfg
         self.trainer = self._build_trainer(cfg)
         all_empty = all(n == 0 for n in self.N)
         try:
@@ -488,7 +519,8 @@ class LDA(_DirichletAccessors, TopicModel):
         p = self.local_packed
         step = lda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device,
+            elogtheta_f64=self.runtime.elogtheta_f64, **self._dp())
         elbo = lda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         return Trainer(step, elbo, data + (float(self.M),), data,
@@ -505,6 +537,11 @@ class fLDA(_DirichletAccessors, TopicModel):
     def __repr__(self):
         return f"Filtered latent Dirichlet allocation model with {self.K} topics."
 
+    def _flops_per_step(self) -> float:
+        """The base estimate + ~4 flops a token slot a pass for tau
+        (fLDA.jl:195-200; JAX api.py:863)."""
+        return super()._flops_per_step() + float(self._viter() * self._padded_tokens() * 4)
+
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
         self.state = flda_mod.init(gen, self.local_packed, self.K, self.dtype,
@@ -514,7 +551,8 @@ class fLDA(_DirichletAccessors, TopicModel):
         p = self.local_packed
         step = flda_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
-            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device, **self._dp())
+            ntol=cfg.ntol, chunk_docs=self.chunk_docs, device=self.device,
+            elogtheta_f64=self.runtime.elogtheta_f64, **self._dp())
         elbo = flda_mod.make_elbo(p, self.K, chunk_docs=self.chunk_docs, **self._dp())
         data = self._data_arrays()
         C = sum(self.C)
@@ -606,6 +644,13 @@ class CTPF(TopicModel):
         self._scores_dev = None
         self._lazy_scores = False
         self._scores_np = None
+
+    def _flops_per_step(self) -> float:
+        """The base estimate + the 2K-wide reader responsibilities, ~6 flops
+        a rating slot and lane a pass (CTPF.jl:334-337; JAX api.py:980)."""
+        r = self.packed.readers
+        r_slots = 0 if r is None else int(np.asarray(r).size)
+        return super()._flops_per_step() + float(self._viter() * r_slots * 12 * self.K)
 
     def __repr__(self):
         return f"Collaborative topic Poisson factorization model with {self.K} topics."
@@ -870,6 +915,13 @@ class CTM(TopicModel):
     def __repr__(self):
         return f"Correlated topic model with {self.K} topics."
 
+    def _flops_per_step(self) -> float:
+        """The base estimate + the lambda Newton's floor a pass: one PCG
+        matvec (2K²) and ~10K of elementwise work a document (JAX
+        api.py:674)."""
+        return TopicModel._flops_per_step(self) + float(
+            self._viter() * self.packed.M_pad * (2 * self.K**2 + 10 * self.K))
+
     def _ctor_kwargs(self) -> dict:
         # rides the checkpoint so a resumed run keeps the same gauge
         return {"identify": True} if self.identify else {}
@@ -934,6 +986,13 @@ class fCTM(CTM):
     def __repr__(self):
         return f"Filtered correlated topic model with {self.K} topics."
 
+    def _flops_per_step(self) -> float:
+        """CTM's Newton floor + fLDA's ~4 flops a token slot a pass for tau
+        (JAX api.py:774)."""
+        return TopicModel._flops_per_step(self) + float(
+            self._viter() * (self.packed.M_pad * (2 * self.K**2 + 10 * self.K)
+                             + self._padded_tokens() * 4))
+
     @property
     def eta(self) -> float:
         return float(self.state.eta)
@@ -977,6 +1036,13 @@ class DTM(TopicModel):
 
     def __repr__(self):
         return f"Dynamic topic model with {self.K} topics and {self.T} time slices."
+
+    def _flops_per_step(self) -> float:
+        """The base estimate + the [T, K, V] Kalman smoother (~20 flops an
+        element) and the betahat CG (~10 an element a CG iteration), both
+        fixed a step (DTM.jl:209-305; JAX api.py:1445)."""
+        cg = getattr(self, "_cgiter", 20)
+        return super()._flops_per_step() + float((20 + 10 * cg) * self.T * self.K * self.V)
 
     def _ctor_kwargs(self) -> dict:
         return {"delta": self.delta}
@@ -1114,6 +1180,11 @@ class HMTM(TopicModel):
     def __repr__(self):
         # reference Base.show (HMTM.jl:42)
         return f"Hidden Markov topic model with {self.K} topics."
+
+    def _flops_per_step(self) -> float:
+        """Forward-backward, ~5K² flops a token in each of viter + 1 sweeps:
+        the chain's contractions, not the gather (JAX api.py:606)."""
+        return float((self._viter() + 1) * self._padded_tokens() * 5 * self.K**2)
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)

@@ -42,8 +42,10 @@ _FORMAT_VERSION = 2   # v2: the corpus fingerprint includes Document.stamp
 _MANIFEST = "manifest.json"
 # knobs of the JAX package's RuntimeConfig that change nothing here; the
 # mesh is the loading run's, so mesh_shape (data or tensor-parallel axes)
-# loads at any world size, as the JAX package never reads it to build its mesh
-_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "profile_steps", "mesh_shape")
+# loads at any world size, as the JAX package never reads it to build its
+# mesh; and peak_flops is the loading device's own (a JAX checkpoint's is
+# a TPU's)
+_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "mesh_shape")
 # per-document leaves whose second axis is the packing's token width
 _TOKEN_FIELDS = ("tau", "tau_old")
 
@@ -83,11 +85,13 @@ def _fields(state) -> list:
 
 def _model_meta(model) -> dict:
     # replay the runtime knobs that shape packing and compute on load; the
-    # sinks and the checkpoint cadence belong to the environment (replaying
-    # checkpoint_every without checkpoint_dir would leave a resumed run
-    # silently not checkpointing)
+    # sinks, the profiler's directory and the checkpoint cadence belong to
+    # the environment (replaying checkpoint_every without checkpoint_dir
+    # would leave a resumed run silently not checkpointing), as in the JAX
+    # package, whose RuntimeConfig takes every field written here
     runtime = {k: v for k, v in dataclasses.asdict(model.runtime).items()
-               if k not in ("metrics_path", "checkpoint_dir", "checkpoint_every")
+               if k not in ("metrics_path", "profile_dir", "checkpoint_dir",
+                            "checkpoint_every")
                and v is not None}
     fields = _fields(model.state)
     return dict(
@@ -266,8 +270,7 @@ class AsyncWriter:
 
 def _runtime(meta: dict, cls):
     """The RuntimeConfig a checkpoint replays.  The JAX package's knobs
-    that change nothing on one device are skipped; one this package cannot
-    honour raises."""
+    that change nothing here are skipped; an unknown one raises."""
     from .utils.config import RuntimeConfig
 
     if "runtime" not in meta:   # older checkpoints: dtype and the class's chunk
@@ -277,11 +280,7 @@ def _runtime(meta: dict, cls):
     for k, v in meta["runtime"].items():
         if k in _IGNORED_RUNTIME:
             continue
-        if k == "elogtheta_f64":
-            if v:
-                raise ValueError("the checkpoint was trained with elogtheta_f64=True, "
-                                 "which this package does not implement")
-        elif k in known:
+        if k in known:
             kw[k] = v
         else:
             raise ValueError(f"unknown runtime knob {k!r} in the checkpoint")

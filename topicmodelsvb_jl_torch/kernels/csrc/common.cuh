@@ -23,16 +23,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Sum of v over a block of kN warps, returned to every thread, with ONE
-// barrier: the caller gives each call site its own `red` (kN floats), so
+// barrier: the caller gives each call site its own `red` (kN values), so
 // no barrier is needed before the write.  Per-warp partials are added in
-// warp order, so every thread sees the same bits.
-template <int kN>
-__device__ __forceinline__ float block_sum_once(float v, float* red) {
+// warp order, so every thread sees the same bits.  T is float, or double
+// for the f64 Elogtheta channel (`red` then 8-byte aligned).
+template <int kN, typename T>
+__device__ __forceinline__ T block_sum_once(T v, T* red) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float s = 0.f;
+  T s = 0;
 #pragma unroll
   for (int w = 0; w < kN; ++w) s += red[w];
   return s;
@@ -72,6 +79,25 @@ __device__ __forceinline__ float digamma_series(float x) {
   const float inv2 = inv * inv;
   const float series = logf(t) - 0.5f * inv -
       inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
+  return series - acc;
+}
+
+// psi(x) for x > 0 in double, for the f64 Elogtheta channel: the same
+// shift by 8, then the asymptotic series at t = x + 8 through the t^-12
+// term, ln t - 1/(2t) - 1/(12t^2) + 1/(120t^4) - 1/(252t^6) + 1/(240t^8)
+// - 1/(132t^10) + 691/(32760t^12); the first term left out, 1/(12t^14),
+// is < 2e-14 at t = 8, so the truncation stays below the f32 series'
+// ~2.5e-10 by four orders and below the f32 cast-back's rounding.
+__device__ __forceinline__ double digamma_series64(double x) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc += 1.0 / (x + static_cast<double>(i));
+  const double t = x + 8.0;
+  const double inv = 1.0 / t;
+  const double inv2 = inv * inv;
+  const double series = log(t) - 0.5 * inv -
+      inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0 - inv2 * (
+          1.0 / 240.0 - inv2 * (1.0 / 132.0 - inv2 * (691.0 / 32760.0))))));
   return series - acc;
 }
 

@@ -84,6 +84,17 @@
 // One block per document, which leaves its loop when its own document
 // converges; K is not padded beyond the stride, whose columns are zero
 // rows and e = -inf (p = 0 there).
+//
+// The f64 Elogtheta channel (template flag kF64; RuntimeConfig.
+// elogtheta_f64, as the JAX package's models/flda.py:106-112 computes it on
+// its XLA path): gamma in f32 as above, then sum gamma and both psi in
+// double (digamma_series64) and El_new cast back to f32; the exps, tau and
+// w stay f32.  The next pass's shift is psi(max gamma) - psi(sum gamma)
+// (psi is increasing), so the first loop takes max gamma beside the
+// double sum and psi(gamma_k) is taken once, after the barrier, by each
+// topic's thread.  The double sum uses `red`'s first 16 floats and the max
+// floats 32-39 (the compaction counts, done by then), so the d^2 sum keeps
+// floats 16-23.  kF64 = false is the f32 mode's code as it was, bit for bit.
 
 #include <algorithm>
 
@@ -280,6 +291,7 @@ __device__ __forceinline__ void write_w(float* __restrict__ wd, const float* pb,
   }
 }
 
+template <bool kF64>
 __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
     const float* __restrict__ kappa,     // [V]
@@ -403,53 +415,100 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
         __syncthreads();
       }
     }
-    // update_gamma! (fLDA.jl:188-191) into gam, psi(gamma) into e_nxt,
-    // before the barrier of the sum and the max
-    float gpart = 0.f, pmax = -INFINITY;
-    for (int k = tid; k < K; k += kFThreads) {
-      float q = 0.f;
-      if (n > 0)
-        for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
-      const float g = alpha[k] + q + kEps;
-      gam[k] = g;
-      const float ps = digamma_series(g);
-      e_nxt[k] = ps;
-      gpart += g;
-      pmax = fmaxf(pmax, ps);
-    }
-    float g_sum, p_max;
-    {
+    if constexpr (kF64) {
+      // update_gamma! in f32 into gam; the double sum of gamma and its max
+      double gpart = 0.0;
+      float gmax = -INFINITY;
+      for (int k = tid; k < K; k += kFThreads) {
+        float q = 0.f;
+        if (n > 0)
+          for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+        const float g = alpha[k] + q + kEps;
+        gam[k] = g;
+        gpart += static_cast<double>(g);
+        gmax = fmaxf(gmax, g);
+      }
+      double* red64 = reinterpret_cast<double*>(red);
       gpart = warp_sum(gpart);
-      pmax = warp_max(pmax);
+      gmax = warp_max(gmax);
       if (lane == 0) {
-        red[warp] = gpart;
-        red[8 + warp] = pmax;
+        red64[warp] = gpart;
+        red[32 + warp] = gmax;
       }
       __syncthreads();
-      g_sum = 0.f;
-      p_max = -INFINITY;
+      double g_sum = 0.0;
+      float g_max = -INFINITY;
 #pragma unroll
       for (int v = 0; v < kFWarps; ++v) {
-        g_sum += red[v];
-        p_max = fmaxf(p_max, red[8 + v]);
+        g_sum += red64[v];
+        g_max = fmaxf(g_max, red[32 + v]);
       }
-    }
-    // update_Elogtheta! (fLDA.jl:181-184); the next e shifted by
-    // max El_new = psi(max gamma) - psi(sum gamma)
-    float dpart = 0.f;
-    if (tid < K) {
-      const float dg_sum = digamma_series(g_sum);
+      // update_Elogtheta! in double, cast back; the next e shifted by
+      // psi(max gamma) - psi(sum gamma) = max El_new
+      float dpart = 0.f;
+      if (tid < K) {
+        const double dg_sum = digamma_series64(g_sum);
+        const double p_max = digamma_series64(static_cast<double>(g_max));
+        for (int k = tid; k < K; k += kFThreads) {
+          const double ps = digamma_series64(static_cast<double>(gam[k]));
+          const float el_new = static_cast<float>(ps - dg_sum);
+          const float d = el_new - el[k];
+          dpart += d * d;
+          elo[k] = el[k];
+          el[k] = el_new;
+          e_nxt[k] = static_cast<float>(ps - p_max) * kLog2e;
+        }
+      }
+      active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
+    } else {
+      // update_gamma! (fLDA.jl:188-191) into gam, psi(gamma) into e_nxt,
+      // before the barrier of the sum and the max
+      float gpart = 0.f, pmax = -INFINITY;
       for (int k = tid; k < K; k += kFThreads) {
-        const float ps = e_nxt[k];
-        const float el_new = ps - dg_sum;
-        const float d = el_new - el[k];
-        dpart += d * d;
-        elo[k] = el[k];
-        el[k] = el_new;
-        e_nxt[k] = (ps - p_max) * kLog2e;
+        float q = 0.f;
+        if (n > 0)
+          for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+        const float g = alpha[k] + q + kEps;
+        gam[k] = g;
+        const float ps = digamma_series(g);
+        e_nxt[k] = ps;
+        gpart += g;
+        pmax = fmaxf(pmax, ps);
       }
+      float g_sum, p_max;
+      {
+        gpart = warp_sum(gpart);
+        pmax = warp_max(pmax);
+        if (lane == 0) {
+          red[warp] = gpart;
+          red[8 + warp] = pmax;
+        }
+        __syncthreads();
+        g_sum = 0.f;
+        p_max = -INFINITY;
+#pragma unroll
+        for (int v = 0; v < kFWarps; ++v) {
+          g_sum += red[v];
+          p_max = fmaxf(p_max, red[8 + v]);
+        }
+      }
+      // update_Elogtheta! (fLDA.jl:181-184); the next e shifted by
+      // max El_new = psi(max gamma) - psi(sum gamma)
+      float dpart = 0.f;
+      if (tid < K) {
+        const float dg_sum = digamma_series(g_sum);
+        for (int k = tid; k < K; k += kFThreads) {
+          const float ps = e_nxt[k];
+          const float el_new = ps - dg_sum;
+          const float d = el_new - el[k];
+          dpart += d * d;
+          elo[k] = el[k];
+          el[k] = el_new;
+          e_nxt[k] = (ps - p_max) * kLog2e;
+        }
+      }
+      active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
     }
-    active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
     e_last = e_cur;
     e_cur = e_nxt;
     e_nxt = e_last;
@@ -523,16 +582,18 @@ int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
                     const float* elo_in, const float* tau_in, const float* tauo_in,
                     float* gamma_out, float* el_out, float* elo_out, float* tau_out,
                     float* tauo_out, float* w, float* scratch, int64_t B, int64_t L,
-                    int64_t K, int viter, float vtol, int vec_in, void* stream) {
+                    int64_t K, int viter, float vtol, int vec_in, int elog_f64,
+                    void* stream) {
   if (B == 0) return 0;
   tmvb::FldaShape s;
   const int rc = tmvb::flda_shape(L, K, &s);
   if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_kernel, s.bytes);
+  auto kernel = elog_f64 ? tmvb::flda_estep_kernel<true> : tmvb::flda_estep_kernel<false>;
+  const cudaError_t err = tmvb::allow_smem(kernel, s.bytes);
   if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::flda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in, el_in, elo_in, tau_in,
       tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w, scratch,
       static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, viter,

@@ -59,6 +59,17 @@
 // because a converged document's state is frozen there.  psi is the same
 // shift-by-8 asymptotic series as the TPU kernel (digamma_series in
 // common.cuh).
+//
+// The f64 Elogtheta channel (template flag kF64; RuntimeConfig.
+// elogtheta_f64, as the JAX package's models/lda.py:133-141 computes it on
+// its XLA path, which that package takes for this mode): gamma is formed
+// in f32 as above, then sum gamma and both psi are taken in double
+// (digamma_series64) and El_new is cast back to f32; exp, the products
+// and w stay f32.  Its extra cost is the double psi of K + 1 values a
+// pass, recomputed after the sum's barrier by each topic's thread, and a
+// double block sum in `red`'s first 16 floats (the d^2 sum then uses
+// floats 24-31, after the compaction counts).  kF64 = false is the code
+// of the f32 mode as it was, bit for bit.
 
 #include <algorithm>
 
@@ -223,6 +234,7 @@ __device__ __forceinline__ int compact_slots(const float* c, int L, float* mc, i
   return n;
 }
 
+template <bool kF64>
 __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
     const float* __restrict__ betaT,     // [V, K] beta^T + eps
     const int* __restrict__ terms,       // [B, L]
@@ -294,32 +306,61 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_kernel(
       q_product(rows, m, mcs + j0, qpart, Kp, nsh, j0 == 0);
       __syncthreads();
     }
-    // gamma_new into gam and psi(gamma_new) into e_nxt, before the sum's
-    // barrier (owner k only; El_new then replaces e_nxt)
-    float gpart = 0.f;
-    for (int k = tid; k < K; k += kEstepThreads) {
-      float q = 0.f;
-      if (n > 0)
-        for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
-      const float g = alpha[k] + e_cur[k] * q + kEps;
-      gam[k] = g;
-      e_nxt[k] = digamma_series(g);
-      gpart += g;
-    }
-    const float g_sum = block_sum_once<kEstepWarps>(gpart, red);
-    float dpart = 0.f;
-    if (tid < K) {  // the threads that own a topic
-      const float dg_sum = digamma_series(g_sum);
+    if constexpr (kF64) {
+      // gamma_new in f32 into gam; its sum and both psi in double, after
+      // the sum's barrier, by the thread that owns each topic
+      double gpart = 0.0;
       for (int k = tid; k < K; k += kEstepThreads) {
-        const float el_new = e_nxt[k] - dg_sum;
-        const float d = el_new - el[k];
-        dpart += d * d;
-        elo[k] = el[k];
-        el[k] = el_new;
-        e_nxt[k] = expf(el_new);
+        float q = 0.f;
+        if (n > 0)
+          for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+        const float g = alpha[k] + e_cur[k] * q + kEps;
+        gam[k] = g;
+        gpart += static_cast<double>(g);
       }
+      const double g_sum = block_sum_once<kEstepWarps>(gpart, reinterpret_cast<double*>(red));
+      float dpart = 0.f;
+      if (tid < K) {
+        const double dg_sum = digamma_series64(g_sum);
+        for (int k = tid; k < K; k += kEstepThreads) {
+          const float el_new =
+              static_cast<float>(digamma_series64(static_cast<double>(gam[k])) - dg_sum);
+          const float d = el_new - el[k];
+          dpart += d * d;
+          elo[k] = el[k];
+          el[k] = el_new;
+          e_nxt[k] = expf(el_new);
+        }
+      }
+      active = block_sum_once<kEstepWarps>(dpart, red + 24) >= vtol2;
+    } else {
+      // gamma_new into gam and psi(gamma_new) into e_nxt, before the sum's
+      // barrier (owner k only; El_new then replaces e_nxt)
+      float gpart = 0.f;
+      for (int k = tid; k < K; k += kEstepThreads) {
+        float q = 0.f;
+        if (n > 0)
+          for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+        const float g = alpha[k] + e_cur[k] * q + kEps;
+        gam[k] = g;
+        e_nxt[k] = digamma_series(g);
+        gpart += g;
+      }
+      const float g_sum = block_sum_once<kEstepWarps>(gpart, red);
+      float dpart = 0.f;
+      if (tid < K) {  // the threads that own a topic
+        const float dg_sum = digamma_series(g_sum);
+        for (int k = tid; k < K; k += kEstepThreads) {
+          const float el_new = e_nxt[k] - dg_sum;
+          const float d = el_new - el[k];
+          dpart += d * d;
+          elo[k] = el[k];
+          el[k] = el_new;
+          e_nxt[k] = expf(el_new);
+        }
+      }
+      active = block_sum_once<kEstepWarps>(dpart, red + 8) >= vtol2;
     }
-    active = block_sum_once<kEstepWarps>(dpart, red + 8) >= vtol2;
     e_last = e_cur;
     e_cur = e_nxt;
     e_nxt = e_last;
@@ -456,16 +497,17 @@ int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
                    const float* el_in, const float* elo_in, float* gamma_out,
                    float* el_out, float* elo_out, float* w, float* scratch,
                    int64_t B, int64_t L, int64_t K, int viter, float vtol, int vec_in,
-                   int vec_out, void* stream) {
+                   int vec_out, int elog_f64, void* stream) {
   if (B == 0) return 0;
   tmvb::EstepShape s;
   int rc = tmvb::estep_shape(L, K, &s);
   if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_kernel, s.bytes);
+  auto kernel = elog_f64 ? tmvb::lda_estep_kernel<true> : tmvb::lda_estep_kernel<false>;
+  cudaError_t err = tmvb::allow_smem(kernel, s.bytes);
   if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::lda_estep_kernel<<<static_cast<unsigned>(B), tmvb::kEstepThreads, s.bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(B), tmvb::kEstepThreads, s.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       betaT, terms, counts, doc_mask, alpha, gamma_in, el_in, elo_in, gamma_out, el_out,
       elo_out, w, scratch, static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem,
       s.resident, viter, vtol * vtol, vec_in, vec_out);

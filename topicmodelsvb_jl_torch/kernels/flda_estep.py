@@ -21,7 +21,9 @@ document, padding slots included, as the JAX package does.
 
 phi ∝ exp(tau·log beta + El) over K (fLDA.jl:204-207) and
 tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
-(fLDA.jl:195-200); ψ is the kernels' shift-by-8 series.
+(fLDA.jl:195-200); ψ is the kernels' shift-by-8 series, or with
+``elogtheta_f64=True`` the f64 Elogtheta channel as in ``lda_estep``
+(``lda_estep.elogtheta``; the kernel's f64-channel mode).
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ import torch
 from ..utils.numerics import EPSILON, masked_fixpoint
 from . import _build
 from ._build import check, require
-from .lda_estep import digamma_series
+from .lda_estep import elogtheta
 
 
 def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
-                   gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float):
+                   gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float,
+                   elogtheta_f64: bool = False):
     """Plain PyTorch version of the kernel: the batch of documents runs
     the fixpoint together, each document frozen once it converges."""
     lb = logbetaT[terms]                               # [B, L, K]
@@ -57,8 +60,7 @@ def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
         tau_new = eta / (eta + (1.0 - eta) * kap * torch.exp(-philog) + EPSILON)
         cs = counts / s
         gamma_new = alpha + torch.sum(p * cs[:, :, None], dim=1) + EPSILON
-        El_new = (digamma_series(gamma_new)
-                  - digamma_series(torch.sum(gamma_new, -1, keepdim=True)))
+        El_new = elogtheta(gamma_new, elogtheta_f64)
         upd = active[:, None]
         gamma2 = torch.where(upd, gamma_new, gamma)
         El_old2 = torch.where(upd, El, El_old)
@@ -78,7 +80,7 @@ def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,13 +94,16 @@ def _scratch_floats(L: int, K: int) -> int:
 
 
 def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
-               gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float):
+               gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float,
+               elogtheta_f64: bool = False):
     """Run the fLDA E-step over a chunk of documents (arguments: module
     doc).  CPU tensors take :func:`flda_estep_ref`; CUDA tensors launch
-    the kernel (f32 only) or raise."""
+    the kernel (f32 only; ``elogtheta_f64`` selects its f64-channel mode)
+    or raise."""
     if logbetaT.device.type == "cpu":
         return flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
-                              gamma, El, El_old, tau, tau_old, viter=viter, vtol=vtol)
+                              gamma, El, El_old, tau, tau_old, viter=viter, vtol=vtol,
+                              elogtheta_f64=elogtheta_f64)
     if logbetaT.device.type != "cuda":
         raise ValueError(f"flda_estep: no kernel for device {logbetaT.device}")
     if terms.dim() != 2 or logbetaT.dim() != 2:
@@ -126,10 +131,12 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
         *(t.data_ptr() for t in (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma,
                                  El, El_old, tau, tau_old, *outs, *taus, w)),
         None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
-        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0))
+        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0), int(bool(elogtheta_f64)))
     check(err, "flda_estep")
     flda_estep.launches += 1
+    flda_estep.launches_f64 += bool(elogtheta_f64)
     return (*outs, *taus, w)
 
 
 flda_estep.launches = 0   # kernel launches (the plain version is not counted)
+flda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode

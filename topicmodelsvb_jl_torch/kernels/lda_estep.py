@@ -25,6 +25,14 @@ phi is computed multiplicatively — ``phi ∝ (beta+eps)[:, terms]·exp(El)``
 — exactly the CPU reference's update (LDA.jl:150-154 under @positive),
 and ψ is the shift-by-8 asymptotic series of the reference's OpenCL
 ``DIGAMMA_c`` (utils.jl:21-53).
+
+``elogtheta_f64=True`` is the f64 Elogtheta channel
+(``RuntimeConfig.elogtheta_f64``): gamma is formed in the state's dtype,
+and ``ψ(γ) − ψ(Σγ)`` is taken in float64 and cast back
+(:func:`elogtheta`); the token-level work stays in the state's dtype.
+The kernel has it as a mode (a double series, ``digamma_series64`` in
+``csrc/common.cuh``); the plain versions take ψ from ``torch.special``,
+as the JAX package's float64 ``digamma`` does.
 """
 
 from __future__ import annotations
@@ -57,8 +65,20 @@ def digamma_series(x: torch.Tensor) -> torch.Tensor:
     return series - acc
 
 
+def elogtheta(gamma_new: torch.Tensor, f64: bool = False) -> torch.Tensor:
+    """Elogtheta from gamma, ``ψ(γ) − ψ(Σ_k γ)`` over the last axis
+    (LDA.jl:136-139): the kernels' series in the state's dtype, or with
+    ``f64`` in float64 from the state's gamma, cast back (the JAX
+    package's ``elogtheta_f64``, models/lda.py:137-141)."""
+    if f64:
+        g64 = gamma_new.to(torch.float64)
+        return (torch.special.digamma(g64)
+                - torch.special.digamma(torch.sum(g64, -1, keepdim=True))).to(gamma_new.dtype)
+    return digamma_series(gamma_new) - digamma_series(torch.sum(gamma_new, -1, keepdim=True))
+
+
 def lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
-                  *, viter: int, vtol: float):
+                  *, viter: int, vtol: float, elogtheta_f64: bool = False):
     """Plain PyTorch version of the kernel: the batch of documents runs
     the fixpoint together, each document frozen once it converges."""
     bd = betaT[terms]                                  # [B, L, K]
@@ -71,8 +91,7 @@ def lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
         cs = counts / s
         q = torch.sum(bd * cs[:, :, None], dim=1)      # [B, K]
         gamma_new = alpha + e * q + EPSILON
-        El_new = (digamma_series(gamma_new)
-                  - digamma_series(torch.sum(gamma_new, -1, keepdim=True)))
+        El_new = elogtheta(gamma_new, elogtheta_f64)
         upd = active[:, None]
         gamma2 = torch.where(upd, gamma_new, gamma)
         El_old2 = torch.where(upd, El, El_old)
@@ -89,7 +108,7 @@ def lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,14 +122,16 @@ def _scratch_floats(L: int, K: int) -> int:
 
 
 def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
-              *, viter: int, vtol: float):
+              *, viter: int, vtol: float, elogtheta_f64: bool = False):
     """Run the E-step over a chunk of documents (arguments: module doc).
 
     CPU tensors take :func:`lda_estep_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise."""
+    kernel (f32 only; ``elogtheta_f64`` selects its f64-channel mode) or
+    raise."""
     if betaT.device.type == "cpu":
         return lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma,
-                             El, El_old, viter=viter, vtol=vtol)
+                             El, El_old, viter=viter, vtol=vtol,
+                             elogtheta_f64=elogtheta_f64)
     if betaT.device.type != "cuda":
         raise ValueError(f"lda_estep: no kernel for device {betaT.device}")
     if terms.dim() != 2 or betaT.dim() != 2:
@@ -136,13 +157,16 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
         *(t.data_ptr() for t in (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
                                  *outs, w)),
         None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
-        int(vec and betaT.data_ptr() % 16 == 0), int(vec and w.data_ptr() % 16 == 0))
+        int(vec and betaT.data_ptr() % 16 == 0), int(vec and w.data_ptr() % 16 == 0),
+        int(bool(elogtheta_f64)))
     check(err, "lda_estep")
     lda_estep.launches += 1
+    lda_estep.launches_f64 += bool(elogtheta_f64)
     return (*outs, w)
 
 
 lda_estep.launches = 0   # kernel launches (the plain version is not counted)
+lda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode
 
 
 def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
@@ -199,7 +223,7 @@ lda_estep_pass.launches = 0   # kernel launches (the plain version is not counte
 
 
 def split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
-                   *, viter: int, vtol: float, reduce=None):
+                   *, viter: int, vtol: float, reduce=None, elogtheta_f64: bool = False):
     """The E-step over a chunk whose token slots are split over ranks:
     :func:`lda_estep`'s fixpoint with each pass's statistic from
     :func:`lda_estep_pass`, summed by ``reduce`` (the psum over the ranks
@@ -210,7 +234,8 @@ def split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
     rank's slots from the kernel at ``viter = 0`` (the state unchanged,
     phi from the final ``El_old``).  Every rank of a ``reduce`` group
     holds the same documents, so they test the same mask and stop
-    together."""
+    together.  ``elogtheta_f64`` takes ψ in float64 on the tiles
+    (:func:`elogtheta`)."""
     vtol2 = vtol * vtol
     active = doc_mask > 0
     i = 0
@@ -219,8 +244,7 @@ def split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
         if reduce is not None:
             pc = reduce(pc)
         gamma_new = alpha + pc + EPSILON
-        El_new = (digamma_series(gamma_new)
-                  - digamma_series(torch.sum(gamma_new, -1, keepdim=True)))
+        El_new = elogtheta(gamma_new, elogtheta_f64)
         upd = active[:, None]
         gamma = torch.where(upd, gamma_new, gamma)
         El_old = torch.where(upd, El, El_old)

@@ -77,16 +77,18 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
 
 
 def sweep_chunk(logbetaT, kappa, alpha, eta, terms, counts, doc_mask, gamma, El, El_old,
-                tau, tau_old, plan, stat, viter: int, vtol: float):
+                tau, tau_old, plan, stat, viter: int, vtol: float,
+                elogtheta_f64: bool = False):
     """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
     through ``flda_estep``, then beta_temp += phi .* (tau .* counts)'
     (fLDA.jl:174-177) and kappa_temp[terms] += (1 - tau) .* counts
     (fLDA.jl:160-163) as one scatter into ``stat`` [V, K+1] in place.
     Returns the chunk's new (gamma, El, El_old, tau, tau_old), its
-    Elogtheta sum [K] and its Σ tau·counts (update_eta!, fLDA.jl:122-124)."""
+    Elogtheta sum [K] and its Σ tau·counts (update_eta!, fLDA.jl:122-124).
+    ``elogtheta_f64``: the f64 Elogtheta channel (``lda.make_step``)."""
     g2, el2, elo2, ta2, tao2, w = flda_estep(
         logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old, tau,
-        tau_old, viter=viter, vtol=vtol)
+        tau_old, viter=viter, vtol=vtol, elogtheta_f64=elogtheta_f64)
     count_scatter_into(stat, w.reshape(-1, w.shape[-1]), plan)
     return (g2, el2, elo2, ta2, tao2, torch.sum(el2 * doc_mask[:, None], dim=0),
             torch.sum(ta2 * counts))
@@ -108,7 +110,7 @@ def global_update(stat, alpha, El_sum, tau_counts, M_total, C_total, niter: int,
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device, mesh=None, axis_name=None, vocab_axis=None,
-              seq_axis=None):
+              seq_axis=None, elogtheta_f64: bool = False):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total, C_total)`` takes the
@@ -119,6 +121,8 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     ``axis_name``).  ``vocab_axis`` shards beta's and kappa's storage
     (``[K, V/n]`` and ``[V/n]`` blocks), gathered whole for the E-step;
     the new blocks come from ``tp_normalize_rows`` of the statistic.
+    ``elogtheta_f64``: ψ of the E-step in float64, as in ``lda.make_step``
+    (the JAX package's models/flda.py:106-112).
     """
     no_seq_axis("fLDA", seq_axis)
     V = packed.V
@@ -149,7 +153,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 logbetaT, kappa, state.alpha, state.eta, t, c, dm,
                 state.gamma[rows], state.Elogtheta[rows], state.Elogtheta_old[rows],
                 state.tau[rows, :Ls].contiguous(), state.tau_old[rows, :Ls].contiguous(),
-                plan, stat, viter, vtol)
+                plan, stat, viter, vtol, elogtheta_f64)
             El_sum = kbn_add(El_sum, el_part)
             tau_counts = tau_counts + tau_part
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2

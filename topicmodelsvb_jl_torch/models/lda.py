@@ -146,7 +146,7 @@ def check_modes(vocab_axis, seq_axis, vocab_routed, packed) -> None:
 
 
 def sweep_chunk(betaT, alpha, terms, counts, doc_mask, gamma, El, El_old, plan, beta_temp,
-                viter: int, vtol: float, tok_reduce=None):
+                viter: int, vtol: float, tok_reduce=None, elogtheta_f64: bool = False):
     """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
     through ``lda_estep``, its rows ``phi·counts`` added into
     ``beta_temp`` [V, K] in place along ``plan``.  Returns the chunk's new
@@ -154,13 +154,17 @@ def sweep_chunk(betaT, alpha, terms, counts, doc_mask, gamma, El, El_old, plan, 
 
     ``tok_reduce`` (the token slots split over ranks: routed tensor
     parallelism, the sequence axis) runs the fixpoint pass by pass
-    instead (``split_fixpoint``), each pass's statistic summed by it."""
+    instead (``split_fixpoint``), each pass's statistic summed by it.
+    ``elogtheta_f64`` takes the fixpoint's ψ in float64 (the kernel's
+    f64-channel mode, or on the tiles in ``split_fixpoint``)."""
     if tok_reduce is None:
         g2, el2, elo2, w = lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El,
-                                     El_old, viter=viter, vtol=vtol)
+                                     El_old, viter=viter, vtol=vtol,
+                                     elogtheta_f64=elogtheta_f64)
     else:
         g2, el2, elo2, w = split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El,
-                                          El_old, viter=viter, vtol=vtol, reduce=tok_reduce)
+                                          El_old, viter=viter, vtol=vtol, reduce=tok_reduce,
+                                          elogtheta_f64=elogtheta_f64)
     count_scatter_into(beta_temp, w.reshape(-1, w.shape[-1]), plan)
     return g2, el2, elo2, torch.sum(el2 * doc_mask[:, None], dim=0)
 
@@ -185,7 +189,8 @@ def global_update(beta_temp, alpha, El_sum, M_total, niter: int, ntol: float,
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, device, mesh=None, axis_name=None,
-              vocab_axis=None, seq_axis=None, vocab_routed: bool = False):
+              vocab_axis=None, seq_axis=None, vocab_routed: bool = False,
+              elogtheta_f64: bool = False):
     """Build the outer-iteration step (one full CAVI sweep).
 
     ``step(state, terms, counts, doc_mask, M_total)`` takes device
@@ -212,6 +217,13 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     * ``seq_axis`` splits every document's token slots: ``packed`` is
       the slab of this process's rows and token columns (dense), and each
       pass's statistic is summed over ``seq_axis``.
+
+    ``elogtheta_f64`` runs the E-step's gamma → Elogtheta channel in
+    float64 on the float32 state (``RuntimeConfig.elogtheta_f64``, the
+    JAX package's models/lda.py:133-141): ψ(γ) − ψ(Σγ) in float64, cast
+    back; the token-level work stays float32.  On the card it is a mode of
+    the ``lda_estep`` kernel; no switch like JAX's ``jax_enable_x64`` is
+    needed.
     """
     check_modes(vocab_axis, seq_axis, vocab_routed, packed)
     # vocab extent of the gather table and the statistic: the local block
@@ -251,7 +263,8 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             t, c, dm = terms[j][sl], counts[j][sl], doc_mask[j][sl]
             g2, el2, elo2, el_part = sweep_chunk(
                 betaT, state.alpha, t, c, dm, state.gamma[rows], state.Elogtheta[rows],
-                state.Elogtheta_old[rows], plan, beta_temp, viter, vtol, tok_reduce)
+                state.Elogtheta_old[rows], plan, beta_temp, viter, vtol, tok_reduce,
+                elogtheta_f64)
             El_sum = kbn_add(El_sum, el_part)
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
 

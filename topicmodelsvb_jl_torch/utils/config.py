@@ -9,8 +9,9 @@ those knobs:
   viter=10, vtol=1/K², checkelbo=1, printelbo=True``).
 * :class:`RuntimeConfig` holds the execution knobs that have no reference
   counterpart: doc-chunk size, padding multiples, the compute dtype, the
-  mesh's data axis and shape, the per-iteration metrics sink and the
-  auto-checkpoint cadence.  The device is an explicit argument of the
+  f64 Elogtheta channel, the mesh's data axis and shape, the per-iteration
+  metrics sink, the profiler capture, the peak rate of the MFU figure and
+  the auto-checkpoint cadence.  The device is an explicit argument of the
   model, not a config field.
 """
 
@@ -60,11 +61,25 @@ class RuntimeConfig:
     pad_multiple: int = 64        # token-axis padding multiple of a dense corpus
     bucket_pad: int = 8           # per-segment token-width multiple under bucketing
     dtype: str = "float32"        # compute dtype; "float64" for the CPU oracle
+    # LDA and fLDA: the E-step's per-document gamma -> Elogtheta digamma
+    # channel in float64, cast back to the float32 state (the token-level
+    # [B, L, K] work stays float32); on the card a mode of the lda_estep
+    # and flda_estep kernels.  An accuracy knob, not a default; the other
+    # families ignore it, as the JAX package's do
+    elogtheta_f64: bool = False
     data_axis: str = "data"       # mesh axis the documents are sharded over
     # None → every process on the data axis; else the mesh's shape, whose
     # axes past the first (tensor parallelism) must be 1 until they are ported
     mesh_shape: Optional[tuple] = None
     metrics_path: Optional[str] = None  # JSONL sink: one row per outer iteration
+    # torch.profiler capture of `profile_steps` steps from the second
+    # outer iteration on, written as a Chrome trace into profile_dir
+    profile_dir: Optional[str] = None
+    profile_steps: int = 3
+    # peak FLOP/s of the MFU figure in Trainer.summary(); None is the
+    # model's device's own f32 peak (engine.device_peak_flops: 0 on the
+    # CPU, so no MFU there); 0 disables the figure
+    peak_flops: Optional[float] = None
     # checkpoint every N outer iterations during train() to
     # checkpoint_dir/ckpt_iter{k:06d}; 0 disables
     checkpoint_every: int = 0
