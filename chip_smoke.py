@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel and CLI paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel and CLI paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -142,11 +142,11 @@ printing its own lines; any failure exits non-zero:
    calls and bytes; the vocab axis for fLDA, CTM, fCTM, HMTM (NSF V + 1),
    DTM (mac V + 1) at phase 10's depths and CTPF on CiteULike (one empty
    user more, U = 5,552, for the user axis) on the vocab and on the user
-   axis, 2 iterations; StreamingLDA with the vocab axis, 2 iterations:
-   ∆elbo > 0, every kernel of each path launched; here: every global and
-   bound bitwise equal across the ranks, and LDA's three modes against
-   one process from the same init (rtol 5e-3 / atol 1e-5 on beta and
-   alpha, 1e-5 on the bound per iteration);
+   axis, 2 iterations; StreamingLDA with the vocab axis, 2 iterations;
+   and phase 15's runs (below): ∆elbo > 0, every kernel of each path
+   launched; here: every global and bound bitwise equal across the ranks,
+   and LDA's three modes against one process from the same init (rtol
+   5e-3 / atol 1e-5 on beta and alpha, 1e-5 on the bound per iteration);
 14. (run before 11's results) the CLI and the f64 Elogtheta channel: the
    f64-channel modes of ``lda_estep`` and ``flda_estep`` against their
    plain versions (ψ in float64) on phase 3's widest NSF chunk and its
@@ -165,6 +165,27 @@ printing its own lines; any failure exits non-zero:
    citeu --iter 3``; ``--streaming`` LDA on the NSF corpus (2 iterations);
    and ``python -m topicmodelsvb_jl_torch.train`` as one rank of an NCCL
    group (``--coordinator``, 16,384 documents, 2 iterations);
+15. (run before 11's results) the sequence axis of fLDA, CTM, fCTM and
+   CTPF: here, the pass modes of the fLDA and CTPF E-steps
+   (``flda_estep_pass``, ``ctpf_estep_pass``) against their plain
+   versions on rank 0's half of the token (and reader) slots of the first
+   1024 documents of phase 13's NSF corpus cut to 16,384 documents and of
+   the dense CiteULike corpus, K = 100, and on half of phase 3's chunks
+   whose rows do not fit shared memory: within RTOL/ATOL, bitwise
+   repeatable, zeros on masked documents, their times and bounds; both
+   E-steps at ``viter = 0`` (the split fixpoints' last call: the state as
+   given, the rows against the plain versions); phase 13's two ranks
+   (``tp_child``, so the corpora load once) on a (data, seq) = (1, 2)
+   mesh run fLDA (NSF V = 25,320, K = 100, 16,384 documents), CTM and
+   fCTM (8,192 documents, K = 50, chunks of 2,048) and CTPF (CiteULike,
+   all 16,980 documents, one empty user more, K = 100) from each init
+   (seed 7, cut by ``convert.shard_state``), 2 iterations each and one
+   step alone with its collectives' time, calls and bytes: ∆elbo > 0, the
+   pass kernels, the ``viter = 0`` launches, the scatter and CTM's
+   ``lda_elbo_tok`` launched, the ranks bitwise equal; here, each family
+   against one process with no mesh on the same corpus from the same
+   init (rtol 5e-3 / atol 1e-5 on every global, 1e-5 on the bound per
+   iteration);
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -2352,6 +2373,36 @@ def parallel_phase(smi, kc) -> dict:
 
 P13_RANKS = 2
 P13_V = 25_320   # NSF's V = 25,319 does not split into two vocab blocks: one term wider
+# phase 15's cases, run by phase 13's ranks: label, family, corpus (p13_nsf
+# cut to 16,384 or 8,192 documents, or p13_citeu), K, chunk
+P15_CASES = (("fLDA seq, NSF V, 16,384 documents", "fLDA", "fpk", 100, 1024),
+             ("CTM seq, NSF V, 8,192 documents", "CTM", "mpk", 50, 2048),
+             ("fCTM seq, NSF V, 8,192 documents", "fCTM", "mpk", 50, 2048),
+             ("CTPF seq, CiteULike", "CTPF", "cpk", 100, 1024))
+
+
+def p13_nsf(M: int):
+    """The dense NSF-scale corpus cut to ``M`` documents at V = P13_V
+    (phases 13 and 15: the widths are NSF's, the depth is cut)."""
+    import topicmodelsvb_jl_torch as tt
+
+    return tt.synth_packed_nsf_scale(M=M, V=P13_V, chunk_docs=M // 2)
+
+
+def p13_citeu(cpk):
+    """The dense CiteULike corpus of phases 13 and 15: all 16,980 documents,
+    padded to 18 chunks of 1024, and one (empty) user more, since U =
+    5,551 does not split into two user blocks."""
+    return pad_rows(dataclasses.replace(cpk, U=cpk.U + 1), 18 * 1024)
+
+
+def pass_counters() -> dict:
+    """The pass modes' wrappers by name (each counts its launches)."""
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep, flda_estep, lda_estep
+
+    return {"lda_estep_pass": lda_estep.lda_estep_pass,
+            "flda_estep_pass": flda_estep.flda_estep_pass,
+            "ctpf_estep_pass": ctpf_estep.ctpf_estep_pass}
 
 
 def compare_pass(tok, Vs, K, dev, label):
@@ -2412,7 +2463,7 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
     whole = (mod.init(gen, packed, K, T) if fam == "DTM" else mod.init(gen, packed, K))
     state = convert.shard_state(cls, {f: getattr(whole, f).numpy() for f in
                                       cls.__dataclass_fields__}, mesh, data_axis=doc,
-                                vocab_axis=vocab, user_axis=user, device=dev)
+                                vocab_axis=vocab, user_axis=user, seq_axis=seq, device=dev)
     del whole
     slab = local_slab(packed, mesh, doc, vocab if routed else seq)
     put = lambda a, dt: torch.as_tensor(np.array(a), dtype=dt).to(dev)
@@ -2421,9 +2472,11 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
     tol = 1.0 / K ** 2
     common = dict(viter=10, vtol=tol, niter=1000, ntol=tol, chunk_docs=chunk, device=dev)
     kw = dict(mesh=mesh, axis_name=doc, vocab_axis=vocab)
+    if seq is not None:
+        kw.update(seq_axis=seq)
     M = float(packed.M)
     if fam == "LDA":
-        kw.update(seq_axis=seq, vocab_routed=routed)
+        kw.update(vocab_routed=routed)
         args, eargs = (t, c, dm, M), (t, c, dm)
     elif fam == "fLDA":
         args, eargs = (t, c, dm, torch.tensor(M, device=dev),
@@ -2494,12 +2547,11 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
 
     multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
     import topicmodelsvb_jl_torch as tt
-    from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
     from topicmodelsvb_jl_torch.ops.packing import unit_counts
     from topicmodelsvb_jl_torch.parallel.mesh import make_mesh
     from topicmodelsvb_jl_torch.streaming import slices_from_stamps
 
-    kern = dict(p12_counters(), lda_estep_pass=estep_mod.lda_estep_pass)
+    kern = dict(p12_counters(), **pass_counters())
     tag = f"[tp rank {rank}/{world}]"
     dv = make_mesh(axis_names=("data", "vocab"), shape=(1, 2))
     ds = make_mesh(axis_names=("data", "seq"), shape=(1, 2))
@@ -2508,8 +2560,7 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
     arrays, info, lines = {}, {"launches": {}, "alone": {}}, []
     spk = tt.load_packed(os.path.join(tmp, "nsf"))
     routed = tt.route_packed(spk, n_shards=2)
-    fpk = tt.synth_packed_nsf_scale(M=16_384, V=P13_V, chunk_docs=8192)
-    mpk = tt.synth_packed_nsf_scale(M=8192, V=P13_V, chunk_docs=4096)
+    fpk, mpk = p13_nsf(16_384), p13_nsf(8192)
     cpk = tt.load_packed(os.path.join(tmp, "citeu"))
     mac = mac_corpus(M=8192, V=15_114)
     dpk = tt.pack_corpus(mac, pad_multiple=8, docs_multiple=2048)
@@ -2533,6 +2584,12 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
          dict(doc=("data", "vocab", "user"), vocab="vocab", user="user")),
         ("CTPF CiteULike, user axis", dvu[(1, 1, 2)], "CTPF", cpk, 100, 2, 1,
          dict(doc=("data", "vocab", "user"), vocab="vocab", user="user")))
+    # phase 15: the sequence axis of fLDA, CTM, fCTM and CTPF, here so the
+    # corpora load once; phase 15 holds them against one process
+    corpora = dict(fpk=fpk, mpk=mpk, cpk=cpk)
+    cases += tuple((label, ds, fam, corpora[key], K, 2, 1,
+                    dict(doc=("data",), seq="seq", chunk=chunk, time_step=True))
+                   for label, fam, key, K, chunk in P15_CASES)
     for label, mesh, fam, pk, K, iters, mono, kw in cases:
         got, trace, glob, alone, wall = p13_case(tag, mesh, fam, pk, K, iters, kern, **kw)
         deltas = np.diff(trace).tolist()
@@ -2542,7 +2599,8 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
                 "fCTM": ("scatter_rows",), "HMTM": ("hmtm_estep", "hmtm_logz", "scatter_rows"),
                 "DTM": ("scatter_rows",), "CTPF": ("ctpf_estep", "scatter_rows")}[fam]
         if kw.get("routed") or kw.get("seq"):
-            path += ("lda_estep_pass",)
+            path += {"LDA": ("lda_estep_pass",), "fLDA": ("flda_estep_pass",),
+                     "CTPF": ("ctpf_estep_pass",)}.get(fam, ())
         need(all(got.get(n, 0) > 0 for n in path), f"{tag} {label}: launches {got}, path {path}")
         for n, v in got.items():
             info["launches"][n] = info["launches"].get(n, 0) + v
@@ -2605,9 +2663,7 @@ def tp_phase(smi, kc) -> tuple:
     tmp = tempfile.mkdtemp(prefix="tmvb_p13_")
     spk = tt.synth_packed_nsf_scale(V=P13_V, chunk_docs=8192)
     tt.save_packed(os.path.join(tmp, "nsf"), spk)
-    cpk = kc["cpk"]   # U = 5,551 does not split into two user blocks: one (empty) user more
-    tt.save_packed(os.path.join(tmp, "citeu"),
-                   pad_rows(dataclasses.replace(cpk, U=cpk.U + 1), 18 * 1024))
+    tt.save_packed(os.path.join(tmp, "citeu"), p13_citeu(kc["cpk"]))
 
     # the pass mode on its main path's chunks: the first 1024 documents'
     # slots of vocab block 0 (routed) and of the first half of the token
@@ -2709,7 +2765,193 @@ def tp_phase(smi, kc) -> tuple:
           f"{launches.get('lda_estep_pass', 0)}; wall {time.perf_counter() - t_phase:.1f} s; "
           f"launches {launches}; card {smi}")
     shutil.rmtree(tmp, ignore_errors=True)
-    return launches, rec
+    return launches, rec, res
+
+
+
+def compare_flda_pass(seg, V, K, dev, label):
+    """Phase 15: the fLDA E-step's pass mode against its plain version on
+    one rank's share of a chunk's token slots (``seg``), with phase 3's
+    arguments (``flda_args``): within RTOL/ATOL, bitwise repeatable, pc 0
+    and tau kept on masked documents; its times and bound.  Then
+    ``flda_estep`` at ``viter = 0``, the split fixpoint's last call: the
+    state as given, bit for bit, and w against its plain version."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.flda_estep import (
+        flda_estep, flda_estep_pass, flda_estep_pass_ref, flda_estep_ref,
+    )
+
+    terms, counts, doc_mask = seg
+    B, L = terms.shape
+    args = flda_args(seg, V, K, dev)
+    logbetaT, kappa, _, _, _, _, eta, _, El, _, tau, _ = args
+    pargs = (logbetaT, kappa, terms, counts, doc_mask, eta, El, tau)
+    got, want = flda_estep_pass(*pargs), flda_estep_pass_ref(*pargs)
+    torch.cuda.synchronize()
+    err = close(got, want, ("pc", "tau_new"), f"flda_estep_pass {label}")
+    need(all(torch.equal(a, b) for a, b in zip(got, flda_estep_pass(*pargs))),
+         f"flda_estep_pass {label}: not bitwise repeatable")
+    pad = doc_mask == 0
+    need(bool(torch.all(got[0][pad] == 0)) and torch.equal(got[1][pad], tau[pad]),
+         f"flda_estep_pass {label}: a masked document moved")
+    kw0 = dict(viter=0, vtol=1.0 / K**2)
+    z = flda_estep(*args, **kw0)
+    need(all(torch.equal(a, b) for a, b in zip(z[:5], args[7:])),
+         f"flda_estep viter=0 {label}: the state moved")
+    err0 = close(z[5:], flda_estep_ref(*args, **kw0)[5:], ("w",), f"flda_estep viter=0 {label}")
+    keep = counts > 0
+    kept = int(keep.sum())
+    live = (doc_mask > 0)[:, None].expand(B, L)
+    slots = int(live.sum())   # every slot of a real document takes K exps, padding too
+    # table rows and kappa of the distinct ids; terms, counts and tau in;
+    # doc_mask, eta, El in; pc and tau_new out.  4 K flops a slot of a real
+    # document (the exponent, s, Σ p·log beta) and 2 K a kept slot (pc)
+    rec = record(err, time_calls(lambda: flda_estep_pass(*pargs), N_KERNEL),
+                 time_calls(lambda: flda_estep_pass_ref(*pargs), N_PLAIN, reps=1),
+                 bound_ms(4 * (n_unique(terms, live) * (K + 1) + 3 * B * L + B + 1 + B * K
+                               + B * K + B * L), 4 * K * slots + 2 * K * kept))
+    rec["exp_floor_ms"] = K * slots / EX2_PER_S * 1e3
+    print(f"flda_estep_pass {label}: B={B} L={L} K={K} kept={kept} | {times(rec)}; exp floor "
+          f"{rec['exp_floor_ms']:.4f} ms | flda_estep viter=0: state kept, w max abs err "
+          f"{err0:.3e}")
+    return rec, {"max_abs_err": err0}
+
+
+def compare_ctpf_pass(tok, rd, V, U, K, dev, label):
+    """Phase 15: the CTPF E-step's pass mode against its plain version on
+    one rank's share of a chunk's token and reader slots, with phase 3's
+    arguments (``ctpf_args``): within RTOL/ATOL, bitwise repeatable, zeros
+    on masked documents; its times and bound.  Then ``ctpf_estep`` at
+    ``viter = 0``: the state as given and wa/wh against the plain
+    version."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import (
+        ctpf_estep, ctpf_estep_pass, ctpf_estep_pass_ref, ctpf_estep_ref,
+    )
+
+    terms, counts, doc_mask = tok
+    readers, ratings = rd
+    B, L = terms.shape
+    R = readers.shape[1]
+    args, kw = ctpf_args(tok, rd, V, U, K, dev)
+    pargs = (*args[:10], args[10], args[12])
+    got, want = ctpf_estep_pass(*pargs), ctpf_estep_pass_ref(*pargs)
+    torch.cuda.synchronize()
+    err = close(got, want, ("gsum", "zsum"), f"ctpf_estep_pass {label}")
+    need(all(torch.equal(a, b) for a, b in zip(got, ctpf_estep_pass(*pargs))),
+         f"ctpf_estep_pass {label}: not bitwise repeatable")
+    pad = doc_mask == 0
+    need(all(bool(torch.all(x[pad] == 0)) for x in got),
+         f"ctpf_estep_pass {label}: a masked document got a statistic")
+    kw0 = dict(kw, viter=0)
+    z = ctpf_estep(*args, **kw0)
+    need(all(torch.equal(a, b) for a, b in zip(z[:4], args[10:])),
+         f"ctpf_estep viter=0 {label}: the state moved")
+    err0 = close(z[4:], ctpf_estep_ref(*args, **kw0)[4:], ("wa", "wh"),
+                 f"ctpf_estep viter=0 {label}")
+    kt, kr = counts > 0, ratings > 0
+    kept = int(kt.sum()) + int(kr.sum())
+    live = int((doc_mask > 0).sum())
+    # distinct table rows, the slots, doc_mask, the [K] vectors and gimel,
+    # zayin in; gsum, zsum out.  4 K flops a kept slot (its normaliser and
+    # its share of the product) and the [K] factors of a real document
+    rec = record(err, time_calls(lambda: ctpf_estep_pass(*pargs), N_KERNEL),
+                 time_calls(lambda: ctpf_estep_pass_ref(*pargs), N_PLAIN, reps=1),
+                 bound_ms(4 * ((n_unique(terms, kt) + n_unique(readers, kr)) * K
+                               + 2 * B * (L + R) + B + 3 * K + 4 * B * K),
+                          4 * K * kept + 8 * K * live))
+    print(f"ctpf_estep_pass {label}: B={B} L={L} R={R} K={K} kept={kept} | {times(rec)} | "
+          f"ctpf_estep viter=0: state kept, wa/wh max abs err {err0:.3e}")
+    return rec, {"max_abs_err": err0}
+
+
+def seq_phase(smi, kc, dev, ranks) -> dict:
+    """Phase 15, the sequence axis of fLDA, CTM, fCTM and CTPF: the pass
+    modes of ``flda_estep`` and ``ctpf_estep`` and both E-steps at ``viter
+    = 0`` against their plain versions; then phase 13's two ranks' runs
+    of P15_CASES (``ranks``: their records, already checked bitwise equal)
+    against one process with no mesh on the same corpus from the same
+    init.  Returns the records for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    f32, i32 = torch.float32, torch.int32
+    fpk, mpk = p13_nsf(16_384), p13_nsf(8192)
+    cpk, K = kc["cpk"], kc["K"]
+    lc = long_chunks(kc["V"], cpk.U, dev)
+
+    # the pass modes on their main paths' chunks, rank 0's half of the
+    # token (and reader) slots of the first 1024 documents, and on half of
+    # phase 3's chunks whose rows do not fit shared memory
+    h = fpk.L // 2
+    fl, fl0 = compare_flda_pass((put(fpk.terms[:1024, :h], i32), put(fpk.counts[:1024, :h], f32),
+                                 put(fpk.doc_mask[:1024], f32)), fpk.V, K, dev,
+                                f"seq, NSF V token half 0 of 2, L={h}")
+    lt, lcn, lm = lc["long_pad"]
+    half = lt.shape[1] // 2
+    fl_long, fl0_long = compare_flda_pass(
+        (lt[:, :half].contiguous(), lcn[:, :half].contiguous(), lm), kc["V"], K, dev,
+        f"L={half} of 1024, rows in tiles")
+    hl, hr = cpk.L // 2, cpk.Rmax // 2
+    ct, ct0 = compare_ctpf_pass(
+        (put(cpk.terms[:1024, :hl], i32), put(cpk.counts[:1024, :hl], f32),
+         put(cpk.doc_mask[:1024], f32)),
+        (put(cpk.readers[:1024, :hr], i32), put(cpk.ratings[:1024, :hr], f32)), cpk.V, cpk.U,
+        K, dev, f"seq, CiteULike token and reader halves 0 of 2, L={hl} R={hr}")
+    (ctt, ctc, ctm_), (ctr, ctq) = lc["ctpf_long"]
+    ht, hq = ctt.shape[1] // 2, ctr.shape[1] // 2
+    ct_long, ct0_long = compare_ctpf_pass(
+        (ctt[:, :ht].contiguous(), ctc[:, :ht].contiguous(), ctm_),
+        (ctr[:, :hq].contiguous(), ctq[:, :hq].contiguous()), kc["V"], cpk.U, K, dev,
+        f"L={ht} R={hq} of 768 and 256, rows in tiles")
+    del lc
+    t_kernels = time.perf_counter() - t_phase
+
+    # the two ranks against one process, from the same init
+    corpora = dict(fpk=fpk, mpk=mpk, cpk=p13_citeu(cpk))
+    kern = dict(p12_counters(), **pass_counters())
+    g0 = ranks[0]
+    launches = {}
+    for label, fam, key, Kf, chunk in P15_CASES:
+        got, trace, glob, _, wall = p13_case("[phase 15, one process]", None, fam, corpora[key],
+                                             Kf, 2, kern, doc=("data",), chunk=chunk)
+        for n, v in got.items():
+            launches[n] = launches.get(n, 0) + v
+        a, worst = g0["arrays"], {}
+        for f, want in glob.items():
+            if f == "elbo":
+                continue
+            have = a[f"{label}/{f}"]
+            need(np.allclose(have, want, rtol=RTOL, atol=ATOL),
+                 f"phase 15 {label}: {f} beyond rtol {RTOL} / atol {ATOL} of one process")
+            worst[f] = float(np.max(np.abs(have - want)))
+        ranks_trace = g0[f"{label}/trace"]
+        rel = [abs(x - y) / abs(y) for x, y in zip(ranks_trace, trace)]
+        need(len(ranks_trace) == 3 and max(rel) <= 1e-5,
+             f"phase 15 {label}: bound per iteration {rel}")
+        steps = "; ".join(
+            f"rank {r} one step alone {c['step_s']:.4f} s, collectives {c['seconds']:.4f} s, "
+            f"{c['calls']} calls, {c['bytes'] / 2**20:.1f} MiB sent"
+            for r, c in enumerate(info["alone"][label] for info in ranks))
+        print(f"phase 15 {label} on two ranks (data 1 x seq 2) vs one process, 2 iterations: "
+              f"max abs {', '.join(f'{f} {v:.3e}' for f, v in worst.items())}; bound relative "
+              f"from the init on {', '.join(f'{x:.2e}' for x in rel)}; one process 2 "
+              f"iterations with their bounds in {wall:.2f} s; {steps}; card {smi}")
+    pass_launches = {n: sum(info["launches"].get(n, 0) for info in ranks)
+                     for n in ("flda_estep_pass", "ctpf_estep_pass")}
+    need(all(v > 0 for v in pass_launches.values()),
+         f"phase 15: a pass kernel never launched on the ranks: {pass_launches}")
+    print(f"phase 15: flda_estep_pass {fl['ms'] * 1e3:.1f} us device, bound "
+          f"{fl['bound_ms'] * 1e3:.1f} us; ctpf_estep_pass {ct['ms'] * 1e3:.1f} us device, bound "
+          f"{ct['bound_ms'] * 1e3:.1f} us; launches on the ranks {pass_launches}; kernels "
+          f"{t_kernels:.1f} s, wall {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, flda_pass=(fl, fl_long), ctpf_pass=(ct, ct_long),
+                viter0=dict(flda_estep=(fl0, fl0_long), ctpf_estep=(ct0, ct0_long)))
 
 
 
@@ -3082,9 +3324,9 @@ def main() -> int:
          f"phase 12: a kernel never launched on the ranks: {p12}")
     add(p12)
 
-    # 13. tensor and sequence parallelism
-    p13, pass_rec = tp_phase(smi, kc)
-    need(all(p13.get(k, 0) > 0 for k in P12_KERNELS + ("lda_estep_pass",)),
+    # 13. tensor and sequence parallelism (its ranks also run phase 15's cases)
+    p13, pass_rec, p13_ranks = tp_phase(smi, kc)
+    need(all(p13.get(k, 0) > 0 for k in P12_KERNELS + tuple(pass_counters())),
          f"phase 13: a kernel never launched on the ranks: {p13}")
     add(p13)
 
@@ -3094,6 +3336,10 @@ def main() -> int:
                                          "scatter_rows", "lda_estep_f64", "flda_estep_f64")),
          f"phase 14: a kernel never launched: {p14}")
     add(p14)
+
+    # 15. the sequence axis of fLDA, CTM, fCTM and CTPF
+    p15 = seq_phase(smi, kc, dev, p13_ranks)
+    add(p15["launches"])
 
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
@@ -3110,9 +3356,9 @@ def main() -> int:
             ("lda_elbo_tok", "lda_elbo.cu", tpu + "lda_elbo.py:119", kc["elbo"][0],
              (kc["elbo"][1], elbo_ctm, st["elbo"])),
             ("flda_estep", "flda_estep.cu", tpu + "flda_estep.py:112", kc["flda"][0],
-             kc["flda"][1:]),
+             (*kc["flda"][1:], *p15["viter0"]["flda_estep"])),
             ("ctpf_estep", "ctpf_estep.cu", tpu + "ctpf_estep.py:105", kc["ctpf"][0],
-             kc["ctpf"][1:]),
+             (*kc["ctpf"][1:], *p15["viter0"]["ctpf_estep"])),
             ("scatter_rows", "scatter_rows.cu", "bench_scatter_pallas.py:40", sc[0], sc[1:]),
             # no Pallas kernel behind these two: the JAX package's lax.scans
             ("hmtm_estep", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
@@ -3123,6 +3369,12 @@ def main() -> int:
             # on the sequence axis
             ("lda_estep_pass", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
              pass_rec, ()),
+            # the per-pass bodies the JAX package runs in XLA on the sequence
+            # axis (it turns the flda_estep and ctpf_estep kernels off there)
+            ("flda_estep_pass", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",
+             p15["flda_pass"][0], p15["flda_pass"][1:]),
+            ("ctpf_estep_pass", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
+             p15["ctpf_pass"][0], p15["ctpf_pass"][1:]),
             # the f64 Elogtheta modes: the JAX package turns its Pallas kernels
             # off for them and runs its XLA chunk bodies
             ("lda_estep_f64", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:137",

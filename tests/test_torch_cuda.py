@@ -12,8 +12,14 @@ import pytest
 import torch
 
 import topicmodelsvb_jl_torch as tt
-from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_ref
-from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+from topicmodelsvb_jl_torch.kernels import ctpf_estep as ctpf_estep_mod
+from topicmodelsvb_jl_torch.kernels import flda_estep as flda_estep_mod
+from topicmodelsvb_jl_torch.kernels.ctpf_estep import (
+    ctpf_estep, ctpf_estep_pass, ctpf_estep_pass_ref, ctpf_estep_ref, ctpf_split_fixpoint,
+)
+from topicmodelsvb_jl_torch.kernels.flda_estep import (
+    flda_estep, flda_estep_pass, flda_estep_pass_ref, flda_estep_ref, flda_split_fixpoint,
+)
 from topicmodelsvb_jl_torch.kernels.hmtm_estep import (
     hmtm_estep, hmtm_estep_ref, hmtm_logz, hmtm_logz_ref,
 )
@@ -567,6 +573,179 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     out = flda_estep(*(a[:0] if a.dim() and a.shape[0] == 16 else a for a in fargs),
                      viter=2, vtol=1e-3)
     assert out[5].shape == (0, 24, 8) and (flda_estep.launches, ctpf_estep.launches) == (e0, c0)
+
+
+# the pass modes of flda_estep and ctpf_estep (the sequence axis): odd L
+# (and R) and K, rows in shared memory and (L = 1025, L + R = 666 at
+# K >= 100) in tiles
+def _flda_pass_args(args):
+    """flda_estep_pass's arguments from a _flda_chunk."""
+    logbetaT, kappa, terms, counts, doc_mask, _, eta, _, El, _, tau, _ = args
+    return logbetaT, kappa, terms, counts, doc_mask, eta, El, tau
+
+
+@pytest.mark.parametrize("K", [3, 100, 257])
+@pytest.mark.parametrize("L", [7, 129, 1025])
+def test_flda_estep_pass_kernel_matches_plain(cuda, K, L):
+    args = list(_flda_pass_args(_flda_chunk(K, 40, L, 3000, cuda, seed=K + L)))
+    args[3][1] = 0.0                                    # a real document with no slots
+    before = flda_estep_pass.launches
+    got = flda_estep_pass(*args)
+    torch.cuda.synchronize()
+    assert flda_estep_pass.launches == before + 1
+    want = flda_estep_pass_ref(*args)
+    for name, a, b in zip(("pc", "tau_new"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+    pc, tau_new = got
+    assert torch.all(pc[-3:] == 0) and torch.all(pc[1] == 0)
+    assert torch.equal(tau_new[-3:], args[7][-3:])       # masked: tau kept
+    assert not torch.equal(tau_new[1], args[7][1])       # no slots: tau still moves
+    again = flda_estep_pass(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+def test_flda_estep_pass_kernel_empty_chunk_and_rejects(cuda):
+    args = _flda_pass_args(_flda_chunk(7, 5, 24, 100, cuda))
+    before = flda_estep_pass.launches
+    pc, tau_new = flda_estep_pass(*args[:2], *(a[:0] for a in args[2:5]), args[5],
+                                  args[6][:0], args[7][:0])
+    assert pc.shape == (0, 7) and tau_new.shape == (0, 24)
+    assert flda_estep_pass.launches == before
+    with pytest.raises(TypeError, match="El"):
+        flda_estep_pass(*args[:6], args[6].double(), args[7])
+    with pytest.raises(ValueError, match="tau"):
+        flda_estep_pass(*args[:7], args[7].T.contiguous().T)
+
+
+def _ctpf_pass_args(args):
+    """ctpf_estep_pass's arguments from a _ctpf_chunk."""
+    return (*args[:10], args[10], args[12])
+
+
+@pytest.mark.parametrize("K", [3, 100, 257])
+@pytest.mark.parametrize("L,R", [(7, 5), (129, 33), (601, 65)])
+def test_ctpf_estep_pass_kernel_matches_plain(cuda, K, L, R):
+    args = list(_ctpf_pass_args(_ctpf_chunk(K, 40, L, R, 3000, 500, cuda, seed=K + L)))
+    args[3][1], args[2][1] = 0.0, 0                      # readers alone
+    args[5][2], args[4][2] = 0.0, 0                      # tokens alone
+    before = ctpf_estep_pass.launches
+    got = ctpf_estep_pass(*args)
+    torch.cuda.synchronize()
+    assert ctpf_estep_pass.launches == before + 1
+    want = ctpf_estep_pass_ref(*args)
+    for name, a, b in zip(("gsum", "zsum"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+        assert torch.all(a[-3:] == 0), name
+    assert torch.all(got[1][2] == 0) and torch.any(got[0][1] != 0)
+    again = ctpf_estep_pass(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+def test_ctpf_estep_pass_kernel_empty_chunk_and_rejects(cuda):
+    args = _ctpf_pass_args(_ctpf_chunk(7, 5, 24, 8, 100, 50, cuda))
+    before = ctpf_estep_pass.launches
+    gs, zs = ctpf_estep_pass(*args[:2], *(a[:0] for a in args[2:7]), *args[7:10],
+                             args[10][:0], args[11][:0])
+    assert gs.shape == zs.shape == (0, 7) and ctpf_estep_pass.launches == before
+    with pytest.raises(TypeError, match="readers"):
+        ctpf_estep_pass(*args[:4], args[4].long(), *args[5:])
+    with pytest.raises(TypeError, match="zayin"):
+        ctpf_estep_pass(*args[:11], args[11].double())
+
+
+@pytest.mark.parametrize("K,L", [(3, 13), (100, 129), (100, 1025)])
+def test_flda_estep_at_viter_zero_keeps_the_state_and_writes_the_rows(cuda, K, L):
+    """The split fixpoint's last call: no pass, the state returned as
+    given, w from (tau_old, El_old) with the given tau's weights."""
+    args = _flda_chunk(K, 24, L, 3000, cuda, seed=3)
+    got = flda_estep(*args, viter=0, vtol=1.0 / K**2)
+    for a, b in zip(got[:5], args[7:]):
+        assert torch.equal(a, b)
+    want = flda_estep_ref(*args, viter=0, vtol=1.0 / K**2)
+    torch.testing.assert_close(got[5], want[5], rtol=5e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("K,L,R", [(3, 13, 5), (100, 80, 24), (100, 601, 65)])
+def test_ctpf_estep_at_viter_zero_keeps_the_state_and_writes_the_rows(cuda, K, L, R):
+    args = _ctpf_chunk(K, 24, L, R, 3000, 500, cuda, seed=3)
+    kw = dict(viter=0, vtol=1.0 / K**2, **HYP)
+    got = ctpf_estep(*args, **kw)
+    for a, b in zip(got[:4], args[10:]):
+        assert torch.equal(a, b)
+    want = ctpf_estep_ref(*args, **kw)
+    for name, a, b in zip(("wa", "wh"), got[4:], want[4:]):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+
+
+def _refused(*a, **k):
+    raise AssertionError("a CUDA tensor ran a plain version")
+
+
+def test_flda_split_fixpoint_runs_the_kernels_and_never_the_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors fLDA's split fixpoint launches the pass kernel a
+    pass and the E-step kernel once, and follows the plain fixpoint."""
+    args = _flda_chunk(100, 48, 129, 3000, cuda, seed=9)
+    want = flda_estep_ref(*args, viter=10, vtol=1e-4)
+    monkeypatch.setattr(flda_estep_mod, "flda_estep_ref", _refused)
+    monkeypatch.setattr(flda_estep_mod, "flda_estep_pass_ref", _refused)
+    p0, e0 = flda_estep_pass.launches, flda_estep.launches
+    got = flda_split_fixpoint(*args, viter=10, vtol=1e-4, reduce=lambda x: x)
+    assert flda_estep_pass.launches - p0 >= 1 and flda_estep.launches - e0 == 1
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
+
+
+def test_ctpf_split_fixpoint_runs_the_kernels_and_never_the_plain_versions(cuda, monkeypatch):
+    args = _ctpf_chunk(100, 48, 80, 24, 3000, 500, cuda, seed=9)
+    kw = dict(viter=10, vtol=1e-4, **HYP)
+    want = ctpf_estep_ref(*args, **kw)
+    monkeypatch.setattr(ctpf_estep_mod, "ctpf_estep_ref", _refused)
+    monkeypatch.setattr(ctpf_estep_mod, "ctpf_estep_pass_ref", _refused)
+    p0, e0 = ctpf_estep_pass.launches, ctpf_estep.launches
+    got = ctpf_split_fixpoint(*args, **kw, reduce=lambda x: x)
+    assert ctpf_estep_pass.launches - p0 >= 1 and ctpf_estep.launches - e0 == 1
+    _ctpf_close(got, want)
+
+
+@pytest.mark.parametrize("family", ["fLDA", "CTM", "fCTM", "CTPF"])
+def test_seq_step_on_one_card_follows_the_dense_step(cuda, family):
+    """A sequence-axis step with no mesh (the axis of one rank) runs the
+    split path, through the pass kernels for fLDA and CTPF, and follows
+    the dense step."""
+    from topicmodelsvb_jl_torch.models import ctm, ctpf, fctm, flda
+
+    mod = {"fLDA": flda, "CTM": ctm, "fCTM": fctm, "CTPF": ctpf}[family]
+    K = 20
+    if family == "CTPF":
+        corp = tt.synth_corpus(M=512, V=600, U=80, K=5, seed=5, mean_readers=4)
+        pk = tt.pack_corpus(corp, with_readers=True, docs_multiple=128)
+    else:
+        pk = tt.synth_packed_nsf_scale(M=512, V=600, mean_terms=30, seed=5)
+    put = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=cuda)
+    data = (put(pk.terms, torch.int32), put(pk.counts, torch.float32),
+            put(pk.doc_mask, torch.float32))
+    kw = dict(viter=10, vtol=1.0 / K**2, chunk_docs=128, device=cuda)
+    if family == "CTPF":
+        args = (data[0], data[1], put(pk.readers, torch.int32), put(pk.ratings, torch.float32),
+                data[2])
+    else:
+        kw.update(niter=100, ntol=1.0 / K**2)
+        args = (*data, float(pk.M))
+        if family == "fLDA":
+            args = (*data, torch.tensor(float(pk.M), device=cuda),
+                    torch.tensor(float(pk.C.sum()), device=cuda))
+    state = mod.init(torch.Generator().manual_seed(1), pk, K, device=cuda)
+    want = mod.make_step(pk, K, **kw)(state, *args)
+    launches = (flda_estep_pass if family == "fLDA" else ctpf_estep_pass).launches
+    got = mod.make_step(pk, K, **kw, seq_axis="seq")(state, *args)
+    for f in type(state).__dataclass_fields__:
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=5e-3, atol=1e-5,
+                                   msg=f)
+    if family in ("fLDA", "CTPF"):
+        assert (flda_estep_pass if family == "fLDA" else ctpf_estep_pass).launches > launches
+    e_want = mod.make_elbo(pk, K, 128)(got, *args[:5 if family == "CTPF" else 3])
+    e_got = mod.make_elbo(pk, K, 128, seq_axis="seq")(got, *args[:5 if family == "CTPF" else 3])
+    torch.testing.assert_close(e_got.double().sum(), e_want.double().sum(), rtol=1e-5, atol=0.0)
 
 
 def _scatters(m):

@@ -358,3 +358,119 @@ def test_make_step_f64_channel_matches_jax(family):
         assert got[f].dtype == np.float32, f
         np.testing.assert_allclose(got[f], np.asarray(want), rtol=F64_RTOL, atol=F64_ATOL,
                                    err_msg=f)
+
+
+# ── the pass modes of flda_estep and ctpf_estep (the sequence axis) ──
+
+def _flda_split_args(viter, K=5):
+    """fLDA E-step arguments on _edge_chunk: an empty real document, a
+    one-token one and 3 masked, in float64."""
+    x = _edge_chunk(K, seed=20 + viter)
+    f = _flda_args(x, seed=viter)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
+    return (t(f["logbetaT"]), t(f["kappa"]), torch.tensor(x["terms"]), t(x["counts"]),
+            t(x["doc_mask"]), t(x["alpha"]), t(f["eta"]), t(x["gamma"]), t(x["El"]),
+            t(x["El_old"]), t(f["tau"]), t(f["tau_old"]))
+
+
+def _ctpf_split_args(seed, K=5, B=12, L=16, R=6, V=30, U=9):
+    """CTPF E-step arguments in float64: an empty real document (no tokens,
+    no readers), a one-token one with no reader, a reader-only one and 3
+    masked."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64)
+    x = _edge_chunk(K, B=B, L=L, V=V, seed=seed)
+    ratings = (np.arange(R)[None, :] < r.integers(1, R + 1, size=B)[:, None]).astype(float)
+    ratings[:2] = 0.0
+    ratings[-3:] = 0.0
+    readers = r.integers(0, U, size=(B, R)).astype(np.int32) * (ratings > 0)
+    counts = x["counts"].copy()
+    counts[2] = 0.0                                   # readers alone
+    gam = lambda *shape: t(0.1 + r.gamma(2.0, 1.0, size=shape))
+    ealefT = torch.exp(torch.special.digamma(gam(K, V))).T.contiguous()
+    eheT = torch.exp(torch.special.digamma(gam(K, U))).T.contiguous()
+    dalet, bet, vav, het = (t(r.uniform(0.5, 3.0, K)) for _ in range(4))
+    gimel, zayin = gam(B, K), gam(B, K)
+    return (ealefT, eheT, torch.tensor(x["terms"]), t(counts), torch.tensor(readers),
+            t(ratings), t(x["doc_mask"]), 1.0 / (dalet * bet), 1.0 / (dalet * vav),
+            1.0 / (het * vav), gimel, gimel * 1.1, zayin, zayin * 0.9)
+
+
+CTPF_HYPER = dict(c_hyper=0.1, g_hyper=0.1)
+
+
+@pytest.mark.parametrize("viter", [0, 1, 3, 20])
+def test_flda_split_fixpoint_without_collective_equals_flda_estep_ref(viter):
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_ref, flda_split_fixpoint
+
+    args = _flda_split_args(viter)
+    want = flda_estep_ref(*args, viter=viter, vtol=1e-4)
+    got = flda_split_fixpoint(*args, viter=viter, vtol=1e-4)
+    for name, a, b in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        assert torch.equal(a, b), name
+    if viter:   # the empty document's tau moves on its padding slots
+        assert not torch.equal(got[3][0], args[10][0])
+
+
+@pytest.mark.parametrize("viter", [0, 1, 3, 20])
+def test_ctpf_split_fixpoint_without_collective_equals_ctpf_estep_ref(viter):
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep_ref, ctpf_split_fixpoint
+
+    args = _ctpf_split_args(viter)
+    want = ctpf_estep_ref(*args, viter=viter, vtol=1e-4, **CTPF_HYPER)
+    got = ctpf_split_fixpoint(*args, viter=viter, vtol=1e-4, **CTPF_HYPER)
+    for name, a, b in zip(("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_flda_pass_over_split_slots_sums_to_the_whole_pass():
+    """The fLDA pass mode's plain version on two halves of every document's
+    slots: the statistics sum to the pass on the whole (a sum of per-slot
+    terms, each with its own normaliser), the halves' tau side by side are
+    the whole's; a masked document gets 0 and keeps its tau."""
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass, flda_estep_pass_ref
+
+    lb, kap, terms, counts, dm, _, eta, _, El, _, tau, _ = _flda_split_args(2)
+    whole = flda_estep_pass(lb, kap, terms, counts, dm, eta, El, tau)
+    h = (slice(0, 7), slice(7, 16))
+    parts = [flda_estep_pass(lb, kap, terms[:, s], counts[:, s], dm, eta, El,
+                             tau[:, s].contiguous()) for s in h]
+    torch.testing.assert_close(parts[0][0] + parts[1][0], whole[0], rtol=1e-13, atol=0.0)
+    assert torch.equal(torch.cat([parts[0][1], parts[1][1]], dim=1), whole[1])
+    assert torch.equal(whole[0][-1], torch.zeros_like(whole[0][-1]))
+    assert torch.equal(whole[1][-1], tau[-1])
+    for a, b in zip(whole, flda_estep_pass_ref(lb, kap, terms, counts, dm, eta, El, tau)):
+        assert torch.equal(a, b)
+
+
+def test_ctpf_pass_over_split_slots_sums_to_the_whole_pass():
+    """The CTPF pass mode's plain version on the halves of every document's
+    token slots and reader slots sums to the pass on the whole; a masked
+    document gets zeros."""
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep_pass, ctpf_estep_pass_ref
+
+    ea, eh, terms, counts, readers, ratings, dm, idb, idv, ihv, gi, _, za, _ = \
+        _ctpf_split_args(5)
+    whole = ctpf_estep_pass(ea, eh, terms, counts, readers, ratings, dm, idb, idv, ihv, gi, za)
+    parts = [ctpf_estep_pass(ea, eh, terms[:, st], counts[:, st], readers[:, sr],
+                             ratings[:, sr], dm, idb, idv, ihv, gi, za)
+             for st, sr in ((slice(0, 8), slice(0, 3)), (slice(8, 16), slice(3, 6)))]
+    for i in range(2):
+        torch.testing.assert_close(parts[0][i] + parts[1][i], whole[i], rtol=1e-13, atol=0.0)
+        assert torch.equal(whole[i][-1], torch.zeros_like(whole[i][-1]))
+    assert torch.equal(whole[1][0], torch.zeros_like(whole[1][0]))   # no reader: no zayin mass
+    ref = ctpf_estep_pass_ref(ea, eh, terms, counts, readers, ratings, dm, idb, idv, ihv, gi, za)
+    assert all(torch.equal(a, b) for a, b in zip(whole, ref))
+
+
+def test_flda_split_fixpoint_f64_channel_equals_the_fused_plain_version():
+    """fLDA's split fixpoint takes the same float64 psi on its tiles:
+    driven alone on a float32 state it gives the fused plain version's
+    bits, which are not the float32 channel's."""
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_ref, flda_split_fixpoint
+
+    args = tuple(a.float() if a.is_floating_point() else a for a in _flda_split_args(4))
+    a = flda_split_fixpoint(*args, viter=7, vtol=1e-3, elogtheta_f64=True)
+    b = flda_estep_ref(*args, viter=7, vtol=1e-3, elogtheta_f64=True)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert not torch.equal(a[1], flda_split_fixpoint(*args, viter=7, vtol=1e-3)[1])

@@ -90,12 +90,15 @@ def test_worker_doc_range_and_one_rank_identity(runs):
 
 
 def test_tensor_parallel_axes_are_refused():
-    """Since the vocab axis is ported this holds what the port accepts, as
-    the JAX package does, and what it still refuses: an N-D mesh needs a
-    process group of its size; a RuntimeConfig's tensor-parallel
-    mesh_shape leaves the api model on the data axis (the JAX package's
-    api never reads it), bit for bit the model without it; the sequence
-    axis of fLDA, CTM, fCTM and CTPF waits for ROADMAP item 8c."""
+    """Since the vocab and sequence axes are ported this holds what the
+    port accepts, as the JAX package does, and what it refuses as the JAX
+    package does: an N-D mesh needs a process group of its size; a
+    RuntimeConfig's tensor-parallel mesh_shape leaves the api model on the
+    data axis (the JAX package's api never reads it), bit for bit the
+    model without it; the sequence axis of fLDA, CTM, fCTM and CTPF on a
+    length-bucketed corpus raises ``ValueError`` in every ``make_step``
+    and ``make_elbo`` (JAX's assert: a split token axis needs dense
+    packing)."""
     from topicmodelsvb_jl_torch.models import ctm, ctpf, fctm, flda
 
     with pytest.raises(ValueError, match="process group of 2"):
@@ -114,14 +117,16 @@ def test_tensor_parallel_axes_are_refused():
     pmesh.check_axes(_FakeMesh(), "data", ("vocab",), None)
     with pytest.raises(ValueError, match="no axis 'seq'"):
         pmesh.check_axes(_FakeMesh(), "seq")
-    pk = tt.pack_corpus(corp, pad_multiple=8, docs_multiple=8, dtype=np.float64)
+    pk = tt.bucketize_packed(tt.pack_corpus(corp, pad_multiple=8, docs_multiple=8,
+                                            dtype=np.float64), chunk=8, pad_multiple=8)
+    assert pk.segments is not None
     kw = dict(viter=2, vtol=0.1, niter=2, ntol=0.1, chunk_docs=8, device="cpu", seq_axis="seq")
     makers = [lambda m=m: m.make_step(pk, 2, **kw) for m in (flda, ctm, fctm)]
     makers.append(lambda: ctpf.make_step(pk, 2, viter=2, vtol=0.1, chunk_docs=8, device="cpu",
                                          seq_axis="seq"))
     makers += [lambda m=m: m.make_elbo(pk, 2, 8, seq_axis="seq") for m in (flda, ctm, fctm, ctpf)]
     for make in makers:
-        with pytest.raises(NotImplementedError, match="8c"):
+        with pytest.raises(ValueError, match="dense packing"):
             make()
 
 

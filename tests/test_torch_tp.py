@@ -5,9 +5,12 @@ One launch of four gloo ranks (``tests/torch_mp_worker.py``, mode ``tp``,
 no JAX) runs every case of ``TP_CASES`` while this process runs the JAX
 package on a virtual mesh of the same shape: beta's (and kappa's) storage
 over a vocab axis for LDA, fLDA, CTM, fCTM, DTM, HMTM and StreamingLDA,
-CTPF's alef over vocab and he over users, routed LDA, LDA's sequence axis
-and its data × vocab × seq mesh.  CTPF, DTM and HMTM run JAX on one
-device (its own tests hold its mesh runs to that, and they are its slow
+CTPF's alef over vocab and he over users, routed LDA, the sequence axis
+of LDA, fLDA, CTM, fCTM and CTPF (its token and reader slots), and LDA's
+and fLDA's data × vocab × seq mesh.  CTPF, DTM and HMTM run JAX on one
+device (its own tests hold its mesh runs to that, CTPF's sequence axis
+included, tests/test_parallel.py's
+``test_ctpf_seq_axis_sp_matches_single_device``, and they are its slow
 tests).  Both packages start from the JAX init (``convert.shard_state``
 cuts each rank's blocks); each iteration's bound and the final state
 follow JAX to 1e-8 relative, and every rank holds the same bits of every
@@ -16,9 +19,10 @@ the data axis alone and replicates across the vocab axis, as the JAX
 package's does, and its checkpoint directory loads in both packages.
 
 Also here: ``route_packed`` byte-identical to JAX's, the ``ValueError``
-of ``save_packed``/``trim_packed`` on a RoutedCorpus, and the pass mode
+of ``save_packed``/``trim_packed`` on a RoutedCorpus, the pass mode
 of the LDA E-step driven as a fixpoint with no collective against
-``lda_estep_ref``.
+``lda_estep_ref``, and ``local_slab`` cutting CTPF's reader slots with
+its token slots.
 """
 
 import os
@@ -108,8 +112,11 @@ def jax_case(case: str):
         mod = {"fLDA": jflda, "CTM": jctm, "fCTM": jfctm}[fam]
         state = mod.init(key, packed, K, F64)
         mesh = _jmesh(c)
-        axes, d = c["doc"], P(c["doc"])
-        spec = mod.partition_spec(data_axis=axes, vocab_axis="vocab")
+        axes, d, seq = c["doc"], P(c["doc"]), c.get("seq")
+        tokspec = P(axes, seq) if seq else d
+        modes = dict(vocab_axis=c.get("vocab"), seq_axis=seq)
+        spec = mod.partition_spec(data_axis=axes, **(modes if fam != "CTM" else
+                                                     dict(vocab_axis=c.get("vocab"))))
         extra = dict(use_pallas=False) if fam == "fLDA" else {}
         args = (*tok, dm, M)
         scal = (P(),)
@@ -117,10 +124,10 @@ def jax_case(case: str):
             args += (jnp.asarray(float(packed.C.sum()), F64),)
             scal = (P(), P())
         step = _smap(mod.make_step(packed, K, chunk_docs=c["chunk"], axis_name=axes,
-                                   vocab_axis="vocab", **kw, **extra),
-                     mesh, (spec, d, d, d) + scal, spec)
+                                   **modes, **kw, **extra),
+                     mesh, (spec, tokspec, tokspec, d) + scal, spec)
         elbo = _smap(mod.make_elbo(packed, K, chunk_docs=c["chunk"], axis_name=axes,
-                                   vocab_axis="vocab"), mesh, (spec, d, d, d), P())
+                                   **modes), mesh, (spec, tokspec, tokspec, d), P())
         eargs = (*tok, dm)
     elif fam == "CTPF":
         state = jctpf.init(key, packed, K, F64)
@@ -293,3 +300,53 @@ def test_pass_over_split_slots_sums_to_the_whole_pass():
     torch.testing.assert_close(halves, whole, rtol=1e-13, atol=0.0)
     assert torch.equal(whole[2], torch.zeros_like(whole[2]))
     assert torch.equal(whole, lda_estep_pass_ref(betaT, terms, counts, dm, El))
+
+
+class _SeqMesh:
+    """Process ``i``'s coordinates on a (data, seq) mesh of 1 × ``n``, with
+    no process group (``local_slab`` reads only the coordinates)."""
+
+    mesh_dim_names = ("data", "seq")
+
+    def __init__(self, n, i):
+        self.n, self.i = n, i
+
+    def size(self, dim=None):
+        return (1, self.n)[dim] if dim is not None else self.n
+
+    def get_local_rank(self, axis):
+        return self.i if axis == "seq" else 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_local_slab_cuts_the_reader_slots_with_the_token_slots(n):
+    """A sequence rank's slab of a corpus with readers holds its block of
+    the token and of the reader slot columns (JAX's ``P("data", "seq")``
+    on both), every document's N, C and R whole; its reader plans cover
+    its own columns, so the slabs' he statistics sum to the whole's."""
+    from topicmodelsvb_jl_torch.models.ctpf import reader_plans
+    from topicmodelsvb_jl_torch.models.lda import _chunks
+    from topicmodelsvb_jl_torch.ops.segment import count_scatter_into
+    from topicmodelsvb_jl_torch.parallel.multihost import local_slab
+
+    packed, _ = W.tp_corpus(tt, "CTPF_seq")
+    slabs = [local_slab(packed, _SeqMesh(n, i), "data", "seq") for i in range(n)]
+    for f in ("terms", "counts", "readers", "ratings"):
+        np.testing.assert_array_equal(np.concatenate([getattr(s, f) for s in slabs], axis=1),
+                                      getattr(packed, f), err_msg=f)
+    for s in slabs:
+        assert (s.L, s.Rmax, s.M_pad, s.U) == (packed.L // n, packed.Rmax // n, packed.M_pad,
+                                               packed.U)
+        for f in ("N", "C", "R", "doc_mask"):
+            np.testing.assert_array_equal(getattr(s, f), getattr(packed, f), err_msg=f)
+
+    def he_stat(p):
+        acc = torch.zeros((p.U, 1), dtype=torch.float64)
+        for (rows, _, _), plan in zip(_chunks(p, 8), reader_plans(p, 8, "cpu")):
+            count_scatter_into(acc, torch.as_tensor(p.ratings[rows]).reshape(-1, 1), plan)
+        return acc
+
+    torch.testing.assert_close(sum(he_stat(s) for s in slabs), he_stat(packed), rtol=1e-15,
+                               atol=0.0)
+    with pytest.raises(ValueError, match="reader slots do not divide"):
+        local_slab(packed, _SeqMesh(3, 0), "data", "seq")   # L = 24 divides, Rmax = 16 not

@@ -17,10 +17,11 @@ start-up is paid once:
 * ``one_rank``: on a group of one, ``kbn_psum`` and an LDA on the mesh of
   every rank against one with no collective, bit for bit;
 * ``tp``: on four ranks, every case of :data:`TP_CASES` (tensor and
-  sequence parallelism: the vocab, user and seq axes, routed LDA, and
-  StreamingLDA's vocab axis) from the JAX package's init (``init.npz``,
-  each rank's blocks cut by ``convert.shard_state``), each case's whole
-  state gathered onto every rank at the end.
+  sequence parallelism: the vocab, user and seq axes, routed LDA, the
+  seq axis of LDA, fLDA, CTM, fCTM and CTPF, and StreamingLDA's vocab
+  axis) from the JAX package's init (``init.npz``, each rank's blocks cut
+  by ``convert.shard_state``), each case's whole state gathered onto
+  every rank at the end.
 
 Usage: python torch_mp_worker.py <rank> <world> <port> <job_dir> <mode>
 Writes ``<job_dir>/out{rank}.npz``.  A rank whose rendezvous fails (the
@@ -230,6 +231,7 @@ def _stream(tt, job, rank, world, out):
 TP_WORLD, TP_K, TP_ITERS = 4, 4, 3
 TP_STEP = dict(viter=5, niter=100)   # vtol = ntol = 1/K²
 DV = dict(axes=("data", "vocab"), shape=(2, 2), doc=("data", "vocab"), vocab="vocab")
+DS = dict(axes=("data", "seq"), shape=(2, 2), doc=("data",), seq="seq")
 # each case: its family, mesh, the axes its documents shard over, and its
 # modes (every mesh names its axes in the order JAX's PartitionSpecs do)
 TP_CASES = {
@@ -241,11 +243,19 @@ TP_CASES = {
     "LDA_3d": dict(family="LDA", chunk=16, axes=("data", "vocab", "seq"), shape=(1, 2, 2),
                    doc=("data", "vocab"), vocab="vocab", seq="seq"),
     "fLDA_vocab": dict(family="fLDA", chunk=4, **DV),
+    "fLDA_seq": dict(family="fLDA", chunk=4, **DS),
+    # kappa's statistic is vocab-sharded and token-level at once here
+    "fLDA_3d": dict(family="fLDA", chunk=4, axes=("data", "vocab", "seq"), shape=(1, 2, 2),
+                    doc=("data", "vocab"), vocab="vocab", seq="seq"),
     "CTM_vocab": dict(family="CTM", chunk=4, **DV),
+    "CTM_seq": dict(family="CTM", chunk=4, **DS),
     "fCTM_vocab": dict(family="fCTM", chunk=4, **DV),
+    "fCTM_seq": dict(family="fCTM", chunk=4, **DS),
     "CTPF_vocab_user": dict(family="CTPF", chunk=4, axes=("data", "vocab", "user"),
                             shape=(1, 2, 2), doc=("data", "vocab", "user"), vocab="vocab",
                             user="user"),
+    # both ragged axes, the token slots and the reader slots, over seq
+    "CTPF_seq": dict(family="CTPF", chunk=4, **DS),
     "DTM_vocab": dict(family="DTM", chunk=4, **DV),
     "HMTM_vocab": dict(family="HMTM", chunk=4, **DV),
     "StreamingLDA_vocab": dict(family="StreamingLDA", chunk=8, **DV),
@@ -338,10 +348,12 @@ def _tp_run(tt, case, init, mesh, out):
     t, cnt, dm = put(slab.terms, torch.int32), put(slab.counts, f64), put(slab.doc_mask, f64)
     vtol = ntol = 1.0 / K ** 2
     kw = dict(mesh=mesh, axis_name=doc, vocab_axis=vocab)
+    if seq is not None:
+        kw.update(seq_axis=seq)
     common = dict(viter=TP_STEP["viter"], vtol=vtol, niter=TP_STEP["niter"], ntol=ntol,
                   chunk_docs=c["chunk"], device="cpu")
     if fam == "LDA":
-        kw.update(seq_axis=seq, vocab_routed=routed)
+        kw.update(vocab_routed=routed)
         step = lda.make_step(slab, K, **common, **kw)
         elbo = lda.make_elbo(slab, K, c["chunk"], **kw)
         args, eargs = (t, cnt, dm, float(packed.M)), (t, cnt, dm)
@@ -370,7 +382,7 @@ def _tp_run(tt, case, init, mesh, out):
            "HMTM": hmtm.HMTMState}[fam]
     state = convert.shard_state(cls, {f: init[f"{case}/{f}"] for f in cls.__dataclass_fields__},
                                 mesh, data_axis=doc, vocab_axis=vocab, user_axis=user,
-                                dtype=f64)
+                                seq_axis=seq, dtype=f64)
     trace = []
     for _ in range(TP_ITERS):
         state = step(state, *args)
@@ -381,7 +393,7 @@ def _tp_run(tt, case, init, mesh, out):
         x = getattr(state, f)
         if f in lay["doc"]:
             x = all_gather(x, mesh, doc, dim=0)
-        for key, axis in (("vocab", vocab), ("user", user)):
+        for key, axis in (("vocab", vocab), ("user", user), ("seq", seq)):
             if axis is not None and f in lay.get(key, {}):
                 x = all_gather(x, mesh, axis, dim=lay[key][f])
         out[f"{case}/{f}"] = x.numpy()

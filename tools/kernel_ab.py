@@ -14,9 +14,10 @@ and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 1024-document chunks: one warm-up iteration each, then three steps alone,
 each timed by the host clock up to a synchronize.  Last, ``digests``:
 a sha256 of the outputs of the E-step kernels and ``lda_elbo_tok`` (f32,
-phase 3's arguments) on the widest NSF chunk and on the chunks whose rows
-do not fit shared memory; equal digests from two checkouts mean the
-kernels give the same bits.
+and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase
+3's arguments) on the widest NSF chunk and on the chunks whose rows do
+not fit shared memory; equal digests from two checkouts mean the kernels
+give the same bits.  ROOT's package must have those modes.
 Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
@@ -59,6 +60,9 @@ def digests(smoke, kc, dev) -> dict:
         g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
         outs[f"lda_elbo_tok_{tag}"] = (lda_elbo_tok(boT, g2T, *seg, args[6], args[7]),)
         outs[f"flda_estep_{tag}"] = flda_estep(*smoke.flda_args(seg, V, K, dev), **kw)
+        outs[f"lda_estep_f64_{tag}"] = lda_estep(*args, **kw, elogtheta_f64=True)
+        outs[f"flda_estep_f64_{tag}"] = flda_estep(*smoke.flda_args(seg, V, K, dev), **kw,
+                                                   elogtheta_f64=True)
     cargs, ckw = smoke.ctpf_args(*lc["ctpf_long"], V, kc["cpk"].U, K, dev)
     outs["ctpf_estep_long"] = ctpf_estep(*cargs, **ckw)
     torch.cuda.synchronize()

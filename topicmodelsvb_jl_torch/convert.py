@@ -8,8 +8,8 @@ globals, host arrays and counters go across by :func:`streaming_from`.
 :func:`state_for` gives a model sharded over processes its own rows of a
 whole state, such as the JAX package's state on an n-device mesh, and
 :func:`shard_state` gives a process its blocks of a whole state on any
-mesh: document rows, and the vocab- and user-axis blocks of tensor
-parallelism.
+mesh: document rows, the vocab- and user-axis blocks of tensor
+parallelism, and the sequence axis's tau columns.
 """
 
 from __future__ import annotations
@@ -113,17 +113,20 @@ def hmtm_state_to_numpy(state: HMTMState) -> dict:
 
 
 # each state's fields that shard over the mesh: per-document rows (over
-# the data axes), and (field: dim) of the vocab- and user-axis
+# the data axes), and (field: dim) of the vocab-, user- and sequence-axis
 # blocks, as the JAX package's partition_spec functions lay them out
+# (fLDA's and fCTM's per-token tau: P(data, seq))
 LAYOUT = {
     LDAState: dict(doc=("gamma", "Elogtheta", "Elogtheta_old"),
                    vocab={"beta": 1, "beta_old": 1}),
     FLDAState: dict(doc=("gamma", "Elogtheta", "Elogtheta_old", "tau", "tau_old"),
-                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0}),
+                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0},
+                    seq={"tau": 1, "tau_old": 1}),
     CTMState: dict(doc=("lam", "lam_old", "vsq", "logzeta"),
                    vocab={"beta": 1, "beta_old": 1}),
     FCTMState: dict(doc=("lam", "lam_old", "vsq", "logzeta", "tau", "tau_old"),
-                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0}),
+                    vocab={"beta": 1, "beta_old": 1, "kappa": 0, "kappa_old": 0},
+                    seq={"tau": 1, "tau_old": 1}),
     CTPFState: dict(doc=("gimel", "gimel_old", "zayin", "zayin_old"),
                     vocab={"alef": 1, "alef_old": 1}, user={"he": 1, "he_old": 1}),
     DTMState: dict(doc=("gamma", "Elogtheta", "lzeta"),
@@ -133,14 +136,15 @@ LAYOUT = {
 
 
 def shard_state(cls, arrays: Mapping, mesh, *, data_axis="data", vocab_axis=None,
-                user_axis=None, device="cpu", dtype=torch.float32):
+                user_axis=None, seq_axis=None, device="cpu", dtype=torch.float32):
     """This process's blocks of a whole state of ``cls`` (each field by
     name, as the JAX package holds it): the per-document fields' rows over
     ``data_axis`` (a name or a tuple of names, the first major, JAX's
     ``P(("data", "vocab"))`` order), the vocab-sharded fields' columns by
     vocab coordinate (beta ``[K, V/n]``, kappa ``[V/n]``, DTM's
-    ``[T, K, V/n]``), CTPF's he by user coordinate, every other field
-    whole; on ``device`` in ``dtype``."""
+    ``[T, K, V/n]``), CTPF's he by user coordinate, fLDA's and fCTM's tau
+    columns by ``seq_axis`` coordinate (``[rows, L/n]``), every other
+    field whole; on ``device`` in ``dtype``."""
     lay = LAYOUT[cls]
     kw = dict(device=device, dtype=dtype)
     out = {}
@@ -148,7 +152,7 @@ def shard_state(cls, arrays: Mapping, mesh, *, data_axis="data", vocab_axis=None
         a = np.asarray(arrays[f])
         if f in lay["doc"]:
             a = local_block(a, mesh, data_axis)
-        for key, axis in (("vocab", vocab_axis), ("user", user_axis)):
+        for key, axis in (("vocab", vocab_axis), ("user", user_axis), ("seq", seq_axis)):
             if axis is not None and f in lay.get(key, {}):
                 a = local_block(a, mesh, axis, dim=lay[key][f])
         out[f] = put_replicated(a, **kw)

@@ -83,6 +83,16 @@
 // converges: the reference's per-document break, and the masked tile's
 // result on the TPU, since a converged document's state is frozen there.
 // K is not padded beyond the stride.
+//
+// The pass mode (ctpf_estep_pass_kernel), for the sequence axis, where a
+// document's token and reader slots are split over ranks: one pass of the
+// fixpoint without its update, this rank's partials gsum = qp (r @ ea) +
+// qt h and zsum = qb h [B, K], from the block, slot list, rows and
+// products above.  The caller sums both over the ranks in one collective
+// and forms gimel, zayin, the masks and the stop test on the [B, K]
+// tiles; the last rows come from this kernel at viter = 0.  It reads the
+// same rows as a pass here and writes the two partials in place of the
+// state: one launch a pass.
 
 #include <stdint.h>
 
@@ -297,6 +307,47 @@ __device__ __forceinline__ void ctpf_zero_padding(float* __restrict__ wd,
   }
 }
 
+// Compacts a document's slots with a weight (c_l != 0, y_j != 0) into one
+// list, its tokens first and then its readers, each in slot order (the
+// order of the slots i < L + R with slot L + j reader j): per compact
+// slot its weight and its token or reader slot.  Returns their number and
+// the tokens' in *nL.  wcount: 16 ints of shared memory.  Every thread of
+// the block must call it.
+__device__ __forceinline__ int ctpf_compact(const float* c, const float* y, int L, int R,
+                                            float* mw, int* mslot, int* wcount, int* nL) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int LR = L + R;
+  int n = 0, nl = 0;
+  for (int base = 0; base < LR; base += kCThreads) {
+    const int i = base + tid;
+    const float wi = i < L ? c[i] : (i < LR ? y[i - L] : 0.f);
+    const unsigned real = __ballot_sync(0xffffffffu, wi != 0.f);
+    const unsigned tok = __ballot_sync(0xffffffffu, wi != 0.f && i < L);
+    if (lane == 0) {
+      wcount[warp] = __popc(real);
+      wcount[kCWarps + warp] = __popc(tok);
+    }
+    __syncthreads();
+    int off = n, total = n, total_l = nl;
+#pragma unroll
+    for (int v = 0; v < kCWarps; ++v) {
+      off += v < warp ? wcount[v] : 0;
+      total += wcount[v];
+      total_l += wcount[kCWarps + v];
+    }
+    if (wi != 0.f) {
+      const int j = off + __popc(real & ((1u << lane) - 1u));
+      mw[j] = wi;
+      mslot[j] = i < L ? i : i - L;
+    }
+    n = total;
+    nl = total_l;
+    __syncthreads();  // the list is complete; wcount may be rewritten
+  }
+  *nL = nl;
+  return n;
+}
+
 __global__ void __launch_bounds__(kCThreads, 4) ctpf_estep_kernel(
     const float* __restrict__ ealefT,    // [V, K] exp(psi(alef))^T
     const float* __restrict__ eheT,      // [U, K] exp(psi(he))^T
@@ -319,7 +370,7 @@ __global__ void __launch_bounds__(kCThreads, 4) ctpf_estep_kernel(
     float c_hyper, float g_hyper, int vec_in, int vec_out) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int LR = L + R;
   const int Kp = ctpf_stride(K), nsh = ctpf_shares(Kp), K4 = (K + 3) / 4 * 4;
   float* rows = smem;
@@ -342,36 +393,9 @@ __global__ void __launch_bounds__(kCThreads, 4) ctpf_estep_kernel(
   const float* y = ratings + static_cast<size_t>(b) * R;
   const size_t dk = static_cast<size_t>(b) * K;
 
-  // the slots with a weight, tokens then readers, each in slot order: the
-  // order of the slots i < L + R with slot L + j reader j
-  int n = 0, nL = 0;
-  int* wcount = reinterpret_cast<int*>(red + 16);
-  for (int base = 0; base < LR; base += kCThreads) {
-    const int i = base + tid;
-    const float wi = i < L ? c[i] : (i < LR ? y[i - L] : 0.f);
-    const unsigned real = __ballot_sync(0xffffffffu, wi != 0.f);
-    const unsigned tok = __ballot_sync(0xffffffffu, wi != 0.f && i < L);
-    if (lane == 0) {
-      wcount[warp] = __popc(real);
-      wcount[kCWarps + warp] = __popc(tok);
-    }
-    __syncthreads();
-    int off = n, total = n, total_l = nL;
-#pragma unroll
-    for (int v = 0; v < kCWarps; ++v) {
-      off += v < warp ? wcount[v] : 0;
-      total += wcount[v];
-      total_l += wcount[kCWarps + v];
-    }
-    if (wi != 0.f) {
-      const int j = off + __popc(real & ((1u << lane) - 1u));
-      mw[j] = wi;
-      mslot[j] = i < L ? i : i - L;
-    }
-    n = total;
-    nL = total_l;
-    __syncthreads();  // the list is complete; wcount may be rewritten
-  }
+  // the slots with a weight, tokens then readers, each in slot order
+  int nL;
+  const int n = ctpf_compact(c, y, L, R, mw, mslot, reinterpret_cast<int*>(red + 16), &nL);
 
   const bool vin = vec_in != 0;
   if (resident) ctpf_load(rows, ealefT, eheT, t, u, mslot, 0, n, nL, K, Kp, vin);
@@ -476,6 +500,98 @@ __global__ void __launch_bounds__(kCThreads, 4) ctpf_estep_kernel(
   }
 }
 
+// One pass of the fixpoint without its update, for the sequence axis:
+// this rank's partials gsum[b, k] = qp_k sum_l r_l ea[t_l, k] + qt_k h_k
+// (phi @ counts + xi_top @ ratings) and zsum[b, k] = qb_k h_k (xi_bot @
+// ratings) over the document's own token and reader slots, q from
+// (gimel, zayin) as above.  The caller sums them over the ranks that hold
+// the document's other slots and forms gimel = c + gsum and zayin = g +
+// zsum, the masks and the stop test on the [B, K] tiles between passes.
+// Same block, shared-memory layout, slot list, rows and products as
+// ctpf_estep_kernel; a document with doc_mask 0 gets zeros and reads
+// nothing else.  One fixed order for every sum: same inputs, same bits.
+__global__ void __launch_bounds__(kCThreads, 4) ctpf_estep_pass_kernel(
+    const float* __restrict__ ealefT,    // [V, K] exp(psi(alef))^T
+    const float* __restrict__ eheT,      // [U, K] exp(psi(he))^T
+    const int* __restrict__ terms,       // [B, L]
+    const float* __restrict__ counts,    // [B, L], 0 on padding
+    const int* __restrict__ readers,     // [B, R]
+    const float* __restrict__ ratings,   // [B, R], 0 on padding
+    const float* __restrict__ doc_mask,  // [B]
+    const float* __restrict__ inv_db,    // [K] 1 / (dalet bet)
+    const float* __restrict__ inv_dv,    // [K] 1 / (dalet vav)
+    const float* __restrict__ inv_hv,    // [K] 1 / (het vav)
+    const float* __restrict__ gi_in,     // [B, K]
+    const float* __restrict__ za_in,     // [B, K]
+    float* __restrict__ gsum,            // [B, K]
+    float* __restrict__ zsum,            // [B, K]
+    float* scratch,                      // [B, 3 (L + R)], the slot lists when not in smem
+    int L, int R, int K, int tile, int meta_in_smem, int resident, int vec_in) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t dk = static_cast<size_t>(b) * K;
+  if (!(doc_mask[b] > 0.f)) {
+    for (int k = tid; k < K; k += kCThreads) {
+      gsum[dk + k] = 0.f;
+      zsum[dk + k] = 0.f;
+    }
+    return;
+  }
+  const int LR = L + R;
+  const int Kp = ctpf_stride(K), nsh = ctpf_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* q = rows + static_cast<size_t>(tile) * Kp;  // qp, qt, qb, qs
+  float* ppart = q + 8 * Kp;
+  float* hpart = ppart + nsh * Kp;
+  float* red = hpart + nsh * Kp + 4 * K4;
+  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * kCMeta * LR;
+  float* mw = meta;
+  float* mcs = meta + LR;
+  int* mslot = reinterpret_cast<int*>(meta + 2 * LR);
+  const int* t = terms + static_cast<size_t>(b) * L;
+  const int* u = readers + static_cast<size_t>(b) * R;
+
+  int nL;
+  const int n = ctpf_compact(counts + static_cast<size_t>(b) * L,
+                             ratings + static_cast<size_t>(b) * R, L, R, mw, mslot,
+                             reinterpret_cast<int*>(red + 16), &nL);
+  const bool vin = vec_in != 0;
+  if (resident) ctpf_load(rows, ealefT, eheT, t, u, mslot, 0, n, nL, K, Kp, vin);
+  for (int k = tid; k < Kp; k += kCThreads) {
+    if (k < K) {
+      ctpf_factors(q, Kp, k, gi_in[dk + k], za_in[dk + k], inv_db, inv_dv, inv_hv);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) q[v * Kp + k] = 0.f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int m = min(tile, n - j0), mt = max(0, min(m, nL - j0));
+    if (!resident) {
+      ctpf_load(rows, ealefT, eheT, t, u, mslot, j0, m, mt, K, Kp, vin);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    ctpf_normalisers(rows, m, mt, j0, q, mw, mcs, Kp);
+    __syncthreads();
+    ctpf_product(rows, m, mt, mcs + j0, ppart, hpart, Kp, nsh, j0 == 0);
+    __syncthreads();
+  }
+  for (int k = tid; k < K; k += kCThreads) {
+    float pc = 0.f, hr = 0.f;
+    if (n > 0) {
+      for (int h = 0; h < nsh; ++h) {
+        pc += ppart[h * Kp + k];
+        hr += hpart[h * Kp + k];
+      }
+    }
+    gsum[dk + k] = q[k] * pc + q[Kp + k] * hr;
+    zsum[dk + k] = q[2 * Kp + k] * hr;
+  }
+}
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace tmvb
@@ -522,6 +638,30 @@ int tmvb_ctpf_estep(const float* ealefT, const float* eheT, const int* terms,
       gi_in, gio_in, za_in, zao_in, gi_out, gio_out, za_out, zao_out, wa, wh, scratch,
       static_cast<int>(L), static_cast<int>(R), static_cast<int>(K), s.tile, s.meta_in_smem,
       s.resident, viter, vtol * vtol, c_hyper, g_hyper, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode: gsum and zsum [B, K] (see ctpf_estep_pass_kernel);
+// scratch as for tmvb_ctpf_estep.
+int tmvb_ctpf_estep_pass(const float* ealefT, const float* eheT, const int* terms,
+                         const float* counts, const int* readers, const float* ratings,
+                         const float* doc_mask, const float* inv_db, const float* inv_dv,
+                         const float* inv_hv, const float* gi_in, const float* za_in,
+                         float* gsum, float* zsum, float* scratch, int64_t B, int64_t L,
+                         int64_t R, int64_t K, void* stream) {
+  if (B == 0) return 0;
+  tmvb::CtpfShape s;
+  const int rc = tmvb::ctpf_shape(L + R, K, &s);
+  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = tmvb::allow_smem(tmvb::ctpf_estep_pass_kernel, s.bytes);
+  if (err != cudaSuccess) return tmvb::fail(err);
+  const int vec_in = K % 4 == 0 && tmvb::aligned16(ealefT) && tmvb::aligned16(eheT);
+  tmvb::ctpf_estep_pass_kernel<<<static_cast<unsigned>(B), tmvb::kCThreads, s.bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv, gi_in,
+      za_in, gsum, zsum, scratch, static_cast<int>(L), static_cast<int>(R), static_cast<int>(K),
+      s.tile, s.meta_in_smem, s.resident, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 

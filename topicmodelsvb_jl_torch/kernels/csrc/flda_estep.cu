@@ -95,6 +95,17 @@
 // topic's thread.  The double sum uses `red`'s first 16 floats and the max
 // floats 32-39 (the compaction counts, done by then), so the d^2 sum keeps
 // floats 16-23.  kF64 = false is the f32 mode's code as it was, bit for bit.
+//
+// The pass mode (flda_estep_pass_kernel), for the sequence axis, where a
+// document's token slots are split over ranks: one pass of the fixpoint
+// without its update, this rank's partial gamma statistic pc = sum_l p_l
+// c_l / s_l [B, K] and tau_new [B, L], from the block, slot list, rows and
+// per-slot pass above.  The caller sums pc over the ranks and updates
+// gamma, psi, the masks and tau on the [B, K] and [B, L] tiles; the last
+// rows come from this kernel at viter = 0.  It reads the same rows and
+// takes the same exps as a pass here, and writes pc and tau_new in place
+// of the state: ~B (L + K) floats more than a pass inside the fixpoint,
+// and one launch a pass.
 
 #include <algorithm>
 
@@ -291,6 +302,55 @@ __device__ __forceinline__ void write_w(float* __restrict__ wd, const float* pb,
   }
 }
 
+// Compacts a document's L slots into its slot list: those with c_l != 0
+// from the front in slot order, the padding slots from the back (their
+// order adds to no sum), each with its count, its slot, (1 - eta)
+// kappa[t_l] and its tau (with kOld, its tau_old too).  Returns the number
+// with a count.  wcount: 16 ints of shared memory.  Every thread of the
+// block must call it.
+template <bool kOld>
+__device__ __forceinline__ int flda_compact(const float* c, const int* t, int L,
+                                            const float* __restrict__ kappa, float one_m_eta,
+                                            const float* tau, const float* tauo, float* mc,
+                                            int* mslot, float* mkap, float* tcur, float* told,
+                                            int* wcount) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int n = 0, npad = 0;
+  for (int base = 0; base < L; base += kFThreads) {
+    const int l = base + tid;
+    const bool in = l < L;
+    const float cl = in ? c[l] : 0.f;
+    const unsigned real = __ballot_sync(0xffffffffu, in && cl != 0.f);
+    const unsigned pad = __ballot_sync(0xffffffffu, in && cl == 0.f);
+    if (lane == 0) {
+      wcount[warp] = __popc(real);
+      wcount[kFWarps + warp] = __popc(pad);
+    }
+    __syncthreads();
+    int offr = n, offp = npad, totr = n, totp = npad;
+#pragma unroll
+    for (int i = 0; i < kFWarps; ++i) {
+      offr += i < warp ? wcount[i] : 0;
+      offp += i < warp ? wcount[kFWarps + i] : 0;
+      totr += wcount[i];
+      totp += wcount[kFWarps + i];
+    }
+    if (in) {
+      const unsigned below = (1u << lane) - 1u;
+      const int j = cl != 0.f ? offr + __popc(real & below) : L - 1 - (offp + __popc(pad & below));
+      mc[j] = cl;
+      mslot[j] = l;
+      mkap[j] = one_m_eta * kappa[t[l]];
+      tcur[j] = tau[l];
+      if (kOld) told[j] = tauo[l];
+    }
+    n = totr;
+    npad = totp;
+    __syncthreads();  // the list is complete; wcount may be rewritten
+  }
+  return n;
+}
+
 template <bool kF64>
 __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
@@ -343,40 +403,8 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
 
   // the slots with a count from the front in slot order, the padding slots
   // from the back (their order adds to no sum)
-  int n = 0, npad = 0;
-  int* wcount = reinterpret_cast<int*>(red + 32);
-  for (int base = 0; base < L; base += kFThreads) {
-    const int l = base + tid;
-    const bool in = l < L;
-    const float cl = in ? c[l] : 0.f;
-    const unsigned real = __ballot_sync(0xffffffffu, in && cl != 0.f);
-    const unsigned pad = __ballot_sync(0xffffffffu, in && cl == 0.f);
-    if (lane == 0) {
-      wcount[warp] = __popc(real);
-      wcount[kFWarps + warp] = __popc(pad);
-    }
-    __syncthreads();
-    int offr = n, offp = npad, totr = n, totp = npad;
-#pragma unroll
-    for (int i = 0; i < kFWarps; ++i) {
-      offr += i < warp ? wcount[i] : 0;
-      offp += i < warp ? wcount[kFWarps + i] : 0;
-      totr += wcount[i];
-      totp += wcount[kFWarps + i];
-    }
-    if (in) {
-      const unsigned below = (1u << lane) - 1u;
-      const int j = cl != 0.f ? offr + __popc(real & below) : L - 1 - (offp + __popc(pad & below));
-      mc[j] = cl;
-      mslot[j] = l;
-      mkap[j] = one_m_eta * kappa[t[l]];
-      tcur[j] = tau_in[dl + l];
-      told[j] = tauo_in[dl + l];
-    }
-    n = totr;
-    npad = totp;
-    __syncthreads();  // the list is complete; wcount may be rewritten
-  }
+  const int n = flda_compact<true>(c, t, L, kappa, one_m_eta, tau_in + dl, tauo_in + dl, mc,
+                                   mslot, mkap, tcur, told, reinterpret_cast<int*>(red + 32));
 
   const bool vin = vec_in != 0;
   if (resident) load_rows<kFThreads, true>(rows, logbetaT, t, mslot, 0, L, K, Kp, vin);
@@ -558,6 +586,88 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
   write_w(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
 }
 
+// One pass of the fixpoint without its update, for the sequence axis:
+// this rank's partial pc[b, k] = sum_l p_lk c_l / s_l over the document's
+// own slots, p from (tau, El) as above, and tau_new [B, L] on every slot,
+// padding slots included, as flda_estep_kernel updates them.  The caller
+// sums pc over the ranks that hold the document's other slots and runs
+// gamma, psi, the masks and the stop test on the [B, K] tiles between
+// passes.  Same block, shared-memory layout, slot list, rows, shift and
+// products as flda_estep_kernel; a document with doc_mask 0 gets pc = 0
+// and tau_new = tau and reads nothing else.  One fixed order for every
+// sum: same inputs, same bits.
+__global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
+    const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
+    const float* __restrict__ kappa,     // [V]
+    const int* __restrict__ terms,       // [B, L]
+    const float* __restrict__ counts,    // [B, L], 0 on padding
+    const float* __restrict__ doc_mask,  // [B]
+    const float* __restrict__ eta_p,     // [] eta
+    const float* __restrict__ el_in,     // [B, K]
+    const float* __restrict__ tau_in,    // [B, L]
+    float* __restrict__ pc,              // [B, K]
+    float* __restrict__ tau_out,         // [B, L]
+    float* scratch,                      // [B, 7 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int vec_in) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t dl = static_cast<size_t>(b) * L, dk = static_cast<size_t>(b) * K;
+  if (!(doc_mask[b] > 0.f)) {
+    for (int k = tid; k < K; k += kFThreads) pc[dk + k] = 0.f;
+    for (int l = tid; l < L; l += kFThreads) tau_out[dl + l] = tau_in[dl + l];
+    return;
+  }
+  const int Kp = flda_stride(K), nsh = flda_shares(Kp), K4 = (K + 3) / 4 * 4;
+  float* rows = smem;
+  float* pbuf = rows + static_cast<size_t>(tile) * Kp;
+  float* e = pbuf + static_cast<size_t>(tile) * Kp;
+  float* qpart = e + 2 * Kp;
+  float* red = qpart + nsh * Kp + 3 * K4;
+  float* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
+  float* mc = meta;
+  float* mcs = meta + L;
+  float* mkap = meta + 2 * L;
+  int* mslot = reinterpret_cast<int*>(meta + 3 * L);
+  float* tcur = meta + 5 * L;
+  float* tnxt = meta + 6 * L;
+  const int* t = terms + dl;
+  const float eta = *eta_p;
+
+  const int n = flda_compact<false>(counts + dl, t, L, kappa, 1.0f - eta, tau_in + dl, nullptr,
+                                    mc, mslot, mkap, tcur, nullptr,
+                                    reinterpret_cast<int*>(red + 32));
+  const bool vin = vec_in != 0;
+  if (resident) load_rows<kFThreads, true>(rows, logbetaT, t, mslot, 0, L, K, Kp, vin);
+  // e = (El - max El) log2(e), -inf on the stride's padding columns
+  float mx = -INFINITY;
+  for (int k = tid; k < K; k += kFThreads) mx = fmaxf(mx, el_in[dk + k]);
+  mx = block_max_once(mx, red + 24);
+  for (int k = tid; k < Kp; k += kFThreads) e[k] = k < K ? (el_in[dk + k] - mx) * kLog2e : -INFINITY;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j0 = 0; j0 < L; j0 += tile) {
+    const int m = min(tile, L - j0);
+    if (!resident) {
+      load_rows<kFThreads, true>(rows, logbetaT, t, mslot, j0, m, K, Kp, vin);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    slot_pass(rows, pbuf, m, j0, n, e, tcur, tnxt, mc, mcs, mkap, eta, Kp);
+    __syncthreads();
+    if (j0 < n) {
+      q_pass(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
+      __syncthreads();
+    }
+  }
+  for (int k = tid; k < K; k += kFThreads) {
+    float q = 0.f;
+    if (n > 0)
+      for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
+    pc[dk + k] = q;
+  }
+  for (int j = tid; j < L; j += kFThreads) tau_out[dl + mslot[j]] = tnxt[j];
+}
+
 }  // namespace tmvb
 
 extern "C" {
@@ -598,6 +708,27 @@ int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
       tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w, scratch,
       static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, viter,
       vtol * vtol, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode: pc [B, K] and tau_new [B, L] (see flda_estep_pass_kernel);
+// scratch as for tmvb_flda_estep.
+int tmvb_flda_estep_pass(const float* logbetaT, const float* kappa, const int* terms,
+                         const float* counts, const float* doc_mask, const float* eta,
+                         const float* el_in, const float* tau_in, float* pc, float* tau_out,
+                         float* scratch, int64_t B, int64_t L, int64_t K, int vec_in,
+                         void* stream) {
+  if (B == 0) return 0;
+  tmvb::FldaShape s;
+  const int rc = tmvb::flda_shape(L, K, &s);
+  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_pass_kernel, s.bytes);
+  if (err != cudaSuccess) return tmvb::fail(err);
+  tmvb::flda_estep_pass_kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in, pc, tau_out, scratch,
+      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 

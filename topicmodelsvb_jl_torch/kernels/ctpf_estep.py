@@ -22,6 +22,12 @@ phi ∝ exp(ψ(alef))[:, terms]·exp(ψ(gimel))/(dalet·bet) and the 2K xi
 shares one normaliser over exp(ψ(he))[:, readers]·(exp(ψ(gimel))/(dalet·vav)
 + exp(ψ(zayin))/(het·vav)); both normalisers carry the ``+ EPSILON``
 guard of the TPU kernel.  ψ is the kernels' shift-by-8 series.
+
+:func:`ctpf_estep_pass` is the kernel's pass mode, for the sequence axis,
+where each document's token and reader slots are split over ranks: one
+pass's partial gimel and zayin statistics on this rank's slots; the
+caller sums them over the ranks between passes, and
+:func:`ctpf_split_fixpoint` drives it.
 """
 
 from __future__ import annotations
@@ -43,6 +49,37 @@ def _factors(gimel, zayin, inv_db, inv_dv, inv_hv):
     return eg * inv_db, eg * inv_dv, ez * inv_hv
 
 
+def _normalised(ea, eh, counts, ratings, qp, qs):
+    """The slots' weights over their normalisers on gathered rows: c / (ea·qp
+    + EPSILON) [B, L] and y / (eh·qs + EPSILON) [B, R]."""
+    cs = counts / (torch.sum(ea * qp[:, None, :], dim=-1) + EPSILON)
+    rs = ratings / (torch.sum(eh * qs[:, None, :], dim=-1) + EPSILON)
+    return cs, rs
+
+
+def _pass(ea, eh, counts, ratings, gimel, zayin, inv_db, inv_dv, inv_hv):
+    """One pass on gathered rows: gimel's statistic phi@counts +
+    xi_top@ratings and zayin's xi_bot@ratings, both [B, K]."""
+    qp, qt, qb = _factors(gimel, zayin, inv_db, inv_dv, inv_hv)
+    cs, rs = _normalised(ea, eh, counts, ratings, qp, qt + qb)
+    hr = torch.sum(eh * rs[:, :, None], dim=1)
+    return qp * torch.sum(ea * cs[:, :, None], dim=1) + qt * hr, qb * hr
+
+
+def _update(carry, gsum, zsum, c_hyper, g_hyper, vtol2):
+    """The fixpoint's update on the [B, K] tiles from one pass's summed
+    statistics: gimel, zayin, the masked state and the per-document stop
+    test on gimel."""
+    gi, gio, za, zao, active = carry
+    upd = active[:, None]
+    gio2 = torch.where(upd, gi, gio)
+    gi2 = torch.where(upd, c_hyper + gsum, gi)
+    zao2 = torch.where(upd, za, zao)
+    za2 = torch.where(upd, g_hyper + zsum, za)
+    d = gi2 - gio2
+    return gi2, gio2, za2, zao2, active & (torch.sum(d * d, -1) >= vtol2)
+
+
 def ctpf_estep_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
                    inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin, zayin_old,
                    *, viter: int, vtol: float, c_hyper: float, g_hyper: float):
@@ -52,32 +89,15 @@ def ctpf_estep_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
     eh = eheT[readers]                                 # [B, R, K]
     vtol2 = vtol * vtol
 
-    def normalised(qp, qs):
-        cs = counts / (torch.sum(ea * qp[:, None, :], dim=-1) + EPSILON)
-        rs = ratings / (torch.sum(eh * qs[:, None, :], dim=-1) + EPSILON)
-        return cs, rs
-
     def body(_, carry):
-        gi, gio, za, zao, active = carry
-        qp, qt, qb = _factors(gi, za, inv_db, inv_dv, inv_hv)
-        cs, rs = normalised(qp, qt + qb)
-        pc = qp * torch.sum(ea * cs[:, :, None], dim=1)
-        hr = torch.sum(eh * rs[:, :, None], dim=1)
-        gi_new = c_hyper + pc + qt * hr
-        za_new = g_hyper + qb * hr
-        upd = active[:, None]
-        gio2 = torch.where(upd, gi, gio)
-        gi2 = torch.where(upd, gi_new, gi)
-        zao2 = torch.where(upd, za, zao)
-        za2 = torch.where(upd, za_new, za)
-        d = gi2 - gio2
-        return gi2, gio2, za2, zao2, active & (torch.sum(d * d, -1) >= vtol2)
+        gsum, zsum = _pass(ea, eh, counts, ratings, carry[0], carry[2], inv_db, inv_dv, inv_hv)
+        return _update(carry, gsum, zsum, c_hyper, g_hyper, vtol2)
 
     gimel, gimel_old, zayin, zayin_old, _ = masked_fixpoint(
         body, (gimel, gimel_old, zayin, zayin_old, doc_mask > 0), viter)
     qp, qt, qb = _factors(gimel_old, zayin_old, inv_db, inv_dv, inv_hv)
     qs = qt + qb
-    cs, rs = normalised(qp, qs)
+    cs, rs = _normalised(ea, eh, counts, ratings, qp, qs)
     wa = ea * (qp[:, None, :] * cs[:, :, None])
     wh = eh * (qs[:, None, :] * rs[:, :, None])
     return gimel, gimel_old, zayin, zayin_old, wa, wh
@@ -148,3 +168,99 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
 
 
 ctpf_estep.launches = 0   # kernel launches (the plain version is not counted)
+
+
+def ctpf_estep_pass_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
+                        inv_db, inv_dv, inv_hv, gimel, zayin):
+    """Plain PyTorch version of the pass mode: ``gsum = phi@counts +
+    xi_top@ratings`` and ``zsum = xi_bot@ratings`` [B, K] over the token
+    and reader slots given, phi and xi from (gimel, zayin) (CTPF.jl:309-323,
+    the JAX package's models/ctpf.py:127-140); both 0 for a document with
+    ``doc_mask`` 0."""
+    gsum, zsum = _pass(ealefT[terms], eheT[readers], counts, ratings, gimel, zayin, inv_db,
+                       inv_dv, inv_hv)
+    act = (doc_mask > 0)[:, None]
+    zero = torch.zeros_like(gsum)
+    return torch.where(act, gsum, zero), torch.where(act, zsum, zero)
+
+
+_PASS_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+
+
+def ctpf_estep_pass(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
+                    inv_db, inv_dv, inv_hv, gimel, zayin):
+    """One pass of the CTPF fixpoint without its update: this rank's
+    partial statistics ``(gsum, zsum)``, each [B, K] (see
+    :func:`ctpf_estep_pass_ref`).  CPU tensors take
+    :func:`ctpf_estep_pass_ref`; CUDA tensors launch the kernel (f32
+    only) or raise."""
+    args = (ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv,
+            gimel, zayin)
+    if ealefT.device.type == "cpu":
+        return ctpf_estep_pass_ref(*args)
+    if ealefT.device.type != "cuda":
+        raise ValueError(f"ctpf_estep_pass: no kernel for device {ealefT.device}")
+    if terms.dim() != 2 or readers.dim() != 2 or ealefT.dim() != 2 or eheT.dim() != 2:
+        raise ValueError("ctpf_estep_pass: terms, readers and the tables must be 2-D")
+    B, L = terms.shape
+    R = readers.shape[1]
+    V, K = ealefT.shape
+    U = eheT.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    require("ctpf_estep_pass", ealefT.device, {
+        "ealefT": (ealefT, (V, K), f32), "eheT": (eheT, (U, K), f32),
+        "terms": (terms, (B, L), i32), "counts": (counts, (B, L), f32),
+        "readers": (readers, (B, R), i32), "ratings": (ratings, (B, R), f32),
+        "doc_mask": (doc_mask, (B,), f32), "inv_db": (inv_db, (K,), f32),
+        "inv_dv": (inv_dv, (K,), f32), "inv_hv": (inv_hv, (K,), f32),
+        "gimel": (gimel, (B, K), f32), "zayin": (zayin, (B, K), f32)})
+    gsum = torch.empty((B, K), dtype=f32, device=ealefT.device)
+    zsum = torch.empty((B, K), dtype=f32, device=ealefT.device)
+    if B == 0:
+        return gsum, zsum
+    n_scratch = _scratch_floats(L, R, K)
+    scratch = (torch.empty((B, n_scratch), dtype=f32, device=ealefT.device)
+               if n_scratch else None)
+    err = _build.launch(
+        _build.function("tmvb_ctpf_estep_pass", _PASS_ARGTYPES), ealefT.device,
+        *(t.data_ptr() for t in (*args, gsum, zsum)),
+        None if scratch is None else scratch.data_ptr(), B, L, R, K)
+    check(err, "ctpf_estep_pass")
+    ctpf_estep_pass.launches += 1
+    return gsum, zsum
+
+
+ctpf_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+
+
+def ctpf_split_fixpoint(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
+                        inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin, zayin_old,
+                        *, viter: int, vtol: float, c_hyper: float, g_hyper: float,
+                        reduce=None):
+    """The CTPF E-step over a chunk whose token and reader slots are split
+    over ranks (the sequence axis): :func:`ctpf_estep`'s fixpoint with
+    each pass's statistics from :func:`ctpf_estep_pass`, the pair summed
+    by ``reduce`` in one call on their stack [2, B, K] (the psum over the
+    ranks that hold the documents' other slots; None on one rank), and
+    gimel, zayin, the masks and the per-document stop test on gimel on the
+    tiles, as the JAX package computes them on this path (models/ctpf.py
+    ``_estep_chunk``).  Returns ``(gimel, gimel_old, zayin, zayin_old, wa,
+    wh)``, ``wa``/``wh`` over this rank's slots from the kernel at ``viter
+    = 0`` (phi and xi from the final ``*_old``).  Every rank of a
+    ``reduce`` group holds the same documents, so they test the same mask
+    and stop together."""
+    vtol2 = vtol * vtol
+
+    def body(_, carry):
+        gsum, zsum = ctpf_estep_pass(ealefT, eheT, terms, counts, readers, ratings,
+                                     carry[4].to(counts.dtype), inv_db, inv_dv, inv_hv,
+                                     carry[0], carry[2])
+        if reduce is not None:
+            gsum, zsum = reduce(torch.stack((gsum, zsum))).unbind(0)
+        return _update(carry, gsum, zsum, c_hyper, g_hyper, vtol2)
+
+    gimel, gimel_old, zayin, zayin_old, _ = masked_fixpoint(
+        body, (gimel, gimel_old, zayin, zayin_old, doc_mask > 0), viter)
+    return ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv,
+                      inv_hv, gimel, gimel_old, zayin, zayin_old, viter=0, vtol=vtol,
+                      c_hyper=c_hyper, g_hyper=g_hyper)

@@ -24,6 +24,12 @@ tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
 (fLDA.jl:195-200); ψ is the kernels' shift-by-8 series, or with
 ``elogtheta_f64=True`` the f64 Elogtheta channel as in ``lda_estep``
 (``lda_estep.elogtheta``; the kernel's f64-channel mode).
+
+:func:`flda_estep_pass` is the kernel's pass mode, for the sequence axis,
+where each document's token slots are split over ranks: one pass's
+partial gamma statistic and the new tau on this rank's slots; the
+caller sums the statistic over the ranks between passes, and
+:func:`flda_split_fixpoint` drives it.
 """
 
 from __future__ import annotations
@@ -39,6 +45,40 @@ from ._build import check, require
 from .lda_estep import elogtheta
 
 
+def _phi(lb, tau, El):
+    """Unnormalised phi = exp(tau·log beta + El − max) on gathered rows
+    [B, L, K], and its sum over K."""
+    logits = tau[:, :, None] * lb + El[:, None, :]
+    p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    return p, torch.sum(p, dim=-1)
+
+
+def _pass(lb, kap, counts, eta, El, tau):
+    """One pass on gathered rows: (Σ_l phi_l·c_l [B, K], tau_new [B, L])."""
+    p, s = _phi(lb, tau, El)
+    philog = torch.sum(p * lb, dim=-1) / s
+    tau_new = eta / (eta + (1.0 - eta) * kap * torch.exp(-philog) + EPSILON)
+    return torch.sum(p * (counts / s)[:, :, None], dim=1), tau_new
+
+
+def _update(carry, pc, tau_new, alpha, vtol2, elogtheta_f64):
+    """The fixpoint's update on the [B, K] and [B, L] tiles from one pass's
+    summed statistic and new tau: gamma, ψ, the masked state and the
+    per-document stop test on El."""
+    gamma, El, El_old, tau, tau_old, active = carry
+    gamma_new = alpha + pc + EPSILON
+    El_new = elogtheta(gamma_new, elogtheta_f64)
+    upd = active[:, None]
+    gamma2 = torch.where(upd, gamma_new, gamma)
+    El_old2 = torch.where(upd, El, El_old)
+    El2 = torch.where(upd, El_new, El)
+    tau_old2 = torch.where(upd, tau, tau_old)
+    tau2 = torch.where(upd, tau_new, tau)
+    d = El2 - El_old2
+    return (gamma2, El2, El_old2, tau2, tau_old2,
+            active & (torch.sum(d * d, -1) >= vtol2))
+
+
 def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
                    gamma, El, El_old, tau, tau_old, *, viter: int, vtol: float,
                    elogtheta_f64: bool = False):
@@ -48,32 +88,13 @@ def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
     kap = kappa[terms]                                 # [B, L]
     vtol2 = vtol * vtol
 
-    def phi(t, e):
-        logits = t[:, :, None] * lb + e[:, None, :]
-        p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
-        return p, torch.sum(p, dim=-1)
-
     def body(_, carry):
-        gamma, El, El_old, tau, tau_old, active = carry
-        p, s = phi(tau, El)
-        philog = torch.sum(p * lb, dim=-1) / s
-        tau_new = eta / (eta + (1.0 - eta) * kap * torch.exp(-philog) + EPSILON)
-        cs = counts / s
-        gamma_new = alpha + torch.sum(p * cs[:, :, None], dim=1) + EPSILON
-        El_new = elogtheta(gamma_new, elogtheta_f64)
-        upd = active[:, None]
-        gamma2 = torch.where(upd, gamma_new, gamma)
-        El_old2 = torch.where(upd, El, El_old)
-        El2 = torch.where(upd, El_new, El)
-        tau_old2 = torch.where(upd, tau, tau_old)
-        tau2 = torch.where(upd, tau_new, tau)
-        d = El2 - El_old2
-        return (gamma2, El2, El_old2, tau2, tau_old2,
-                active & (torch.sum(d * d, -1) >= vtol2))
+        pc, tau_new = _pass(lb, kap, counts, eta, carry[1], carry[3])
+        return _update(carry, pc, tau_new, alpha, vtol2, elogtheta_f64)
 
     gamma, El, El_old, tau, tau_old, _ = masked_fixpoint(
         body, (gamma, El, El_old, tau, tau_old, doc_mask > 0), viter)
-    p, s = phi(tau_old, El_old)
+    p, s = _phi(lb, tau_old, El_old)
     wb = p * ((tau * counts) / s)[:, :, None]
     wk = (1.0 - tau) * counts
     return gamma, El, El_old, tau, tau_old, torch.cat([wb, wk[:, :, None]], dim=-1)
@@ -140,3 +161,88 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
 
 flda_estep.launches = 0   # kernel launches (the plain version is not counted)
 flda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode
+
+
+def flda_estep_pass_ref(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
+    """Plain PyTorch version of the pass mode: ``pc [B, K] = Σ_l phi_l·c_l``
+    with ``phi ∝ exp(tau·log beta + El)`` over the slots given, and
+    ``tau_new [B, L]`` on every slot (fLDA.jl:195-200); a document with
+    ``doc_mask`` 0 gets ``pc = 0`` and ``tau_new = tau``."""
+    pc, tau_new = _pass(logbetaT[terms], kappa[terms], counts, eta, El, tau)
+    act = (doc_mask > 0)[:, None]
+    return torch.where(act, pc, torch.zeros_like(pc)), torch.where(act, tau_new, tau)
+
+
+_PASS_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def flda_estep_pass(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
+    """One pass of the fLDA fixpoint without its update: this rank's
+    partial statistic ``pc [B, K]`` and ``tau_new [B, L]`` (see
+    :func:`flda_estep_pass_ref`).  CPU tensors take
+    :func:`flda_estep_pass_ref`; CUDA tensors launch the kernel (f32
+    only) or raise."""
+    if logbetaT.device.type == "cpu":
+        return flda_estep_pass_ref(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau)
+    if logbetaT.device.type != "cuda":
+        raise ValueError(f"flda_estep_pass: no kernel for device {logbetaT.device}")
+    if terms.dim() != 2 or logbetaT.dim() != 2:
+        raise ValueError("flda_estep_pass: terms and logbetaT must be 2-D")
+    B, L = terms.shape
+    V, K = logbetaT.shape
+    f32 = torch.float32
+    require("flda_estep_pass", logbetaT.device, {
+        "logbetaT": (logbetaT, (V, K), f32), "kappa": (kappa, (V,), f32),
+        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), f32),
+        "doc_mask": (doc_mask, (B,), f32), "eta": (eta, (), f32),
+        "El": (El, (B, K), f32), "tau": (tau, (B, L), f32)})
+    pc = torch.empty((B, K), dtype=f32, device=logbetaT.device)
+    tau_new = torch.empty_like(tau)
+    if B == 0:
+        return pc, tau_new
+    n_scratch = _scratch_floats(L, K)
+    scratch = (torch.empty((B, n_scratch), dtype=f32, device=logbetaT.device)
+               if n_scratch else None)
+    err = _build.launch(
+        _build.function("tmvb_flda_estep_pass", _PASS_ARGTYPES), logbetaT.device,
+        *(t.data_ptr() for t in (logbetaT, kappa, terms, counts, doc_mask, eta, El, tau, pc,
+                                 tau_new)),
+        None if scratch is None else scratch.data_ptr(), B, L, K,
+        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0))
+    check(err, "flda_estep_pass")
+    flda_estep_pass.launches += 1
+    return pc, tau_new
+
+
+flda_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+
+
+def flda_split_fixpoint(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El,
+                        El_old, tau, tau_old, *, viter: int, vtol: float, reduce=None,
+                        elogtheta_f64: bool = False):
+    """The fLDA E-step over a chunk whose token slots are split over ranks
+    (the sequence axis): :func:`flda_estep`'s fixpoint with each pass's
+    statistic and tau from :func:`flda_estep_pass`, the statistic summed
+    by ``reduce`` (the psum over the ranks that hold the documents' other
+    slots; None on one rank), and gamma, ψ (in float64 with
+    ``elogtheta_f64``), the masks, tau and the per-document stop test on
+    the tiles, as the JAX package computes them on this path
+    (models/flda.py ``_estep_chunk``).  Returns ``(gamma, El, El_old,
+    tau, tau_old, w)``, ``w`` [B, L, K+1] over this rank's slots from the
+    kernel at ``viter = 0`` (phi from ``tau_old`` and the final
+    ``El_old``, the weights from the final tau).  Every rank of a
+    ``reduce`` group holds the same documents, so they test the same mask
+    and stop together."""
+    vtol2 = vtol * vtol
+
+    def body(_, carry):
+        pc, tau_new = flda_estep_pass(logbetaT, kappa, terms, counts,
+                                      carry[5].to(counts.dtype), eta, carry[1], carry[3])
+        if reduce is not None:
+            pc = reduce(pc)
+        return _update(carry, pc, tau_new, alpha, vtol2, elogtheta_f64)
+
+    gamma, El, El_old, tau, tau_old, _ = masked_fixpoint(
+        body, (gamma, El, El_old, tau, tau_old, doc_mask > 0), viter)
+    return flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old,
+                      tau, tau_old, viter=0, vtol=vtol)

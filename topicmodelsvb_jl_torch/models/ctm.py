@@ -16,6 +16,10 @@ single-device path (reference ``src/CTM.jl`` and its OpenCL twin
 * The bound's token terms go through ``kernels/lda_elbo`` with
   (Elogtheta, Elogtheta_old) := (lambda, lambda_old), as the JAX package's
   ``scan_body_pallas`` does.
+* On the sequence axis each document's token slots are split over ranks:
+  the Newtons' token inputs (C once a chunk, phi@counts every pass) are
+  summed over the axis, between the Newtons, and the Newtons then run
+  alike on every rank (the JAX package's models/ctm.py:85-116).
 """
 
 from __future__ import annotations
@@ -28,14 +32,13 @@ import torch
 from ..kernels.lda_elbo import lda_elbo_tok
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
-from ..parallel.mesh import axis_tuple
 from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, dirichlet_ones, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, l2norm,
     logsumexp,
     masked_fixpoint, mvnormal_diag_entropy,
 )
-from .lda import _chunks, as_segments, no_seq_axis, token_plans
+from .lda import _chunks, as_segments, check_modes, token_axes, token_plans, token_reduce
 
 
 @dataclasses.dataclass
@@ -105,10 +108,15 @@ def gaussian_update(state, vsq_sum, lam_sum, lam_outer, M_total, identify: bool)
 
 
 def estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam, lam_old, vsq,
-                logzeta, viter, vtol, niter, ntol):
+                logzeta, viter, vtol, niter, ntol, tok_reduce=None):
     """One chunk's E-step; returns its new per-document state and the rows
-    ``w = phi·counts`` [B, L, K] of the beta statistic."""
+    ``w = phi·counts`` [B, L, K] of the beta statistic.  ``tok_reduce``
+    (the sequence axis) sums the per-document token sums over the ranks
+    holding the documents' other slots: C once, phi@counts every pass,
+    each before the Newtons read it."""
     C = torch.sum(counts, dim=-1)
+    if tok_reduce is not None:
+        C = tok_reduce(C)
     # a zero-count slot may gather a zero beta column whose raw log is
     # -inf for every k; every use of phi is count-weighted, so
     # neutralising those logits is exact and keeps the softmax finite
@@ -122,6 +130,8 @@ def estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam, lam_old, v
         vsq2 = ctm_vsq_newton(lam, vsq, logzeta2, C, isd, active, niter, ntol)
         vsq2 = torch.where(active[:, None], vsq2, vsq)
         pc = torch.einsum("bl,blk->bk", counts, p)
+        if tok_reduce is not None:
+            pc = tok_reduce(pc)
         lam_new = ctm_lambda_newton(lam, vsq2, logzeta2, pc, C, mu, invsigma, active,
                                     niter, ntol)
         upd = active[:, None]
@@ -145,13 +155,15 @@ def moment_sums(lam, vsq, doc_mask) -> tuple:
 
 
 def sweep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam, lam_old, vsq, logzeta,
-                plan, beta_temp, viter, vtol, niter, ntol) -> tuple:
+                plan, beta_temp, viter, vtol, niter, ntol, tok_reduce=None) -> tuple:
     """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint of
-    :func:`estep_chunk`, its rows added into ``beta_temp`` [V, K] along
-    ``plan``, in place.  Returns the chunk's new (lam, lam_old, vsq,
-    logzeta) and its :func:`moment_sums`."""
+    :func:`estep_chunk` (``tok_reduce``: the sequence axis), its rows
+    added into ``beta_temp`` [V, K] along ``plan``, in place.  Returns
+    the chunk's new (lam, lam_old, vsq, logzeta) and its
+    :func:`moment_sums`."""
     la, lao, v, lz, w = estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask, lam,
-                                    lam_old, vsq, logzeta, viter, vtol, niter, ntol)
+                                    lam_old, vsq, logzeta, viter, vtol, niter, ntol,
+                                    tok_reduce)
     count_scatter_into(beta_temp, w.reshape(-1, w.shape[-1]), plan)
     return (la, lao, v, lz, *moment_sums(la, v, doc_mask))
 
@@ -177,11 +189,18 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     beta statistic are summed over ``axis_name`` before the M-step.
     ``vocab_axis`` shards beta's storage (``[K, V/n]`` blocks), gathered
     whole for the E-step; the new block comes from ``tp_normalize_rows``.
+    ``seq_axis`` splits every document's token slots (``packed`` the slab
+    of this process's rows and token columns, dense): the Newtons' token
+    inputs are summed over it (:func:`estep_chunk`), and so is the beta
+    statistic, while the moments sum over ``axis_name`` alone (the JAX
+    package's models/ctm.py:232-251).
     """
-    no_seq_axis("CTM", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
+    tok_reduce = token_reduce(mesh, seq_axis)
+    tok_axes = token_axes(axis_name, seq_axis)
 
     def step(state: CTMState, terms, counts, doc_mask, M_total) -> CTMState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -200,7 +219,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             *out, ls, vs, lo = sweep_chunk(
                 logbetaT, state.mu, state.invsigma, terms[j][sl], counts[j][sl],
                 doc_mask[j][sl], state.lam[rows], state.lam_old[rows], state.vsq[rows],
-                state.logzeta[rows], plan, beta_temp, viter, vtol, niter, ntol)
+                state.logzeta[rows], plan, beta_temp, viter, vtol, niter, ntol, tok_reduce)
             lam_sum = lam_sum + ls
             vsq_sum = vsq_sum + vs
             lam_outer = lam_outer + lo
@@ -210,13 +229,13 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         vsq_sum, lam_sum, lam_outer = (
             psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer))
         if vocab_axis is not None:
-            local, row_sum = tp_normalize_rows(beta_temp, mesh, vocab_axis, axis_tuple(axis_name))
+            local, row_sum = tp_normalize_rows(beta_temp, mesh, vocab_axis, tok_axes)
             beta_new = beta_rows(local.T.contiguous(), row_sum[:, None])
             mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
                                                   M_total, identify)
         else:
             mu, sigma, invsigma, beta_new = global_update(
-                state, psum(beta_temp, mesh, axis_name), vsq_sum, lam_sum, lam_outer,
+                state, psum(beta_temp, mesh, tok_axes), vsq_sum, lam_sum, lam_outer,
                 M_total, identify)
         return CTMState(mu=mu, sigma=sigma, invsigma=invsigma, beta=beta_new,
                         beta_old=state.beta, elbo=state.elbo, **new)
@@ -259,10 +278,15 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
     terms with the current parameters.  The token terms Elogpz (its
     Σ φc·λ part) + Elogpw − Elogqz are ``lda_elbo_tok`` on the tables of
     :func:`elbo_tables`; the doc terms are [B, K] tensor ops.
-    ``vocab_axis`` gathers beta and beta_old whole first.
+    ``vocab_axis`` gathers beta and beta_old whole first.  With
+    ``seq_axis`` the per-document token count is summed over it before the
+    document terms use it; the token terms, linear in each slot, sum over
+    it with the data axes, and the document terms over the data axes alone
+    (the JAX package's models/ctm.py:361-363, 412-418).
     """
-    no_seq_axis("CTM", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     chunks = _chunks(packed, chunk_docs)
+    tok_reduce = token_reduce(mesh, seq_axis)
 
     def elbo(state: CTMState, terms, counts, doc_mask) -> torch.Tensor:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -276,21 +300,28 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
         for rows, j, sl in chunks:
             doc, tok = elbo_chunk(tables, terms[j][sl], counts[j][sl], doc_mask[j][sl],
                                   state.lam[rows], state.lam_old[rows], state.vsq[rows],
-                                  state.logzeta[rows])
+                                  state.logzeta[rows], tok_reduce)
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
+        # the document terms are alike on every rank of the sequence
+        # axis: the token pair is summed over it first, then the merged pair
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, kbn_psum(acc_tok, mesh, seq_axis)),
+                                 mesh, axis_name))
 
     return elbo
 
 
-def elbo_chunk(tables, t, c, dm, la, lao, v, lz) -> tuple:
+def elbo_chunk(tables, t, c, dm, la, lao, v, lz, tok_reduce=None) -> tuple:
     """One chunk's bound, on any [B, L] chunk: (doc terms, token terms),
     each summed over its real documents.  ``tables`` is
-    (boT, g2T, log det Σ⁻¹, the globals)."""
+    (boT, g2T, log det Σ⁻¹, the globals); ``tok_reduce`` (the sequence
+    axis) sums the per-document token count over the ranks first."""
     boT, g2T, logdet_inv, g = tables
     tok = lda_elbo_tok(boT, g2T, t, c, dm, la, lao)
-    doc = gaussian_terms(g, la, v, lz, torch.sum(c, dim=-1), la.shape[1], logdet_inv)
+    cd = torch.sum(c, dim=-1)
+    if tok_reduce is not None:
+        cd = tok_reduce(cd)
+    doc = gaussian_terms(g, la, v, lz, cd, la.shape[1], logdet_inv)
     return torch.sum(dm * doc), tok
 
 

@@ -19,6 +19,11 @@ zayin/het (doc offset).
   runs with one placeholder user and all ratings 0, as in the JAX package.
 * The ELBO is the closed form with the E[lnΓ(y+1)] cancellation
   (see the JAX module's docstring), in plain PyTorch.
+* On the sequence axis both ragged axes of a document, its token slots
+  and its reader slots, are split over ranks: the fixpoint runs pass by
+  pass (``ctpf_split_fixpoint``), each pass's gimel and zayin statistics
+  summed over the axis in one collective, as the JAX package's XLA body
+  does.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.ctpf_estep import ctpf_estep
+from ..kernels.ctpf_estep import ctpf_estep, ctpf_split_fixpoint
 from ..kernels.scatter_rows import build_plan
 from ..ops.segment import count_scatter_into
 from ..parallel.mesh import axis_tuple
@@ -36,7 +41,7 @@ from ..utils.numerics import (
     digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero,
     lgamma, xlogx,
 )
-from .lda import _chunks, as_segments, no_seq_axis, token_plans
+from .lda import _chunks, as_segments, check_modes, token_axes, token_plans, token_reduce
 
 # Gamma hyperpriors a..h = 0.1 (CTPF.jl:81)
 HYPER = dict(a=0.1, b=0.1, c=0.1, d=0.1, e=0.1, f=0.1, g=0.1, h=0.1)
@@ -98,17 +103,23 @@ def estep_tables(g) -> tuple:
 
 
 def sweep_chunk(tables, t, cnt, rd, rt, dm, gimel, gimel_old, zayin, zayin_old, tplan, rplan,
-                alef_temp, he_temp, viter: int, vtol: float) -> tuple:
+                alef_temp, he_temp, viter: int, vtol: float, tok_reduce=None) -> tuple:
     """One chunk of the E-step sweep, on any chunk of [B, L] tokens and
     [B, R] readers: the fixpoint through ``ctpf_estep``, its term rows
     added into ``alef_temp`` [V, K] along ``tplan`` and its reader rows
     into ``he_temp`` [U_seg, K] along ``rplan``, in place.  Returns the
     chunk's new (gimel, gimel_old, zayin, zayin_old) and its gimel and
-    zayin sums [K] over real documents."""
+    zayin sums [K] over real documents.  ``tok_reduce`` (the sequence
+    axis) runs the fixpoint pass by pass (``ctpf_split_fixpoint``), each
+    pass's statistics summed by it."""
     ealefT, eheT, inv_db, inv_dv, inv_hv = tables
-    gi2, gio2, za2, zao2, wa, wh = ctpf_estep(
-        ealefT, eheT, t, cnt, rd, rt, dm, inv_db, inv_dv, inv_hv, gimel, gimel_old,
-        zayin, zayin_old, viter=viter, vtol=vtol, c_hyper=HYPER["c"], g_hyper=HYPER["g"])
+    args = (ealefT, eheT, t, cnt, rd, rt, dm, inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin,
+            zayin_old)
+    kw = dict(viter=viter, vtol=vtol, c_hyper=HYPER["c"], g_hyper=HYPER["g"])
+    if tok_reduce is None:
+        gi2, gio2, za2, zao2, wa, wh = ctpf_estep(*args, **kw)
+    else:
+        gi2, gio2, za2, zao2, wa, wh = ctpf_split_fixpoint(*args, **kw, reduce=tok_reduce)
     K = wa.shape[-1]
     count_scatter_into(alef_temp, wa.reshape(-1, K), tplan)
     count_scatter_into(he_temp, wh.reshape(-1, K), rplan)
@@ -170,20 +181,27 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
     and ``user_axis`` he's (``[K, U/n]``): both are gathered whole for the
     E-step's tables, each statistic keeps its block through
     ``tp_normalize_rows``, and the [K] row sums are completed over the
-    axis.
+    axis.  ``seq_axis`` splits every document's token and reader slots
+    (``packed`` the slab of this process's rows, token columns and reader
+    columns, dense, ``multihost.local_slab``): each pass's statistics are
+    summed over it, and so are alef's and he's statistics, while the gimel
+    and zayin sums run over ``axis_name`` alone (the JAX package's
+    models/ctpf.py:300-318).
     """
-    no_seq_axis("CTPF", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     V, U = packed.V, packed.U
     U_seg = max(U, 1)
     axes = axis_tuple(axis_name)
+    tok_axes = token_axes(axis_name, seq_axis)
+    tok_reduce = token_reduce(mesh, seq_axis)
     chunks = _chunks(packed, chunk_docs)
     tplans = token_plans(packed, chunk_docs, device)
     rplans = reader_plans(packed, chunk_docs, device)
 
     def reduce_stat(temp, shard_axis):
         if shard_axis is None:
-            return psum(temp, mesh, axes)
-        return tp_normalize_rows(temp, mesh, shard_axis, axes)[0]
+            return psum(temp, mesh, tok_axes)
+        return tp_normalize_rows(temp, mesh, shard_axis, tok_axes)[0]
 
     def row_sums(alef_sum, he_sum):
         if vocab_axis is not None:
@@ -207,7 +225,7 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
                 tables, terms[j][sl], counts[j][sl], readers[rows], ratings[rows],
                 doc_mask[j][sl], state.gimel[rows], state.gimel_old[rows],
                 state.zayin[rows], state.zayin_old[rows], tplan, rplan, alef_temp, he_temp,
-                viter, vtol)
+                viter, vtol, tok_reduce)
             gimel_sum = gimel_sum + gs
             zayin_sum = zayin_sum + zs
             for f_, v in zip(new, out):
@@ -341,11 +359,15 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
     all bound terms use the current parameters.  With a ``mesh``, the
     document and token sums are reduced over ``axis_name`` before the
     global terms are added; ``vocab_axis``/``user_axis`` gather alef and
-    alef_old, he and he_old whole first.
+    alef_old, he and he_old whole first.  With ``seq_axis`` the token and
+    reader terms, linear in each slot, sum over it too, and the document
+    terms, which use no token sum, do not (the JAX package's
+    models/ctpf.py:510-521).
     """
-    no_seq_axis("CTPF", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     U = packed.U
     chunks = _chunks(packed, chunk_docs)
+    tok_axes = token_axes(axis_name, seq_axis)
 
     def elbo(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> torch.Tensor:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -361,7 +383,7 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
         acc_doc = kbn_psum(acc_doc, mesh, axis_name)
-        acc_tok = kbn_psum(acc_tok, mesh, axis_name)
+        acc_tok = kbn_psum(acc_tok, mesh, tok_axes)
         return kbn_pack(kbn_add(kbn_merge(acc_doc, acc_tok), global_terms(tb)))
 
     return elbo

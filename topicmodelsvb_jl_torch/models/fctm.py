@@ -14,7 +14,10 @@ tau/tau_old stay dense ``[M_pad, L]`` at the corpus width; each segment
 reads ``tau[rows, :Ls]`` and every column past a segment's width is 0.5
 after the sweep, as in the JAX package.  The beta and kappa statistics
 share one scatter over ``[T, K+1]`` rows, kappa's weight in column K.
-The bound is plain PyTorch: the JAX package has no kernel for it.
+The bound is plain PyTorch: the JAX package has no kernel for it.  On the
+sequence axis each document's token slots and tau columns are split over
+ranks, and the per-document token sums are summed over the axis before
+each nonlinear update, as in ``models/ctm.py``.
 """
 
 from __future__ import annotations
@@ -25,14 +28,13 @@ import torch
 
 from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.segment import count_scatter_into
-from ..parallel.mesh import axis_tuple
 from ..parallel.shard import all_gather, psum, tp_normalize_rows
 from ..utils.numerics import (
     EPSILON, bernoulli_entropy, categorical_entropy, dirichlet_ones, kbn_add, kbn_merge,
     kbn_pack, kbn_psum, kbn_zero, l2norm, logsumexp, masked_fixpoint,
 )
 from .ctm import beta_rows, gaussian_terms, gaussian_update, logdet_invsigma, moment_sums
-from .lda import _chunks, as_segments, no_seq_axis, token_plans
+from .lda import _chunks, as_segments, check_modes, token_axes, token_plans, token_reduce
 
 
 @dataclasses.dataclass
@@ -80,10 +82,15 @@ def _phi(logbeta_d, tau, lam):
 
 
 def estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam,
-                lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol):
+                lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol,
+                tok_reduce=None):
     """One chunk's E-step; returns its new per-document state and the rows
-    [B, L, K+1] of the fused beta/kappa statistic."""
+    [B, L, K+1] of the fused beta/kappa statistic.  ``tok_reduce`` (the
+    sequence axis) sums C once and phi@counts every pass over the ranks
+    holding the documents' other slots, as in ``ctm.estep_chunk``."""
     C = torch.sum(counts, dim=-1)
+    if tok_reduce is not None:
+        C = tok_reduce(C)
     logbeta_d = logbetaT[terms]                     # [B, L, K]
     kappa_d = kappa[terms]                          # [B, L]
     isd = torch.diagonal(invsigma)
@@ -99,6 +106,8 @@ def estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam
         logzeta2 = torch.where(active, logsumexp(lam + 0.5 * vsq), logzeta)
         # update_lambda! BEFORE update_vsq!, unlike CTM (fCTM.jl:175-188)
         pc = torch.einsum("bl,blk->bk", counts, p)
+        if tok_reduce is not None:
+            pc = tok_reduce(pc)
         lam_new = ctm_lambda_newton(lam, vsq, logzeta2, pc, C, mu, invsigma, active,
                                     niter, ntol)
         lam_old2 = torch.where(upd, lam, lam_old)
@@ -119,14 +128,16 @@ def estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam
 
 
 def sweep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam, lam_old,
-                vsq, logzeta, tau, tau_old, plan, stat, viter, vtol, niter, ntol) -> tuple:
+                vsq, logzeta, tau, tau_old, plan, stat, viter, vtol, niter, ntol,
+                tok_reduce=None) -> tuple:
     """One chunk of the E-step sweep, on any [B, L] chunk with its
     tau/tau_old at the chunk's width: the fixpoint of :func:`estep_chunk`,
     its [B·L, K+1] rows added into ``stat`` along ``plan``, in place.
     Returns the chunk's new (lam, lam_old, vsq, logzeta, tau, tau_old) and
-    its ``ctm.moment_sums``."""
+    its ``ctm.moment_sums``; ``tok_reduce``: the sequence axis."""
     *out, w = estep_chunk(logbetaT, kappa, eta, mu, invsigma, terms, counts, doc_mask, lam,
-                          lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol)
+                          lam_old, vsq, logzeta, tau, tau_old, viter, vtol, niter, ntol,
+                          tok_reduce)
     count_scatter_into(stat, w.reshape(-1, w.shape[-1]), plan)
     return (*out, *moment_sums(out[0], out[2], doc_mask))
 
@@ -154,12 +165,18 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     on ``device`` and returns the next state; the chunks' scatter plans are
     built here and put on ``device``.  ``identify`` and ``mesh``: as in
     ``ctm.make_step``; ``vocab_axis`` shards beta's and kappa's storage as
-    in ``flda.make_step``.
+    in ``flda.make_step``.  ``seq_axis`` splits every document's token
+    slots and its tau columns (``packed`` and the state this process's
+    slab and blocks), as in ``ctm.make_step`` and ``flda.make_step``: the
+    [V, K+1] statistic sums over it, the moments over ``axis_name`` alone
+    (the JAX package's models/fctm.py:213-235).
     """
-    no_seq_axis("fCTM", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
+    tok_reduce = token_reduce(mesh, seq_axis)
+    tok_axes = token_axes(axis_name, seq_axis)
 
     def step(state: FCTMState, terms, counts, doc_mask, M_total) -> FCTMState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -185,7 +202,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 logbetaT, kappa, state.eta, state.mu, state.invsigma, t, counts[j][sl],
                 doc_mask[j][sl], state.lam[rows], state.lam_old[rows], state.vsq[rows],
                 state.logzeta[rows], state.tau[rows, :Ls], state.tau_old[rows, :Ls], plan,
-                stat, viter, vtol, niter, ntol)
+                stat, viter, vtol, niter, ntol, tok_reduce)
             lam_sum = lam_sum + ls
             vsq_sum = vsq_sum + vs
             lam_outer = lam_outer + lo
@@ -196,14 +213,14 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         vsq_sum, lam_sum, lam_outer = (
             psum(x, mesh, axis_name) for x in (vsq_sum, lam_sum, lam_outer))
         if vocab_axis is not None:
-            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, axis_tuple(axis_name))
+            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, tok_axes)
             beta_new = beta_rows(local[:, :K].T.contiguous(), sums[:K, None])
             kappa_new = local[:, K] / sums[K]
             mu, sigma, invsigma = gaussian_update(state, vsq_sum, lam_sum, lam_outer,
                                                   M_total, identify)
         else:
             mu, sigma, invsigma, kappa_new, beta_new = global_update(
-                state, psum(stat, mesh, axis_name), vsq_sum, lam_sum, lam_outer, M_total,
+                state, psum(stat, mesh, tok_axes), vsq_sum, lam_sum, lam_outer, M_total,
                 identify)
         return FCTMState(eta=state.eta, mu=mu, sigma=sigma, invsigma=invsigma,
                          kappa=kappa_new, kappa_old=state.kappa, beta=beta_new,
@@ -218,9 +235,14 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
     """ELBO (fCTM.jl:67-124): phi recomputed from (tau_old, beta_old,
     lambda_old), the terms with the current parameters; doc-level and
     token-level terms ride two compensated accumulators.  ``vocab_axis``
-    gathers beta, beta_old and kappa whole first."""
-    no_seq_axis("fCTM", seq_axis)
+    gathers beta, beta_old and kappa whole first.  With ``seq_axis`` each
+    chunk's per-document token sums (C_d, Σ tau·c, phi@counts) are summed
+    over it before the document terms use them, and only the token
+    accumulator sums over it (the JAX package's models/fctm.py:309-315,
+    370-372)."""
+    check_modes(vocab_axis, seq_axis, False, packed)
     chunks = _chunks(packed, chunk_docs)
+    tok_reduce = token_reduce(mesh, seq_axis)
 
     def elbo(state: FCTMState, terms, counts, doc_mask) -> torch.Tensor:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -238,10 +260,13 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
             Ls = t.shape[1]
             doc, tok = elbo_chunk(tables, t, counts[j][sl], doc_mask[j][sl], state.lam[rows],
                                   state.lam_old[rows], state.vsq[rows], state.logzeta[rows],
-                                  state.tau[rows, :Ls], state.tau_old[rows, :Ls])
+                                  state.tau[rows, :Ls], state.tau_old[rows, :Ls], tok_reduce)
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
+        # the document terms are alike on every rank of the sequence
+        # axis: the token pair is summed over it first, then the merged pair
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, kbn_psum(acc_tok, mesh, seq_axis)),
+                                 mesh, axis_name))
 
     return elbo
 
@@ -256,16 +281,20 @@ def elbo_tables(g) -> tuple:
             torch.log(1.0 - g.eta + EPSILON), logdet_invsigma(g), g)
 
 
-def elbo_chunk(tables, t, c, dm, la, lao, v, lz, ta, tao) -> tuple:
+def elbo_chunk(tables, t, c, dm, la, lao, v, lz, ta, tao, tok_reduce=None) -> tuple:
     """One chunk's bound, on any [B, L] chunk with its tau/tau_old at the
     chunk's width: (doc terms, token terms), each summed over its real
-    documents."""
+    documents; ``tok_reduce`` (the sequence axis) sums the per-document
+    token sums over the ranks, in one call, before the document terms."""
     logbeta_oldT, logbetaT, logkappa, log_eps, log_eta, log_1m_eta, logdet_inv, g = tables
     K = la.shape[1]
     cd = torch.sum(c, dim=-1)
     p = _phi(logbeta_oldT[t], tao, lao)
     tau_c = torch.sum(ta * c, -1)
     pc = torch.einsum("bl,blk->bk", c, p)
+    if tok_reduce is not None:
+        sums = tok_reduce(torch.cat([cd[:, None], tau_c[:, None], pc], dim=1))
+        cd, tau_c, pc = sums[:, 0], sums[:, 1], sums[:, 2:]
     # Elogpc (fCTM.jl:74-78): log(eta^a (1-eta)^b + EPS) by logaddexp
     e_pc = torch.logaddexp(tau_c * log_eta + (cd - tau_c) * log_1m_eta, log_eps)
     # Elogpeta − Elogqeta (fCTM.jl:68-71, 95-98) and Elogpz (fCTM.jl:81-85)

@@ -16,6 +16,10 @@ mixture weight ``eta``.
   chunk's plan (``lda.token_plans``).
 * eta, M_total and C_total stay on the device; the step reads none of
   them back to the host.
+* On the sequence axis each document's token slots (and its tau columns)
+  are split over ranks: the fixpoint runs pass by pass
+  (``flda_split_fixpoint``), each pass's [B, K] statistic summed over the
+  axis before gamma's update, as the JAX package's XLA body does.
 
 The ELBO is plain PyTorch: the JAX package has no kernel for it.
 """
@@ -26,7 +30,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.flda_estep import flda_estep
+from ..kernels.flda_estep import flda_estep, flda_split_fixpoint
 from ..ops.newton import dirichlet_newton
 from ..ops.segment import count_scatter_into
 from ..parallel.mesh import axis_tuple
@@ -36,7 +40,7 @@ from ..utils.numerics import (
     dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, kbn_zeros,
     lgamma,
 )
-from .lda import _chunks, as_segments, no_seq_axis, token_plans
+from .lda import _chunks, as_segments, check_modes, token_axes, token_plans, token_reduce
 
 
 @dataclasses.dataclass
@@ -78,17 +82,24 @@ def init(generator: torch.Generator, packed, K: int, dtype=torch.float32,
 
 def sweep_chunk(logbetaT, kappa, alpha, eta, terms, counts, doc_mask, gamma, El, El_old,
                 tau, tau_old, plan, stat, viter: int, vtol: float,
-                elogtheta_f64: bool = False):
+                elogtheta_f64: bool = False, tok_reduce=None):
     """One chunk of the E-step sweep, on any [B, L] chunk: the fixpoint
     through ``flda_estep``, then beta_temp += phi .* (tau .* counts)'
     (fLDA.jl:174-177) and kappa_temp[terms] += (1 - tau) .* counts
     (fLDA.jl:160-163) as one scatter into ``stat`` [V, K+1] in place.
     Returns the chunk's new (gamma, El, El_old, tau, tau_old), its
     Elogtheta sum [K] and its Σ tau·counts (update_eta!, fLDA.jl:122-124).
-    ``elogtheta_f64``: the f64 Elogtheta channel (``lda.make_step``)."""
-    g2, el2, elo2, ta2, tao2, w = flda_estep(
-        logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old, tau,
-        tau_old, viter=viter, vtol=vtol, elogtheta_f64=elogtheta_f64)
+    ``elogtheta_f64``: the f64 Elogtheta channel (``lda.make_step``).
+    ``tok_reduce`` (the sequence axis) runs the fixpoint pass by pass
+    (``flda_split_fixpoint``), each pass's statistic summed by it."""
+    args = (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El, El_old, tau,
+            tau_old)
+    if tok_reduce is None:
+        g2, el2, elo2, ta2, tao2, w = flda_estep(*args, viter=viter, vtol=vtol,
+                                                 elogtheta_f64=elogtheta_f64)
+    else:
+        g2, el2, elo2, ta2, tao2, w = flda_split_fixpoint(
+            *args, viter=viter, vtol=vtol, reduce=tok_reduce, elogtheta_f64=elogtheta_f64)
     count_scatter_into(stat, w.reshape(-1, w.shape[-1]), plan)
     return (g2, el2, elo2, ta2, tao2, torch.sum(el2 * doc_mask[:, None], dim=0),
             torch.sum(ta2 * counts))
@@ -121,13 +132,23 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     ``axis_name``).  ``vocab_axis`` shards beta's and kappa's storage
     (``[K, V/n]`` and ``[V/n]`` blocks), gathered whole for the E-step;
     the new blocks come from ``tp_normalize_rows`` of the statistic.
-    ``elogtheta_f64``: ψ of the E-step in float64, as in ``lda.make_step``
-    (the JAX package's models/flda.py:106-112).
+    ``seq_axis`` splits every document's token slots: ``packed`` is the
+    slab of this process's rows and token columns (dense), the state's
+    tau/tau_old its ``[rows, L/n]`` block (``convert.shard_state``), each
+    pass's statistic is summed over ``seq_axis``, and so are the
+    token-level statistics (the [V, K+1] block, tau_counts), while
+    Elogtheta_sum sums over ``axis_name`` alone (the JAX package's
+    models/flda.py:286-293).  ``elogtheta_f64``: ψ of the E-step in
+    float64, as in ``lda.make_step`` (the JAX package's
+    models/flda.py:106-112).
     """
-    no_seq_axis("fLDA", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     V = packed.V
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
+    tok_reduce = token_reduce(mesh, seq_axis)
+    stat_axes = axis_tuple(axis_name)
+    tok_axes = token_axes(axis_name, seq_axis)
 
     def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total) -> FLDAState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -153,16 +174,16 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                 logbetaT, kappa, state.alpha, state.eta, t, c, dm,
                 state.gamma[rows], state.Elogtheta[rows], state.Elogtheta_old[rows],
                 state.tau[rows, :Ls].contiguous(), state.tau_old[rows, :Ls].contiguous(),
-                plan, stat, viter, vtol, elogtheta_f64)
+                plan, stat, viter, vtol, elogtheta_f64, tok_reduce)
             El_sum = kbn_add(El_sum, el_part)
             tau_counts = tau_counts + tau_part
             gamma[rows], El[rows], El_old[rows] = g2, el2, elo2
             tau[rows, :Ls], tau_old[rows, :Ls] = ta2, tao2
 
-        El_sum = kbn_psum(El_sum, mesh, axis_name)
-        tau_counts = psum(tau_counts, mesh, axis_name)
+        El_sum = kbn_psum(El_sum, mesh, stat_axes)
+        tau_counts = psum(tau_counts, mesh, tok_axes)
         if vocab_axis is not None:
-            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, axis_tuple(axis_name))
+            local, sums = tp_normalize_rows(stat, mesh, vocab_axis, tok_axes)
             beta_new = (local[:, :K].T / sums[:K, None]).contiguous()
             kappa_new = local[:, K] / sums[K]
             eta_new = tau_counts / C_total
@@ -170,7 +191,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                                          Elogtheta_sum_lo=El_sum[1])
         else:
             eta_new, alpha_new, kappa_new, beta_new = global_update(
-                psum(stat, mesh, axis_name), state.alpha, El_sum[0], tau_counts, M_total,
+                psum(stat, mesh, tok_axes), state.alpha, El_sum[0], tau_counts, M_total,
                 C_total, niter, ntol, El_sum[1])
         return FLDAState(
             eta=eta_new, alpha=alpha_new,
@@ -190,10 +211,14 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
     use the current parameters.  Doc-level and token-level terms ride two
     compensated (hi, lo) accumulators, as in the JAX package, reduced over
     ``axis_name`` with a ``mesh``; ``vocab_axis`` gathers beta, beta_old
-    and kappa whole first.
+    and kappa whole first.  With ``seq_axis`` each chunk's per-document
+    token sums (C_d, Σ tau·c, phi@counts) are summed over it before the
+    document terms are formed, and only the token accumulator sums over
+    it (the JAX package's models/flda.py:371-377, 430-436).
     """
-    no_seq_axis("fLDA", seq_axis)
+    check_modes(vocab_axis, seq_axis, False, packed)
     chunks = _chunks(packed, chunk_docs)
+    tok_reduce = token_reduce(mesh, seq_axis)
 
     def elbo(state: FLDAState, terms, counts, doc_mask) -> torch.Tensor:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
@@ -210,10 +235,13 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None, vocab_
             doc, tok = elbo_chunk(tables, t, counts[j][sl], doc_mask[j][sl],
                                   state.gamma[rows], state.Elogtheta[rows],
                                   state.Elogtheta_old[rows], state.tau[rows, :Ls],
-                                  state.tau_old[rows, :Ls])
+                                  state.tau_old[rows, :Ls], tok_reduce)
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axis_name))
+        # the document terms are alike on every rank of the sequence
+        # axis: the token pair is summed over it first, then the merged pair
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, kbn_psum(acc_tok, mesh, seq_axis)),
+                                 mesh, axis_name))
 
     return elbo
 
@@ -233,16 +261,21 @@ def elbo_tables(beta, beta_old, kappa, alpha, eta) -> tuple:
             log_1m_eta)
 
 
-def elbo_chunk(tables, t, c, dm, gamma, el, elo, ta, tao) -> tuple:
+def elbo_chunk(tables, t, c, dm, gamma, el, elo, ta, tao, tok_reduce=None) -> tuple:
     """One chunk's bound, on any [B, L] chunk with its tau/tau_old at the
     chunk's width: (doc terms, token terms), each summed over its real
-    documents."""
+    documents.  ``tok_reduce`` (the sequence axis) sums the per-document
+    token sums over the ranks holding the documents' other slots, in one
+    call, before the document terms use them."""
     logbeta_oldT, logbetaT, logkappa, a, theta_const, log_eps, log_eta, log_1m_eta = tables
     # phi recompute from tau_old/beta_old/Elogtheta_old (fLDA.jl:113)
     p = torch.softmax(tao[:, :, None] * logbeta_oldT[t] + elo[:, None, :], dim=-1)
     C_d = torch.sum(c, -1)
     tau_c = torch.sum(ta * c, -1)
     pc = torch.einsum("bl,blk->bk", c, p)
+    if tok_reduce is not None:
+        sums = tok_reduce(torch.cat([C_d[:, None], tau_c[:, None], pc], dim=1))
+        C_d, tau_c, pc = sums[:, 0], sums[:, 1], sums[:, 2:]
     # Elogptheta (fLDA.jl:62-65)
     e_ptheta = theta_const + torch.sum((a - 1.0) * el, -1)
     # Elogpc (fLDA.jl:68-71): log(eta^a (1-eta)^b + EPS), the

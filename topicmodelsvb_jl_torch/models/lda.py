@@ -121,18 +121,23 @@ def token_plans(packed, chunk_docs: int, device) -> list:
             for _, j, sl in _chunks(packed, chunk_docs)]
 
 
-def no_seq_axis(family: str, seq_axis) -> None:
-    """The sequence axis is ported for LDA alone so far."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            f"seq_axis for {family}: the sequence axis is ported for LDA only; {family}'s "
-            "waits for ROADMAP queue 1 item 8c (with the flda_estep and ctpf_estep pass "
-            "modes)")
+def token_reduce(mesh, axis):
+    """The per-document reduction of a split token axis: the psum over
+    ``axis`` of the ranks holding a document's other slots, or None when
+    the slots are whole."""
+    return None if axis is None else (lambda x: psum(x, mesh, axis))
+
+
+def token_axes(axis_name, seq_axis) -> tuple:
+    """The axes a token-level statistic sums over: the data axes, and
+    ``seq_axis`` too when the token slots are split over it."""
+    return axis_tuple(axis_name) + axis_tuple(seq_axis)
 
 
 def check_modes(vocab_axis, seq_axis, vocab_routed, packed) -> None:
     """The JAX package's exclusivity rules for the tensor- and
-    sequence-parallel modes."""
+    sequence-parallel modes (every family's: a split token axis needs
+    dense packing)."""
     if vocab_routed:
         if vocab_axis is None:
             raise ValueError("vocab_routed requires a vocab_axis")
@@ -232,14 +237,14 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     # the per-pass [B, K] reduction: over the vocab axis under routing
     # (each block holds only its tokens), the sequence axis under SP
     tok_axis = vocab_axis if vocab_routed else seq_axis
-    tok_reduce = None if tok_axis is None else (lambda x: psum(x, mesh, tok_axis))
+    tok_reduce = token_reduce(mesh, tok_axis)
     stat_axes = axis_tuple(axis_name)
     if vocab_routed:
         # documents replicate across the vocab axis: doc-level statistics
         # reduce over the data axes alone
         stat_axes = tuple(a for a in stat_axes if a != vocab_axis)
     # the token-local statistic also sums the sequence shards
-    stat_axes_bt = stat_axes + ((seq_axis,) if seq_axis is not None else ())
+    stat_axes_bt = token_axes(stat_axes, seq_axis)
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
@@ -334,11 +339,10 @@ def make_elbo(packed, K: int, chunk_docs: int, mesh=None, axis_name=None,
                                   state.Elogtheta_old[rows])
             acc_doc = kbn_add(acc_doc, doc)
             acc_tok = kbn_add(acc_tok, tok)
-        if tok_axis is not None:
-            acc_tok = kbn_psum(acc_tok, mesh, axes + (tok_axis,))
-            acc_doc = kbn_psum(acc_doc, mesh, axes)
-            return kbn_pack(kbn_merge(acc_doc, acc_tok))
-        return kbn_pack(kbn_psum(kbn_merge(acc_doc, acc_tok), mesh, axes))
+        # the document terms are alike on every rank of the token axis:
+        # the token pair is summed over it first, then the merged pair
+        return kbn_pack(kbn_psum(kbn_merge(acc_doc, kbn_psum(acc_tok, mesh, tok_axis)),
+                                 mesh, axes))
 
     return elbo
 

@@ -133,7 +133,11 @@ def local_slab(packed, mesh, doc_axes, tok_axis=None):
     tuple of names, the first major), and with ``tok_axis`` its block of
     every row's token slot columns: the sequence axis's share of a dense
     corpus, or under routed tensor parallelism (``tok_axis`` the vocab
-    axis) the slots of its vocab block.  A step, a bound and their scatter
+    axis) the slots of its vocab block.  A corpus with readers (CTPF's)
+    has its reader slot columns cut alike, block ``axis_index`` of
+    ``Rmax``, and ``Rmax`` becomes the block's width (the JAX package's
+    ``P("data", "seq")`` on the reader arrays); the per-document ``N``,
+    ``C`` and ``R`` keep whole rows.  A step, a bound and their scatter
     plans run on the slab unchanged."""
     import dataclasses
 
@@ -158,6 +162,12 @@ def local_slab(packed, mesh, doc_axes, tok_axis=None):
         return slab
     if packed.L % n_t:
         raise ValueError(f"{packed.L} token slots do not divide into {n_t} shards")
+    cols = lambda a, w: np.ascontiguousarray(a[:, i_t * w:(i_t + 1) * w])
     per = packed.L // n_t
-    cols = lambda a: np.ascontiguousarray(a[:, i_t * per:(i_t + 1) * per])
-    return dataclasses.replace(slab, terms=cols(slab.terms), counts=cols(slab.counts), L=per)
+    cut = dict(terms=cols(slab.terms, per), counts=cols(slab.counts, per), L=per)
+    if getattr(slab, "readers", None) is not None:
+        if packed.Rmax % n_t:
+            raise ValueError(f"{packed.Rmax} reader slots do not divide into {n_t} shards")
+        rper = packed.Rmax // n_t
+        cut.update(readers=cols(slab.readers, rper), ratings=cols(slab.ratings, rper), Rmax=rper)
+    return dataclasses.replace(slab, **cut)
