@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel and CLI paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel, CLI and float64 paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -186,6 +186,26 @@ printing its own lines; any failure exits non-zero:
    against one process with no mesh on the same corpus from the same
    init (rtol 5e-3 / atol 1e-5 on every global, 1e-5 on the bound per
    iteration);
+16. (run before 11's results) float64 on the card (``double_phase``):
+   the float64 modes of ``lda_estep``, ``flda_estep``, ``lda_elbo_tok``
+   and ``scatter_rows`` against their plain float64 versions on phase 3's
+   widest NSF chunk cast to float64 (rtol 1e-9, atol 1e-12), bitwise
+   repeatable, zeros on masked documents, with device and call times and
+   bounds (8-byte elements, operations at the card's f64 rate: SMs x 64
+   x 2 x the max SM clock); LDA and fLDA (K = 100) and CTM and fCTM (K =
+   50, chunks of 2048) on phase 13's NSF corpus cut to 8,192 documents,
+   and phase 8's small DTM (cgtol = 0), each on the card and on the CPU in
+   float64 from one init, 3 iterations, within 1e-8 per iteration on the
+   globals and the bound, the float64 modes' launches counted there; DTM
+   at the mac shape in float64 and float32 on the card, 3 iterations from
+   one init, and the float32 run's departure from the float64 one; the
+   scatter's float64 mode on the mac DTM's first chunk; StreamingLDA and
+   StreamingDTM in float64, 2 sweeps; ``python -m
+   topicmodelsvb_jl_torch.train --dtype float64`` for LDA (2 iterations,
+   its MFU against the f64 peak); a float64 LDA checkpoint written on the
+   CPU resumed on the card, bitwise equal to a straight card run; and the
+   dtype gate refusing float64 CTPF, HMTM and seq LDA on the card before
+   any launch or allocation;
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -199,6 +219,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -211,6 +232,7 @@ import tempfile
 import time
 
 RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
+RTOL64, ATOL64 = 1e-9, 1e-12   # a float64 kernel against its plain float64 version
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's H100 SXM data sheet: the HBM rate and
 # the f32 rate outside the tensor cores, at the full 700 W power limit
@@ -263,11 +285,12 @@ def time_calls(fn, n: int = 20, reps: int = 3) -> tuple:
     return statistics.median(dev), call_ms
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple:
     """The least time the card could take for work that moves ``nbytes``
     (each input read once, each output written once) and does ``flops``
-    f32 operations outside the tensor cores: (ms, "bytes" or "operations")."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    operations outside the tensor cores at ``rate`` (f32 by default):
+    (ms, "bytes" or "operations")."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -313,15 +336,15 @@ def n_unique(ids, keep) -> int:
     return int(torch.unique(ids[keep]).numel())
 
 
-def close(got, want, names, label) -> float:
-    """Every output finite and within RTOL/ATOL of the plain version;
-    returns the largest absolute difference."""
+def close(got, want, names, label, rtol=RTOL, atol=ATOL) -> float:
+    """Every output finite and within rtol/atol (RTOL/ATOL by default) of
+    the plain version; returns the largest absolute difference."""
     import torch
 
     err = 0.0
     for name, a, b in zip(names, got, want):
         need(bool(torch.all(torch.isfinite(a))), f"{label}: {name} not finite")
-        excess = (a - b).abs() - (ATOL + RTOL * b.abs())
+        excess = (a - b).abs() - (atol + rtol * b.abs())
         need(float(excess.max()) <= 0.0,
              f"{label}: {name} off by {float((a - b).abs().max())}")
         err = max(err, float((a - b).abs().max()))
@@ -546,10 +569,14 @@ def compare_ctpf(tok, rd, V, U, K, dev, label):
 
 
 def compare_scatter(V, w, ids, keep, dev, label):
-    """scatter_rows against its plain version on one chunk's rows [T, W];
-    also times ``index_add_`` over all T rows, the one PyTorch call that
+    """scatter_rows against its plain version on one chunk's rows [T, W]
+    (in w's dtype: float64 rows take the float64 mode, held at
+    RTOL64/ATOL64, its bound at 8-byte elements and the f64 rate); also
+    times ``index_add_`` over all T rows, the one PyTorch call that
     computes the same sums (atomic on the card, so a yardstick only)."""
     import torch
+
+    from topicmodelsvb_jl_torch import engine
 
     from topicmodelsvb_jl_torch.kernels.scatter_rows import (
         build_plan, scatter_rows, scatter_rows_ref,
@@ -558,21 +585,25 @@ def compare_scatter(V, w, ids, keep, dev, label):
     ids, keep = ids.reshape(-1), keep.reshape(-1)
     plan = build_plan(ids.cpu().numpy(), keep.cpu().numpy()).to(dev)
     W = w.shape[1]
-    acc = torch.rand((V, W), device=dev)
+    f64 = w.dtype == torch.float64
+    acc = torch.rand((V, W), device=dev, dtype=w.dtype)
     n0 = scatter_rows.launches
     got = scatter_rows(acc.clone(), w, plan)
     want = scatter_rows_ref(acc.clone(), w, plan)
     torch.cuda.synchronize()
     need(scatter_rows.launches == n0 + (plan.n_pieces > 0), f"scatter_rows {label}: launches")
-    err = close([got], [want], ["acc"], f"scatter_rows {label}")
+    err = close([got], [want], ["acc"], f"scatter_rows {label}",
+                *((RTOL64, ATOL64) if f64 else (RTOL, ATOL)))
     need(torch.equal(got, scatter_rows(acc.clone(), w, plan)),
          f"scatter_rows {label}: not bitwise repeatable")
     need(bool(torch.all(w[~keep] == 0)), f"scatter_rows {label}: a left-out row is not 0")
     ids_l = ids.long()
     kept, uniq = plan.rows.shape[0], n_unique(ids, keep)
+    size = w.element_size()
     r = record(err, time_calls(lambda: scatter_rows(acc, w, plan), N_KERNEL),
                time_calls(lambda: scatter_rows_ref(acc, w, plan), N_KERNEL),
-               bound_ms(4 * (kept * W + kept + 3 * plan.n_pieces + 2 * uniq * W), kept * W),
+               bound_ms(size * (kept * W + 2 * uniq * W) + 4 * (kept + 3 * plan.n_pieces),
+                        kept * W, engine.device_peak_flops(dev, w.dtype) if f64 else F32_FLOPS),
                time_calls(lambda: acc.index_add_(0, ids_l, w), N_KERNEL))
     print(f"scatter {label}: T={plan.T} kept={kept} W={W} pieces={plan.n_pieces} "
           f"split runs={plan.run_id.shape[0]} | scatter_rows {times(r)}")
@@ -1166,6 +1197,7 @@ def checkpoint_phase(lda, ctpf, packed, cpk, rt, smi) -> dict:
     return launches
 
 
+@functools.lru_cache(maxsize=1)   # phases 8 and 16 build it once
 def mac_corpus(M=75_011, V=15_113, T=12, K=20, seed=7):
     """A stamped corpus at the mac corpus's shape (v0.6 ``readcorp(:mac)``:
     75,011 documents, V = 15,113, 12 yearly slices) from seeded numpy
@@ -3173,6 +3205,293 @@ def cli_phase(smi, kc, dev) -> tuple:
     return launches, f64
 
 
+def compare_double(seg, V, K, dev, label) -> dict:
+    """Phase 16: the float64 modes of ``lda_estep``, ``lda_elbo_tok``,
+    ``flda_estep`` and ``scatter_rows`` against their plain float64
+    versions on one chunk, phase 3's arguments cast to float64: within
+    RTOL64/ATOL64, bitwise repeatable, zeros on masked documents, each
+    launch counted in its wrapper's ``launches_double``; device and call
+    times; bounds with 8-byte elements (the int32 ids stay 4 bytes) and
+    operations at the card's f64 rate (``engine.device_peak_flops``)."""
+    import torch
+
+    from topicmodelsvb_jl_torch import engine
+    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
+    from topicmodelsvb_jl_torch.kernels import lda_estep as estep_mod
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_ref
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok, lda_elbo_tok_ref
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
+
+    d = lambda args: tuple(a.double() if torch.is_floating_point(a) else a for a in args)
+    terms, counts, doc_mask = seg
+    B, L = terms.shape
+    keep = counts > 0
+    kept, uniq = int(keep.sum()), n_unique(terms, keep)
+    rate = engine.device_peak_flops(dev, torch.float64)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    largs, beta, beta_old = lda_args(seg, V, K, dev)
+    largs = d(largs)
+    boT = (beta_old.double() + EPSILON).T.contiguous()
+    g2T = (boT * (torch.log(beta.double() + EPSILON).T - torch.log(boT))).contiguous()
+    eargs = (boT, g2T, largs[1], largs[2], largs[3], largs[6], largs[7])
+    cases = (
+        ("lda_estep", lda_estep, lambda: lda_estep(*largs, **kw),
+         lambda: lda_estep_ref(*largs, **kw), ("gamma", "El", "El_old", "w"),
+         8 * (uniq * K + B * L + B + K + 6 * B * K + B * L * K) + 4 * B * L,
+         lambda: 4 * K * fixpoint_work(estep_mod, lda_estep_ref, largs, kw,
+                                       keep.sum(1).double()) + 2 * K * kept),
+        ("flda_estep", flda_estep, None, None,
+         ("gamma", "El", "El_old", "tau", "tau_old", "w"),
+         8 * (uniq * (K + 1) + 3 * B * L + B + K + 1 + 6 * B * K + 2 * B * L
+              + B * L * (K + 1)) + 4 * B * L, None),
+        ("lda_elbo_tok", lda_elbo_tok, lambda: (lda_elbo_tok(*eargs),),
+         lambda: (lda_elbo_tok_ref(*eargs),), ("bound",),
+         8 * (2 * uniq * K + B * L + 2 * B + 2 * B * K) + 4 * B * L, lambda: 6 * K * kept))
+    fargs = d(flda_args(seg, V, K, dev))
+    out = {}
+    for name, kern, run, ref, names, nbytes, ops in cases:
+        if name == "flda_estep":
+            run, ref = lambda: flda_estep(*fargs, **kw), lambda: flda_estep_ref(*fargs, **kw)
+            ops = lambda: 4 * K * fixpoint_work(flda_mod, flda_estep_ref, fargs, kw,
+                                                keep.sum(1).double()) + 2 * (K + 1) * kept
+        n0, d0 = kern.launches, kern.launches_double
+        got, want = run(), ref()
+        torch.cuda.synchronize()
+        need((kern.launches, kern.launches_double) == (n0 + 1, d0 + 1),
+             f"{name} float64 {label}: the float64 mode did not launch")
+        need(all(a.dtype == torch.float64 for a in got), f"{name} float64 {label}: dtype")
+        err = close(got, want, names, f"{name} float64 {label}", RTOL64, ATOL64)
+        need(all(torch.equal(a, b) for a, b in zip(got, run())),
+             f"{name} float64 {label}: not bitwise repeatable")
+        if name != "lda_elbo_tok":
+            need(bool(torch.all(got[-1][doc_mask == 0] == 0)),
+                 f"{name} float64 {label}: a masked document got rows")
+        out[name] = record(err, time_calls(run, N_KERNEL), time_calls(ref, N_PLAIN, reps=1),
+                           bound_ms(nbytes, ops(), rate))
+        if name == "lda_estep":
+            w = got[3]
+        print(f"kernels float64 {label}: B={B} L={L} K={K} | {name} {times(out[name])}")
+    out["scatter_rows"] = compare_scatter(V, w.reshape(-1, K), terms, keep, dev,
+                                          f"float64 LDA w, {label}")
+    return out
+
+
+def double_phase(smi, kc, dev) -> tuple:
+    """Phase 16, float64 on the card: (a) the four float64 modes against
+    their plain versions; (b) LDA, fLDA, CTM and fCTM on the NSF corpus
+    cut to 8,192 documents (phase 13's dense cut) and the small DTM of
+    phase 8 (cgtol = 0), each on the card and on the CPU in float64 from
+    one init, 3 iterations, within 1e-8 per iteration on the globals
+    (rtol, atol 1e-12) and the bound (relative); (c) DTM at the mac shape
+    in float64 and float32 on the card, 3 iterations from one init; (d)
+    StreamingLDA and StreamingDTM in float64, 2 sweeps; (e) ``python -m
+    topicmodelsvb_jl_torch.train --dtype float64`` for LDA with its MFU
+    against the f64 peak; (f) a float64 checkpoint written on the CPU and
+    resumed on the card, bitwise equal to a straight card run; (g) the
+    gate refusing float64 CTPF, HMTM and seq LDA on the card before any
+    launch.  Returns the float64 modes' launches in (b)'s card runs and
+    their records."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert, engine
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+    from topicmodelsvb_jl_torch.models import lda as lda_mod
+
+    t_phase = time.perf_counter()
+    doubles = (scatter_rows, lda_estep, lda_elbo_tok, flda_estep)
+    K, V = kc["K"], kc["V"]
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    s0 = kc["bucketed"].segments[0]
+    wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
+            put(s0.doc_mask[:1024], torch.float32))
+
+    # (a) the float64 modes at the main path's widest chunk
+    recs = compare_double(wide, V, K, dev, f"widest bucket L={s0.L}")
+
+    # (b) card against CPU in float64, from one init, per iteration
+    launches = {f"{k.__name__}_double": 0 for k in doubles}
+    nsf = p13_nsf(8192)
+    small = tt.synth_corpus(M=1500, V=600, K=8, seed=3, n_slices=5, drift=0.2, mean_tokens=60,
+                            mean_terms=40)
+    cases = (("LDA", lambda rt, d: tt.LDA(nsf, K, rt, device=d, seed=7), ("alpha", "beta"), {}),
+             ("fLDA", lambda rt, d: tt.fLDA(nsf, K, rt, device=d, seed=7),
+              ("alpha", "beta", "kappa", "eta"), {}),
+             ("CTM", lambda rt, d: tt.CTM(nsf, 50, rt, device=d, seed=7), ("mu", "sigma", "beta"),
+              {}),
+             ("fCTM", lambda rt, d: tt.fCTM(nsf, 50, rt, device=d, seed=7),
+              ("mu", "sigma", "beta", "kappa"), {}),
+             ("DTM", lambda rt, d: tt.DTM(small, 10, delta=1.0, runtime=rt, device=d, seed=1),
+              ("alpha", "betahat", "mbeta"), dict(cgiter=5, cgtol=0.0)))
+    models = {}
+    for fam, make, fields, train_kw in cases:
+        chunk = 2048 if fam in ("CTM", "fCTM") else 1024 if fam != "DTM" else 256
+        rt = tt.RuntimeConfig(chunk_docs=chunk, dtype="float64")
+        to_np = getattr(convert, f"{fam.lower()}_state_to_numpy")
+        from_np = getattr(convert, f"{fam.lower()}_state_from_numpy")
+        gpu, cpu = make(rt, dev), make(rt, "cpu")
+        cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
+        worst, rels, deltas = 0.0, [], []
+        t_card = t_cpu = 0.0
+        for it in range(3):
+            for k in doubles:
+                k.launches_double = 0
+            _, s_card = timed(lambda: gpu.train(iter=1, checkelbo=1, printelbo=False,
+                                                **train_kw))
+            for k in doubles:
+                launches[f"{k.__name__}_double"] += k.launches_double
+            t0 = time.perf_counter()
+            cpu.train(iter=1, checkelbo=1, printelbo=False, **train_kw)
+            t_cpu += time.perf_counter() - t0
+            t_card += s_card
+            a, b = gpu.trainer.trace[-1].elbo, cpu.trainer.trace[-1].elbo
+            deltas.append(gpu.trainer.trace[-1].delta_elbo)
+            rels.append(abs(a - b) / abs(b))
+            need(rels[-1] <= 1e-8, f"phase 16 {fam}: iteration {it + 1} bound {a} vs CPU {b}")
+            for f in fields:
+                x, y = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+                need(x.dtype == torch.float64 and y.dtype == torch.float64,
+                     f"phase 16 {fam}: {f} not float64")
+                ok = torch.allclose(x, y, rtol=1e-8, atol=1e-12)
+                worst = max(worst, float(((x - y).abs() / (1e-12 + y.abs())).max()))
+                need(ok, f"phase 16 {fam}: iteration {it + 1}: {f} beyond 1e-8 of the CPU's")
+        need(all(d > 0 for d in deltas[1:]), f"phase 16 {fam}: ∆elbo {deltas}")
+        models[fam] = (gpu, cpu, rels)
+        print(f"phase 16 {fam} float64 (M={gpu.M}, K={gpu.K}, chunk {chunk}): card vs CPU from "
+              f"one init, 3 iterations: bound rel diff per iteration "
+              f"{', '.join(f'{r:.3e}' for r in rels)}, worst rel diff of {', '.join(fields)} "
+              f"{worst:.3e}; card {t_card:.2f} s, CPU {t_cpu:.2f} s; ∆elbo "
+              f"{', '.join(f'{x:.3f}' for x in deltas)}")
+    for k in doubles:
+        need(launches[f"{k.__name__}_double"] > 0,
+             f"phase 16: {k.__name__}'s float64 mode never launched: {launches}")
+
+    # (c) DTM at the mac shape: float32 against float64 on the card, from
+    # the float64 init cast to float32
+    corp = mac_corpus()
+    m64 = tt.DTM(corp, 20, delta=1.0, runtime=tt.RuntimeConfig(dtype="float64"), device=dev,
+                 seed=7)
+    m32 = tt.DTM(corp, 20, delta=1.0, device=dev, seed=7)
+    m32.state = convert.dtm_state_from_numpy(convert.dtm_state_to_numpy(m64.state), dev,
+                                             torch.float32)
+    walls, n64 = {}, {}
+    for tag, m in (("float64", m64), ("float32", m32)):
+        d0 = scatter_rows.launches_double
+        _, walls[tag] = timed(lambda: m.train(iter=3, checkelbo=1, printelbo=False, cgiter=10))
+        n64[tag] = scatter_rows.launches_double - d0
+    need(n64["float64"] > 0 and n64["float32"] == 0,
+         f"phase 16 DTM mac: float64 scatter launches {n64}")
+    norm = lambda f: float(torch.linalg.norm(getattr(m32.state, f).double() - getattr(m64.state, f))
+                           / torch.linalg.norm(getattr(m64.state, f)))
+    e64, e32 = m64.trainer.trace[-1].elbo, m32.trainer.trace[-1].elbo
+    print(f"phase 16 DTM mac (M={m64.M}, V={m64.V}, T={m64.T}, K=20), 3 iterations (cgiter 10) "
+          f"from one init on the card: float32 departs from float64 by {norm('betahat'):.3e} "
+          f"(betahat), {norm('mbeta'):.3e} (mbeta), {norm('alpha'):.3e} (alpha) of the norm and "
+          f"{abs(e32 - e64) / abs(e64):.3e} on the bound; beside it the float64 card run "
+          f"departs from the CPU by at most {max(models['DTM'][2]):.3e} on the bound (the small "
+          f"DTM of (b)); 3 iterations float64 {walls['float64']:.2f} s, float32 "
+          f"{walls['float32']:.2f} s; card {smi}")
+    recs["scatter_dtm"] = dtm_chunk_scatter(m64, dev, "mac float64")
+    del m64, m32
+
+    # (d) the streaming forms in float64
+    sdtm_c = tt.pack_corpus(small, docs_multiple=1024)
+    T, sid = tt.slices_from_stamps([doc.stamp for doc in small.docs], 1.0, sdtm_c.M_pad)
+    for name, make, train_kw in (
+            ("StreamingLDA", lambda: tt.StreamingLDA(nsf, K, batch_docs=4096, chunk_docs=1024,
+                                                     dtype=torch.float64, seed=3, device=dev),
+             {}),
+            ("StreamingDTM", lambda: tt.StreamingDTM(sdtm_c, 10, T, sid, batch_docs=1024,
+                                                     chunk_docs=256, dtype=torch.float64,
+                                                     seed=3, device=dev),
+             dict(cgiter=5, cgtol=0.0))):
+        for k in doubles:
+            k.launches_double = 0
+        sm = make()
+        _, wall = timed(lambda: sm.train(iter=2, checkelbo=1, printelbo=False, **train_kw))
+        got = {k.__name__: k.launches_double for k in doubles}
+        elbos = [e for _, e, _ in sm.trace]
+        need(sm.dtype == torch.float64 and got["scatter_rows"] > 0 and len(elbos) >= 2
+             and np.all(np.isfinite(elbos)), f"phase 16 {name}: launches {got}, trace {sm.trace}")
+        print(f"phase 16 {name} float64, 2 sweeps: {wall:.2f} s, trace {sm.trace}, float64 "
+              f"launches {got}")
+        for k, v in got.items():
+            launches[f"{k}_double"] += v
+
+    # (e) the CLI as a user runs it, with its MFU against the f64 peak
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "topicmodelsvb_jl_torch.train", "--model",
+                           "lda", "--corpus", "nsf-scale", "--subset", "8192", "--k", str(K),
+                           "--iter", "2", "--dtype", "float64", "--json"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    need(proc.returncode == 0, f"phase 16 CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    one = json.loads(proc.stdout.strip().splitlines()[-1])
+    peak64 = engine.device_peak_flops(dev, torch.float64)
+    need(one["iterations"] == 2 and np.isfinite(one["final_elbo"]) and 0 < one.get("mfu", 0) <= 1
+         and abs(one["mfu"] * peak64 * one["mean_step_s"] - one["flops_per_step"])
+         <= 1e-6 * one["flops_per_step"], f"phase 16 CLI: {one}")
+    print(f"phase 16: python -m topicmodelsvb_jl_torch.train --dtype float64 (LDA, 8,192 "
+          f"documents, K = {K}) in {time.perf_counter() - t0:.1f} s: mean step "
+          f"{one['mean_step_s']:.4f} s, mfu {one.get('mfu', 0.0):.4%} of the f64 peak "
+          f"{peak64 / 1e12:.2f} TFLOP/s (SMs x 64 x 2 x max SM clock); {one}")
+
+    # (f) a float64 checkpoint written on the CPU, resumed on the card
+    gpu, cpu, _ = models["LDA"]
+    os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "_tmp")) as tmp:
+        path = os.path.join(tmp, "lda64.npz")
+        tt.save_checkpoint(path, cpu)
+        back = tt.load_checkpoint(path, nsf, device=dev)
+    straight = tt.LDA(nsf, K, tt.RuntimeConfig(chunk_docs=1024, dtype="float64"), device=dev,
+                      seed=7)
+    straight.state = convert.lda_state_from_numpy(convert.lda_state_to_numpy(cpu.state), dev,
+                                                  torch.float64)
+    need(back.device.type == "cuda" and back.dtype == torch.float64 and back.trained_iters == 3,
+         "phase 16: the float64 checkpoint's model")
+    for m in (back, straight):
+        m.train(iter=2, checkelbo=1, printelbo=False)
+    fields = tuple(vars(straight.state))
+    equal_states(back.state, straight.state, fields,
+                 "phase 16: a CPU float64 checkpoint resumed on the card vs a straight card run")
+    print("phase 16: an LDA float64 checkpoint written on the CPU at iteration 3 resumed on "
+          "the card for 2 iterations: bitwise equal to a straight card run from that state")
+
+    # (g) the gate: refused before any launch or allocation
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    allk = (scatter_rows, lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, hmtm_estep, hmtm_logz)
+    rt64 = tt.RuntimeConfig(chunk_docs=1024, dtype="float64")
+    hm_corpus = unit_counts(nsf)
+    seq_step = lda_mod.make_step(nsf, K, 10, 1e-4, 10, 1e-4, 1024, dev, seq_axis="seq")
+    torch.cuda.synchronize()
+    before, mem0 = [k.launches for k in allk], torch.cuda.memory_allocated()
+    refusals = []
+    for what, call in (("CTPF", lambda: tt.CTPF(kc["cpk"], K, rt64, device=dev)),
+                       ("HMTM", lambda: tt.HMTM(hm_corpus, 25, rt64, device=dev)),
+                       ("LDA seq", lambda: seq_step(gpu.state, None, None, None, None))):
+        try:
+            call()
+        except TypeError as e:
+            need("has no float64 mode" in str(e), f"phase 16: float64 {what}: {e}")
+            refusals.append(f"{what}: {e}")
+        else:
+            need(False, f"phase 16: float64 {what} on the card was not refused")
+    torch.cuda.synchronize()
+    need([k.launches for k in allk] == before and torch.cuda.memory_allocated() == mem0,
+         "phase 16: a refused float64 run launched or allocated")
+    print("phase 16: refused before any launch or allocation: " + "; ".join(refusals))
+    print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s; float64 launches of (b) and "
+          f"(d) {launches}; card {smi}")
+    return launches, recs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3341,6 +3660,10 @@ def main() -> int:
     p15 = seq_phase(smi, kc, dev, p13_ranks)
     add(p15["launches"])
 
+    # 16. float64 on the card
+    p16, dbl = double_phase(smi, kc, dev)
+    add(p16)
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -3380,7 +3703,16 @@ def main() -> int:
             ("lda_estep_f64", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:137",
              f64["lda_estep_f64"][0], f64["lda_estep_f64"][1:]),
             ("flda_estep_f64", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:106",
-             f64["flda_estep_f64"][0], f64["flda_estep_f64"][1:])):
+             f64["flda_estep_f64"][0], f64["flda_estep_f64"][1:]),
+            # the float64 modes: the JAX package runs these kernels in the
+            # state's dtype
+            ("scatter_rows_double", "scatter_rows.cu", "bench_scatter_pallas.py:40",
+             dbl["scatter_rows"], dbl["scatter_dtm"]),
+            ("lda_estep_double", "lda_estep.cu", tpu + "lda_estep.py:157", dbl["lda_estep"], ()),
+            ("lda_elbo_tok_double", "lda_elbo.cu", tpu + "lda_elbo.py:119", dbl["lda_elbo_tok"],
+             ()),
+            ("flda_estep_double", "flda_estep.cu", tpu + "flda_estep.py:112", dbl["flda_estep"],
+             ())):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],

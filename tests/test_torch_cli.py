@@ -228,8 +228,9 @@ def test_cli_trim_packed(tmp_path):
 
 
 def test_cli_refusals(monkeypatch):
-    """The JAX CLI's refusals, and the card's: --no-pallas and float64 on
-    a CUDA device (checked before any corpus is built)."""
+    """The JAX CLI's refusals, and the card's: --no-pallas, and float64 on
+    a CUDA device for a family whose kernels lack a float64 mode (CTPF:
+    ctpf_estep), both checked before any corpus is built."""
     with pytest.raises(SystemExit, match="metrics"):
         run(SMALL + ["--model", "lda", "--streaming", "--metrics", "x.jsonl"])
     with pytest.raises(SystemExit, match="state-dir"):
@@ -244,8 +245,8 @@ def test_cli_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(SystemExit, match="no plain E-step path"):
         port_train.run(SMALL + ["--model", "lda", "--no-pallas"])
-    with pytest.raises(SystemExit, match="float64 runs on the CPU only"):
-        port_train.run(SMALL + ["--model", "lda"])
+    with pytest.raises(SystemExit, match="the ctpf_estep kernel has no float64 mode"):
+        port_train.run(SMALL + ["--model", "ctpf"])
 
 
 # ── identical inputs ──

@@ -269,7 +269,10 @@ def test_empty_chunk_launches_nothing(cuda):
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     args, eargs = _chunk(7, 16, 24, 100, cuda)
+    # the table's dtype picks the mode (float32 or float64); no float16 one
     with pytest.raises(TypeError, match="betaT"):
+        lda_estep(args[0].half(), *args[1:], viter=2, vtol=1e-3)
+    with pytest.raises(TypeError, match="counts must be torch.float64"):
         lda_estep(args[0].double(), *args[1:], viter=2, vtol=1e-3)
     with pytest.raises(TypeError, match="terms"):
         lda_estep(args[0], args[1].long(), *args[2:], viter=2, vtol=1e-3)
@@ -955,10 +958,21 @@ def test_checkpoint_card_to_cpu_and_back_is_bitwise(cuda, tmp_path):
             assert torch.equal(getattr(cpu.state, f), getattr(m.state, f).cpu()), f
         for f, x in vars(m.state).items():
             assert torch.equal(getattr(back.state, f), x), f
-    f64 = tt.LDA(corp, 4, tt.RuntimeConfig(chunk_docs=128, dtype="float64"), device="cpu")
+    # a float64 checkpoint resumes on the card where the family's kernels
+    # have a float64 mode (LDA), and is refused before any model is built
+    # where they do not (CTPF: ctpf_estep)
+    rt64 = tt.RuntimeConfig(chunk_docs=128, dtype="float64")
+    f64 = tt.LDA(corp, 4, rt64, device="cpu")
+    f64.train(iter=1, checkelbo=1, printelbo=False)
     tt.save_checkpoint(str(tmp_path / "f64.npz"), f64)
-    with pytest.raises(TypeError, match="float64"):
-        tt.load_checkpoint(str(tmp_path / "f64.npz"), corp)
+    back64 = tt.load_checkpoint(str(tmp_path / "f64.npz"), corp)
+    assert back64.device.type == "cuda" and back64.dtype == torch.float64
+    for f, x in vars(f64.state).items():
+        assert torch.equal(getattr(back64.state, f).cpu(), x), f
+    c64 = tt.CTPF(corp, 4, rt64, device="cpu")
+    tt.save_checkpoint(str(tmp_path / "ctpf64.npz"), c64)
+    with pytest.raises(TypeError, match="ctpf_estep kernel has no float64 mode"):
+        tt.load_checkpoint(str(tmp_path / "ctpf64.npz"), corp)
 
 
 def _hmtm_chunk(K, B, L, V, dev, seed=0):
@@ -1203,9 +1217,14 @@ def test_streaming_device_memory_does_not_grow_with_the_corpus(cuda, name):
 
 
 def test_streaming_float64_on_cuda_raises(cuda):
+    """float64 on the card is refused for the families whose kernels lack
+    a float64 mode, naming the kernel; StreamingLDA takes it."""
+    for name, kernel in (("StreamingCTPF", "ctpf_estep"), ("StreamingHMTM", "hmtm_estep")):
+        pk, ctor, _ = _stream_case(name)
+        with pytest.raises(TypeError, match=f"the {kernel} kernel has no float64 mode"):
+            _streamer(name, pk, ctor, cuda, dtype=torch.float64)
     pk, _, _ = _stream_case("StreamingLDA")
-    with pytest.raises(TypeError, match="float32"):
-        tt.StreamingLDA(pk, 8, dtype=torch.float64, device=cuda)
+    assert tt.StreamingLDA(pk, 8, dtype=torch.float64, device=cuda).dtype == torch.float64
 
 
 _TWO_RANKS = r"""
@@ -1368,6 +1387,169 @@ def test_cli_on_the_card(cuda, tmp_path):
     names = {e.get("name", "") for e in events}
     assert "cavi_step" in names
     assert any("lda_estep_kernel" in n for n in names)
-    for bad, msg in ((["--no-pallas"], "no plain E-step"), (["--dtype", "float64"], "CPU only")):
+    for bad, msg in ((["--model", "lda", "--no-pallas"], "no plain E-step"),
+                     (["--model", "ctpf", "--dtype", "float64"], "ctpf_estep kernel has no")):
         with pytest.raises(SystemExit, match=msg):
-            train.run(["--model", "lda", "--corpus", "synth", "--k", "3"] + bad)
+            train.run(["--corpus", "synth", "--k", "3"] + bad)
+
+
+# ── the float64 modes of scatter_rows, lda_estep, lda_elbo_tok, flda_estep ──
+
+RTOL64, ATOL64 = 1e-9, 1e-12   # float64 kernel against its plain version
+
+
+def _f64(args):
+    """The same arguments with every float tensor in float64."""
+    return tuple(a.double() if torch.is_floating_point(a) else a for a in args)
+
+
+def _close64(got, want, names):
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == torch.float64, name
+        torch.testing.assert_close(a, b, rtol=RTOL64, atol=ATOL64, msg=name)
+
+
+# the main path's widest chunk (1024 documents, L = 128, K = 100), K % 4
+# != 0, rows in tiles (L = 1024), and wider than the block (K = 257)
+F64_SHAPES = [(1024, 128, 100), (64, 64, 101), (64, 1024, 100), (16, 40, 257)]
+
+
+@pytest.mark.parametrize("B,L,K", F64_SHAPES)
+def test_lda_estep_double_matches_plain(cuda, B, L, K):
+    args = _f64(_chunk(K, B, L, 25_000, cuda)[0])
+    n0, d0 = lda_estep.launches, lda_estep.launches_double
+    got = lda_estep(*args, viter=10, vtol=1.0 / K**2)
+    torch.cuda.synchronize()
+    assert (lda_estep.launches, lda_estep.launches_double) == (n0 + 1, d0 + 1)
+    _close64(got, lda_estep_ref(*args, viter=10, vtol=1.0 / K**2), ("gamma", "El", "El_old", "w"))
+    assert torch.all(got[3][-3:] == 0)   # zeros on masked documents
+    for a, b in zip(got[:3], args[5:]):
+        assert torch.equal(a[-3:], b[-3:])
+    assert all(torch.equal(a, b) for a, b in zip(got, lda_estep(*args, viter=10, vtol=1.0 / K**2)))
+    # the f64 Elogtheta channel is the identity on a float64 state
+    ch = lda_estep(*args, viter=10, vtol=1.0 / K**2, elogtheta_f64=True)
+    assert all(torch.equal(a, b) for a, b in zip(ch, got))
+
+
+@pytest.mark.parametrize("B,L,K", F64_SHAPES)
+def test_flda_estep_double_matches_plain(cuda, B, L, K):
+    args = _f64(_flda_chunk(K, B, L, 25_000, cuda))
+    n0, d0 = flda_estep.launches, flda_estep.launches_double
+    got = flda_estep(*args, viter=10, vtol=1.0 / K**2)
+    torch.cuda.synchronize()
+    assert (flda_estep.launches, flda_estep.launches_double) == (n0 + 1, d0 + 1)
+    names = ("gamma", "El", "El_old", "tau", "tau_old", "w")
+    _close64(got, flda_estep_ref(*args, viter=10, vtol=1.0 / K**2), names)
+    assert torch.all(got[5][-3:] == 0)
+    for a, b in zip(got[:5], args[7:]):
+        assert torch.equal(a[-3:], b[-3:])
+    assert all(torch.equal(a, b) for a, b in zip(got, flda_estep(*args, viter=10, vtol=1.0 / K**2)))
+    ch = flda_estep(*args, viter=10, vtol=1.0 / K**2, elogtheta_f64=True)
+    assert all(torch.equal(a, b) for a, b in zip(ch, got))
+
+
+@pytest.mark.parametrize("B,L,K", F64_SHAPES)
+def test_lda_elbo_tok_double_matches_plain(cuda, B, L, K):
+    _, eargs = _chunk(K, B, L, 25_000, cuda)
+    eargs = _f64(eargs)
+    n0, d0 = lda_elbo_tok.launches, lda_elbo_tok.launches_double
+    got = lda_elbo_tok(*eargs)
+    torch.cuda.synchronize()
+    assert (lda_elbo_tok.launches, lda_elbo_tok.launches_double) == (n0 + 1, d0 + 1)
+    want = lda_elbo_tok_ref(*eargs)
+    assert got.dtype == torch.float64
+    assert abs(float(got) - float(want)) <= RTOL64 * abs(float(want))
+    assert torch.equal(got, lda_elbo_tok(*eargs))
+    # masked documents add nothing
+    dm = eargs[4].clone()
+    dm[: B // 2] = 0
+    part = lda_elbo_tok(*eargs[:4], dm, *eargs[5:])
+    keep = lda_elbo_tok_ref(*(a[B // 2:] if a.dim() and a.shape[0] == B else a for a in eargs))
+    assert abs(float(part) - float(keep)) <= RTOL64 * abs(float(keep))
+
+
+# W: DTM's K = 20 (double2 lanes), fLDA's K + 1 = 101 (8-byte lanes), LDA's 100
+@pytest.mark.parametrize("W", [20, 100, 101])
+def test_scatter_rows_double_matches_plain(cuda, W):
+    r = np.random.default_rng(9)
+    T, B, L = 12 * 15_113 if W == 20 else 25_000, 1024, 128
+    ids = (T * r.random((B, L)) ** 3).astype(np.int32)
+    keep = r.random((B, L)) < 0.8
+    ids[:, 0] = 7   # one long run: split pieces and the second launch
+    plan = build_plan(ids, keep).to(cuda)
+    w = torch.tensor(r.random((B * L, W)) * keep.reshape(-1, 1), dtype=torch.float64,
+                     device=cuda)
+    acc = torch.tensor(r.random((T, W)), dtype=torch.float64, device=cuda)
+    n0, d0 = scatter_rows.launches, scatter_rows.launches_double
+    got = scatter_rows(acc.clone(), w, plan)
+    torch.cuda.synchronize()
+    assert (scatter_rows.launches, scatter_rows.launches_double) == (n0 + 1, d0 + 1)
+    assert plan.run_id.shape[0] > 0
+    torch.testing.assert_close(got, scatter_rows_ref(acc.clone(), w, plan), rtol=RTOL64,
+                               atol=ATOL64)
+    assert torch.equal(got, scatter_rows(acc.clone(), w, plan))
+    with pytest.raises(TypeError, match="weights"):
+        scatter_rows(acc.clone(), w.float(), plan)
+
+
+def _k_past_f64_limit(name):
+    """A K whose rows fit shared memory in float32 but not in float64."""
+    import ctypes
+
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    q = lambda sfx: _build.function(f"tmvb_{name}_scratch{sfx}", [ctypes.c_int64] * 2,
+                                    ctypes.c_int64)
+    for K in range(2000, 20_001, 500):
+        if q("")(4, K) >= 0 and q("_f64")(4, K) < 0:
+            return K
+    raise AssertionError(f"{name}: no K between the float32 and float64 limits")
+
+
+def test_double_kernels_raise_past_their_k_limit(cuda):
+    """Past the float64 K limit each kernel raises; the float32 mode takes
+    the same K.  No plain version is handed the work."""
+    for name, fn, chunk in (("lda_estep", lda_estep, lambda K: _chunk(K, 2, 4, 10, cuda)[0]),
+                            ("flda_estep", flda_estep, lambda K: _flda_chunk(K, 4, 4, 10, cuda))):
+        K = _k_past_f64_limit(name)
+        args = chunk(K)
+        fn(*args, viter=2, vtol=1e-3)
+        n0 = fn.launches
+        with pytest.raises(RuntimeError, match="does not fit"):
+            fn(*_f64(args), viter=2, vtol=1e-3)
+        assert fn.launches == n0
+    _, eargs = _chunk(20_000, 4, 4, 10, cuda)
+    lda_elbo_tok(*eargs)
+    with pytest.raises(RuntimeError, match="lda_elbo_tok"):
+        lda_elbo_tok(*_f64(eargs))
+
+
+@pytest.mark.parametrize("fam", ["LDA", "DTM"])
+def test_double_model_on_the_card_follows_the_cpu(cuda, fam):
+    """A float64 LDA and DTM on the card against the same model on the
+    CPU from one init: 1e-8 relative on the bound per iteration and on
+    the globals (DTM at cgtol = 0)."""
+    from topicmodelsvb_jl_torch import convert
+
+    corp = _stamped_corpus()
+    rt = tt.RuntimeConfig(chunk_docs=128, dtype="float64")
+    kw = dict(delta=1.0) if fam == "DTM" else {}
+    make = lambda d: getattr(tt, fam)(corp, 4, runtime=rt, device=d, seed=1, **kw)
+    to_np, from_np = (getattr(convert, f"{fam.lower()}_state_to_numpy"),
+                      getattr(convert, f"{fam.lower()}_state_from_numpy"))
+    gpu = make(cuda)
+    cpu = make("cpu")
+    cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
+    train = dict(cgiter=5, cgtol=0.0) if fam == "DTM" else {}
+    d0 = scatter_rows.launches_double
+    gpu.train(iter=3, checkelbo=1, printelbo=False, **train)
+    cpu.train(iter=3, checkelbo=1, printelbo=False, **train)
+    assert scatter_rows.launches_double > d0
+    ge = [x.elbo for x in gpu.trainer.trace]
+    ce = [x.elbo for x in cpu.trainer.trace]
+    assert len(ge) == len(ce) == 3
+    assert max(abs(a - b) / abs(b) for a, b in zip(ge, ce)) <= 1e-8, (ge, ce)
+    fields = ("alpha", "beta") if fam == "LDA" else ("alpha", "betahat", "mbeta")
+    for f in fields:
+        a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12, msg=f)

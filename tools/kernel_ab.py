@@ -13,11 +13,12 @@ and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 (NSF scale) and the CTPF main path (CiteULike scale), K = 100,
 1024-document chunks: one warm-up iteration each, then three steps alone,
 each timed by the host clock up to a synchronize.  Last, ``digests``:
-a sha256 of the outputs of the E-step kernels and ``lda_elbo_tok`` (f32,
-and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase
-3's arguments) on the widest NSF chunk and on the chunks whose rows do
-not fit shared memory; equal digests from two checkouts mean the kernels
-give the same bits.  ROOT's package must have those modes.
+a sha256 of the outputs of the E-step kernels, ``lda_elbo_tok`` and
+``scatter_rows`` (f32, and the f64 Elogtheta modes of ``lda_estep`` and
+``flda_estep``; phase 3's arguments) on the widest NSF chunk and on the
+chunks whose rows do not fit shared memory; equal digests from two
+checkouts mean the kernels give the same bits.  ROOT's package must have
+those modes.
 Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
@@ -43,6 +44,7 @@ def digests(smoke, kc, dev) -> dict:
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON
 
     K, V = kc["K"], kc["V"]
@@ -56,6 +58,10 @@ def digests(smoke, kc, dev) -> dict:
     for tag, seg in (("wide", wide), ("long", lc["long_pad"])):
         args, beta, beta_old = smoke.lda_args(seg, V, K, dev)
         outs[f"lda_estep_{tag}"] = lda_estep(*args, **kw)
+        plan = build_plan(seg[0].cpu().numpy(), (seg[1] > 0).cpu().numpy()).to(dev)
+        acc = torch.zeros((V, K), device=dev)
+        outs[f"scatter_rows_{tag}"] = (scatter_rows(acc, outs[f"lda_estep_{tag}"][3]
+                                                    .reshape(-1, K), plan),)
         boT = (beta_old + EPSILON).T.contiguous()
         g2T = (boT * (torch.log(beta + EPSILON).T - torch.log(boT))).contiguous()
         outs[f"lda_elbo_tok_{tag}"] = (lda_elbo_tok(boT, g2T, *seg, args[6], args[7]),)

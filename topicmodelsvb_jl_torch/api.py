@@ -30,6 +30,7 @@ import torch
 from . import corpus as corpuslib
 from .corpus import Corpus, CorpusError, Document
 from .engine import Trainer, device_peak_flops
+from .kernels._build import check_dtype
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
 from .models import dtm as dtm_mod
@@ -54,6 +55,7 @@ class TopicModelError(Exception):
 class TopicModel:
     """Construction and packing shared by the models."""
 
+    _family = ""        # the model family, for the dtype gate (kernels._build.check_dtype)
     _uses_readers = False
     _bucketed = False   # length-bucketed token packing
     _per_doc_fields: tuple = ()   # state fields with a leading doc axis
@@ -91,9 +93,13 @@ class TopicModel:
         self.runtime = (runtime if runtime is not None
                         else RuntimeConfig(chunk_docs=self._preferred_chunk))
         self.dtype = getattr(torch, self.runtime.dtype)
-        # the MFU figure's peak: the runtime's, else this device's own
+        # the state's dtype on this device, before anything is allocated:
+        # the api models shard over the data axis alone, which adds no kernel
+        check_dtype(self._family, self.dtype, self.device)
+        # the MFU figure's peak: the runtime's, else this device's own in
+        # the state's dtype
         self.peak_flops = (float(self.runtime.peak_flops) if self.runtime.peak_flops is not None
-                           else device_peak_flops(self.device))
+                           else device_peak_flops(self.device, self.dtype))
         self.seed = seed
         ax = self.runtime.data_axis
         shape = data_shape(self.runtime.mesh_shape)
@@ -504,6 +510,7 @@ class _DirichletAccessors:
 class LDA(_DirichletAccessors, TopicModel):
     """Latent Dirichlet allocation (reference src/LDA.jl, src/gpuLDA.jl)."""
 
+    _family = "LDA"
     _bucketed = True
     _per_doc_fields = ("gamma", "Elogtheta", "Elogtheta_old")
 
@@ -531,6 +538,7 @@ class LDA(_DirichletAccessors, TopicModel):
 class fLDA(_DirichletAccessors, TopicModel):
     """Filtered LDA (reference src/fLDA.jl)."""
 
+    _family = "fLDA"
     _bucketed = True
     _per_doc_fields = ("gamma", "Elogtheta", "Elogtheta_old", "tau", "tau_old")
 
@@ -615,6 +623,7 @@ class CTPF(TopicModel):
     recommendations (``urecs``) (reference CTPF.jl:62-79, 377-400).
     """
 
+    _family = "CTPF"
     _uses_readers = True
     _bucketed = True
     _per_doc_fields = ("gimel", "gimel_old", "zayin", "zayin_old")
@@ -902,6 +911,7 @@ class CTM(TopicModel):
     unidentified direction (see ``models/ctm.py:gaussian_update``).
     Default off: the reference's exact semantics."""
 
+    _family = "CTM"
     _bucketed = True
     _preferred_chunk = 2048
     _per_doc_fields = ("lam", "lam_old", "vsq", "logzeta")
@@ -980,6 +990,7 @@ class fCTM(CTM):
 
     ``identify=True`` gauge-fixes the Gaussian channel as CTM's does."""
 
+    _family = "fCTM"
     _per_doc_fields = ("lam", "lam_old", "vsq", "logzeta", "tau", "tau_old")
     _model = fctm_mod
 
@@ -1018,6 +1029,7 @@ class DTM(TopicModel):
     trained LDA, fLDA, CTM or fCTM ``basemodel`` (DTM.jl:66-93).  The
     corpus is packed dense, not bucketed."""
 
+    _family = "DTM"
     _per_doc_fields = ("gamma", "Elogtheta", "lzeta")
 
     def __init__(self, corp, K: int, delta: float, basemodel=None,
@@ -1174,6 +1186,7 @@ class HMTM(TopicModel):
     is one token in order and counts are ignored (HMTM.jl:63-67), so the
     corpus must not be condensed (``expand_corp``).  See models/hmtm.py."""
 
+    _family = "HMTM"
     _bucketed = True
     _per_doc_fields = ("tau", "gamma")
 

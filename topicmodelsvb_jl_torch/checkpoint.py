@@ -45,7 +45,7 @@ _MANIFEST = "manifest.json"
 # loads at any world size, as the JAX package never reads it to build its
 # mesh; and peak_flops is the loading device's own (a JAX checkpoint's is
 # a TPU's)
-_IGNORED_RUNTIME = ("use_pallas", "vocab_axis", "peak_flops", "mesh_shape")
+_IGNORED_RUNTIME = ("use_pallas", "peak_flops", "mesh_shape")
 # per-document leaves whose second axis is the packing's token width
 _TOKEN_FIELDS = ("tau", "tau_old")
 
@@ -302,9 +302,8 @@ def _rebuild_model(meta: dict, corp, strict_corpus: bool, device, mesh=None):
         raise ValueError(f"checkpoint of a {meta['model']} model, which this package "
                          "does not have")
     rt = _runtime(meta, cls)
-    if rt.dtype == "float64" and torch.device(device).type == "cuda":
-        raise TypeError("a float64 checkpoint cannot run on CUDA (the kernels are "
-                        "float32 only); load it with device='cpu'")
+    # the constructor asks the dtype gate first: a float64 checkpoint of a
+    # family whose kernels lack a float64 mode loads with device='cpu' only
     model = cls(corp, meta["K"], runtime=rt, mesh=mesh, device=device, seed=meta["seed"],
                 **meta.get("ctor", {}))
     model._fingerprint_cache = fp   # the same contents the model would hash

@@ -90,22 +90,31 @@ def _max_sm_clock_hz(index: int) -> float:
     return 0.0
 
 
+# FMA lanes an SM on Hopper, the one architecture the kernels build for:
+# 128 f32 lanes and 64 FP64 lanes (the f64 rate is half the f32 rate)
+_LANES = {"float32": 128, "float64": 64}
+
+
 @functools.lru_cache(maxsize=None)
-def _cuda_peak_flops(index: int) -> float:
-    # 128 f32 lanes an SM on Hopper, the one architecture the kernels build for
+def _cuda_peak_flops(index: int, lanes: int) -> float:
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * 128 * 2.0 * _max_sm_clock_hz(index)
+    return sms * lanes * 2.0 * _max_sm_clock_hz(index)
 
 
-def device_peak_flops(device) -> float:
-    """Peak f32 FLOP/s of ``device`` outside the tensor cores: SMs × 128
-    f32 lanes × 2 (an FMA) × the maximum SM clock (an H100 SXM: 132 × 128
-    × 2 × 1.98 GHz = 66.9 TFLOP/s).  0 for a CPU (no MFU figure)."""
+def device_peak_flops(device, dtype=torch.float32) -> float:
+    """Peak FLOP/s of ``device`` outside the tensor cores in ``dtype``
+    (float32 or float64): SMs × lanes × 2 (an FMA) × the maximum SM clock,
+    with 128 f32 lanes or 64 FP64 lanes an SM (an H100 SXM: 132 × 128 × 2 ×
+    1.98 GHz = 66.9 TFLOP/s in f32, 33.5 TFLOP/s in f64).  0 for a CPU
+    (no MFU figure)."""
     device = torch.device(device)
     if device.type != "cuda":
         return 0.0
+    name = str(dtype).replace("torch.", "")
+    if name not in _LANES:
+        raise ValueError(f"no peak rate for {name}")
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _cuda_peak_flops(index)
+    return _cuda_peak_flops(index, _LANES[name])
 
 
 class HostReads(TorchDispatchMode):

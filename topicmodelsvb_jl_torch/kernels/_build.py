@@ -12,6 +12,10 @@ No PyTorch header is included, so a build takes seconds.
   approximate intrinsics, and the bound's accuracy depends on them.
 * Each C entry point returns ``cudaGetLastError()`` after its launch;
   :func:`check` raises on anything but 0.
+
+:func:`check_dtype` is the one gate on the state's dtype: it says, before
+anything is allocated, whether a family runs in that dtype on a device
+along the mesh axes it uses, from the kernels that run reaches.
 """
 
 from __future__ import annotations
@@ -155,3 +159,75 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = _load().tmvb_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# The kernels each family's step and bound launch on the card.
+FAMILY_KERNELS = {
+    "LDA": ("lda_estep", "lda_elbo_tok", "scatter_rows"),
+    "fLDA": ("flda_estep", "scatter_rows"),
+    "CTM": ("lda_elbo_tok", "scatter_rows"),
+    "fCTM": ("scatter_rows",),
+    "CTPF": ("ctpf_estep", "scatter_rows"),
+    "DTM": ("scatter_rows",),
+    "HMTM": ("hmtm_estep", "hmtm_logz", "scatter_rows"),
+}
+# The mesh axes each family runs on: the data axis, the vocab axis that
+# shards the tables' storage (and CTPF's user axis), and the two that split
+# a document's token slots, the routed vocab axis and the sequence axis.
+FAMILY_AXES = {
+    "LDA": ("data", "vocab", "routed", "seq"),
+    "fLDA": ("data", "vocab", "seq"),
+    "CTM": ("data", "vocab", "seq"),
+    "fCTM": ("data", "vocab", "seq"),
+    "CTPF": ("data", "vocab", "user", "seq"),
+    "DTM": ("data", "vocab"),
+    "HMTM": ("data", "vocab"),
+}
+# The pass modes an axis that splits the token slots adds (CTM and fCTM
+# sum their per-pass statistic in plain tensor code and add none).
+AXIS_KERNELS = {
+    ("LDA", "routed"): ("lda_estep_pass",),
+    ("LDA", "seq"): ("lda_estep_pass",),
+    ("fLDA", "seq"): ("flda_estep_pass",),
+    ("CTPF", "seq"): ("ctpf_estep_pass",),
+}
+# Kernels with a float64 mode; every kernel has a float32 one.
+FLOAT64_KERNELS = frozenset({"scatter_rows", "lda_estep", "lda_elbo_tok", "flda_estep"})
+
+
+def kernels_of(family: str, axes=()) -> tuple:
+    """The kernels ``family`` launches on the card along ``axes`` (mesh
+    axis kinds from :data:`FAMILY_AXES`)."""
+    if family not in FAMILY_KERNELS:
+        raise ValueError(f"unknown model family {family!r}")
+    for ax in axes:
+        if ax not in FAMILY_AXES[family]:
+            raise ValueError(f"{family} has no {ax} axis (it has {FAMILY_AXES[family]})")
+    extra = tuple(k for ax in axes for k in AXIS_KERNELS.get((family, ax), ()))
+    return FAMILY_KERNELS[family] + extra
+
+
+def check_dtype(family: str, dtype, device, axes=()) -> None:
+    """Raise ``TypeError`` unless ``family`` runs with state dtype
+    ``dtype`` (a torch dtype or its name) on ``device`` along ``axes``.
+
+    A CPU device runs the plain versions, in any dtype.  A CUDA device
+    launches the kernels, and every kernel the run reaches
+    (:func:`kernels_of`) must have a mode of that dtype: float32 always,
+    float64 where :data:`FLOAT64_KERNELS` has it.  The message names the
+    first kernel that lacks the mode.  Nothing is allocated, and no
+    device is touched."""
+    name = str(dtype).replace("torch.", "")
+    kind = getattr(device, "type", None) or str(device).split(":")[0]
+    kernels = kernels_of(family, axes)
+    if kind != "cuda" or name == "float32":
+        return
+    if name != "float64":
+        raise TypeError(f"{family} in {name} on CUDA: the kernels run float32 or float64")
+    for k in kernels:
+        if k not in FLOAT64_KERNELS:
+            via = next((ax for ax in axes if k in AXIS_KERNELS.get((family, ax), ())), None)
+            where = f" (the {via} axis's pass mode)" if via else ""
+            raise TypeError(
+                f"{family} in float64 on CUDA: the {k} kernel{where} has no float64 mode; "
+                "run float32 on the card, or float64 with device='cpu'")

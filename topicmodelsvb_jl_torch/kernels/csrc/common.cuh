@@ -29,6 +29,49 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_max(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Four doubles, 16-byte aligned: the float64 modes' counterpart of float4
+// (two 16-byte loads or stores; CUDA's own double4 changes its alignment
+// between toolkits).
+struct __align__(16) Double4 {
+  double x, y, z, w;
+};
+
+// What the kernels' float32 and float64 modes spell differently: the
+// four-wide vector, the underflow guard, and the math functions.  float
+// keeps the calls the float32 kernels always made (expf, logf, fmaf,
+// fmaxf); double has no special-function unit, so its exp, exp2 and log
+// are instruction sequences on the FP64 pipe, accurate to an ulp or two.
+template <typename R>
+struct Real;
+template <>
+struct Real<float> {
+  using V4 = float4;
+  static constexpr float eps = kEps;
+  static constexpr float log2e = 1.4426950408889634f;
+  __device__ static __forceinline__ float exp(float x) { return expf(x); }
+  __device__ static __forceinline__ float log(float x) { return logf(x); }
+  __device__ static __forceinline__ float fma(float a, float b, float c) { return fmaf(a, b, c); }
+  __device__ static __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  __device__ static __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct Real<double> {
+  using V4 = Double4;
+  static constexpr double eps = 1.6033346880071782e-30;   // the port's EPSILON
+  static constexpr double log2e = 1.4426950408889634;
+  __device__ static __forceinline__ double exp(double x) { return ::exp(x); }
+  __device__ static __forceinline__ double log(double x) { return ::log(x); }
+  __device__ static __forceinline__ double fma(double a, double b, double c) { return ::fma(a, b, c); }
+  __device__ static __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  __device__ static __forceinline__ Double4 zero4() { return Double4{0.0, 0.0, 0.0, 0.0}; }
+};
+
 // Sum of v over a block of kN warps, returned to every thread, with ONE
 // barrier: the caller gives each call site its own `red` (kN values), so
 // no barrier is needed before the write.  Per-warp partials are added in
@@ -62,6 +105,17 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+// One element: 4 bytes for a float, 8 for a double.
+__device__ __forceinline__ void cp_async_elem(float* smem, const float* gmem) {
+  cp_async4(smem, gmem);
+}
+__device__ __forceinline__ void cp_async_elem(double* smem, const double* gmem) {
+  cp_async8(smem, gmem);
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -79,6 +133,22 @@ __device__ __forceinline__ float digamma_series(float x) {
   const float inv2 = inv * inv;
   const float series = logf(t) - 0.5f * inv -
       inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
+  return series - acc;
+}
+
+// The same series in double, for the float64 modes: what the plain
+// versions compute on a float64 state (lda_estep.digamma_series), whose
+// truncation (~2.5e-10 at t = 8) the float64 runs keep, so that the card
+// and the CPU take one function.
+__device__ __forceinline__ double digamma_series(double x) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc += 1.0 / (x + static_cast<double>(i));
+  const double t = x + 8.0;
+  const double inv = 1.0 / t;
+  const double inv2 = inv * inv;
+  const double series = log(t) - 0.5 * inv -
+      inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0)));
   return series - acc;
 }
 

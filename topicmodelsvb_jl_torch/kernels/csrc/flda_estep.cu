@@ -96,6 +96,17 @@
 // floats 32-39 (the compaction counts, done by then), so the d^2 sum keeps
 // floats 16-23.  kF64 = false is the f32 mode's code as it was, bit for bit.
 //
+// The float64 mode (R = double; tmvb_flda_estep_f64): the same kernel on a
+// float64 state, every input, output and sum in double; 2^x is the double
+// exp2 (the f64 pipe has no ex2.approx), psi the shift-by-8 series in
+// double.  Bound: bytes doubled (~136 MB at the widest NSF chunk, ~41 us)
+// against the exps, which now run as instruction sequences on the FP64
+// pipe (~20 operations each at 33.5 TFLOP/s: ~80 us for 1.3e8 of them).
+// Every shared-memory size is in 8-byte elements: the widest NSF document
+// no longer stays resident (rows and p take 213 KB) and goes through
+// tiles of 58 slots with 2 blocks an SM, re-reading the 20 MB float64
+// table from L2 every pass; the widest K halves (~3,600 at L = 4).
+//
 // The pass mode (flda_estep_pass_kernel), for the sequence axis, where a
 // document's token slots are split over ranks: one pass of the fixpoint
 // without its update, this rank's partial gamma statistic pc = sum_l p_l
@@ -125,15 +136,18 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+// The float64 mode's 2^x: the double exp2 (no approximation).
+__device__ __forceinline__ double ex2(double x) { return exp2(x); }
 
 // Max of v over the block with one barrier, as block_sum_once.
-__device__ __forceinline__ float block_max_once(float v, float* red) {
+template <typename R>
+__device__ __forceinline__ R block_max_once(R v, R* red) {
   v = warp_max(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float m = -INFINITY;
+  R m = -INFINITY;
 #pragma unroll
-  for (int w = 0; w < kFWarps; ++w) m = fmaxf(m, red[w]);
+  for (int w = 0; w < kFWarps; ++w) m = Real<R>::max(m, red[w]);
   return m;
 }
 
@@ -150,14 +164,15 @@ __host__ __device__ inline int flda_shares(int Kp) {
   return g >= kFThreads ? 1 : (kFThreads / g < kFMaxShares ? kFThreads / g : kFMaxShares);
 }
 
-// Shared memory in floats: rows and p [tile, Kp] each,
-// e twice [Kp], gamma partials [shares, Kp], gamma/El/El_old [K rounded to
-// 4] each, 64 for the sums and the compaction, then the slot list [7, L]
-// when it is kept there.
+// Shared memory in elements of R (float, or double in the float64 mode):
+// rows and p [tile, Kp] each, e twice [Kp], gamma partials [shares, Kp],
+// gamma/El/El_old [K rounded to 4] each, 64 for the sums and the
+// compaction, then the slot list [7, L] when it is kept there.
+template <typename R>
 __host__ __device__ inline size_t flda_smem(int64_t L, int K, int64_t tile, bool meta) {
   const int Kp = flda_stride(K);
   const size_t base = (2 + flda_shares(Kp)) * static_cast<size_t>(Kp) + 3 * ((K + 3) / 4 * 4) + 64;
-  return (2 * static_cast<size_t>(tile) * Kp + base + (meta ? kFMeta * L : 0)) * sizeof(float);
+  return (2 * static_cast<size_t>(tile) * Kp + base + (meta ? kFMeta * L : 0)) * sizeof(R);
 }
 
 struct FldaShape {
@@ -172,28 +187,31 @@ struct FldaShape {
 // that leaves room for 2 blocks an SM; else tiles, with the slot list and
 // at least 32 rows sized for 4 blocks an SM (an SM's 228 KB less 1 KB the
 // device keeps per block), or 2, or 1; else the slot list in device
-// scratch and tiles of what fits.
+// scratch and tiles of what fits.  In the float64 mode (R = double) every
+// element takes 8 bytes: the widest NSF document (L = 128, K = 100) goes
+// through tiles, and the widest K halves.
+template <typename R>
 inline int flda_shape(int64_t L, int64_t K, FldaShape* s) {
   const int optin = smem_optin();
   if (optin < 0) return query_error();
   const int k = static_cast<int>(K);
-  const size_t full = flda_smem(L, k, L, true);
+  const size_t full = flda_smem<R>(L, k, L, true);
   if (full <= static_cast<size_t>(optin) / 2) {
     *s = {static_cast<int>(L), 1, 1, full};
     return 0;
   }
-  const size_t row = 2 * flda_stride(k) * sizeof(float);
+  const size_t row = 2 * flda_stride(k) * sizeof(R);
   const size_t o = static_cast<size_t>(optin);
   for (size_t budget : {o / 4 - 1024, o / 2 - 1024, o}) {
-    if (flda_smem(L, k, std::min<int64_t>(L, 32), true) > budget) continue;
-    const int64_t tile = std::min<int64_t>(L, (budget - flda_smem(L, k, 0, true)) / row);
-    *s = {static_cast<int>(tile), 1, 0, flda_smem(L, k, tile, true)};
+    if (flda_smem<R>(L, k, std::min<int64_t>(L, 32), true) > budget) continue;
+    const int64_t tile = std::min<int64_t>(L, (budget - flda_smem<R>(L, k, 0, true)) / row);
+    *s = {static_cast<int>(tile), 1, 0, flda_smem<R>(L, k, tile, true)};
     return 0;
   }
-  const size_t base = flda_smem(L, k, 0, false);
+  const size_t base = flda_smem<R>(L, k, 0, false);
   if (base + row > o) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tile = std::min<int64_t>(L, (o - base) / row);
-  *s = {static_cast<int>(tile), 0, 0, flda_smem(L, k, tile, false)};
+  *s = {static_cast<int>(tile), 0, 0, flda_smem<R>(L, k, tile, false)};
   return 0;
 }
 
@@ -201,43 +219,43 @@ inline int flda_shape(int64_t L, int64_t K, FldaShape* s) {
 // p = 2^(tau log2(e) lb + e), s and sum p lb with kTps threads a slot;
 // writes c / s to mcs and, when `tn` is given, tau_new to tn; stores p to
 // pb for the slots below `nkeep`.
-__device__ __forceinline__ void slot_pass(const float* rows, float* pb, int m, int j0, int nkeep,
-                                          const float* e, const float* tau, float* tn,
-                                          const float* mc, float* mcs, const float* mkap,
-                                          float eta, int Kp) {
+template <typename R>
+__device__ __forceinline__ void slot_pass(const R* rows, R* pb, int m, int j0, int nkeep,
+                                          const R* e, const R* tau, R* tn, const R* mc, R* mcs,
+                                          const R* mkap, R eta, int Kp) {
+  using V4 = typename Real<R>::V4;
   const int G = Kp / 4;
   const int sub = threadIdx.x % kTps;
-  const float4* e4 = reinterpret_cast<const float4*>(e);
+  const V4* e4 = reinterpret_cast<const V4*>(e);
   for (int base = 0; base < m; base += kFThreads / kTps) {
     const int i = base + threadIdx.x / kTps;
     const int j = j0 + i;
-    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f), l4 = s4;
+    V4 s4 = Real<R>::zero4(), l4 = s4;
     if (i < m) {
-      const float t2 = tau[j] * kLog2e;
-      const float4* r4 = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * Kp);
-      float4* p4 = j < nkeep ? reinterpret_cast<float4*>(pb + static_cast<size_t>(i) * Kp)
-                             : nullptr;
+      const R t2 = tau[j] * Real<R>::log2e;
+      const V4* r4 = reinterpret_cast<const V4*>(rows + static_cast<size_t>(i) * Kp);
+      V4* p4 = j < nkeep ? reinterpret_cast<V4*>(pb + static_cast<size_t>(i) * Kp) : nullptr;
 #pragma unroll 4
       for (int g = sub; g < G; g += kTps) {
-        const float4 x = r4[g], y = e4[g];
-        float4 p;
-        p.x = ex2(fmaf(t2, x.x, y.x));
-        p.y = ex2(fmaf(t2, x.y, y.y));
-        p.z = ex2(fmaf(t2, x.z, y.z));
-        p.w = ex2(fmaf(t2, x.w, y.w));
+        const V4 x = r4[g], y = e4[g];
+        V4 p;
+        p.x = ex2(Real<R>::fma(t2, x.x, y.x));
+        p.y = ex2(Real<R>::fma(t2, x.y, y.y));
+        p.z = ex2(Real<R>::fma(t2, x.z, y.z));
+        p.w = ex2(Real<R>::fma(t2, x.w, y.w));
         s4.x += p.x;
         s4.y += p.y;
         s4.z += p.z;
         s4.w += p.w;
-        l4.x = fmaf(p.x, x.x, l4.x);
-        l4.y = fmaf(p.y, x.y, l4.y);
-        l4.z = fmaf(p.z, x.z, l4.z);
-        l4.w = fmaf(p.w, x.w, l4.w);
+        l4.x = Real<R>::fma(p.x, x.x, l4.x);
+        l4.y = Real<R>::fma(p.y, x.y, l4.y);
+        l4.z = Real<R>::fma(p.z, x.z, l4.z);
+        l4.w = Real<R>::fma(p.w, x.w, l4.w);
         if (p4 != nullptr) p4[g] = p;
       }
     }
-    float s = (s4.x + s4.y) + (s4.z + s4.w);
-    float sl = (l4.x + l4.y) + (l4.z + l4.w);
+    R s = (s4.x + s4.y) + (s4.z + s4.w);
+    R sl = (l4.x + l4.y) + (l4.z + l4.w);
 #pragma unroll
     for (int o = 1; o < kTps; o <<= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -246,29 +264,31 @@ __device__ __forceinline__ void slot_pass(const float* rows, float* pb, int m, i
     if (i < m && sub == 0) {
       mcs[j] = mc[j] / s;
       // update_tau! (fLDA.jl:195-200): exp(-sum p lb / s) as a base-2 exp
-      if (tn != nullptr) tn[j] = eta / (eta + mkap[j] * ex2(-(sl / s) * kLog2e) + kEps);
+      if (tn != nullptr) tn[j] = eta / (eta + mkap[j] * ex2(-(sl / s) * Real<R>::log2e) + Real<R>::eps);
     }
   }
 }
 
 // gamma partials: qpart[h, k] (+)= sum over compact slots i = h, h + nsh,
 // ... < m of (c / s)_i p_ik; thread (h, g) owns the float4 g of share h.
-__device__ __forceinline__ void q_pass(const float* pb, int m, int j0, const float* mcs,
-                                       float* qpart, int Kp, int nsh, bool first) {
+template <typename R>
+__device__ __forceinline__ void q_pass(const R* pb, int m, int j0, const R* mcs, R* qpart,
+                                       int Kp, int nsh, bool first) {
+  using V4 = typename Real<R>::V4;
   const int G = Kp / 4;
-  const float4* src = reinterpret_cast<const float4*>(pb);
-  float4* q4 = reinterpret_cast<float4*>(qpart);
+  const V4* src = reinterpret_cast<const V4*>(pb);
+  V4* q4 = reinterpret_cast<V4*>(qpart);
   for (int o = threadIdx.x; o < nsh * G; o += kFThreads) {
     const int h = o / G, g = o - h * G;
-    float4 q = first ? make_float4(0.f, 0.f, 0.f, 0.f) : q4[o];
+    V4 q = first ? Real<R>::zero4() : q4[o];
 #pragma unroll 4
     for (int i = h; i < m; i += nsh) {
-      const float r = mcs[j0 + i];
-      const float4 x = src[static_cast<size_t>(i) * G + g];
-      q.x = fmaf(r, x.x, q.x);
-      q.y = fmaf(r, x.y, q.y);
-      q.z = fmaf(r, x.z, q.z);
-      q.w = fmaf(r, x.w, q.w);
+      const R r = mcs[j0 + i];
+      const V4 x = src[static_cast<size_t>(i) * G + g];
+      q.x = Real<R>::fma(r, x.x, q.x);
+      q.y = Real<R>::fma(r, x.y, q.y);
+      q.z = Real<R>::fma(r, x.z, q.z);
+      q.w = Real<R>::fma(r, x.w, q.w);
     }
     q4[o] = q;
   }
@@ -277,20 +297,21 @@ __device__ __forceinline__ void q_pass(const float* pb, int m, int j0, const flo
 // w rows of compact slots j0 .. j0 + m - 1: p * (tau c / s) in columns
 // 0 .. K - 1 and (1 - tau) c in column K; zeros when `zero`.  Threads over
 // the flattened (slot, column) so that neighbours store neighbours.
-__device__ __forceinline__ void write_w(float* __restrict__ wd, const float* pb, int m, int j0,
-                                        const float* tcur, const float* mc, const float* mcs,
+template <typename R>
+__device__ __forceinline__ void write_w(R* __restrict__ wd, const R* pb, int m, int j0,
+                                        const R* tcur, const R* mc, const R* mcs,
                                         const int* mslot, int K, int Kp, bool zero) {
   const int K1 = K + 1;
   const int di = kFThreads / K1, dk = kFThreads - di * K1;
   int i = threadIdx.x / K1, k = threadIdx.x - i * K1;
   while (i < m) {
     const int j = j0 + i;
-    float v = 0.f;
+    R v = 0;
     if (!zero) {
       if (k < K)
         v = pb[static_cast<size_t>(i) * Kp + k] * (tcur[j] * mcs[j]);
       else
-        v = (1.0f - tcur[j]) * mc[j];
+        v = (R(1) - tcur[j]) * mc[j];
     }
     wd[static_cast<size_t>(mslot[j]) * K1 + k] = v;
     i += di;
@@ -308,20 +329,19 @@ __device__ __forceinline__ void write_w(float* __restrict__ wd, const float* pb,
 // kappa[t_l] and its tau (with kOld, its tau_old too).  Returns the number
 // with a count.  wcount: 16 ints of shared memory.  Every thread of the
 // block must call it.
-template <bool kOld>
-__device__ __forceinline__ int flda_compact(const float* c, const int* t, int L,
-                                            const float* __restrict__ kappa, float one_m_eta,
-                                            const float* tau, const float* tauo, float* mc,
-                                            int* mslot, float* mkap, float* tcur, float* told,
-                                            int* wcount) {
+template <bool kOld, typename R>
+__device__ __forceinline__ int flda_compact(const R* c, const int* t, int L,
+                                            const R* __restrict__ kappa, R one_m_eta,
+                                            const R* tau, const R* tauo, R* mc, int* mslot,
+                                            R* mkap, R* tcur, R* told, int* wcount) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int n = 0, npad = 0;
   for (int base = 0; base < L; base += kFThreads) {
     const int l = base + tid;
     const bool in = l < L;
-    const float cl = in ? c[l] : 0.f;
-    const unsigned real = __ballot_sync(0xffffffffu, in && cl != 0.f);
-    const unsigned pad = __ballot_sync(0xffffffffu, in && cl == 0.f);
+    const R cl = in ? c[l] : R(0);
+    const unsigned real = __ballot_sync(0xffffffffu, in && cl != R(0));
+    const unsigned pad = __ballot_sync(0xffffffffu, in && cl == R(0));
     if (lane == 0) {
       wcount[warp] = __popc(real);
       wcount[kFWarps + warp] = __popc(pad);
@@ -337,7 +357,7 @@ __device__ __forceinline__ int flda_compact(const float* c, const int* t, int L,
     }
     if (in) {
       const unsigned below = (1u << lane) - 1u;
-      const int j = cl != 0.f ? offr + __popc(real & below) : L - 1 - (offp + __popc(pad & below));
+      const int j = cl != R(0) ? offr + __popc(real & below) : L - 1 - (offp + __popc(pad & below));
       mc[j] = cl;
       mslot[j] = l;
       mkap[j] = one_m_eta * kappa[t[l]];
@@ -351,83 +371,89 @@ __device__ __forceinline__ int flda_compact(const float* c, const int* t, int L,
   return n;
 }
 
-template <bool kF64>
+// R = float: the float32 mode, and with kF64 its f64 Elogtheta channel.
+// R = double: the float64 mode, every input, output and sum in double,
+// 2^x the double exp2, psi the same series in double; the channel is the
+// identity there.
+template <typename R, bool kF64>
 __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
-    const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
-    const float* __restrict__ kappa,     // [V]
-    const int* __restrict__ terms,       // [B, L]
-    const float* __restrict__ counts,    // [B, L], 0 on padding
-    const float* __restrict__ doc_mask,  // [B]
-    const float* __restrict__ alpha,     // [K]
-    const float* __restrict__ eta_p,     // [] eta
-    const float* __restrict__ gamma_in,  // [B, K]
-    const float* __restrict__ el_in,     // [B, K]
-    const float* __restrict__ elo_in,    // [B, K]
-    const float* __restrict__ tau_in,    // [B, L]
-    const float* __restrict__ tauo_in,   // [B, L]
-    float* __restrict__ gamma_out, float* __restrict__ el_out,
-    float* __restrict__ elo_out, float* __restrict__ tau_out,  // [B, L]
-    float* __restrict__ tauo_out,        // [B, L]
-    float* __restrict__ w,               // [B, L, K + 1]
-    float* scratch,                      // [B, 7 L], the slot lists when not in smem
-    int L, int K, int tile, int meta_in_smem, int resident, int viter, float vtol2,
+    const R* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
+    const R* __restrict__ kappa,     // [V]
+    const int* __restrict__ terms,   // [B, L]
+    const R* __restrict__ counts,    // [B, L], 0 on padding
+    const R* __restrict__ doc_mask,  // [B]
+    const R* __restrict__ alpha,     // [K]
+    const R* __restrict__ eta_p,     // [] eta
+    const R* __restrict__ gamma_in,  // [B, K]
+    const R* __restrict__ el_in,     // [B, K]
+    const R* __restrict__ elo_in,    // [B, K]
+    const R* __restrict__ tau_in,    // [B, L]
+    const R* __restrict__ tauo_in,   // [B, L]
+    R* __restrict__ gamma_out, R* __restrict__ el_out,
+    R* __restrict__ elo_out, R* __restrict__ tau_out,  // [B, L]
+    R* __restrict__ tauo_out,        // [B, L]
+    R* __restrict__ w,               // [B, L, K + 1]
+    R* scratch,                      // [B, 7 L], the slot lists when not in smem
+    int L, int K, int tile, int meta_in_smem, int resident, int viter, R vtol2,
     int vec_in) {
-  extern __shared__ __align__(16) float smem[];
+  static_assert(!kF64 || sizeof(R) == 4, "the f64 Elogtheta channel is a float32 mode");
+  extern __shared__ __align__(16) unsigned char flda_smem_raw[];
+  R* smem = reinterpret_cast<R*>(flda_smem_raw);
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Kp = flda_stride(K), nsh = flda_shares(Kp), K4 = (K + 3) / 4 * 4;
-  float* rows = smem;
-  float* pbuf = rows + static_cast<size_t>(tile) * Kp;   // p [tile, Kp]
-  float* e_cur = pbuf + static_cast<size_t>(tile) * Kp;
-  float* e_nxt = e_cur + Kp;
-  float* qpart = e_nxt + Kp;
-  float* gam = qpart + nsh * Kp;
-  float* el = gam + K4;
-  float* elo = el + K4;
+  R* rows = smem;
+  R* pbuf = rows + static_cast<size_t>(tile) * Kp;   // p [tile, Kp]
+  R* e_cur = pbuf + static_cast<size_t>(tile) * Kp;
+  R* e_nxt = e_cur + Kp;
+  R* qpart = e_nxt + Kp;
+  R* gam = qpart + nsh * Kp;
+  R* el = gam + K4;
+  R* elo = el + K4;
   // [64]: sum gamma [8], max psi [8], sum d^2 [8], max El [8], compaction [16]
-  float* red = elo + K4;
-  float* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
-  float* mc = meta;                                    // count of compact slot j
-  float* mcs = meta + L;                               // its c / s
-  float* mkap = meta + 2 * L;                          // its (1 - eta) kappa[t]
+  R* red = elo + K4;
+  R* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
+  R* mc = meta;                                    // count of compact slot j
+  R* mcs = meta + L;                               // its c / s
+  R* mkap = meta + 2 * L;                          // its (1 - eta) kappa[t]
   int* mslot = reinterpret_cast<int*>(meta + 3 * L);   // its slot
-  float* told = meta + 4 * L;                          // tau_old, tau, the next tau
-  float* tcur = meta + 5 * L;
-  float* tnxt = meta + 6 * L;
+  R* told = meta + 4 * L;                          // tau_old, tau, the next tau
+  R* tcur = meta + 5 * L;
+  R* tnxt = meta + 6 * L;
   const size_t dl = static_cast<size_t>(b) * L;
   const int* t = terms + dl;
-  const float* c = counts + dl;
+  const R* c = counts + dl;
   const size_t dk = static_cast<size_t>(b) * K;
-  const float eta = *eta_p;
-  const float one_m_eta = 1.0f - eta;
+  const R eta = *eta_p;
+  const R one_m_eta = R(1) - eta;
 
   // the slots with a count from the front in slot order, the padding slots
   // from the back (their order adds to no sum)
-  const int n = flda_compact<true>(c, t, L, kappa, one_m_eta, tau_in + dl, tauo_in + dl, mc,
-                                   mslot, mkap, tcur, told, reinterpret_cast<int*>(red + 32));
+  const int n = flda_compact<true, R>(c, t, L, kappa, one_m_eta, tau_in + dl, tauo_in + dl, mc,
+                                      mslot, mkap, tcur, told, reinterpret_cast<int*>(red + 32));
 
   const bool vin = vec_in != 0;
   if (resident) load_rows<kFThreads, true>(rows, logbetaT, t, mslot, 0, L, K, Kp, vin);
   // e = (El - max El) log2(e), -inf on the stride's padding columns
-  float mx = -INFINITY;
+  R mx = -INFINITY;
   for (int k = tid; k < K; k += kFThreads) {
     gam[k] = gamma_in[dk + k];
-    const float x = el_in[dk + k];
+    const R x = el_in[dk + k];
     el[k] = x;
     elo[k] = elo_in[dk + k];
-    mx = fmaxf(mx, x);
+    mx = Real<R>::max(mx, x);
   }
   mx = block_max_once(mx, red + 24);
   for (int k = tid; k < Kp; k += kFThreads) {
-    e_cur[k] = k < K ? (el[k] - mx) * kLog2e : -INFINITY;
-    e_nxt[k] = k < K ? 0.f : -INFINITY;
+    e_cur[k] = k < K ? (el[k] - mx) * Real<R>::log2e : R(-INFINITY);
+    e_nxt[k] = k < K ? R(0) : R(-INFINITY);
   }
   cp_async_wait_all();
   __syncthreads();
 
-  bool active = doc_mask[b] > 0.f;
+  bool active = doc_mask[b] > R(0);
   int it = 0;
-  float* e_last = e_cur;
+  R* e_last = e_cur;
   for (; it < viter && active; ++it) {
     for (int j0 = 0; j0 < L; j0 += tile) {
       const int m = min(tile, L - j0);
@@ -436,10 +462,10 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
         cp_async_wait_all();
         __syncthreads();
       }
-      slot_pass(rows, pbuf, m, j0, n, e_cur, tcur, tnxt, mc, mcs, mkap, eta, Kp);
+      slot_pass<R>(rows, pbuf, m, j0, n, e_cur, tcur, tnxt, mc, mcs, mkap, eta, Kp);
       __syncthreads();
       if (j0 < n) {
-        q_pass(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
+        q_pass<R>(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
         __syncthreads();
       }
     }
@@ -491,19 +517,19 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     } else {
       // update_gamma! (fLDA.jl:188-191) into gam, psi(gamma) into e_nxt,
       // before the barrier of the sum and the max
-      float gpart = 0.f, pmax = -INFINITY;
+      R gpart = 0, pmax = -INFINITY;
       for (int k = tid; k < K; k += kFThreads) {
-        float q = 0.f;
+        R q = 0;
         if (n > 0)
           for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
-        const float g = alpha[k] + q + kEps;
+        const R g = alpha[k] + q + Real<R>::eps;
         gam[k] = g;
-        const float ps = digamma_series(g);
+        const R ps = digamma_series(g);
         e_nxt[k] = ps;
         gpart += g;
-        pmax = fmaxf(pmax, ps);
+        pmax = Real<R>::max(pmax, ps);
       }
-      float g_sum, p_max;
+      R g_sum, p_max;
       {
         gpart = warp_sum(gpart);
         pmax = warp_max(pmax);
@@ -512,27 +538,27 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
           red[8 + warp] = pmax;
         }
         __syncthreads();
-        g_sum = 0.f;
+        g_sum = 0;
         p_max = -INFINITY;
 #pragma unroll
         for (int v = 0; v < kFWarps; ++v) {
           g_sum += red[v];
-          p_max = fmaxf(p_max, red[8 + v]);
+          p_max = Real<R>::max(p_max, red[8 + v]);
         }
       }
       // update_Elogtheta! (fLDA.jl:181-184); the next e shifted by
       // max El_new = psi(max gamma) - psi(sum gamma)
-      float dpart = 0.f;
+      R dpart = 0;
       if (tid < K) {
-        const float dg_sum = digamma_series(g_sum);
+        const R dg_sum = digamma_series(g_sum);
         for (int k = tid; k < K; k += kFThreads) {
-          const float ps = e_nxt[k];
-          const float el_new = ps - dg_sum;
-          const float d = el_new - el[k];
+          const R ps = e_nxt[k];
+          const R el_new = ps - dg_sum;
+          const R d = el_new - el[k];
           dpart += d * d;
           elo[k] = el[k];
           el[k] = el_new;
-          e_nxt[k] = (ps - p_max) * kLog2e;
+          e_nxt[k] = (ps - p_max) * Real<R>::log2e;
         }
       }
       active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
@@ -540,7 +566,7 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     e_last = e_cur;
     e_cur = e_nxt;
     e_nxt = e_last;
-    float* tr = told;
+    R* tr = told;
     told = tcur;
     tcur = tnxt;
     tnxt = tr;
@@ -550,10 +576,10 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
   // pass's p and c / s, or, when no pass ran, anew from the given state
   const bool ran = it > 0;
   if (!ran) {
-    float mo = -INFINITY;
-    for (int k = tid; k < K; k += kFThreads) mo = fmaxf(mo, elo[k]);
+    R mo = -INFINITY;
+    for (int k = tid; k < K; k += kFThreads) mo = Real<R>::max(mo, elo[k]);
     mo = block_max_once(mo, red + 24);
-    for (int k = tid; k < K; k += kFThreads) e_cur[k] = (elo[k] - mo) * kLog2e;
+    for (int k = tid; k < K; k += kFThreads) e_cur[k] = (elo[k] - mo) * Real<R>::log2e;
     e_last = e_cur;
     __syncthreads();
   }
@@ -566,7 +592,7 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     tau_out[dl + mslot[j]] = tcur[j];
     tauo_out[dl + mslot[j]] = told[j];
   }
-  float* wd = w + dl * (K + 1);
+  R* wd = w + dl * (K + 1);
   // p and c / s anew where the last pass's are not at hand
   const bool again = !ran || !resident;
   for (int j0 = 0; j0 < n; j0 += tile) {
@@ -577,13 +603,13 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
       __syncthreads();
     }
     if (again) {
-      slot_pass(rows, pbuf, m, j0, n, e_last, told, nullptr, mc, mcs, mkap, eta, Kp);
+      slot_pass<R>(rows, pbuf, m, j0, n, e_last, told, nullptr, mc, mcs, mkap, eta, Kp);
       __syncthreads();
     }
-    write_w(wd, pbuf, m, j0, tcur, mc, mcs, mslot, K, Kp, false);
+    write_w<R>(wd, pbuf, m, j0, tcur, mc, mcs, mslot, K, Kp, false);
     if (!resident) __syncthreads();  // before the next tile's rows land
   }
-  write_w(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
+  write_w<R>(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
 }
 
 // One pass of the fixpoint without its update, for the sequence axis:
@@ -633,7 +659,7 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
   const int* t = terms + dl;
   const float eta = *eta_p;
 
-  const int n = flda_compact<false>(counts + dl, t, L, kappa, 1.0f - eta, tau_in + dl, nullptr,
+  const int n = flda_compact<false, float>(counts + dl, t, L, kappa, 1.0f - eta, tau_in + dl, nullptr,
                                     mc, mslot, mkap, tcur, nullptr,
                                     reinterpret_cast<int*>(red + 32));
   const bool vin = vec_in != 0;
@@ -652,10 +678,10 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
       cp_async_wait_all();
       __syncthreads();
     }
-    slot_pass(rows, pbuf, m, j0, n, e, tcur, tnxt, mc, mcs, mkap, eta, Kp);
+    slot_pass<float>(rows, pbuf, m, j0, n, e, tcur, tnxt, mc, mcs, mkap, eta, Kp);
     __syncthreads();
     if (j0 < n) {
-      q_pass(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
+      q_pass<float>(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
       __syncthreads();
     }
   }
@@ -668,22 +694,56 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
   for (int j = tid; j < L; j += kFThreads) tau_out[dl + mslot[j]] = tnxt[j];
 }
 
+template <typename R>
+int launch_flda(const R* logbetaT, const R* kappa, const int* terms, const R* counts,
+                const R* doc_mask, const R* alpha, const R* eta, const R* gamma_in,
+                const R* el_in, const R* elo_in, const R* tau_in, const R* tauo_in,
+                R* gamma_out, R* el_out, R* elo_out, R* tau_out, R* tauo_out, R* w,
+                R* scratch, int64_t B, int64_t L, int64_t K, int viter, R vtol, int vec_in,
+                int elog_f64, void* stream) {
+  if (B == 0) return 0;
+  FldaShape s;
+  const int rc = flda_shape<R>(L, K, &s);
+  if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flda_estep_kernel<R, false>;
+  if constexpr (sizeof(R) == 4)
+    if (elog_f64) kernel = flda_estep_kernel<R, true>;
+  const cudaError_t err = allow_smem(kernel, s.bytes);
+  if (err != cudaSuccess) return fail(err);
+  kernel<<<static_cast<unsigned>(B), kFThreads, s.bytes, static_cast<cudaStream_t>(stream)>>>(
+      logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in, el_in, elo_in, tau_in,
+      tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w, scratch,
+      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, viter,
+      vtol * vtol, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tmvb
 
 extern "C" {
 
 // 1 when every row of a document of L slots stays in shared memory, 0
-// when its rows go through in tiles, -1 when the device cannot be queried.
+// when its rows go through in tiles, -1 when the device cannot be queried
+// or K is too wide.
 int tmvb_flda_estep_rows_in_smem(int64_t L, int64_t K) {
   tmvb::FldaShape s;
-  return tmvb::flda_shape(L, K, &s) != 0 ? -1 : s.resident;
+  return tmvb::flda_shape<float>(L, K, &s) != 0 ? -1 : s.resident;
+}
+int tmvb_flda_estep_rows_in_smem_f64(int64_t L, int64_t K) {
+  tmvb::FldaShape s;
+  return tmvb::flda_shape<double>(L, K, &s) != 0 ? -1 : s.resident;
 }
 
-// Floats of device scratch a document needs: 7 L when its slot list does
-// not fit shared memory, else 0; -1 on an error.
+// Elements of device scratch a document needs: 7 L when its slot list
+// does not fit shared memory, else 0; -1 on an error.
 int64_t tmvb_flda_estep_scratch(int64_t L, int64_t K) {
   tmvb::FldaShape s;
-  return tmvb::flda_shape(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
+  return tmvb::flda_shape<float>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
+}
+int64_t tmvb_flda_estep_scratch_f64(int64_t L, int64_t K) {
+  tmvb::FldaShape s;
+  return tmvb::flda_shape<double>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
 }
 
 int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
@@ -694,21 +754,24 @@ int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,
                     float* tauo_out, float* w, float* scratch, int64_t B, int64_t L,
                     int64_t K, int viter, float vtol, int vec_in, int elog_f64,
                     void* stream) {
-  if (B == 0) return 0;
-  tmvb::FldaShape s;
-  const int rc = tmvb::flda_shape(L, K, &s);
-  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
-  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = elog_f64 ? tmvb::flda_estep_kernel<true> : tmvb::flda_estep_kernel<false>;
-  const cudaError_t err = tmvb::allow_smem(kernel, s.bytes);
-  if (err != cudaSuccess) return tmvb::fail(err);
-  kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in, el_in, elo_in, tau_in,
-      tauo_in, gamma_out, el_out, elo_out, tau_out, tauo_out, w, scratch,
-      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, viter,
-      vtol * vtol, vec_in);
-  return static_cast<int>(cudaGetLastError());
+  return tmvb::launch_flda(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in,
+                           el_in, elo_in, tau_in, tauo_in, gamma_out, el_out, elo_out, tau_out,
+                           tauo_out, w, scratch, B, L, K, viter, vtol, vec_in, elog_f64, stream);
+}
+
+// The float64 mode: every tensor double, vtol too; the f64 channel is the
+// identity on a float64 state, so there is no elog_f64.  vec_in: K % 2 ==
+// 0 and logbetaT 16-byte aligned (16-byte copies of two doubles).
+int tmvb_flda_estep_f64(const double* logbetaT, const double* kappa, const int* terms,
+                        const double* counts, const double* doc_mask, const double* alpha,
+                        const double* eta, const double* gamma_in, const double* el_in,
+                        const double* elo_in, const double* tau_in, const double* tauo_in,
+                        double* gamma_out, double* el_out, double* elo_out, double* tau_out,
+                        double* tauo_out, double* w, double* scratch, int64_t B, int64_t L,
+                        int64_t K, int viter, double vtol, int vec_in, void* stream) {
+  return tmvb::launch_flda(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in,
+                           el_in, elo_in, tau_in, tauo_in, gamma_out, el_out, elo_out, tau_out,
+                           tauo_out, w, scratch, B, L, K, viter, vtol, vec_in, 0, stream);
 }
 
 // The pass mode: pc [B, K] and tau_new [B, L] (see flda_estep_pass_kernel);
@@ -720,7 +783,7 @@ int tmvb_flda_estep_pass(const float* logbetaT, const float* kappa, const int* t
                          void* stream) {
   if (B == 0) return 0;
   tmvb::FldaShape s;
-  const int rc = tmvb::flda_shape(L, K, &s);
+  const int rc = tmvb::flda_shape<float>(L, K, &s);
   if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_pass_kernel, s.bytes);

@@ -46,6 +46,12 @@
 // Dropped: 1 or 2 threads a slot (32 rows a warp load: 32.2 us and 299 us),
 // 4, 16 and 32 threads a slot (26.6, 28.6 and 40.1 us), and the 8 as a
 // compile-time constant (27.1-27.8 us): the kernel takes it as an argument.
+//
+// The float64 mode (R = double; tmvb_lda_elbo_tok_f64): the same kernel in
+// double, LDA's and CTM's bound on a float64 state; loads of two doubles
+// (16 bytes) where K is even, the double log.  Bound: bytes, doubled
+// (~50 MB at the widest NSF chunk, ~15 us).  Shared memory is 2K + 8
+// doubles, so K stops at ~14,500 (the f32 mode's ~29,000).
 
 #include "common.cuh"
 
@@ -55,49 +61,62 @@ constexpr int kElboThreads = 256;
 constexpr int kElboWarps = kElboThreads / 32;
 constexpr int kElboTpsLog2 = 3;   // 8 threads a slot
 
-template <int kVec>
+template <typename R, int kVec>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
   __device__ static float dot(T a, T b) { return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w); }
 };
 template <>
-struct Vec<2> {
+struct Vec<float, 2> {
   using T = float2;
   __device__ static float dot(T a, T b) { return a.x * b.x + a.y * b.y; }
 };
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
   __device__ static float dot(T a, T b) { return a * b; }
 };
+template <>
+struct Vec<double, 2> {
+  using T = double2;
+  __device__ static double dot(T a, T b) { return a.x * b.x + a.y * b.y; }
+};
+template <>
+struct Vec<double, 1> {
+  using T = double;
+  __device__ static double dot(T a, T b) { return a * b; }
+};
 
-template <int kVec>
+// R: float, or double for the float64 mode (every input, the sums and
+// the partials in double; log is the double log).
+template <typename R, int kVec>
 __global__ void __launch_bounds__(kElboThreads) lda_elbo_tok_kernel(
-    const float* __restrict__ boT,       // [V, K]
-    const float* __restrict__ g2T,       // [V, K]
-    const int* __restrict__ terms,       // [B, L]
-    const float* __restrict__ counts,    // [B, L]
-    const float* __restrict__ doc_mask,  // [B]
-    const float* __restrict__ el,        // [B, K] current Elogtheta
-    const float* __restrict__ elo,       // [B, K] old Elogtheta
-    float* __restrict__ out,             // [B] per-document partials
+    const R* __restrict__ boT,       // [V, K]
+    const R* __restrict__ g2T,       // [V, K]
+    const int* __restrict__ terms,   // [B, L]
+    const R* __restrict__ counts,    // [B, L]
+    const R* __restrict__ doc_mask,  // [B]
+    const R* __restrict__ el,        // [B, K] current Elogtheta
+    const R* __restrict__ elo,       // [B, K] old Elogtheta
+    R* __restrict__ out,             // [B] per-document partials
     int L, int K, int tps_log2) {
-  using T = typename Vec<kVec>::T;
-  extern __shared__ __align__(16) float smem[];
+  using T = typename Vec<R, kVec>::T;
+  extern __shared__ __align__(16) unsigned char elbo_smem[];
+  R* smem = reinterpret_cast<R*>(elbo_smem);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  float* e = smem;         // [K] exp(El_old)
-  float* d = e + K;        // [K] exp(El_old) (El - El_old)
-  float* red = d + K;      // [kElboWarps]
+  R* e = smem;         // [K] exp(El_old)
+  R* d = e + K;        // [K] exp(El_old) (El - El_old)
+  R* red = d + K;      // [kElboWarps]
   const int* t = terms + static_cast<size_t>(b) * L;
-  const float* c = counts + static_cast<size_t>(b) * L;
+  const R* c = counts + static_cast<size_t>(b) * L;
   const size_t dk = static_cast<size_t>(b) * K;
 
   for (int k = tid; k < K; k += kElboThreads) {
-    const float x = elo[dk + k];
-    const float ek = expf(x);
+    const R x = elo[dk + k];
+    const R ek = Real<R>::exp(x);
     e[k] = ek;
     d[k] = ek * (el[dk + k] - x);
   }
@@ -106,30 +125,61 @@ __global__ void __launch_bounds__(kElboThreads) lda_elbo_tok_kernel(
   const int tps = 1 << tps_log2, sub = tid & (tps - 1), G = K / kVec;
   const T* e4 = reinterpret_cast<const T*>(e);
   const T* d4 = reinterpret_cast<const T*>(d);
-  float part = 0.f;
+  R part = 0;
   for (int base = 0; base < L; base += kElboThreads >> tps_log2) {
     const int l = base + (tid >> tps_log2);
-    const float cl = l < L ? c[l] : 0.f;
-    float s = 0.f, u = 0.f;
-    if (cl > 0.f) {
+    const R cl = l < L ? c[l] : R(0);
+    R s = 0, u = 0;
+    if (cl > R(0)) {
       const size_t row = static_cast<size_t>(t[l]) * K;
       const T* bo = reinterpret_cast<const T*>(boT + row);
       const T* g2 = reinterpret_cast<const T*>(g2T + row);
 #pragma unroll 4
       for (int g = sub; g < G; g += tps) {
         const T x = __ldg(bo + g), y = __ldg(g2 + g), ev = e4[g];
-        s += Vec<kVec>::dot(x, ev);
-        u += Vec<kVec>::dot(x, d4[g]) + Vec<kVec>::dot(y, ev);
+        s += Vec<R, kVec>::dot(x, ev);
+        u += Vec<R, kVec>::dot(x, d4[g]) + Vec<R, kVec>::dot(y, ev);
       }
     }
     for (int o = 1; o < tps; o <<= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       u += __shfl_xor_sync(0xffffffffu, u, o);
     }
-    if (sub == 0 && cl > 0.f) part += cl * (u / s + logf(s));
+    if (sub == 0 && cl > R(0)) part += cl * (u / s + Real<R>::log(s));
   }
-  const float total = block_sum_once<kElboWarps>(part, red);
+  const R total = block_sum_once<kElboWarps>(part, red);
   if (tid == 0) out[b] = total * doc_mask[b];
+}
+
+template <typename R>
+int launch_elbo(const R* boT, const R* g2T, const int* terms, const R* counts,
+                const R* doc_mask, const R* el, const R* elo, R* out, int64_t B, int64_t L,
+                int64_t K, int vec, void* stream) {
+  if (B == 0) return 0;
+  if (K % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (2 * K + kElboWarps) * sizeof(R);
+  auto launch = [&](auto kernel) -> int {
+    const cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return fail(err);
+    kernel<<<static_cast<unsigned>(B), kElboThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+        boT, g2T, terms, counts, doc_mask, el, elo, out, static_cast<int>(L),
+        static_cast<int>(K), kElboTpsLog2);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (sizeof(R) == 4) {
+    switch (vec) {
+      case 4: return launch(lda_elbo_tok_kernel<R, 4>);
+      case 2: return launch(lda_elbo_tok_kernel<R, 2>);
+      case 1: return launch(lda_elbo_tok_kernel<R, 1>);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (vec) {
+      case 2: return launch(lda_elbo_tok_kernel<R, 2>);
+      case 1: return launch(lda_elbo_tok_kernel<R, 1>);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
 }
 
 }  // namespace tmvb
@@ -140,22 +190,16 @@ extern "C" int tmvb_lda_elbo_tok(const float* boT, const float* g2T, const int* 
                                  const float* counts, const float* doc_mask,
                                  const float* el, const float* elo, float* out, int64_t B,
                                  int64_t L, int64_t K, int vec, void* stream) {
-  if (B == 0) return 0;
-  if (K % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = (2 * K + tmvb::kElboWarps) * sizeof(float);
-  auto launch = [&](auto kernel) -> int {
-    const cudaError_t err = tmvb::allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return tmvb::fail(err);
-    kernel<<<static_cast<unsigned>(B), tmvb::kElboThreads, bytes,
-             static_cast<cudaStream_t>(stream)>>>(boT, g2T, terms, counts, doc_mask, el, elo,
-                                                  out, static_cast<int>(L),
-                                                  static_cast<int>(K), tmvb::kElboTpsLog2);
-    return static_cast<int>(cudaGetLastError());
-  };
-  switch (vec) {
-    case 4: return launch(tmvb::lda_elbo_tok_kernel<4>);
-    case 2: return launch(tmvb::lda_elbo_tok_kernel<2>);
-    case 1: return launch(tmvb::lda_elbo_tok_kernel<1>);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return tmvb::launch_elbo(boT, g2T, terms, counts, doc_mask, el, elo, out, B, L, K, vec,
+                           stream);
+}
+
+// The float64 mode: vec 2 (16-byte loads of two doubles: K % 2 == 0,
+// both tables 16-byte aligned) or 1.
+extern "C" int tmvb_lda_elbo_tok_f64(const double* boT, const double* g2T, const int* terms,
+                                     const double* counts, const double* doc_mask,
+                                     const double* el, const double* elo, double* out,
+                                     int64_t B, int64_t L, int64_t K, int vec, void* stream) {
+  return tmvb::launch_elbo(boT, g2T, terms, counts, doc_mask, el, elo, out, B, L, K, vec,
+                           stream);
 }

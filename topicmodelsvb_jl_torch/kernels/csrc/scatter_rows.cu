@@ -38,6 +38,13 @@
 // adds the run's partials, was measured too: no faster on the main paths'
 // chunks, slower on a long run, whose partials one warp then adds alone.)
 // Every sum runs in one fixed order, so the result is bitwise repeatable.
+//
+// The float64 mode (tmvb_scatter_rows_f64): the same plan and launches on
+// double rows, DTM's, CTM's and fCTM's M-step statistic on a float64
+// state.  Bound: bytes, doubled.  16-byte lanes hold two doubles (double2,
+// two column pairs a lane so W = 100 takes one pass over the rows, 4
+// rows' loads in flight: the f32 mode's 128 bytes a lane); else 8-byte
+// lanes with four columns each.
 
 #include "common.cuh"
 
@@ -53,6 +60,12 @@ __device__ __forceinline__ void add_to<float>(float& s, const float& v) { s += v
 template <>
 __device__ __forceinline__ void add_to<float4>(float4& s, const float4& v) {
   s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+}
+template <>
+__device__ __forceinline__ void add_to<double>(double& s, const double& v) { s += v; }
+template <>
+__device__ __forceinline__ void add_to<double2>(double2& s, const double2& v) {
+  s.x += v.x; s.y += v.y;
 }
 
 // One warp sums rows[lo:hi) of w (rows of n elements of T) into dst, for
@@ -157,17 +170,17 @@ __global__ void __launch_bounds__(kScatterThreads) scatter_runs_kernel(
 }
 
 template <typename T, int C, int U>
-int launch_scatter(const float* w, const int* rows, const int* piece_start, const int* piece_id,
-                   const int* piece_out, const int* run_start, const int* run_id, float* acc,
-                   float* scratch, int64_t n_pieces, int64_t n_runs, int n, cudaStream_t s) {
+int launch_scatter(const void* w, const int* rows, const int* piece_start, const int* piece_id,
+                   const int* piece_out, const int* run_start, const int* run_id, void* acc,
+                   void* scratch, int64_t n_pieces, int64_t n_runs, int n, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>((n_pieces + kPiecesPerBlock - 1) / kPiecesPerBlock);
   scatter_pieces_kernel<T, C, U><<<blocks, kScatterThreads, 0, s>>>(
-      reinterpret_cast<const T*>(w), rows, piece_start, piece_id, piece_out,
-      reinterpret_cast<T*>(acc), reinterpret_cast<T*>(scratch), static_cast<int>(n_pieces), n);
+      static_cast<const T*>(w), rows, piece_start, piece_id, piece_out,
+      static_cast<T*>(acc), static_cast<T*>(scratch), static_cast<int>(n_pieces), n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_runs == 0) return static_cast<int>(err);
   scatter_runs_kernel<T><<<static_cast<unsigned>(n_runs), kScatterThreads, 0, s>>>(
-      reinterpret_cast<const T*>(scratch), run_start, run_id, reinterpret_cast<T*>(acc), n);
+      static_cast<const T*>(scratch), run_start, run_id, static_cast<T*>(acc), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,4 +203,25 @@ extern "C" int tmvb_scatter_rows(const float* w, const int* rows, const int* pie
                                            run_id, acc, scratch, n_pieces, n_runs, n, s);
   return tmvb::launch_scatter<float, 4, 8>(w, rows, piece_start, piece_id, piece_out, run_start,
                                         run_id, acc, scratch, n_pieces, n_runs, n, s);
+}
+
+// The float64 mode: the same plan and launches on double rows.  vec = 1
+// when W % 2 == 0 and w, acc and scratch are 16-byte aligned: double2
+// lanes, two column pairs a lane (W = 100 in one pass over the rows), 4
+// rows' loads in flight (the f32 mode's 128 bytes a lane); else 8-byte
+// lanes, four columns a lane, 8 rows' loads in flight.
+extern "C" int tmvb_scatter_rows_f64(const double* w, const int* rows, const int* piece_start,
+                                     const int* piece_id, const int* piece_out,
+                                     const int* run_start, const int* run_id, double* acc,
+                                     double* scratch, int64_t n_pieces, int64_t n_runs,
+                                     int64_t W, int vec, void* stream) {
+  if (n_pieces == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(vec ? W / 2 : W);
+  if (vec)
+    return tmvb::launch_scatter<double2, 2, 4>(w, rows, piece_start, piece_id, piece_out,
+                                              run_start, run_id, acc, scratch, n_pieces, n_runs,
+                                              n, s);
+  return tmvb::launch_scatter<double, 4, 8>(w, rows, piece_start, piece_id, piece_out, run_start,
+                                           run_id, acc, scratch, n_pieces, n_runs, n, s);
 }

@@ -23,7 +23,9 @@ phi ∝ exp(tau·log beta + El) over K (fLDA.jl:204-207) and
 tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
 (fLDA.jl:195-200); ψ is the kernels' shift-by-8 series, or with
 ``elogtheta_f64=True`` the f64 Elogtheta channel as in ``lda_estep``
-(``lda_estep.elogtheta``; the kernel's f64-channel mode).
+(``lda_estep.elogtheta``; the kernel's f64-channel mode).  On a float64
+state the kernel runs its float64 mode, and the channel is the identity,
+as for ``lda_estep``.
 
 :func:`flda_estep_pass` is the kernel's pass mode, for the sequence axis,
 where each document's token slots are split over ranks: one pass's
@@ -100,17 +102,27 @@ def flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
     return gamma, El, El_old, tau, tau_old, torch.cat([wb, wk[:, :, None]], dim=-1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _argtypes(vtol_type, n_flags: int) -> list:
+    return [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, vtol_type] + [ctypes.c_int] * n_flags + [ctypes.c_void_p]
+
+
+# each mode's C entry point, its argument types (vtol in the state's
+# dtype; the float32 mode's second flag picks the f64 Elogtheta channel)
+# and the suffix of its shared-memory queries
+_MODES = {torch.float32: ("tmvb_flda_estep", _argtypes(ctypes.c_float, 2), ""),
+          torch.float64: ("tmvb_flda_estep_f64", _argtypes(ctypes.c_double, 1), "_f64")}
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(L: int, K: int) -> int:
-    """Floats of device scratch one document of L slots needs: 0 when its
-    slot list fits shared memory (the main path's widths)."""
-    got = _build.function("tmvb_flda_estep_scratch", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+def _scratch_elems(L: int, K: int, suffix: str = "") -> int:
+    """Elements of device scratch one document of L slots needs: 0 when
+    its slot list fits shared memory (the main path's widths)."""
+    got = _build.function(f"tmvb_flda_estep_scratch{suffix}", [ctypes.c_int64] * 2,
+                          ctypes.c_int64)(L, K)
     if got < 0:
-        raise RuntimeError("flda_estep: cannot query the device's shared memory")
+        raise RuntimeError(f"flda_estep: K = {K} does not fit the device's shared memory "
+                           f"{'in float64 ' if suffix else ''}(or it cannot be queried)")
     return got
 
 
@@ -119,8 +131,9 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
                elogtheta_f64: bool = False):
     """Run the fLDA E-step over a chunk of documents (arguments: module
     doc).  CPU tensors take :func:`flda_estep_ref`; CUDA tensors launch
-    the kernel (f32 only; ``elogtheta_f64`` selects its f64-channel mode)
-    or raise."""
+    the kernel or raise: its float32 mode (``elogtheta_f64`` selects the
+    f64-channel mode) or, on a float64 state, its float64 mode (every
+    float argument float64; ``elogtheta_f64`` is the identity there)."""
     if logbetaT.device.type == "cpu":
         return flda_estep_ref(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
                               gamma, El, El_old, tau, tau_old, viter=viter, vtol=vtol,
@@ -131,36 +144,48 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
         raise ValueError("flda_estep: terms and logbetaT must be 2-D")
     B, L = terms.shape
     V, K = logbetaT.shape
-    f32 = torch.float32
+    dt = logbetaT.dtype
+    if dt not in _MODES:
+        raise TypeError(f"flda_estep: logbetaT must be torch.float32 or torch.float64, "
+                        f"got {dt}")
+    entry, argtypes, suffix = _MODES[dt]
     require("flda_estep", logbetaT.device, {
-        "logbetaT": (logbetaT, (V, K), f32), "kappa": (kappa, (V,), f32),
-        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), f32),
-        "doc_mask": (doc_mask, (B,), f32), "alpha": (alpha, (K,), f32),
-        "eta": (eta, (), f32), "gamma": (gamma, (B, K), f32),
-        "El": (El, (B, K), f32), "El_old": (El_old, (B, K), f32),
-        "tau": (tau, (B, L), f32), "tau_old": (tau_old, (B, L), f32)})
+        "logbetaT": (logbetaT, (V, K), dt), "kappa": (kappa, (V,), dt),
+        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), dt),
+        "doc_mask": (doc_mask, (B,), dt), "alpha": (alpha, (K,), dt),
+        "eta": (eta, (), dt), "gamma": (gamma, (B, K), dt),
+        "El": (El, (B, K), dt), "El_old": (El_old, (B, K), dt),
+        "tau": (tau, (B, L), dt), "tau_old": (tau_old, (B, L), dt)})
     outs = [torch.empty_like(gamma) for _ in range(3)]
     taus = [torch.empty_like(tau) for _ in range(2)]
-    w = torch.empty((B, L, K + 1), dtype=f32, device=logbetaT.device)
+    w = torch.empty((B, L, K + 1), dtype=dt, device=logbetaT.device)
     if B == 0:
         return (*outs, *taus, w)
-    n_scratch = _scratch_floats(L, K)
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=logbetaT.device)
+    n_scratch = _scratch_elems(L, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=logbetaT.device)
                if n_scratch else None)
+    # 16-byte copies of the table's rows: 4 floats or 2 doubles
+    flags = [K % (16 // logbetaT.element_size()) == 0 and logbetaT.data_ptr() % 16 == 0]
+    if dt == torch.float32:
+        flags.append(bool(elogtheta_f64))
     err = _build.launch(
-        _build.function("tmvb_flda_estep", _ARGTYPES), logbetaT.device,
+        _build.function(entry, argtypes), logbetaT.device,
         *(t.data_ptr() for t in (logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma,
                                  El, El_old, tau, tau_old, *outs, *taus, w)),
         None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
-        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0), int(bool(elogtheta_f64)))
+        *map(int, flags))
     check(err, "flda_estep")
     flda_estep.launches += 1
-    flda_estep.launches_f64 += bool(elogtheta_f64)
+    if dt == torch.float64:
+        flda_estep.launches_double += 1
+    else:
+        flda_estep.launches_f64 += bool(elogtheta_f64)
     return (*outs, *taus, w)
 
 
 flda_estep.launches = 0   # kernel launches (the plain version is not counted)
-flda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode
+flda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode (f32 state)
+flda_estep.launches_double = 0   # of them, launches of the float64 mode
 
 
 def flda_estep_pass_ref(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
@@ -200,7 +225,7 @@ def flda_estep_pass(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
     tau_new = torch.empty_like(tau)
     if B == 0:
         return pc, tau_new
-    n_scratch = _scratch_floats(L, K)
+    n_scratch = _scratch_elems(L, K)
     scratch = (torch.empty((B, n_scratch), dtype=f32, device=logbetaT.device)
                if n_scratch else None)
     err = _build.launch(

@@ -1,7 +1,8 @@
 """LDA ELBO token terms: the CUDA kernel's wrapper and its plain version.
 
 The kernel (``csrc/lda_elbo.cu``) replaces the JAX package's Pallas
-kernel ``lda_elbo_tok``.  Both versions here take
+kernel ``lda_elbo_tok``; it has a float32 and a float64 mode, picked by
+the tables' dtype.  Both versions here take
 
   boT:   [V, K]  (beta_old + EPSILON)ᵀ
   g2T:   [V, K]  boT · (log(beta + EPSILON) − log(beta_old + EPSILON))ᵀ
@@ -51,10 +52,14 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes
 
 
 def _vec(K: int, *tables) -> int:
-    """Width of the kernel's row loads: 4 floats where K % 4 == 0 and every
-    table is 16-byte aligned, 2 where K % 2 == 0 and 8-byte aligned, else 1."""
+    """Width of the kernel's row loads in elements: 4 floats where K % 4 ==
+    0 and every table is 16-byte aligned, 2 where K % 2 == 0 and 8-byte
+    aligned, else 1; for doubles, 2 where K % 2 == 0 and 16-byte aligned,
+    else 1 (16 bytes at most)."""
+    size = tables[0].element_size()
     for v in (4, 2):
-        if K % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tables):
+        if v * size <= 16 and K % v == 0 and all(t.data_ptr() % (size * v) == 0
+                                                 for t in tables):
             return v
     return 1
 
@@ -63,9 +68,10 @@ def lda_elbo_tok(boT, g2T, terms, counts, doc_mask, El, El_old):
     """Token-level ELBO terms summed over a chunk of documents.
 
     CPU tensors take :func:`lda_elbo_tok_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise.  The kernel writes one partial per
-    document and the partials are summed here, so the result is bitwise
-    reproducible."""
+    kernel, in its float32 or float64 mode as ``boT``'s dtype says (every
+    float argument of that dtype), or raise.  The kernel writes one
+    partial per document and the partials are summed here, so the result
+    is bitwise reproducible."""
     if boT.device.type == "cpu":
         return lda_elbo_tok_ref(boT, g2T, terms, counts, doc_mask, El, El_old)
     if boT.device.type != "cuda":
@@ -74,22 +80,28 @@ def lda_elbo_tok(boT, g2T, terms, counts, doc_mask, El, El_old):
         raise ValueError("lda_elbo_tok: terms and boT must be 2-D")
     B, L = terms.shape
     V, K = boT.shape
-    f32 = torch.float32
+    dt = boT.dtype
+    if dt not in _ENTRY:
+        raise TypeError(f"lda_elbo_tok: boT must be torch.float32 or torch.float64, got {dt}")
     require("lda_elbo_tok", boT.device, {
-        "boT": (boT, (V, K), f32), "g2T": (g2T, (V, K), f32),
+        "boT": (boT, (V, K), dt), "g2T": (g2T, (V, K), dt),
         "terms": (terms, (B, L), torch.int32),
-        "counts": (counts, (B, L), f32), "doc_mask": (doc_mask, (B,), f32),
-        "El": (El, (B, K), f32), "El_old": (El_old, (B, K), f32)})
-    out = torch.empty((B,), dtype=torch.float32, device=boT.device)
+        "counts": (counts, (B, L), dt), "doc_mask": (doc_mask, (B,), dt),
+        "El": (El, (B, K), dt), "El_old": (El_old, (B, K), dt)})
+    out = torch.empty((B,), dtype=dt, device=boT.device)
     if B == 0:
         return torch.sum(out)
     err = _build.launch(
-        _build.function("tmvb_lda_elbo_tok", _ARGTYPES), boT.device,
+        _build.function(_ENTRY[dt], _ARGTYPES), boT.device,
         *(t.data_ptr() for t in (boT, g2T, terms, counts, doc_mask, El, El_old, out)),
         B, L, K, _vec(K, boT, g2T))
     check(err, "lda_elbo_tok")
     lda_elbo_tok.launches += 1
+    lda_elbo_tok.launches_double += dt == torch.float64
     return torch.sum(out)
 
 
+# the C entry point of each mode
+_ENTRY = {torch.float32: "tmvb_lda_elbo_tok", torch.float64: "tmvb_lda_elbo_tok_f64"}
 lda_elbo_tok.launches = 0   # kernel launches (the plain version is not counted)
+lda_elbo_tok.launches_double = 0   # of them, launches of the float64 mode

@@ -33,6 +33,13 @@ and ``ψ(γ) − ψ(Σγ)`` is taken in float64 and cast back
 The kernel has it as a mode (a double series, ``digamma_series64`` in
 ``csrc/common.cuh``); the plain versions take ψ from ``torch.special``,
 as the JAX package's float64 ``digamma`` does.
+
+On a float64 state the kernel runs its float64 mode: the same fixpoint
+with every tensor in float64 and ψ the same shift-by-8 series in double,
+what :func:`lda_estep_ref` computes on that state (its truncation,
+~2.5e-10, is the plain version's too).  ``elogtheta_f64`` is the
+identity there, as in the JAX package, which casts a float64 gamma to
+float64.
 """
 
 from __future__ import annotations
@@ -68,9 +75,10 @@ def digamma_series(x: torch.Tensor) -> torch.Tensor:
 def elogtheta(gamma_new: torch.Tensor, f64: bool = False) -> torch.Tensor:
     """Elogtheta from gamma, ``ψ(γ) − ψ(Σ_k γ)`` over the last axis
     (LDA.jl:136-139): the kernels' series in the state's dtype, or with
-    ``f64`` in float64 from the state's gamma, cast back (the JAX
-    package's ``elogtheta_f64``, models/lda.py:137-141)."""
-    if f64:
+    ``f64`` on a float32 state in float64 from the state's gamma, cast
+    back (the JAX package's ``elogtheta_f64``, models/lda.py:137-141).  On
+    a float64 state ``f64`` is the identity: ψ is the state's own."""
+    if f64 and gamma_new.dtype != torch.float64:
         g64 = gamma_new.to(torch.float64)
         return (torch.special.digamma(g64)
                 - torch.special.digamma(torch.sum(g64, -1, keepdim=True))).to(gamma_new.dtype)
@@ -107,17 +115,27 @@ def lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
     return gamma, El, El_old, w
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _argtypes(vtol_type, n_flags: int) -> list:
+    return [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, vtol_type] + [ctypes.c_int] * n_flags + [ctypes.c_void_p]
+
+
+# each mode's C entry point, its argument types (vtol in the state's
+# dtype; the float32 mode's third flag picks the f64 Elogtheta channel)
+# and the suffix of its shared-memory queries
+_MODES = {torch.float32: ("tmvb_lda_estep", _argtypes(ctypes.c_float, 3), ""),
+          torch.float64: ("tmvb_lda_estep_f64", _argtypes(ctypes.c_double, 2), "_f64")}
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(L: int, K: int) -> int:
-    """Floats of device scratch one document of L slots needs: 0 when its
-    slot list fits shared memory (the main path's widths)."""
-    got = _build.function("tmvb_lda_estep_scratch", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+def _scratch_elems(L: int, K: int, suffix: str = "") -> int:
+    """Elements of device scratch one document of L slots needs: 0 when
+    its slot list fits shared memory (the main path's widths)."""
+    got = _build.function(f"tmvb_lda_estep_scratch{suffix}", [ctypes.c_int64] * 2,
+                          ctypes.c_int64)(L, K)
     if got < 0:
-        raise RuntimeError("lda_estep: cannot query the device's shared memory")
+        raise RuntimeError(f"lda_estep: K = {K} does not fit the device's shared memory "
+                           f"{'in float64 ' if suffix else ''}(or it cannot be queried)")
     return got
 
 
@@ -126,8 +144,9 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
     """Run the E-step over a chunk of documents (arguments: module doc).
 
     CPU tensors take :func:`lda_estep_ref`; CUDA tensors launch the
-    kernel (f32 only; ``elogtheta_f64`` selects its f64-channel mode) or
-    raise."""
+    kernel or raise: its float32 mode (``elogtheta_f64`` selects the
+    f64-channel mode) or, on a float64 state, its float64 mode (every
+    float argument float64; ``elogtheta_f64`` is the identity there)."""
     if betaT.device.type == "cpu":
         return lda_estep_ref(betaT, terms, counts, doc_mask, alpha, gamma,
                              El, El_old, viter=viter, vtol=vtol,
@@ -138,35 +157,46 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
         raise ValueError("lda_estep: terms and betaT must be 2-D")
     B, L = terms.shape
     V, K = betaT.shape
-    f32 = torch.float32
+    dt = betaT.dtype
+    if dt not in _MODES:
+        raise TypeError(f"lda_estep: betaT must be torch.float32 or torch.float64, got {dt}")
+    entry, argtypes, suffix = _MODES[dt]
     require("lda_estep", betaT.device, {
-        "betaT": (betaT, (V, K), f32), "terms": (terms, (B, L), torch.int32),
-        "counts": (counts, (B, L), f32), "doc_mask": (doc_mask, (B,), f32),
-        "alpha": (alpha, (K,), f32), "gamma": (gamma, (B, K), f32),
-        "El": (El, (B, K), f32), "El_old": (El_old, (B, K), f32)})
+        "betaT": (betaT, (V, K), dt), "terms": (terms, (B, L), torch.int32),
+        "counts": (counts, (B, L), dt), "doc_mask": (doc_mask, (B,), dt),
+        "alpha": (alpha, (K,), dt), "gamma": (gamma, (B, K), dt),
+        "El": (El, (B, K), dt), "El_old": (El_old, (B, K), dt)})
     outs = [torch.empty_like(gamma) for _ in range(3)]
-    w = torch.empty((B, L, K), dtype=torch.float32, device=betaT.device)
+    w = torch.empty((B, L, K), dtype=dt, device=betaT.device)
     if B == 0:
         return (*outs, w)
-    n_scratch = _scratch_floats(L, K)
-    scratch = (torch.empty((B, n_scratch), dtype=torch.float32, device=betaT.device)
+    n_scratch = _scratch_elems(L, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=betaT.device)
                if n_scratch else None)
-    vec = K % 4 == 0
+    # 16-byte copies of the table's rows (4 floats or 2 doubles), and
+    # 4-wide stores of w
+    flags = [K % (16 // betaT.element_size()) == 0 and betaT.data_ptr() % 16 == 0,
+             K % 4 == 0 and w.data_ptr() % 16 == 0]
+    if dt == torch.float32:
+        flags.append(bool(elogtheta_f64))
     err = _build.launch(
-        _build.function("tmvb_lda_estep", _ARGTYPES), betaT.device,
+        _build.function(entry, argtypes), betaT.device,
         *(t.data_ptr() for t in (betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
                                  *outs, w)),
         None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol),
-        int(vec and betaT.data_ptr() % 16 == 0), int(vec and w.data_ptr() % 16 == 0),
-        int(bool(elogtheta_f64)))
+        *map(int, flags))
     check(err, "lda_estep")
     lda_estep.launches += 1
-    lda_estep.launches_f64 += bool(elogtheta_f64)
+    if dt == torch.float64:
+        lda_estep.launches_double += 1
+    else:
+        lda_estep.launches_f64 += bool(elogtheta_f64)
     return (*outs, w)
 
 
 lda_estep.launches = 0   # kernel launches (the plain version is not counted)
-lda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode
+lda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode (f32 state)
+lda_estep.launches_double = 0   # of them, launches of the float64 mode
 
 
 def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
@@ -206,7 +236,7 @@ def lda_estep_pass(betaT, terms, counts, doc_mask, El):
     pc = torch.empty((B, K), dtype=f32, device=betaT.device)
     if B == 0:
         return pc
-    n_scratch = _scratch_floats(L, K)
+    n_scratch = _scratch_elems(L, K)
     scratch = (torch.empty((B, n_scratch), dtype=f32, device=betaT.device)
                if n_scratch else None)
     err = _build.launch(

@@ -22,13 +22,14 @@ Everything a call needs besides ``acc`` and the weights is set up once per
 plan, not once per call: the plan's index tensors are checked when the
 plan is built or moved (``ScatterPlan.__post_init__``), the scratch rows
 of the split runs' partials are allocated at the first call for a given
-width W and kept on the plan, and the C entry point is looked up once per
+width W and dtype and kept on the plan, and the C entry point is looked up once per
 process.  A call checks only ``acc`` and the weights.  A plan serves one
 stream at a time: two scatters along one plan must not run concurrently,
 since they share its scratch rows.
 
 Both versions take ``(acc, weights, plan)`` with acc [V, W] and weights
-[T, W], add into ``acc`` in place and return it.  The plain version adds
+[T, W], add into ``acc`` in place and return it.  The kernel has a
+float32 and a float64 mode; ``acc``'s dtype picks it.  The plain version adds
 each id's kept rows in slot order with ``index_add_``; on the CPU that is
 bitwise equal to ``index_add_`` over all T rows.
 """
@@ -70,7 +71,7 @@ class ScatterPlan:
     run_start: torch.Tensor    # [n_runs + 1] offsets into the scratch rows
     run_id: torch.Tensor       # [n_runs] ids of the split runs
     scratch: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
-                                      compare=False)   # W -> [n_scratch, W] f32
+                                      compare=False)   # (W, dtype) -> [n_scratch, W]
 
     def __post_init__(self):
         n, n_pc, n_runs = self.rows.shape[0], self.piece_id.shape[0], self.run_id.shape[0]
@@ -91,12 +92,13 @@ class ScatterPlan:
         return dataclasses.replace(self, **{f: getattr(self, f).to(device)
                                             for f in _INDEX_FIELDS})
 
-    def scratch_rows(self, W: int) -> torch.Tensor:
-        """The [n_scratch, W] f32 scratch of the split runs' partials."""
-        buf = self.scratch.get(W)
+    def scratch_rows(self, W: int, dtype=torch.float32) -> torch.Tensor:
+        """The [n_scratch, W] scratch of the split runs' partials, in the
+        accumulator's dtype."""
+        buf = self.scratch.get((W, dtype))
         if buf is None:
-            buf = self.scratch[W] = torch.empty((self.n_scratch, W), dtype=torch.float32,
-                                                device=self.device)
+            buf = self.scratch[(W, dtype)] = torch.empty((self.n_scratch, W), dtype=dtype,
+                                                         device=self.device)
         return buf
 
 
@@ -150,8 +152,9 @@ def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
     place; returns ``acc``.
 
     CPU tensors take :func:`scatter_rows_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise.  A plan that keeps nothing launches
-    nothing."""
+    kernel, in its float32 or float64 mode as ``acc``'s dtype says, with
+    ``weights`` of the same dtype, or raise.  A plan that keeps nothing
+    launches nothing."""
     if acc.device.type == "cpu":
         return scatter_rows_ref(acc, weights, plan)
     if acc.device.type != "cuda":
@@ -167,21 +170,31 @@ def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
     if plan.device != acc.device:
         raise ValueError(f"scatter_rows: the plan's rows is on {plan.device}, "
                          f"expected {acc.device}")
+    dtype = acc.dtype
+    if dtype not in _ENTRY:
+        raise TypeError(f"scatter_rows: acc must be torch.float32 or torch.float64, "
+                        f"got {dtype}")
     require("scatter_rows", acc.device, {
-        "acc": (acc, (V, W), torch.float32),
-        "weights": (weights, (plan.T, W), torch.float32)})
+        "acc": (acc, (V, W), dtype),
+        "weights": (weights, (plan.T, W), dtype)})
     if plan.n_pieces == 0:
         return acc
-    scratch = plan.scratch_rows(W)
-    vec = W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (acc, weights, scratch))
+    scratch = plan.scratch_rows(W, dtype)
+    # 16-byte lanes: 4 floats or 2 doubles
+    vec = W % (16 // acc.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (acc, weights, scratch))
     err = _build.launch(
-        _build.function("tmvb_scatter_rows", _ARGTYPES), acc.device,
+        _build.function(_ENTRY[dtype], _ARGTYPES), acc.device,
         *(t.data_ptr() for t in (weights, plan.rows, plan.piece_start, plan.piece_id,
                                  plan.piece_out, plan.run_start, plan.run_id, acc, scratch)),
         plan.n_pieces, plan.run_id.shape[0], W, int(vec))
     check(err, "scatter_rows")
     scatter_rows.launches += 1
+    scatter_rows.launches_double += dtype == torch.float64
     return acc
 
 
+# the C entry point of each mode
+_ENTRY = {torch.float32: "tmvb_scatter_rows", torch.float64: "tmvb_scatter_rows_f64"}
 scatter_rows.launches = 0   # kernel launches (the plain version is not counted)
+scatter_rows.launches_double = 0   # of them, launches of the float64 mode

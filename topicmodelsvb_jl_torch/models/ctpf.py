@@ -32,6 +32,7 @@ import dataclasses
 
 import torch
 
+from ..kernels._build import check_dtype
 from ..kernels.ctpf_estep import ctpf_estep, ctpf_split_fixpoint
 from ..kernels.scatter_rows import build_plan
 from ..ops.segment import count_scatter_into
@@ -213,6 +214,7 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int, device,
     def step(state: CTPFState, terms, counts, readers, ratings, doc_mask) -> CTPFState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dt, dev = state.alef.dtype, state.alef.device
+        check_dtype("CTPF", dt, dev, ("seq",) * (seq_axis is not None))
         tables = estep_tables(gathered(state, mesh, vocab_axis, user_axis))
         alef_temp = torch.zeros((V, K), dtype=dt, device=dev)
         he_temp = torch.zeros((U_seg, K), dtype=dt, device=dev)

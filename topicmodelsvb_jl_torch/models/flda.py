@@ -30,6 +30,7 @@ import dataclasses
 
 import torch
 
+from ..kernels._build import check_dtype
 from ..kernels.flda_estep import flda_estep, flda_split_fixpoint
 from ..ops.newton import dirichlet_newton
 from ..ops.segment import count_scatter_into
@@ -153,6 +154,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total) -> FLDAState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
+        check_dtype("fLDA", dtype, dev, ("seq",) * (seq_axis is not None))
         beta, kappa = state.beta, state.kappa
         if vocab_axis is not None:
             beta = all_gather(beta, mesh, vocab_axis, dim=1)

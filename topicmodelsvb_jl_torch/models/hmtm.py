@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels._build import check_dtype
 from ..kernels.hmtm_estep import hmtm_estep, hmtm_logz
 from ..ops.newton import dirichlet_newton_batched
 from ..ops.segment import count_scatter_into
@@ -179,6 +180,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
                              row_sum)
 
     def step(state: HMTMState, terms, counts, doc_mask, M_total) -> HMTMState:
+        check_dtype("HMTM", state.beta.dtype, state.beta.device)
         tau, gamma, *stats = sweep(state, terms, counts, doc_mask)
         eta, alpha, beta = update(state.eta, state.alpha, *stats, M_total)
         return HMTMState(eta=eta, alpha=alpha, beta=beta, tau=tau, gamma=gamma,

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels._build import check_dtype
 from ..kernels.lda_elbo import lda_elbo_tok
 from ..kernels.lda_estep import lda_estep, split_fixpoint
 from ..kernels.scatter_rows import build_plan
@@ -248,9 +249,13 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     chunks = _chunks(packed, chunk_docs)
     plans = token_plans(packed, chunk_docs, device)
 
+    # the axes that split the token slots, for the dtype gate
+    split_axes = ("routed",) * vocab_routed + ("seq",) * (seq_axis is not None)
+
     def step(state: LDAState, terms, counts, doc_mask, M_total) -> LDAState:
         terms, counts, doc_mask = (as_segments(x) for x in (terms, counts, doc_mask))
         dtype, dev = state.beta.dtype, state.beta.device
+        check_dtype("LDA", dtype, dev, split_axes)
         beta = state.beta
         if vocab_axis is not None and not vocab_routed:
             beta = all_gather(beta, mesh, vocab_axis, dim=1)

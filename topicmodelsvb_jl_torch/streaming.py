@@ -45,8 +45,9 @@ CAVI (``train``) or online SVI (``train_online``), checkpoints
 (:meth:`_StreamingModel.save`, :func:`load`, and an auto-checkpoint
 cadence), and the file format is the JAX package's: checkpoints cross
 between the packages both ways.  A model runs on the CUDA device unless
-its caller passes ``device="cpu"``; float64 runs on the CPU only (the
-kernels are float32).
+its caller passes ``device="cpu"``.  float64 runs on the card for LDA,
+fLDA, CTM, fCTM and DTM (the float64 modes of their kernels); CTPF and
+HMTM run it on the CPU only (``kernels._build.check_dtype``).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .kernels._build import check_dtype
 from .kernels.scatter_rows import ScatterPlan, build_plan
 from .models import ctm as ctm_mod
 from .models import ctpf as ctpf_mod
@@ -281,7 +283,7 @@ class _StreamingModel:
     _doc_state: tuple = ()
     _globals: tuple = ()
     _counters: tuple = ("elbo", "_svi_t", "_epochs_done", "trained_iters")
-    _api_cls: str = ""   # the matching api model class
+    _api_cls: str = ""   # the matching api model class, and the family
     # whether the first online step takes the batch statistic whole (ρ=1);
     # classes whose _svi_init_stats seeds from positive priors set this
     # False so the prior never drops out (see the JAX package)
@@ -299,9 +301,9 @@ class _StreamingModel:
             raise RuntimeError(f"device {str(self.device)!r}: no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
         self.dtype, self.np_dtype, self._dtype_name = _dtypes(dtype)
-        if self.device.type == "cuda" and self.dtype != torch.float32:
-            raise TypeError("the streaming models run float32 on CUDA (the kernels are "
-                            "float32 only); pass device='cpu' for float64")
+        # the state's dtype on this device, before anything is allocated
+        # (the storage-vocab axis adds no kernel)
+        check_dtype(self._api_cls, self.dtype, self.device)
         self._state_dir = state_dir
         if state_dir is not None:
             os.makedirs(state_dir, exist_ok=True)
@@ -1378,6 +1380,7 @@ class StreamingDTM(_StreamingModel):
     rows past M are ignored); :func:`slices_from_stamps` builds it the
     reference's way (v0.6/src/DTM.jl:58-63)."""
 
+    _api_cls = "DTM"   # the family; to_model is this class's own
     _doc_state = ("gamma", "Elogtheta", "lzeta")
     _globals = ("alpha", "betahat", "mbeta", "vbeta", "v_filt")
 
@@ -1547,9 +1550,10 @@ def load(path: str, packed, strict_corpus: bool = True, device="cuda"):
     same dense PackedCorpus, ready to continue training where it left off.
 
     Reads the single-file ``.npz`` of either package and the directory
-    format of the JAX package's multi-process runs (``proc{p}.npz`` shards
-    of batch-strided rows, ``manifest.json`` written last), which resumes
-    here on one process."""
+    format of the multi-process runs of either package (``proc{p}.npz``
+    shards of batch-strided rows, ``manifest.json`` written last), which
+    resumes at any process count: on one process, or on the ranks of an
+    initialised process group, each taking its own rows."""
     if os.path.isdir(path):
         mpath = os.path.join(path, "manifest.json")
         if not os.path.exists(mpath):

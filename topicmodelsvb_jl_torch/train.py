@@ -104,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--chunk-docs", type=int, default=None)
     r.add_argument("--pad-multiple", type=int, default=None)
     r.add_argument("--dtype", default=None, choices=["float32", "float64"],
-                   help="float64 runs on the CPU only (the kernels are "
-                        "float32)")
+                   help="float64 runs on the card for lda, flda, ctm, fctm "
+                        "and dtm, and on the CPU for every model")
     r.add_argument("--no-pallas", action="store_true",
                    help="the JAX CLI's switch to its plain E-step: the "
                         "plain versions run on the CPU anyway; on a CUDA "
@@ -214,6 +214,11 @@ def _checkelbo(args) -> float:
             else int(args.checkelbo))
 
 
+# each --model's family, as kernels._build names it
+_FAMILY = {"lda": "LDA", "flda": "fLDA", "ctm": "CTM", "fctm": "fCTM", "ctpf": "CTPF",
+           "dtm": "DTM", "hmtm": "HMTM"}
+
+
 def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     import torch
@@ -226,9 +231,15 @@ def run(argv=None) -> dict:
         raise SystemExit("--no-pallas: a CUDA device has no plain E-step path (a CUDA "
                          "tensor launches the hand-written kernel); the plain versions "
                          "run with --device cpu")
-    if args.dtype == "float64" and device.type == "cuda":
-        raise SystemExit("--dtype float64 runs on the CPU only: the kernels are "
-                         "float32 (pass --device cpu)")
+    # the state's dtype on this device (kernels._build.check_dtype), before
+    # any corpus is built: float64 on the card for every family whose
+    # kernels have a float64 mode
+    from .kernels._build import check_dtype
+
+    try:
+        check_dtype(_FAMILY[args.model], args.dtype or "float32", device)
+    except TypeError as e:
+        raise SystemExit(f"--dtype {args.dtype}: {e}") from None
 
     from . import api
     from .corpus import Corpus, fixcorp

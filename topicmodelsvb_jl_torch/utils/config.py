@@ -60,7 +60,9 @@ class RuntimeConfig:
     chunk_docs: int = 1024        # docs per E-step chunk (bounds the [B, L, K] stat rows)
     pad_multiple: int = 64        # token-axis padding multiple of a dense corpus
     bucket_pad: int = 8           # per-segment token-width multiple under bucketing
-    dtype: str = "float32"        # compute dtype; "float64" for the CPU oracle
+    # compute dtype; "float64" runs on the card for LDA, fLDA, CTM, fCTM
+    # and DTM, and on the CPU for every family (kernels._build.check_dtype)
+    dtype: str = "float32"
     # LDA and fLDA: the E-step's per-document gamma -> Elogtheta digamma
     # channel in float64, cast back to the float32 state (the token-level
     # [B, L, K] work stays float32); on the card a mode of the lda_estep
@@ -68,6 +70,10 @@ class RuntimeConfig:
     # families ignore it, as the JAX package's do
     elogtheta_f64: bool = False
     data_axis: str = "data"       # mesh axis the documents are sharded over
+    # mesh axis the tables' storage may be sharded over (tensor
+    # parallelism: a step's or a streaming model's ``vocab_axis``); the api
+    # models shard over the data axis alone, as the JAX package's do
+    vocab_axis: str = "vocab"
     # None → every process on the data axis; else the mesh's shape, whose
     # axes past the first (tensor parallelism) must be 1 until they are ported
     mesh_shape: Optional[tuple] = None
@@ -77,8 +83,8 @@ class RuntimeConfig:
     profile_dir: Optional[str] = None
     profile_steps: int = 3
     # peak FLOP/s of the MFU figure in Trainer.summary(); None is the
-    # model's device's own f32 peak (engine.device_peak_flops: 0 on the
-    # CPU, so no MFU there); 0 disables the figure
+    # model's device's own peak in the state's dtype (engine.
+    # device_peak_flops: 0 on the CPU, so no MFU there); 0 disables it
     peak_flops: Optional[float] = None
     # checkpoint every N outer iterations during train() to
     # checkpoint_dir/ckpt_iter{k:06d}; 0 disables
