@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel, CLI and float64 paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel, CLI, float64 and wide-K paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -126,7 +126,8 @@ printing its own lines; any failure exits non-zero:
    process against the two ranks' resume, the streaming checkpoint loaded
    in one process; then one process of an NCCL group: LDA on its mesh
    bitwise equal to LDA with no collective;
-13. (run before 11's results) tensor and sequence parallelism, the counts
+13. (run before 11's results; its two ranks also run phase 15's and
+   phase 17's cases) tensor and sequence parallelism, the counts
    set to 0 before each run in each process and read after: here, the
    E-step's pass mode (``lda_estep_pass``) against its plain version on a
    routed chunk (the first 1024 documents' slots of vocab block 0 of 2)
@@ -193,9 +194,10 @@ printing its own lines; any failure exits non-zero:
    repeatable, zeros on masked documents, with device and call times and
    bounds (8-byte elements, operations at the card's f64 rate: SMs x 64
    x 2 x the max SM clock); LDA and fLDA (K = 100) and CTM and fCTM (K =
-   50, chunks of 2048) on phase 13's NSF corpus cut to 8,192 documents,
+   50, chunks of 2048) on phase 13's NSF corpus cut to 2,048 documents,
    and phase 8's small DTM (cgtol = 0), each on the card and on the CPU in
-   float64 from one init, 3 iterations, within 1e-8 per iteration on the
+   float64 from one init, 2 iterations (the CPU's references set the
+   depth), within 1e-8 per iteration on the
    globals and the bound, the float64 modes' launches counted there; DTM
    at the mac shape in float64 and float32 on the card, 3 iterations from
    one init, and the float32 run's departure from the float64 one; the
@@ -204,8 +206,29 @@ printing its own lines; any failure exits non-zero:
    topicmodelsvb_jl_torch.train --dtype float64`` for LDA (2 iterations,
    its MFU against the f64 peak); a float64 LDA checkpoint written on the
    CPU resumed on the card, bitwise equal to a straight card run; and the
-   dtype gate refusing float64 CTPF, HMTM and seq LDA on the card before
-   any launch or allocation;
+   dtype gate refusing float16 CTPF, HMTM, StreamingHMTM and seq LDA on the
+   card before any launch or allocation;
+17. (run before 11's results) every dtype and K on the card
+   (``dtype_phase``): the float64 modes of ``ctpf_estep``, its pass mode,
+   ``lda_estep_pass``, ``flda_estep_pass``, ``hmtm_estep`` and
+   ``hmtm_logz`` against their plain float64 versions on the widest chunk
+   of each main path cast to float64 (CiteULike's widest bucket; rank 0's
+   half of the first 1024 NSF or CiteULike documents' slots; phase 9's
+   widest NSF chunk), within rtol 1e-9 / atol 1e-12, bitwise repeatable,
+   masked documents untouched, with times and bounds; HMTM's wide mode in
+   float32 at K = 240, 256, 257, 300 and 512 (rtol 5e-3 / atol 1e-5) and
+   in float64 at K = 169 and 170 on small chunks, and at K = 300 on the
+   widest NSF chunk with its times; then, the counts set to 0 before each
+   run and read after: CTPF at CiteULike scale (K = 100, every document)
+   in float64 on the card, its first iteration within 1e-8 of the CPU's
+   float64 one from the same init; HMTM K = 25 in float64 on NSF unit
+   counts cut to 2,048 documents, card against CPU, 2 iterations within
+   1e-8; HMTM K = 300 in float32 on the NSF vocabulary cut to 2,048
+   documents, 2 iterations through the wide mode (∆elbo > 0); phase 13's
+   two ranks' float64 routed and seq LDA, seq fLDA (8,192 documents) and
+   seq CTPF (CiteULike) against one float64 process within 1e-8; and
+   ``train.run`` with ``--model ctpf --dtype float64`` and ``--model hmtm
+   --k 300``;
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -230,9 +253,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 RTOL, ATOL = 5e-3, 1e-5   # the JAX package's Pallas-vs-XLA tolerance in f32
 RTOL64, ATOL64 = 1e-9, 1e-12   # a float64 kernel against its plain float64 version
+# phase 16's card-against-CPU runs: the NSF corpus cut to this many
+# documents, this many iterations (the CPU's float64 references set the
+# phase's time; the widths stay)
+P16_DOCS, P16_ITERS = 2048, 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's H100 SXM data sheet: the HBM rate and
 # the f32 rate outside the tensor cores, at the full 700 W power limit
@@ -1473,9 +1501,10 @@ def hmtm_chunks(bucketed, V, dev) -> list:
     return out
 
 
-def compare_hmtm(label, K, viter, mode, args, dev) -> tuple:
+def compare_hmtm(label, K, viter, mode, args, dev, calls=(N_KERNEL, 3)) -> tuple:
     """hmtm_estep and hmtm_logz against their plain versions on one chunk:
-    the records (``record``) and the kernel's r."""
+    the records (``record``, ``calls`` = time_calls's n and reps) and the
+    kernel's r."""
     import torch
 
     from topicmodelsvb_jl_torch.kernels import _build
@@ -1513,11 +1542,11 @@ def compare_hmtm(label, K, viter, mode, args, dev) -> tuple:
     n_real = float(real.sum())
     work = fixpoint_work(hmtm_mod, hmtm_estep_ref, args, kw, real)
     uniq = n_unique(terms, tmask > 0)
-    est = record(err, time_calls(lambda: hmtm_estep(*args, **kw), N_KERNEL),
+    est = record(err, time_calls(lambda: hmtm_estep(*args, **kw), *calls),
                  (plain_s * 1e3, plain_s * 1e3),
                  bound_ms(4 * (uniq * K + 2 * B * L + B + K + K * K + 2 * B * K + 2 * B * K * K
                                + B * L * K), 6 * K * K * work + 4 * K * K * n_real))
-    lz = record(zerr, time_calls(lambda: hmtm_logz(*zargs), N_KERNEL),
+    lz = record(zerr, time_calls(lambda: hmtm_logz(*zargs), *calls),
                 (zplain_s * 1e3, zplain_s * 1e3),
                 bound_ms(4 * (uniq * K + 2 * B * L + B * K + B * K * K + B), 2 * K * K * n_real))
     print(f"kernels HMTM {label}: B={B} L={L} K={K} viter={viter} real slots={int(n_real)} "
@@ -2411,6 +2440,17 @@ P15_CASES = (("fLDA seq, NSF V, 16,384 documents", "fLDA", "fpk", 100, 1024),
              ("CTM seq, NSF V, 8,192 documents", "CTM", "mpk", 50, 2048),
              ("fCTM seq, NSF V, 8,192 documents", "fCTM", "mpk", 50, 2048),
              ("CTPF seq, CiteULike", "CTPF", "cpk", 100, 1024))
+# phase 17's float64 cases on phase 13's two ranks: label, mesh (dv: data x
+# vocab, ds: data x seq), family, corpus (p13_nsf cut to 8,192 documents,
+# routed over 2 vocab blocks or not, or p13_citeu), the axis keywords
+P17_RANK_CASES = (
+    ("LDA routed float64, NSF V, 8,192 documents", "dv", "LDA", "mrouted",
+     dict(doc=("data",), vocab="vocab", routed=True)),
+    ("LDA seq float64, NSF V, 8,192 documents", "ds", "LDA", "mpk",
+     dict(doc=("data",), seq="seq")),
+    ("fLDA seq float64, NSF V, 8,192 documents", "ds", "fLDA", "mpk",
+     dict(doc=("data",), seq="seq")),
+    ("CTPF seq float64, CiteULike", "ds", "CTPF", "cpk", dict(doc=("data",), seq="seq")))
 
 
 def p13_nsf(M: int):
@@ -2469,11 +2509,13 @@ def compare_pass(tok, Vs, K, dev, label):
 
 
 def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None, seq=None,
-             routed=False, slice_id=None, T=None, chunk=1024, step_kw=None, time_step=False):
+             routed=False, slice_id=None, T=None, chunk=1024, step_kw=None, time_step=False,
+             dtype="float32"):
     """One family's make_step/make_elbo on this rank's slab of ``packed``
     over ``mesh`` from the family's init (seed 7, drawn whole and cut by
-    ``convert.shard_state``), ``iters`` iterations, the launch counts set
-    to 0 before and read after.  Returns (launches, bounds from the init
+    ``convert.shard_state``) in ``dtype``, ``iters`` iterations, the launch
+    counts set to 0 before and read after (a float64 mode's launches also
+    under ``<kernel>_double``).  Returns (launches, bounds from the init
     on, the globals gathered whole, the step timed alone or None)."""
     import numpy as np
     import torch
@@ -2493,14 +2535,15 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
            "HMTM": hmtm.HMTMState}[fam]
     gen = torch.Generator().manual_seed(7)
     whole = (mod.init(gen, packed, K, T) if fam == "DTM" else mod.init(gen, packed, K))
+    dt = getattr(torch, dtype)
     state = convert.shard_state(cls, {f: getattr(whole, f).numpy() for f in
                                       cls.__dataclass_fields__}, mesh, data_axis=doc,
-                                vocab_axis=vocab, user_axis=user, seq_axis=seq, device=dev)
+                                vocab_axis=vocab, user_axis=user, seq_axis=seq, device=dev,
+                                dtype=dt)
     del whole
     slab = local_slab(packed, mesh, doc, vocab if routed else seq)
     put = lambda a, dt: torch.as_tensor(np.array(a), dtype=dt).to(dev)
-    t, c, dm = (put(slab.terms, torch.int32), put(slab.counts, torch.float32),
-                put(slab.doc_mask, torch.float32))
+    t, c, dm = (put(slab.terms, torch.int32), put(slab.counts, dt), put(slab.doc_mask, dt))
     tol = 1.0 / K ** 2
     common = dict(viter=10, vtol=tol, niter=1000, ntol=tol, chunk_docs=chunk, device=dev)
     kw = dict(mesh=mesh, axis_name=doc, vocab_axis=vocab)
@@ -2511,13 +2554,12 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
         kw.update(vocab_routed=routed)
         args, eargs = (t, c, dm, M), (t, c, dm)
     elif fam == "fLDA":
-        args, eargs = (t, c, dm, torch.tensor(M, device=dev),
-                       torch.tensor(float(packed.C.sum()), device=dev)), (t, c, dm)
+        args, eargs = (t, c, dm, torch.tensor(M, dtype=dt, device=dev),
+                       torch.tensor(float(packed.C.sum()), dtype=dt, device=dev)), (t, c, dm)
     elif fam == "CTPF":
         kw.update(user_axis=user)
         common = dict(viter=10, vtol=tol, chunk_docs=chunk, device=dev)
-        args = eargs = (t, c, put(slab.readers, torch.int32), put(slab.ratings, torch.float32),
-                        dm)
+        args = eargs = (t, c, put(slab.readers, torch.int32), put(slab.ratings, dt), dm)
     elif fam == "DTM":
         rows = local_block(slice_id, mesh, doc)
         common.update(cgiter=10, cgtol=1.0 / T ** 2, slice_id=rows)
@@ -2530,6 +2572,7 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
             else mod.make_elbo(slab, K, chunk, **kw))
     for k in kern.values():
         k.launches = 0
+        k.launches_double = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trace = [elbo_value(elbo(state, *eargs))]
@@ -2539,6 +2582,7 @@ def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {n: k.launches for n, k in kern.items() if k.launches}
+    got.update({f"{n}_double": k.launches_double for n, k in kern.items() if k.launches_double})
     alone = None
     if time_step:   # one more step alone, its collectives timed
         shard.STATS.reset()
@@ -2622,6 +2666,14 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
     cases += tuple((label, ds, fam, corpora[key], K, 2, 1,
                     dict(doc=("data",), seq="seq", chunk=chunk, time_step=True))
                    for label, fam, key, K, chunk in P15_CASES)
+    # phase 17: the token-splitting axes in float64, at a cut depth (8,192
+    # documents of the NSF widths; CiteULike whole); phase 17 holds them
+    # against one float64 process
+    mrouted = tt.route_packed(mpk, n_shards=2)
+    for label, mesh, fam, key, kw in P17_RANK_CASES:
+        pk = {"mrouted": mrouted, "mpk": mpk, "cpk": cpk}[key]
+        cases += ((label, {"dv": dv, "ds": ds}[mesh], fam, pk, 100, 2, int(fam != "LDA"),
+                   dict(kw, dtype="float64")),)
     for label, mesh, fam, pk, K, iters, mono, kw in cases:
         got, trace, glob, alone, wall = p13_case(tag, mesh, fam, pk, K, iters, kern, **kw)
         deltas = np.diff(trace).tolist()
@@ -2634,6 +2686,9 @@ def tp_child(rank: int, world: int, port: int, tmp: str) -> int:
             path += {"LDA": ("lda_estep_pass",), "fLDA": ("flda_estep_pass",),
                      "CTPF": ("ctpf_estep_pass",)}.get(fam, ())
         need(all(got.get(n, 0) > 0 for n in path), f"{tag} {label}: launches {got}, path {path}")
+        if kw.get("dtype") == "float64":
+            need(all(got.get(f"{n}_double", 0) > 0 for n in path),
+                 f"{tag} {label}: float64 launches {got}, path {path}")
         for n, v in got.items():
             info["launches"][n] = info["launches"].get(n, 0) + v
         for f, v in glob.items():
@@ -3255,43 +3310,32 @@ def compare_double(seg, V, K, dev, label) -> dict:
             run, ref = lambda: flda_estep(*fargs, **kw), lambda: flda_estep_ref(*fargs, **kw)
             ops = lambda: 4 * K * fixpoint_work(flda_mod, flda_estep_ref, fargs, kw,
                                                 keep.sum(1).double()) + 2 * (K + 1) * kept
-        n0, d0 = kern.launches, kern.launches_double
-        got, want = run(), ref()
-        torch.cuda.synchronize()
-        need((kern.launches, kern.launches_double) == (n0 + 1, d0 + 1),
-             f"{name} float64 {label}: the float64 mode did not launch")
-        need(all(a.dtype == torch.float64 for a in got), f"{name} float64 {label}: dtype")
-        err = close(got, want, names, f"{name} float64 {label}", RTOL64, ATOL64)
-        need(all(torch.equal(a, b) for a, b in zip(got, run())),
-             f"{name} float64 {label}: not bitwise repeatable")
-        if name != "lda_elbo_tok":
-            need(bool(torch.all(got[-1][doc_mask == 0] == 0)),
-                 f"{name} float64 {label}: a masked document got rows")
-        out[name] = record(err, time_calls(run, N_KERNEL), time_calls(ref, N_PLAIN, reps=1),
-                           bound_ms(nbytes, ops(), rate))
-        if name == "lda_estep":
-            w = got[3]
-        print(f"kernels float64 {label}: B={B} L={L} K={K} | {name} {times(out[name])}")
+        rows_ok = ((lambda got: True) if name == "lda_elbo_tok"
+                   else (lambda got: bool(torch.all(got[-1][doc_mask == 0] == 0))))
+        out[name] = check_double(name, kern, run, ref, names, rows_ok, nbytes, ops, rate,
+                                 f"{label} B={B} L={L} K={K}")
+    w = lda_estep(*largs, **kw)[3]
     out["scatter_rows"] = compare_scatter(V, w.reshape(-1, K), terms, keep, dev,
                                           f"float64 LDA w, {label}")
     return out
 
 
 def double_phase(smi, kc, dev) -> tuple:
-    """Phase 16, float64 on the card: (a) the four float64 modes against
-    their plain versions; (b) LDA, fLDA, CTM and fCTM on the NSF corpus
-    cut to 8,192 documents (phase 13's dense cut) and the small DTM of
-    phase 8 (cgtol = 0), each on the card and on the CPU in float64 from
-    one init, 3 iterations, within 1e-8 per iteration on the globals
-    (rtol, atol 1e-12) and the bound (relative); (c) DTM at the mac shape
-    in float64 and float32 on the card, 3 iterations from one init; (d)
+    """Phase 16, float64 on the card: (a) the float64 modes of lda_estep,
+    flda_estep, lda_elbo_tok and scatter_rows against their plain
+    versions; (b) LDA, fLDA, CTM and fCTM on the NSF corpus cut to
+    P16_DOCS documents (phase 13's dense cut) and the small DTM of phase 8
+    (cgtol = 0), each on the card and on the CPU in float64 from one init,
+    P16_ITERS iterations, within 1e-8 per iteration on the globals (rtol,
+    atol 1e-12) and the bound (relative); (c) DTM at the mac shape in
+    float64 and float32 on the card, 3 iterations from one init; (d)
     StreamingLDA and StreamingDTM in float64, 2 sweeps; (e) ``python -m
     topicmodelsvb_jl_torch.train --dtype float64`` for LDA with its MFU
     against the f64 peak; (f) a float64 checkpoint written on the CPU and
     resumed on the card, bitwise equal to a straight card run; (g) the
-    gate refusing float64 CTPF, HMTM and seq LDA on the card before any
-    launch.  Returns the float64 modes' launches in (b)'s card runs and
-    their records."""
+    gate refusing float16 CTPF, HMTM, StreamingHMTM and seq LDA on the
+    card before any launch.  Returns the float64 modes' launches in (b)'s
+    card runs and their records."""
     import numpy as np
     import torch
 
@@ -3316,9 +3360,11 @@ def double_phase(smi, kc, dev) -> tuple:
     # (a) the float64 modes at the main path's widest chunk
     recs = compare_double(wide, V, K, dev, f"widest bucket L={s0.L}")
 
-    # (b) card against CPU in float64, from one init, per iteration
+    # (b) card against CPU in float64, from one init, per iteration; the
+    # CPU's float64 references are the phase's cost, so the depth is cut
+    # (2,048 documents, 2 iterations) and the widths kept
     launches = {f"{k.__name__}_double": 0 for k in doubles}
-    nsf = p13_nsf(8192)
+    nsf = p13_nsf(P16_DOCS)
     small = tt.synth_corpus(M=1500, V=600, K=8, seed=3, n_slices=5, drift=0.2, mean_tokens=60,
                             mean_terms=40)
     cases = (("LDA", lambda rt, d: tt.LDA(nsf, K, rt, device=d, seed=7), ("alpha", "beta"), {}),
@@ -3340,7 +3386,7 @@ def double_phase(smi, kc, dev) -> tuple:
         cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
         worst, rels, deltas = 0.0, [], []
         t_card = t_cpu = 0.0
-        for it in range(3):
+        for it in range(P16_ITERS):
             for k in doubles:
                 k.launches_double = 0
             _, s_card = timed(lambda: gpu.train(iter=1, checkelbo=1, printelbo=False,
@@ -3365,7 +3411,7 @@ def double_phase(smi, kc, dev) -> tuple:
         need(all(d > 0 for d in deltas[1:]), f"phase 16 {fam}: ∆elbo {deltas}")
         models[fam] = (gpu, cpu, rels)
         print(f"phase 16 {fam} float64 (M={gpu.M}, K={gpu.K}, chunk {chunk}): card vs CPU from "
-              f"one init, 3 iterations: bound rel diff per iteration "
+              f"one init, {P16_ITERS} iterations: bound rel diff per iteration "
               f"{', '.join(f'{r:.3e}' for r in rels)}, worst rel diff of {', '.join(fields)} "
               f"{worst:.3e}; card {t_card:.2f} s, CPU {t_cpu:.2f} s; ∆elbo "
               f"{', '.join(f'{x:.3f}' for x in deltas)}")
@@ -3405,7 +3451,7 @@ def double_phase(smi, kc, dev) -> tuple:
     sdtm_c = tt.pack_corpus(small, docs_multiple=1024)
     T, sid = tt.slices_from_stamps([doc.stamp for doc in small.docs], 1.0, sdtm_c.M_pad)
     for name, make, train_kw in (
-            ("StreamingLDA", lambda: tt.StreamingLDA(nsf, K, batch_docs=4096, chunk_docs=1024,
+            ("StreamingLDA", lambda: tt.StreamingLDA(nsf, K, batch_docs=1024, chunk_docs=1024,
                                                      dtype=torch.float64, seed=3, device=dev),
              {}),
             ("StreamingDTM", lambda: tt.StreamingDTM(sdtm_c, 10, T, sid, batch_docs=1024,
@@ -3453,42 +3499,430 @@ def double_phase(smi, kc, dev) -> tuple:
                       seed=7)
     straight.state = convert.lda_state_from_numpy(convert.lda_state_to_numpy(cpu.state), dev,
                                                   torch.float64)
-    need(back.device.type == "cuda" and back.dtype == torch.float64 and back.trained_iters == 3,
-         "phase 16: the float64 checkpoint's model")
+    need(back.device.type == "cuda" and back.dtype == torch.float64
+         and back.trained_iters == P16_ITERS, "phase 16: the float64 checkpoint's model")
     for m in (back, straight):
         m.train(iter=2, checkelbo=1, printelbo=False)
     fields = tuple(vars(straight.state))
     equal_states(back.state, straight.state, fields,
                  "phase 16: a CPU float64 checkpoint resumed on the card vs a straight card run")
-    print("phase 16: an LDA float64 checkpoint written on the CPU at iteration 3 resumed on "
-          "the card for 2 iterations: bitwise equal to a straight card run from that state")
+    print(f"phase 16: an LDA float64 checkpoint written on the CPU at iteration {P16_ITERS} "
+          "resumed on the card for 2 iterations: bitwise equal to a straight card run from that "
+          "state")
 
-    # (g) the gate: refused before any launch or allocation
+    # (g) the gate: float16 refused before any launch or allocation (every
+    # kernel has float32 and float64 modes)
     from topicmodelsvb_jl_torch.ops.packing import unit_counts
 
     allk = (scatter_rows, lda_estep, lda_elbo_tok, flda_estep, ctpf_estep, hmtm_estep, hmtm_logz)
-    rt64 = tt.RuntimeConfig(chunk_docs=1024, dtype="float64")
+    rt16 = tt.RuntimeConfig(chunk_docs=1024, dtype="float16")
     hm_corpus = unit_counts(nsf)
     seq_step = lda_mod.make_step(nsf, K, 10, 1e-4, 10, 1e-4, 1024, dev, seq_axis="seq")
+    half = types.SimpleNamespace(beta=types.SimpleNamespace(dtype=torch.float16, device=dev))
     torch.cuda.synchronize()
     before, mem0 = [k.launches for k in allk], torch.cuda.memory_allocated()
     refusals = []
-    for what, call in (("CTPF", lambda: tt.CTPF(kc["cpk"], K, rt64, device=dev)),
-                       ("HMTM", lambda: tt.HMTM(hm_corpus, 25, rt64, device=dev)),
-                       ("LDA seq", lambda: seq_step(gpu.state, None, None, None, None))):
+    for what, call in (("CTPF", lambda: tt.CTPF(kc["cpk"], K, rt16, device=dev)),
+                       ("HMTM", lambda: tt.HMTM(hm_corpus, 25, rt16, device=dev)),
+                       ("StreamingHMTM", lambda: tt.StreamingHMTM(
+                           hm_corpus, 25, batch_docs=1024, chunk_docs=1024, dtype="float16",
+                           device=dev)),
+                       ("LDA seq", lambda: seq_step(half, None, None, None, None))):
         try:
             call()
         except TypeError as e:
-            need("has no float64 mode" in str(e), f"phase 16: float64 {what}: {e}")
+            need("in float16 on CUDA" in str(e), f"phase 16: float16 {what}: {e}")
             refusals.append(f"{what}: {e}")
         else:
-            need(False, f"phase 16: float64 {what} on the card was not refused")
+            need(False, f"phase 16: float16 {what} on the card was not refused")
     torch.cuda.synchronize()
     need([k.launches for k in allk] == before and torch.cuda.memory_allocated() == mem0,
-         "phase 16: a refused float64 run launched or allocated")
+         "phase 16: a refused float16 run launched or allocated")
     print("phase 16: refused before any launch or allocation: " + "; ".join(refusals))
     print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s; float64 launches of (b) and "
           f"(d) {launches}; card {smi}")
+    return launches, recs
+
+
+def check_double(name, kern, run, ref, names, masked_ok, nbytes, ops, rate, label,
+                 plain_once=False) -> dict:
+    """Phase 17: one float64 mode against its plain float64 version on one
+    chunk: within RTOL64/ATOL64, every output float64 and finite, bitwise
+    repeatable, ``masked_ok(got)`` (zeros or the state as given on masked
+    documents), its launch counted in the wrapper's ``launches_double``;
+    device and call times, the plain version's (one call on the host
+    clock with ``plain_once``) and the bound (``nbytes``; ``ops()``
+    operations at ``rate``).  Returns the record."""
+    import torch
+
+    tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
+    n0, d0 = kern.launches, kern.launches_double
+    got = tup(run())
+    torch.cuda.synchronize()
+    need((kern.launches, kern.launches_double) == (n0 + 1, d0 + 1),
+         f"{name} float64 {label}: the float64 mode did not launch")
+    if plain_once:
+        want, plain_s = timed(lambda: tup(ref()))
+        plain = (plain_s * 1e3, plain_s * 1e3)
+    else:
+        want, plain = tup(ref()), time_calls(ref, N_PLAIN, reps=1)
+    need(all(a.dtype == torch.float64 for a in got), f"{name} float64 {label}: dtype")
+    err = close(got, want, names, f"{name} float64 {label}", RTOL64, ATOL64)
+    need(all(torch.equal(a, b) for a, b in zip(got, tup(run()))),
+         f"{name} float64 {label}: not bitwise repeatable")
+    need(masked_ok(got), f"{name} float64 {label}: a masked document moved or got rows")
+    rec = record(err, time_calls(run, N_KERNEL), plain, bound_ms(nbytes, ops(), rate))
+    print(f"kernels float64 {label}: {name} {times(rec)}")
+    return rec
+
+
+def hmtm_wide_args(K, B, L, V, dev, seed, dtype):
+    """A synthetic HMTM chunk at K topics (``hmtm_state``'s tables and
+    state): documents of random lengths up to L, one empty, one of one
+    token, one whose first 5 slots are padding, and the last 3 with
+    doc_mask 0."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    n = r.integers(L // 2, L + 1, size=B)
+    n[0], n[1] = 0, 1
+    tmask = np.arange(L)[None, :] < n[:, None]
+    tmask[2, :5] = False
+    dm = np.ones(B)
+    dm[-3:] = 0.0
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    terms = put(np.minimum((V * r.random((B, L)) ** 3).astype(np.int32), V - 1) * tmask,
+                torch.int32)
+    betaT, eta, alpha, tau, gamma = (t.to(dtype) for t in hmtm_state(K, B, V, dev, seed))
+    return betaT, terms, put(tmask, dtype), put(dm, dtype), eta, alpha, tau, gamma
+
+
+def dtype_phase(smi, kc, dev, ranks) -> tuple:
+    """Phase 17, every dtype and K on the card: (a) the float64 modes of
+    ctpf_estep, its pass mode, lda_estep_pass, flda_estep_pass, hmtm_estep
+    and hmtm_logz against their plain float64 versions on the widest
+    chunk of each main path cast to float64 (``check_double``); (b) the
+    HMTM wide mode in float32 at K = 240, 256, 257, 300 and 512, and in
+    float64 at K = 169 (A in shared memory) and 170 (wide), on small
+    chunks, and on the widest NSF chunk at K = 300 with its times; (c)
+    CTPF at CiteULike scale (K = 100, every document) in float64 on the
+    card against the CPU from one init, the CPU at a cut depth (its first
+    iteration); (d) HMTM K = 25 on NSF unit counts cut to P16_DOCS
+    documents in float64, card against CPU, 2 iterations; (e) HMTM K =
+    300 in float32 on the NSF vocabulary cut to P16_DOCS documents, 2
+    iterations, through the wide mode; (f) phase 13's two ranks' float64
+    runs of P17_RANK_CASES (``ranks``) against one float64 process; (g)
+    the CLI with ``--model ctpf --dtype float64`` and ``--model hmtm --k
+    300``.  Each main run's counts are set to 0 before and read after.
+    Returns (launches, records)."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert, engine
+    from topicmodelsvb_jl_torch import train as train_cli
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep as ctpf_mod
+    from topicmodelsvb_jl_torch.kernels import hmtm_estep as hmtm_mod
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import (
+        ctpf_estep, ctpf_estep_pass, ctpf_estep_pass_ref, ctpf_estep_ref,
+    )
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass, flda_estep_pass_ref
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import (
+        hmtm_estep, hmtm_estep_ref, hmtm_logz, hmtm_logz_ref,
+    )
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass, lda_estep_pass_ref
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+
+    t_phase = time.perf_counter()
+    f64, i32 = torch.float64, torch.int32
+    K, V, cpk = kc["K"], kc["V"], kc["cpk"]
+    rate = engine.device_peak_flops(dev, f64)
+    d = lambda args: tuple(a.double() if torch.is_floating_point(a) else a for a in args)
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    recs, launches = {}, {}
+
+    # (a) the float64 modes on their main paths' widest chunks
+    cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
+    tok, rd = ctpf_bucket(cpk, cbk, dev)
+    cargs, ckw = ctpf_args(tok, rd, cpk.V, cpk.U, K, dev)
+    cargs = d(cargs)
+    (terms, counts, dm), (readers, ratings) = tok, rd
+    B, L, R = terms.shape[0], terms.shape[1], readers.shape[1]
+    kt, kr = counts > 0, ratings > 0
+    kept = int(kt.sum()) + int(kr.sum())
+    pad = dm == 0
+    rows = n_unique(terms, kt) + n_unique(readers, kr)
+    recs["ctpf_estep_double"] = check_double(
+        "ctpf_estep", ctpf_estep, lambda: ctpf_estep(*cargs, **ckw),
+        lambda: ctpf_estep_ref(*cargs, **ckw),
+        ("gimel", "gimel_old", "zayin", "zayin_old", "wa", "wh"),
+        lambda got: (all(torch.equal(a[pad], b[pad]) for a, b in zip(got[:4], cargs[10:]))
+                     and all(bool(torch.all(w[pad] == 0)) for w in got[4:])),
+        8 * (rows * K + B * (L + R) + B + 3 * K + 8 * B * K + B * (L + R) * K) + 4 * B * (L + R),
+        lambda: 4 * K * fixpoint_work(ctpf_mod, ctpf_estep_ref, cargs, ckw,
+                                      (kt.sum(1) + kr.sum(1)).double()) + 2 * K * kept,
+        rate, f"CiteULike widest bucket B={B} L={L} R={R} K={K}")
+    # the pass modes on rank 0's half of the token (and reader) slots of the
+    # first 1024 documents of their main paths (phases 13 and 15)
+    pk = kc["packed"]
+    h = pk.L // 2
+    seg = (put(pk.terms[:1024, :h], i32), put(pk.counts[:1024, :h], f64),
+           put(pk.doc_mask[:1024], f64))
+    terms, counts, dm = seg
+    keep = counts > 0
+    kept, uniq = int(keep.sum()), n_unique(terms, keep)
+    B, L = terms.shape
+    betaT = (dirichlet_ones(torch.Generator().manual_seed(13), V, (K,)).to(dev)
+             + EPSILON).T.contiguous().double()
+    El = warm_state(K, B, dev, seed=14)[2].double()
+    largs = (betaT, terms, counts, dm, El)
+    recs["lda_estep_pass_double"] = check_double(
+        "lda_estep_pass", lda_estep_pass, lambda: lda_estep_pass(*largs),
+        lambda: lda_estep_pass_ref(*largs), ("pc",),
+        lambda got: bool(torch.all(got[0][dm == 0] == 0)),
+        8 * (uniq * K + B * L + B + 2 * B * K) + 4 * B * L, lambda: 4 * K * kept + B * K, rate,
+        f"seq, NSF token half 0 of 2, B={B} L={L} K={K}")
+    fa = d(flda_args((seg[0], seg[1].float(), seg[2].float()), V, K, dev))
+    pargs = (fa[0], fa[1], terms, counts, dm, fa[6], fa[8], fa[10])
+    live = (dm > 0)[:, None].expand(B, L)
+    slots = int(live.sum())
+    recs["flda_estep_pass_double"] = check_double(
+        "flda_estep_pass", flda_estep_pass, lambda: flda_estep_pass(*pargs),
+        lambda: flda_estep_pass_ref(*pargs), ("pc", "tau_new"),
+        lambda got: (bool(torch.all(got[0][dm == 0] == 0))
+                     and torch.equal(got[1][dm == 0], pargs[7][dm == 0])),
+        8 * (n_unique(terms, live) * (K + 1) + 3 * B * L + B + 1 + 2 * B * K) + 4 * B * L,
+        lambda: 4 * K * slots + 2 * K * kept, rate,
+        f"seq, NSF token half 0 of 2, B={B} L={L} K={K}")
+    hl, hr = cpk.L // 2, cpk.Rmax // 2
+    ctok = (put(cpk.terms[:1024, :hl], i32), put(cpk.counts[:1024, :hl], torch.float32),
+            put(cpk.doc_mask[:1024], torch.float32))
+    crd = (put(cpk.readers[:1024, :hr], i32), put(cpk.ratings[:1024, :hr], torch.float32))
+    pa, _ = ctpf_args(ctok, crd, cpk.V, cpk.U, K, dev)
+    pa = d(pa)
+    cp = (*pa[:10], pa[10], pa[12])
+    ct, cr = cp[3] > 0, cp[5] > 0
+    recs["ctpf_estep_pass_double"] = check_double(
+        "ctpf_estep_pass", ctpf_estep_pass, lambda: ctpf_estep_pass(*cp),
+        lambda: ctpf_estep_pass_ref(*cp), ("gsum", "zsum"),
+        lambda got: all(bool(torch.all(x[cp[6] == 0] == 0)) for x in got),
+        8 * ((n_unique(cp[2], ct) + n_unique(cp[4], cr)) * K + 1024 * (hl + hr) + 1024 + 3 * K
+             + 4 * 1024 * K) + 4 * 1024 * (hl + hr),
+        lambda: 4 * K * (int(ct.sum()) + int(cr.sum())) + 8 * K * int((cp[6] > 0).sum()), rate,
+        f"seq, CiteULike token and reader halves 0 of 2, L={hl} R={hr} K={K}")
+    # HMTM: phase 9's widest NSF chunk with unit counts, K = 25, viter 10
+    label, Kh, viter, _, hargs = hmtm_chunks(kc["bucketed"], V, dev)[0]
+    hargs = d(hargs)
+    hkw = dict(viter=viter, vtol=1.0 / Kh**2)
+    tmask, hdm = hargs[2], hargs[3]
+    B, L = tmask.shape
+    real = tmask.sum(1)
+    n_real = float(real.sum())
+    huniq = n_unique(hargs[1], tmask > 0)
+    hpad = hdm == 0
+    rec = check_double(
+        "hmtm_estep", hmtm_estep, lambda: hmtm_estep(*hargs, **hkw),
+        lambda: hmtm_estep_ref(*hargs, **hkw), ("tau", "gamma", "r"),
+        lambda got: (torch.equal(got[0][hpad], hargs[6][hpad])
+                     and torch.equal(got[1][hpad], hargs[7][hpad])
+                     and bool(torch.all(got[2][tmask == 0] == 0))),
+        8 * (huniq * Kh + B * L + B + Kh + Kh * Kh + 2 * B * Kh + 2 * B * Kh * Kh + B * L * Kh)
+        + 4 * B * L,
+        lambda: (6 * Kh * Kh * fixpoint_work(hmtm_mod, hmtm_estep_ref, hargs, hkw, real)
+                 + 4 * Kh * Kh * n_real), rate, f"{label} B={B} K={Kh}", plain_once=True)
+    recs["hmtm_estep_double"] = rec
+    tg = hmtm_estep(*hargs, **hkw)
+    zargs = (*hargs[:3], tg[0], tg[1])
+    recs["hmtm_logz_double"] = check_double(
+        "hmtm_logz", hmtm_logz, lambda: hmtm_logz(*zargs), lambda: hmtm_logz_ref(*zargs),
+        ("logZ",), lambda got: bool(torch.all(torch.isfinite(got[0]))),
+        8 * (huniq * Kh + B * L + B * Kh + B * Kh * Kh + B) + 4 * B * L,
+        lambda: 2 * Kh * Kh * n_real, rate, f"{label} B={B} K={Kh}", plain_once=True)
+    del tg, zargs, hargs
+
+    # (b) the wide mode: f32 at K = 240, 256, 257, 300, 512 and f64 on both
+    # sides of its float64 boundary, on small chunks; then the widest NSF
+    # chunk at K = 300 (the main path (e)'s widths) with its times
+    for Kw, dt in ((240, torch.float32), (256, torch.float32), (257, torch.float32),
+                   (300, torch.float32), (512, torch.float32), (169, f64), (170, f64)):
+        wargs = hmtm_wide_args(Kw, 16, 48, V, dev, Kw, dt)
+        wkw = dict(viter=3, vtol=1.0 / Kw**2)
+        want_mode = 3 if Kw >= (170 if dt == f64 else 240) else 2
+        got_mode = hmtm_mod.mode(48, Kw, dt)
+        need(got_mode == want_mode, f"HMTM K={Kw} {dt}: mode {got_mode}, want {want_mode}")
+        w0 = hmtm_estep.launches_wide
+        got = hmtm_estep(*wargs, **wkw)
+        want = hmtm_estep_ref(*wargs, **wkw)
+        torch.cuda.synchronize()
+        need(hmtm_estep.launches_wide - w0 == (want_mode == 3), f"HMTM K={Kw}: wide launches")
+        tol = (RTOL64, ATOL64) if dt == f64 else (RTOL, ATOL)
+        err = close(got, want, ("tau", "gamma", "r"), f"hmtm_estep K={Kw} {dt}", *tol)
+        need(all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*wargs, **wkw))),
+             f"hmtm_estep K={Kw} {dt}: not bitwise repeatable")
+        wpad = wargs[3] == 0
+        need(torch.equal(got[0][wpad], wargs[6][wpad]) and bool(torch.all(
+            got[2][wargs[2] == 0] == 0)), f"hmtm_estep K={Kw} {dt}: padding")
+        za = (*wargs[:3], got[0], got[1])
+        z, zr = hmtm_logz(*za), hmtm_logz_ref(*za)
+        zrel = float(((z - zr).abs() / zr.abs().clamp_min(1e-30)).max())
+        need(torch.equal(z, hmtm_logz(*za)) and float(z[0]) == 0.0
+             and zrel <= (RTOL64 if dt == f64 else 1e-5), f"hmtm_logz K={Kw} {dt}: rel {zrel}")
+        print(f"kernels HMTM K={Kw} {str(dt)[6:]} (mode {got_mode}), B=16 L=48 viter 3: "
+              f"hmtm_estep max abs err {err:.3e} (tolerance {tol}), bitwise repeatable; "
+              f"hmtm_logz rel err {zrel:.3e}")
+    seg0 = unit_counts(kc["bucketed"]).segments[0]
+    wterms = put(seg0.terms[:1024], i32)
+    wargs = (wterms, put(seg0.counts[:1024] > 0, torch.float32),
+             put(seg0.doc_mask[:1024], torch.float32))
+    betaT, eta, alpha, tau, gamma = hmtm_state(300, wterms.shape[0], V, dev, 48)
+    w0 = hmtm_estep.launches_wide
+    est, lz, _ = compare_hmtm(f"wide, widest NSF bucket L={seg0.L}", 300, 10, 3,
+                              (betaT, *wargs, eta, alpha, tau, gamma), dev, calls=(2, 1))
+    need(hmtm_estep.launches_wide > w0, "hmtm_estep K=300 NSF: not the wide mode")
+    recs["hmtm_estep_wide"], recs["hmtm_logz_wide"] = est, lz
+    del wargs, betaT, eta, alpha, tau, gamma
+    torch.cuda.empty_cache()
+
+    # (c) CTPF at CiteULike scale in float64: card against CPU from one
+    # init; the CPU runs the first iteration only (its float64 references
+    # are the phase's cost)
+    rt64 = tt.RuntimeConfig(chunk_docs=1024, dtype="float64")
+    fields = ("alef", "bet", "dalet", "he", "vav", "het")
+    card = tt.CTPF(cpk, K, rt64, device=dev, seed=7)
+    cpu = tt.CTPF(cpk, K, rt64, device="cpu", seed=7)
+    cpu.state = convert.ctpf_state_from_numpy(convert.ctpf_state_to_numpy(card.state), "cpu", f64)
+    ctpf_estep.launches_double = 0
+    _, card_s = timed(lambda: card.train(iter=1, checkelbo=1, printelbo=False))
+    first = {f: getattr(card.state, f).cpu() for f in fields}
+    a, deltas = card.trainer.trace[-1].elbo, [card.trainer.trace[-1].delta_elbo]
+    _, s2 = timed(lambda: card.train(iter=1, checkelbo=1, printelbo=False))
+    deltas.append(card.trainer.trace[-1].delta_elbo)
+    launches["ctpf_estep_double"] = ctpf_estep.launches_double
+    need(ctpf_estep.launches_double > 0, "phase 17 CTPF float64: the float64 mode never launched")
+    _, cpu_s = timed(lambda: cpu.train(iter=1, checkelbo=1, printelbo=False))
+    b = cpu.trainer.trace[-1].elbo
+    need(abs(a - b) <= 1e-8 * abs(b), f"phase 17 CTPF float64: iteration 1 bound {a} vs {b}")
+    worst = 0.0
+    for f in fields:
+        x, y = first[f], getattr(cpu.state, f)
+        need(x.dtype == f64 and torch.allclose(x, y, rtol=1e-8, atol=1e-12),
+             f"phase 17 CTPF float64: iteration 1 {f} beyond 1e-8 of the CPU's")
+        worst = max(worst, float(((x - y).abs() / (1e-12 + y.abs())).max()))
+    need(deltas[-1] > 0 and np.isfinite(card.elbo), f"phase 17 CTPF float64: ∆elbo {deltas}")
+    print(f"phase 17 CTPF CiteULike float64 (M={card.M}, U={card.U}, K={K}): card 2 iterations "
+          f"{card_s + s2:.2f} s, ∆elbo {', '.join(f'{x:.3f}' for x in deltas)}; against the "
+          f"CPU's first iteration ({cpu_s:.2f} s): bound rel diff {abs(a - b) / abs(b):.3e}, "
+          f"worst rel diff of {', '.join(fields)} {worst:.3e}; ctpf_estep float64 launches "
+          f"{launches['ctpf_estep_double']}; card {smi}")
+    del card, cpu, first
+
+    # (d) HMTM K = 25 in float64 on NSF unit counts, card against CPU
+    hpk = unit_counts(tt.synth_packed_nsf_scale(M=P16_DOCS, chunk_docs=1024))
+    hfields = ("eta", "alpha", "beta")
+    card = tt.HMTM(hpk, 25, rt64, device=dev, seed=7)
+    cpu = tt.HMTM(hpk, 25, rt64, device="cpu", seed=7)
+    cpu.state = convert.hmtm_state_from_numpy(convert.hmtm_state_to_numpy(card.state), "cpu", f64)
+    rels, worst, t_card, t_cpu = [], 0.0, 0.0, 0.0
+    for k in (hmtm_estep, hmtm_logz):
+        k.launches_double = 0
+    for it in range(2):
+        _, s_card = timed(lambda: card.train(iter=1, checkelbo=1, printelbo=False))
+        t0 = time.perf_counter()
+        cpu.train(iter=1, checkelbo=1, printelbo=False)
+        t_cpu += time.perf_counter() - t0
+        t_card += s_card
+        a, b = card.trainer.trace[-1].elbo, cpu.trainer.trace[-1].elbo
+        rels.append(abs(a - b) / abs(b))
+        need(rels[-1] <= 1e-8, f"phase 17 HMTM float64: iteration {it + 1} bound {a} vs {b}")
+        for f in hfields:
+            x, y = getattr(card.state, f).cpu(), getattr(cpu.state, f)
+            need(x.dtype == f64 and torch.allclose(x, y, rtol=1e-8, atol=1e-12),
+                 f"phase 17 HMTM float64: iteration {it + 1} {f} beyond 1e-8 of the CPU's")
+            worst = max(worst, float(((x - y).abs() / (1e-12 + y.abs())).max()))
+    launches["hmtm_estep_double"] = hmtm_estep.launches_double
+    launches["hmtm_logz_double"] = hmtm_logz.launches_double
+    need(launches["hmtm_estep_double"] > 0 and launches["hmtm_logz_double"] > 0,
+         f"phase 17 HMTM float64: launches {launches}")
+    print(f"phase 17 HMTM NSF unit counts float64 (M={card.M}, K=25): card vs CPU from one init, "
+          f"2 iterations: bound rel diff per iteration {', '.join(f'{x:.3e}' for x in rels)}, "
+          f"worst rel diff of {', '.join(hfields)} {worst:.3e}; card {t_card:.2f} s, CPU "
+          f"{t_cpu:.2f} s; float64 launches hmtm_estep {launches['hmtm_estep_double']}, "
+          f"hmtm_logz {launches['hmtm_logz_double']}; card {smi}")
+    del card, cpu
+
+    # (e) HMTM K = 300 in float32 through the wide mode
+    hmtm_estep.launches_wide = hmtm_logz.launches_wide = 0
+    torch.cuda.reset_peak_memory_stats()
+    model = tt.HMTM(hpk, 300, tt.RuntimeConfig(chunk_docs=1024), seed=7)
+    _, wall = timed(lambda: model.train(iter=2, checkelbo=1, printelbo=False))
+    deltas = [x.delta_elbo for x in model.trainer.trace]
+    launches["hmtm_estep_wide"] = hmtm_estep.launches_wide
+    launches["hmtm_logz_wide"] = hmtm_logz.launches_wide
+    need(model.device.type == "cuda" and deltas[-1] > 0 and np.isfinite(model.elbo),
+         f"phase 17 HMTM K=300: ∆elbo {deltas}")
+    need(launches["hmtm_estep_wide"] == 2 * n_chunks_of(model)
+         and launches["hmtm_logz_wide"] == 3 * n_chunks_of(model),
+         f"phase 17 HMTM K=300: wide launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 17 HMTM NSF unit counts K=300 float32 (M={model.M}, V={model.V}, widths "
+          f"{[s.L for s in model.packed.segments]}): train(iter=2, checkelbo=1) {wall:.2f} s, "
+          f"∆elbo {', '.join(f'{x:.3f}' for x in deltas)}, step+ELBO "
+          f"{', '.join(f'{x.step_time_s:.3f}' for x in model.trainer.trace)} s; wide launches "
+          f"hmtm_estep {launches['hmtm_estep_wide']}, hmtm_logz {launches['hmtm_logz_wide']}; "
+          f"peak mem {peak:.2f} GiB; card {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (f) the token-splitting axes in float64 on two ranks against one
+    # float64 process on the card, from one init
+    kern = dict(p12_counters(), **pass_counters())
+    corpora = dict(mpk=p13_nsf(8192), cpk=p13_citeu(cpk))
+    g0 = ranks[0]
+    for label, _, fam, key, _ in P17_RANK_CASES:
+        pk = corpora["cpk" if key == "cpk" else "mpk"]
+        _, trace, glob, _, wall = p13_case("[phase 17, one process]", None, fam, pk, 100, 2, kern,
+                                           doc=("data",), dtype="float64")
+        have = g0["arrays"]
+        worst = {}
+        for f, want in glob.items():
+            if f == "elbo":
+                continue
+            got = have[f"{label}/{f}"]
+            need(got.dtype == np.float64 and np.allclose(got, want, rtol=1e-8, atol=1e-12),
+                 f"phase 17 {label}: {f} beyond 1e-8 of one float64 process")
+            worst[f] = float(np.max(np.abs(got - want) / (1e-12 + np.abs(want))))
+        rt_ = g0[f"{label}/trace"]
+        rel = [abs(x - y) / abs(y) for x, y in zip(rt_, trace)]
+        need(len(rt_) == 3 and max(rel) <= 1e-8, f"phase 17 {label}: bound per iteration {rel}")
+        print(f"phase 17 {label} on two ranks vs one float64 process, 2 iterations: worst rel "
+              f"{', '.join(f'{f} {v:.2e}' for f, v in worst.items())}; bound relative from the "
+              f"init on {', '.join(f'{x:.2e}' for x in rel)}; one process in {wall:.2f} s; "
+              f"card {smi}")
+    # the ranks' float64 launches are phase 13's (main adds them there)
+    for n in ("lda_estep_pass", "flda_estep_pass", "ctpf_estep_pass"):
+        need(sum(info["launches"].get(f"{n}_double", 0) for info in ranks) > 0,
+             f"phase 17: {n}'s float64 mode never launched on the ranks")
+
+    # (g) the CLI as a user runs it
+    for argv, kern_, attr in ((["--model", "ctpf", "--corpus", "citeu", "--k", str(K), "--iter",
+                                "2", "--checkelbo", "1", "--dtype", "float64", "--quiet"],
+                               ctpf_estep, "launches_double"),
+                              (["--model", "hmtm", "--corpus", "nsf-scale", "--subset",
+                                str(P16_DOCS), "--k", "300", "--iter", "2", "--checkelbo", "1",
+                                "--quiet"], hmtm_estep, "launches_wide")):
+        setattr(kern_, attr, 0)
+        out, s = timed(lambda: train_cli.run(argv))
+        n = getattr(kern_, attr)
+        need(n > 0 and out["iterations"] == 2 and np.isfinite(out["final_elbo"]),
+             f"phase 17 CLI {' '.join(argv)}: {kern_.__name__} {attr} {n}, {out}")
+        key = "ctpf_estep_double" if attr == "launches_double" else "hmtm_estep_wide"
+        launches[key] += n
+        print(f"phase 17: python -m topicmodelsvb_jl_torch.train {' '.join(argv)} in {s:.1f} s: "
+              f"{kern_.__name__} {attr} {n}; {out}")
+    print(f"phase 17: wall {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+          f"card {smi}")
     return launches, recs
 
 
@@ -3664,6 +4098,10 @@ def main() -> int:
     p16, dbl = double_phase(smi, kc, dev)
     add(p16)
 
+    # 17. every dtype and K on the card
+    p17, every = dtype_phase(smi, kc, dev, p13_ranks)
+    add(p17)
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -3712,7 +4150,24 @@ def main() -> int:
             ("lda_elbo_tok_double", "lda_elbo.cu", tpu + "lda_elbo.py:119", dbl["lda_elbo_tok"],
              ()),
             ("flda_estep_double", "flda_estep.cu", tpu + "flda_estep.py:112", dbl["flda_estep"],
-             ())):
+             ()),
+            ("ctpf_estep_double", "ctpf_estep.cu", tpu + "ctpf_estep.py:105",
+             every["ctpf_estep_double"], ()),
+            ("ctpf_estep_pass_double", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
+             every["ctpf_estep_pass_double"], ()),
+            ("lda_estep_pass_double", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
+             every["lda_estep_pass_double"], ()),
+            ("flda_estep_pass_double", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",
+             every["flda_estep_pass_double"], ()),
+            ("hmtm_estep_double", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
+             every["hmtm_estep_double"], ()),
+            ("hmtm_logz_double", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
+             every["hmtm_logz_double"], ()),
+            # the wide mode: any K, the JAX package's lax.scans at every width
+            ("hmtm_estep_wide", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
+             every["hmtm_estep_wide"], ()),
+            ("hmtm_logz_wide", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
+             every["hmtm_logz_wide"], ())):
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],

@@ -228,9 +228,9 @@ def test_cli_trim_packed(tmp_path):
 
 
 def test_cli_refusals(monkeypatch):
-    """The JAX CLI's refusals, and the card's: --no-pallas, and float64 on
-    a CUDA device for a family whose kernels lack a float64 mode (CTPF:
-    ctpf_estep), both checked before any corpus is built."""
+    """The JAX CLI's refusals, and the card's: --no-pallas, checked before
+    any corpus is built; float64 on a CUDA device now passes the dtype
+    gate for every model (CTPF and HMTM too) before any corpus is built."""
     with pytest.raises(SystemExit, match="metrics"):
         run(SMALL + ["--model", "lda", "--streaming", "--metrics", "x.jsonl"])
     with pytest.raises(SystemExit, match="state-dir"):
@@ -245,8 +245,21 @@ def test_cli_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(SystemExit, match="no plain E-step path"):
         port_train.run(SMALL + ["--model", "lda", "--no-pallas"])
-    with pytest.raises(SystemExit, match="the ctpf_estep kernel has no float64 mode"):
-        port_train.run(SMALL + ["--model", "ctpf"])
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    real = _build.check_dtype
+
+    class Admitted(Exception):
+        pass
+
+    def admitted(*a, **k):
+        real(*a, **k)
+        raise Admitted
+
+    monkeypatch.setattr(_build, "check_dtype", admitted)
+    for model in ("ctpf", "hmtm"):
+        with pytest.raises(Admitted):
+            port_train.run(SMALL + ["--model", model])
 
 
 # ── identical inputs ──

@@ -958,9 +958,8 @@ def test_checkpoint_card_to_cpu_and_back_is_bitwise(cuda, tmp_path):
             assert torch.equal(getattr(cpu.state, f), getattr(m.state, f).cpu()), f
         for f, x in vars(m.state).items():
             assert torch.equal(getattr(back.state, f), x), f
-    # a float64 checkpoint resumes on the card where the family's kernels
-    # have a float64 mode (LDA), and is refused before any model is built
-    # where they do not (CTPF: ctpf_estep)
+    # a float64 checkpoint written on the CPU resumes on the card, for LDA
+    # and for CTPF (whose ctpf_estep has a float64 mode too)
     rt64 = tt.RuntimeConfig(chunk_docs=128, dtype="float64")
     f64 = tt.LDA(corp, 4, rt64, device="cpu")
     f64.train(iter=1, checkelbo=1, printelbo=False)
@@ -970,9 +969,15 @@ def test_checkpoint_card_to_cpu_and_back_is_bitwise(cuda, tmp_path):
     for f, x in vars(f64.state).items():
         assert torch.equal(getattr(back64.state, f).cpu(), x), f
     c64 = tt.CTPF(corp, 4, rt64, device="cpu")
+    c64.train(iter=1, checkelbo=1, printelbo=False)
     tt.save_checkpoint(str(tmp_path / "ctpf64.npz"), c64)
-    with pytest.raises(TypeError, match="ctpf_estep kernel has no float64 mode"):
-        tt.load_checkpoint(str(tmp_path / "ctpf64.npz"), corp)
+    cback = tt.load_checkpoint(str(tmp_path / "ctpf64.npz"), corp)
+    assert cback.device.type == "cuda" and cback.dtype == torch.float64
+    for f, x in vars(c64.state).items():
+        assert torch.equal(getattr(cback.state, f).cpu(), x), f
+    d0 = ctpf_estep.launches_double
+    cback.train(iter=1, checkelbo=1, printelbo=False)
+    assert ctpf_estep.launches_double > d0
 
 
 def _hmtm_chunk(K, B, L, V, dev, seed=0):
@@ -995,24 +1000,28 @@ def _hmtm_chunk(K, B, L, V, dev, seed=0):
             t(r.uniform(0.5, 3.0, (B, K))), t(r.uniform(0.5, 3.0, (B, K, K))))
 
 
-def _hmtm_mode(L, K):
+def _hmtm_mode(L, K, suffix=""):
     import ctypes
 
     from topicmodelsvb_jl_torch.kernels import _build
 
-    return _build.function("tmvb_hmtm_estep_mode", [ctypes.c_int64] * 2)(L, K)
+    return _build.function(f"tmvb_hmtm_estep_mode{suffix}", [ctypes.c_int64] * 2)(L, K)
 
 
 # K: NSF's 25 (one warp, not a multiple of 32), 32, 40 and 100 (several
-# warps), 200 (S in scratch); L: NSF's widths, and 5000 (messages in
-# scratch); viter 0 (the final pass only), 3 and 10
+# warps), 200 (S in scratch), and the wide mode's 240, 256, 257, 300 and
+# 512 (A past shared memory, more topics than threads); L: NSF's widths,
+# and 5000 (messages in scratch); viter 0 (the final pass only), 3 and 10
 @pytest.mark.parametrize("K,L,viter", [(25, 128, 10), (25, 64, 0), (32, 24, 10), (40, 72, 3),
-                                       (100, 128, 3), (200, 16, 3), (25, 5000, 2), (1, 40, 3)])
+                                       (100, 128, 3), (200, 16, 3), (25, 5000, 2), (1, 40, 3),
+                                       (240, 24, 3), (256, 24, 3), (257, 24, 3), (300, 24, 3),
+                                       (512, 24, 3)])
 def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
-    B = 16 if L > 1000 else 64
+    B = 16 if L > 1000 or K > 256 else 64
     args = _hmtm_chunk(K, B, L, 2000, cuda, seed=K + L)
     kw = dict(viter=viter, vtol=1.0 / K**2)
     e0, z0 = hmtm_estep.launches, hmtm_logz.launches
+    w0 = (hmtm_estep.launches_wide, hmtm_logz.launches_wide)
     got = hmtm_estep(*args, **kw)
     torch.cuda.synchronize()
     assert hmtm_estep.launches == e0 + 1
@@ -1028,6 +1037,9 @@ def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
     zargs = (*args[:3], got[0], got[1])
     z = hmtm_logz(*zargs)
     assert hmtm_logz.launches == z0 + 1 and torch.equal(z, hmtm_logz(*zargs))
+    wide = int(_hmtm_mode(L, K) == 3)
+    assert (hmtm_estep.launches_wide, hmtm_logz.launches_wide) == (w0[0] + 2 * wide,
+                                                                   w0[1] + 2 * wide)
     zr = hmtm_logz_ref(*zargs)
     assert float(z[1]) == 0.0 and torch.all(torch.isfinite(z))
     assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
@@ -1036,25 +1048,33 @@ def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
 def test_hmtm_shared_memory_rule_and_widest_k(cuda):
     """Messages in shared memory at the NSF widths, in scratch past them;
     S in scratch past K ~ 168; K = 239 the widest the chain matrix fits
-    (H100's 227 KB opt-in), K = 240 raises."""
+    (H100's 227 KB opt-in) in float32, K = 169 in float64; past them, and
+    past 256 topics, the wide mode (3), which runs and agrees with the
+    plain version on both sides of the f32 boundary."""
     assert [_hmtm_mode(L, 25) for L in (64, 128, 5000)] == [0, 0, 1]
     assert _hmtm_mode(128, 100) == 1 and _hmtm_mode(128, 200) == 2
-    assert _hmtm_mode(8, 239) == 2 and _hmtm_mode(8, 240) == -2
-    args = _hmtm_chunk(239, 4, 8, 300, cuda)
-    got = hmtm_estep(*args, viter=1, vtol=0.0)
-    torch.testing.assert_close(got[1], hmtm_estep_ref(*args, viter=1, vtol=0.0)[1],
-                               rtol=5e-3, atol=1e-5)
-    wide = _hmtm_chunk(240, 4, 8, 300, cuda)
-    with pytest.raises(ValueError, match="K = 240"):
-        hmtm_estep(*wide, viter=1, vtol=0.0)
-    with pytest.raises(ValueError, match="K = 240"):
-        hmtm_logz(*wide[:3], wide[6], wide[7])
+    assert _hmtm_mode(8, 239) == 2 and _hmtm_mode(8, 240) == 3
+    assert [_hmtm_mode(8, K) for K in (256, 257, 4096)] == [3, 3, 3]
+    assert _hmtm_mode(8, 169, "_f64") == 2 and _hmtm_mode(8, 170, "_f64") == 3
+    assert _hmtm_mode(0, 25) == -2 and _hmtm_mode(8, 0) == -2
+    for K in (239, 240):
+        args = _hmtm_chunk(K, 4, 8, 300, cuda)
+        w0 = hmtm_estep.launches_wide
+        got = hmtm_estep(*args, viter=1, vtol=0.0)
+        assert hmtm_estep.launches_wide - w0 == (K == 240)
+        torch.testing.assert_close(got[1], hmtm_estep_ref(*args, viter=1, vtol=0.0)[1],
+                                   rtol=5e-3, atol=1e-5)
+        z = hmtm_logz(*args[:3], got[0], got[1])
+        zr = hmtm_logz_ref(*args[:3], got[0], got[1])
+        assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
 
 
 def test_hmtm_kernels_reject_what_they_do_not_take(cuda):
     args = _hmtm_chunk(25, 16, 24, 100, cuda)
     kw = dict(viter=2, vtol=1e-3)
     with pytest.raises(TypeError, match="betaT_eps"):
+        hmtm_estep(args[0].half(), *args[1:], **kw)
+    with pytest.raises(TypeError, match="tmask must be torch.float64"):
         hmtm_estep(args[0].double(), *args[1:], **kw)
     with pytest.raises(TypeError, match="terms"):
         hmtm_estep(args[0], args[1].long(), *args[2:], **kw)
@@ -1217,12 +1237,18 @@ def test_streaming_device_memory_does_not_grow_with_the_corpus(cuda, name):
 
 
 def test_streaming_float64_on_cuda_raises(cuda):
-    """float64 on the card is refused for the families whose kernels lack
-    a float64 mode, naming the kernel; StreamingLDA takes it."""
-    for name, kernel in (("StreamingCTPF", "ctpf_estep"), ("StreamingHMTM", "hmtm_estep")):
-        pk, ctor, _ = _stream_case(name)
-        with pytest.raises(TypeError, match=f"the {kernel} kernel has no float64 mode"):
-            _streamer(name, pk, ctor, cuda, dtype=torch.float64)
+    """float16 on the card is refused before anything is built; float64
+    runs there for StreamingCTPF and StreamingHMTM (one sweep, through
+    their kernels' float64 modes) as for StreamingLDA."""
+    for name, kernel in (("StreamingCTPF", ctpf_estep), ("StreamingHMTM", hmtm_estep)):
+        pk, ctor, kw = _stream_case(name)
+        with pytest.raises(TypeError, match="in float16 on CUDA"):
+            _streamer(name, pk, ctor, cuda, dtype="float16")
+        m = _streamer(name, pk, ctor, cuda, dtype=torch.float64)
+        d0 = kernel.launches_double
+        m.train(iter=1, checkelbo=1, printelbo=False, **kw)
+        assert m.dtype == torch.float64 and kernel.launches_double > d0
+        assert np.all(np.isfinite([e for _, e, _ in m.trace]))
     pk, _, _ = _stream_case("StreamingLDA")
     assert tt.StreamingLDA(pk, 8, dtype=torch.float64, device=cuda).dtype == torch.float64
 
@@ -1387,10 +1413,12 @@ def test_cli_on_the_card(cuda, tmp_path):
     names = {e.get("name", "") for e in events}
     assert "cavi_step" in names
     assert any("lda_estep_kernel" in n for n in names)
-    for bad, msg in ((["--model", "lda", "--no-pallas"], "no plain E-step"),
-                     (["--model", "ctpf", "--dtype", "float64"], "ctpf_estep kernel has no")):
-        with pytest.raises(SystemExit, match=msg):
-            train.run(["--corpus", "synth", "--k", "3"] + bad)
+    with pytest.raises(SystemExit, match="no plain E-step"):
+        train.run(["--corpus", "synth", "--k", "3", "--model", "lda", "--no-pallas"])
+    d0 = ctpf_estep.launches_double
+    s = train.run(["--corpus", "synth", "--k", "3", "--model", "ctpf", "--dtype", "float64",
+                   "--iter", "2", "--checkelbo", "1", "--quiet"])
+    assert ctpf_estep.launches_double > d0 and np.isfinite(s["final_elbo"])
 
 
 # ── the float64 modes of scatter_rows, lda_estep, lda_elbo_tok, flda_estep ──
@@ -1552,4 +1580,112 @@ def test_double_model_on_the_card_follows_the_cpu(cuda, fam):
     fields = ("alpha", "beta") if fam == "LDA" else ("alpha", "betahat", "mbeta")
     for f in fields:
         a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12, msg=f)
+
+
+# ── the float64 modes of ctpf_estep, the three pass modes, hmtm_estep and
+# hmtm_logz, and the HMTM wide mode ──
+
+# CiteULike's widest chunk (rows resident), K % 4 != 0, rows in tiles, and
+# more topics than threads
+CTPF64_SHAPES = [(1024, 80, 24, 100), (64, 40, 8, 101), (16, 600, 64, 100), (16, 40, 8, 257)]
+
+
+@pytest.mark.parametrize("B,L,R,K", CTPF64_SHAPES)
+def test_ctpf_estep_double_matches_plain(cuda, B, L, R, K):
+    args = _f64(_ctpf_chunk(K, B, L, R, 8000, 5551, cuda, seed=K + L))
+    kw = dict(viter=10, vtol=1.0 / K**2, **HYP)
+    n0, d0 = ctpf_estep.launches, ctpf_estep.launches_double
+    got = ctpf_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ctpf_estep.launches, ctpf_estep.launches_double) == (n0 + 1, d0 + 1)
+    _close64(got, ctpf_estep_ref(*args, **kw), CTPF_NAMES)
+    assert torch.all(got[4][-3:] == 0) and torch.all(got[5][-3:] == 0)
+    for a, b in zip(got[:4], args[10:]):
+        assert torch.equal(a[-3:], b[-3:])   # masked documents frozen
+    assert all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw)))
+
+
+# K % 4 != 0 and wider than the block; L in shared memory and, at 1024
+# (and L + R = 1153 for CTPF), in tiles
+@pytest.mark.parametrize("K", [101, 257])
+@pytest.mark.parametrize("L", [129, 1024])
+def test_pass_modes_double_match_plain(cuda, K, L):
+    (betaT, terms, counts, doc_mask, _, _, El, _), _ = _chunk(K, 40, L, 3000, cuda, seed=K + L)
+    cases = (
+        (lda_estep_pass, lda_estep_pass_ref, _f64((betaT, terms, counts, doc_mask, El)),
+         ("pc",)),
+        (flda_estep_pass, flda_estep_pass_ref,
+         _f64(_flda_pass_args(_flda_chunk(K, 40, L, 3000, cuda, seed=K + L))), ("pc", "tau_new")),
+        (ctpf_estep_pass, ctpf_estep_pass_ref,
+         _f64(_ctpf_pass_args(_ctpf_chunk(K, 40, L, L // 8 + 1, 3000, 500, cuda, seed=K + L))),
+         ("gsum", "zsum")))
+    for fn, ref, args, names in cases:
+        n0, d0 = fn.launches, fn.launches_double
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.launches_double) == (n0 + 1, d0 + 1), fn.__name__
+        tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
+        got = tup(got)
+        _close64(got, tup(ref(*args)), names)
+        assert torch.all(got[0][-3:] == 0), fn.__name__   # masked documents
+        assert all(torch.equal(a, b) for a, b in zip(got, tup(fn(*args)))), fn.__name__
+
+
+# K: NSF's 25 (one warp, shuffled doubles), 100 (shared memory, several
+# warps), 169 (the widest A in shared memory in float64), 170 and 257 (the
+# wide mode)
+@pytest.mark.parametrize("K,L", [(25, 128), (100, 64), (169, 16), (170, 16), (257, 12)])
+def test_hmtm_double_matches_plain(cuda, K, L):
+    B = 16 if K > 100 else 64
+    args = _f64(_hmtm_chunk(K, B, L, 2000, cuda, seed=K + L))
+    kw = dict(viter=3, vtol=1.0 / K**2)
+    e0, d0 = hmtm_estep.launches, hmtm_estep.launches_double
+    got = hmtm_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert (hmtm_estep.launches, hmtm_estep.launches_double) == (e0 + 1, d0 + 1)
+    assert (_hmtm_mode(L, K, "_f64") == 3) == (K >= 170)
+    _close64(got, hmtm_estep_ref(*args, **kw), ("tau", "gamma", "r"))
+    assert torch.all(got[2][args[2] == 0] == 0)
+    assert torch.equal(got[0][-3:], args[6][-3:]) and torch.equal(got[1][-3:], args[7][-3:])
+    assert all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*args, **kw)))
+    zargs = (*args[:3], got[0], got[1])
+    z0 = hmtm_logz.launches_double
+    z = hmtm_logz(*zargs)
+    assert hmtm_logz.launches_double == z0 + 1 and torch.equal(z, hmtm_logz(*zargs))
+    _close64((z,), (hmtm_logz_ref(*zargs),), ("logZ",))
+
+
+@pytest.mark.parametrize("fam", ["CTPF", "HMTM"])
+def test_double_ctpf_and_hmtm_on_the_card_follow_the_cpu(cuda, fam):
+    """A float64 CTPF and HMTM on the card against the same model on the
+    CPU from one init: 1e-8 relative on the bound per iteration and on
+    the globals; their kernels' float64 modes launched."""
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    if fam == "CTPF":
+        corp = tt.pack_corpus(tt.synth_corpus(M=1500, V=600, K=8, U=300, seed=3, mean_tokens=40,
+                                              mean_terms=25, mean_readers=4), with_readers=True)
+        fields, kernels = ("alef", "bet", "dalet", "he", "vav", "het"), (ctpf_estep,)
+    else:
+        corp = unit_counts(tt.synth_packed_nsf_scale(M=800, V=400, mean_terms=30, seed=2))
+        fields, kernels = ("eta", "alpha", "beta"), (hmtm_estep, hmtm_logz)
+    rt = tt.RuntimeConfig(chunk_docs=128, dtype="float64")
+    gpu = getattr(tt, fam)(corp, 6, rt, device=cuda, seed=1)
+    cpu = getattr(tt, fam)(corp, 6, rt, device="cpu", seed=1)
+    to_np, from_np = (getattr(convert, f"{fam.lower()}_state_to_numpy"),
+                      getattr(convert, f"{fam.lower()}_state_from_numpy"))
+    cpu.state = from_np(to_np(gpu.state), "cpu", torch.float64)
+    d0 = [k.launches_double for k in kernels]
+    gpu.train(iter=3, checkelbo=1, printelbo=False)
+    cpu.train(iter=3, checkelbo=1, printelbo=False)
+    assert all(k.launches_double > d for k, d in zip(kernels, d0))
+    ge = [x.elbo for x in gpu.trainer.trace]
+    ce = [x.elbo for x in cpu.trainer.trace]
+    assert len(ge) == len(ce) == 3
+    assert max(abs(a - b) / abs(b) for a, b in zip(ge, ce)) <= 1e-8, (ge, ce)
+    for f in fields:
+        a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        assert a.dtype == torch.float64
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12, msg=f)

@@ -1,11 +1,14 @@
 """Float64 on the card: the dtype gate, its callers, and the float64 plain
-versions of the four kernels that have a float64 mode against the JAX
-package, on the CPU.
+versions of lda_estep, flda_estep, lda_elbo_tok and scatter_rows against
+the JAX package, on the CPU (those of ctpf_estep, hmtm_estep, hmtm_logz
+and the three pass modes: tests/test_torch_f64_families.py).
 
-* The gate (``kernels._build.check_dtype``) over the seven families, both
-  dtypes, both device kinds and the mesh axes each family runs on.  It is
-  called with a ``torch.device("cuda")`` object on a machine without a
-  card, under a mode that fails on any torch call: it allocates nothing.
+* The gate (``kernels._build.check_dtype``) over the seven families,
+  three dtypes, both device kinds and the mesh axes each family runs on:
+  every kernel has a float64 mode, so float32 and float64 pass on both
+  devices and float16 is refused on CUDA.  It is called with a
+  ``torch.device("cuda")`` object on a machine without a card, under a
+  mode that fails on any torch call: it allocates nothing.
 * The CLI and ``load_checkpoint`` ask the gate before anything is built.
 * ``lda_estep_ref`` and ``flda_estep_ref`` in float64 against the JAX
   package's Pallas kernels run in interpret mode in float64 (x64 enabled,
@@ -56,14 +59,9 @@ AXES = {"LDA": (None, "data", "vocab", "routed", "seq"),
         "fLDA": (None, "data", "vocab", "seq"),
         "CTM": (None, "data", "vocab", "seq"),
         "fCTM": (None, "data", "vocab", "seq"),
-        "CTPF": (None, "data", "vocab", "seq"),
+        "CTPF": (None, "data", "vocab", "user", "seq"),
         "DTM": (None, "data", "vocab"),
         "HMTM": (None, "data", "vocab")}
-# where float64 on CUDA is refused, the kernel the message names
-REFUSED = {**{("CTPF", a): "ctpf_estep" for a in AXES["CTPF"]},
-           **{("HMTM", a): "hmtm_estep" for a in AXES["HMTM"]},
-           ("LDA", "routed"): "lda_estep_pass", ("LDA", "seq"): "lda_estep_pass",
-           ("fLDA", "seq"): "flda_estep_pass"}
 GATE_CASES = [(fam, ax) for fam, axes in AXES.items() for ax in axes]
 
 
@@ -75,18 +73,23 @@ class _NoTorchCalls(torch.overrides.TorchFunctionMode):
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
 @pytest.mark.parametrize("fam,axis", GATE_CASES)
 def test_gate(fam, axis, dtype, device):
     dev = torch.device(device)
     axes = () if axis is None else (axis,)
-    kernel = REFUSED.get((fam, axis))
     with _NoTorchCalls():
-        if dev.type == "cuda" and dtype == torch.float64 and kernel is not None:
-            with pytest.raises(TypeError, match=f"the {kernel} kernel .*has no float64 mode"):
+        if dev.type == "cuda" and dtype == torch.float16:
+            with pytest.raises(TypeError, match=f"{fam} in float16 on CUDA"):
                 _build.check_dtype(fam, dtype, dev, axes)
         else:
             _build.check_dtype(fam, dtype, dev, axes)
+
+
+def test_every_kernel_has_a_float64_mode():
+    kernels = {k for ks in _build.FAMILY_KERNELS.values() for k in ks}
+    kernels |= {k for ks in _build.AXIS_KERNELS.values() for k in ks}
+    assert len(kernels) == 10 and _build.FLOAT64_KERNELS == kernels
 
 
 def test_gate_rejects_axes_and_dtypes_it_does_not_know():
@@ -106,28 +109,33 @@ def test_gate_rejects_axes_and_dtypes_it_does_not_know():
 
 def test_models_ask_the_gate_before_allocating(monkeypatch):
     """The api constructors, the streaming constructors and a step on a
-    token-splitting axis refuse float64 CTPF, HMTM and seq LDA on CUDA
-    before touching the device (its availability is faked here)."""
+    token-splitting axis refuse float16 CTPF, HMTM and seq LDA on CUDA
+    before touching the device (its availability is faked here); float64
+    passes the gate there and goes on to build."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     pk = tt.synth_packed_nsf_scale(M=64, V=40, mean_terms=8, seed=2, chunk_docs=32)
-    rt = tt.RuntimeConfig(chunk_docs=32, dtype="float64")
-    for cls, kernel in ((tt.CTPF, "ctpf_estep"), (tt.HMTM, "hmtm_estep")):
-        with pytest.raises(TypeError, match=f"the {kernel} kernel has no float64 mode"):
+    rt = tt.RuntimeConfig(chunk_docs=32, dtype="float16")
+    for cls in (tt.CTPF, tt.HMTM):
+        with pytest.raises(TypeError, match=f"{cls.__name__} in float16 on CUDA"):
             cls(pk, 3, rt, device="cuda")
     from topicmodelsvb_jl_torch.ops.packing import unit_counts
 
-    with pytest.raises(TypeError, match="the hmtm_estep kernel has no float64 mode"):
+    with pytest.raises(TypeError, match="HMTM in float16 on CUDA"):
         tt.StreamingHMTM(unit_counts(pk), 3, batch_docs=32, chunk_docs=32,
-                         dtype=torch.float64, device="cuda")
+                         dtype="float16", device="cuda")
     from topicmodelsvb_jl_torch.models import lda as lda_mod
 
     step = lda_mod.make_step(pk, 3, 2, 1e-3, 10, 1e-3, 32, "cpu", seq_axis="seq")
-    # a stand-in for a float64 state on the card: the step reads its
-    # dtype and device before anything else
-    st = types.SimpleNamespace(beta=types.SimpleNamespace(dtype=torch.float64,
-                                                          device=torch.device("cuda")))
-    with pytest.raises(TypeError, match="lda_estep_pass kernel \\(the seq axis's pass mode\\)"):
-        step(st, None, None, None, None)
+    # stand-ins for a state on the card: the step reads its dtype and
+    # device before anything else, so float64 gets past the gate and
+    # fails only on the stand-in itself
+    st = lambda dt: types.SimpleNamespace(beta=types.SimpleNamespace(
+        dtype=dt, device=torch.device("cuda")))
+    with pytest.raises(TypeError, match="LDA in float16 on CUDA"):
+        step(st(torch.float16), None, None, None, None)
+    with pytest.raises(Exception) as past:
+        step(st(torch.float64), None, None, None, None)
+    assert "on CUDA" not in str(past.value)
 
 
 class _Admitted(Exception):
@@ -138,8 +146,7 @@ def test_cli_and_checkpoint_load_ask_the_gate(monkeypatch, tmp_path):
     """--dtype float64 reaches the gate with the model's family and the
     CUDA device before any corpus is built; load_checkpoint reaches it
     through the model's constructor, before anything is allocated: float64
-    LDA and DTM checkpoints are admitted for CUDA, a float64 CTPF
-    checkpoint is refused with the kernel's name."""
+    LDA, DTM and CTPF checkpoints are admitted for CUDA."""
     asked = []
 
     def recording(family, dtype, device, axes=()):
@@ -172,7 +179,7 @@ def test_cli_and_checkpoint_load_ask_the_gate(monkeypatch, tmp_path):
     for name in ("LDA", "DTM"):
         with pytest.raises(_Admitted):
             tt.load_checkpoint(str(tmp_path / f"{name}.npz"), corp, device=torch.device("cuda"))
-    with pytest.raises(TypeError, match="the ctpf_estep kernel has no float64 mode"):
+    with pytest.raises(_Admitted):
         tt.load_checkpoint(str(tmp_path / "CTPF.npz"), corp, device="cuda")
 
 

@@ -13,10 +13,11 @@ and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 (NSF scale) and the CTPF main path (CiteULike scale), K = 100,
 1024-document chunks: one warm-up iteration each, then three steps alone,
 each timed by the host clock up to a synchronize.  Last, ``digests``:
-a sha256 of the outputs of the E-step kernels, ``lda_elbo_tok`` and
-``scatter_rows`` (f32, and the f64 Elogtheta modes of ``lda_estep`` and
-``flda_estep``; phase 3's arguments) on the widest NSF chunk and on the
-chunks whose rows do not fit shared memory; equal digests from two
+a sha256 of the outputs of the E-step kernels, their pass modes,
+``lda_elbo_tok``, ``scatter_rows``, ``hmtm_estep`` and ``hmtm_logz`` (f32,
+and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase 3's
+and phase 9's arguments) on the widest NSF and CiteULike chunks and on
+the chunks whose rows do not fit shared memory; equal digests from two
 checkouts mean the kernels give the same bits.  ROOT's package must have
 those modes.
 Prints one JSON line tagged LABEL and appends it to
@@ -36,14 +37,18 @@ import time
 def digests(smoke, kc, dev) -> dict:
     """sha256 (16 hex digits) of each kernel's outputs at chip_smoke.py's
     arguments: the widest NSF chunk, the L = 1024 chunk (rows in tiles)
-    and, for ``ctpf_estep``, the L = 768, R = 256 chunk."""
+    and, for ``ctpf_estep`` and its pass mode, the widest CiteULike chunk
+    and the L = 768, R = 256 chunk; for ``hmtm_estep``/``hmtm_logz``,
+    phase 9's chunks but the L = 4,096 one."""
     import numpy as np
     import torch
 
-    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
-    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep, ctpf_estep_pass
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep, flda_estep_pass
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
-    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_pass
     from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows
     from topicmodelsvb_jl_torch.utils.numerics import EPSILON
 
@@ -69,8 +74,23 @@ def digests(smoke, kc, dev) -> dict:
         outs[f"lda_estep_f64_{tag}"] = lda_estep(*args, **kw, elogtheta_f64=True)
         outs[f"flda_estep_f64_{tag}"] = flda_estep(*smoke.flda_args(seg, V, K, dev), **kw,
                                                    elogtheta_f64=True)
-    cargs, ckw = smoke.ctpf_args(*lc["ctpf_long"], V, kc["cpk"].U, K, dev)
-    outs["ctpf_estep_long"] = ctpf_estep(*cargs, **ckw)
+        outs[f"lda_estep_pass_{tag}"] = (lda_estep_pass(args[0], *seg, args[6]),)
+        fa = smoke.flda_args(seg, V, K, dev)
+        outs[f"flda_estep_pass_{tag}"] = flda_estep_pass(*fa[:5], fa[6], fa[8], fa[10])
+    cpk = kc["cpk"]
+    cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
+    for tag, (tok, rd, Vc) in (("wide", (*smoke.ctpf_bucket(cpk, cbk, dev), cpk.V)),
+                               ("long", (*lc["ctpf_long"], V))):
+        cargs, ckw = smoke.ctpf_args(tok, rd, Vc, cpk.U, K, dev)
+        outs[f"ctpf_estep_{tag}"] = ctpf_estep(*cargs, **ckw)
+        outs[f"ctpf_estep_pass_{tag}"] = ctpf_estep_pass(*cargs[:10], cargs[10], cargs[12])
+    for label, Kh, viter, _, hargs in smoke.hmtm_chunks(kc["bucketed"], V, dev):
+        if hargs[1].shape[1] > 1024:
+            continue
+        tag = f"K{Kh}_L{hargs[1].shape[1]}"
+        outs[f"hmtm_estep_{tag}"] = hmtm_estep(*hargs, viter=viter, vtol=1.0 / Kh**2)
+        got = outs[f"hmtm_estep_{tag}"]
+        outs[f"hmtm_logz_{tag}"] = (hmtm_logz(*hargs[:3], got[0], got[1]),)
     torch.cuda.synchronize()
     return {name: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in o)).hexdigest()[:16]
             for name, o in outs.items()}

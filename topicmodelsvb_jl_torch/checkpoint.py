@@ -302,8 +302,8 @@ def _rebuild_model(meta: dict, corp, strict_corpus: bool, device, mesh=None):
         raise ValueError(f"checkpoint of a {meta['model']} model, which this package "
                          "does not have")
     rt = _runtime(meta, cls)
-    # the constructor asks the dtype gate first: a float64 checkpoint of a
-    # family whose kernels lack a float64 mode loads with device='cpu' only
+    # the constructor asks the dtype gate first (kernels._build.check_dtype:
+    # float32 and float64 load on either device)
     model = cls(corp, meta["K"], runtime=rt, mesh=mesh, device=device, seed=meta["seed"],
                 **meta.get("ctor", {}))
     model._fingerprint_cache = fp   # the same contents the model would hash

@@ -116,7 +116,9 @@
 // rows come from this kernel at viter = 0.  It reads the same rows and
 // takes the same exps as a pass here, and writes pc and tau_new in place
 // of the state: ~B (L + K) floats more than a pass inside the fixpoint,
-// and one launch a pass.
+// and one launch a pass.  Its float64 mode (tmvb_flda_estep_pass_f64) is
+// the same pass on a float64 state, as the full kernel's, for the
+// sequence axis in float64.
 
 #include <algorithm>
 
@@ -621,54 +623,58 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
 // passes.  Same block, shared-memory layout, slot list, rows, shift and
 // products as flda_estep_kernel; a document with doc_mask 0 gets pc = 0
 // and tau_new = tau and reads nothing else.  One fixed order for every
-// sum: same inputs, same bits.
+// sum: same inputs, same bits.  R = double is its float64 mode, every
+// input, output and sum in double, 2^x the double exp2.
+template <typename R>
 __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
-    const float* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
-    const float* __restrict__ kappa,     // [V]
-    const int* __restrict__ terms,       // [B, L]
-    const float* __restrict__ counts,    // [B, L], 0 on padding
-    const float* __restrict__ doc_mask,  // [B]
-    const float* __restrict__ eta_p,     // [] eta
-    const float* __restrict__ el_in,     // [B, K]
-    const float* __restrict__ tau_in,    // [B, L]
-    float* __restrict__ pc,              // [B, K]
-    float* __restrict__ tau_out,         // [B, L]
-    float* scratch,                      // [B, 7 L], the slot lists when not in smem
+    const R* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
+    const R* __restrict__ kappa,     // [V]
+    const int* __restrict__ terms,   // [B, L]
+    const R* __restrict__ counts,    // [B, L], 0 on padding
+    const R* __restrict__ doc_mask,  // [B]
+    const R* __restrict__ eta_p,     // [] eta
+    const R* __restrict__ el_in,     // [B, K]
+    const R* __restrict__ tau_in,    // [B, L]
+    R* __restrict__ pc,              // [B, K]
+    R* __restrict__ tau_out,         // [B, L]
+    R* scratch,                      // [B, 7 L], the slot lists when not in smem
     int L, int K, int tile, int meta_in_smem, int resident, int vec_in) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char flda_smem_raw[];
+  R* smem = reinterpret_cast<R*>(flda_smem_raw);
   const int b = blockIdx.x, tid = threadIdx.x;
   const size_t dl = static_cast<size_t>(b) * L, dk = static_cast<size_t>(b) * K;
-  if (!(doc_mask[b] > 0.f)) {
-    for (int k = tid; k < K; k += kFThreads) pc[dk + k] = 0.f;
+  if (!(doc_mask[b] > R(0))) {
+    for (int k = tid; k < K; k += kFThreads) pc[dk + k] = R(0);
     for (int l = tid; l < L; l += kFThreads) tau_out[dl + l] = tau_in[dl + l];
     return;
   }
   const int Kp = flda_stride(K), nsh = flda_shares(Kp), K4 = (K + 3) / 4 * 4;
-  float* rows = smem;
-  float* pbuf = rows + static_cast<size_t>(tile) * Kp;
-  float* e = pbuf + static_cast<size_t>(tile) * Kp;
-  float* qpart = e + 2 * Kp;
-  float* red = qpart + nsh * Kp + 3 * K4;
-  float* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
-  float* mc = meta;
-  float* mcs = meta + L;
-  float* mkap = meta + 2 * L;
+  R* rows = smem;
+  R* pbuf = rows + static_cast<size_t>(tile) * Kp;
+  R* e = pbuf + static_cast<size_t>(tile) * Kp;
+  R* qpart = e + 2 * Kp;
+  R* red = qpart + nsh * Kp + 3 * K4;
+  R* meta = meta_in_smem ? red + 64 : scratch + static_cast<size_t>(b) * kFMeta * L;
+  R* mc = meta;
+  R* mcs = meta + L;
+  R* mkap = meta + 2 * L;
   int* mslot = reinterpret_cast<int*>(meta + 3 * L);
-  float* tcur = meta + 5 * L;
-  float* tnxt = meta + 6 * L;
+  R* tcur = meta + 5 * L;
+  R* tnxt = meta + 6 * L;
   const int* t = terms + dl;
-  const float eta = *eta_p;
+  const R eta = *eta_p;
 
-  const int n = flda_compact<false, float>(counts + dl, t, L, kappa, 1.0f - eta, tau_in + dl, nullptr,
-                                    mc, mslot, mkap, tcur, nullptr,
-                                    reinterpret_cast<int*>(red + 32));
+  const int n = flda_compact<false, R>(counts + dl, t, L, kappa, R(1) - eta, tau_in + dl,
+                                       static_cast<const R*>(nullptr), mc, mslot, mkap, tcur,
+                                       static_cast<R*>(nullptr), reinterpret_cast<int*>(red + 32));
   const bool vin = vec_in != 0;
   if (resident) load_rows<kFThreads, true>(rows, logbetaT, t, mslot, 0, L, K, Kp, vin);
   // e = (El - max El) log2(e), -inf on the stride's padding columns
-  float mx = -INFINITY;
-  for (int k = tid; k < K; k += kFThreads) mx = fmaxf(mx, el_in[dk + k]);
+  R mx = -INFINITY;
+  for (int k = tid; k < K; k += kFThreads) mx = Real<R>::max(mx, el_in[dk + k]);
   mx = block_max_once(mx, red + 24);
-  for (int k = tid; k < Kp; k += kFThreads) e[k] = k < K ? (el_in[dk + k] - mx) * kLog2e : -INFINITY;
+  for (int k = tid; k < Kp; k += kFThreads)
+    e[k] = k < K ? (el_in[dk + k] - mx) * Real<R>::log2e : R(-INFINITY);
   cp_async_wait_all();
   __syncthreads();
   for (int j0 = 0; j0 < L; j0 += tile) {
@@ -678,20 +684,41 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
       cp_async_wait_all();
       __syncthreads();
     }
-    slot_pass<float>(rows, pbuf, m, j0, n, e, tcur, tnxt, mc, mcs, mkap, eta, Kp);
+    slot_pass<R>(rows, pbuf, m, j0, n, e, tcur, tnxt, mc, mcs, mkap, eta, Kp);
     __syncthreads();
     if (j0 < n) {
-      q_pass<float>(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
+      q_pass<R>(pbuf, min(m, n - j0), j0, mcs, qpart, Kp, nsh, j0 == 0);
       __syncthreads();
     }
   }
   for (int k = tid; k < K; k += kFThreads) {
-    float q = 0.f;
+    R q = R(0);
     if (n > 0)
       for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
     pc[dk + k] = q;
   }
   for (int j = tid; j < L; j += kFThreads) tau_out[dl + mslot[j]] = tnxt[j];
+}
+
+// The pass mode's launch; vec_in: K a multiple of the elements in 16
+// bytes (4 floats, 2 doubles) and logbetaT 16-byte aligned.
+template <typename R>
+int launch_flda_pass(const R* logbetaT, const R* kappa, const int* terms, const R* counts,
+                     const R* doc_mask, const R* eta, const R* el_in, const R* tau_in, R* pc,
+                     R* tau_out, R* scratch, int64_t B, int64_t L, int64_t K, int vec_in,
+                     void* stream) {
+  if (B == 0) return 0;
+  FldaShape s;
+  const int rc = flda_shape<R>(L, K, &s);
+  if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(flda_estep_pass_kernel<R>, s.bytes);
+  if (err != cudaSuccess) return fail(err);
+  flda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kFThreads, s.bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in, pc, tau_out, scratch,
+      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename R>
@@ -781,18 +808,18 @@ int tmvb_flda_estep_pass(const float* logbetaT, const float* kappa, const int* t
                          const float* el_in, const float* tau_in, float* pc, float* tau_out,
                          float* scratch, int64_t B, int64_t L, int64_t K, int vec_in,
                          void* stream) {
-  if (B == 0) return 0;
-  tmvb::FldaShape s;
-  const int rc = tmvb::flda_shape<float>(L, K, &s);
-  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
-  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = tmvb::allow_smem(tmvb::flda_estep_pass_kernel, s.bytes);
-  if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::flda_estep_pass_kernel<<<static_cast<unsigned>(B), tmvb::kFThreads, s.bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in, pc, tau_out, scratch,
-      static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
-  return static_cast<int>(cudaGetLastError());
+  return tmvb::launch_flda_pass(logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in,
+                                pc, tau_out, scratch, B, L, K, vec_in, stream);
+}
+
+// The pass mode's float64 mode; scratch as for tmvb_flda_estep_f64.
+int tmvb_flda_estep_pass_f64(const double* logbetaT, const double* kappa, const int* terms,
+                             const double* counts, const double* doc_mask, const double* eta,
+                             const double* el_in, const double* tau_in, double* pc,
+                             double* tau_out, double* scratch, int64_t B, int64_t L, int64_t K,
+                             int vec_in, void* stream) {
+  return tmvb::launch_flda_pass(logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in,
+                                pc, tau_out, scratch, B, L, K, vec_in, stream);
 }
 
 }  // extern "C"

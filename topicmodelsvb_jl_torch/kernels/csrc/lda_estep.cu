@@ -452,30 +452,34 @@ __global__ void __launch_bounds__(kEstepThreads, sizeof(R) == 4 ? 4 : 2) lda_est
 // between passes.  Same block, slot list, rows and products as
 // lda_estep_kernel; a document with doc_mask 0 gets pc = 0 and reads
 // nothing.  One fixed order for every sum: same inputs, same bits.
-__global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_pass_kernel(
-    const float* __restrict__ betaT,     // [V, K] beta^T + eps (this rank's rows)
-    const int* __restrict__ terms,       // [B, L]
-    const float* __restrict__ counts,    // [B, L], 0 on padding
-    const float* __restrict__ doc_mask,  // [B]
-    const float* __restrict__ el_in,     // [B, K]
-    float* __restrict__ pc,              // [B, K]
-    float* scratch,                      // [B, 3 L], the slot lists when not in smem
+// R = double is its float64 mode, every input, output and sum in double
+// (two blocks an SM, as the full kernel's).
+template <typename R>
+__global__ void __launch_bounds__(kEstepThreads, sizeof(R) == 4 ? 4 : 2) lda_estep_pass_kernel(
+    const R* __restrict__ betaT,     // [V, K] beta^T + eps (this rank's rows)
+    const int* __restrict__ terms,   // [B, L]
+    const R* __restrict__ counts,    // [B, L], 0 on padding
+    const R* __restrict__ doc_mask,  // [B]
+    const R* __restrict__ el_in,     // [B, K]
+    R* __restrict__ pc,              // [B, K]
+    R* scratch,                      // [B, 3 L], the slot lists when not in smem
     int L, int K, int tile, int meta_in_smem, int resident, int vec_in) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char estep_smem_raw[];
+  R* smem = reinterpret_cast<R*>(estep_smem_raw);
   const int b = blockIdx.x, tid = threadIdx.x;
   const size_t dk = static_cast<size_t>(b) * K;
-  if (!(doc_mask[b] > 0.f)) {
-    for (int k = tid; k < K; k += kEstepThreads) pc[dk + k] = 0.f;
+  if (!(doc_mask[b] > R(0))) {
+    for (int k = tid; k < K; k += kEstepThreads) pc[dk + k] = R(0);
     return;
   }
   const int Kp = estep_stride(K), nsh = estep_shares(Kp), K4 = (K + 3) / 4 * 4;
-  float* rows = smem;
-  float* e = rows + static_cast<size_t>(tile) * Kp;
-  float* qpart = e + 2 * Kp;
-  float* red = qpart + nsh * Kp + 3 * K4;
-  float* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
-  float* mc = meta;
-  float* mcs = meta + L;
+  R* rows = smem;
+  R* e = rows + static_cast<size_t>(tile) * Kp;
+  R* qpart = e + 2 * Kp;
+  R* red = qpart + nsh * Kp + 3 * K4;
+  R* meta = meta_in_smem ? red + 32 : scratch + static_cast<size_t>(b) * 3 * L;
+  R* mc = meta;
+  R* mcs = meta + L;
   int* mslot = reinterpret_cast<int*>(meta + 2 * L);
   const int* t = terms + static_cast<size_t>(b) * L;
 
@@ -483,7 +487,7 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_pass_kernel(
                               reinterpret_cast<int*>(red + 16));
   const bool vin = vec_in != 0;
   if (resident) load_rows<kEstepThreads>(rows, betaT, t, mslot, 0, n, K, Kp, vin);
-  for (int k = tid; k < Kp; k += kEstepThreads) e[k] = k < K ? expf(el_in[dk + k]) : 0.f;
+  for (int k = tid; k < Kp; k += kEstepThreads) e[k] = k < K ? Real<R>::exp(el_in[dk + k]) : R(0);
   cp_async_wait_all();
   __syncthreads();
   for (int j0 = 0; j0 < n; j0 += tile) {
@@ -499,11 +503,31 @@ __global__ void __launch_bounds__(kEstepThreads, 4) lda_estep_pass_kernel(
     __syncthreads();
   }
   for (int k = tid; k < K; k += kEstepThreads) {
-    float q = 0.f;
+    R q = R(0);
     if (n > 0)
       for (int h = 0; h < nsh; ++h) q += qpart[h * Kp + k];
     pc[dk + k] = e[k] * q;
   }
+}
+
+// The pass mode's launch; vec_in: K a multiple of the elements in 16
+// bytes (4 floats, 2 doubles) and betaT 16-byte aligned.
+template <typename R>
+int launch_estep_pass(const R* betaT, const int* terms, const R* counts, const R* doc_mask,
+                      const R* el_in, R* pc, R* scratch, int64_t B, int64_t L, int64_t K,
+                      int vec_in, void* stream) {
+  if (B == 0) return 0;
+  EstepShape s;
+  int rc = estep_shape<R>(L, K, &s);
+  if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(lda_estep_pass_kernel<R>, s.bytes);
+  if (err != cudaSuccess) return fail(err);
+  lda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kEstepThreads, s.bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      betaT, terms, counts, doc_mask, el_in, pc, scratch, static_cast<int>(L),
+      static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tmvb
@@ -601,18 +625,17 @@ int tmvb_lda_estep_f64(const double* betaT, const int* terms, const double* coun
 int tmvb_lda_estep_pass(const float* betaT, const int* terms, const float* counts,
                         const float* doc_mask, const float* el_in, float* pc, float* scratch,
                         int64_t B, int64_t L, int64_t K, int vec_in, void* stream) {
-  if (B == 0) return 0;
-  tmvb::EstepShape s;
-  int rc = tmvb::estep_shape<float>(L, K, &s);
-  if (rc != 0) return tmvb::fail(static_cast<cudaError_t>(rc));
-  if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = tmvb::allow_smem(tmvb::lda_estep_pass_kernel, s.bytes);
-  if (err != cudaSuccess) return tmvb::fail(err);
-  tmvb::lda_estep_pass_kernel<<<static_cast<unsigned>(B), tmvb::kEstepThreads, s.bytes,
-                                static_cast<cudaStream_t>(stream)>>>(
-      betaT, terms, counts, doc_mask, el_in, pc, scratch, static_cast<int>(L),
-      static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
-  return static_cast<int>(cudaGetLastError());
+  return tmvb::launch_estep_pass(betaT, terms, counts, doc_mask, el_in, pc, scratch, B, L, K,
+                                 vec_in, stream);
+}
+
+// The pass mode's float64 mode; scratch as for tmvb_lda_estep_f64.
+int tmvb_lda_estep_pass_f64(const double* betaT, const int* terms, const double* counts,
+                            const double* doc_mask, const double* el_in, double* pc,
+                            double* scratch, int64_t B, int64_t L, int64_t K, int vec_in,
+                            void* stream) {
+  return tmvb::launch_estep_pass(betaT, terms, counts, doc_mask, el_in, pc, scratch, B, L, K,
+                                 vec_in, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,10 @@ where each document's token and reader slots are split over ranks: one
 pass's partial gimel and zayin statistics on this rank's slots; the
 caller sums them over the ranks between passes, and
 :func:`ctpf_split_fixpoint` drives it.
+
+On a float64 state the kernel and its pass mode run their float64 modes:
+the same fixpoint with every tensor in float64 and ψ the same shift-by-8
+series in double, what :func:`ctpf_estep_ref` computes on that state.
 """
 
 from __future__ import annotations
@@ -103,20 +107,48 @@ def ctpf_estep_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
     return gimel, gimel_old, zayin, zayin_old, wa, wh
 
 
-_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 4 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+def _argtypes(scalar) -> list:
+    return [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int, scalar, scalar, scalar, ctypes.c_void_p]
+
+
+# each mode's scalar type (vtol and the hyperparameters) and the suffix of
+# its entry points: float32, and float64 on a float64 state
+_MODES = {torch.float32: (ctypes.c_float, ""), torch.float64: (ctypes.c_double, "_f64")}
+
+
+def _mode_of(what: str, dt):
+    if dt not in _MODES:
+        raise TypeError(f"{what}: ealefT must be torch.float32 or torch.float64, got {dt}")
+    return _MODES[dt]
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(L: int, R: int, K: int) -> int:
-    """Floats of device scratch one document of L token and R reader slots
-    needs: 0 when its slot list fits shared memory (the main path's
+def _scratch_elems(L: int, R: int, K: int, suffix: str = "") -> int:
+    """Elements of device scratch one document of L token and R reader
+    slots needs: 0 when its slot list fits shared memory (the main path's
     widths)."""
-    got = _build.function("tmvb_ctpf_estep_scratch", [ctypes.c_int64] * 3,
+    got = _build.function(f"tmvb_ctpf_estep_scratch{suffix}", [ctypes.c_int64] * 3,
                           ctypes.c_int64)(L, R, K)
     if got < 0:
-        raise RuntimeError("ctpf_estep: cannot query the device's shared memory")
+        raise RuntimeError(f"ctpf_estep: K = {K} does not fit the device's shared memory "
+                           f"{'in float64 ' if suffix else ''}(or it cannot be queried)")
     return got
+
+
+def _chunk_specs(what, ealefT, eheT, terms, readers, dt, **state):
+    """``require``'s specs of the chunk's tables, slots and [K] vectors
+    (and of ``state``, each [B, K]), with (B, L, R, V, U, K)."""
+    if terms.dim() != 2 or readers.dim() != 2 or ealefT.dim() != 2 or eheT.dim() != 2:
+        raise ValueError(f"{what}: terms, readers and the tables must be 2-D")
+    B, L = terms.shape
+    R = readers.shape[1]
+    V, K = ealefT.shape
+    U = eheT.shape[0]
+    return (B, L, R, K), {"ealefT": (ealefT, (V, K), dt), "eheT": (eheT, (U, K), dt),
+                          "terms": (terms, (B, L), torch.int32),
+                          "readers": (readers, (B, R), torch.int32),
+                          **{n: (t, (B, K), dt) for n, t in state.items()}}
 
 
 def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
@@ -124,7 +156,8 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
                *, viter: int, vtol: float, c_hyper: float, g_hyper: float):
     """Run the CTPF E-step over a chunk of documents (arguments: module
     doc).  CPU tensors take :func:`ctpf_estep_ref`; CUDA tensors launch
-    the kernel (f32 only) or raise."""
+    the kernel or raise: its float32 mode or, on float64 tables, its
+    float64 mode (every float argument float64)."""
     kw = dict(viter=viter, vtol=vtol, c_hyper=c_hyper, g_hyper=g_hyper)
     if ealefT.device.type == "cpu":
         return ctpf_estep_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
@@ -132,31 +165,25 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
                               zayin_old, **kw)
     if ealefT.device.type != "cuda":
         raise ValueError(f"ctpf_estep: no kernel for device {ealefT.device}")
-    if terms.dim() != 2 or readers.dim() != 2 or ealefT.dim() != 2 or eheT.dim() != 2:
-        raise ValueError("ctpf_estep: terms, readers and the tables must be 2-D")
-    B, L = terms.shape
-    R = readers.shape[1]
-    V, K = ealefT.shape
-    U = eheT.shape[0]
-    f32, i32 = torch.float32, torch.int32
+    dt = ealefT.dtype
+    scalar, suffix = _mode_of("ctpf_estep", dt)
+    (B, L, R, K), specs = _chunk_specs("ctpf_estep", ealefT, eheT, terms, readers, dt,
+                                       gimel=gimel, gimel_old=gimel_old, zayin=zayin,
+                                       zayin_old=zayin_old)
     require("ctpf_estep", ealefT.device, {
-        "ealefT": (ealefT, (V, K), f32), "eheT": (eheT, (U, K), f32),
-        "terms": (terms, (B, L), i32), "counts": (counts, (B, L), f32),
-        "readers": (readers, (B, R), i32), "ratings": (ratings, (B, R), f32),
-        "doc_mask": (doc_mask, (B,), f32), "inv_db": (inv_db, (K,), f32),
-        "inv_dv": (inv_dv, (K,), f32), "inv_hv": (inv_hv, (K,), f32),
-        "gimel": (gimel, (B, K), f32), "gimel_old": (gimel_old, (B, K), f32),
-        "zayin": (zayin, (B, K), f32), "zayin_old": (zayin_old, (B, K), f32)})
+        **specs, "counts": (counts, (B, L), dt), "ratings": (ratings, (B, R), dt),
+        "doc_mask": (doc_mask, (B,), dt), "inv_db": (inv_db, (K,), dt),
+        "inv_dv": (inv_dv, (K,), dt), "inv_hv": (inv_hv, (K,), dt)})
     outs = [torch.empty_like(gimel) for _ in range(4)]
-    wa = torch.empty((B, L, K), dtype=f32, device=ealefT.device)
-    wh = torch.empty((B, R, K), dtype=f32, device=ealefT.device)
+    wa = torch.empty((B, L, K), dtype=dt, device=ealefT.device)
+    wh = torch.empty((B, R, K), dtype=dt, device=ealefT.device)
     if B == 0:
         return (*outs, wa, wh)
-    n_scratch = _scratch_floats(L, R, K)
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=ealefT.device)
+    n_scratch = _scratch_elems(L, R, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=ealefT.device)
                if n_scratch else None)
     err = _build.launch(
-        _build.function("tmvb_ctpf_estep", _ARGTYPES), ealefT.device,
+        _build.function(f"tmvb_ctpf_estep{suffix}", _argtypes(scalar)), ealefT.device,
         *(t.data_ptr() for t in (ealefT, eheT, terms, counts, readers, ratings, doc_mask,
                                  inv_db, inv_dv, inv_hv, gimel, gimel_old, zayin, zayin_old,
                                  *outs, wa, wh)),
@@ -164,10 +191,12 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
         B, L, R, K, int(viter), float(vtol), float(c_hyper), float(g_hyper))
     check(err, "ctpf_estep")
     ctpf_estep.launches += 1
+    ctpf_estep.launches_double += dt == torch.float64
     return (*outs, wa, wh)
 
 
 ctpf_estep.launches = 0   # kernel launches (the plain version is not counted)
+ctpf_estep.launches_double = 0   # of them, launches of the float64 mode
 
 
 def ctpf_estep_pass_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
@@ -192,45 +221,41 @@ def ctpf_estep_pass(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
     """One pass of the CTPF fixpoint without its update: this rank's
     partial statistics ``(gsum, zsum)``, each [B, K] (see
     :func:`ctpf_estep_pass_ref`).  CPU tensors take
-    :func:`ctpf_estep_pass_ref`; CUDA tensors launch the kernel (f32
-    only) or raise."""
+    :func:`ctpf_estep_pass_ref`; CUDA tensors launch the kernel, in the
+    tables' dtype as :func:`ctpf_estep`, or raise."""
     args = (ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv,
             gimel, zayin)
     if ealefT.device.type == "cpu":
         return ctpf_estep_pass_ref(*args)
     if ealefT.device.type != "cuda":
         raise ValueError(f"ctpf_estep_pass: no kernel for device {ealefT.device}")
-    if terms.dim() != 2 or readers.dim() != 2 or ealefT.dim() != 2 or eheT.dim() != 2:
-        raise ValueError("ctpf_estep_pass: terms, readers and the tables must be 2-D")
-    B, L = terms.shape
-    R = readers.shape[1]
-    V, K = ealefT.shape
-    U = eheT.shape[0]
-    f32, i32 = torch.float32, torch.int32
+    dt = ealefT.dtype
+    _, suffix = _mode_of("ctpf_estep_pass", dt)
+    (B, L, R, K), specs = _chunk_specs("ctpf_estep_pass", ealefT, eheT, terms, readers, dt,
+                                       gimel=gimel, zayin=zayin)
     require("ctpf_estep_pass", ealefT.device, {
-        "ealefT": (ealefT, (V, K), f32), "eheT": (eheT, (U, K), f32),
-        "terms": (terms, (B, L), i32), "counts": (counts, (B, L), f32),
-        "readers": (readers, (B, R), i32), "ratings": (ratings, (B, R), f32),
-        "doc_mask": (doc_mask, (B,), f32), "inv_db": (inv_db, (K,), f32),
-        "inv_dv": (inv_dv, (K,), f32), "inv_hv": (inv_hv, (K,), f32),
-        "gimel": (gimel, (B, K), f32), "zayin": (zayin, (B, K), f32)})
-    gsum = torch.empty((B, K), dtype=f32, device=ealefT.device)
-    zsum = torch.empty((B, K), dtype=f32, device=ealefT.device)
+        **specs, "counts": (counts, (B, L), dt), "ratings": (ratings, (B, R), dt),
+        "doc_mask": (doc_mask, (B,), dt), "inv_db": (inv_db, (K,), dt),
+        "inv_dv": (inv_dv, (K,), dt), "inv_hv": (inv_hv, (K,), dt)})
+    gsum = torch.empty((B, K), dtype=dt, device=ealefT.device)
+    zsum = torch.empty((B, K), dtype=dt, device=ealefT.device)
     if B == 0:
         return gsum, zsum
-    n_scratch = _scratch_floats(L, R, K)
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=ealefT.device)
+    n_scratch = _scratch_elems(L, R, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=ealefT.device)
                if n_scratch else None)
     err = _build.launch(
-        _build.function("tmvb_ctpf_estep_pass", _PASS_ARGTYPES), ealefT.device,
+        _build.function(f"tmvb_ctpf_estep_pass{suffix}", _PASS_ARGTYPES), ealefT.device,
         *(t.data_ptr() for t in (*args, gsum, zsum)),
         None if scratch is None else scratch.data_ptr(), B, L, R, K)
     check(err, "ctpf_estep_pass")
     ctpf_estep_pass.launches += 1
+    ctpf_estep_pass.launches_double += dt == torch.float64
     return gsum, zsum
 
 
 ctpf_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+ctpf_estep_pass.launches_double = 0   # of them, launches of the float64 mode
 
 
 def ctpf_split_fixpoint(ealefT, eheT, terms, counts, readers, ratings, doc_mask,

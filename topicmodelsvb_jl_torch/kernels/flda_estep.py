@@ -205,8 +205,9 @@ def flda_estep_pass(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
     """One pass of the fLDA fixpoint without its update: this rank's
     partial statistic ``pc [B, K]`` and ``tau_new [B, L]`` (see
     :func:`flda_estep_pass_ref`).  CPU tensors take
-    :func:`flda_estep_pass_ref`; CUDA tensors launch the kernel (f32
-    only) or raise."""
+    :func:`flda_estep_pass_ref`; CUDA tensors launch the kernel or raise:
+    its float32 mode or, on a float64 table, its float64 mode (every
+    float argument float64)."""
     if logbetaT.device.type == "cpu":
         return flda_estep_pass_ref(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau)
     if logbetaT.device.type != "cuda":
@@ -215,31 +216,37 @@ def flda_estep_pass(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
         raise ValueError("flda_estep_pass: terms and logbetaT must be 2-D")
     B, L = terms.shape
     V, K = logbetaT.shape
-    f32 = torch.float32
+    dt = logbetaT.dtype
+    if dt not in _MODES:
+        raise TypeError(f"flda_estep_pass: logbetaT must be torch.float32 or torch.float64, "
+                        f"got {dt}")
+    suffix = _MODES[dt][2]
     require("flda_estep_pass", logbetaT.device, {
-        "logbetaT": (logbetaT, (V, K), f32), "kappa": (kappa, (V,), f32),
-        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), f32),
-        "doc_mask": (doc_mask, (B,), f32), "eta": (eta, (), f32),
-        "El": (El, (B, K), f32), "tau": (tau, (B, L), f32)})
-    pc = torch.empty((B, K), dtype=f32, device=logbetaT.device)
+        "logbetaT": (logbetaT, (V, K), dt), "kappa": (kappa, (V,), dt),
+        "terms": (terms, (B, L), torch.int32), "counts": (counts, (B, L), dt),
+        "doc_mask": (doc_mask, (B,), dt), "eta": (eta, (), dt),
+        "El": (El, (B, K), dt), "tau": (tau, (B, L), dt)})
+    pc = torch.empty((B, K), dtype=dt, device=logbetaT.device)
     tau_new = torch.empty_like(tau)
     if B == 0:
         return pc, tau_new
-    n_scratch = _scratch_elems(L, K)
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=logbetaT.device)
+    n_scratch = _scratch_elems(L, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=logbetaT.device)
                if n_scratch else None)
     err = _build.launch(
-        _build.function("tmvb_flda_estep_pass", _PASS_ARGTYPES), logbetaT.device,
+        _build.function(f"tmvb_flda_estep_pass{suffix}", _PASS_ARGTYPES), logbetaT.device,
         *(t.data_ptr() for t in (logbetaT, kappa, terms, counts, doc_mask, eta, El, tau, pc,
                                  tau_new)),
         None if scratch is None else scratch.data_ptr(), B, L, K,
-        int(K % 4 == 0 and logbetaT.data_ptr() % 16 == 0))
+        int(K % (16 // logbetaT.element_size()) == 0 and logbetaT.data_ptr() % 16 == 0))
     check(err, "flda_estep_pass")
     flda_estep_pass.launches += 1
+    flda_estep_pass.launches_double += dt == torch.float64
     return pc, tau_new
 
 
 flda_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+flda_estep_pass.launches_double = 0   # of them, launches of the float64 mode
 
 
 def flda_split_fixpoint(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma, El,

@@ -19,11 +19,23 @@ chain fixpoint (a document stops once ‖Δgamma‖_F < vtol; a document with
 L, K] = q(z_n)`` from one more forward-backward at the final state, on
 every row.  :func:`hmtm_logz` takes ``tau``, ``gamma`` and returns the
 forward log-normaliser ``logZ [B]``.
+
+On the card both run in the table's dtype: float32, or float64 (every
+float argument float64; ψ the double series through t⁻¹², since the plain
+versions take ψ from ``torch.special``), and at any K: where the chain
+matrix A no longer fits shared memory (past 256 topics, or from K = 240
+in float32 and ~170 in float64 on an H100) the kernels run their wide
+mode, which keeps A, Aᵀ, S and the messages of each document in a device
+scratch (:func:`mode`; ``3 K² + (L + 5) K + L`` elements a document for
+:func:`hmtm_estep`, ``K² + 3 K`` for :func:`hmtm_logz`).  A wrapper raises,
+with the byte count, when the device cannot hold that scratch; it never
+hands the work to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -118,9 +130,6 @@ def hmtm_logz_ref(betaT_eps, terms, tmask, tau, gamma):
     return _forward(p0, A, betaT_eps[terms], tmask)[2]
 
 
-_TOO_WIDE = "the device's shared memory holds the [K, K | 1] chain matrix up to K = 239 on an H100"
-
-
 def _shape(what, betaT_eps, terms, tmask):
     if betaT_eps.dim() != 2 or terms.dim() != 2:
         raise ValueError(f"{what}: terms and betaT_eps must be 2-D")
@@ -128,23 +137,67 @@ def _shape(what, betaT_eps, terms, tmask):
     V, K = betaT_eps.shape
     if L < 1:
         raise ValueError(f"{what}: documents need at least one slot (L = 0)")
+    if K < 1:
+        raise ValueError(f"{what}: the table needs at least one topic (K = 0)")
     return B, L, V, K
 
 
-def _scratch_floats(L: int, K: int) -> int:
-    """Floats of device scratch one document of L slots needs: 0 when its
-    messages fit shared memory (the NSF widths at K = 25)."""
-    got = _build.function("tmvb_hmtm_estep_scratch", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
-    if got == -2:
-        raise ValueError(f"hmtm_estep: K = {K} topics do not fit: {_TOO_WIDE}")
+# each mode's entry points, their scalar types and the suffix of their
+# shape queries: float32, and float64 on a float64 state
+_MODES = {torch.float32: ("", ctypes.c_float), torch.float64: ("_f64", ctypes.c_double)}
+
+
+def _mode_of(what, dt):
+    if dt not in _MODES:
+        raise TypeError(f"{what}: betaT_eps must be torch.float32 or torch.float64, got {dt}")
+    return _MODES[dt]
+
+
+def _query(name: str, suffix: str, L: int, K: int) -> int:
+    got = _build.function(f"tmvb_{name}{suffix}", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+    if got < 0:
+        raise RuntimeError(f"{name}: cannot query the device's shared memory")
+    return got
+
+
+WIDE = 3   # mode() of the wide mode
+
+
+@functools.lru_cache(maxsize=None)
+def mode(L: int, K: int, dtype=torch.float32) -> int:
+    """The kernels' layout for documents of L slots at K topics: 0, 1 or 2
+    (A in shared memory; the messages, then S too, in device scratch past
+    what fits), or 3, the wide mode (A, Aᵀ, S and the messages in device
+    scratch), taken past 256 topics or where A [K, K | 1] overflows the
+    opt-in shared memory (K = 240 in float32 on an H100, ~170 in
+    float64)."""
+    fn = _build.function(f"tmvb_hmtm_estep_mode{_mode_of('hmtm', dtype)[0]}",
+                         [ctypes.c_int64] * 2)
+    got = fn(L, K)
     if got < 0:
         raise RuntimeError("hmtm_estep: cannot query the device's shared memory")
     return got
 
 
-_ESTEP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-_LOGZ_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+def _scratch(what: str, n: int, B: int, dt, device):
+    """[B, n] device scratch, or None for n = 0; raises with the byte count
+    when the device cannot hold it."""
+    if n == 0:
+        return None
+    try:
+        return torch.empty((B, n), dtype=dt, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        nbytes = B * n * torch.empty((), dtype=dt).element_size()
+        raise RuntimeError(f"{what}: the device scratch of {B} x {n} elements ({nbytes} bytes) "
+                           f"cannot be allocated: {e}") from None
+
+
+def _estep_args(scalar):
+    return [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 3 + [ctypes.c_int, scalar,
+                                                             ctypes.c_void_p]
+
+
+_LOGZ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 
 
 def hmtm_estep(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
@@ -152,62 +205,74 @@ def hmtm_estep(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
     """Run HMTM's E-step over a chunk of documents (arguments: module doc).
 
     CPU tensors take :func:`hmtm_estep_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise."""
+    kernel or raise: its float32 mode, or on a float64 table its float64
+    mode (every float argument float64); any K, past the shared-memory
+    modes in the wide mode (:func:`mode`)."""
     if betaT_eps.device.type == "cpu":
         return hmtm_estep_ref(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
                               viter=viter, vtol=vtol)
     if betaT_eps.device.type != "cuda":
         raise ValueError(f"hmtm_estep: no kernel for device {betaT_eps.device}")
     B, L, V, K = _shape("hmtm_estep", betaT_eps, terms, tmask)
-    f32 = torch.float32
+    dt = betaT_eps.dtype
+    suffix, scalar = _mode_of("hmtm_estep", dt)
     require("hmtm_estep", betaT_eps.device, {
-        "betaT_eps": (betaT_eps, (V, K), f32), "terms": (terms, (B, L), torch.int32),
-        "tmask": (tmask, (B, L), f32), "doc_mask": (doc_mask, (B,), f32),
-        "eta": (eta, (K,), f32), "alpha": (alpha, (K, K), f32),
-        "tau": (tau, (B, K), f32), "gamma": (gamma, (B, K, K), f32)})
+        "betaT_eps": (betaT_eps, (V, K), dt), "terms": (terms, (B, L), torch.int32),
+        "tmask": (tmask, (B, L), dt), "doc_mask": (doc_mask, (B,), dt),
+        "eta": (eta, (K,), dt), "alpha": (alpha, (K, K), dt),
+        "tau": (tau, (B, K), dt), "gamma": (gamma, (B, K, K), dt)})
     tau_out, gamma_out = torch.empty_like(tau), torch.empty_like(gamma)
-    r = torch.empty((B, L, K), dtype=f32, device=betaT_eps.device)
-    n_scratch = _scratch_floats(L, K)
+    r = torch.empty((B, L, K), dtype=dt, device=betaT_eps.device)
+    n_scratch = _query("hmtm_estep_scratch", suffix, L, K)
     if B == 0:
         return tau_out, gamma_out, r
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=betaT_eps.device)
-               if n_scratch else None)
+    scratch = _scratch("hmtm_estep", n_scratch, B, dt, betaT_eps.device)
     err = _build.launch(
-        _build.function("tmvb_hmtm_estep", _ESTEP_ARGS), betaT_eps.device,
+        _build.function(f"tmvb_hmtm_estep{suffix}", _estep_args(scalar)), betaT_eps.device,
         *(t.data_ptr() for t in (betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
                                  tau_out, gamma_out, r)),
         None if scratch is None else scratch.data_ptr(), B, L, K, int(viter), float(vtol))
     check(err, "hmtm_estep")
     hmtm_estep.launches += 1
+    hmtm_estep.launches_double += dt == torch.float64
+    hmtm_estep.launches_wide += mode(L, K, dt) == WIDE
     return tau_out, gamma_out, r
 
 
 def hmtm_logz(betaT_eps, terms, tmask, tau, gamma):
     """Forward log-normaliser of each document's chain (arguments: module
     doc).  CPU tensors take :func:`hmtm_logz_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise."""
+    kernel, in the table's dtype and at any K as :func:`hmtm_estep`, or
+    raise."""
     if betaT_eps.device.type == "cpu":
         return hmtm_logz_ref(betaT_eps, terms, tmask, tau, gamma)
     if betaT_eps.device.type != "cuda":
         raise ValueError(f"hmtm_logz: no kernel for device {betaT_eps.device}")
     B, L, V, K = _shape("hmtm_logz", betaT_eps, terms, tmask)
-    f32 = torch.float32
+    dt = betaT_eps.dtype
+    suffix, _ = _mode_of("hmtm_logz", dt)
     require("hmtm_logz", betaT_eps.device, {
-        "betaT_eps": (betaT_eps, (V, K), f32), "terms": (terms, (B, L), torch.int32),
-        "tmask": (tmask, (B, L), f32), "tau": (tau, (B, K), f32),
-        "gamma": (gamma, (B, K, K), f32)})
-    if _build.function("tmvb_hmtm_estep_mode", [ctypes.c_int64] * 2)(L, K) == -2:
-        raise ValueError(f"hmtm_logz: K = {K} topics do not fit: {_TOO_WIDE}")
-    logz = torch.empty((B,), dtype=f32, device=betaT_eps.device)
+        "betaT_eps": (betaT_eps, (V, K), dt), "terms": (terms, (B, L), torch.int32),
+        "tmask": (tmask, (B, L), dt), "tau": (tau, (B, K), dt),
+        "gamma": (gamma, (B, K, K), dt)})
+    n_scratch = _query("hmtm_logz_scratch", suffix, L, K)
+    logz = torch.empty((B,), dtype=dt, device=betaT_eps.device)
     if B == 0:
         return logz
+    scratch = _scratch("hmtm_logz", n_scratch, B, dt, betaT_eps.device)
     err = _build.launch(
-        _build.function("tmvb_hmtm_logz", _LOGZ_ARGS), betaT_eps.device,
-        *(t.data_ptr() for t in (betaT_eps, terms, tmask, tau, gamma, logz)), B, L, K)
+        _build.function(f"tmvb_hmtm_logz{suffix}", _LOGZ_ARGS), betaT_eps.device,
+        *(t.data_ptr() for t in (betaT_eps, terms, tmask, tau, gamma, logz)),
+        None if scratch is None else scratch.data_ptr(), B, L, K)
     check(err, "hmtm_logz")
     hmtm_logz.launches += 1
+    hmtm_logz.launches_double += dt == torch.float64
+    hmtm_logz.launches_wide += n_scratch > 0
     return logz
 
-
 hmtm_estep.launches = 0   # kernel launches (the plain version is not counted)
+hmtm_estep.launches_double = 0   # of them, launches of the float64 mode
+hmtm_estep.launches_wide = 0   # of them, launches of the wide mode (either dtype)
 hmtm_logz.launches = 0
+hmtm_logz.launches_double = 0
+hmtm_logz.launches_wide = 0

@@ -219,7 +219,8 @@ def lda_estep_pass(betaT, terms, counts, doc_mask, El):
     partial statistic ``pc [B, K]`` (see :func:`lda_estep_pass_ref`).
 
     CPU tensors take :func:`lda_estep_pass_ref`; CUDA tensors launch the
-    kernel (f32 only) or raise."""
+    kernel or raise: its float32 mode or, on a float64 table, its float64
+    mode (every float argument float64)."""
     if betaT.device.type == "cpu":
         return lda_estep_pass_ref(betaT, terms, counts, doc_mask, El)
     if betaT.device.type != "cuda":
@@ -228,28 +229,34 @@ def lda_estep_pass(betaT, terms, counts, doc_mask, El):
         raise ValueError("lda_estep_pass: terms and betaT must be 2-D")
     B, L = terms.shape
     V, K = betaT.shape
-    f32 = torch.float32
+    dt = betaT.dtype
+    if dt not in _MODES:
+        raise TypeError(f"lda_estep_pass: betaT must be torch.float32 or torch.float64, "
+                        f"got {dt}")
+    suffix = _MODES[dt][2]
     require("lda_estep_pass", betaT.device, {
-        "betaT": (betaT, (V, K), f32), "terms": (terms, (B, L), torch.int32),
-        "counts": (counts, (B, L), f32), "doc_mask": (doc_mask, (B,), f32),
-        "El": (El, (B, K), f32)})
-    pc = torch.empty((B, K), dtype=f32, device=betaT.device)
+        "betaT": (betaT, (V, K), dt), "terms": (terms, (B, L), torch.int32),
+        "counts": (counts, (B, L), dt), "doc_mask": (doc_mask, (B,), dt),
+        "El": (El, (B, K), dt)})
+    pc = torch.empty((B, K), dtype=dt, device=betaT.device)
     if B == 0:
         return pc
-    n_scratch = _scratch_elems(L, K)
-    scratch = (torch.empty((B, n_scratch), dtype=f32, device=betaT.device)
+    n_scratch = _scratch_elems(L, K, suffix)
+    scratch = (torch.empty((B, n_scratch), dtype=dt, device=betaT.device)
                if n_scratch else None)
     err = _build.launch(
-        _build.function("tmvb_lda_estep_pass", _PASS_ARGTYPES), betaT.device,
+        _build.function(f"tmvb_lda_estep_pass{suffix}", _PASS_ARGTYPES), betaT.device,
         *(t.data_ptr() for t in (betaT, terms, counts, doc_mask, El, pc)),
         None if scratch is None else scratch.data_ptr(), B, L, K,
-        int(K % 4 == 0 and betaT.data_ptr() % 16 == 0))
+        int(K % (16 // betaT.element_size()) == 0 and betaT.data_ptr() % 16 == 0))
     check(err, "lda_estep_pass")
     lda_estep_pass.launches += 1
+    lda_estep_pass.launches_double += dt == torch.float64
     return pc
 
 
 lda_estep_pass.launches = 0   # kernel launches (the plain version is not counted)
+lda_estep_pass.launches_double = 0   # of them, launches of the float64 mode
 
 
 def split_fixpoint(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,

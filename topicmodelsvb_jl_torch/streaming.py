@@ -45,9 +45,9 @@ CAVI (``train``) or online SVI (``train_online``), checkpoints
 (:meth:`_StreamingModel.save`, :func:`load`, and an auto-checkpoint
 cadence), and the file format is the JAX package's: checkpoints cross
 between the packages both ways.  A model runs on the CUDA device unless
-its caller passes ``device="cpu"``.  float64 runs on the card for LDA,
-fLDA, CTM, fCTM and DTM (the float64 modes of their kernels); CTPF and
-HMTM run it on the CPU only (``kernels._build.check_dtype``).
+its caller passes ``device="cpu"``.  float64 runs on the card for every
+family (the float64 modes of their kernels, ``kernels._build.
+check_dtype``), as it does on the CPU.
 """
 
 from __future__ import annotations

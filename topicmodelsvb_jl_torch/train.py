@@ -104,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--chunk-docs", type=int, default=None)
     r.add_argument("--pad-multiple", type=int, default=None)
     r.add_argument("--dtype", default=None, choices=["float32", "float64"],
-                   help="float64 runs on the card for lda, flda, ctm, fctm "
-                        "and dtm, and on the CPU for every model")
+                   help="float32 or float64, on the card or the CPU, for "
+                        "every model")
     r.add_argument("--no-pallas", action="store_true",
                    help="the JAX CLI's switch to its plain E-step: the "
                         "plain versions run on the CPU anyway; on a CUDA "
@@ -232,8 +232,8 @@ def run(argv=None) -> dict:
                          "tensor launches the hand-written kernel); the plain versions "
                          "run with --device cpu")
     # the state's dtype on this device (kernels._build.check_dtype), before
-    # any corpus is built: float64 on the card for every family whose
-    # kernels have a float64 mode
+    # any corpus is built: every family's kernels have float32 and float64
+    # modes, so the gate refuses any other dtype
     from .kernels._build import check_dtype
 
     try:

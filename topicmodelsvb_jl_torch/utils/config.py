@@ -60,8 +60,8 @@ class RuntimeConfig:
     chunk_docs: int = 1024        # docs per E-step chunk (bounds the [B, L, K] stat rows)
     pad_multiple: int = 64        # token-axis padding multiple of a dense corpus
     bucket_pad: int = 8           # per-segment token-width multiple under bucketing
-    # compute dtype; "float64" runs on the card for LDA, fLDA, CTM, fCTM
-    # and DTM, and on the CPU for every family (kernels._build.check_dtype)
+    # compute dtype, "float32" or "float64": both run on the card and on
+    # the CPU for every family (kernels._build.check_dtype)
     dtype: str = "float32"
     # LDA and fLDA: the E-step's per-document gamma -> Elogtheta digamma
     # channel in float64, cast back to the float32 state (the token-level
