@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel, CLI, float64 and wide-K paths once on one CUDA GPU.
+"""Drive the PyTorch port's LDA, fLDA, CTPF, CTM, fCTM, DTM, HMTM, streaming, multi-process, tensor-parallel, sequence-parallel, CLI, float64 and wide-K paths and the README's walkthrough once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,7 @@ printing its own lines; any failure exits non-zero:
    and on 50; ``perplexity``, ``topic_coherence``, ``gencorp`` and one step
    on what it drew; ``predict`` on an fLDA; then ``load_citeu``, held-out
    readers, an LDA and a CTPF warm-started from it, its displays, the
-   held-out readers' ranks and recall; each step's time;
+   first 2,048 held-out readers' ranks and recall; each step's time;
 7. checkpoint and resume, with the launch counts set to 0 before and read
    after: ``save_checkpoint``/``load_checkpoint`` of phase 4's LDA and CTPF
    models (time and file size, with and without ``compress="f16"``); LDA
@@ -229,6 +229,23 @@ printing its own lines; any failure exits non-zero:
    seq CTPF (CiteULike) against one float64 process within 1e-8; and
    ``train.run`` with ``--model ctpf --dtype float64`` and ``--model hmtm
    --k 300``;
+18. (run before 11's results) the README's story on the card:
+   ``examples/walkthrough_torch.py`` in this process (``runpy``) at its
+   default sizes (LDA K = 9 on ``load_nsf(subset=3000)`` after
+   ``fixcorp``, gencorp 1,000 documents, CTM K = 9, CTPF K = 30 on 2,000
+   CiteULike documents, StreamingLDA K = 20 on 4,096 documents, HMTM K =
+   3) with ``WALKTHROUGH_DEVICE=cuda``, the counts of ``lda_estep``,
+   ``lda_elbo_tok``, ``scatter_rows``, ``ctpf_estep``, ``hmtm_estep`` and
+   ``hmtm_logz`` set to 0 before and read after: it completes, each of
+   the six launched, every model it leaves holds its state on the card,
+   ∆elbo > 0 from the second check on for the batch-CAVI models (and on
+   the resumed LDA's one check), the trained CTPF's scores negated
+   through its setter reverse the first 50 ``drecs`` and ``urecs`` rows
+   and put back rank them as before; then each of the six kernels
+   against its plain version on the first chunk of the widest bucket of
+   the walkthrough's LDA (K = 9), CTPF (K = 30) and HMTM (K = 3, its
+   trained state), the scatter on each one's rows; each section's wall
+   time and the peak memory;
 11. the scatter against ``index_add_`` on every shape; one JSON line with
    every kernel's launches, largest error, device and call times, plain
    version's time, bound (``bound_ms``, ``bound_by``) and library call's
@@ -261,6 +278,8 @@ RTOL64, ATOL64 = 1e-9, 1e-12   # a float64 kernel against its plain float64 vers
 # documents, this many iterations (the CPU's float64 references set the
 # phase's time; the widths stay)
 P16_DOCS, P16_ITERS = 2048, 2
+# phase 6 ranks this many of CiteULike's ~16,900 held-out readers
+P6_RANKED = 2048
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA's H100 SXM data sheet: the HBM rate and
 # the f32 rate outside the tensor cores, at the full 700 W power limit
@@ -1099,7 +1118,11 @@ def corpus_path(smi) -> dict:
         need(len(lines) >= 6, f"{label}: {lines}")
         for line in lines:
             print(f"  {line}")
-    recs, _ = step("ranked_users(ctpf, held)", lambda: tt.ranked_users(ctpf, held))
+    # the protocol on the first P6_RANKED held-out readers (depth cut: the
+    # walkthrough's section 8 ranks all of its own)
+    held = held[:P6_RANKED]
+    recs, _ = step(f"ranked_users(ctpf, held[:{P6_RANKED}])",
+                   lambda: tt.ranked_users(ctpf, held))
     ranks = tt.heldout_reader_rank(ctpf, held, recs=recs)
     r20 = tt.recall_at_k(ctpf, held, 20, recs=recs)
     med = float(np.median(ranks))
@@ -3926,6 +3949,162 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
     return launches, recs
 
 
+WALKTHROUGH = os.path.join(ROOT, "examples", "walkthrough_torch.py")
+# the models walkthrough_torch.py leaves in its namespace, and those of
+# them trained by batch CAVI with a finite checkelbo
+WALKTHROUGH_MODELS = ("lda", "lda2", "m", "ctm", "base", "ctpf", "resumed", "s", "sd", "hm")
+WALKTHROUGH_CAVI = ("lda", "ctm", "ctpf", "resumed", "sd", "hm")
+
+
+def walkthrough_kernels(ns, dev) -> dict:
+    """Each kernel the walkthrough ran, held against its plain version at
+    the walkthrough's own widths and on its own documents: ``lda_estep``
+    and ``lda_elbo_tok`` on the first chunk of the widest bucket of its
+    LDA (K = 9; random tables and a warm state, as phase 2), ``ctpf_estep``
+    on that of its CTPF (K = 30), ``hmtm_estep`` and ``hmtm_logz`` on that
+    of its HMTM (K = 3) from the trained model's own state, and
+    ``scatter_rows`` on each one's rows.  Returns each kernel's largest
+    absolute difference."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON
+
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    f32, i32 = torch.float32, torch.int32
+
+    def widest(m):
+        p = m.local_packed
+        seg = max(p.segments, key=lambda s: s.L)
+        B = min(m.chunk_docs, seg.terms.shape[0])
+        tok = (put(seg.terms[:B], i32), put(seg.counts[:B], f32), put(seg.doc_mask[:B], f32))
+        return p, seg, slice(seg.loc_start, seg.loc_start + B), tok
+
+    lda, ctpf, hm = ns["lda"], ns["ctpf"], ns["hm"]
+    _, seg, _, tok = widest(lda)
+    label = f"walkthrough LDA widest bucket L={seg.L}"
+    kr = compare_kernels(tok, lda.V, lda.K, dev, label)
+    sc = [compare_scatter(lda.V, kr["w"].reshape(-1, lda.K), tok[0], tok[1] > 0, dev,
+                          f"{label} w")]
+
+    p, seg, rows, tok = widest(ctpf)
+    rd = (put(p.readers[rows], i32), put(p.ratings[rows], f32))
+    label = f"walkthrough CTPF widest bucket L={seg.L} R={rd[0].shape[1]}"
+    ct, wa, wh = compare_ctpf(tok, rd, ctpf.V, ctpf.U, ctpf.K, dev, label)
+    sc += [compare_scatter(ctpf.V, wa.reshape(-1, ctpf.K), tok[0], tok[1] > 0, dev,
+                           f"{label} term rows"),
+           compare_scatter(max(ctpf.U, 1), wh.reshape(-1, ctpf.K), rd[0], rd[1] > 0, dev,
+                           f"{label} reader rows")]
+
+    _, seg, rows, (terms, counts, doc_mask) = widest(hm)
+    st = hm.state
+    tmask = (counts > 0).to(f32)
+    args = ((st.beta.T + EPSILON).contiguous(), terms, tmask, doc_mask, st.eta, st.alpha,
+            st.tau[rows].contiguous(), st.gamma[rows].contiguous())
+    # L = 64 and K = 3: S and the messages in shared memory (mode 0)
+    est, lz, r = compare_hmtm(f"walkthrough HMTM widest bucket L={seg.L}", hm.K, 10, 0,
+                              args, dev)
+    sc.append(compare_scatter(hm.V, r.reshape(-1, hm.K), terms, tmask > 0, dev,
+                              f"walkthrough HMTM r rows L={seg.L}"))
+    return {"lda_estep": kr["estep"]["max_abs_err"], "lda_elbo_tok": kr["elbo"]["max_abs_err"],
+            "ctpf_estep": ct["max_abs_err"], "hmtm_estep": est["max_abs_err"],
+            "hmtm_logz": lz["max_abs_err"], "scatter_rows": max(s["max_abs_err"] for s in sc)}
+
+
+def walkthrough_phase(smi) -> tuple:
+    """Phase 18: ``examples/walkthrough_torch.py`` run in this process on
+    the card (``WALKTHROUGH_DEVICE`` cuda unless set; its other
+    ``WALKTHROUGH_*`` knobs as the environment sets them, ``main`` clears
+    them for the default sizes), then each of its kernels against its
+    plain version on its own chunks.  Returns (each kernel's launches in
+    the walkthrough, each section's wall seconds, each kernel's largest
+    absolute difference from its plain version)."""
+    import runpy
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+    from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+
+    os.environ.setdefault("WALKTHROUGH_DEVICE", "cuda")
+    kernels = (lda_estep, lda_elbo_tok, scatter_rows, ctpf_estep, hmtm_estep, hmtm_logz)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    path = list(sys.path)
+    t0 = time.perf_counter()
+    try:
+        # the script's own warning filter and sys.path entry end with it
+        with warnings.catch_warnings(), contextlib.redirect_stdout(buf):
+            ns = runpy.run_path(WALKTHROUGH, run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.path[:] = path
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        os.makedirs(os.path.join(ROOT, "_tmp"), exist_ok=True)
+        with open(os.path.join(ROOT, "_tmp", "walkthrough_smoke.log"), "w") as f:
+            f.write(out)
+    launches = {k.__name__: k.launches for k in kernels}
+    for line in out.splitlines():
+        if line.startswith("[section ") or line == "walkthrough complete.":
+            print(f"walkthrough {line}")
+    print(f"walkthrough: {wall:.3f} s in all, launches {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {smi}")
+    need("walkthrough complete." in out.splitlines(), "walkthrough: not complete")
+    need(all(launches.values()), f"walkthrough: a kernel never launched: {launches}")
+    need(sorted(ns["SECTION_TIMES"]) == list(range(1, 11)), "walkthrough: a section's time")
+    for name in WALKTHROUGH_MODELS:
+        model = ns[name]
+        if hasattr(model, "state"):
+            tensors = [getattr(model.state, f.name) for f in dataclasses.fields(model.state)]
+        else:   # a streaming model: its globals on the card, the rows on the host
+            tensors = [getattr(model, n) for n in model._globals]
+        need(model.device.type == "cuda" and all(t.is_cuda for t in tensors),
+             f"walkthrough: {name} does not hold its state on the card")
+    for name in WALKTHROUGH_CAVI:
+        model = ns[name]
+        if hasattr(model, "trainer"):
+            deltas = [r.delta_elbo for r in model.trainer.trace if r.delta_elbo is not None]
+        else:
+            deltas = [t[2] for t in model.trace]
+        checked = deltas if name == "resumed" else deltas[1:]   # it resumes a trained model
+        need(checked and all(math.isfinite(d) and d > 0 for d in checked),
+             f"walkthrough: {name} ∆elbo {deltas}")
+        print(f"walkthrough {name}: ∆elbo {[round(d, 3) for d in deltas]}")
+
+    # the scores setter: a ranking reversed, then the scores put back
+    ctpf = ns["ctpf"]
+    drecs, urecs = ctpf.drecs[:50], ctpf.urecs[:50]
+    scores = np.array(ctpf.scores)   # a host copy
+    ctpf.scores = -scores
+    rev_d, rev_u = ctpf.drecs[:50], ctpf.urecs[:50]
+    for i, (new, old) in enumerate(zip(rev_d + rev_u, drecs + urecs)):
+        row = scores[i] if i < len(rev_d) else scores[:, i - len(rev_d)]
+        ranked = row[np.array(new, dtype=np.int64) - 1]
+        need(sorted(new) == sorted(old) and bool(np.all(np.diff(ranked) >= 0)),
+             f"walkthrough: CTPF recs row {i} does not follow the negated scores")
+    need(rev_d != drecs and rev_u != urecs,
+         "walkthrough: CTPF scores negated through the setter rank as before")
+    ctpf.scores = scores
+    need(ctpf.drecs[:50] == drecs and ctpf.urecs[:50] == urecs,
+         "walkthrough: CTPF scores put back through the setter rank otherwise")
+    print(f"walkthrough CTPF scores setter: {scores.shape} negated, the first 50 drecs and urecs "
+          "rows follow them; put back, those rows rank as before")
+    errs = walkthrough_kernels(ns, torch.device("cuda", 0))
+    print(f"walkthrough kernels against their plain versions: max abs err {errs}")
+    shutil.rmtree(os.path.dirname(ns["ckpt"]), ignore_errors=True)
+    shutil.rmtree(ns["ddir"], ignore_errors=True)
+    return launches, dict(ns["SECTION_TIMES"]), errs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3942,6 +4121,7 @@ def main() -> int:
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
     from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4102,6 +4282,16 @@ def main() -> int:
     p17, every = dtype_phase(smi, kc, dev, p13_ranks)
     add(p17)
 
+    # 18. the README's story, examples/walkthrough_torch.py
+    for k in [k for k in os.environ if k.startswith("WALKTHROUGH_")]:
+        del os.environ[k]   # its default sizes
+    t_wt = time.perf_counter()
+    p18, sections, wt_err = walkthrough_phase(smi)
+    wt_s = time.perf_counter() - t_wt
+    add(p18)
+
+    print(f"chip_smoke: phases 1-18 {time.perf_counter() - t_start:.1f} s")
+
     # 11. results: each kernel at its main path's widest chunk, with the
     # largest error over every shape it was held at
     slower = [f"{r['label']} ({r['ms']:.4f} vs {r['library_ms']:.4f} ms device, "
@@ -4171,14 +4361,18 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"topicmodelsvb_jl_torch/kernels/csrc/{src}",
                      "replaces": where, "launches": launches[name],
-                     "max_abs_err": max(r["max_abs_err"] for r in (main_rec, *others)),
+                     "walkthrough_launches": p18.get(name, 0),
+                     "max_abs_err": max(wt_err.get(name, 0.0),
+                                        *(r["max_abs_err"] for r in (main_rec, *others))),
+                     "walkthrough_max_abs_err": wt_err.get(name),
                      **{k: main_rec[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        "walkthrough": {"s": wt_s, "sections": sections}}))
     return 0
 
 

@@ -8,7 +8,8 @@ count, so batch CAVI and online SVI follow the one-process run to 1e-10
 (the order of the reduction is all that differs), with the two ranks bit
 for bit equal on the globals and the bound.  A two-process checkpoint
 directory (``proc{p}.npz`` and ``manifest.json``) loads in one process of
-either package and resumes.
+either package and resumes, and (slow) a directory written by 2 processes
+resumes on 4 and one written by 4 resumes on 2.
 """
 
 import dataclasses
@@ -93,3 +94,30 @@ def test_two_process_checkpoint_loads_in_one_process_of_either_package(runs):
         np.testing.assert_array_equal(np.asarray(getattr(jm, n)), getattr(again, n), err_msg=n)
     for n in ref._globals:
         np.testing.assert_array_equal(np.asarray(getattr(jm, n)), getattr(again, n).numpy())
+
+
+@pytest.mark.slow
+def test_elastic_restore_any_process_count(tmp_path):
+    """Elastic N -> M restore (the JAX package's
+    ``tests/test_streaming_multiprocess.py`` twin): a 2-process checkpoint
+    directory resumes on 4 processes and a 4-process one on 2, each rank
+    continuing the one-process trajectory to 1e-10 with its own rows."""
+    pk = W.stream_packed(tt)[0]
+    ref = tt.StreamingLDA(pk, W.K, dtype=torch.float64, device="cpu", **W.STREAM)
+    ref.train(iter=2 * W.ELASTIC_ITERS, tol=0.0, checkelbo=1, printelbo=False)
+    ref_trace = [t[1] for t in ref.trace]
+    for n_save, n_resume in ((2, 4), (4, 2)):
+        job = str(tmp_path / f"ck_{n_save}to{n_resume}")
+        os.makedirs(job)
+        saved = W.Launch(job, "elastic_save", n_save).finish(TIMEOUT)
+        np.testing.assert_allclose(saved[0]["trace"], ref_trace[:W.ELASTIC_ITERS], rtol=RTOL)
+        manifest = os.path.join(job, "elastic_ckpt", "manifest.json")
+        assert os.path.exists(manifest), os.listdir(job)
+        outs = W.Launch(job, "elastic_resume", n_resume).finish(TIMEOUT)
+        rows = np.concatenate([o["rows"] for o in outs])
+        assert sorted(rows.tolist()) == list(range(ref.M_rows))   # every row on one rank
+        for r, o in enumerate(outs):
+            np.testing.assert_allclose(o["trace"], ref_trace, rtol=RTOL)
+            np.testing.assert_allclose(o["beta"], ref.beta.numpy(), rtol=RTOL, atol=1e-13)
+            np.testing.assert_allclose(o["gamma"], np.asarray(ref.gamma)[o["rows"]], rtol=RTOL,
+                                       atol=1e-13, err_msg=f"{n_save}->{n_resume} rank {r}")

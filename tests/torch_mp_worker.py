@@ -14,6 +14,10 @@ start-up is paid once:
   rank, loaded back at this world size and resumed one iteration;
 * ``stream``: ``StreamingLDA`` and ``StreamingCTPF``, batch CAVI and
   online SVI, and a streaming checkpoint directory;
+* ``elastic_save``/``elastic_resume``: a ``StreamingLDA`` trained
+  :data:`ELASTIC_ITERS` iterations saves its checkpoint directory into
+  the job directory; a group of any other size loads it, each rank its
+  own rows, and trains :data:`ELASTIC_ITERS` more;
 * ``one_rank``: on a group of one, ``kbn_psum`` and an LDA on the mesh of
   every rank against one with no collective, bit for bit;
 * ``tp``: on four ranks, every case of :data:`TP_CASES` (tensor and
@@ -225,6 +229,30 @@ def _stream(tt, job, rank, world, out):
         assert torch.equal(getattr(back, n), getattr(m, n)), n
     m.train(iter=1, checkelbo=1, printelbo=False)
     out["ckpt/beta3"] = m.beta.numpy()
+
+
+# ── elastic restore (modes "elastic_save" and "elastic_resume") ──
+ELASTIC_ITERS = 2
+
+
+def _elastic_save(tt, job, rank, world, out):
+    import torch
+
+    m = tt.StreamingLDA(stream_packed(tt)[0], K, dtype=torch.float64, device="cpu", **STREAM)
+    m.train(iter=ELASTIC_ITERS, tol=0.0, checkelbo=1, printelbo=False)
+    m.save(os.path.join(job, "elastic_ckpt"))
+    out["trace"] = np.array([t[1] for t in m.trace])
+
+
+def _elastic_resume(tt, job, rank, world, out):
+    m = tt.load_streaming_checkpoint(os.path.join(job, "elastic_ckpt"), stream_packed(tt)[0],
+                                     device="cpu")
+    assert m._nproc == world and m.trained_iters == ELASTIC_ITERS
+    m.train(iter=ELASTIC_ITERS, tol=0.0, checkelbo=1, printelbo=False)
+    out["trace"] = np.array([t[1] for t in m.trace])
+    out["beta"] = m.beta.numpy()
+    out["rows"] = m._local_to_global_rows(m.M_rows, m.batch_docs, m._batch_docs_global, rank)
+    out["gamma"] = np.asarray(m.gamma)
 
 
 # ── tensor and sequence parallelism (mode "tp", four ranks) ──
@@ -467,7 +495,8 @@ def main():
     import topicmodelsvb_jl_torch as tt
 
     out = {}
-    {"families": _families, "stream": _stream, "one_rank": _one_rank, "tp": _tp}[mode](
+    {"families": _families, "stream": _stream, "one_rank": _one_rank, "tp": _tp,
+     "elastic_save": _elastic_save, "elastic_resume": _elastic_resume}[mode](
         tt, job, rank, world, out)
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "topicmodelsvb_jl_tpu"))]
     assert not bad, bad

@@ -653,6 +653,9 @@ class CTPF(TopicModel):
         self._scores_dev = None
         self._lazy_scores = False
         self._scores_np = None
+        self._urecs = None
+        self._drecs = None
+        self._ranked = False
 
     def _flops_per_step(self) -> float:
         """The base estimate + the 2K-wide reader responsibilities, ~6 flops
@@ -678,6 +681,16 @@ class CTPF(TopicModel):
             else:
                 self._scores_np = np.zeros((self.M, self.U))
         return self._scores_np
+
+    @scores.setter
+    def scores(self, v):
+        self._scores_np = np.asarray(v)
+        self._scores_dev = None
+        self._lazy_scores = False
+        # scores assigned by the user define the ranking
+        self._ranked = bool(np.any(self._scores_np))
+        self._urecs = None
+        self._drecs = None
 
     def _score_slice(self, kind: str, i: int) -> np.ndarray:
         if self._scores_np is not None:
@@ -711,7 +724,7 @@ class CTPF(TopicModel):
         else:             # documents for user i
             n = self.M
             excl = np.asarray(self.libs[i], dtype=np.int64)
-        if n and (self._scores_dev is not None or self._lazy_scores):
+        if self._ranked and n:
             order = np.argsort(-self._score_slice(kind, i), kind="stable")
         else:
             order = np.arange(n, dtype=np.int64)
@@ -722,11 +735,23 @@ class CTPF(TopicModel):
 
     @property
     def urecs(self):
-        return _LazyRecs(self, "u", self.U)
+        if self._urecs is None:
+            self._urecs = _LazyRecs(self, "u", self.U)
+        return self._urecs
+
+    @urecs.setter
+    def urecs(self, v):
+        self._urecs = v
 
     @property
     def drecs(self):
-        return _LazyRecs(self, "d", self.M)
+        if self._drecs is None:
+            self._drecs = _LazyRecs(self, "d", self.M)
+        return self._drecs
+
+    @drecs.setter
+    def drecs(self, v):
+        self._drecs = v
 
     def _init_state(self):
         gen = torch.Generator().manual_seed(self.seed)
@@ -779,6 +804,9 @@ class CTPF(TopicModel):
             self._scores_dev = s[rows][:, : self.U]
             self._lazy_scores = False
         self._scores_np = None
+        self._ranked = self._n_shards == 1
+        self._urecs = None
+        self._drecs = None
 
     # ── Hebrew-letter parameter accessors ──
     @property
