@@ -356,15 +356,21 @@ def timed(fn):
 def fixpoint_work(module, ref, args, kw, per_doc) -> float:
     """Sum over the passes of the plain version's fixpoint of ``per_doc``
     [B] for the documents still active in each pass: the passes the data
-    needs, read from the plain version's own loop (``masked_fixpoint``,
-    whose carry ends in the active mask)."""
-    total = 0.0
+    needs (``fixpoint_passes``)."""
+    return float((fixpoint_passes(module, ref, args, kw) * per_doc).sum())
+
+
+def fixpoint_passes(module, ref, args, kw):
+    """The passes of the plain version's fixpoint each document ran [B],
+    read from its own loop (``masked_fixpoint``, whose carry ends in the
+    active mask); 0 when it ran none."""
+    got = 0
     orig = module.masked_fixpoint
 
     def counting(body, carry, viter, *a, **k):
         def counted(i, c):
-            nonlocal total
-            total += float((c[-1].to(per_doc.dtype) * per_doc).sum())
+            nonlocal got
+            got = got + c[-1].long()
             return body(i, c)
         return orig(counted, carry, viter, *a, **k)
 
@@ -373,7 +379,24 @@ def fixpoint_work(module, ref, args, kw, per_doc) -> float:
         ref(*args, **kw)
     finally:
         module.masked_fixpoint = orig
-    return total
+    return got
+
+
+def hmtm_chain_steps(tmask, passes, K) -> tuple:
+    """Sequential steps of the slowest document's chain in hmtm_estep (its
+    passes and the final one) and hmtm_logz: the split schedule (K <= 32)
+    walks last + 1 slots a pass, each warp one way, and meets at last // 2
+    for logZ; the multi-warp one walks them twice a pass (forward, then
+    backward) and once for logZ."""
+    import torch
+
+    pos = torch.arange(tmask.shape[1], device=tmask.device)
+    last = torch.where(tmask > 0, pos, -1).max(1).values
+    n = (last + 1).clamp(min=1)
+    split = K <= 32
+    est = int(((passes + 1) * n * (1 if split else 2)).max())
+    lz = int((((last.clamp(min=0) + 1) // 2 + 1) if split else n).max())
+    return est, lz
 
 
 def n_unique(ids, keep) -> int:
@@ -1563,7 +1586,9 @@ def compare_hmtm(label, K, viter, mode, args, dev, calls=(N_KERNEL, 3)) -> tuple
     # pass 4 K²; the passes each document ran come from the plain loop
     real = tmask.sum(1)
     n_real = float(real.sum())
-    work = fixpoint_work(hmtm_mod, hmtm_estep_ref, args, kw, real)
+    passes = fixpoint_passes(hmtm_mod, hmtm_estep_ref, args, kw)
+    work = float((passes.to(real.dtype) * real).sum())
+    steps, zsteps = hmtm_chain_steps(tmask, passes, K)
     uniq = n_unique(terms, tmask > 0)
     est = record(err, time_calls(lambda: hmtm_estep(*args, **kw), *calls),
                  (plain_s * 1e3, plain_s * 1e3),
@@ -1576,7 +1601,9 @@ def compare_hmtm(label, K, viter, mode, args, dev, calls=(N_KERNEL, 3)) -> tuple
           f"shared-memory mode {got_mode}, passes a real slot {work / max(n_real, 1):.2f} | "
           f"hmtm_estep {times(est)} | hmtm_logz {times(lz)}, rel err "
           f"{float(((z - zr).abs() / zr.abs().clamp_min(1e-30)).max()):.3e} (plain: one call "
-          "on the host clock)")
+          f"on the host clock) | chain of the slowest document: hmtm_estep {steps} steps, "
+          f"{est['ms'] * 1e6 / steps:.1f} ns a step; hmtm_logz {zsteps} steps, "
+          f"{lz['ms'] * 1e6 / zsteps:.1f} ns a step")
     return est, lz, got[2]
 
 

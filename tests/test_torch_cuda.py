@@ -1008,14 +1008,16 @@ def _hmtm_mode(L, K, suffix=""):
     return _build.function(f"tmvb_hmtm_estep_mode{suffix}", [ctypes.c_int64] * 2)(L, K)
 
 
-# K: NSF's 25 (one warp, not a multiple of 32), 32, 40 and 100 (several
-# warps), 200 (S in scratch), and the wide mode's 240, 256, 257, 300 and
-# 512 (A past shared memory, more topics than threads); L: NSF's widths,
-# and 5000 (messages in scratch); viter 0 (the final pass only), 3 and 10
+# K: NSF's 25 (the split schedule, register width 28), 1 and 32 (widths 16
+# and 32), 40 and 100 (several warps), 200 (S in scratch), and the wide
+# mode's 240, 256, 257, 300 and 512 (A past shared memory, more topics
+# than threads); L: NSF's widths, 1, 2 and 65 (the split's edges: no
+# second half, one slot a half, an odd length) and 5000 (messages in
+# scratch); viter 0 (the final pass only), 3 and 10
 @pytest.mark.parametrize("K,L,viter", [(25, 128, 10), (25, 64, 0), (32, 24, 10), (40, 72, 3),
                                        (100, 128, 3), (200, 16, 3), (25, 5000, 2), (1, 40, 3),
                                        (240, 24, 3), (256, 24, 3), (257, 24, 3), (300, 24, 3),
-                                       (512, 24, 3)])
+                                       (512, 24, 3), (25, 1, 3), (25, 2, 3), (25, 65, 10)])
 def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
     B = 16 if L > 1000 or K > 256 else 64
     args = _hmtm_chunk(K, B, L, 2000, cuda, seed=K + L)
@@ -1043,6 +1045,44 @@ def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
     zr = hmtm_logz_ref(*zargs)
     assert float(z[1]) == 0.0 and torch.all(torch.isfinite(z))
     assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hmtm_split_meets_on_padding_and_epsilon_emissions(cuda, dtype):
+    """The split schedule's edges on the card: every document's midpoint
+    (last // 2) a padding slot, at several lengths; and documents whose
+    last slot and midpoint hold a term no topic holds (emission EPSILON in
+    every topic), where JAX's posteriors sum to less than 1 and logZ needs
+    the forward's EPSILON through the backward."""
+    K, B, L = 25, 48, 40
+    args = list(_hmtm_chunk(K, B, L, 500, cuda, seed=11))
+    tmask, terms = args[2].clone(), args[1].clone()
+    for d in range(4, 20):   # lengths 3 .. 40, the midpoint on padding
+        last = 3 + (d - 4) * 37 // 15 - 1
+        tmask[d] = 0.0
+        tmask[d, : last + 1] = 1.0
+        tmask[d, last // 2] = 0.0
+    for d in range(20, 28):   # term 0, emission EPSILON, at the end and the middle
+        last = 8 + 4 * (d - 20)
+        tmask[d] = 0.0
+        tmask[d, : last + 1] = 1.0
+        terms[d, last] = terms[d, last // 2] = 0
+    betaT = args[0].clone()
+    betaT[0] = EPSILON
+    args[0], args[1], args[2] = betaT, terms * (tmask > 0), tmask
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    tol = dict(rtol=1e-9, atol=1e-12) if dtype == torch.float64 else dict(rtol=5e-3, atol=1e-5)
+    kw = dict(viter=10, vtol=1.0 / K**2)
+    got = hmtm_estep(*args, **kw)
+    want = hmtm_estep_ref(*args, **kw)
+    for name, a, b in zip(("tau", "gamma", "r"), got, want):
+        torch.testing.assert_close(a, b, **tol, msg=name)
+    assert torch.all(got[2][args[2] == 0] == 0)
+    assert float(want[2][20:28].sum(-1).max()) < 0.99   # EPSILON moved the sums off 1
+    zargs = (*args[:3], got[0], got[1])
+    z, zr = hmtm_logz(*zargs), hmtm_logz_ref(*zargs)
+    assert torch.all((z - zr).abs() <= (1e-12 if dtype == torch.float64 else 1e-5) * zr.abs())
+    assert all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*args, **kw)))
 
 
 def test_hmtm_shared_memory_rule_and_widest_k(cuda):

@@ -17,7 +17,10 @@ synthetic L = 768, R = 256 chunk, with ``ctpf_args``'s tables and state,
 then the first chunk of each narrower bucket at viter 0 and 10;
 for the bound ``compare_kernels``'s tables; for HMTM ``hmtm_chunks``'s
 first three chunks (the widest NSF bucket with unit counts at K = 25 and
-K = 100, and L = 4,096) with ``hmtm_logz`` beside each.  viter = 0 runs no pass (the
+K = 100, and L = 4,096) with ``hmtm_logz`` beside each, then at one viter
+its fourth (empty, one-token, padded-first and doc_mask 0 documents), the
+widest chunk cast to float64 and a wide-mode chunk (``hmtm_wide_args``, K
+= 300).  viter = 0 runs no pass (the
 loads and the row writes alone); the slope over viter is the cost of a
 pass.  Prints one JSON line tagged LABEL with the device and call ms of
 each (shape, viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.
@@ -63,10 +66,22 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
 
         bucketed = tt.bucketize_packed(packed, chunk=1024, pad_multiple=8)
-        for label_, Kh, _, _, args in smoke.hmtm_chunks(bucketed, V, dev)[:3]:
+        chunks = smoke.hmtm_chunks(bucketed, V, dev)
+        for label_, Kh, _, _, args in chunks[:3]:
             for viter in VITERS:
                 out[f"{label_} viter={viter}"] = list(smoke.time_calls(
                     lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2)))
+            out[f"{label_} logz"] = list(smoke.time_calls(
+                lambda: hmtm_logz(*args[:3], args[6], args[7])))
+        # the special chunk, the widest chunk in float64 and the wide mode
+        # (K = 300, 64 documents of L = 48), at one viter each
+        f64 = tuple(a.double() if a.is_floating_point() else a for a in chunks[0][4])
+        wide = smoke.hmtm_wide_args(300, 64, 48, V, dev, 300, torch.float32)
+        for label_, Kh, viter, args in ((chunks[3][0], 25, 10, chunks[3][4]),
+                                        (f"{chunks[0][0]} float64", 25, 10, f64),
+                                        ("wide mode K=300 B=64 L=48", 300, 3, wide)):
+            out[f"{label_} viter={viter}"] = list(smoke.time_calls(
+                lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2)))
             out[f"{label_} logz"] = list(smoke.time_calls(
                 lambda: hmtm_logz(*args[:3], args[6], args[7])))
         return emit(here, out)

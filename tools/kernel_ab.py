@@ -11,8 +11,9 @@ built; the corpora, shapes, checks and timer are those of THIS checkout's
 version, its device time over many launches, its call time and its bound,
 and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 (NSF scale) and the CTPF main path (CiteULike scale), K = 100,
-1024-document chunks: one warm-up iteration each, then three steps alone,
-each timed by the host clock up to a synchronize.  Last, ``digests``:
+1024-document chunks, and HMTM's (NSF with unit counts, K = 25): one
+warm-up iteration each, then three steps alone, each timed by the host
+clock up to a synchronize.  Last, ``digests``:
 a sha256 of the outputs of the E-step kernels, their pass modes,
 ``lda_elbo_tok``, ``scatter_rows``, ``hmtm_estep`` and ``hmtm_logz`` (f32,
 and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase 3's
@@ -136,6 +137,20 @@ def main(root: str, label: str) -> int:
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
         out[f"{name}_step_s"] = steps
+    # HMTM's main path: NSF with unit counts, K = 25, viter 10
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    m = tt.HMTM(unit_counts(kc["packed"]), 25, tt.RuntimeConfig(chunk_docs=1024), device="cuda",
+                seed=7)
+    m.train(iter=1, checkelbo=float("inf"), printelbo=False)
+    tr, state, steps = m.trainer, m.state, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.step_fn(state, *tr.data)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    out["hmtm_step_s"] = steps
     out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)

@@ -3,12 +3,13 @@
 launches, host reads (``aten::_local_scalar_dense``) and the top kernels;
 then one unprofiled step.
 
-    python3 tools/profile_torch_paths.py [LDA fLDA CTPF CTM fCTM]
+    python3 tools/profile_torch_paths.py [LDA fLDA CTPF CTM fCTM HMTM]
 
 Needs one CUDA GPU.  The models and corpora are ``chip_smoke.py``'s main
 paths: LDA/fLDA at NSF scale and CTPF at CiteULike scale with K = 100 and
 1024-document chunks, CTM/fCTM at NSF scale with K = 50 and their default
-2048-document chunks; each takes one warm-up step first.
+2048-document chunks, HMTM on NSF with unit counts at K = 25, 1024-document
+chunks and viter 10; each takes one warm-up step first.
 """
 import pathlib
 import sys
@@ -19,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import topicmodelsvb_jl_torch as tt  # noqa: E402
+from topicmodelsvb_jl_torch.ops.packing import unit_counts  # noqa: E402
 
 
 def dev_time(e):
@@ -38,7 +40,8 @@ def main(which):
              "fLDA": lambda: tt.fLDA(packed, 100, rt, device="cuda", seed=7),
              "CTPF": lambda: tt.CTPF(cpk, 100, rt, device="cuda", seed=7),
              "CTM": lambda: tt.CTM(packed, 50, device="cuda", seed=7),
-             "fCTM": lambda: tt.fCTM(packed, 50, device="cuda", seed=7)}[name]()
+             "fCTM": lambda: tt.fCTM(packed, 50, device="cuda", seed=7),
+             "HMTM": lambda: tt.HMTM(unit_counts(packed), 25, rt, device="cuda", seed=7)}[name]()
         m.train(iter=1, checkelbo=float("inf"), printelbo=False)
         tr = m.trainer
         state = m.state
@@ -70,4 +73,4 @@ def main(which):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["LDA", "fLDA", "CTPF", "CTM", "fCTM"])
+    main(sys.argv[1:] or ["LDA", "fLDA", "CTPF", "CTM", "fCTM", "HMTM"])

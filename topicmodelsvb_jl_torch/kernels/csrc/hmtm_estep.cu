@@ -21,43 +21,70 @@
 //
 // `hmtm_estep` runs up to viter passes of forward, backward and update,
 // then one more forward-backward from the final state that writes
-// r [B, L, K] = q(z_n) for every row of the chunk.  `hmtm_logz` runs the
-// forward pass alone and writes logZ = sum_n log c_n, the bound's z and w
-// terms.
+// r [B, L, K] = q(z_n) for every row of the chunk.  `hmtm_logz` writes
+// logZ = sum_n log c_n, the bound's z and w terms.
 //
-// What bounds it on an H100: neither bytes nor flops but the latency of a
-// sequential chain.  A document's 2 (viter + 1) scans are L K x K
-// matrix-vector products each, every step waiting on the one before: at
-// the widest NSF chunk (B = 1024, L = 128, K = 25, viter 10) ~2,800 steps
-// a document, each a dot product of K terms, a sum over K threads and a
-// division before the next step can start.  The chunk's flops (~5 K^2 a
-// step) take ~70 us at the f32 rate and its bytes (~13 MB of r) ~4 us, so
-// the design aims at the chain's latency and at having every document in
-// flight at once:
-// - one block a document, ceil(K/32) warps, thread i owning topic i;
-// - for K <= 32 (one warp, NSF's K = 25) thread i keeps row i of A for the
-//   forward and column i of A and of S for the backward in registers and
-//   takes the other topics' message entries and g by shuffles: a step has
-//   no shared-memory traffic and no barrier.  The shared-memory version
-//   below (A, a_{n-1} and g read from shared memory, a barrier a step)
-//   takes 2.4 times as long a pass at the widest NSF chunk (0.263 against
-//   0.109 ms on an H100 80GB HBM3 at 700 W, tools/estep_sweep.py);
-// - wider K: A in shared memory, rows padded to an odd stride, so that
-//   both the forward (thread i reads row i) and the backward (thread l
-//   reads column l) read 32 banks at once;
+// What bounds it on an H100: neither bytes nor flops but a sequential
+// chain.  A document's passes are L K x K matrix-vector products each,
+// every step waiting on the one before: at the widest NSF chunk (B = 1024,
+// L = 128, K = 25, viter 10) ~11 passes of 128 slots.  The chunk's flops
+// (~6 K^2 a slot a pass) take ~53 us at the f32 rate and its bytes (~13 MB
+// of r) ~4 us; the time is the chain's steps times a step's cost.
+//
+// K <= 32, NSF's path: the split schedule (hmtm_estep_split_kernel,
+// hmtm_logz_split_kernel).  A block of two warps a document, lane i topic
+// i; the forward warp and the backward warp walk the chain at once and
+// meet in the middle, so a pass is L steps on the chain, not 2 L:
+//   forward   F_n = (A F_{n-1}) (B_n / C_{n-1}), C = sum F + EPSILON
+//             (JAX's f_n and c_n)
+//   backward  v_n = B_n bt_n, bt_{n-1} = A^T v_n / (sum v_n + EPSILON),
+//             bt = 1 from the last real slot: normalised by its own sums,
+//             it needs nothing from the forward
+//   combine   (A a_{n-1}) . v_n = c_n (a_n . bt_n): r_n = (A a_{n-1}) o v_n
+//             / that, S[i, l] += v_n[i] a_{n-1}[l] / that (the forward's S
+//             by rows, the backward's by columns); r and S times s = sum
+//             a_last (JAX's a_n . be_n, 1 but for EPSILON / c_last)
+// Up to mid = last / 2 the forward stores F_n and the backward v_n (n >
+// mid) in one [L, K] store; past it each warp combines its message with
+// the other's stored one.  logZ meets the same way: the forward's sum of
+// log C to mid, the backward's sum of log N past it and log(a_mid . bt_mid)
+// (the backward carries the forward's EPSILON as a sink state, so the sum
+// is JAX's, EPSILON included); half the chain.  A step's chain is a
+// broadcast of the message (a store to a per-warp shared row read back as
+// 16-byte vectors: faster than 32 shuffles, PERF.md), the
+// K-term dot and one multiply; the sum that normalises runs beside the dot
+// (each lane sums the broadcast values: no butterfly on the chain) with
+// the special-function unit's reciprocal in float32.  Each lane keeps its
+// row or column of A and of S in registers (a width of 16, 28 or 32 by K;
+// <= 128 registers, so 8 documents an SM: the widest NSF chunk in one
+// wave, 18.6 KB of shared memory each), the emission entry fetched a slot
+// ahead.  Padding carries a message (c = 1, r = 0; a padding first slot
+// takes F_0 = p0); a document with no real slot has logZ = 0 exactly.
+// What holds a step now is the SM's schedulers and shared-memory pipe under
+// 16 warps: ~0.52 us a step at NSF against ~0.39 for the one-warp
+// schedule's steps, of which a pass took twice as many (chip_smoke.py's
+// phase 9, PERF.md), and ~0.39 us with one document an SM (L = 4,096), of
+// which the gather (the term id, then its entry) is up to a fifth.
+//
+// K > 32 (33 .. 239 in f32): the multi-warp schedule (hmtm_estep_kernel,
+// hmtm_logz_kernel), forward then backward as JAX orders them:
+// - one block a document, ceil(K/32) warps, thread i owning topic i; A in
+//   shared memory, rows padded to an odd stride, so that both the forward
+//   (thread i reads row i) and the backward (thread l reads column l) read
+//   32 banks at once; a barrier a step;
 // - emission rows gathered from the [V, K] table (in L2) with the next
 //   slot's term id and row loaded a step ahead, off the chain;
 // - xi_sum is accumulated as S[i, l] = sum_n g_n[i] a_{n-1}[l] and
 //   multiplied by A once a pass (A is constant within a pass); S, the
 //   messages a [L, K] and the scalers c [L] stay in shared memory when all
-//   of them fit half the SM's opt-in (NSF: 19 KB, so 11 documents an SM
-//   and the whole chunk in one wave), else the messages, and past K ~ 168
-//   S too, go to a device scratch the wrapper allocates;
-// - sums run in fixed orders and no float atomic is used: same inputs,
-//   same bits;
-// - each document stops on its own test, so the E-step reads nothing back
-//   to the host.
-// psi is common.cuh's shift-by-8 series.
+//   of them fit half the SM's opt-in, else the messages, and past K ~ 168
+//   S too, go to a device scratch the wrapper allocates.
+// Both are compiled for two blocks an SM (kHmBlocks: up to 128 registers a
+// thread; left to itself ptxas kept them to 64 and K = 100 ran 24% slower).
+// Either way sums run in fixed orders and no float atomic is used (same
+// inputs, same bits), and each document stops on its own test, so the
+// E-step reads nothing back to the host.  psi is common.cuh's shift-by-8
+// series.
 //
 // The wide mode (mode 3; hmtm_estep_wide_kernel, hmtm_logz_wide_kernel)
 // takes every K that the shared-memory modes cannot: past 256 topics (one
@@ -84,10 +111,10 @@
 // float64 state, every input, output and sum in double.  psi is the double
 // series through t^-12 (digamma_series64, truncation < 2e-14), since the
 // plain version takes psi from torch.special on a float64 state; exp and
-// log are the double ones.  The K <= 32 path shuffles doubles.  A in 8-byte
-// elements fits shared memory up to K ~ 169; past it the wide mode runs.
-// The float32 instantiations make the same calls as before (expf, logf,
-// fmaf, sqrtf, the f32 series): their bits do not move.
+// log are the double ones, and 1 / x the IEEE division.  The split
+// kernels keep their rows in up to 255 registers (4 documents an SM).  A in
+// 8-byte elements fits shared memory up to K ~ 169; past it the wide mode
+// runs.
 
 #include "common.cuh"
 
@@ -96,6 +123,10 @@ namespace tmvb {
 constexpr int kHmMaxThreads = 256;   // 8 warps: K <= 256 (the wide mode: any K)
 constexpr int kHmWide = 3;           // HmShape::mode of the wide mode
 constexpr int kHmBadShape = -2;      // K or L below 1
+// Blocks an SM the multi-warp kernels are compiled for: a cap of 128
+// registers a thread (without it ptxas kept them to 64, and K = 100 ran
+// 24% slower; PERF.md)
+constexpr int kHmBlocks = 2;
 
 __host__ __device__ inline int hm_stride(int K) { return K | 1; }
 __host__ __device__ inline int hm_threads(int K) {
@@ -110,6 +141,19 @@ inline size_t hm_base_elems(int K) {
   return static_cast<size_t>(K) * hm_stride(K) + 2 * static_cast<size_t>(hm_threads(K)) + 32;
 }
 
+constexpr int kHsThreads = 64;   // warp 0 runs the forward, warp 1 the backward
+
+// Registers a lane keeps for a row or column of K entries: the next of
+// 16, 28 and 32 (K = 25 reads seven 16-byte vectors a broadcast).
+__host__ __device__ inline int hs_width(int K) { return K <= 16 ? 16 : (K <= 28 ? 28 : 32); }
+
+// Shared elements of the split kernels but the messages: two broadcast
+// rows a warp [2][2][32], red, p0 and psi(column sums) [32] each, A [K, K
+// | 1] and G [K, K] (the forward's S, then the new gamma).
+inline size_t hs_base_elems(int K) {
+  return 4 * 32 + 3 * 32 + static_cast<size_t>(K) * hm_stride(K) + static_cast<size_t>(K) * K;
+}
+
 // The wide mode's scratch a document, in elements: A, A^T and S [K, K],
 // the messages [L, K], the scalers [L], g [2, K], be, p0 and the column
 // sums [K] (hmtm_estep); A^T, two message rows and p0 (hmtm_logz).
@@ -119,8 +163,8 @@ inline int64_t hm_wide_logz_scratch(int64_t K) { return K * K + 3 * K; }
 struct HmShape {
   int mode;         // 0: S and the messages in shared memory; 1: the
                     // messages in scratch; 2: S and the messages in
-                    // scratch; 3 (wide): A, A^T, S, the messages and the
-                    // vectors in scratch
+                    // scratch (K > 32); 3 (wide): A, A^T, S, the messages
+                    // and the vectors in scratch
   size_t bytes;     // dynamic shared memory
   int64_t scratch;  // elements of device scratch a document (hmtm_estep)
 };
@@ -133,13 +177,22 @@ inline int hm_shape(int64_t L, int64_t K, HmShape* s) {
   if (K < 1 || L < 1) return kHmBadShape;
   const int optin = smem_optin();
   if (optin < 0) return query_error();
+  const int64_t pos = L * K + L;
+  if (K <= 32) {   // the split schedule: the messages [L, K] in shared memory or scratch
+    const size_t sb = hs_base_elems(static_cast<int>(K)) * sizeof(R);
+    const size_t pb = static_cast<size_t>(L * K) * sizeof(R);
+    if (sb + pb <= static_cast<size_t>(optin) / 2)
+      *s = {0, sb + pb, 0};
+    else
+      *s = {1, sb, L * K};
+    return 0;
+  }
   const size_t base = hm_base_elems(static_cast<int>(K)) * sizeof(R);
   if (K > kHmMaxThreads || base > static_cast<size_t>(optin)) {
     *s = {kHmWide, 32 * sizeof(R), hm_wide_scratch(L, K)};
     return 0;
   }
   const size_t sb = static_cast<size_t>(K * K) * sizeof(R);
-  const int64_t pos = L * K + L;
   const size_t pb = static_cast<size_t>(pos) * sizeof(R);
   if (base + sb + pb <= static_cast<size_t>(optin) / 2)
     *s = {0, base + sb + pb, 0};
@@ -220,13 +273,10 @@ __device__ __forceinline__ R hm_p0(R tau, bool own, R* red, int nw) {
 
 // The forward pass over slots 0 .. last; row n of the messages is
 // `a + (ring ? n & 1 : n) * K`, its scaler c[n] (c may be NULL).  Returns
-// logZ, the same in every thread.  Ends with a barrier.  kWarp (K <= 32,
-// one warp): thread i keeps row i of A and its own message in registers
-// and takes a_{n-1} from the other lanes by shuffles, so a step has no
-// shared-memory traffic and no barrier; else A and a_{n-1} are read from
-// shared memory and a barrier ends each step.  Both sum (A a)_i over four
-// accumulators.
-template <bool kRing, bool kWarp, typename R>
+// logZ, the same in every thread.  Thread i reads row i of A and a_{n-1}
+// from shared memory and sums (A a)_i over four accumulators; a barrier
+// ends each step.
+template <bool kRing, typename R>
 __device__ __forceinline__ R hm_forward(
     const R* __restrict__ A, const R* __restrict__ betaT, const int* tb,
     const R* mb, R p0, R* a, R* c, R* red, int last, int K, int nw) {
@@ -235,11 +285,6 @@ __device__ __forceinline__ R hm_forward(
   const int Ka = hm_stride(K);
   auto row = [&](int n) { return a + static_cast<size_t>(kRing ? (n & 1) : n) * K; };
   const R* Ai = A + i * Ka;
-  R arow[kWarp ? 32 : 1];
-  if constexpr (kWarp) {
-#pragma unroll
-    for (int l = 0; l < 32; ++l) arow[l] = (own && l < K) ? Ai[l] : R(0);
-  }
   const R m0 = mb[0];
   const R b0 = (own && m0 > R(0)) ? betaT[static_cast<size_t>(tb[0]) * K + i] : R(0);
   const R f0 = own ? (m0 > R(0) ? p0 * b0 : p0) : R(0);
@@ -262,11 +307,7 @@ __device__ __forceinline__ R hm_forward(
     if (n + 2 <= last) t_nx2 = tb[n + 2];
     if (mn > R(0)) {
       R s[4] = {R(0), R(0), R(0), R(0)};
-      if constexpr (kWarp) {
-#pragma unroll
-        for (int l = 0; l < 32; ++l)
-          s[l & 3] = Real<R>::fma(arow[l], __shfl_sync(0xffffffffu, a_i, l), s[l & 3]);
-      } else if (own) {
+      if (own) {
         const R* ap = row(n - 1);
         int l = 0;
         for (; l + 4 <= K; l += 4) {
@@ -286,21 +327,18 @@ __device__ __forceinline__ R hm_forward(
       c[n] = R(1);
     }
     if (own) row(n)[i] = a_i;
-    if constexpr (!kWarp) __syncthreads();
+    __syncthreads();
   }
-  if constexpr (kWarp) __syncthreads();
   return logz;
 }
 
 // The backward pass over slots last .. 1 from the forward's a and c.
 // Thread l owns be[l] and column l of S.  kFinal writes r rows 1 .. last
 // (`rd`, 0 on padding) and leaves S alone; otherwise
-// S[i, l] += g_n[i] a_{n-1}[l] on every real slot.  Returns be_0[l].
-// kWarp (K <= 32): column l of A and of S in registers, g_n[k] by
-// shuffles from lane k, no barrier; else A, S and g through shared memory
-// (g double-buffered, one barrier a real slot).  Both sum (A^T g)_l over
-// two accumulators.
-template <bool kFinal, bool kWarp, typename R>
+// S[i, l] += g_n[i] a_{n-1}[l] on every real slot.  Returns be_0[l].  A,
+// S and g go through shared memory (g double-buffered, one barrier a real
+// slot); (A^T g)_l is summed over two accumulators.
+template <bool kFinal, typename R>
 __device__ __forceinline__ R hm_backward(
     const R* __restrict__ A, const R* __restrict__ betaT, const int* tb,
     const R* mb, const R* a, const R* c, R* S, R* gbuf, R* rd,
@@ -308,14 +346,6 @@ __device__ __forceinline__ R hm_backward(
   const int l = threadIdx.x;
   const bool own = l < K;
   const int Ka = hm_stride(K), Kv = blockDim.x;
-  R acol[kWarp ? 32 : 1], scol[kWarp && !kFinal ? 32 : 1];
-  if constexpr (kWarp) {
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      acol[k] = (own && k < K) ? A[k * Ka + l] : R(0);
-      if constexpr (!kFinal) scol[k] = R(0);
-    }
-  }
   R be = R(1);
   if (last >= 1) {
     R m_nx = mb[last];
@@ -334,33 +364,24 @@ __device__ __forceinline__ R hm_backward(
         if (kFinal && own) rd[static_cast<size_t>(n) * K + l] = a[static_cast<size_t>(n) * K + l] * be;
         const R al = own ? a[static_cast<size_t>(n - 1) * K + l] : R(0);
         R e[2] = {R(0), R(0)};
-        if constexpr (kWarp) {
-#pragma unroll
-          for (int k = 0; k < 32; ++k) {
-            const R gk = __shfl_sync(0xffffffffu, gl, k);
-            e[k & 1] = Real<R>::fma(acol[k], gk, e[k & 1]);
-            if constexpr (!kFinal) scol[k] = Real<R>::fma(gk, al, scol[k]);
+        R* g = gbuf + par * Kv;
+        par ^= 1;
+        if (own) g[l] = gl;
+        __syncthreads();
+        if (own) {
+          int k = 0;
+          for (; k + 2 <= K; k += 2) {
+            const R g0 = g[k], g1 = g[k + 1];
+            e[0] = Real<R>::fma(A[k * Ka + l], g0, e[0]);
+            e[1] = Real<R>::fma(A[(k + 1) * Ka + l], g1, e[1]);
+            if (!kFinal) {
+              S[k * K + l] = Real<R>::fma(g0, al, S[k * K + l]);
+              S[(k + 1) * K + l] = Real<R>::fma(g1, al, S[(k + 1) * K + l]);
+            }
           }
-        } else {
-          R* g = gbuf + par * Kv;
-          par ^= 1;
-          if (own) g[l] = gl;
-          __syncthreads();
-          if (own) {
-            int k = 0;
-            for (; k + 2 <= K; k += 2) {
-              const R g0 = g[k], g1 = g[k + 1];
-              e[0] = Real<R>::fma(A[k * Ka + l], g0, e[0]);
-              e[1] = Real<R>::fma(A[(k + 1) * Ka + l], g1, e[1]);
-              if (!kFinal) {
-                S[k * K + l] = Real<R>::fma(g0, al, S[k * K + l]);
-                S[(k + 1) * K + l] = Real<R>::fma(g1, al, S[(k + 1) * K + l]);
-              }
-            }
-            if (k < K) {
-              e[0] = Real<R>::fma(A[k * Ka + l], g[k], e[0]);
-              if (!kFinal) S[k * K + l] = Real<R>::fma(g[k], al, S[k * K + l]);
-            }
+          if (k < K) {
+            e[0] = Real<R>::fma(A[k * Ka + l], g[k], e[0]);
+            if (!kFinal) S[k * K + l] = Real<R>::fma(g[k], al, S[k * K + l]);
           }
         }
         if (own) be = e[0] + e[1];
@@ -368,12 +389,6 @@ __device__ __forceinline__ R hm_backward(
         rd[static_cast<size_t>(n) * K + l] = R(0);
       }
     }
-  }
-  if constexpr (kWarp && !kFinal) {
-    if (own)
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (k < K) S[k * K + l] = scol[k];
   }
   return be;
 }
@@ -385,17 +400,13 @@ __device__ __forceinline__ R hm_pass(const R* A, const R* betaT, const int* tb,
                                      const R* mb, R p0, R* a, R* c,
                                      R* red, R* S, R* gbuf, R* rd, int last,
                                      int K, int nw) {
-  if (nw == 1) {
-    hm_forward<false, true>(A, betaT, tb, mb, p0, a, c, red, last, K, nw);
-    return hm_backward<kFinal, true>(A, betaT, tb, mb, a, c, S, gbuf, rd, last, K);
-  }
-  hm_forward<false, false>(A, betaT, tb, mb, p0, a, c, red, last, K, nw);
-  return hm_backward<kFinal, false>(A, betaT, tb, mb, a, c, S, gbuf, rd, last, K);
+  hm_forward<false>(A, betaT, tb, mb, p0, a, c, red, last, K, nw);
+  return hm_backward<kFinal>(A, betaT, tb, mb, a, c, S, gbuf, rd, last, K);
 }
 
 // R = float: the float32 mode; R = double: the float64 mode.
 template <typename R>
-__global__ void __launch_bounds__(kHmMaxThreads) hmtm_estep_kernel(
+__global__ void __launch_bounds__(kHmMaxThreads, kHmBlocks) hmtm_estep_kernel(
     const R* __restrict__ betaT,     // [V, K] beta^T + eps
     const int* __restrict__ terms,   // [B, L]
     const R* __restrict__ tmask,     // [B, L] 1 on real tokens
@@ -490,7 +501,7 @@ __global__ void __launch_bounds__(kHmMaxThreads) hmtm_estep_kernel(
 }
 
 template <typename R>
-__global__ void __launch_bounds__(kHmMaxThreads) hmtm_logz_kernel(
+__global__ void __launch_bounds__(kHmMaxThreads, kHmBlocks) hmtm_logz_kernel(
     const R* __restrict__ betaT, const int* __restrict__ terms,
     const R* __restrict__ tmask, const R* __restrict__ tau,
     const R* __restrict__ gamma, R* __restrict__ logz, int L, int K) {
@@ -507,12 +518,450 @@ __global__ void __launch_bounds__(kHmMaxThreads) hmtm_logz_kernel(
   hm_build_A(gamma + static_cast<size_t>(b) * K * K, A, static_cast<R*>(nullptr), K);
   const R p0 = hm_p0(own ? tau[static_cast<size_t>(b) * K + tid] : R(0), own, red + 16, nw);
   __syncthreads();
-  const R z = nw == 1
-      ? hm_forward<true, true>(A, betaT, tb, mb, p0, ring, static_cast<R*>(nullptr), red, last,
-                               K, nw)
-      : hm_forward<true, false>(A, betaT, tb, mb, p0, ring, static_cast<R*>(nullptr), red, last,
-                                K, nw);
+  const R z = hm_forward<true>(A, betaT, tb, mb, p0, ring, static_cast<R*>(nullptr), red, last,
+                               K, nw);
   if (tid == 0) logz[b] = z;
+}
+
+// ---- K <= 32: the split schedule (hmtm_estep_split_kernel,
+// hmtm_logz_split_kernel) ----
+
+template <typename R>
+struct HsBlocks;   // blocks an SM must hold: the registers' cap (65,536 / (64 x blocks))
+template <>
+struct HsBlocks<float> { static constexpr int v = 8; };   // <= 128 registers: 8 documents an SM
+template <>
+struct HsBlocks<double> { static constexpr int v = 4; };
+
+// The port's EPSILON, spacing(1e-14) (utils/numerics.py), which the plain
+// versions add to every scaler: a slot whose emission is EPSILON in every
+// topic (a term no topic holds) then gives the plain version's posteriors.
+// (kEps, which the other kernels add, is 1.6% larger.)
+template <typename R>
+__device__ __forceinline__ R hs_eps() { return R(1.5777218104420236e-30); }
+
+// The two warps meet: a named barrier of the block's 64 threads (the warps
+// reach it from different code).
+__device__ __forceinline__ void hs_sync() { asm volatile("bar.sync 1, 64;" ::: "memory"); }
+
+// The last real slot of a document, -1 when it has none; the same in both
+// warps, each of which computes it.
+template <typename R>
+__device__ __forceinline__ int hs_last(const R* mb, int L) {
+  int last = -1;
+  for (int n = threadIdx.x & 31; n < L; n += 32)
+    if (mb[n] > R(0)) last = n;
+  return __reduce_max_sync(0xffffffffu, last);
+}
+
+// x[l] = lane l's `own` for l < W: a store to this warp's row and W / 4
+// vector loads of it after __syncwarp (the row alternates between two, so
+// a step's store cannot meet the last step's loads).  W shuffles were
+// slower (PERF.md).
+template <int W, typename R>
+__device__ __forceinline__ void hs_bcast(R own, R* rows, int& par, R (&x)[W]) {
+  R* row = rows + 32 * par;
+  par ^= 1;
+  row[threadIdx.x & 31] = own;
+  __syncwarp();
+  const typename Real<R>::V4* q = reinterpret_cast<const typename Real<R>::V4*>(row);
+#pragma unroll
+  for (int j = 0; j < W / 4; ++j) {
+    const typename Real<R>::V4 v = q[j];
+    x[4 * j] = v.x;
+    x[4 * j + 1] = v.y;
+    x[4 * j + 2] = v.z;
+    x[4 * j + 3] = v.w;
+  }
+}
+
+// sum_l x[l] over four accumulators: every lane adds the same values in
+// the same order, so every lane holds the same bits
+template <int W, typename R>
+__device__ __forceinline__ R hs_sum(const R (&x)[W]) {
+  R s0 = R(0), s1 = R(0), s2 = R(0), s3 = R(0);
+#pragma unroll
+  for (int l = 0; l < W; l += 4) {
+    s0 += x[l];
+    s1 += x[l + 1];
+    s2 += x[l + 2];
+    s3 += x[l + 3];
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// 1 / x: the special-function unit's reciprocal in float32 (no branch; a
+// normaliser's rounding cancels in r and S and moves logZ by an ulp a
+// step), the IEEE division in float64
+__device__ __forceinline__ float hs_rcp(float x) { return __fdividef(1.0f, x); }
+__device__ __forceinline__ double hs_rcp(double x) { return 1.0 / x; }
+
+// sum_l m[l] x[l] over four accumulators
+template <int W, typename R>
+__device__ __forceinline__ R hs_dot(const R (&m)[W], const R (&x)[W]) {
+  R s0 = R(0), s1 = R(0), s2 = R(0), s3 = R(0);
+#pragma unroll
+  for (int l = 0; l < W; l += 4) {
+    s0 = Real<R>::fma(m[l], x[l], s0);
+    s1 = Real<R>::fma(m[l + 1], x[l + 1], s1);
+    s2 = Real<R>::fma(m[l + 2], x[l + 2], s2);
+    s3 = Real<R>::fma(m[l + 3], x[l + 3], s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// What a step reads of a slot ahead: the lane's emission entry b and the
+// mask m.
+template <typename R>
+struct HsSlot {
+  R b, m;
+};
+
+// Calls step(n, slot) for the `count` slots first, first + dir, ..., with
+// each slot fetched (fetch(n)) one step ahead.  The loop is not unrolled:
+// the step's code stays one copy.  Deeper prefetches were slower (PERF.md):
+// register rings, unrolled or not, the term id two steps ahead, and a
+// cp.async ring of entries in shared memory all cost more instructions or
+// registers than the latency they hid.
+template <typename Fetch, typename Step>
+__device__ __forceinline__ void hs_walk(int first, int count, int dir, Fetch fetch, Step step) {
+  if (count <= 0) return;
+  auto next = fetch(first);
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) {
+    const auto s = next;
+    if (k + 1 < count) next = fetch(first + dir * (k + 1));
+    step(first + dir * k, s);
+  }
+}
+
+// The lane's row (kRow) or column of A, zero past K.
+template <bool kRow, int W, typename R>
+__device__ __forceinline__ void hs_load_A(const R* A, int K, R (&m)[W]) {
+  const int lane = threadIdx.x & 31, Ka = hm_stride(K);
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    m[j] = (lane < K && j < K) ? (kRow ? A[lane * Ka + j] : A[j * Ka + lane]) : R(0);
+}
+
+// A [i, l] = exp(psi(g[i, l]) - dcs[l]) over the block's 64 threads.
+template <typename R>
+__device__ __forceinline__ void hs_build_A(const R* g, const R* dcs, R* A, int K) {
+  const int Ka = hm_stride(K);
+  for (int idx = threadIdx.x; idx < K * K; idx += kHsThreads) {
+    const int i = idx / K, l = idx - i * K;
+    A[i * Ka + l] = Real<R>::exp(hm_psi(g[idx]) - dcs[l]);
+  }
+}
+
+// Column lane of gamma [K, K]: psi of its sum into dcs[lane] (the sum in
+// row order), and the column copied to `copy` when given.
+template <typename R>
+__device__ __forceinline__ void hs_colsum(const R* g, R* copy, R* dcs, int K) {
+  const int l = threadIdx.x & 31;
+  if (l >= K) return;
+  R cs = R(0);
+  for (int i = 0; i < K; ++i) {
+    const R v = g[i * K + l];
+    if (copy != nullptr) copy[i * K + l] = v;
+    cs += v;
+  }
+  dcs[l] = hm_psi(cs);
+}
+
+// p0[lane] = exp(psi(tau) - psi(sum tau)) over one warp.
+template <typename R>
+__device__ __forceinline__ void hs_p0(R tau, R* p0, int K) {
+  const int l = threadIdx.x & 31;
+  const R ts = warp_sum(l < K ? tau : R(0));
+  if (l < K) p0[l] = Real<R>::exp(hm_psi(tau) - hm_psi(ts));
+}
+
+// One document a block of two warps.  Each pass runs the forward chain
+// (warp 0, lane i topic i: F_n = B_n (A F_{n-1}) / C_{n-1}, C = sum F +
+// eps) and the backward chain normalised by its own sums (warp 1, lane l
+// topic l: v_n = B_n bt_n, bt_{n-1} = A^T v_n / (sum v_n + eps)) at once.
+// Up to mid = last / 2 the forward stores F_n and the backward v_n for n >
+// mid, in the same [L, K] rows; past it each warp combines its message
+// with the other's stored one (the second half of the forward meets v_n,
+// of the backward F_{n-1}):
+//   E = (A F_{n-1}) . v_n,  r_n = (A F_{n-1}) o v_n / E,
+//   S[i, l] += v_n[i] F_{n-1}[l] / E
+// (the forward's S by rows, the backward's by columns).  JAX's
+// a_n . be_n is s = sum a_last, 1 but for eps / C_last: S, r_0 and, in
+// the final pass, the r rows are scaled by it at the end.
+template <typename R, int W>
+__global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_kernel(
+    const R* __restrict__ betaT, const int* __restrict__ terms, const R* __restrict__ tmask,
+    const R* __restrict__ doc_mask, const R* __restrict__ eta, const R* __restrict__ alpha,
+    const R* __restrict__ tau_in, const R* __restrict__ gamma_in, R* __restrict__ tau_out,
+    R* __restrict__ gamma_out, R* __restrict__ r, R* scratch, int L, int K, int mode, int viter,
+    R vtol) {
+  extern __shared__ __align__(16) unsigned char hm_smem_raw[];
+  R* sm = reinterpret_cast<R*>(hm_smem_raw);
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Ka = hm_stride(K);
+  const bool own = lane < K;
+  R* rows = sm + 64 * warp;   // this warp's two broadcast rows
+  R* red = sm + 128;          // [0] s, [1] |dgamma|^2
+  R* p0 = red + 32;
+  R* dcs = p0 + 32;
+  R* A = dcs + 32;
+  R* G = A + K * Ka;
+  R* msg = mode == 0 ? G + K * K : scratch + static_cast<size_t>(b) * L * K;
+  const int* tb = terms + static_cast<size_t>(b) * L;
+  const R* mb = tmask + static_cast<size_t>(b) * L;
+  const size_t dk = static_cast<size_t>(b) * K, dkk = dk * K;
+  R* rd = r + static_cast<size_t>(b) * L * K;
+  const int last = hs_last(mb, L);
+  const int mid = last > 0 ? last >> 1 : 0;
+
+  auto entry = [&](int n) { return own ? betaT[static_cast<size_t>(tb[n]) * K + lane] : R(0); };
+  auto plain = [&](int n) { return HsSlot<R>{entry(n), mb[n]}; };
+
+  if (warp == 1) {
+    const R tau = own ? tau_in[dk + lane] : R(0);
+    hs_colsum(gamma_in + dkk, gamma_out + dkk, dcs, K);
+    if (own) tau_out[dk + lane] = tau;
+    hs_p0(tau, p0, K);
+  }
+  hs_sync();
+  hs_build_A(gamma_in + dkk, dcs, A, K);
+  hs_sync();
+
+  // The fixpoint's passes while the document is active, then the final
+  // pass (S accumulated, or the r rows written).  Each warp runs its own
+  // loop, so that its arrays live in its code alone, and meets the other
+  // at the same barriers: the middle and the end of a pass, and twice in
+  // the update between passes.
+  bool active = doc_mask[b] > R(0);
+  auto next = [&]() {   // both warps: the new A, and whether to go on
+    hs_sync();
+    hs_build_A(G, dcs, A, K);
+    active = hm_sqrt(red[1]) >= vtol;
+    hs_sync();   // the new A and p0 complete before the next pass
+  };
+  int par = 0;
+  R x[W];
+  if (warp == 0) {
+    R arow[W], srow[W];
+    for (int it = 0;; ++it) {
+      const bool final_pass = !(it < viter && active);
+      hs_load_A<true>(A, K, arow);
+#pragma unroll
+      for (int j = 0; j < W; ++j) srow[j] = R(0);
+      const R m0 = mb[0];
+      R F = own ? (m0 > R(0) ? p0[lane] * entry(0) : p0[lane]) : R(0);
+      if (own) msg[lane] = F;
+      hs_walk(1, mid, 1, plain, [&](int n, const HsSlot<R>& s) {
+        if (s.m > R(0)) {
+          hs_bcast(F, rows, par, x);
+          const R rC = hs_rcp(hs_sum(x) + hs_eps<R>());   // beside the product
+          F = hs_dot(arow, x) * (s.b * rC);
+        }
+        if (own) msg[static_cast<size_t>(n) * K + lane] = F;
+      });
+      hs_sync();   // the middle: the backward's v_n stored for n > mid
+      hs_walk(mid + 1, last - mid, 1, plain, [&](int n, const HsSlot<R>& s) {
+        if (s.m > R(0)) {
+          const R vn = own ? msg[static_cast<size_t>(n) * K + lane] : R(0);
+          hs_bcast(F, rows, par, x);
+          const R rC = hs_rcp(hs_sum(x) + hs_eps<R>());
+          const R p = hs_dot(arow, x);
+          F = p * (s.b * rC);
+          const R e = (p * rC) * vn;   // (A a_{n-1}) o v_n: no product leaves f32's range
+          const R rE = hs_rcp(warp_sum(e));
+          if (final_pass) {
+            if (own) rd[static_cast<size_t>(n) * K + lane] = e * rE;
+          } else {
+            const R kap = (vn * rE) * rC;
+#pragma unroll
+            for (int l = 0; l < W; ++l) srow[l] = Real<R>::fma(kap, x[l], srow[l]);
+          }
+        } else if (final_pass && own) {
+          rd[static_cast<size_t>(n) * K + lane] = R(0);
+        }
+      });
+      const R tot = warp_sum(F);
+      if (lane == 0) red[0] = tot / (tot + hs_eps<R>());
+      if (!final_pass && own)
+#pragma unroll
+        for (int l = 0; l < W; ++l)
+          if (l < K) G[lane * K + l] = srow[l];
+      hs_sync();   // both halves done: s in red[0], the forward's S in G
+      if (final_pass) break;
+      next();
+    }
+  } else {
+    R acol[W], scol[W];
+    R tau = own ? tau_in[dk + lane] : R(0);
+    for (int it = 0;; ++it) {
+      const bool final_pass = !(it < viter && active);
+      hs_load_A<false>(A, K, acol);
+#pragma unroll
+      for (int j = 0; j < W; ++j) scol[j] = R(0);
+      R bt = own ? R(1) : R(0);
+      hs_walk(last, last - mid, -1, plain, [&](int n, const HsSlot<R>& s) {
+        if (s.m > R(0)) {
+          const R v = s.b * bt;
+          if (own) msg[static_cast<size_t>(n) * K + lane] = v;
+          hs_bcast(v, rows, par, x);
+          const R rN = hs_rcp(hs_sum(x) + hs_eps<R>());   // beside the product
+          bt = hs_dot(acol, x) * rN;
+        }
+      });
+      hs_sync();   // the middle: the forward's F_n stored for n <= mid
+      // slot mid: r_mid = F_mid o bt_mid / (F_mid . bt_mid)
+      const R fm = own ? msg[static_cast<size_t>(mid) * K + lane] : R(0);
+      R rc = fm * bt / warp_sum(fm * bt) * mb[mid];
+      if (final_pass && own) rd[static_cast<size_t>(mid) * K + lane] = rc;
+      hs_walk(mid, mid, -1, plain, [&](int n, const HsSlot<R>& s) {
+        const R fp = own ? msg[static_cast<size_t>(n - 1) * K + lane] : R(0);   // F_{n-1}
+        const R mp = mb[n - 1];
+        if (s.m > R(0)) {
+          const R v = s.b * bt;
+          hs_bcast(v, rows, par, x);
+          const R rN = hs_rcp(hs_sum(x) + hs_eps<R>());
+          bt = hs_dot(acol, x) * rN;
+          const R e = fp * bt;   // F_{n-1} o bt_{n-1}: no product leaves f32's range
+          const R rD = hs_rcp(warp_sum(e));
+          rc = e * rD * mp;
+          if (!final_pass) {
+            const R kap = (fp * rD) * rN;
+#pragma unroll
+            for (int i = 0; i < W; ++i) scol[i] = Real<R>::fma(x[i], kap, scol[i]);
+          }
+        } else if (final_pass || n == 1) {
+          const R e = fp * bt;
+          rc = e * hs_rcp(warp_sum(e)) * mp;
+        }
+        if (final_pass && own) rd[static_cast<size_t>(n - 1) * K + lane] = rc;
+      });
+      hs_sync();   // both halves done: s in red[0], the forward's S in G
+      if (final_pass) break;
+      // tau = eta + s r_0, gamma = alpha + A o (s S), column l by lane l,
+      // staged in G for the new A
+      const R s = red[0];
+      R d2 = R(0), cs = R(0);
+      if (own) {
+        tau = eta[lane] + s * rc;
+        tau_out[dk + lane] = tau;
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (i < K) {
+            const size_t o = dkk + i * K + lane;
+            const R gn = alpha[i * K + lane] + A[i * Ka + lane] * ((G[i * K + lane] + scol[i]) * s);
+            const R d = gn - gamma_out[o];
+            d2 = Real<R>::fma(d, d, d2);
+            gamma_out[o] = gn;
+            G[i * K + lane] = gn;
+            cs += gn;
+          }
+        }
+        dcs[lane] = hm_psi(cs);
+      }
+      hs_p0(tau, p0, K);
+      const R delta2 = warp_sum(d2);
+      if (lane == 0) red[1] = delta2;
+      next();
+    }
+  }
+
+  // q(z_n) from the final state on every row: the halves' rows scaled by s
+  // (when eps moved it off 1), zeros past the last real slot
+  const R s = red[0];
+  if (s != R(1))
+    for (int idx = threadIdx.x; idx < (last + 1) * K; idx += kHsThreads) rd[idx] *= s;
+  const int tail = last + 1 > 1 ? last + 1 : 1;
+  for (size_t idx = threadIdx.x; idx < static_cast<size_t>(L - tail) * K; idx += kHsThreads)
+    rd[static_cast<size_t>(tail) * K + idx] = R(0);
+}
+
+// logZ by the two halves: the forward to mid (sum of log C over its real
+// slots), the backward from last down to mid + 1 (sum of log N), and
+// log(a_mid . bt_mid) where they meet.  The backward carries bs, its
+// message of the forward's eps (a sink every message leaks eps / C into),
+// so that the product is JAX's sum of log c_n, eps included.
+template <typename R, int W>
+__global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_logz_split_kernel(
+    const R* __restrict__ betaT, const int* __restrict__ terms, const R* __restrict__ tmask,
+    const R* __restrict__ tau, const R* __restrict__ gamma, R* __restrict__ logz, int L,
+    int K) {
+  extern __shared__ __align__(16) unsigned char hm_smem_raw[];
+  R* sm = reinterpret_cast<R*>(hm_smem_raw);
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool own = lane < K;
+  R* rows = sm + 64 * warp;
+  R* red = sm + 128;   // [0] C_mid, [1] the forward's sum of log C
+  R* p0 = red + 32;
+  R* dcs = p0 + 32;
+  R* A = dcs + 32;
+  R* fmid = A + K * hm_stride(K);
+  const int* tb = terms + static_cast<size_t>(b) * L;
+  const R* mb = tmask + static_cast<size_t>(b) * L;
+  const int last = hs_last(mb, L);
+  if (last < 0) {   // no real slot: logZ is 0
+    if (threadIdx.x == 0) logz[b] = R(0);
+    return;
+  }
+  const int mid = last >> 1;
+  auto entry = [&](int n) { return own ? betaT[static_cast<size_t>(tb[n]) * K + lane] : R(0); };
+  auto plain = [&](int n) { return HsSlot<R>{entry(n), mb[n]}; };
+  const R* gd = gamma + static_cast<size_t>(b) * K * K;
+  if (warp == 1)
+    hs_colsum(gd, static_cast<R*>(nullptr), dcs, K);
+  else
+    hs_p0(own ? tau[static_cast<size_t>(b) * K + lane] : R(0), p0, K);
+  hs_sync();
+  hs_build_A(gd, dcs, A, K);
+  hs_sync();
+
+  int par = 0;
+  R x[W];
+  if (warp == 0) {
+    R arow[W];
+    hs_load_A<true>(A, K, arow);
+    const R m0 = mb[0];
+    R F = own ? (m0 > R(0) ? p0[lane] * entry(0) : p0[lane]) : R(0);
+    bool logged = m0 > R(0);   // F comes from a real slot: its C is a c_n
+    R lz = R(0);
+    hs_walk(1, mid, 1, plain, [&](int n, const HsSlot<R>& s) {
+      if (s.m > R(0)) {
+        hs_bcast(F, rows, par, x);
+        const R C = hs_sum(x) + hs_eps<R>();
+        if (logged) lz += Real<R>::log(C);
+        F = hs_dot(arow, x) * (s.b * hs_rcp(C));
+        logged = true;
+      }
+    });
+    const R C = warp_sum(F) + hs_eps<R>();
+    if (logged) lz += Real<R>::log(C);
+    if (own) fmid[lane] = F;
+    if (lane == 0) {
+      red[0] = C;
+      red[1] = lz;
+    }
+    hs_sync();
+  } else {
+    R acol[W];
+    hs_load_A<false>(A, K, acol);
+    R bt = own ? R(1) : R(0), bs = R(1), lz = R(0);
+    hs_walk(last, last - mid, -1, plain, [&](int n, const HsSlot<R>& s) {
+      if (s.m > R(0)) {
+        const R v = s.b * bt;
+        hs_bcast(v, rows, par, x);
+        const R N = hs_sum(x) + hs_eps<R>();
+        const R rN = hs_rcp(N);
+        bt = Real<R>::fma(hs_eps<R>(), bs, hs_dot(acol, x)) * rN;
+        bs = hs_eps<R>() * bs * rN;
+        lz += Real<R>::log(N);
+      }
+    });
+    hs_sync();
+    const R fm = own ? fmid[lane] : R(0);
+    const R z = Real<R>::fma(hs_eps<R>(), bs, warp_sum(fm * bt)) / red[0];
+    if (lane == 0) logz[b] = red[1] + lz + Real<R>::log(z);
+  }
 }
 
 // ---- the wide mode: everything per document in the device scratch ----
@@ -767,6 +1216,32 @@ __global__ void __launch_bounds__(kHmMaxThreads) hmtm_logz_wide_kernel(
   if (threadIdx.x == 0) logz[b] = z;
 }
 
+// The split kernels at the register width W of the block's K.
+template <typename R, int W>
+int launch_split_estep(const R* betaT, const int* terms, const R* tmask, const R* doc_mask,
+                       const R* eta, const R* alpha, const R* tau_in, const R* gamma_in,
+                       R* tau_out, R* gamma_out, R* r, R* scratch, int64_t B, int64_t L,
+                       int64_t K, int viter, R vtol, const HmShape& s, cudaStream_t st) {
+  const cudaError_t err = allow_smem(hmtm_estep_split_kernel<R, W>, s.bytes);
+  if (err != cudaSuccess) return fail(err);
+  hmtm_estep_split_kernel<R, W><<<static_cast<unsigned>(B), kHsThreads, s.bytes, st>>>(
+      betaT, terms, tmask, doc_mask, eta, alpha, tau_in, gamma_in, tau_out, gamma_out, r,
+      scratch, static_cast<int>(L), static_cast<int>(K), s.mode, viter, vtol);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R, int W>
+int launch_split_logz(const R* betaT, const int* terms, const R* tmask, const R* tau,
+                      const R* gamma, R* logz, int64_t B, int64_t L, int64_t K,
+                      cudaStream_t st) {
+  const size_t bytes = hs_base_elems(static_cast<int>(K)) * sizeof(R);
+  const cudaError_t err = allow_smem(hmtm_logz_split_kernel<R, W>, bytes);
+  if (err != cudaSuccess) return fail(err);
+  hmtm_logz_split_kernel<R, W><<<static_cast<unsigned>(B), kHsThreads, bytes, st>>>(
+      betaT, terms, tmask, tau, gamma, logz, static_cast<int>(L), static_cast<int>(K));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename R>
 int launch_hmtm_estep(const R* betaT, const int* terms, const R* tmask, const R* doc_mask,
                       const R* eta, const R* alpha, const R* tau_in, const R* gamma_in,
@@ -779,6 +1254,22 @@ int launch_hmtm_estep(const R* betaT, const int* terms, const R* tmask, const R*
   if (s.scratch > 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned threads = hm_threads(static_cast<int>(K));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 32) {
+    switch (hs_width(static_cast<int>(K))) {
+      case 16:
+        return launch_split_estep<R, 16>(betaT, terms, tmask, doc_mask, eta, alpha, tau_in,
+                                         gamma_in, tau_out, gamma_out, r, scratch, B, L, K,
+                                         viter, vtol, s, st);
+      case 28:
+        return launch_split_estep<R, 28>(betaT, terms, tmask, doc_mask, eta, alpha, tau_in,
+                                         gamma_in, tau_out, gamma_out, r, scratch, B, L, K,
+                                         viter, vtol, s, st);
+      default:
+        return launch_split_estep<R, 32>(betaT, terms, tmask, doc_mask, eta, alpha, tau_in,
+                                         gamma_in, tau_out, gamma_out, r, scratch, B, L, K,
+                                         viter, vtol, s, st);
+    }
+  }
   if (s.mode == kHmWide) {
     hmtm_estep_wide_kernel<R><<<static_cast<unsigned>(B), threads, s.bytes, st>>>(
         betaT, terms, tmask, doc_mask, eta, alpha, tau_in, gamma_in, tau_out, gamma_out, r,
@@ -803,6 +1294,16 @@ int launch_hmtm_logz(const R* betaT, const int* terms, const R* tmask, const R* 
   if (rc != 0) return static_cast<int>(rc == kHmBadShape ? cudaErrorInvalidValue : rc);
   const unsigned threads = hm_threads(static_cast<int>(K));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 32) {
+    switch (hs_width(static_cast<int>(K))) {
+      case 16:
+        return launch_split_logz<R, 16>(betaT, terms, tmask, tau, gamma, logz, B, L, K, st);
+      case 28:
+        return launch_split_logz<R, 28>(betaT, terms, tmask, tau, gamma, logz, B, L, K, st);
+      default:
+        return launch_split_logz<R, 32>(betaT, terms, tmask, tau, gamma, logz, B, L, K, st);
+    }
+  }
   if (s.mode == kHmWide) {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     hmtm_logz_wide_kernel<R><<<static_cast<unsigned>(B), threads, s.bytes, st>>>(

@@ -18,7 +18,19 @@ chain fixpoint (a document stops once ‖Δgamma‖_F < vtol; a document with
 ``doc_mask = 0`` runs none) and returns ``(tau, gamma, r)`` with ``r [B,
 L, K] = q(z_n)`` from one more forward-backward at the final state, on
 every row.  :func:`hmtm_logz` takes ``tau``, ``gamma`` and returns the
-forward log-normaliser ``logZ [B]``.
+chain's log-normaliser ``logZ [B]``.
+
+The plain versions transliterate JAX's ``_forward`` and
+``_backward_stats``.  Up to 32 topics the kernels compute a pass in the
+split form instead: the forward and a backward normalised by its own sums
+(which needs nothing from the forward) run at once, a warp each, and
+combine into r and the transition statistic where they meet; logZ is the
+forward's sum of log scalers up to the middle slot (the last real slot //
+2), the backward's past it, and the log of the two messages' product
+there.  In exact arithmetic these are JAX's posteriors and normaliser,
+EPSILON included (``tests/test_torch_hmtm_split.py`` holds the split
+formulas to JAX in float64).  Past 32 topics the kernels run the forward
+and then the backward, as JAX does.
 
 On the card both run in the table's dtype: float32, or float64 (every
 float argument float64; ψ the double series through t⁻¹², since the plain
@@ -167,10 +179,11 @@ WIDE = 3   # mode() of the wide mode
 def mode(L: int, K: int, dtype=torch.float32) -> int:
     """The kernels' layout for documents of L slots at K topics: 0, 1 or 2
     (A in shared memory; the messages, then S too, in device scratch past
-    what fits), or 3, the wide mode (A, Aᵀ, S and the messages in device
-    scratch), taken past 256 topics or where A [K, K | 1] overflows the
-    opt-in shared memory (K = 240 in float32 on an H100, ~170 in
-    float64)."""
+    what fits; K <= 32, the split schedule, takes 0 or 1: its messages [L,
+    K] in shared memory or scratch), or 3, the wide mode (A, Aᵀ, S and the
+    messages in device scratch), taken past 256 topics or where A [K, K |
+    1] overflows the opt-in shared memory (K = 240 in float32 on an H100,
+    ~170 in float64)."""
     fn = _build.function(f"tmvb_hmtm_estep_mode{_mode_of('hmtm', dtype)[0]}",
                          [ctypes.c_int64] * 2)
     got = fn(L, K)

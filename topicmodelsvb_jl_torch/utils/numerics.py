@@ -25,7 +25,7 @@ import torch
 
 # Underflow guard: Julia eps(1e-14) (reference utils.jl:3).  Still a normal
 # float32 (> 1.18e-38), matching the reference's EPSILON32 = 1e-30 (utils.jl:6).
-EPSILON = float(np.spacing(1e-14))  # 1.6033346880071782e-30
+EPSILON = float(np.spacing(1e-14))  # 1.5777218104420236e-30
 
 
 def finite(x: torch.Tensor) -> torch.Tensor:
