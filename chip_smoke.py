@@ -215,16 +215,22 @@ printing its own lines; any failure exits non-zero:
    of each main path cast to float64 (CiteULike's widest bucket; rank 0's
    half of the first 1024 NSF or CiteULike documents' slots; phase 9's
    widest NSF chunk), within rtol 1e-9 / atol 1e-12, bitwise repeatable,
-   masked documents untouched, with times and bounds; HMTM's wide mode in
-   float32 at K = 240, 256, 257, 300 and 512 (rtol 5e-3 / atol 1e-5) and
-   in float64 at K = 169 and 170 on small chunks, and at K = 300 on the
-   widest NSF chunk with its times; then, the counts set to 0 before each
-   run and read after: CTPF at CiteULike scale (K = 100, every document)
-   in float64 on the card, its first iteration within 1e-8 of the CPU's
-   float64 one from the same init; HMTM K = 25 in float64 on NSF unit
-   counts cut to 2,048 documents, card against CPU, 2 iterations within
-   1e-8; HMTM K = 300 in float32 on the NSF vocabulary cut to 2,048
-   documents, 2 iterations through the wide mode (∆elbo > 0); phase 13's
+   masked documents untouched, with times and bounds; HMTM past the
+   shared-memory modes: the cluster mode at each of its widths (float32 K
+   = 240-700, float64 K = 170-460; rtol 5e-3 / atol 1e-5 and rtol 1e-9 /
+   atol 1e-12) and the wide mode past its reach (float32 K = 720 and
+   1024, float64 K = 640) on small chunks, each kernel's mode, width
+   and launches checked, and the cluster mode at K = 300 on the widest NSF
+   chunk with its times and the time a chain step; then, the counts set
+   to 0 before each run and read after: CTPF at CiteULike scale (K = 100,
+   every document) in float64 on the card, its first iteration within
+   1e-8 of the CPU's float64 one from the same init; HMTM K = 25 in
+   float64 on NSF unit counts cut to 2,048 documents, card against CPU, 2
+   iterations within 1e-8; HMTM K = 300 on the NSF vocabulary cut to 2,048
+   documents, 2 iterations through the cluster mode in float64 and in
+   float32 from the same init (∆elbo > 0 on both, the float32 states' read
+   by the float64 ELBO; the float32 bound within 1e-4 of the float64 one),
+   and K = 1024 on 8 short documents through the wide mode; phase 13's
    two ranks' float64 routed and seq LDA, seq fLDA (8,192 documents) and
    seq CTPF (CiteULike) against one float64 process within 1e-8; and
    ``train.run`` with ``--model ctpf --dtype float64`` and ``--model hmtm
@@ -287,6 +293,9 @@ HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 # ex2 results a second: 16 a clock an SM (the CUDA C++ Programming Guide's
 # throughput table, compute capability 9.0), 132 SMs at the 1.98 GHz boost
 EX2_PER_S = 16 * 132 * 1.98e9
+# shared-memory bytes a second: 128 B a clock an SM (the Hopper tuning
+# guide's 32 banks of 4 bytes), 132 SMs at the 1.98 GHz boost
+SMEM_BYTES_PER_S_SM, H100_SMS = 128 * 1.98e9, 132
 SPIN_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep cycles a ms at ~2 GHz
 N_KERNEL, N_PLAIN = 20, 5   # calls between one pair of events
 
@@ -382,14 +391,19 @@ def fixpoint_passes(module, ref, args, kw):
     return got
 
 
-def hmtm_chain_steps(tmask, passes, K) -> tuple:
+def hmtm_chain_steps(tmask, passes, K, mode=0) -> tuple:
     """Sequential steps of the slowest document's chain in hmtm_estep (its
     passes and the final one) and hmtm_logz: the split schedule (K <= 32)
     walks last + 1 slots a pass, each warp one way, and meets at last // 2
-    for logZ; the multi-warp one walks them twice a pass (forward, then
-    backward) and once for logZ."""
+    for logZ; the multi-warp and wide ones walk them twice a pass (forward,
+    then backward) and once for logZ; the cluster mode (``mode`` 4) walks
+    the real slots past slot 0 only (a padding slot is no step), twice a
+    pass and once for logZ, a cluster barrier each."""
     import torch
 
+    if mode == 4:
+        ent = (tmask[:, 1:] > 0).sum(1)
+        return (max(int(((passes + 1) * 2 * ent).max()), 1), max(int(ent.max()), 1))
     pos = torch.arange(tmask.shape[1], device=tmask.device)
     last = torch.where(tmask > 0, pos, -1).max(1).values
     n = (last + 1).clamp(min=1)
@@ -397,6 +411,21 @@ def hmtm_chain_steps(tmask, passes, K) -> tuple:
     est = int(((passes + 1) * n * (1 if split else 2)).max())
     lz = int((((last.clamp(min=0) + 1) // 2 + 1) if split else n).max())
     return est, lz
+
+
+def hmtm_cluster_bound(tmask, passes, K, c, elem, logz=False) -> tuple:
+    """The cluster mode's design bound on one chunk: each chain step a CTA
+    reads its share of A [ceil(K / c), K] from shared memory (the forward's
+    rows, the backward's columns) at SMEM_BYTES_PER_S_SM; a document's
+    steps run one after another, H100_SMS / c documents at once.  Returns
+    (ms: the larger of the slowest document's chain and the chunk's steps
+    spread over every SM, the cluster barriers of the slowest document's
+    chain)."""
+    ent = (tmask[:, 1:] > 0).sum(1).double()
+    steps = ent if logz else (passes.double() + 1) * 2 * ent
+    step_ms = -(-K // c) * K * elem / SMEM_BYTES_PER_S_SM * 1e3
+    t = steps * step_ms
+    return max(float(t.max()), float(t.sum()) * c / H100_SMS), int(steps.max())
 
 
 def n_unique(ids, keep) -> int:
@@ -1588,7 +1617,7 @@ def compare_hmtm(label, K, viter, mode, args, dev, calls=(N_KERNEL, 3)) -> tuple
     n_real = float(real.sum())
     passes = fixpoint_passes(hmtm_mod, hmtm_estep_ref, args, kw)
     work = float((passes.to(real.dtype) * real).sum())
-    steps, zsteps = hmtm_chain_steps(tmask, passes, K)
+    steps, zsteps = hmtm_chain_steps(tmask, passes, K, got_mode)
     uniq = n_unique(terms, tmask > 0)
     est = record(err, time_calls(lambda: hmtm_estep(*args, **kw), *calls),
                  (plain_s * 1e3, plain_s * 1e3),
@@ -1597,8 +1626,29 @@ def compare_hmtm(label, K, viter, mode, args, dev, calls=(N_KERNEL, 3)) -> tuple
     lz = record(zerr, time_calls(lambda: hmtm_logz(*zargs), *calls),
                 (zplain_s * 1e3, zplain_s * 1e3),
                 bound_ms(4 * (uniq * K + 2 * B * L + B * K + B * K * K + B), 2 * K * K * n_real))
+    width = ""
+    est["cluster"] = hmtm_mod.cluster_width(L, K) if got_mode == 4 else 0
+    est["ns_a_step"], lz["ns_a_step"] = est["ms"] * 1e6 / steps, lz["ms"] * 1e6 / zsteps
+    if got_mode == 4:
+        cz = hmtm_mod.cluster_width(L, K, logz=True)
+        (est["design_bound_ms"], nb), (lz["design_bound_ms"], nbz) = (
+            hmtm_cluster_bound(tmask, passes, K, est["cluster"], betaT.element_size()),
+            hmtm_cluster_bound(tmask, passes, K, cz, betaT.element_size(), logz=True))
+        # a step of one cluster: the chunk's documents run in B c / H100_SMS
+        # waves of clusters
+        waves = [max(B * w / H100_SMS, 1.0) for w in (est["cluster"], cz)]
+        est["ns_a_cluster_step"] = est["ns_a_step"] / waves[0]
+        lz["ns_a_cluster_step"] = lz["ns_a_step"] / waves[1]
+        width = (f", clusters of {est['cluster']} (hmtm_logz {cz}); the design's bound (a CTA's "
+                 f"share of A from shared memory a step, 128 B a clock an SM): hmtm_estep "
+                 f"{est['design_bound_ms']:.3f} ms, {nb} cluster barriers on the slowest chain; "
+                 f"hmtm_logz {lz['design_bound_ms']:.3f} ms, {nbz} barriers; over "
+                 f"{waves[0]:.2f} and {waves[1]:.2f} waves of clusters: "
+                 f"{est['ns_a_cluster_step']:.0f} and {lz['ns_a_cluster_step']:.0f} ns a step "
+                 f"of one cluster")
     print(f"kernels HMTM {label}: B={B} L={L} K={K} viter={viter} real slots={int(n_real)} "
-          f"shared-memory mode {got_mode}, passes a real slot {work / max(n_real, 1):.2f} | "
+          f"shared-memory mode {got_mode}{width}, passes a real slot "
+          f"{work / max(n_real, 1):.2f} | "
           f"hmtm_estep {times(est)} | hmtm_logz {times(lz)}, rel err "
           f"{float(((z - zr).abs() / zr.abs().clamp_min(1e-30)).max()):.3e} (plain: one call "
           f"on the host clock) | chain of the slowest document: hmtm_estep {steps} steps, "
@@ -3648,20 +3698,105 @@ def hmtm_wide_args(K, B, L, V, dev, seed, dtype):
     return betaT, terms, put(tmask, dtype), put(dm, dtype), eta, alpha, tau, gamma
 
 
+def hmtm_k300_chunk(bucketed, V, dev) -> tuple:
+    """hmtm_estep's arguments at K = 300 on the first 1024 documents of the
+    widest NSF bucket with unit counts (phase 9's chunk, ``hmtm_state``'s
+    tables and state, seed 48): the main path (e)'s widths."""
+    import torch
+
+    from topicmodelsvb_jl_torch.ops.packing import unit_counts
+
+    seg0 = unit_counts(bucketed).segments[0]
+    put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(dev)
+    terms = put(seg0.terms[:1024], torch.int32)
+    betaT, eta, alpha, tau, gamma = hmtm_state(300, terms.shape[0], V, dev, 48)
+    return (betaT, terms, put(seg0.counts[:1024] > 0, torch.float32),
+            put(seg0.doc_mask[:1024], torch.float32), eta, alpha, tau, gamma)
+
+
+def hmtm_k300_train(hpk, dev, smi) -> dict:
+    """Phase 17(e)'s K = 300 HMTM on ``hpk``, with the wide and cluster
+    counts set to 0 before: 2 iterations through the cluster mode in
+    float32 and, from the same init, in float64.  ∆elbo > 0 on the float64
+    run, and on the float32 one as the float64 ELBO reads each float32
+    state cast to float64 (the float32 bound sums ~2e8 terms of gamma
+    [M, K, K]; its own reading rounds by ~1e2, more than the second
+    iteration's gain); the float32 bound within 1e-4 of the float64 run's
+    per iteration.  Returns the cluster launches."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch import convert
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+    from topicmodelsvb_jl_torch.utils.numerics import elbo_value
+
+    f64 = torch.float64
+    for k in (hmtm_estep, hmtm_logz):
+        k.launches_wide = k.launches_cluster = 0
+    torch.cuda.reset_peak_memory_stats()
+    model = tt.HMTM(hpk, 300, tt.RuntimeConfig(chunk_docs=1024), seed=7)
+    m64 = tt.HMTM(hpk, 300, tt.RuntimeConfig(chunk_docs=1024, dtype="float64"), seed=7)
+    states = [convert.hmtm_state_to_numpy(model.state)]
+    m64.state = convert.hmtm_state_from_numpy(states[0], dev, f64)
+    wall, trace = 0.0, []
+    for _ in range(2):
+        _, secs = timed(lambda: model.train(iter=1, checkelbo=1, printelbo=False))
+        wall += secs
+        trace += model.trainer.trace
+        states.append(convert.hmtm_state_to_numpy(model.state))
+    _, wall64 = timed(lambda: m64.train(iter=2, checkelbo=1, printelbo=False))
+    deltas = [x.delta_elbo for x in trace]
+    d64 = [x.delta_elbo for x in m64.trainer.trace]
+    rel = [abs(a.elbo - b.elbo) / abs(b.elbo) for a, b in zip(trace, m64.trainer.trace)]
+    launches = {"hmtm_estep_cluster": hmtm_estep.launches_cluster,
+                "hmtm_logz_cluster": hmtm_logz.launches_cluster}
+    need(launches["hmtm_estep_cluster"] == 2 * (n_chunks_of(model) + n_chunks_of(m64))
+         and launches["hmtm_logz_cluster"] == 4 * n_chunks_of(model) + 3 * n_chunks_of(m64)
+         and hmtm_estep.launches_wide == hmtm_logz.launches_wide == 0,
+         f"phase 17 HMTM K=300: cluster launches {launches}")
+    tr = m64.trainer
+    read = [elbo_value(tr.elbo_fn(convert.hmtm_state_from_numpy(x, dev, f64), *tr.elbo_data))
+            for x in states]
+    d32 = [b - a for a, b in zip(read, read[1:])]
+    own = [abs(a.elbo - b) / abs(b) for a, b in zip(trace, read[1:])]
+    need(model.device.type == "cuda" and m64.device.type == "cuda" and len(rel) == 2
+         and all(d > 0 for d in d64 + d32) and np.isfinite(model.elbo) and max(rel) <= 1e-4,
+         f"phase 17 HMTM K=300: ∆elbo float64 {d64}, float32 read in float64 {d32} (its own "
+         f"{deltas}), bound rel diff {rel}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 17 HMTM NSF unit counts K=300 (M={model.M}, V={model.V}, widths "
+          f"{[s.L for s in model.packed.segments]}), 2 iterations: float32 {wall:.2f} s, ∆elbo "
+          f"{', '.join(f'{x:.3f}' for x in deltas)}, its states read in float64 "
+          f"{', '.join(f'{x:.3f}' for x in d32)} (its own bound against that reading "
+          f"{', '.join(f'{x:.2e}' for x in own)}), step+ELBO "
+          f"{', '.join(f'{x.step_time_s:.3f}' for x in trace)} s; float64 from the same init "
+          f"{wall64:.2f} s, ∆elbo {', '.join(f'{x:.3f}' for x in d64)}, step+ELBO "
+          f"{', '.join(f'{x.step_time_s:.3f}' for x in m64.trainer.trace)} s; float32 bound "
+          f"against float64 {', '.join(f'{x:.2e}' for x in rel)}; cluster launches hmtm_estep "
+          f"{launches['hmtm_estep_cluster']}, hmtm_logz {launches['hmtm_logz_cluster']}; peak "
+          f"mem {peak:.2f} GiB; card {smi}")
+    return launches
+
+
 def dtype_phase(smi, kc, dev, ranks) -> tuple:
     """Phase 17, every dtype and K on the card: (a) the float64 modes of
     ctpf_estep, its pass mode, lda_estep_pass, flda_estep_pass, hmtm_estep
     and hmtm_logz against their plain float64 versions on the widest
-    chunk of each main path cast to float64 (``check_double``); (b) the
-    HMTM wide mode in float32 at K = 240, 256, 257, 300 and 512, and in
-    float64 at K = 169 (A in shared memory) and 170 (wide), on small
-    chunks, and on the widest NSF chunk at K = 300 with its times; (c)
+    chunk of each main path cast to float64 (``check_double``); (b) HMTM
+    past the shared-memory modes on small chunks: the cluster mode at each
+    width in float32 and float64, the wide mode past its reach (K = 1024
+    with its times), and the cluster mode on the widest NSF chunk at
+    K = 300 with its times; (c)
     CTPF at CiteULike scale (K = 100, every document) in float64 on the
     card against the CPU from one init, the CPU at a cut depth (its first
     iteration); (d) HMTM K = 25 on NSF unit counts cut to P16_DOCS
     documents in float64, card against CPU, 2 iterations; (e) HMTM K =
-    300 in float32 on the NSF vocabulary cut to P16_DOCS documents, 2
-    iterations, through the wide mode; (f) phase 13's two ranks' float64
+    300 on the NSF vocabulary cut to P16_DOCS documents, 2 iterations,
+    through the cluster mode in float64 and float32 from one init, and K =
+    1024 on 8 short
+    documents, one iteration, through the wide mode; (f) phase 13's two
+    ranks' float64
     runs of P17_RANK_CASES (``ranks``) against one float64 process; (g)
     the CLI with ``--model ctpf --dtype float64`` and ``--model hmtm --k
     300``.  Each main run's counts are set to 0 before and read after.
@@ -3792,47 +3927,75 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
         lambda: 2 * Kh * Kh * n_real, rate, f"{label} B={B} K={Kh}", plain_once=True)
     del tg, zargs, hargs
 
-    # (b) the wide mode: f32 at K = 240, 256, 257, 300, 512 and f64 on both
-    # sides of its float64 boundary, on small chunks; then the widest NSF
-    # chunk at K = 300 (the main path (e)'s widths) with its times
-    for Kw, dt in ((240, torch.float32), (256, torch.float32), (257, torch.float32),
-                   (300, torch.float32), (512, torch.float32), (169, f64), (170, f64)):
-        wargs = hmtm_wide_args(Kw, 16, 48, V, dev, Kw, dt)
-        wkw = dict(viter=3, vtol=1.0 / Kw**2)
-        want_mode = 3 if Kw >= (170 if dt == f64 else 240) else 2
-        got_mode = hmtm_mod.mode(48, Kw, dt)
-        need(got_mode == want_mode, f"HMTM K={Kw} {dt}: mode {got_mode}, want {want_mode}")
-        w0 = hmtm_estep.launches_wide
+    # (b) past the shared-memory modes: the cluster mode at each of its
+    # widths in float32 and float64 and, past its reach, the wide mode, on
+    # small chunks; each case (K, dtype, B, L, viter, the modes and
+    # cluster widths of hmtm_estep and hmtm_logz it must take); then K =
+    # 1024 (both kernels wide) and the widest NSF chunk at K = 300 (the main
+    # path (e)'s widths), with their times
+    c0 = (hmtm_estep.launches_cluster, hmtm_logz.launches_cluster)
+    for Kw, dt, Bw, Lw, vw, want in (
+            (240, torch.float32, 16, 48, 3, (4, 2, 4, 2)), (256, torch.float32, 16, 48, 3, (4, 2, 4, 2)),
+            (257, torch.float32, 16, 48, 3, (4, 2, 4, 2)), (300, torch.float32, 16, 48, 3, (4, 2, 4, 2)),
+            (400, torch.float32, 16, 48, 3, (4, 4, 4, 4)), (512, torch.float32, 16, 48, 3, (4, 8, 4, 8)),
+            (600, torch.float32, 16, 48, 3, (4, 8, 4, 8)), (700, torch.float32, 8, 24, 3, (4, 16, 4, 16)),
+            (720, torch.float32, 8, 24, 3, (3, 0, 4, 16)),
+            (169, f64, 16, 48, 3, (2, 0, 0, 0)), (170, f64, 16, 48, 3, (4, 2, 4, 2)),
+            (300, f64, 16, 48, 3, (4, 4, 4, 4)), (400, f64, 16, 48, 3, (4, 8, 4, 8)),
+            (460, f64, 8, 24, 3, (4, 16, 4, 8)), (640, f64, 8, 24, 3, (3, 0, 4, 16))):
+        wargs = hmtm_wide_args(Kw, Bw, Lw, V, dev, Kw, dt)
+        wkw = dict(viter=vw, vtol=1.0 / Kw**2)
+        modes = (hmtm_mod.mode(Lw, Kw, dt), hmtm_mod.cluster_width(Lw, Kw, dt),
+                 hmtm_mod.logz_mode(Lw, Kw, dt), hmtm_mod.cluster_width(Lw, Kw, dt, logz=True))
+        need(modes == want, f"HMTM K={Kw} {dt}: modes and widths {modes}, want {want}")
+        n0 = (hmtm_estep.launches_wide, hmtm_estep.launches_cluster, hmtm_logz.launches_wide,
+              hmtm_logz.launches_cluster)
         got = hmtm_estep(*wargs, **wkw)
-        want = hmtm_estep_ref(*wargs, **wkw)
+        want_ = hmtm_estep_ref(*wargs, **wkw)
         torch.cuda.synchronize()
-        need(hmtm_estep.launches_wide - w0 == (want_mode == 3), f"HMTM K={Kw}: wide launches")
         tol = (RTOL64, ATOL64) if dt == f64 else (RTOL, ATOL)
-        err = close(got, want, ("tau", "gamma", "r"), f"hmtm_estep K={Kw} {dt}", *tol)
+        err = close(got, want_, ("tau", "gamma", "r"), f"hmtm_estep K={Kw} {dt}", *tol)
         need(all(torch.equal(a, b) for a, b in zip(got, hmtm_estep(*wargs, **wkw))),
              f"hmtm_estep K={Kw} {dt}: not bitwise repeatable")
         wpad = wargs[3] == 0
-        need(torch.equal(got[0][wpad], wargs[6][wpad]) and bool(torch.all(
-            got[2][wargs[2] == 0] == 0)), f"hmtm_estep K={Kw} {dt}: padding")
+        need(torch.equal(got[0][wpad], wargs[6][wpad]) and torch.equal(got[1][wpad], wargs[7][wpad])
+             and bool(torch.all(got[2][wargs[2] == 0] == 0)), f"hmtm_estep K={Kw} {dt}: padding")
         za = (*wargs[:3], got[0], got[1])
         z, zr = hmtm_logz(*za), hmtm_logz_ref(*za)
         zrel = float(((z - zr).abs() / zr.abs().clamp_min(1e-30)).max())
         need(torch.equal(z, hmtm_logz(*za)) and float(z[0]) == 0.0
              and zrel <= (RTOL64 if dt == f64 else 1e-5), f"hmtm_logz K={Kw} {dt}: rel {zrel}")
-        print(f"kernels HMTM K={Kw} {str(dt)[6:]} (mode {got_mode}), B=16 L=48 viter 3: "
-              f"hmtm_estep max abs err {err:.3e} (tolerance {tol}), bitwise repeatable; "
+        moved = (hmtm_estep.launches_wide - n0[0], hmtm_estep.launches_cluster - n0[1],
+                 hmtm_logz.launches_wide - n0[2], hmtm_logz.launches_cluster - n0[3])
+        need(moved == (2 * (want[0] == 3), 2 * (want[0] == 4), 2 * (want[2] == 3),
+                       2 * (want[2] == 4)), f"HMTM K={Kw} {dt}: wide and cluster launches {moved}")
+        print(f"kernels HMTM K={Kw} {str(dt)[6:]} (hmtm_estep mode {modes[0]}, cluster "
+              f"{modes[1]}; hmtm_logz mode {modes[2]}, cluster {modes[3]}), B={Bw} L={Lw} viter "
+              f"{vw}: hmtm_estep max abs err {err:.3e} (tolerance {tol}), bitwise repeatable; "
               f"hmtm_logz rel err {zrel:.3e}")
-    seg0 = unit_counts(kc["bucketed"]).segments[0]
-    wterms = put(seg0.terms[:1024], i32)
-    wargs = (wterms, put(seg0.counts[:1024] > 0, torch.float32),
-             put(seg0.doc_mask[:1024], torch.float32))
-    betaT, eta, alpha, tau, gamma = hmtm_state(300, wterms.shape[0], V, dev, 48)
-    w0 = hmtm_estep.launches_wide
-    est, lz, _ = compare_hmtm(f"wide, widest NSF bucket L={seg0.L}", 300, 10, 3,
-                              (betaT, *wargs, eta, alpha, tau, gamma), dev, calls=(2, 1))
-    need(hmtm_estep.launches_wide > w0, "hmtm_estep K=300 NSF: not the wide mode")
+    need(hmtm_estep.launches_cluster > c0[0] and hmtm_logz.launches_cluster > c0[1],
+         "phase 17 (b): the cluster mode never launched")
+    w0 = (hmtm_estep.launches_wide, hmtm_logz.launches_wide, hmtm_estep.launches_cluster,
+          hmtm_logz.launches_cluster)
+    est, lz, _ = compare_hmtm("wide, past the cluster's reach, K=1024 B=8 L=16", 1024, 1, 3,
+                              hmtm_wide_args(1024, 8, 16, V, dev, 1024, torch.float32), dev,
+                              calls=(2, 1))
+    need(hmtm_estep.launches_wide > w0[0] and hmtm_logz.launches_wide > w0[1]
+         and (hmtm_estep.launches_cluster, hmtm_logz.launches_cluster) == w0[2:],
+         "hmtm_estep/hmtm_logz K=1024: not the wide mode")
     recs["hmtm_estep_wide"], recs["hmtm_logz_wide"] = est, lz
-    del wargs, betaT, eta, alpha, tau, gamma
+    c0 = (hmtm_estep.launches_cluster, hmtm_logz.launches_cluster)
+    k300 = hmtm_k300_chunk(kc["bucketed"], V, dev)
+    est, lz, _ = compare_hmtm(f"cluster, widest NSF bucket L={k300[1].shape[1]}", 300, 10, 4, k300,
+                              dev, calls=(5, 2))
+    del k300
+    need(hmtm_estep.launches_cluster > c0[0] and hmtm_logz.launches_cluster > c0[1],
+         "hmtm_estep K=300 NSF: not the cluster mode")
+    recs["hmtm_estep_cluster"], recs["hmtm_logz_cluster"] = est, lz
+    print(f"phase 17 (b): hmtm_estep K=300 at the widest NSF chunk in clusters of {est['cluster']}: "
+          f"{est['ms']:.3f} ms, {est['ns_a_cluster_step']:.0f} ns a chain step of one cluster "
+          f"(design bound {est['design_bound_ms']:.3f} ms); hmtm_logz {lz['ms']:.3f} ms, "
+          f"{lz['ns_a_cluster_step']:.0f} ns (bound {lz['design_bound_ms']:.3f} ms); card {smi}")
     torch.cuda.empty_cache()
 
     # (c) CTPF at CiteULike scale in float64: card against CPU from one
@@ -3902,26 +4065,27 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
           f"hmtm_logz {launches['hmtm_logz_double']}; card {smi}")
     del card, cpu
 
-    # (e) HMTM K = 300 in float32 through the wide mode
-    hmtm_estep.launches_wide = hmtm_logz.launches_wide = 0
-    torch.cuda.reset_peak_memory_stats()
-    model = tt.HMTM(hpk, 300, tt.RuntimeConfig(chunk_docs=1024), seed=7)
-    _, wall = timed(lambda: model.train(iter=2, checkelbo=1, printelbo=False))
-    deltas = [x.delta_elbo for x in model.trainer.trace]
+    # (e) HMTM K = 300 through the cluster mode, in float32 and float64
+    # (``hmtm_k300_train``); then K = 1024, past the cluster's reach,
+    # through the wide mode on a few short documents
+    launches.update(hmtm_k300_train(hpk, dev, smi))
+    for k in (hmtm_estep, hmtm_logz):
+        k.launches_wide = k.launches_cluster = 0
+    short = unit_counts(tt.synth_packed_nsf_scale(M=8, V=2000, mean_terms=10, seed=9,
+                                                  chunk_docs=8))
+    model = tt.HMTM(short, 1024, tt.RuntimeConfig(chunk_docs=8), seed=7)
+    _, wall = timed(lambda: model.train(iter=1, checkelbo=1, printelbo=False, viter=1))
     launches["hmtm_estep_wide"] = hmtm_estep.launches_wide
     launches["hmtm_logz_wide"] = hmtm_logz.launches_wide
-    need(model.device.type == "cuda" and deltas[-1] > 0 and np.isfinite(model.elbo),
-         f"phase 17 HMTM K=300: ∆elbo {deltas}")
-    need(launches["hmtm_estep_wide"] == 2 * n_chunks_of(model)
-         and launches["hmtm_logz_wide"] == 3 * n_chunks_of(model),
-         f"phase 17 HMTM K=300: wide launches {launches}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"phase 17 HMTM NSF unit counts K=300 float32 (M={model.M}, V={model.V}, widths "
-          f"{[s.L for s in model.packed.segments]}): train(iter=2, checkelbo=1) {wall:.2f} s, "
-          f"∆elbo {', '.join(f'{x:.3f}' for x in deltas)}, step+ELBO "
-          f"{', '.join(f'{x.step_time_s:.3f}' for x in model.trainer.trace)} s; wide launches "
-          f"hmtm_estep {launches['hmtm_estep_wide']}, hmtm_logz {launches['hmtm_logz_wide']}; "
-          f"peak mem {peak:.2f} GiB; card {smi}")
+    need(model.device.type == "cuda" and np.isfinite(model.elbo)
+         and launches["hmtm_estep_wide"] == n_chunks_of(model)
+         and launches["hmtm_logz_wide"] == 2 * n_chunks_of(model)
+         and hmtm_estep.launches_cluster == hmtm_logz.launches_cluster == 0,
+         f"phase 17 HMTM K=1024: wide launches {launches}, elbo {model.elbo}")
+    print(f"phase 17 HMTM K=1024 float32 (M={model.M}, V={model.V}, L="
+          f"{[s.L for s in model.packed.segments]}): train(iter=1, viter=1) {wall:.2f} s, elbo "
+          f"{model.elbo:.3f}; wide launches hmtm_estep {launches['hmtm_estep_wide']}, hmtm_logz "
+          f"{launches['hmtm_logz_wide']}; card {smi}")
     del model
     torch.cuda.empty_cache()
 
@@ -3961,13 +4125,13 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
                                ctpf_estep, "launches_double"),
                               (["--model", "hmtm", "--corpus", "nsf-scale", "--subset",
                                 str(P16_DOCS), "--k", "300", "--iter", "2", "--checkelbo", "1",
-                                "--quiet"], hmtm_estep, "launches_wide")):
+                                "--quiet"], hmtm_estep, "launches_cluster")):
         setattr(kern_, attr, 0)
         out, s = timed(lambda: train_cli.run(argv))
         n = getattr(kern_, attr)
         need(n > 0 and out["iterations"] == 2 and np.isfinite(out["final_elbo"]),
              f"phase 17 CLI {' '.join(argv)}: {kern_.__name__} {attr} {n}, {out}")
-        key = "ctpf_estep_double" if attr == "launches_double" else "hmtm_estep_wide"
+        key = "ctpf_estep_double" if attr == "launches_double" else "hmtm_estep_cluster"
         launches[key] += n
         print(f"phase 17: python -m topicmodelsvb_jl_torch.train {' '.join(argv)} in {s:.1f} s: "
               f"{kern_.__name__} {attr} {n}; {out}")
@@ -4380,7 +4544,13 @@ def main() -> int:
              every["hmtm_estep_double"], ()),
             ("hmtm_logz_double", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
              every["hmtm_logz_double"], ()),
-            # the wide mode: any K, the JAX package's lax.scans at every width
+            # past the shared-memory modes, the JAX package's lax.scans at
+            # every width: the cluster mode, and past a cluster of 16 the
+            # wide mode
+            ("hmtm_estep_cluster", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
+             every["hmtm_estep_cluster"], ()),
+            ("hmtm_logz_cluster", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",
+             every["hmtm_logz_cluster"], ()),
             ("hmtm_estep_wide", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
              every["hmtm_estep_wide"], ()),
             ("hmtm_logz_wide", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",

@@ -1008,22 +1008,45 @@ def _hmtm_mode(L, K, suffix=""):
     return _build.function(f"tmvb_hmtm_estep_mode{suffix}", [ctypes.c_int64] * 2)(L, K)
 
 
+def _hmtm_counts():
+    """The HMTM wrappers' wide and cluster launch counts."""
+    return (hmtm_estep.launches_wide, hmtm_logz.launches_wide, hmtm_estep.launches_cluster,
+            hmtm_logz.launches_cluster)
+
+
+def _hmtm_counted(before, L, K, dtype, n=1, n_logz=None):
+    """The counts ``n`` launches of hmtm_estep and ``n_logz`` (default
+    ``n``) of hmtm_logz at (L, K) add to ``before``: the wide or the
+    cluster mode's, as each wrapper's mode says."""
+    from topicmodelsvb_jl_torch.kernels import hmtm_estep as hm
+
+    nz = n if n_logz is None else n_logz
+    m, lm = hm.mode(L, K, dtype), hm.logz_mode(L, K, dtype)
+    return (before[0] + n * (m == hm.WIDE), before[1] + nz * (lm == hm.WIDE),
+            before[2] + n * (m == hm.CLUSTER), before[3] + nz * (lm == hm.CLUSTER))
+
+
 # K: NSF's 25 (the split schedule, register width 28), 1 and 32 (widths 16
-# and 32), 40 and 100 (several warps), 200 (S in scratch), and the wide
-# mode's 240, 256, 257, 300 and 512 (A past shared memory, more topics
-# than threads); L: NSF's widths, 1, 2 and 65 (the split's edges: no
-# second half, one slot a half, an odd length) and 5000 (messages in
+# and 32), 40 and 100 (several warps), 200 (S in scratch); the cluster
+# mode's 240, 256 and 300 (clusters of 2, hmtm_logz 2), 257 (more topics
+# than a warp multiple), 400 (4; 4), 512 and 600 (8; 8), 680 (16; 16),
+# 720 (hmtm_estep past its threads: the wide mode; hmtm_logz 16) and 1024
+# (both kernels wide); L: NSF's widths, 1, 2 and
+# 65 (the split's edges: no second half, one slot a half, an odd length),
+# 1, 2 and 33 in the cluster mode (no step, one, odd) and 5000 (messages in
 # scratch); viter 0 (the final pass only), 3 and 10
 @pytest.mark.parametrize("K,L,viter", [(25, 128, 10), (25, 64, 0), (32, 24, 10), (40, 72, 3),
                                        (100, 128, 3), (200, 16, 3), (25, 5000, 2), (1, 40, 3),
                                        (240, 24, 3), (256, 24, 3), (257, 24, 3), (300, 24, 3),
-                                       (512, 24, 3), (25, 1, 3), (25, 2, 3), (25, 65, 10)])
+                                       (512, 24, 3), (25, 1, 3), (25, 2, 3), (25, 65, 10),
+                                       (300, 1, 3), (300, 2, 3), (300, 33, 10), (400, 24, 3),
+                                       (600, 16, 3), (680, 12, 2), (720, 8, 1), (1024, 8, 1)])
 def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
-    B = 16 if L > 1000 or K > 256 else 64
+    B = 4 if K > 650 else (16 if L > 1000 or K > 256 else 64)
     args = _hmtm_chunk(K, B, L, 2000, cuda, seed=K + L)
     kw = dict(viter=viter, vtol=1.0 / K**2)
     e0, z0 = hmtm_estep.launches, hmtm_logz.launches
-    w0 = (hmtm_estep.launches_wide, hmtm_logz.launches_wide)
+    w0 = _hmtm_counts()
     got = hmtm_estep(*args, **kw)
     torch.cuda.synchronize()
     assert hmtm_estep.launches == e0 + 1
@@ -1039,22 +1062,23 @@ def test_hmtm_estep_and_logz_kernels_match_plain(cuda, K, L, viter):
     zargs = (*args[:3], got[0], got[1])
     z = hmtm_logz(*zargs)
     assert hmtm_logz.launches == z0 + 1 and torch.equal(z, hmtm_logz(*zargs))
-    wide = int(_hmtm_mode(L, K) == 3)
-    assert (hmtm_estep.launches_wide, hmtm_logz.launches_wide) == (w0[0] + 2 * wide,
-                                                                   w0[1] + 2 * wide)
+    assert _hmtm_counts() == _hmtm_counted(w0, L, K, torch.float32, 2)
     zr = hmtm_logz_ref(*zargs)
     assert float(z[1]) == 0.0 and torch.all(torch.isfinite(z))
     assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
 
 
+@pytest.mark.parametrize("K", [25, 100, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_hmtm_split_meets_on_padding_and_epsilon_emissions(cuda, dtype):
-    """The split schedule's edges on the card: every document's midpoint
-    (last // 2) a padding slot, at several lengths; and documents whose
-    last slot and midpoint hold a term no topic holds (emission EPSILON in
-    every topic), where JAX's posteriors sum to less than 1 and logZ needs
-    the forward's EPSILON through the backward."""
-    K, B, L = 25, 48, 40
+def test_hmtm_split_meets_on_padding_and_epsilon_emissions(cuda, dtype, K):
+    """The split schedule's edges on the card (K = 25): every document's
+    midpoint (last // 2) a padding slot, at several lengths; and documents
+    whose last slot and midpoint hold a term no topic holds (emission
+    EPSILON in every topic), where JAX's posteriors sum to less than 1 and
+    logZ needs the forward's EPSILON through the backward.  The same
+    documents in the multi-warp mode (K = 100) and the cluster mode (K =
+    300), whose scalers add the port's EPSILON as the plain versions do."""
+    B, L = 48, 40
     args = list(_hmtm_chunk(K, B, L, 500, cuda, seed=11))
     tmask, terms = args[2].clone(), args[1].clone()
     for d in range(4, 20):   # lengths 3 .. 40, the midpoint on padding
@@ -1089,24 +1113,42 @@ def test_hmtm_shared_memory_rule_and_widest_k(cuda):
     """Messages in shared memory at the NSF widths, in scratch past them;
     S in scratch past K ~ 168; K = 239 the widest the chain matrix fits
     (H100's 227 KB opt-in) in float32, K = 169 in float64; past them, and
-    past 256 topics, the wide mode (3), which runs and agrees with the
-    plain version on both sides of the f32 boundary."""
+    past 256 topics, the cluster mode (4): clusters of 2, 4, 8 and 16, each
+    CTA a block of A's rows; past its reach (hmtm_estep: K = 705 in float32,
+    past its threads, and 638 in float64; hmtm_logz: K = 945 and 657) the
+    wide mode (3).  Each side of each boundary runs and agrees with the
+    plain version."""
+    from topicmodelsvb_jl_torch.kernels import hmtm_estep as hm
+
     assert [_hmtm_mode(L, 25) for L in (64, 128, 5000)] == [0, 0, 1]
     assert _hmtm_mode(128, 100) == 1 and _hmtm_mode(128, 200) == 2
-    assert _hmtm_mode(8, 239) == 2 and _hmtm_mode(8, 240) == 3
-    assert [_hmtm_mode(8, K) for K in (256, 257, 4096)] == [3, 3, 3]
-    assert _hmtm_mode(8, 169, "_f64") == 2 and _hmtm_mode(8, 170, "_f64") == 3
+    assert _hmtm_mode(8, 239) == 2 and _hmtm_mode(8, 240) == 4
+    assert [_hmtm_mode(8, K) for K in (256, 257, 704, 705, 4096)] == [4, 4, 4, 3, 3]
+    assert _hmtm_mode(8, 169, "_f64") == 2 and _hmtm_mode(8, 170, "_f64") == 4
+    assert _hmtm_mode(8, 637, "_f64") == 4 and _hmtm_mode(8, 638, "_f64") == 3
     assert _hmtm_mode(0, 25) == -2 and _hmtm_mode(8, 0) == -2
-    for K in (239, 240):
-        args = _hmtm_chunk(K, 4, 8, 300, cuda)
-        w0 = hmtm_estep.launches_wide
+    f32, f64 = torch.float32, torch.float64
+    width = lambda K, dt, logz=False: hm.cluster_width(8, K, dt, logz)
+    assert ([width(K, f32) for K in (239, 240, 332, 333, 468, 469, 656, 657, 704, 705)]
+            == [0, 2, 2, 4, 4, 8, 8, 16, 16, 0])
+    assert ([width(K, f32, True) for K in (240, 336, 337, 475, 476, 670, 671, 944, 945)]
+            == [2, 2, 4, 4, 8, 8, 16, 16, 0])
+    assert ([width(K, f64) for K in (169, 170, 232, 233, 326, 327, 456, 457, 637, 638)]
+            == [0, 2, 2, 4, 4, 8, 8, 16, 16, 0])
+    assert [width(K, f64, True) for K in (170, 236, 237, 332, 333, 470, 471, 656, 657)] == [
+        2, 2, 4, 4, 8, 8, 16, 16, 0]
+    assert [hm.logz_mode(8, K) for K in (25, 239, 240, 944, 945)] == [0, 0, 4, 4, 3]
+    for K, dt in ((239, f32), (240, f32), (704, f32), (705, f32), (169, f64), (170, f64),
+                  (637, f64), (638, f64)):
+        args = tuple(a.to(dt) if a.is_floating_point() else a for a in _hmtm_chunk(K, 4, 8, 300, cuda))
+        w0 = _hmtm_counts()
         got = hmtm_estep(*args, viter=1, vtol=0.0)
-        assert hmtm_estep.launches_wide - w0 == (K == 240)
-        torch.testing.assert_close(got[1], hmtm_estep_ref(*args, viter=1, vtol=0.0)[1],
-                                   rtol=5e-3, atol=1e-5)
         z = hmtm_logz(*args[:3], got[0], got[1])
+        assert _hmtm_counts() == _hmtm_counted(w0, 8, K, dt)
+        tol = dict(rtol=1e-9, atol=1e-12) if dt == f64 else dict(rtol=5e-3, atol=1e-5)
+        torch.testing.assert_close(got[1], hmtm_estep_ref(*args, viter=1, vtol=0.0)[1], **tol)
         zr = hmtm_logz_ref(*args[:3], got[0], got[1])
-        assert torch.all((z - zr).abs() <= 1e-5 * zr.abs())
+        assert torch.all((z - zr).abs() <= (1e-9 if dt == f64 else 1e-5) * zr.abs())
 
 
 def test_hmtm_kernels_reject_what_they_do_not_take(cuda):
@@ -1673,18 +1715,23 @@ def test_pass_modes_double_match_plain(cuda, K, L):
 
 
 # K: NSF's 25 (one warp, shuffled doubles), 100 (shared memory, several
-# warps), 169 (the widest A in shared memory in float64), 170 and 257 (the
-# wide mode)
-@pytest.mark.parametrize("K,L", [(25, 128), (100, 64), (169, 16), (170, 16), (257, 12)])
+# warps), 169 (the widest A in shared memory in float64), and the cluster
+# mode's 170 (clusters of 2; hmtm_logz 2), 257 and 300 (4; 4), 400 (8; 8)
+# and 600 (16; 16), at L = 1, 2 and odd lengths too; 640 (past the
+# cluster's reach: the wide mode; hmtm_logz 16)
+@pytest.mark.parametrize("K,L", [(25, 128), (100, 64), (169, 16), (170, 16), (257, 12),
+                                 (170, 1), (300, 2), (300, 13), (400, 8), (600, 6), (640, 4)])
 def test_hmtm_double_matches_plain(cuda, K, L):
-    B = 16 if K > 100 else 64
+    B = 4 if K > 450 else (16 if K > 100 else 64)
     args = _f64(_hmtm_chunk(K, B, L, 2000, cuda, seed=K + L))
     kw = dict(viter=3, vtol=1.0 / K**2)
     e0, d0 = hmtm_estep.launches, hmtm_estep.launches_double
+    w0 = _hmtm_counts()
     got = hmtm_estep(*args, **kw)
     torch.cuda.synchronize()
     assert (hmtm_estep.launches, hmtm_estep.launches_double) == (e0 + 1, d0 + 1)
-    assert (_hmtm_mode(L, K, "_f64") == 3) == (K >= 170)
+    if K >= 169:   # A in one block's shared memory, in a cluster's, or in scratch
+        assert _hmtm_mode(L, K, "_f64") == {169: 2, 640: 3}.get(K, 4)
     _close64(got, hmtm_estep_ref(*args, **kw), ("tau", "gamma", "r"))
     assert torch.all(got[2][args[2] == 0] == 0)
     assert torch.equal(got[0][-3:], args[6][-3:]) and torch.equal(got[1][-3:], args[7][-3:])
@@ -1692,7 +1739,9 @@ def test_hmtm_double_matches_plain(cuda, K, L):
     zargs = (*args[:3], got[0], got[1])
     z0 = hmtm_logz.launches_double
     z = hmtm_logz(*zargs)
-    assert hmtm_logz.launches_double == z0 + 1 and torch.equal(z, hmtm_logz(*zargs))
+    assert hmtm_logz.launches_double == z0 + 1
+    assert _hmtm_counts() == _hmtm_counted(w0, L, K, torch.float64, 2, 1)
+    assert torch.equal(z, hmtm_logz(*zargs))
     _close64((z,), (hmtm_logz_ref(*zargs),), ("logZ",))
 
 
@@ -1729,3 +1778,67 @@ def test_double_ctpf_and_hmtm_on_the_card_follow_the_cpu(cuda, fam):
         a, b = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
         assert a.dtype == torch.float64
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12, msg=f)
+
+
+# ── the kernels' EPSILON: the port's, which the plain versions add ──
+
+def _in(dtype, args):
+    return tuple(a.to(dtype) if torch.is_floating_point(a) else a for a in args)
+
+
+def _tol(dtype):
+    return dict(rtol=RTOL64, atol=ATOL64) if dtype == torch.float64 else dict(rtol=5e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lda_estep_epsilon_decides_gamma(cuda, dtype):
+    """A real document with no counts gets gamma = alpha + EPSILON; where
+    alpha is 1e-30, EPSILON is most of gamma, so a kernel that added
+    another value (1.6% larger moved gamma by ~1%) would miss the plain
+    version there."""
+    (betaT, terms, counts, doc_mask, alpha, *rest), _ = _chunk(100, 16, 64, 3000, cuda, seed=5)
+    counts, alpha = counts.clone(), alpha.clone()
+    counts[1] = 0.0
+    alpha[:10] = 1e-30
+    args = _in(dtype, (betaT, terms, counts, doc_mask, alpha, *rest))
+    got = lda_estep(*args, viter=3, vtol=1e-4)
+    want = lda_estep_ref(*args, viter=3, vtol=1e-4)
+    for name, a, b in zip(("gamma", "El", "El_old", "w"), got, want):
+        torch.testing.assert_close(a, b, **_tol(dtype), msg=name)
+    assert torch.equal(got[0][1, :10], args[4][:10] + EPSILON)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flda_estep_epsilon_decides_gamma(cuda, dtype):
+    """fLDA's gamma = alpha + pc + EPSILON on a real document with no
+    counts and alpha 1e-30: EPSILON decides it."""
+    a = list(_flda_chunk(100, 16, 64, 3000, cuda, seed=6))
+    a[3], a[5] = a[3].clone(), a[5].clone()
+    a[3][1] = 0.0
+    a[5][:10] = 1e-30
+    args = _in(dtype, a)
+    got = flda_estep(*args, viter=3, vtol=1e-4)
+    want = flda_estep_ref(*args, viter=3, vtol=1e-4)
+    for name, x, y in zip(("gamma", "El", "El_old", "tau", "tau_old", "w"), got, want):
+        torch.testing.assert_close(x, y, **_tol(dtype), msg=name)
+    assert torch.equal(got[0][1, :10], args[5][:10] + EPSILON)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ctpf_estep_epsilon_decides_a_row(cuda, dtype):
+    """A term whose rates are 1e-32 in every topic: the slot's normaliser
+    sum ea·qp + EPSILON is mostly EPSILON, so its row wa = ea qp c / that
+    sum, and the kernel's, follow the value of EPSILON."""
+    a = list(_ctpf_chunk(100, 16, 40, 8, 3000, 500, cuda, seed=7))
+    a[0], a[2], a[3] = a[0].clone(), a[2].clone(), a[3].clone()
+    a[0][2999] = 1e-32
+    a[2][0, 0], a[3][0, 0] = 2999, 1.0
+    args = _in(dtype, a)
+    kw = dict(viter=3, vtol=1e-4, **HYP)
+    got = ctpf_estep(*args, **kw)
+    want = ctpf_estep_ref(*args, **kw)
+    for name, x, y in zip(CTPF_NAMES, got, want):
+        torch.testing.assert_close(x, y, **_tol(dtype), msg=name)
+    # the row sums to c S / (S + EPSILON), S = sum ea·qp: below c / 2, EPSILON
+    # is most of the normaliser
+    assert 0.0 < float(want[4][0, 0].sum()) < 0.5

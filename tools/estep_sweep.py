@@ -19,9 +19,13 @@ for the bound ``compare_kernels``'s tables; for HMTM ``hmtm_chunks``'s
 first three chunks (the widest NSF bucket with unit counts at K = 25 and
 K = 100, and L = 4,096) with ``hmtm_logz`` beside each, then at one viter
 its fourth (empty, one-token, padded-first and doc_mask 0 documents), the
-widest chunk cast to float64 and a wide-mode chunk (``hmtm_wide_args``, K
-= 300).  viter = 0 runs no pass (the
-loads and the row writes alone); the slope over viter is the cost of a
+widest chunk cast to float64, ``hmtm_wide_args`` chunks (64 documents of
+L = 48, viter 3) at K = 300 in float32 and float64 and at K = 170 in
+float64 (the float64 cluster mode's first K), and the widest NSF chunk at
+K = 300 (``hmtm_k300_chunk``) at viter 10 and 0; those two K = 170 and
+K = 300 timings take 5 calls (``hmtm_logz`` 10), the median of 2.  viter
+= 0 runs no pass (the loads and the row writes alone, or at K = 300 the
+final forward-backward alone); the slope over viter is the cost of a
 pass.  Prints one JSON line tagged LABEL with the device and call ms of
 each (shape, viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.
 The kernel defaults to ``lda``.  Needs one CUDA GPU.
@@ -73,17 +77,23 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
                     lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2)))
             out[f"{label_} logz"] = list(smoke.time_calls(
                 lambda: hmtm_logz(*args[:3], args[6], args[7])))
-        # the special chunk, the widest chunk in float64 and the wide mode
-        # (K = 300, 64 documents of L = 48), at one viter each
+        # the special chunk and the widest chunk in float64, then past the
+        # shared-memory modes: (label, K, viters, arguments, calls, reps)
         f64 = tuple(a.double() if a.is_floating_point() else a for a in chunks[0][4])
-        wide = smoke.hmtm_wide_args(300, 64, 48, V, dev, 300, torch.float32)
-        for label_, Kh, viter, args in ((chunks[3][0], 25, 10, chunks[3][4]),
-                                        (f"{chunks[0][0]} float64", 25, 10, f64),
-                                        ("wide mode K=300 B=64 L=48", 300, 3, wide)):
-            out[f"{label_} viter={viter}"] = list(smoke.time_calls(
-                lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2)))
+        wide = lambda Kw, dt: smoke.hmtm_wide_args(Kw, 64, 48, V, dev, Kw, dt)
+        for label_, Kh, viters, args, n, reps in (
+                (chunks[3][0], 25, (10,), chunks[3][4], 20, 3),
+                (f"{chunks[0][0]} float64", 25, (10,), f64, 20, 3),
+                ("K=300 B=64 L=48", 300, (3,), wide(300, torch.float32), 20, 3),
+                ("K=300 B=64 L=48 float64", 300, (3,), wide(300, torch.float64), 20, 3),
+                ("K=170 B=64 L=48 float64", 170, (3,), wide(170, torch.float64), 5, 2),
+                (f"K=300 {chunks[0][0]}", 300, (10, 0), smoke.hmtm_k300_chunk(bucketed, V, dev),
+                 5, 2)):
+            for viter in viters:
+                out[f"{label_} viter={viter}"] = list(smoke.time_calls(
+                    lambda: hmtm_estep(*args, viter=viter, vtol=1.0 / Kh**2), n, reps))
             out[f"{label_} logz"] = list(smoke.time_calls(
-                lambda: hmtm_logz(*args[:3], args[6], args[7])))
+                lambda: hmtm_logz(*args[:3], args[6], args[7]), min(2 * n, 20), reps))
         return emit(here, out)
     if kernel == "ctpf":
         cpk, cbk, _ = smoke.citeulike()

@@ -18,9 +18,11 @@ a sha256 of the outputs of the E-step kernels, their pass modes,
 ``lda_elbo_tok``, ``scatter_rows``, ``hmtm_estep`` and ``hmtm_logz`` (f32,
 and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase 3's
 and phase 9's arguments) on the widest NSF and CiteULike chunks and on
-the chunks whose rows do not fit shared memory; equal digests from two
-checkouts mean the kernels give the same bits.  ROOT's package must have
-those modes.
+the chunks whose rows do not fit shared memory, and of ``hmtm_estep`` and
+``hmtm_logz`` at K = 300 (``hmtm_cases``: the widest NSF chunk in f32,
+whose device and call ms are timed too, and a float64 chunk); equal
+digests from two checkouts mean the kernels give the same bits.  ROOT's
+package must have those modes.
 Prints one JSON line tagged LABEL and appends it to
 ``chiprun_out/kernel_ab.jsonl``.  To compare two commits, run both in one
 call on one card, in turns: parent, change, change, parent.  Needs one
@@ -33,6 +35,24 @@ import pathlib
 import subprocess
 import sys
 import time
+
+
+def hmtm_cases(smoke, kc, dev) -> list:
+    """HMTM's chunks, each (tag, K, viter, hmtm_estep's arguments): phase
+    9's but the L = 4,096 one, then past the shared-memory modes the widest
+    NSF chunk at K = 300 in float32 (``hmtm_k300_chunk``, viter 10) and a
+    ``hmtm_wide_args`` chunk at K = 300 in float64 (64 documents of L =
+    48, viter 3)."""
+    import torch
+
+    out = [(f"K{Kh}_L{a[1].shape[1]}", Kh, viter, a)
+           for _, Kh, viter, _, a in smoke.hmtm_chunks(kc["bucketed"], kc["V"], dev)
+           if a[1].shape[1] <= 1024]
+    k300 = smoke.hmtm_k300_chunk(kc["bucketed"], kc["V"], dev)
+    out.append((f"K300_L{k300[1].shape[1]}", 300, 10, k300))
+    out.append(("K300_f64_L48", 300, 3,
+                smoke.hmtm_wide_args(300, 64, 48, kc["V"], dev, 300, torch.float64)))
+    return out
 
 
 def digests(smoke, kc, dev) -> dict:
@@ -85,10 +105,7 @@ def digests(smoke, kc, dev) -> dict:
         cargs, ckw = smoke.ctpf_args(tok, rd, Vc, cpk.U, K, dev)
         outs[f"ctpf_estep_{tag}"] = ctpf_estep(*cargs, **ckw)
         outs[f"ctpf_estep_pass_{tag}"] = ctpf_estep_pass(*cargs[:10], cargs[10], cargs[12])
-    for label, Kh, viter, _, hargs in smoke.hmtm_chunks(kc["bucketed"], V, dev):
-        if hargs[1].shape[1] > 1024:
-            continue
-        tag = f"K{Kh}_L{hargs[1].shape[1]}"
+    for tag, Kh, viter, hargs in hmtm_cases(smoke, kc, dev):
         outs[f"hmtm_estep_{tag}"] = hmtm_estep(*hargs, viter=viter, vtol=1.0 / Kh**2)
         got = outs[f"hmtm_estep_{tag}"]
         outs[f"hmtm_logz_{tag}"] = (hmtm_logz(*hargs[:3], got[0], got[1]),)
@@ -151,6 +168,16 @@ def main(root: str, label: str) -> int:
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
     out["hmtm_step_s"] = steps
+    # HMTM past the shared-memory modes: device and call ms of hmtm_estep
+    # and hmtm_logz at K = 300 (few calls: the wide mode takes ~0.7 s one)
+    from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
+
+    for tag, Kh, viter, a in hmtm_cases(smoke, kc, dev)[-2:]:
+        kw = dict(viter=viter, vtol=1.0 / Kh**2)
+        tg = hmtm_estep(*a, **kw)
+        out[f"hmtm_estep_{tag}_ms"] = smoke.time_calls(lambda: hmtm_estep(*a, **kw), 3, 1)
+        out[f"hmtm_logz_{tag}_ms"] = smoke.time_calls(
+            lambda: hmtm_logz(*a[:3], tg[0], tg[1]), 3, 1)
     out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)

@@ -8,8 +8,11 @@
 
 namespace tmvb {
 
-// The reference's EPSILON = eps(1e-14) (utils.jl:3), as f32.
-constexpr float kEps = 1.6033346880071782e-30f;
+// The port's EPSILON (utils/numerics.py), Julia's eps(1e-14) = spacing(1e-14)
+// = 2^-99 = 1.5777218104420236e-30 (the reference's utils.jl:3), which the
+// plain versions and the tables add: a power of two, so float holds it
+// exactly.  Real<R>::eps is this one value in either mode.
+constexpr float kEps = 1.5777218104420236e-30f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -63,7 +66,7 @@ struct Real<float> {
 template <>
 struct Real<double> {
   using V4 = Double4;
-  static constexpr double eps = 1.6033346880071782e-30;   // the port's EPSILON
+  static constexpr double eps = kEps;   // 2^-99 exactly, as float
   static constexpr double log2e = 1.4426950408889634;
   __device__ static __forceinline__ double exp(double x) { return ::exp(x); }
   __device__ static __forceinline__ double log(double x) { return ::log(x); }

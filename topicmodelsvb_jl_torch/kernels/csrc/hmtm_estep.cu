@@ -86,10 +86,18 @@
 // E-step reads nothing back to the host.  psi is common.cuh's shift-by-8
 // series.
 //
+// Past the shared-memory modes (past 256 topics, or where A [K, K | 1]
+// overflows the device's opt-in shared memory: K = 240 on an H100 in f32,
+// 170 in f64) the cluster mode (mode 4; hmtm_estep_cluster_kernel,
+// hmtm_logz_cluster_kernel, below) spreads each document's A over the
+// shared memory of a thread-block cluster of 2-16 CTAs, one SM each: on an
+// H100 to K = 704 in f32 (the kernel's threads) and 637 in f64 for
+// hmtm_estep, to 944 and 656 for hmtm_logz.  What bounds it: the chain's
+// steps, each a cluster barrier, a gather over distributed shared memory
+// and the CTA's share of A read from shared memory.
+//
 // The wide mode (mode 3; hmtm_estep_wide_kernel, hmtm_logz_wide_kernel)
-// takes every K that the shared-memory modes cannot: past 256 topics (one
-// thread a topic) or where A [K, K | 1] overflows the device's opt-in
-// shared memory (K = 240 on an H100 in f32, ~170 in f64).  Each document's
+// takes every K past the cluster's reach.  Each document's
 // A [K, K] and A^T, S, the messages, the scalers and the per-topic vectors
 // (g twice, be, p0, the column sums) live in the device scratch, formed
 // once a pass from gamma as the shared copy is; shared memory holds only
@@ -116,7 +124,11 @@
 // 8-byte elements fits shared memory up to K ~ 169; past it the wide mode
 // runs.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace tmvb {
 
@@ -160,13 +172,71 @@ inline size_t hs_base_elems(int K) {
 inline int64_t hm_wide_scratch(int64_t L, int64_t K) { return 3 * K * K + L * K + L + 5 * K; }
 inline int64_t hm_wide_logz_scratch(int64_t K) { return K * K + 3 * K; }
 
+// The cluster mode (mode 4; hmtm_estep_cluster_kernel,
+// hmtm_logz_cluster_kernel): a cluster of c CTAs a document, CTA r holding
+// rows [r Kr, r Kr + Kr) of A in its shared memory, Kr = ceil(K / c); c
+// the narrowest of 2, 4, 8, 16 whose share fits the opt-in.  One thread a
+// topic (hc_threads(K) threads a CTA).
+constexpr int kHmCluster = 4;         // HmShape::mode of the cluster mode
+constexpr int kHcMaxWidth = 16;       // CTAs a cluster at most (past 8: non-portable)
+constexpr int kHcEstepThreads = 704;  // hmtm_estep's launch bound: K <= 704 (88 registers)
+constexpr int kHcLogzThreads = 1024;  // hmtm_logz's: K <= 1024 (64 registers)
+constexpr int kHcRed = 4 * 32;        // four block sums' warp slots
+
+__host__ __device__ inline int hc_rows(int K, int c) { return (K + c - 1) / c; }
+__host__ __device__ inline int hc_threads(int K) { return (K + 31) / 32 * 32; }
+
+// Shared elements of a CTA.  hmtm_estep: a step's g [Kr4] (Kr4 = Kr
+// rounded up to 4: 16-byte vectors), A [Kr, K], the last raw
+// message fv [K], the forward's ring of row slices [2, Kr], the
+// backward's ring of partials [2, K], the emission slice [Kr], the sums'
+// slots, two exchange buffers [K + Kr + 2] (column sums, the tau slice,
+// |dgamma|^2) and 2 for the entry count.  hmtm_logz: A, fv, the forward's
+// ring, the emission slice, the slots, one exchange buffer.
+__host__ __device__ inline int64_t hc_xbuf(int64_t K, int64_t Kr) { return K + Kr + 2; }
+__host__ __device__ inline int hc_rows4(int Kr) { return (Kr + 3) / 4 * 4; }
+inline int64_t hc_estep_elems(int64_t K, int c) {
+  const int64_t Kr = hc_rows(static_cast<int>(K), c);
+  return hc_rows4(static_cast<int>(Kr)) + Kr * K + K + 2 * Kr + 2 * K + Kr + kHcRed +
+         2 * hc_xbuf(K, Kr) + 2;
+}
+inline int64_t hc_logz_elems(int64_t K, int c) {
+  const int64_t Kr = hc_rows(static_cast<int>(K), c);
+  return Kr * K + K + 3 * Kr + kHcRed + hc_xbuf(K, Kr) + 2;
+}
+
+// The narrowest cluster whose CTAs' shares fit `optin` bytes, 0 if none
+// does (or K exceeds the kernel's threads): then the wide mode runs.
+template <typename R>
+inline int hc_width(int64_t K, int optin, bool estep) {
+  if (K > (estep ? kHcEstepThreads : kHcLogzThreads)) return 0;
+  for (int c = 2; c <= kHcMaxWidth; c *= 2) {
+    const int64_t e = estep ? hc_estep_elems(K, c) : hc_logz_elems(K, c);
+    if (e * static_cast<int64_t>(sizeof(R)) <= optin) return c;
+  }
+  return 0;
+}
+
+// Device scratch a document in the cluster mode, in elements: for
+// hmtm_estep each CTA's g store [L, Kr4], its copy of the messages [L, K],
+// the scalers [L] and the entry lists (slot and term id [L] each, as ints
+// in 2 L elements), rounded up to 4 (16-byte aligned g rows); for
+// hmtm_logz each CTA's term list [L].
+__host__ __device__ inline int64_t hc_estep_cta(int64_t L, int64_t K, int c) {
+  return (L * hc_rows4(hc_rows(static_cast<int>(K), c)) + L * K + 3 * L + 3) / 4 * 4;
+}
+inline int64_t hc_estep_scratch(int64_t L, int64_t K, int c) { return c * hc_estep_cta(L, K, c); }
+inline int64_t hc_logz_scratch(int64_t L, int c) { return c * L; }
+
 struct HmShape {
   int mode;         // 0: S and the messages in shared memory; 1: the
                     // messages in scratch; 2: S and the messages in
                     // scratch (K > 32); 3 (wide): A, A^T, S, the messages
-                    // and the vectors in scratch
-  size_t bytes;     // dynamic shared memory
+                    // and the vectors in scratch; 4 (cluster): A in a
+                    // cluster's shared memory, the messages in scratch
+  size_t bytes;     // dynamic shared memory (a CTA of the cluster)
   int64_t scratch;  // elements of device scratch a document (hmtm_estep)
+  int cluster;      // the cluster's width in mode 4, else 0
 };
 
 // 0; kHmBadShape when K or L is below 1; else the CUDA error of the device
@@ -189,7 +259,12 @@ inline int hm_shape(int64_t L, int64_t K, HmShape* s) {
   }
   const size_t base = hm_base_elems(static_cast<int>(K)) * sizeof(R);
   if (K > kHmMaxThreads || base > static_cast<size_t>(optin)) {
-    *s = {kHmWide, 32 * sizeof(R), hm_wide_scratch(L, K)};
+    const int c = hc_width<R>(K, optin, true);
+    if (c > 0)
+      *s = {kHmCluster, static_cast<size_t>(hc_estep_elems(K, c)) * sizeof(R),
+            hc_estep_scratch(L, K, c), c};
+    else
+      *s = {kHmWide, 32 * sizeof(R), hm_wide_scratch(L, K), 0};
     return 0;
   }
   const size_t sb = static_cast<size_t>(K * K) * sizeof(R);
@@ -200,6 +275,26 @@ inline int hm_shape(int64_t L, int64_t K, HmShape* s) {
     *s = {1, base + sb, pos};
   else
     *s = {2, base, K * K + pos};
+  return 0;
+}
+
+// hmtm_logz's layout: its kernels need A only, so where hmtm_estep runs
+// the cluster or the wide mode, hmtm_logz takes the narrowest cluster that
+// holds A (mode 4, `cluster` its width, `scratch` its term lists) or, past
+// it, the wide mode (3); elsewhere the shared-memory kernels (mode 0).
+template <typename R>
+inline int hm_logz_shape(int64_t L, int64_t K, HmShape* s) {
+  const int rc = hm_shape<R>(L, K, s);
+  if (rc != 0 || s->mode < kHmWide) {
+    if (rc == 0) *s = {0, 0, 0, 0};
+    return rc;
+  }
+  const int c = hc_width<R>(K, smem_optin(), false);
+  if (c > 0)
+    *s = {kHmCluster, static_cast<size_t>(hc_logz_elems(K, c)) * sizeof(R), hc_logz_scratch(L, c),
+          c};
+  else
+    *s = {kHmWide, 32 * sizeof(R), hm_wide_logz_scratch(K), 0};
   return 0;
 }
 
@@ -533,13 +628,6 @@ struct HsBlocks<float> { static constexpr int v = 8; };   // <= 128 registers: 8
 template <>
 struct HsBlocks<double> { static constexpr int v = 4; };
 
-// The port's EPSILON, spacing(1e-14) (utils/numerics.py), which the plain
-// versions add to every scaler: a slot whose emission is EPSILON in every
-// topic (a term no topic holds) then gives the plain version's posteriors.
-// (kEps, which the other kernels add, is 1.6% larger.)
-template <typename R>
-__device__ __forceinline__ R hs_eps() { return R(1.5777218104420236e-30); }
-
 // The two warps meet: a named barrier of the block's 64 threads (the warps
 // reach it from different code).
 __device__ __forceinline__ void hs_sync() { asm volatile("bar.sync 1, 64;" ::: "memory"); }
@@ -756,7 +844,7 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_k
       hs_walk(1, mid, 1, plain, [&](int n, const HsSlot<R>& s) {
         if (s.m > R(0)) {
           hs_bcast(F, rows, par, x);
-          const R rC = hs_rcp(hs_sum(x) + hs_eps<R>());   // beside the product
+          const R rC = hs_rcp(hs_sum(x) + Real<R>::eps);   // beside the product
           F = hs_dot(arow, x) * (s.b * rC);
         }
         if (own) msg[static_cast<size_t>(n) * K + lane] = F;
@@ -766,7 +854,7 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_k
         if (s.m > R(0)) {
           const R vn = own ? msg[static_cast<size_t>(n) * K + lane] : R(0);
           hs_bcast(F, rows, par, x);
-          const R rC = hs_rcp(hs_sum(x) + hs_eps<R>());
+          const R rC = hs_rcp(hs_sum(x) + Real<R>::eps);
           const R p = hs_dot(arow, x);
           F = p * (s.b * rC);
           const R e = (p * rC) * vn;   // (A a_{n-1}) o v_n: no product leaves f32's range
@@ -783,7 +871,7 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_k
         }
       });
       const R tot = warp_sum(F);
-      if (lane == 0) red[0] = tot / (tot + hs_eps<R>());
+      if (lane == 0) red[0] = tot / (tot + Real<R>::eps);
       if (!final_pass && own)
 #pragma unroll
         for (int l = 0; l < W; ++l)
@@ -806,7 +894,7 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_k
           const R v = s.b * bt;
           if (own) msg[static_cast<size_t>(n) * K + lane] = v;
           hs_bcast(v, rows, par, x);
-          const R rN = hs_rcp(hs_sum(x) + hs_eps<R>());   // beside the product
+          const R rN = hs_rcp(hs_sum(x) + Real<R>::eps);   // beside the product
           bt = hs_dot(acol, x) * rN;
         }
       });
@@ -821,7 +909,7 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_estep_split_k
         if (s.m > R(0)) {
           const R v = s.b * bt;
           hs_bcast(v, rows, par, x);
-          const R rN = hs_rcp(hs_sum(x) + hs_eps<R>());
+          const R rN = hs_rcp(hs_sum(x) + Real<R>::eps);
           bt = hs_dot(acol, x) * rN;
           const R e = fp * bt;   // F_{n-1} o bt_{n-1}: no product leaves f32's range
           const R rD = hs_rcp(warp_sum(e));
@@ -928,13 +1016,13 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_logz_split_ke
     hs_walk(1, mid, 1, plain, [&](int n, const HsSlot<R>& s) {
       if (s.m > R(0)) {
         hs_bcast(F, rows, par, x);
-        const R C = hs_sum(x) + hs_eps<R>();
+        const R C = hs_sum(x) + Real<R>::eps;
         if (logged) lz += Real<R>::log(C);
         F = hs_dot(arow, x) * (s.b * hs_rcp(C));
         logged = true;
       }
     });
-    const R C = warp_sum(F) + hs_eps<R>();
+    const R C = warp_sum(F) + Real<R>::eps;
     if (logged) lz += Real<R>::log(C);
     if (own) fmid[lane] = F;
     if (lane == 0) {
@@ -950,16 +1038,16 @@ __global__ void __launch_bounds__(kHsThreads, HsBlocks<R>::v) hmtm_logz_split_ke
       if (s.m > R(0)) {
         const R v = s.b * bt;
         hs_bcast(v, rows, par, x);
-        const R N = hs_sum(x) + hs_eps<R>();
+        const R N = hs_sum(x) + Real<R>::eps;
         const R rN = hs_rcp(N);
-        bt = Real<R>::fma(hs_eps<R>(), bs, hs_dot(acol, x)) * rN;
-        bs = hs_eps<R>() * bs * rN;
+        bt = Real<R>::fma(Real<R>::eps, bs, hs_dot(acol, x)) * rN;
+        bs = Real<R>::eps * bs * rN;
         lz += Real<R>::log(N);
       }
     });
     hs_sync();
     const R fm = own ? fmid[lane] : R(0);
-    const R z = Real<R>::fma(hs_eps<R>(), bs, warp_sum(fm * bt)) / red[0];
+    const R z = Real<R>::fma(Real<R>::eps, bs, warp_sum(fm * bt)) / red[0];
     if (lane == 0) logz[b] = red[1] + lz + Real<R>::log(z);
   }
 }
@@ -1216,6 +1304,529 @@ __global__ void __launch_bounds__(kHmMaxThreads) hmtm_logz_wide_kernel(
   if (threadIdx.x == 0) logz[b] = z;
 }
 
+// ---- the cluster mode: A in a thread-block cluster's shared memory ----
+//
+// A document's chain runs on a cluster of c CTAs, each on its own SM; CTA r
+// owns rows i in [r Kr, r Kr + Kr) of A (Kr = ceil(K / c); the last rank
+// may hold fewer) and keeps them in its shared memory for the whole
+// kernel, so a step reads its share from shared memory and not from device
+// memory.  A step of the forward or the backward is one cluster barrier:
+// - forward: each CTA forms its rows of f_k = B_k o (A f_{k-1}) / c_{k-1}
+//   into a 2-deep ring, then gathers the whole f_k from the c rings
+//   (distributed shared memory); c_k = sum f_k + EPSILON is summed by every
+//   CTA over the same values in the same order, so all hold the same bits;
+// - backward: each CTA forms g_k = B_k o be_k / c_k on its rows (kept in
+//   its g store too), its partial (A^T g_k)_l over its rows for every l
+//   into a 2-deep ring; then each folds the c partials of its own rows in
+//   rank order into be_{k-1}.
+// S = sum_k g_k a_{k-1}^T, local to a CTA's rows, is formed once a pass
+// after the backward from the g store and the messages (hc_gamma), in the
+// backward's order, so it has the bits S would have if updated every step;
+// S out of the chain halves the shared memory a document needs (its
+// cluster is half as wide: twice the documents in flight) and the bytes a
+// backward step reads.  (Keeping S in shared memory, updated every step
+// or every second step, was 24% slower at K = 300 on the widest NSF
+// chunk: PERF.md.)
+// The 2-deep rings let a CTA write step k + 1 while another still reads
+// step k: it cannot reach step k + 2's write before every CTA has passed
+// the barrier of step k + 1, which each passes after its reads of step k.
+// The chain runs over entries, not slots: entry 0 is slot 0 (it always
+// makes a message: a padding first slot takes f_0 = p0), entry k >= 1 the
+// k-th real slot after it (a padding slot carries the message, c = 1, so
+// it is no step).  The update between passes (tau = eta + r_0, gamma =
+// alpha + A o S, the stop test) is local to the rows but for the column
+// sums of the new gamma, tau's sum and |dgamma|^2, which go through an
+// exchange buffer (one barrier) and are folded in rank order: every CTA
+// takes the same branch.  The messages and scalers each CTA needs again
+// (the backward's c_k and, in the final pass, a_k on its rows; a_{k-1} on
+// its columns for S) go to its own copy in the device scratch, L2 hits
+// fetched a step ahead.  A last barrier keeps
+// every CTA's shared memory alive until no other can read it.  Sums run
+// in fixed orders and no float atomic is used: the same inputs give the
+// same bits.  The launch (cudaLaunchKernelEx with a cluster dimension)
+// fails with the CUDA error where the device cannot place a cluster.
+
+// A document's cluster from one CTA: its width c, rank, rows [i0, i0 + nr)
+// and warps.
+struct HcCta {
+  int c, rank, Kr, i0, nr, K, nw;
+};
+
+__device__ __forceinline__ HcCta hc_cta(int K) {
+  cg::cluster_group cl = cg::this_cluster();
+  HcCta h;
+  h.c = static_cast<int>(cl.dim_blocks().x);
+  h.rank = static_cast<int>(cl.block_rank());
+  h.Kr = hc_rows(K, h.c);
+  h.i0 = h.rank * h.Kr;
+  h.nr = min(max(K - h.i0, 0), h.Kr);
+  h.K = K;
+  h.nw = blockDim.x >> 5;
+  return h;
+}
+
+// `p` (in this CTA's shared memory) in the CTA of rank `r`: a generic
+// pointer into distributed shared memory.
+template <typename T>
+__device__ __forceinline__ T* hc_at(T* p, int r) {
+  return cg::this_cluster().map_shared_rank(p, r);
+}
+
+// Every thread of the cluster arrives, then waits: a release-acquire
+// barrier at cluster scope (writes before it are seen by every CTA after
+// it), and a barrier of the CTA's own threads.
+__device__ __forceinline__ void hc_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// sum over r = 0 .. c - 1 of hc_at(p, r)[o] in rank order, the loads
+// issued before the adds.
+template <typename R>
+__device__ __forceinline__ R hc_fold(R* p, int o, int c) {
+  R v[kHcMaxWidth];
+#pragma unroll
+  for (int r = 0; r < kHcMaxWidth; ++r)
+    if (r < c) v[r] = hc_at(p, r)[o];
+  R s = R(0);
+#pragma unroll
+  for (int r = 0; r < kHcMaxWidth; ++r)
+    if (r < c) s += v[r];
+  return s;
+}
+
+// The document's entries, by warp 0, into this CTA's lists: slot[k] (NULL:
+// not kept) and its term id term[k].  Returns the count to every thread
+// (one barrier; `count` in shared memory).
+template <typename R>
+__device__ __forceinline__ int hc_entries(const int* tb, const R* mb, int L, int* slot, int* term,
+                                          int* count) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n_ent = 1;
+    if (lane == 0) {
+      if (slot != nullptr) slot[0] = 0;
+      term[0] = tb[0];
+    }
+    for (int base = 1; base < L; base += 32) {
+      const int n = base + lane;
+      const bool real = n < L && mb[n] > R(0);
+      const unsigned m = __ballot_sync(0xffffffffu, real);
+      if (real) {
+        const int k = n_ent + __popc(m & ((1u << lane) - 1u));
+        if (slot != nullptr) slot[k] = n;
+        term[k] = tb[n];
+      }
+      n_ent += __popc(m);
+    }
+    if (lane == 0) *count = n_ent;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// A [j, l] = exp(psi(gamma[i0 + j, l]) - psi(sum_i gamma[i, l])) on the
+// CTA's rows, thread l a column (gamma read twice): the column's sum over
+// the CTA's rows into xb[l], one cluster barrier, the c partial sums in
+// rank order.  `gout` (NULL: none) gets a copy of the rows.
+template <typename R>
+__device__ __forceinline__ void hc_build(const HcCta& h, const R* gd, R* gout, R* A, R* xb) {
+  const int l = threadIdx.x, K = h.K;
+  if (l < K) {
+    R part = R(0);
+    for (int j = 0; j < h.nr; ++j) {
+      const size_t o = static_cast<size_t>(h.i0 + j) * K + l;
+      const R g = gd[o];
+      if (gout != nullptr) gout[o] = g;
+      part += g;
+    }
+    xb[l] = part;
+  }
+  hc_sync();
+  if (l < K) {
+    const R dcs = hm_psi(hc_fold(xb, l, h.c));
+    for (int j = 0; j < h.nr; ++j)
+      A[static_cast<size_t>(j) * K + l] =
+          Real<R>::exp(hm_psi(gd[static_cast<size_t>(h.i0 + j) * K + l]) - dcs);
+  }
+}
+
+// p0 of the thread's topic from the whole tau (every CTA the same bits).
+template <typename R>
+__device__ __forceinline__ R hc_p0(R tau, bool own, R* red, int nw) {
+  const R ts = hm_sum(own ? tau : R(0), red, nw);
+  return own ? Real<R>::exp(hm_psi(tau) - hm_psi(ts)) : R(0);
+}
+
+// The forward over entries 0 .. ne - 1.  Thread t owns topic t of the
+// whole message, in fv raw (f, not f / c).  The CTA's rows of f_k: each
+// warp eight rows at a time, the lanes over l, then eight butterflies; the
+// emission slice of entry k sits in shared memory (written at step k - 1,
+// fetched at step k - 2, its term id at k - 3).  a_k = f_k / c_k and c_k
+// go to this CTA's copies msg [ne, K] and cs (NULL: none).  Returns logZ =
+// sum of log c_k over the real entries, the same in every thread.
+template <typename R>
+__device__ __forceinline__ R hc_forward(const HcCta& h, const R* A, const R* __restrict__ betaT,
+                                        const int* term, int ne, R m0, R p0, R* fv, R* ringf,
+                                        R* bsl, R* red, R* msg, R* cs) {
+  const int t = threadIdx.x, K = h.K, lane = t & 31, w = t >> 5;
+  const bool own = t < K, mine = t < h.nr;
+  const R f0 = own ? (m0 > R(0) ? p0 * betaT[static_cast<size_t>(term[0]) * K + t] : p0) : R(0);
+  if (own) fv[t] = f0;
+  if (mine && ne > 1) bsl[t] = betaT[static_cast<size_t>(term[1]) * K + h.i0 + t];
+  R b_nx = (mine && ne > 2) ? betaT[static_cast<size_t>(term[2]) * K + h.i0 + t] : R(0);
+  int t_nx = ne > 3 ? term[3] : 0;
+  R cprev = hm_sum(f0, red, h.nw) + Real<R>::eps;   // its barrier: fv and bsl written
+  if (msg != nullptr && own) msg[t] = f0 / cprev;
+  if (cs != nullptr && t == 0) cs[0] = m0 > R(0) ? cprev : R(1);
+  R logz = m0 > R(0) ? Real<R>::log(cprev) : R(0);
+  int par = 0;
+  for (int k = 1; k < ne; ++k) {
+    R* ring = ringf + static_cast<size_t>(par) * h.Kr;
+    par ^= 1;
+    for (int j0 = 8 * w; j0 < h.nr; j0 += 8 * h.nw) {
+      // rows j0 .. j0 + 7; past nr row j0 again, its sums unused
+      const R* ap[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) ap[u] = A + static_cast<size_t>(j0 + u < h.nr ? j0 + u : j0) * K;
+      R sv[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sv[u] = R(0);
+      for (int l = lane; l < K; l += 32) {
+        const R x = fv[l];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) sv[u] = Real<R>::fma(ap[u][l], x, sv[u]);
+      }
+      R s = R(0);   // lane u < 8: row j0 + u's sum
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const R su = warp_sum(sv[u]);
+        if (lane == u) s = su;
+      }
+      const int j = j0 + lane;
+      if (lane < 8 && j < h.nr) ring[j] = bsl[j] * (s / cprev);
+    }
+    hc_sync();   // every CTA's rows of f_k in its ring; fv and bsl read
+    R fk = R(0);
+    if (own) {
+      const int o = t / h.Kr;
+      fk = hc_at(ring, o)[t - o * h.Kr];
+      fv[t] = fk;
+    }
+    if (mine && k + 1 < ne) {
+      bsl[t] = b_nx;
+      if (k + 2 < ne) b_nx = betaT[static_cast<size_t>(t_nx) * K + h.i0 + t];
+      if (k + 3 < ne) t_nx = term[k + 3];
+    }
+    const R ck = hm_sum(fk, red, h.nw) + Real<R>::eps;   // its barrier: fv and bsl written
+    if (msg != nullptr && own) msg[static_cast<size_t>(k) * K + t] = fk / ck;
+    if (cs != nullptr && t == 0) cs[k] = ck;
+    logz += Real<R>::log(ck);
+    cprev = ck;
+  }
+  return logz;
+}
+
+// The backward over entries ne - 1 .. 1 from this CTA's msg and cs.
+// Thread j < nr owns row i0 + j: be_k, and g_k into g (read by the step's
+// column loop, free again past the step's cluster barrier) and, unless
+// kFinal, into the CTA's g store gst [L, Kr4] for the pass's S.  Thread l
+// sums column l's partial (A^T g_k)_l over the CTA's rows, g read as
+// 16-byte vectors.  Each operand of a step is fetched a step ahead.
+// kFinal writes the r row of entry k's slot, a_k o be_k, on the CTA's
+// columns.  Returns be_0 of the thread's row.
+template <bool kFinal, typename R>
+__device__ __forceinline__ R hc_backward(const HcCta& h, const R* A, const R* __restrict__ betaT,
+                                         const int* slot, const int* term, int ne, const R* msg,
+                                         const R* cs, R* g, R* gst, R* ringb, R* rd) {
+  using V4 = typename Real<R>::V4;
+  const int t = threadIdx.x, K = h.K, Kr4 = hc_rows4(h.Kr);
+  const bool own = t < K, mine = t < h.nr;
+  R be = R(1);
+  __syncthreads();   // the forward's last scaler and messages, written by other threads
+  if (ne < 2) return be;
+  auto emis = [&](int k) {
+    return mine ? betaT[static_cast<size_t>(term[k]) * K + h.i0 + t] : R(0);
+  };
+  auto cur = [&](int k) {
+    return (kFinal && mine) ? msg[static_cast<size_t>(k) * K + h.i0 + t] : R(0);
+  };
+  int k = ne - 1;
+  R b_cur = emis(k), a_k = cur(k), c_k = cs[k];
+  int s_k = kFinal ? slot[k] : 0;
+  int par = 0;
+  for (; k >= 1; --k) {
+    R b_nx = R(0), ak_nx = R(0), c_nx = R(1);
+    int s_nx = 0;
+    if (k >= 2) {
+      b_nx = emis(k - 1);
+      ak_nx = cur(k - 1);
+      c_nx = cs[k - 1];
+      if (kFinal) s_nx = slot[k - 1];
+    }
+    if (mine) {
+      const R gk = (b_cur * be) / c_k;
+      g[t] = gk;
+      if (kFinal)
+        rd[static_cast<size_t>(s_k) * K + h.i0 + t] = a_k * be;
+      else
+        gst[static_cast<size_t>(k) * Kr4 + t] = gk;
+    }
+    __syncthreads();   // g complete
+    R* ring = ringb + static_cast<size_t>(par) * K;
+    if (own) {
+      R e0 = R(0), e1 = R(0);
+      int j = 0;
+      for (; j + 4 <= h.nr; j += 4) {
+        const V4 q = *reinterpret_cast<const V4*>(g + j);
+        const size_t o = static_cast<size_t>(j) * K + t;
+        e0 = Real<R>::fma(A[o], q.x, e0);
+        e1 = Real<R>::fma(A[o + K], q.y, e1);
+        e0 = Real<R>::fma(A[o + 2 * K], q.z, e0);
+        e1 = Real<R>::fma(A[o + 3 * K], q.w, e1);
+      }
+      for (int i = 0; j < h.nr; ++j, ++i) {
+        const size_t o = static_cast<size_t>(j) * K + t;
+        if (i & 1)
+          e1 = Real<R>::fma(A[o], g[j], e1);
+        else
+          e0 = Real<R>::fma(A[o], g[j], e0);
+      }
+      ring[t] = e0 + e1;
+    }
+    hc_sync();   // every CTA's partials in its ring; g read
+    if (mine) be = hc_fold(ring, h.i0 + t, h.c);
+    par ^= 1;
+    b_cur = b_nx;
+    a_k = ak_nx;
+    c_k = c_nx;
+    s_k = s_nx;
+  }
+  return be;
+}
+
+// Rows of S a thread sums at once in the pass's product (its registers).
+template <typename R>
+struct HcSRows;
+template <>
+struct HcSRows<float> { static constexpr int v = 32; };
+template <>
+struct HcSRows<double> { static constexpr int v = 16; };
+
+// The pass's update on the CTA's rows, thread l column l: S[j, l] = sum
+// over entries k = ne - 1 .. 1 of g_k[j] a_{k-1}[l] (the backward's order:
+// the bits the chain would give adding it step by step), HcSRows rows at a
+// time; gamma_new = alpha + A o S into gamma_out and staged in A; returns
+// the thread's |dgamma|^2 and puts its column's sum of gamma_new in *csl.
+template <typename R>
+__device__ __forceinline__ R hc_gamma(const HcCta& h, R* A, const R* gst, const R* msg, int ne,
+                                      const R* __restrict__ alpha, R* gd, R* csl) {
+  using V4 = typename Real<R>::V4;
+  constexpr int kS = HcSRows<R>::v;
+  const int t = threadIdx.x, K = h.K, Kr4 = hc_rows4(h.Kr);
+  R d2 = R(0), cs = R(0);
+  for (int j0 = 0; j0 < h.nr; j0 += kS) {
+    R acc[kS];
+#pragma unroll
+    for (int u = 0; u < kS; ++u) acc[u] = R(0);
+#pragma unroll 2
+    for (int k = ne - 1; k >= 1; --k) {
+      const R a = msg[static_cast<size_t>(k - 1) * K + t];
+      const V4* q = reinterpret_cast<const V4*>(gst + static_cast<size_t>(k) * Kr4 + j0);
+#pragma unroll
+      for (int u = 0; u < kS / 4; ++u) {
+        const V4 v = q[u];
+        acc[4 * u] = Real<R>::fma(v.x, a, acc[4 * u]);
+        acc[4 * u + 1] = Real<R>::fma(v.y, a, acc[4 * u + 1]);
+        acc[4 * u + 2] = Real<R>::fma(v.z, a, acc[4 * u + 2]);
+        acc[4 * u + 3] = Real<R>::fma(v.w, a, acc[4 * u + 3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kS; ++u) {
+      const int j = j0 + u;
+      if (j < h.nr) {
+        const size_t o = static_cast<size_t>(h.i0 + j) * K + t;   // in gamma [K, K]
+        const size_t so = static_cast<size_t>(j) * K + t;         // in A [Kr, K]
+        const R gn = alpha[o] + A[so] * acc[u];
+        const R d = gn - gd[o];
+        d2 = Real<R>::fma(d, d, d2);
+        gd[o] = gn;
+        A[so] = gn;
+        cs += gn;
+      }
+    }
+  }
+  *csl = cs;
+  return d2;
+}
+
+// One document a cluster; the cluster's width comes with the launch.
+template <typename R>
+__global__ void __launch_bounds__(kHcEstepThreads) hmtm_estep_cluster_kernel(
+    const R* __restrict__ betaT,     // [V, K] beta^T + eps
+    const int* __restrict__ terms,   // [B, L]
+    const R* __restrict__ tmask,     // [B, L] 1 on real tokens
+    const R* __restrict__ doc_mask,  // [B]
+    const R* __restrict__ eta,       // [K]
+    const R* __restrict__ alpha,     // [K, K]
+    const R* __restrict__ tau_in,    // [B, K]
+    const R* __restrict__ gamma_in,  // [B, K, K]
+    R* __restrict__ tau_out, R* __restrict__ gamma_out,
+    R* __restrict__ r,               // [B, L, K]
+    R* scratch,                      // [B, c, hc_estep_cta(L, K, c)]
+    int L, int K, int viter, R vtol) {
+  extern __shared__ __align__(16) unsigned char hm_smem_raw[];
+  R* sm = reinterpret_cast<R*>(hm_smem_raw);
+  const HcCta h = hc_cta(K);
+  const int t = threadIdx.x;
+  const bool own = t < K, mine = t < h.nr;
+  const int b = blockIdx.x / h.c;
+  const size_t KrK = static_cast<size_t>(h.Kr) * K;
+  const int xn = static_cast<int>(hc_xbuf(K, h.Kr));
+  R* g = sm;                      // [Kr4], 16-byte aligned
+  R* A = g + hc_rows4(h.Kr);
+  R* fv = A + KrK;                // [K]
+  R* ringf = fv + K;              // [2, Kr]
+  R* ringb = ringf + 2 * h.Kr;    // [2, K]
+  R* bsl = ringb + 2 * K;         // [Kr]
+  R* red = bsl + h.Kr;            // [4, 32]: c, |dgamma|^2, sum tau
+  R* xbuf = red + kHcRed;         // [2, K + Kr + 2]: column sums, tau, |dgamma|^2
+  int* count = reinterpret_cast<int*>(xbuf + 2 * xn);
+  // this CTA's scratch: the g store [L, Kr4] (16-byte aligned), the
+  // messages [L, K], the scalers [L], the entry lists [2, L] (ints)
+  R* gst = scratch + (static_cast<size_t>(b) * h.c + h.rank) * hc_estep_cta(L, K, h.c);
+  R* msg = gst + static_cast<size_t>(L) * hc_rows4(h.Kr);
+  R* cs = msg + static_cast<size_t>(L) * K;
+  int* slot = reinterpret_cast<int*>(cs + L);
+  int* term = slot + L;
+  const int* tb = terms + static_cast<size_t>(b) * L;
+  const R* mb = tmask + static_cast<size_t>(b) * L;
+  const size_t dk = static_cast<size_t>(b) * K, dkk = dk * K;
+  R* rd = r + static_cast<size_t>(b) * L * K;
+  R* gd = gamma_out + dkk;
+
+  const int ne = hc_entries(tb, mb, L, slot, term, count);
+  const R m0 = mb[0];
+  if (mine) {   // the CTA's columns of r: zeros, the real rows written by the final pass
+    for (int n = 0; n < L; ++n) rd[static_cast<size_t>(n) * K + h.i0 + t] = R(0);
+    tau_out[dk + h.i0 + t] = tau_in[dk + h.i0 + t];
+  }
+  hc_build(h, gamma_in + dkk, gd, A, xbuf + xn);
+  R p0 = hc_p0(own ? tau_in[dk + t] : R(0), own, red + 64, h.nw);
+
+  bool active = doc_mask[b] > R(0);
+  int pp = 0;   // the update's exchange buffer, alternating (the build took buffer 1)
+  for (int it = 0; it < viter && active; ++it) {
+    hc_forward(h, A, betaT, term, ne, m0, p0, fv, ringf, bsl, red, msg, cs);
+    const R be0 = hc_backward<false>(h, A, betaT, slot, term, ne, msg, cs, g, gst, ringb,
+                                     static_cast<R*>(nullptr));
+    // tau = eta + r_0 and gamma = alpha + A o S on the CTA's rows (gamma
+    // staged in A), the column sums, the tau slice and |dgamma|^2 to the
+    // exchange buffer; after one cluster barrier every CTA folds them in
+    // rank order
+    R* xb = xbuf + pp * xn;
+    pp ^= 1;
+    if (mine) {
+      const R tn = eta[h.i0 + t] + msg[h.i0 + t] * be0 * m0;
+      tau_out[dk + h.i0 + t] = tn;
+      xb[K + t] = tn;
+    }
+    R d2 = R(0);
+    if (own) {
+      R csl;
+      d2 = hc_gamma(h, A, gst, msg, ne, alpha, gd, &csl);
+      xb[t] = csl;
+    }
+    d2 = hm_sum(d2, red + 32, h.nw);
+    if (t == 0) xb[K + h.Kr] = d2;
+    hc_sync();   // the exchange buffers written
+    R tau = R(0);
+    if (own) {
+      const int o = t / h.Kr;
+      tau = hc_at(xb, o)[K + t - o * h.Kr];
+      const R dcs = hm_psi(hc_fold(xb, t, h.c));
+      for (int j = 0; j < h.nr; ++j) {
+        const size_t so = static_cast<size_t>(j) * K + t;
+        A[so] = Real<R>::exp(hm_psi(A[so]) - dcs);
+      }
+    }
+    const R delta2 = hc_fold(xb, K + h.Kr, h.c);
+    p0 = hc_p0(tau, own, red + 64, h.nw);   // its barrier: the new A complete
+    active = hm_sqrt(delta2) >= vtol;
+  }
+
+  // q(z_n) from the final state: the real rows by the final backward, row 0
+  hc_forward(h, A, betaT, term, ne, m0, p0, fv, ringf, bsl, red, msg, cs);
+  const R be0 = hc_backward<true>(h, A, betaT, slot, term, ne, msg, cs, g,
+                                  static_cast<R*>(nullptr), ringb, rd);
+  if (mine) rd[h.i0 + t] = msg[h.i0 + t] * be0 * m0;
+  hc_sync();   // no CTA leaves while another may still read its shared memory
+}
+
+template <typename R>
+__global__ void __launch_bounds__(kHcLogzThreads) hmtm_logz_cluster_kernel(
+    const R* __restrict__ betaT, const int* __restrict__ terms, const R* __restrict__ tmask,
+    const R* __restrict__ tau, const R* __restrict__ gamma, R* __restrict__ logz,
+    R* scratch,   // [B, c, L]: each CTA's term list
+    int L, int K) {
+  extern __shared__ __align__(16) unsigned char hm_smem_raw[];
+  R* sm = reinterpret_cast<R*>(hm_smem_raw);
+  const HcCta h = hc_cta(K);
+  const int t = threadIdx.x;
+  const bool own = t < K;
+  const int b = blockIdx.x / h.c;
+  R* A = sm;                                      // [Kr, K]
+  R* fv = A + static_cast<size_t>(h.Kr) * K;      // [K]
+  R* ringf = fv + K;                              // [2, Kr]
+  R* bsl = ringf + 2 * h.Kr;                      // [Kr]
+  R* red = bsl + h.Kr;                            // [4, 32]
+  R* xb = red + kHcRed;                           // [K + Kr + 2]
+  int* count = reinterpret_cast<int*>(xb + hc_xbuf(K, h.Kr));
+  int* term = reinterpret_cast<int*>(scratch + (static_cast<size_t>(b) * h.c + h.rank) * L);
+  const int* tb = terms + static_cast<size_t>(b) * L;
+  const R* mb = tmask + static_cast<size_t>(b) * L;
+  const int ne = hc_entries(tb, mb, L, static_cast<int*>(nullptr), term, count);
+  hc_build(h, gamma + static_cast<size_t>(b) * K * K, static_cast<R*>(nullptr), A, xb);
+  const R p0 = hc_p0(own ? tau[static_cast<size_t>(b) * K + t] : R(0), own, red + 64, h.nw);
+  const R z = hc_forward(h, A, betaT, term, ne, mb[0], p0, fv, ringf, bsl, red,
+                         static_cast<R*>(nullptr), static_cast<R*>(nullptr));
+  if (h.rank == 0 && t == 0) logz[b] = z;
+  hc_sync();   // no CTA leaves while another may still read its shared memory
+}
+
+// B clusters of c CTAs of `threads`, `bytes` of shared memory each; fails,
+// with the CUDA error, where the device cannot place one such cluster.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), int c, int64_t B, unsigned threads, size_t bytes,
+                   cudaStream_t st, Args... args) {
+  cudaError_t err = allow_smem(kern, bytes);
+  if (err != cudaSuccess) return fail(err);
+  if (c > 8) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return fail(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(c);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * c));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int placed = 0;
+  err = cudaOccupancyMaxActiveClusters(&placed, reinterpret_cast<const void*>(kern), &cfg);
+  if (err != cudaSuccess) return fail(err);
+  if (placed < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return fail(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The split kernels at the register width W of the block's K.
 template <typename R, int W>
 int launch_split_estep(const R* betaT, const int* terms, const R* tmask, const R* doc_mask,
@@ -1270,6 +1881,12 @@ int launch_hmtm_estep(const R* betaT, const int* terms, const R* tmask, const R*
                                          viter, vtol, s, st);
     }
   }
+  if (s.mode == kHmCluster)
+    return launch_cluster(hmtm_estep_cluster_kernel<R>, s.cluster, B,
+                          static_cast<unsigned>(hc_threads(static_cast<int>(K))), s.bytes, st,
+                          betaT, terms, tmask, doc_mask, eta, alpha, tau_in, gamma_in, tau_out,
+                          gamma_out, r, scratch, static_cast<int>(L), static_cast<int>(K), viter,
+                          vtol);
   if (s.mode == kHmWide) {
     hmtm_estep_wide_kernel<R><<<static_cast<unsigned>(B), threads, s.bytes, st>>>(
         betaT, terms, tmask, doc_mask, eta, alpha, tau_in, gamma_in, tau_out, gamma_out, r,
@@ -1290,8 +1907,9 @@ int launch_hmtm_logz(const R* betaT, const int* terms, const R* tmask, const R* 
                      void* stream) {
   if (B == 0) return 0;
   HmShape s;
-  const int rc = hm_shape<R>(L, K, &s);
+  const int rc = hm_logz_shape<R>(L, K, &s);
   if (rc != 0) return static_cast<int>(rc == kHmBadShape ? cudaErrorInvalidValue : rc);
+  if (s.scratch > 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned threads = hm_threads(static_cast<int>(K));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K <= 32) {
@@ -1304,8 +1922,12 @@ int launch_hmtm_logz(const R* betaT, const int* terms, const R* tmask, const R* 
         return launch_split_logz<R, 32>(betaT, terms, tmask, tau, gamma, logz, B, L, K, st);
     }
   }
+  if (s.mode == kHmCluster)
+    return launch_cluster(hmtm_logz_cluster_kernel<R>, s.cluster, B,
+                          static_cast<unsigned>(hc_threads(static_cast<int>(K))), s.bytes, st,
+                          betaT, terms, tmask, tau, gamma, logz, scratch, static_cast<int>(L),
+                          static_cast<int>(K));
   if (s.mode == kHmWide) {
-    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     hmtm_logz_wide_kernel<R><<<static_cast<unsigned>(B), threads, s.bytes, st>>>(
         betaT, terms, tmask, tau, gamma, logz, scratch, hm_wide_logz_scratch(K),
         static_cast<int>(L), static_cast<int>(K));
@@ -1319,50 +1941,61 @@ int launch_hmtm_logz(const R* betaT, const int* terms, const R* tmask, const R* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shape queries' answers: what 0 hmtm_estep's mode, 1 its scratch
+// elements a document, 2 its cluster width (0: not the cluster mode), 3
+// hmtm_logz's mode (0 shared memory, 3 wide, 4 cluster), 4 its scratch, 5
+// its cluster width; -1 when the device cannot be queried, -2 when K or L
+// is below 1.
+template <typename R>
+int64_t hm_query(int64_t L, int64_t K, int what) {
+  HmShape s;
+  const int rc = what < 3 ? hm_shape<R>(L, K, &s) : hm_logz_shape<R>(L, K, &s);
+  if (rc != 0) return rc == kHmBadShape ? -2 : -1;
+  switch (what % 3) {
+    case 0:
+      return s.mode;
+    case 1:
+      return s.scratch;
+    default:
+      return s.cluster;
+  }
+}
+
 }  // namespace tmvb
 
 extern "C" {
 
-// Which buffers a document of L slots keeps in shared memory (HmShape's
-// mode: 0, 1, 2, or 3 for the wide mode), -1 when the device cannot be
-// queried, -2 when K or L is below 1.
 int tmvb_hmtm_estep_mode(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<float>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2 : (rc != 0 ? -1 : s.mode);
+  return static_cast<int>(tmvb::hm_query<float>(L, K, 0));
 }
 int tmvb_hmtm_estep_mode_f64(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<double>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2 : (rc != 0 ? -1 : s.mode);
+  return static_cast<int>(tmvb::hm_query<double>(L, K, 0));
 }
-
-// Elements of device scratch a document needs for hmtm_estep; -1 or -2 as
-// above.
-int64_t tmvb_hmtm_estep_scratch(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<float>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2 : (rc != 0 ? -1 : s.scratch);
-}
+int64_t tmvb_hmtm_estep_scratch(int64_t L, int64_t K) { return tmvb::hm_query<float>(L, K, 1); }
 int64_t tmvb_hmtm_estep_scratch_f64(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<double>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2 : (rc != 0 ? -1 : s.scratch);
+  return tmvb::hm_query<double>(L, K, 1);
 }
-
-// Elements of device scratch a document needs for hmtm_logz: 0 in the
-// shared-memory modes; -1 or -2 as above.
-int64_t tmvb_hmtm_logz_scratch(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<float>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2
-         : (rc != 0 ? -1 : (s.mode == tmvb::kHmWide ? tmvb::hm_wide_logz_scratch(K) : 0));
+int tmvb_hmtm_estep_cluster(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<float>(L, K, 2));
 }
+int tmvb_hmtm_estep_cluster_f64(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<double>(L, K, 2));
+}
+int tmvb_hmtm_logz_mode(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<float>(L, K, 3));
+}
+int tmvb_hmtm_logz_mode_f64(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<double>(L, K, 3));
+}
+int64_t tmvb_hmtm_logz_scratch(int64_t L, int64_t K) { return tmvb::hm_query<float>(L, K, 4); }
 int64_t tmvb_hmtm_logz_scratch_f64(int64_t L, int64_t K) {
-  tmvb::HmShape s;
-  const int rc = tmvb::hm_shape<double>(L, K, &s);
-  return rc == tmvb::kHmBadShape ? -2
-         : (rc != 0 ? -1 : (s.mode == tmvb::kHmWide ? tmvb::hm_wide_logz_scratch(K) : 0));
+  return tmvb::hm_query<double>(L, K, 4);
+}
+int tmvb_hmtm_logz_cluster(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<float>(L, K, 5));
+}
+int tmvb_hmtm_logz_cluster_f64(int64_t L, int64_t K) {
+  return static_cast<int>(tmvb::hm_query<double>(L, K, 5));
 }
 
 int tmvb_hmtm_estep(const float* betaT, const int* terms, const float* tmask,

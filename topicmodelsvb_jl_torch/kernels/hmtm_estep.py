@@ -34,14 +34,24 @@ and then the backward, as JAX does.
 
 On the card both run in the table's dtype: float32, or float64 (every
 float argument float64; ψ the double series through t⁻¹², since the plain
-versions take ψ from ``torch.special``), and at any K: where the chain
-matrix A no longer fits shared memory (past 256 topics, or from K = 240
-in float32 and ~170 in float64 on an H100) the kernels run their wide
-mode, which keeps A, Aᵀ, S and the messages of each document in a device
-scratch (:func:`mode`; ``3 K² + (L + 5) K + L`` elements a document for
-:func:`hmtm_estep`, ``K² + 3 K`` for :func:`hmtm_logz`).  A wrapper raises,
-with the byte count, when the device cannot hold that scratch; it never
-hands the work to the plain version.
+versions take ψ from ``torch.special``), and at any K.  Where the chain
+matrix A no longer fits one block's shared memory (past 256 topics, or
+from K = 240 in float32 and 170 in float64 on an H100) the kernels run
+their cluster mode: a thread-block cluster of c CTAs a document, each
+holding a block of A's rows in its shared memory, c the narrowest of 2,
+4, 8 and 16 that holds them (:func:`cluster_width`; on an H100
+:func:`hmtm_estep` to K = 704 in float32 and 637 in float64,
+:func:`hmtm_logz` to 944 and 656).  Each CTA keeps its copy of the
+messages, scalers, entry lists and, for :func:`hmtm_estep`, each step's g
+on its rows (the pass's S is formed from them) in a device scratch (``c
+(L (K + Kr4) + 3 L)`` elements a document, Kr4 = ceil(K / c) rounded up to
+4, for :func:`hmtm_estep`; ``c L`` for :func:`hmtm_logz`).  Past that the
+wide mode keeps A, Aᵀ, S and the messages of each document in a device
+scratch (``3 K² + (L + 5) K + L`` and ``K² + 3 K`` elements a document).
+The modes: :func:`mode`, :func:`logz_mode`.  A wrapper raises, with the
+byte count, when the device cannot hold its scratch, and with the CUDA
+error when the device cannot place a cluster; it never hands the work to
+the plain version.
 """
 
 from __future__ import annotations
@@ -165,31 +175,47 @@ def _mode_of(what, dt):
     return _MODES[dt]
 
 
-def _query(name: str, suffix: str, L: int, K: int) -> int:
-    got = _build.function(f"tmvb_{name}{suffix}", [ctypes.c_int64] * 2, ctypes.c_int64)(L, K)
+WIDE = 3      # mode() of the wide mode
+CLUSTER = 4   # mode() of the cluster mode
+
+
+def _ask(name: str, L: int, K: int, dtype, restype=ctypes.c_int) -> int:
+    """The shape query ``tmvb_<name>`` of the dtype's mode; raises where the
+    device cannot be queried."""
+    got = _build.function(f"tmvb_{name}{_mode_of('hmtm', dtype)[0]}", [ctypes.c_int64] * 2,
+                          restype)(L, K)
     if got < 0:
         raise RuntimeError(f"{name}: cannot query the device's shared memory")
     return got
 
 
-WIDE = 3   # mode() of the wide mode
+@functools.lru_cache(maxsize=None)
+def mode(L: int, K: int, dtype=torch.float32) -> int:
+    """:func:`hmtm_estep`'s layout for documents of L slots at K topics: 0,
+    1 or 2 (A in shared memory; the messages, then S too, in device
+    scratch past what fits; K <= 32, the split schedule, takes 0 or 1: its
+    messages [L, K] in shared memory or scratch); past 256 topics or where
+    A [K, K | 1] overflows the opt-in shared memory (K = 240 in float32 on
+    an H100, 170 in float64) 4, the cluster mode (A split over a cluster's
+    shared memory, :func:`cluster_width`), or, past its reach, 3, the wide
+    mode (A, Aᵀ, S and the messages in device scratch)."""
+    return _ask("hmtm_estep_mode", L, K, dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def mode(L: int, K: int, dtype=torch.float32) -> int:
-    """The kernels' layout for documents of L slots at K topics: 0, 1 or 2
-    (A in shared memory; the messages, then S too, in device scratch past
-    what fits; K <= 32, the split schedule, takes 0 or 1: its messages [L,
-    K] in shared memory or scratch), or 3, the wide mode (A, Aᵀ, S and the
-    messages in device scratch), taken past 256 topics or where A [K, K |
-    1] overflows the opt-in shared memory (K = 240 in float32 on an H100,
-    ~170 in float64)."""
-    fn = _build.function(f"tmvb_hmtm_estep_mode{_mode_of('hmtm', dtype)[0]}",
-                         [ctypes.c_int64] * 2)
-    got = fn(L, K)
-    if got < 0:
-        raise RuntimeError("hmtm_estep: cannot query the device's shared memory")
-    return got
+def logz_mode(L: int, K: int, dtype=torch.float32) -> int:
+    """:func:`hmtm_logz`'s layout: 0 (A in one block's shared memory), 4
+    (A split over a cluster, to larger K than :func:`hmtm_estep`'s) or 3
+    (the wide mode)."""
+    return _ask("hmtm_logz_mode", L, K, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_width(L: int, K: int, dtype=torch.float32, logz: bool = False) -> int:
+    """CTAs a document of :func:`hmtm_estep` (``logz``: of
+    :func:`hmtm_logz`) in the cluster mode: 2, 4, 8 or 16; 0 in any other
+    mode."""
+    return _ask("hmtm_logz_cluster" if logz else "hmtm_estep_cluster", L, K, dtype)
 
 
 def _scratch(what: str, n: int, B: int, dt, device):
@@ -220,7 +246,7 @@ def hmtm_estep(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
     CPU tensors take :func:`hmtm_estep_ref`; CUDA tensors launch the
     kernel or raise: its float32 mode, or on a float64 table its float64
     mode (every float argument float64); any K, past the shared-memory
-    modes in the wide mode (:func:`mode`)."""
+    modes in the cluster or the wide mode (:func:`mode`)."""
     if betaT_eps.device.type == "cpu":
         return hmtm_estep_ref(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
                               viter=viter, vtol=vtol)
@@ -236,7 +262,7 @@ def hmtm_estep(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
         "tau": (tau, (B, K), dt), "gamma": (gamma, (B, K, K), dt)})
     tau_out, gamma_out = torch.empty_like(tau), torch.empty_like(gamma)
     r = torch.empty((B, L, K), dtype=dt, device=betaT_eps.device)
-    n_scratch = _query("hmtm_estep_scratch", suffix, L, K)
+    n_scratch = _ask("hmtm_estep_scratch", L, K, dt, ctypes.c_int64)
     if B == 0:
         return tau_out, gamma_out, r
     scratch = _scratch("hmtm_estep", n_scratch, B, dt, betaT_eps.device)
@@ -248,15 +274,17 @@ def hmtm_estep(betaT_eps, terms, tmask, doc_mask, eta, alpha, tau, gamma,
     check(err, "hmtm_estep")
     hmtm_estep.launches += 1
     hmtm_estep.launches_double += dt == torch.float64
-    hmtm_estep.launches_wide += mode(L, K, dt) == WIDE
+    m = mode(L, K, dt)
+    hmtm_estep.launches_wide += m == WIDE
+    hmtm_estep.launches_cluster += m == CLUSTER
     return tau_out, gamma_out, r
 
 
 def hmtm_logz(betaT_eps, terms, tmask, tau, gamma):
     """Forward log-normaliser of each document's chain (arguments: module
     doc).  CPU tensors take :func:`hmtm_logz_ref`; CUDA tensors launch the
-    kernel, in the table's dtype and at any K as :func:`hmtm_estep`, or
-    raise."""
+    kernel, in the table's dtype and at any K as :func:`hmtm_estep`
+    (:func:`logz_mode`), or raise."""
     if betaT_eps.device.type == "cpu":
         return hmtm_logz_ref(betaT_eps, terms, tmask, tau, gamma)
     if betaT_eps.device.type != "cuda":
@@ -268,7 +296,7 @@ def hmtm_logz(betaT_eps, terms, tmask, tau, gamma):
         "betaT_eps": (betaT_eps, (V, K), dt), "terms": (terms, (B, L), torch.int32),
         "tmask": (tmask, (B, L), dt), "tau": (tau, (B, K), dt),
         "gamma": (gamma, (B, K, K), dt)})
-    n_scratch = _query("hmtm_logz_scratch", suffix, L, K)
+    n_scratch = _ask("hmtm_logz_scratch", L, K, dt, ctypes.c_int64)
     logz = torch.empty((B,), dtype=dt, device=betaT_eps.device)
     if B == 0:
         return logz
@@ -280,12 +308,16 @@ def hmtm_logz(betaT_eps, terms, tmask, tau, gamma):
     check(err, "hmtm_logz")
     hmtm_logz.launches += 1
     hmtm_logz.launches_double += dt == torch.float64
-    hmtm_logz.launches_wide += n_scratch > 0
+    m = logz_mode(L, K, dt)
+    hmtm_logz.launches_wide += m == WIDE
+    hmtm_logz.launches_cluster += m == CLUSTER
     return logz
 
 hmtm_estep.launches = 0   # kernel launches (the plain version is not counted)
 hmtm_estep.launches_double = 0   # of them, launches of the float64 mode
 hmtm_estep.launches_wide = 0   # of them, launches of the wide mode (either dtype)
+hmtm_estep.launches_cluster = 0   # of them, launches of the cluster mode (either dtype)
 hmtm_logz.launches = 0
 hmtm_logz.launches_double = 0
 hmtm_logz.launches_wide = 0
+hmtm_logz.launches_cluster = 0
