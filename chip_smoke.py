@@ -132,7 +132,13 @@ printing its own lines; any failure exits non-zero:
    E-step's pass mode (``lda_estep_pass``) against its plain version on a
    routed chunk (the first 1024 documents' slots of vocab block 0 of 2)
    and a sequence-axis chunk (their first half of the token axis), K =
-   100, bitwise repeatable, its times and bound; then two processes of a
+   100, bitwise repeatable, its times and bound, beside each time the
+   warp mode's shape, ns a kept slot and the rows' L2 bytes; the pass
+   modes of ``lda_estep`` and ``flda_estep`` in float32 and float64 on
+   each regime of their warp mode and past it (``pass_regimes``: one and
+   eight warps a document, one long document among short ones, K % 4 !=
+   0, K = 257 and 600, an empty real document, masked ones, fLDA's tau on
+   padding slots); then two processes of a
    gloo group sharing the card (``chip_smoke.py --p13``, ``tp_child``)
    run ``make_step``/``make_elbo`` from each family's init (seed 7, cut
    by ``convert.shard_state``): LDA on the dense NSF corpus with V =
@@ -2577,6 +2583,54 @@ def pass_counters() -> dict:
             "ctpf_estep_pass": ctpf_estep.ctpf_estep_pass}
 
 
+def pass_args(tok, Vs, K, dev) -> tuple:
+    """``lda_estep_pass``'s arguments on a chunk of token slots (``tok``:
+    terms with ids below ``Vs``, counts, doc_mask): a random [Vs, K] table
+    (seed 13) and a warm El (seed 14), in the counts' dtype."""
+    import torch
+
+    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+
+    terms, counts, doc_mask = tok
+    betaT = (dirichlet_ones(torch.Generator().manual_seed(13), Vs, (K,)).to(dev)
+             + EPSILON).T.contiguous()
+    El = warm_state(K, terms.shape[0], dev, seed=14)[2]
+    return (betaT.to(counts.dtype), terms, counts, doc_mask, El.to(counts.dtype))
+
+
+def flda_pass_args(seg, V, K, dev) -> tuple:
+    """``flda_estep_pass``'s arguments on a chunk (``seg``: terms, counts,
+    doc_mask) from ``flda_args``'s tables, tau and eta, in the counts'
+    dtype; and ``flda_args``'s whole tuple (float32)."""
+    terms, counts, doc_mask = seg
+    f32 = tuple(a.float() for a in (counts, doc_mask))
+    args = flda_args((terms, *f32), V, K, dev)
+    logbetaT, kappa, _, _, _, _, eta, _, El, _, tau, _ = args
+    d = lambda a: a.to(counts.dtype)
+    return (d(logbetaT), d(kappa), terms, counts, doc_mask, d(eta), d(El), d(tau)), args
+
+
+def pass_reads(shape, terms, counts, doc_mask, K) -> dict:
+    """What a pass mode reads on one chunk, for its print line: its warp
+    mode's shape (``shape``: the kernel module's ``pass_shape``; lanes 0:
+    the block mode past its reach), the kept slots, the slots of real
+    documents, and the bytes of a table row, which it reads from L2 once
+    per kept slot (fLDA: per slot of a real document, padding too)."""
+    B, L = terms.shape
+    return {"shape": shape(L, K, counts.dtype), "kept": int((counts > 0).sum()),
+            "live": int((doc_mask > 0).sum()) * L, "row_bytes": K * counts.element_size()}
+
+
+def pass_line(rec, reads, slots) -> str:
+    """The warps a document (w), lanes a slot (G), ns a slot and L2 row
+    bytes beside a pass mode's times; ``slots``: "kept" or "live"."""
+    n = reads[slots]
+    G, _, w = reads["shape"]
+    return (f"w={w} G={G}{' (block mode)' if G == 0 else ''}, "
+            f"{rec['ms'] * 1e6 / max(n, 1):.3f} ns a {'kept' if slots == 'kept' else 'read'} "
+            f"slot, L2 row bytes {n * reads['row_bytes'] / 1e6:.1f} MB")
+
+
 def compare_pass(tok, Vs, K, dev, label):
     """The LDA E-step's pass mode against its plain version on a chunk of
     this rank's token slots (``tok``: terms with ids below ``Vs``, counts,
@@ -2584,14 +2638,11 @@ def compare_pass(tok, Vs, K, dev, label):
     import torch
 
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass, lda_estep_pass_ref
-    from topicmodelsvb_jl_torch.utils.numerics import EPSILON, dirichlet_ones
+    from topicmodelsvb_jl_torch.kernels.lda_estep import pass_shape as lda_pass_shape
 
     terms, counts, doc_mask = tok
     B, L = terms.shape
-    betaT = (dirichlet_ones(torch.Generator().manual_seed(13), Vs, (K,)).to(dev)
-             + EPSILON).T.contiguous()
-    _, _, El, _ = warm_state(K, B, dev, seed=14)
-    args = (betaT, terms, counts, doc_mask, El)
+    args = pass_args(tok, Vs, K, dev)
     got, want = lda_estep_pass(*args), lda_estep_pass_ref(*args)
     torch.cuda.synchronize()
     err = close((got,), (want,), ("pc",), f"lda_estep_pass {label}")
@@ -2604,8 +2655,128 @@ def compare_pass(tok, Vs, K, dev, label):
     rec = record(err, time_calls(lambda: lda_estep_pass(*args), N_KERNEL),
                  time_calls(lambda: lda_estep_pass_ref(*args), N_PLAIN, reps=1),
                  bound_ms(4 * (uniq * K + 2 * B * L + B + 2 * B * K), 4 * K * kept + B * K))
-    print(f"lda_estep_pass {label}: B={B} L={L} K={K} Vs={Vs} kept={kept} | {times(rec)}")
+    reads = pass_reads(lda_pass_shape, terms, counts, doc_mask, K)
+    print(f"lda_estep_pass {label}: B={B} L={L} K={K} Vs={Vs} kept={kept} | {times(rec)} | "
+          f"{pass_line(rec, reads, 'kept')}")
     return rec
+
+
+def pass_timing_cases(dev, K: int = 100) -> dict:
+    """The pass modes of ``lda_estep`` and ``flda_estep`` on their main
+    paths' chunks of 1024 documents at K topics, by name: (wrapper, its
+    arguments).  LDA's routed chunk (vocab block 0 of 2) and seq chunk
+    (the first half of the token slots) of phase 13's corpus, fLDA's seq
+    chunk of phase 15's, both on the L = 1024 chunk's first 512 slots, both
+    float64 modes on the NSF corpus's first half (phase 17), and both on
+    the widest NSF bucket (L = 128) and its first 64 slots."""
+    import numpy as np
+    import torch
+
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass
+
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    cut = lambda pk, L, dt=f32: (put(pk.terms[:1024, :L], i32), put(pk.counts[:1024, :L], dt),
+                                 put(pk.doc_mask[:1024], dt))
+    spk = tt.synth_packed_nsf_scale(V=P13_V, chunk_docs=8192)
+    routed = tt.route_packed(spk, n_shards=2)
+    fpk, pk = p13_nsf(16_384), tt.synth_packed_nsf_scale(seed=7)
+    s0 = tt.bucketize_packed(pk, chunk=1024, pad_multiple=8).segments[0]
+    lt, lcn, lm = long_chunks(pk.V, 1, dev)["long_pad"]
+    l512 = (lt[:, :512].contiguous(), lcn[:, :512].contiguous(), lm)
+    lda = lambda seg, V: (lda_estep_pass, pass_args(seg, V, K, dev))
+    flda = lambda seg, V: (flda_estep_pass, flda_pass_args(seg, V, K, dev)[0])
+    cases = {"lda_estep_pass_routed": lda(cut(routed, routed.Ls), routed.Vs),
+             "lda_estep_pass_seq": lda(cut(spk, spk.L // 2), spk.V),
+             "flda_estep_pass_seq": flda(cut(fpk, fpk.L // 2), fpk.V),
+             "lda_estep_pass_L512": lda(l512, pk.V),
+             "flda_estep_pass_L512": flda(l512, pk.V),
+             "lda_estep_pass_double_seq": lda(cut(pk, pk.L // 2, f64), pk.V),
+             "flda_estep_pass_double_seq": flda(cut(pk, pk.L // 2, f64), pk.V)}
+    for L in (64, s0.L):
+        cases[f"lda_estep_pass_wide_L{L}"] = lda(cut(s0, L), pk.V)
+        cases[f"flda_estep_pass_wide_L{L}"] = flda(cut(s0, L), pk.V)
+    return cases
+
+
+def pass_regimes(dev) -> dict:
+    """The pass modes of ``lda_estep`` and ``flda_estep`` in float32 and
+    float64 against their plain versions on small chunks of each regime of
+    their warp mode and past it: w = 1 (L = 48, four documents a CTA),
+    w = 3 and w = 8 (L = 160, 600), one long document among short ones
+    (L = 1024), K = 101 (not a multiple of 4), 257 (three vectors a lane)
+    and 600 (past the warp mode's reach: the block mode); each chunk has a
+    real document with no kept slot and 3 with doc_mask 0.  Each launch is
+    checked within tolerance (RTOL/ATOL; float64 RTOL64/ATOL64), bitwise
+    repeatable and counted; fLDA's tau_new on the padding slots of real
+    documents is held to the plain version's apart.  Returns the largest
+    error of each kernel and mode."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import flda_estep, lda_estep
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass, flda_estep_pass_ref
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass, lda_estep_pass_ref
+
+    t0 = time.perf_counter()
+    V = 4000
+    errs = {n: 0.0 for n in ("lda_estep_pass", "flda_estep_pass", "lda_estep_pass_double",
+                             "flda_estep_pass_double")}
+    seen = []
+    for K, B, L, layout in ((100, 512, 48, "mixed"), (101, 256, 160, "mixed"),
+                            (100, 128, 600, "mixed"), (100, 64, 1024, "one long"),
+                            (257, 128, 160, "mixed"), (600, 64, 160, "mixed"),
+                            (600, 16, 1024, "one long")):
+        r = np.random.default_rng(K + L)
+        if layout == "one long":
+            n = np.minimum(r.integers(1, 17, size=B), L)
+            n[0] = L
+        else:
+            n = r.integers(1, L + 1, size=B)
+        n[1] = 0                                          # a real document with no slot
+        n[-3:] = 0
+        cnt = (1 + r.poisson(0.35, size=(B, L))) * (np.arange(L)[None, :] < n[:, None])
+        trm = np.minimum((V * r.random((B, L)) ** 3).astype(np.int32), V - 1) * (cnt > 0)
+        dm = np.ones(B)
+        dm[-3:] = 0
+        put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+        seen.append(f"K={K} L={L} {layout} (G, NVL, w): LDA {lda_estep.pass_shape(L, K)}, "
+                    f"fLDA {flda_estep.pass_shape(L, K)}, float64 "
+                    f"{lda_estep.pass_shape(L, K, torch.float64)}, "
+                    f"{flda_estep.pass_shape(L, K, torch.float64)}")
+        for dt, suffix, rtol, atol in ((torch.float32, "", RTOL, ATOL),
+                                       (torch.float64, "_double", RTOL64, ATOL64)):
+            seg = (put(trm, torch.int32), put(cnt, dt), put(dm, dt))
+            tag = f"K={K} B={B} L={L} {layout}{' float64' if suffix else ''}"
+            for name, fn, ref, args, names in (
+                    ("lda_estep_pass", lda_estep_pass, lda_estep_pass_ref,
+                     pass_args(seg, V, K, dev), ("pc",)),
+                    ("flda_estep_pass", flda_estep_pass, flda_estep_pass_ref,
+                     flda_pass_args(seg, V, K, dev)[0], ("pc", "tau_new"))):
+                tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
+                n0, d0 = fn.launches, fn.launches_double
+                got = tup(fn(*args))
+                torch.cuda.synchronize()
+                need((fn.launches, fn.launches_double) == (n0 + 1, d0 + bool(suffix)),
+                     f"{name} {tag}: the kernel did not launch")
+                want = tup(ref(*args))
+                err = close(got, want, names, f"{name} {tag}", rtol, atol)
+                need(all(torch.equal(a, b) for a, b in zip(got, tup(fn(*args)))),
+                     f"{name} {tag}: not bitwise repeatable")
+                need(bool(torch.all(got[0][seg[2] == 0] == 0)) and bool(torch.all(got[0][1] == 0)),
+                     f"{name} {tag}: pc of a masked or empty document")
+                if len(got) == 2:
+                    pad = (seg[1] == 0) & (seg[2] > 0)[:, None]   # document 1 has only padding
+                    close((got[1][pad],), (want[1][pad],), ("tau_new on padding",),
+                          f"{name} {tag}", rtol, atol)
+                    need(torch.equal(got[1][seg[2] == 0], args[7][seg[2] == 0]),
+                         f"{name} {tag}: a masked document's tau moved")
+                errs[name + suffix] = max(errs[name + suffix], err)
+    print(f"pass modes' regimes against their plain versions in float32 and float64: "
+          f"{'; '.join(seen)}; max abs err {errs}; {time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 def p13_case(tag, mesh, fam, packed, K, iters, kern, doc, vocab=None, user=None, seq=None,
@@ -2867,6 +3038,7 @@ def tp_phase(smi, kc) -> tuple:
                             put(spk.doc_mask[:1024], f32)), spk.V, 100, dev,
                            f"seq, token half 0 of 2, L={h}")
     rec["max_abs_err"] = max(rec["max_abs_err"], rec_seq["max_abs_err"])
+    rec["regimes"] = pass_regimes(dev)
     del routed
 
     with socket.socket() as sk:
@@ -2968,12 +3140,12 @@ def compare_flda_pass(seg, V, K, dev, label):
     from topicmodelsvb_jl_torch.kernels.flda_estep import (
         flda_estep, flda_estep_pass, flda_estep_pass_ref, flda_estep_ref,
     )
+    from topicmodelsvb_jl_torch.kernels.flda_estep import pass_shape as flda_pass_shape
 
     terms, counts, doc_mask = seg
     B, L = terms.shape
-    args = flda_args(seg, V, K, dev)
-    logbetaT, kappa, _, _, _, _, eta, _, El, _, tau, _ = args
-    pargs = (logbetaT, kappa, terms, counts, doc_mask, eta, El, tau)
+    pargs, args = flda_pass_args(seg, V, K, dev)
+    tau = pargs[7]
     got, want = flda_estep_pass(*pargs), flda_estep_pass_ref(*pargs)
     torch.cuda.synchronize()
     err = close(got, want, ("pc", "tau_new"), f"flda_estep_pass {label}")
@@ -2982,6 +3154,10 @@ def compare_flda_pass(seg, V, K, dev, label):
     pad = doc_mask == 0
     need(bool(torch.all(got[0][pad] == 0)) and torch.equal(got[1][pad], tau[pad]),
          f"flda_estep_pass {label}: a masked document moved")
+    padslot = (counts == 0) & ~pad[:, None]
+    if bool(padslot.any()):
+        close((got[1][padslot],), (want[1][padslot],), ("tau_new on padding slots",),
+              f"flda_estep_pass {label}")
     kw0 = dict(viter=0, vtol=1.0 / K**2)
     z = flda_estep(*args, **kw0)
     need(all(torch.equal(a, b) for a, b in zip(z[:5], args[7:])),
@@ -2999,9 +3175,11 @@ def compare_flda_pass(seg, V, K, dev, label):
                  bound_ms(4 * (n_unique(terms, live) * (K + 1) + 3 * B * L + B + 1 + B * K
                                + B * K + B * L), 4 * K * slots + 2 * K * kept))
     rec["exp_floor_ms"] = K * slots / EX2_PER_S * 1e3
+    reads = pass_reads(flda_pass_shape, terms, counts, doc_mask, K)
     print(f"flda_estep_pass {label}: B={B} L={L} K={K} kept={kept} | {times(rec)}; exp floor "
-          f"{rec['exp_floor_ms']:.4f} ms | flda_estep viter=0: state kept, w max abs err "
-          f"{err0:.3e}")
+          f"{rec['exp_floor_ms']:.4f} ms | {pass_line(rec, reads, 'live')}, "
+          f"{rec['ms'] * 1e6 / max(kept, 1):.3f} ns a kept slot | flda_estep viter=0: state "
+          f"kept, w max abs err {err0:.3e}")
     return rec, {"max_abs_err": err0}
 
 
@@ -3808,7 +3986,9 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
     from topicmodelsvb_jl_torch import convert, engine
     from topicmodelsvb_jl_torch import train as train_cli
     from topicmodelsvb_jl_torch.kernels import ctpf_estep as ctpf_mod
+    from topicmodelsvb_jl_torch.kernels import flda_estep as flda_mod
     from topicmodelsvb_jl_torch.kernels import hmtm_estep as hmtm_mod
+    from topicmodelsvb_jl_torch.kernels import lda_estep as lda_mod
     from topicmodelsvb_jl_torch.kernels.ctpf_estep import (
         ctpf_estep, ctpf_estep_pass, ctpf_estep_pass_ref, ctpf_estep_ref,
     )
@@ -3869,6 +4049,9 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
         lambda got: bool(torch.all(got[0][dm == 0] == 0)),
         8 * (uniq * K + B * L + B + 2 * B * K) + 4 * B * L, lambda: 4 * K * kept + B * K, rate,
         f"seq, NSF token half 0 of 2, B={B} L={L} K={K}")
+    reads = pass_reads(lda_mod.pass_shape, terms, counts, dm, K)
+    print(f"kernels float64 lda_estep_pass: "
+          f"{pass_line(recs['lda_estep_pass_double'], reads, 'kept')}")
     fa = d(flda_args((seg[0], seg[1].float(), seg[2].float()), V, K, dev))
     pargs = (fa[0], fa[1], terms, counts, dm, fa[6], fa[8], fa[10])
     live = (dm > 0)[:, None].expand(B, L)
@@ -3881,6 +4064,9 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
         8 * (n_unique(terms, live) * (K + 1) + 3 * B * L + B + 1 + 2 * B * K) + 4 * B * L,
         lambda: 4 * K * slots + 2 * K * kept, rate,
         f"seq, NSF token half 0 of 2, B={B} L={L} K={K}")
+    reads = pass_reads(flda_mod.pass_shape, terms, counts, dm, K)
+    print(f"kernels float64 flda_estep_pass: "
+          f"{pass_line(recs['flda_estep_pass_double'], reads, 'live')}")
     hl, hr = cpk.L // 2, cpk.Rmax // 2
     ctok = (put(cpk.terms[:1024, :hl], i32), put(cpk.counts[:1024, :hl], torch.float32),
             put(cpk.doc_mask[:1024], torch.float32))
@@ -4492,6 +4678,8 @@ def main() -> int:
           f"{len(slower)}{': ' + '; '.join(slower) if slower else ''}")
     rows = []
     tpu = "topicmodelsvb_jl_tpu/kernels/"
+    # the pass modes' regimes (phase 13's pass_regimes), their largest errors
+    regime = lambda name: ({"max_abs_err": pass_rec["regimes"][name]},)
     for name, src, where, main_rec, others in (
             ("lda_estep", "lda_estep.cu", tpu + "lda_estep.py:157", kc["estep"][0],
              (*kc["estep"][1:], st["estep"])),
@@ -4510,11 +4698,11 @@ def main() -> int:
             # the per-pass body the JAX package runs in XLA under routing and
             # on the sequence axis
             ("lda_estep_pass", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
-             pass_rec, ()),
+             pass_rec, regime("lda_estep_pass")),
             # the per-pass bodies the JAX package runs in XLA on the sequence
             # axis (it turns the flda_estep and ctpf_estep kernels off there)
             ("flda_estep_pass", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",
-             p15["flda_pass"][0], p15["flda_pass"][1:]),
+             p15["flda_pass"][0], (*p15["flda_pass"][1:], *regime("flda_estep_pass"))),
             ("ctpf_estep_pass", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
              p15["ctpf_pass"][0], p15["ctpf_pass"][1:]),
             # the f64 Elogtheta modes: the JAX package turns its Pallas kernels
@@ -4537,9 +4725,9 @@ def main() -> int:
             ("ctpf_estep_pass_double", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
              every["ctpf_estep_pass_double"], ()),
             ("lda_estep_pass_double", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
-             every["lda_estep_pass_double"], ()),
+             every["lda_estep_pass_double"], regime("lda_estep_pass_double")),
             ("flda_estep_pass_double", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",
-             every["flda_estep_pass_double"], ()),
+             every["flda_estep_pass_double"], regime("flda_estep_pass_double")),
             ("hmtm_estep_double", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:218",
              every["hmtm_estep_double"], ()),
             ("hmtm_logz_double", "hmtm_estep.cu", "topicmodelsvb_jl_tpu/models/hmtm.py:139",

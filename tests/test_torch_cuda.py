@@ -174,21 +174,56 @@ def test_lda_elbo_tok_kernel_raw_beta_old_zero_row(cuda):
 
 
 # the pass mode (routed tensor parallelism, the sequence axis): odd L and
-# K, rows in shared memory and (L = 1025 at K >= 100) in tiles
-@pytest.mark.parametrize("K", [3, 100, 257])
-@pytest.mark.parametrize("L", [7, 129, 1025])
+# K, rows in shared memory and (L = 1025 at K >= 100) in tiles; since the
+# warp mode, one warp a document (L = 7: four documents a CTA), several
+# (L = 64, 129) and 8 (L = 512, 1025), 8 or 16 lanes a slot (K = 3, 100),
+# a whole warp of three vectors (K = 257) and K past its reach (600: the
+# block mode)
+PASS_K = [3, 100, 257, 600]
+PASS_L = [7, 64, 129, 512, 1025]
+
+
+def _check_pass_shape(shape, L, K):
+    """The warp mode's shape (lanes a slot, vectors a lane, warps a
+    document) for the regime the case is meant to reach."""
+    G, nvl, w = shape
+    if K > 512:
+        assert G == 0, shape                            # the block mode
+        return
+    assert G in (8, 16, 32) and 4 * G * nvl >= K and 1 <= w <= 8, shape
+    assert w == 1 if L <= 32 else (w == 8 if L > 512 else w > 1), shape
+
+
+def _pass_layouts(terms, counts):
+    """The chunk's own random lengths, then one long document among short
+    ones: document 0 takes every slot, the others at most 5 (padding slots
+    keep id 0 and count 0); document 1 keeps no slot in both."""
+    counts[1] = 0.0                                     # a real document with no slots
+    yield "mixed", terms, counts
+    t, c = terms.clone(), counts.clone()
+    c[:, 5:] = 0.0
+    c[0] = torch.where(counts[0] > 0, counts[0], torch.ones_like(counts[0]))
+    t[0] = torch.where(counts[0] > 0, terms[0], torch.full_like(terms[0], 17))
+    t[c == 0] = 0
+    c[1] = 0.0
+    yield "one_long", t, c
+
+
+@pytest.mark.parametrize("K", PASS_K)
+@pytest.mark.parametrize("L", PASS_L)
 def test_lda_estep_pass_kernel_matches_plain(cuda, K, L):
     (betaT, terms, counts, doc_mask, _, _, El, _), _ = _chunk(K, 40, L, 3000, cuda, seed=K + L)
-    counts[1] = 0.0                                     # a real document with no slots
-    before = lda_estep_pass.launches
-    got = lda_estep_pass(betaT, terms, counts, doc_mask, El)
-    torch.cuda.synchronize()
-    assert lda_estep_pass.launches == before + 1
-    want = lda_estep_pass_ref(betaT, terms, counts, doc_mask, El)
-    torch.testing.assert_close(got, want, rtol=5e-3, atol=1e-5)
-    assert torch.all(got[-3:] == 0) and torch.all(got[1] == 0)
-    again = lda_estep_pass(betaT, terms, counts, doc_mask, El)
-    assert torch.equal(got, again)                      # bitwise repeatable
+    _check_pass_shape(lda_estep_mod.pass_shape(L, K), L, K)
+    for layout, terms, counts in _pass_layouts(terms, counts):
+        before = lda_estep_pass.launches
+        got = lda_estep_pass(betaT, terms, counts, doc_mask, El)
+        torch.cuda.synchronize()
+        assert lda_estep_pass.launches == before + 1, layout
+        want = lda_estep_pass_ref(betaT, terms, counts, doc_mask, El)
+        torch.testing.assert_close(got, want, rtol=5e-3, atol=1e-5, msg=layout)
+        assert torch.all(got[-3:] == 0) and torch.all(got[1] == 0), layout
+        again = lda_estep_pass(betaT, terms, counts, doc_mask, El)
+        assert torch.equal(got, again), layout               # bitwise repeatable
 
 
 def test_lda_estep_pass_kernel_empty_chunk_and_rejects(cuda):
@@ -587,24 +622,28 @@ def _flda_pass_args(args):
     return logbetaT, kappa, terms, counts, doc_mask, eta, El, tau
 
 
-@pytest.mark.parametrize("K", [3, 100, 257])
-@pytest.mark.parametrize("L", [7, 129, 1025])
+@pytest.mark.parametrize("K", PASS_K)
+@pytest.mark.parametrize("L", PASS_L)
 def test_flda_estep_pass_kernel_matches_plain(cuda, K, L):
     args = list(_flda_pass_args(_flda_chunk(K, 40, L, 3000, cuda, seed=K + L)))
-    args[3][1] = 0.0                                    # a real document with no slots
-    before = flda_estep_pass.launches
-    got = flda_estep_pass(*args)
-    torch.cuda.synchronize()
-    assert flda_estep_pass.launches == before + 1
-    want = flda_estep_pass_ref(*args)
-    for name, a, b in zip(("pc", "tau_new"), got, want):
-        torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=name)
-    pc, tau_new = got
-    assert torch.all(pc[-3:] == 0) and torch.all(pc[1] == 0)
-    assert torch.equal(tau_new[-3:], args[7][-3:])       # masked: tau kept
-    assert not torch.equal(tau_new[1], args[7][1])       # no slots: tau still moves
-    again = flda_estep_pass(*args)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+    _check_pass_shape(flda_estep_mod.pass_shape(L, K), L, K)
+    for layout, args[2], args[3] in _pass_layouts(args[2], args[3]):
+        before = flda_estep_pass.launches
+        got = flda_estep_pass(*args)
+        torch.cuda.synchronize()
+        assert flda_estep_pass.launches == before + 1, layout
+        want = flda_estep_pass_ref(*args)
+        for name, a, b in zip(("pc", "tau_new"), got, want):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-5, msg=f"{layout} {name}")
+        pc, tau_new = got
+        pad = (args[3] == 0) & (args[4] > 0)[:, None]        # padding slots of real documents
+        torch.testing.assert_close(tau_new[pad], want[1][pad], rtol=5e-3, atol=1e-5,
+                                   msg=f"{layout} tau_new on padding")
+        assert torch.all(pc[-3:] == 0) and torch.all(pc[1] == 0), layout
+        assert torch.equal(tau_new[-3:], args[7][-3:]), layout   # masked: tau kept
+        assert not torch.equal(tau_new[1], args[7][1]), layout   # no slots: tau still moves
+        again = flda_estep_pass(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), layout   # bitwise repeatable
 
 
 def test_flda_estep_pass_kernel_empty_chunk_and_rejects(cuda):
@@ -1689,29 +1728,39 @@ def test_ctpf_estep_double_matches_plain(cuda, B, L, R, K):
 
 
 # K % 4 != 0 and wider than the block; L in shared memory and, at 1024
-# (and L + R = 1153 for CTPF), in tiles
-@pytest.mark.parametrize("K", [101, 257])
-@pytest.mark.parametrize("L", [129, 1024])
+# (and L + R = 1153 for CTPF), in tiles; for the LDA and fLDA pass modes
+# also one warp a document (L = 24), one long document among short ones,
+# and K past the warp mode's reach (600: the block mode; CTPF's pass mode
+# is not taken there)
+@pytest.mark.parametrize("K", [101, 257, 600])
+@pytest.mark.parametrize("L", [129, 1024, 24])
 def test_pass_modes_double_match_plain(cuda, K, L):
     (betaT, terms, counts, doc_mask, _, _, El, _), _ = _chunk(K, 40, L, 3000, cuda, seed=K + L)
-    cases = (
-        (lda_estep_pass, lda_estep_pass_ref, _f64((betaT, terms, counts, doc_mask, El)),
-         ("pc",)),
-        (flda_estep_pass, flda_estep_pass_ref,
-         _f64(_flda_pass_args(_flda_chunk(K, 40, L, 3000, cuda, seed=K + L))), ("pc", "tau_new")),
-        (ctpf_estep_pass, ctpf_estep_pass_ref,
-         _f64(_ctpf_pass_args(_ctpf_chunk(K, 40, L, L // 8 + 1, 3000, 500, cuda, seed=K + L))),
-         ("gsum", "zsum")))
-    for fn, ref, args, names in cases:
+    fargs = list(_flda_pass_args(_flda_chunk(K, 40, L, 3000, cuda, seed=K + L)))
+    for mod in (lda_estep_mod, flda_estep_mod):
+        _check_pass_shape(mod.pass_shape(L, K, torch.float64), L, K)
+    cases = []
+    for layout, t, c in _pass_layouts(terms, counts):
+        cases.append((lda_estep_pass, lda_estep_pass_ref,
+                      _f64((betaT, t, c, doc_mask, El)), ("pc",), layout))
+    for layout, fargs[2], fargs[3] in _pass_layouts(fargs[2], fargs[3]):
+        cases.append((flda_estep_pass, flda_estep_pass_ref, _f64(fargs), ("pc", "tau_new"),
+                      layout))
+    if K <= 257:
+        cases.append((ctpf_estep_pass, ctpf_estep_pass_ref, _f64(_ctpf_pass_args(
+            _ctpf_chunk(K, 40, L, L // 8 + 1, 3000, 500, cuda, seed=K + L))), ("gsum", "zsum"),
+            "mixed"))
+    for fn, ref, args, names, layout in cases:
         n0, d0 = fn.launches, fn.launches_double
         got = fn(*args)
         torch.cuda.synchronize()
-        assert (fn.launches, fn.launches_double) == (n0 + 1, d0 + 1), fn.__name__
+        assert (fn.launches, fn.launches_double) == (n0 + 1, d0 + 1), (fn.__name__, layout)
         tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
         got = tup(got)
         _close64(got, tup(ref(*args)), names)
-        assert torch.all(got[0][-3:] == 0), fn.__name__   # masked documents
-        assert all(torch.equal(a, b) for a, b in zip(got, tup(fn(*args)))), fn.__name__
+        assert torch.all(got[0][-3:] == 0), (fn.__name__, layout)   # masked documents
+        assert all(torch.equal(a, b) for a, b in zip(got, tup(fn(*args)))), (fn.__name__,
+                                                                             layout)
 
 
 # K: NSF's 25 (one warp, shuffled doubles), 100 (shared memory, several

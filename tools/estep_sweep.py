@@ -4,7 +4,7 @@ memory for a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and
 at CTM's (K = 50, 2048 documents), from the package of a given checkout,
 with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|ctpf|elbo|hmtm]
+    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|ctpf|elbo|hmtm|lda_pass|flda_pass|pass_main]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
@@ -26,9 +26,21 @@ K = 300 (``hmtm_k300_chunk``) at viter 10 and 0; those two K = 170 and
 K = 300 timings take 5 calls (``hmtm_logz`` 10), the median of 2.  viter
 = 0 runs no pass (the loads and the row writes alone, or at K = 300 the
 final forward-backward alone); the slope over viter is the cost of a
-pass.  Prints one JSON line tagged LABEL with the device and call ms of
-each (shape, viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.
-The kernel defaults to ``lda``.  Needs one CUDA GPU.
+pass.  ``lda_pass`` and ``flda_pass`` time the pass modes
+(``lda_estep_pass``, ``flda_estep_pass``) on 1024 documents at L = 64 and
+128 (the widest NSF bucket, its first 64 slots) and 512 and 1024
+(chip_smoke.py's L = 1024 chunk ending in 3 padded documents, its first
+512 slots), each at K = 25, 100 and 300 in float32 and at K = 100 in
+float64, with chip_smoke.py's ``pass_args``/``flda_pass_args``; each
+entry also gives the warp mode's shape (``pass_shape``: lanes a slot,
+vectors a lane, warps a document; lanes 0: the block mode) and the ns a
+kept slot (fLDA: a slot of a real document).  ``pass_main`` times both
+pass modes on their main paths' chunks (chip_smoke.py's
+``pass_timing_cases``), each with the kernel's own µs a launch from
+``torch.profiler`` beside the device and call ms.  Prints
+one JSON line tagged LABEL with the device and call ms of each (shape,
+viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.  The kernel
+defaults to ``lda``.  Needs one CUDA GPU.
 """
 import importlib.util
 import json
@@ -36,6 +48,7 @@ import pathlib
 import sys
 
 VITERS = (0, 1, 2, 5, 10)
+PASS_L, PASS_K = (64, 128, 512, 1024), (25, 100, 300)
 
 
 def main(root: str, label: str, kernel: str = "lda") -> int:
@@ -58,7 +71,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     if not torch.cuda.is_available():
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
-    if kernel not in ("lda", "flda", "ctpf", "elbo", "hmtm"):
+    if kernel not in ("lda", "flda", "ctpf", "elbo", "hmtm", "lda_pass", "flda_pass",
+                      "pass_main"):
         raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
     packed = tt.synth_packed_nsf_scale(seed=7)
@@ -66,6 +80,20 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     V, K = packed.V, 100
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
     out = {"label": label, "kernel": kernel, "card": torch.cuda.get_device_name(0)}
+    if kernel in ("lda_pass", "flda_pass"):
+        return emit(here, pass_sweep(smoke, kernel, s0, V, dev, out))
+    if kernel == "pass_main":
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, (fn, args) in smoke.pass_timing_cases(dev).items():
+            ms, call = smoke.time_calls(lambda: fn(*args))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn(*args)
+                torch.cuda.synchronize()
+            us = sum(e.device_time_total for e in prof.key_averages() if "pass" in e.key) / 20
+            out[name] = {"ms": ms, "call_ms": call, "kernel_us": us}
+        return emit(here, out)
     if kernel == "hmtm":
         from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
 
@@ -153,6 +181,43 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
             ms, call = smoke.time_calls(lambda: fn(*args, viter=viter, vtol=1.0 / K**2))
             out[f"{name} viter={viter}"] = [ms, call]
     return emit(here, out)
+
+
+def pass_sweep(smoke, kernel, s0, V, dev, out) -> dict:
+    """The pass mode's device and call ms, its warp mode's shape and ns a
+    slot at each (L, K) of PASS_L x PASS_K in float32, and at K = 100 in
+    float64 (module doc)."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import flda_estep, lda_estep
+
+    lda = kernel == "lda_pass"
+    fn = lda_estep.lda_estep_pass if lda else flda_estep.flda_estep_pass
+    # (lanes a slot, vectors a lane, warps a document); None in a checkout
+    # from before the pass modes' warp mode
+    shape = getattr(lda_estep if lda else flda_estep, "pass_shape", lambda L, K, dt: None)
+
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
+            put(s0.doc_mask[:1024], torch.float32))
+    long_ = smoke.long_chunks(V, 1, dev)["long_pad"]
+    for L in PASS_L:
+        src = wide if L <= wide[0].shape[1] else long_
+        seg = tuple(a[:, :L].contiguous() for a in src[:2]) + (src[2],)
+        kept = int((seg[1] > 0).sum())
+        live = int((seg[2] > 0).sum()) * L
+        for K, dt in [(K, torch.float32) for K in PASS_K] + [(100, torch.float64)]:
+            segd = (seg[0], seg[1].to(dt), seg[2].to(dt))
+            if lda:
+                args, n = smoke.pass_args(segd, V, K, dev), kept
+            else:
+                args, n = smoke.flda_pass_args(segd, V, K, dev)[0], live
+            ms, call = smoke.time_calls(lambda: fn(*args))
+            tag = f"L={L} K={K}" + (" float64" if dt == torch.float64 else "")
+            out[tag] = {"ms": ms, "call_ms": call, "shape": shape(L, K, dt),
+                        "ns_a_slot": ms * 1e6 / max(n, 1)}
+    return out
 
 
 def emit(here, out) -> int:

@@ -13,10 +13,13 @@ and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 (NSF scale) and the CTPF main path (CiteULike scale), K = 100,
 1024-document chunks, and HMTM's (NSF with unit counts, K = 25): one
 warm-up iteration each, then three steps alone, each timed by the host
-clock up to a synchronize.  Last, ``digests``:
+clock up to a synchronize.  Then ``pass_ms``: the device and call ms of
+the pass modes of ``lda_estep`` and ``flda_estep`` on their main paths'
+chunks (chip_smoke.py's ``pass_timing_cases``).  Last, ``digests``:
 a sha256 of the outputs of the E-step kernels, their pass modes,
 ``lda_elbo_tok``, ``scatter_rows``, ``hmtm_estep`` and ``hmtm_logz`` (f32,
-and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``; phase 3's
+and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``, and the
+float64 modes of the two pass modes; phase 3's
 and phase 9's arguments) on the widest NSF and CiteULike chunks and on
 the chunks whose rows do not fit shared memory, and of ``hmtm_estep`` and
 ``hmtm_logz`` at K = 300 (``hmtm_cases``: the widest NSF chunk in f32,
@@ -98,6 +101,10 @@ def digests(smoke, kc, dev) -> dict:
         outs[f"lda_estep_pass_{tag}"] = (lda_estep_pass(args[0], *seg, args[6]),)
         fa = smoke.flda_args(seg, V, K, dev)
         outs[f"flda_estep_pass_{tag}"] = flda_estep_pass(*fa[:5], fa[6], fa[8], fa[10])
+        d = lambda *a: tuple(x.double() if x.is_floating_point() else x for x in a)
+        outs[f"lda_estep_pass_double_{tag}"] = (lda_estep_pass(*d(args[0], *seg, args[6])),)
+        outs[f"flda_estep_pass_double_{tag}"] = flda_estep_pass(
+            *d(*fa[:5], fa[6], fa[8], fa[10]))
     cpk = kc["cpk"]
     cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
     for tag, (tok, rd, Vc) in (("wide", (*smoke.ctpf_bucket(cpk, cbk, dev), cpk.V)),
@@ -178,6 +185,8 @@ def main(root: str, label: str) -> int:
         out[f"hmtm_estep_{tag}_ms"] = smoke.time_calls(lambda: hmtm_estep(*a, **kw), 3, 1)
         out[f"hmtm_logz_{tag}_ms"] = smoke.time_calls(
             lambda: hmtm_logz(*a[:3], tg[0], tg[1]), 3, 1)
+    out["pass_ms"] = {name: list(smoke.time_calls(lambda: fn(*args)))
+                      for name, (fn, args) in smoke.pass_timing_cases(dev).items()}
     out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)

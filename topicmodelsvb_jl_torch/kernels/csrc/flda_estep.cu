@@ -107,18 +107,34 @@
 // tiles of 58 slots with 2 blocks an SM, re-reading the 20 MB float64
 // table from L2 every pass; the widest K halves (~3,600 at L = 4).
 //
-// The pass mode (flda_estep_pass_kernel), for the sequence axis, where a
-// document's token slots are split over ranks: one pass of the fixpoint
-// without its update, this rank's partial gamma statistic pc = sum_l p_l
-// c_l / s_l [B, K] and tau_new [B, L], from the block, slot list, rows and
-// per-slot pass above.  The caller sums pc over the ranks and updates
-// gamma, psi, the masks and tau on the [B, K] and [B, L] tiles; the last
-// rows come from this kernel at viter = 0.  It reads the same rows and
-// takes the same exps as a pass here, and writes pc and tau_new in place
-// of the state: ~B (L + K) floats more than a pass inside the fixpoint,
-// and one launch a pass.  Its float64 mode (tmvb_flda_estep_pass_f64) is
-// the same pass on a float64 state, as the full kernel's, for the
-// sequence axis in float64.
+// The pass mode (flda_estep_pass; tmvb_flda_estep_pass[_f64]), for the
+// sequence axis, where a document's token slots are split over ranks: one
+// pass of the fixpoint without its update, this rank's partial gamma
+// statistic pc = sum_l p_l c_l / s_l [B, K] and tau_new [B, L].  The
+// caller sums pc over the ranks and updates gamma, psi, the masks and tau
+// on the [B, K] and [B, L] tiles; the last rows come from this kernel at
+// viter = 0.  It replaces no Pallas kernel: the JAX package runs this
+// body in XLA on the sequence axis (topicmodelsvb_jl_tpu/models/
+// flda.py:91-105).  What bounds it on an H100: HBM bytes are few (2.9 us
+// on the seq chunk of 1024 documents, L = 64, K = 100), the exps 1.6 us
+// (one per slot and topic of a real document, padding slots included),
+// but every such slot reads its row from L2: 1021 x 64 x 400 B = 26 MB
+// there, and 209 MB at L = 512, the floor of a design that reads a row
+// once per slot.  Its warp mode (K <= 512, flda_estep_pass_warp_kernel):
+// a document's slots over w warps (pass_warps: one per 32 slots up to
+// L = 64, then per 64, at most 8; w = 1 puts 4 documents in a CTA), each
+// a contiguous range; flda_pass_shape's G lanes a slot (8 up
+// to K = 128 in float32, in float64 8 up to K = 64, then 16 of two
+// vectors; K = 129-512: 32), D rows a group in flight (one when w > 4 at
+// 3-4 vectors a lane, so that more warps stay resident); each row read
+// once into registers, p, s, sum p lb, tau_new and q there; the fold as
+// lda_estep.cu's warp mode.  Register reach: K <= 512 in either dtype;
+// past it the block mode (flda_estep_pass_kernel, the block-per-document
+// design) runs.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_ab.py in turns,
+// PERF.md section 6): about half the block mode's time on the seq
+// chunk in float32 and float64, and 0.44 of it at L = 512, where the rows
+// (209 MB) come from L2 at ~3.7 TB/s.
 
 #include <algorithm>
 
@@ -614,17 +630,19 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
   write_w<R>(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
 }
 
-// One pass of the fixpoint without its update, for the sequence axis:
-// this rank's partial pc[b, k] = sum_l p_lk c_l / s_l over the document's
-// own slots, p from (tau, El) as above, and tau_new [B, L] on every slot,
-// padding slots included, as flda_estep_kernel updates them.  The caller
-// sums pc over the ranks that hold the document's other slots and runs
-// gamma, psi, the masks and the stop test on the [B, K] tiles between
-// passes.  Same block, shared-memory layout, slot list, rows, shift and
-// products as flda_estep_kernel; a document with doc_mask 0 gets pc = 0
-// and tau_new = tau and reads nothing else.  One fixed order for every
-// sum: same inputs, same bits.  R = double is its float64 mode, every
-// input, output and sum in double, 2^x the double exp2.
+// The pass mode's block mode (K > 512, past the warp mode's reach; the
+// block-per-document design): one pass of the fixpoint without its
+// update, for the sequence axis: this rank's partial pc[b, k] = sum_l
+// p_lk c_l / s_l over the document's own slots, p from (tau, El) as
+// above, and tau_new [B, L] on every slot, padding slots included, as
+// flda_estep_kernel updates them.  The caller sums pc over the ranks that
+// hold the document's other slots and runs gamma, psi, the masks and the
+// stop test on the [B, K] tiles between passes.  Same block, shared-memory
+// layout, slot list, rows, shift and products as flda_estep_kernel; a
+// document with doc_mask 0 gets pc = 0 and tau_new = tau and reads
+// nothing else.  One fixed order for every sum: same inputs, same bits.
+// R = double is its float64 mode, every input, output and sum in double,
+// 2^x the double exp2.
 template <typename R>
 __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
     const R* __restrict__ logbetaT,  // [V, K] log(beta + eps)^T
@@ -700,7 +718,169 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_pass_kernel(
   for (int j = tid; j < L; j += kFThreads) tau_out[dl + mslot[j]] = tnxt[j];
 }
 
-// The pass mode's launch; vec_in: K a multiple of the elements in 16
+// The pass mode's warp mode (K <= 512): pc and tau_new as
+// flda_estep_pass_kernel computes them, with a document's slots over the
+// warps of a CTA (w of them, pass_warps(L); with w = 1 a CTA holds
+// kPassShortDocs documents, a warp each).  Each warp takes its contiguous
+// range of slots, every slot of a real document, padding included, 32 at
+// a time (term, count, tau and (1 - eta) kappa[t] coalesced, a lane a
+// slot, then handed to the groups by shuffles); its S groups of G lanes
+// take S slots at once, D rows a group read into registers
+// (row_to_regs) before the first is reduced.  Per row p =
+// ex2(fma(tau log2(e), lb, e)) with e = (El - max El) log2(e), -inf past
+// K; butterflies over the group give s and sum p lb; then tau_new, stored
+// by the group's first lane, and for a slot with a count q += (c / s) p.
+// p never leaves the registers.  Each warp takes max El for itself (the
+// same bits on every warp).  The groups' q are added by a butterfly over
+// the warp, then (w > 1) the warps' in warp order through shared memory
+// after one barrier.  Every sum in one fixed order: same inputs, same
+// bits.
+template <typename R, int G, int NVL, int D>
+__global__ void __launch_bounds__(256) flda_estep_pass_warp_kernel(
+    const R* __restrict__ logbetaT, const R* __restrict__ kappa, const int* __restrict__ terms,
+    const R* __restrict__ counts, const R* __restrict__ doc_mask, const R* __restrict__ eta_p,
+    const R* __restrict__ el_in, const R* __restrict__ tau_in, R* __restrict__ pc,
+    R* __restrict__ tau_out, int B, int L, int K, int w, int vec_in) {
+  using V4 = typename Real<R>::V4;
+  constexpr int S = 32 / G;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char pass_smem_raw[];
+  R* part = reinterpret_cast<R*>(pass_smem_raw);   // [w, 4 G NVL] when w > 1
+  const PassWarp pw = pass_warp(w);
+  if (pw.b >= B) return;
+  const int lane = threadIdx.x & 31, gi = lane / G, sub = lane % G;
+  const size_t dl = static_cast<size_t>(pw.b) * L, dk = static_cast<size_t>(pw.b) * K;
+  if (!(doc_mask[pw.b] > R(0))) {
+    for (int k = pw.wi * 32 + lane; k < K; k += pw.nthr) pc[dk + k] = R(0);
+    for (int l = pw.wi * 32 + lane; l < L; l += pw.nthr) tau_out[dl + l] = tau_in[dl + l];
+    return;
+  }
+  const int span = pass_span(L, w), lo = pw.wi * span, hi = min(L, lo + span);
+  const int* t = terms + dl;
+  // e = (El - max El) log2(e), -inf past K
+  V4 e[NVL], q[NVL];
+  row_to_regs<R, G, NVL>(e, el_in + dk, K, false, sub, R(-INFINITY));
+  R mx = -INFINITY;
+#pragma unroll
+  for (int v = 0; v < NVL; ++v) {
+    mx = Real<R>::max(mx, Real<R>::max(Real<R>::max(e[v].x, e[v].y),
+                                       Real<R>::max(e[v].z, e[v].w)));
+    q[v] = Real<R>::zero4();
+  }
+  mx = warp_max(mx);
+#pragma unroll
+  for (int v = 0; v < NVL; ++v) {
+    const int k = 4 * (sub + G * v);
+    e[v].x = k < K ? (e[v].x - mx) * Real<R>::log2e : R(-INFINITY);
+    e[v].y = k + 1 < K ? (e[v].y - mx) * Real<R>::log2e : R(-INFINITY);
+    e[v].z = k + 2 < K ? (e[v].z - mx) * Real<R>::log2e : R(-INFINITY);
+    e[v].w = k + 3 < K ? (e[v].w - mx) * Real<R>::log2e : R(-INFINITY);
+  }
+  const R eta = *eta_p, one_m_eta = R(1) - eta;
+  const bool vec = vec_in != 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int n = min(32, hi - base);
+    const bool in = base + lane < hi;
+    const int l = base + lane;
+    const int tl = in ? t[l] : 0;
+    const R cl = in ? counts[dl + l] : R(0);
+    const R t2l = in ? tau_in[dl + l] * Real<R>::log2e : R(0);
+    const R kl = in ? one_m_eta * kappa[tl] : R(0);
+    for (int r0 = 0; r0 < n; r0 += S * D) {
+      V4 x[D][NVL];
+      R cd[D], t2[D], kd[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int j = min(r0 + d * S + gi, n - 1);   // this group's slot
+        const int tj = __shfl_sync(kAll, tl, j);
+        cd[d] = __shfl_sync(kAll, cl, j);
+        t2[d] = __shfl_sync(kAll, t2l, j);
+        kd[d] = __shfl_sync(kAll, kl, j);
+        if (r0 + d * S < n) {
+          row_to_regs<R, G, NVL>(x[d], logbetaT + static_cast<size_t>(tj) * K, K, vec, sub);
+        } else {
+#pragma unroll
+          for (int v = 0; v < NVL; ++v) x[d][v] = Real<R>::zero4();
+        }
+      }
+      R s[D], sl[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        V4 a = Real<R>::zero4(), g = a;
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          V4 p;
+          p.x = ex2(Real<R>::fma(t2[d], x[d][v].x, e[v].x));
+          p.y = ex2(Real<R>::fma(t2[d], x[d][v].y, e[v].y));
+          p.z = ex2(Real<R>::fma(t2[d], x[d][v].z, e[v].z));
+          p.w = ex2(Real<R>::fma(t2[d], x[d][v].w, e[v].w));
+          a.x += p.x;
+          a.y += p.y;
+          a.z += p.z;
+          a.w += p.w;
+          g.x = Real<R>::fma(p.x, x[d][v].x, g.x);
+          g.y = Real<R>::fma(p.y, x[d][v].y, g.y);
+          g.z = Real<R>::fma(p.z, x[d][v].z, g.z);
+          g.w = Real<R>::fma(p.w, x[d][v].w, g.w);
+          x[d][v] = p;
+        }
+        s[d] = (a.x + a.y) + (a.z + a.w);
+        sl[d] = (g.x + g.y) + (g.z + g.w);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          s[d] += __shfl_xor_sync(kAll, s[d], o);
+          sl[d] += __shfl_xor_sync(kAll, sl[d], o);
+        }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (r0 + d * S >= n) break;
+        const int j = r0 + d * S + gi;
+        // update_tau! (fLDA.jl:195-200): exp(-sum p lb / s) as a base-2 exp
+        const R tnew = eta / (eta + kd[d] * ex2(-(sl[d] / s[d]) * Real<R>::log2e) + Real<R>::eps);
+        if (sub == 0 && j < n) tau_out[dl + base + j] = tnew;
+        // 0 past the last slot and on padding: q + 0 p is q, bit for bit (q, p >= 0)
+        const R r = j < n && cd[d] != R(0) ? cd[d] / s[d] : R(0);
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          q[v].x = Real<R>::fma(r, x[d][v].x, q[v].x);
+          q[v].y = Real<R>::fma(r, x[d][v].y, q[v].y);
+          q[v].z = Real<R>::fma(r, x[d][v].z, q[v].z);
+          q[v].w = Real<R>::fma(r, x[d][v].w, q[v].w);
+        }
+      }
+    }
+  }
+  fold_groups<G, NVL>(q);
+  pass_out<R, G, NVL>(q, part, w, pw.wi, K, [&](int k, R qk) { pc[dk + k] = qk; });
+}
+
+// The warp mode's shape for fLDA: K <= 128, 8 lanes a slot in float32;
+// in float64 8 up to K = 64, then 16 lanes of two vectors; past it
+// wide_pass_shape.  Warps: pass_warps.
+inline PassShape flda_pass_shape(int64_t L, int64_t K, int bytes) {
+  if (K <= 64 || (K <= 128 && bytes == 4))
+    return {8, static_cast<int>((K + 31) / 32 > 0 ? (K + 31) / 32 : 1), pass_warps(L)};
+  if (K <= 128) return {16, 2, pass_warps(L)};
+  return wide_pass_shape(L, K);
+}
+
+template <typename R, int G, int NVL, int D>
+int launch_flda_pass_warp(const R* logbetaT, const R* kappa, const int* terms, const R* counts,
+                          const R* doc_mask, const R* eta, const R* el_in, const R* tau_in,
+                          R* pc, R* tau_out, int64_t B, int64_t L, int64_t K, int w, int vec_in,
+                          cudaStream_t stream) {
+  const PassLaunch pl = pass_launch<R>(B, G, NVL, w);
+  flda_estep_pass_warp_kernel<R, G, NVL, D><<<pl.grid, pl.threads, pl.smem, stream>>>(
+      logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in, pc, tau_out,
+      static_cast<int>(B), static_cast<int>(L), static_cast<int>(K), w, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode's launch: the warp mode for K <= 512 (flda_pass_shape),
+// past it the block mode; vec_in: K a multiple of the elements in 16
 // bytes (4 floats, 2 doubles) and logbetaT 16-byte aligned.
 template <typename R>
 int launch_flda_pass(const R* logbetaT, const R* kappa, const int* terms, const R* counts,
@@ -708,14 +888,51 @@ int launch_flda_pass(const R* logbetaT, const R* kappa, const int* terms, const 
                      R* tau_out, R* scratch, int64_t B, int64_t L, int64_t K, int vec_in,
                      void* stream) {
   if (B == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PassShape ps = flda_pass_shape(L, K, sizeof(R));
+#define TMVB_FLDA_PASS_WARP_D(G, NVL, D)                                                   \
+  return launch_flda_pass_warp<R, G, NVL, D>(logbetaT, kappa, terms, counts, doc_mask, eta, \
+                                             el_in, tau_in, pc, tau_out, B, L, K, ps.w,     \
+                                             vec_in, st)
+#define TMVB_FLDA_PASS_WARP(G, NVL) TMVB_FLDA_PASS_WARP_D(G, NVL, (pass_depth<R, G, NVL>()))
+  switch (ps.G * 8 + ps.NVL) {
+    case 8 * 8 + 1:
+      TMVB_FLDA_PASS_WARP(8, 1);
+    case 8 * 8 + 2:
+      TMVB_FLDA_PASS_WARP(8, 2);
+    case 8 * 8 + 3:   // one row a group when a chunk takes several waves
+      if constexpr (sizeof(R) == 4) {
+        if (ps.w > 4) TMVB_FLDA_PASS_WARP_D(8, 3, 1);
+        TMVB_FLDA_PASS_WARP(8, 3);
+      }
+      break;
+    case 8 * 8 + 4:
+      if constexpr (sizeof(R) == 4) {
+        if (ps.w > 4) TMVB_FLDA_PASS_WARP_D(8, 4, 1);
+        TMVB_FLDA_PASS_WARP(8, 4);
+      }
+      break;
+    case 16 * 8 + 2:
+      if constexpr (sizeof(R) == 8) TMVB_FLDA_PASS_WARP(16, 2);
+      break;
+    case 32 * 8 + 2:
+      TMVB_FLDA_PASS_WARP(32, 2);
+    case 32 * 8 + 3:
+      TMVB_FLDA_PASS_WARP(32, 3);
+    case 32 * 8 + 4:
+      TMVB_FLDA_PASS_WARP(32, 4);
+    default:
+      break;
+  }
+#undef TMVB_FLDA_PASS_WARP
+#undef TMVB_FLDA_PASS_WARP_D
   FldaShape s;
   const int rc = flda_shape<R>(L, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(flda_estep_pass_kernel<R>, s.bytes);
   if (err != cudaSuccess) return fail(err);
-  flda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kFThreads, s.bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  flda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kFThreads, s.bytes, st>>>(
       logbetaT, kappa, terms, counts, doc_mask, eta, el_in, tau_in, pc, tau_out, scratch,
       static_cast<int>(L), static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
   return static_cast<int>(cudaGetLastError());
@@ -768,6 +985,14 @@ int64_t tmvb_flda_estep_scratch(int64_t L, int64_t K) {
   tmvb::FldaShape s;
   return tmvb::flda_shape<float>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
 }
+// The warp mode's shape of flda_estep_pass, as tmvb_lda_estep_pass_shape.
+void tmvb_flda_estep_pass_shape(int64_t L, int64_t K, int bytes, int* out) {
+  const tmvb::PassShape s = tmvb::flda_pass_shape(L, K, bytes);
+  out[0] = s.G;
+  out[1] = s.NVL;
+  out[2] = s.w;
+}
+
 int64_t tmvb_flda_estep_scratch_f64(int64_t L, int64_t K) {
   tmvb::FldaShape s;
   return tmvb::flda_shape<double>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);

@@ -85,6 +85,41 @@
 // (~4,100 at L = 4 against ~8,300): past it the wrapper raises.  Four
 // doubles are a Double4 (two 16-byte accesses); the table's rows are
 // copied 16 bytes (two doubles) at a time where K is even.
+//
+// The pass mode (lda_estep_pass; tmvb_lda_estep_pass[_f64]), for the
+// modes whose token slots are split over ranks: pc [B, K] = e q, one pass
+// without its update.  It replaces no Pallas kernel: the JAX package runs
+// this per-pass body in XLA under routing and on the sequence axis
+// (topicmodelsvb_jl_tpu/models/lda.py:123-133).  What bounds it on an
+// H100: few HBM bytes (the distinct rows, the slots, El and pc: 6.4 MB,
+// 1.9 us, on the routed chunk of 1024 documents, Ls = 104, K = 100), but
+// every kept slot reads its 4 K-byte row from L2 (69,443 x 400 B = 27.8
+// MB there), which is the floor of any design that reads a row once per
+// slot; the flops (4 K a kept slot) take ~0.4 us.  Its warp mode (K <=
+// 512, lda_estep_pass_warp_kernel):
+// - A document's slots over w warps (w = 1 puts 4 documents in a CTA),
+//   8-slot blocks dealt to them in turn, so the kept slots, which lead a
+//   row, spread evenly.  lda_pass_shape: K <= 64, G = 8 lanes a slot and
+//   one warp per 32 slots up to L = 64, then per 64; K = 65-128, G = 16
+//   lanes of two vectors, in float32 one warp per 16 slots up to L = 64,
+//   then per 32 (4 warps on both NSF chunks at 64 registers: one wave
+//   for B = 1024); K = 129-512, G = 32; w <= 8.
+// - Each warp compacts its kept slots with a ballot, their terms and
+//   counts into its lanes by shuffles, then takes S = 32 / G of them at
+//   once, D rows a group read straight into registers with 16-byte
+//   ld.global.nc (rows.cuh's warp-mode layout) before the first is
+//   reduced.  Per row: s from each lane's products and a butterfly over
+//   its group, cs = c / s, q += cs row, all in registers; nothing is
+//   staged in shared memory and no barrier is taken before the fold.
+// - The fold: a butterfly over the warp's groups, then with w > 1 the
+//   warps' q added in warp order in shared memory after one barrier.
+// - Register reach: NVL <= 4 vectors a lane at G = 32, so K <= 512 in
+//   either dtype; past it the block mode (lda_estep_pass_kernel, the
+//   earlier block-per-document design) runs.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_ab.py in turns,
+// PERF.md section 6): about half the block mode's time on the
+// routed and seq chunks, in float32 and float64, the rows coming from L2
+// at ~3 TB/s.
 
 #include <algorithm>
 
@@ -443,11 +478,12 @@ __global__ void __launch_bounds__(kEstepThreads, sizeof(R) == 4 ? 4 : 2) lda_est
   }
 }
 
-// One pass of the fixpoint without its update: this rank's partial
-// document statistic pc[b, k] = e_k * q_k, e = exp(El[b]), q as above
-// over the document's own slots (their normaliser s_l over this rank's
-// table), for the modes whose token slots are split over ranks (routed
-// tensor parallelism, the sequence axis).  The caller sums pc over the
+// The pass mode's block mode (K > 512, past the warp mode's reach; the
+// block-per-document design): one pass of the fixpoint without its
+// update, this rank's partial document statistic pc[b, k] = e_k * q_k,
+// e = exp(El[b]), q as above over the document's own slots (their
+// normaliser s_l over this rank's table), for the modes whose token slots
+// are split over ranks (routed tensor parallelism, the sequence axis).  The caller sums pc over the
 // ranks and runs gamma, psi and the stop test on the [B, K] tiles
 // between passes.  Same block, slot list, rows and products as
 // lda_estep_kernel; a document with doc_mask 0 gets pc = 0 and reads
@@ -510,21 +546,178 @@ __global__ void __launch_bounds__(kEstepThreads, sizeof(R) == 4 ? 4 : 2) lda_est
   }
 }
 
-// The pass mode's launch; vec_in: K a multiple of the elements in 16
+// The pass mode's warp mode (K <= 512): pc as lda_estep_pass_kernel
+// computes it, a document's slots over the warps of a CTA (w of them;
+// with w = 1 a CTA holds kPassShortDocs documents, a warp each).  Each
+// warp takes 32 of its slots at a time (blocks of 8, every w-th): a
+// ballot of c != 0 picks the kept slots and shuffles compact their terms
+// and counts into its lanes.  Its S groups of G lanes then take S kept
+// slots at once, D rows a group read into registers (row_to_regs) before
+// the first is reduced; for each row s_l = sum_k row e_k (each lane's
+// products, then a butterfly over the group), cs = c / s and q += cs row,
+// all in registers.  The groups' q are added by a butterfly over the
+// warp, then (w > 1) the warps' in warp order through shared memory after
+// one barrier.  Nothing is staged in shared memory inside the pass.
+// Every sum in one fixed order: same inputs, same bits.
+template <typename R, int G, int NVL>
+__global__ void __launch_bounds__(256) lda_estep_pass_warp_kernel(
+    const R* __restrict__ betaT, const int* __restrict__ terms, const R* __restrict__ counts,
+    const R* __restrict__ doc_mask, const R* __restrict__ el_in, R* __restrict__ pc, int B,
+    int L, int K, int w, int vec_in) {
+  using V4 = typename Real<R>::V4;
+  constexpr int D = pass_depth<R, G, NVL>(), S = 32 / G;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char pass_smem_raw[];
+  R* part = reinterpret_cast<R*>(pass_smem_raw);   // [w, 4 G NVL] when w > 1
+  const PassWarp pw = pass_warp(w);
+  if (pw.b >= B) return;
+  const int lane = threadIdx.x & 31, gi = lane / G, sub = lane % G;
+  const size_t dk = static_cast<size_t>(pw.b) * K;
+  if (!(doc_mask[pw.b] > R(0))) {
+    for (int k = pw.wi * 32 + lane; k < K; k += pw.nthr) pc[dk + k] = R(0);
+    return;
+  }
+  const int* t = terms + static_cast<size_t>(pw.b) * L;
+  const R* c = counts + static_cast<size_t>(pw.b) * L;
+  // the warp's slots: blocks of 8, the warp's every w-th, 4 blocks a
+  // 32-slot round (kept slots lead a document's row, so they spread evenly
+  // over its warps; 8 slots are a 32-byte sector of counts and terms)
+  const int nblk = (L + 7) / 8;
+  V4 e[NVL], q[NVL];
+  row_to_regs<R, G, NVL>(e, el_in + dk, K, false, sub);
+#pragma unroll
+  for (int v = 0; v < NVL; ++v) {
+    const int k = 4 * (sub + G * v);
+    e[v].x = k < K ? Real<R>::exp(e[v].x) : R(0);
+    e[v].y = k + 1 < K ? Real<R>::exp(e[v].y) : R(0);
+    e[v].z = k + 2 < K ? Real<R>::exp(e[v].z) : R(0);
+    e[v].w = k + 3 < K ? Real<R>::exp(e[v].w) : R(0);
+    q[v] = Real<R>::zero4();
+  }
+  const bool vec = vec_in != 0;
+  for (int b0 = pw.wi; b0 < nblk; b0 += 4 * w) {
+    const int l = (b0 + (lane >> 3) * w) * 8 + (lane & 7);
+    const R cl = l < L ? c[l] : R(0);
+    const int tl = l < L ? t[l] : 0;
+    const unsigned ball = __ballot_sync(kAll, cl != R(0));
+    const int n = __popc(ball);
+    // the kept slots' terms and counts into lanes 0 .. n - 1, in slot order
+    // (the lanes past them repeat the first: only kept slots' rows are read)
+    const int src = n > 0 ? nth_set_bit(ball, lane < n ? lane + 1 : 1) : 0;
+    const int tk = __shfl_sync(kAll, tl, src);
+    const R ck = __shfl_sync(kAll, cl, src);
+    for (int r0 = 0; r0 < n; r0 += S * D) {
+      V4 x[D][NVL];
+      R cd[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int j = r0 + d * S + gi;   // this group's kept slot
+        const int tj = __shfl_sync(kAll, tk, j & 31);
+        cd[d] = __shfl_sync(kAll, ck, j & 31);
+        if (j >= n) cd[d] = R(0);
+        if (r0 + d * S < n) {
+          row_to_regs<R, G, NVL>(x[d], betaT + static_cast<size_t>(tj) * K, K, vec, sub);
+        } else {
+#pragma unroll
+          for (int v = 0; v < NVL; ++v) x[d][v] = Real<R>::zero4();
+        }
+      }
+      R s[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        V4 a = Real<R>::zero4();
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          a.x = Real<R>::fma(x[d][v].x, e[v].x, a.x);
+          a.y = Real<R>::fma(x[d][v].y, e[v].y, a.y);
+          a.z = Real<R>::fma(x[d][v].z, e[v].z, a.z);
+          a.w = Real<R>::fma(x[d][v].w, e[v].w, a.w);
+        }
+        s[d] = (a.x + a.y) + (a.z + a.w);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int d = 0; d < D; ++d) s[d] += __shfl_xor_sync(kAll, s[d], o);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (r0 + d * S >= n) break;
+        // 0 past the last kept slot: q + 0 row is q, bit for bit (q, row >= 0)
+        const R r = cd[d] != R(0) ? cd[d] / s[d] : R(0);
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          q[v].x = Real<R>::fma(r, x[d][v].x, q[v].x);
+          q[v].y = Real<R>::fma(r, x[d][v].y, q[v].y);
+          q[v].z = Real<R>::fma(r, x[d][v].z, q[v].z);
+          q[v].w = Real<R>::fma(r, x[d][v].w, q[v].w);
+        }
+      }
+    }
+  }
+  fold_groups<G, NVL>(q);
+  pass_out<R, G, NVL>(q, part, w, pw.wi, K,
+                      [&](int k, R qk) { pc[dk + k] = Real<R>::exp(el_in[dk + k]) * qk; });
+}
+
+// The warp mode's shape for LDA: K <= 64, 8 lanes a slot; K = 65-128, 16
+// lanes of two vectors, and in float32 one warp per 16 slots up to L = 64,
+// then per 32 (more, lighter warps: 64 registers a thread); past it
+// wide_pass_shape.
+inline PassShape lda_pass_shape(int64_t L, int64_t K, int bytes) {
+  if (K <= 64) return {8, K > 32 ? 2 : 1, pass_warps(L)};
+  if (K <= 128)
+    return {16, 2, bytes == 8 ? pass_warps(L) : warps_per(L, L <= 64 ? 16 : 32)};
+  return wide_pass_shape(L, K);
+}
+
+template <typename R, int G, int NVL>
+int launch_estep_pass_warp(const R* betaT, const int* terms, const R* counts,
+                           const R* doc_mask, const R* el_in, R* pc, int64_t B, int64_t L,
+                           int64_t K, int w, int vec_in, cudaStream_t stream) {
+  const PassLaunch pl = pass_launch<R>(B, G, NVL, w);
+  lda_estep_pass_warp_kernel<R, G, NVL><<<pl.grid, pl.threads, pl.smem, stream>>>(
+      betaT, terms, counts, doc_mask, el_in, pc, static_cast<int>(B), static_cast<int>(L),
+      static_cast<int>(K), w, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode's launch: the warp mode for K <= 512 (lda_pass_shape),
+// past it the block mode; vec_in: K a multiple of the elements in 16
 // bytes (4 floats, 2 doubles) and betaT 16-byte aligned.
 template <typename R>
 int launch_estep_pass(const R* betaT, const int* terms, const R* counts, const R* doc_mask,
                       const R* el_in, R* pc, R* scratch, int64_t B, int64_t L, int64_t K,
                       int vec_in, void* stream) {
   if (B == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PassShape ps = lda_pass_shape(L, K, sizeof(R));
+#define TMVB_LDA_PASS_WARP(G, NVL)                                                          \
+  return launch_estep_pass_warp<R, G, NVL>(betaT, terms, counts, doc_mask, el_in, pc, B, L, \
+                                           K, ps.w, vec_in, st)
+  switch (ps.G * 8 + ps.NVL) {
+    case 8 * 8 + 1:
+      TMVB_LDA_PASS_WARP(8, 1);
+    case 8 * 8 + 2:
+      TMVB_LDA_PASS_WARP(8, 2);
+    case 16 * 8 + 2:
+      TMVB_LDA_PASS_WARP(16, 2);
+    case 32 * 8 + 2:
+      TMVB_LDA_PASS_WARP(32, 2);
+    case 32 * 8 + 3:
+      TMVB_LDA_PASS_WARP(32, 3);
+    case 32 * 8 + 4:
+      TMVB_LDA_PASS_WARP(32, 4);
+    default:
+      break;
+  }
+#undef TMVB_LDA_PASS_WARP
   EstepShape s;
   int rc = estep_shape<R>(L, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(lda_estep_pass_kernel<R>, s.bytes);
   if (err != cudaSuccess) return fail(err);
-  lda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kEstepThreads, s.bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
+  lda_estep_pass_kernel<R><<<static_cast<unsigned>(B), kEstepThreads, s.bytes, st>>>(
       betaT, terms, counts, doc_mask, el_in, pc, scratch, static_cast<int>(L),
       static_cast<int>(K), s.tile, s.meta_in_smem, s.resident, vec_in);
   return static_cast<int>(cudaGetLastError());
@@ -536,6 +729,17 @@ extern "C" {
 
 const char* tmvb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The warp mode's shape of lda_estep_pass on a document of L slots at K
+// topics in elements of `bytes` (4 or 8): lanes a slot, vectors a lane
+// and warps a document in out[0..2]; lanes 0 past the reach (the block
+// mode runs).
+void tmvb_lda_estep_pass_shape(int64_t L, int64_t K, int bytes, int* out) {
+  const tmvb::PassShape s = tmvb::lda_pass_shape(L, K, bytes);
+  out[0] = s.G;
+  out[1] = s.NVL;
+  out[2] = s.w;
 }
 
 // 1 when every row of a document of L slots stays in shared memory, 0

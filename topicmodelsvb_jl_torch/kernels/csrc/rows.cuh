@@ -45,4 +45,176 @@ __device__ __forceinline__ void load_rows(R* rows, const R* __restrict__ table,
   }
 }
 
+// The warp modes of the pass kernels (lda_estep_pass, flda_estep_pass):
+// a document's slots over w warps, each row read once, straight into
+// registers.  A warp takes S = 32 / G slots at once, G lanes a slot: lane
+// (i, g) of group i holds topics 4 (g + G v) .. + 3 of its slot's row for
+// v < NVL, so one row takes NVL four-wide vectors a lane and the G lanes'
+// loads read it whole.  NVL <= 4 at G = 32: K <= 512 in either dtype is
+// the modes' reach.  Each kernel picks (G, NVL, w) from L, K and the
+// dtype (lda_pass_shape, flda_pass_shape; measured on an H100, PERF.md).
+constexpr int kPassShortDocs = 4;   // documents of one warp each a CTA
+
+// A warp-mode launch's shape; G = 0 past the reach (K > 512).
+struct PassShape {
+  int G, NVL, w;
+};
+
+// Warps for L slots, one per `per`, 1 to 8.
+__host__ __device__ inline int warps_per(int64_t L, int per) {
+  const int64_t w = (L + per - 1) / per;
+  return w < 1 ? 1 : (w > 8 ? 8 : static_cast<int>(w));
+}
+
+// Warps a document of L slots takes by default: one per 32 slots up to
+// L = 64, then one per 64, at most 8.
+__host__ __device__ inline int pass_warps(int64_t L) {
+  return L <= 64 ? warps_per(L, 32) : warps_per(L, 64);
+}
+
+// The wide rows' shape (K = 129-512: a whole warp a slot), or 0 past them.
+__host__ __device__ inline PassShape wide_pass_shape(int64_t L, int64_t K) {
+  if (K > 512) return {0, 0, 0};
+  return {32, static_cast<int>((K + 127) / 128), pass_warps(L)};
+}
+
+// A warp-mode launch's grid, threads and dynamic shared memory (the
+// warps' q partials [w, 4 G NVL] when w > 1).
+struct PassLaunch {
+  unsigned grid;
+  int threads;
+  size_t smem;
+};
+template <typename R>
+inline PassLaunch pass_launch(int64_t B, int G, int NVL, int w) {
+  if (w == 1)
+    return {static_cast<unsigned>((B + kPassShortDocs - 1) / kPassShortDocs),
+            32 * kPassShortDocs, 0};
+  return {static_cast<unsigned>(B), 32 * w, static_cast<size_t>(w) * 4 * G * NVL * sizeof(R)};
+}
+
+// Slots of each warp's range: L over w, rounded up.
+__host__ __device__ inline int pass_span(int L, int w) { return (L + w - 1) / w; }
+
+// Rows a group holds at once (a row is NVL * sizeof(R) registers a lane):
+// what 32 registers take, 16 at G = 16, 1 to 4 rows; a warp has S times
+// as many in flight.
+template <typename R, int G, int NVL>
+__host__ __device__ constexpr int pass_depth() {
+  return (G == 16 ? 16 : 32) / (NVL * static_cast<int>(sizeof(R))) >= 4
+             ? 4
+             : ((G == 16 ? 16 : 32) / (NVL * static_cast<int>(sizeof(R))) >= 2 ? 2 : 1);
+}
+
+// The lane's share of one table row into registers, read-only loads
+// (ld.global.nc): 16 bytes at a time when `vec` (K a multiple of the
+// elements in 16 bytes and the table 16-byte aligned), else element by
+// element; `fill` past K.
+template <typename R, int G, int NVL>
+__device__ __forceinline__ void row_to_regs(typename Real<R>::V4 (&x)[NVL],
+                                            const R* __restrict__ row, int K, bool vec, int sub,
+                                            R fill = R(0)) {
+#pragma unroll
+  for (int v = 0; v < NVL; ++v) {
+    const int k = 4 * (sub + G * v);
+    x[v] = {fill, fill, fill, fill};
+    if (vec) {
+      if constexpr (sizeof(R) == 4) {
+        if (k < K) x[v] = __ldg(reinterpret_cast<const float4*>(row + k));
+      } else {
+        if (k < K) {
+          const double2 a = __ldg(reinterpret_cast<const double2*>(row + k));
+          x[v].x = a.x;
+          x[v].y = a.y;
+        }
+        if (k + 2 < K) {
+          const double2 a = __ldg(reinterpret_cast<const double2*>(row + k + 2));
+          x[v].z = a.x;
+          x[v].w = a.y;
+        }
+      }
+    } else {
+      if (k < K) x[v].x = __ldg(row + k);
+      if (k + 1 < K) x[v].y = __ldg(row + k + 1);
+      if (k + 2 < K) x[v].z = __ldg(row + k + 2);
+      if (k + 3 < K) x[v].w = __ldg(row + k + 3);
+    }
+  }
+}
+
+// q summed over the warp's S groups, the same topics in each, onto every
+// lane: a butterfly over the groups in one fixed order.
+template <int G, int NVL, typename V4>
+__device__ __forceinline__ void fold_groups(V4 (&q)[NVL]) {
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int v = 0; v < NVL; ++v) {
+      q[v].x += __shfl_xor_sync(0xffffffffu, q[v].x, o);
+      q[v].y += __shfl_xor_sync(0xffffffffu, q[v].y, o);
+      q[v].z += __shfl_xor_sync(0xffffffffu, q[v].z, o);
+      q[v].w += __shfl_xor_sync(0xffffffffu, q[v].w, o);
+    }
+}
+
+// The lane of the n-th set bit of m (n >= 1, at most popc(m)).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int p = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(m & ((1u << s) - 1u));
+    if (c < n) {
+      n -= c;
+      m >>= s;
+      p += s;
+    }
+  }
+  return p;
+}
+
+// The document, the warp's index within it and the threads it has, for a
+// warp-mode CTA: w warps on one document when w > 1, else kPassShortDocs
+// documents of one warp each.
+struct PassWarp {
+  int b, wi, nthr;
+};
+__device__ __forceinline__ PassWarp pass_warp(int w) {
+  const int warp = threadIdx.x >> 5;
+  if (w > 1) return {static_cast<int>(blockIdx.x), warp, 32 * w};
+  return {static_cast<int>(blockIdx.x) * kPassShortDocs + warp, 0, 32};
+}
+
+// The warp's q (group 0's lanes hold it after fold_groups) out: with w = 1
+// straight to f(k, q_k); with w > 1 into part [w, 4 G NVL], then after the
+// CTA's one barrier the w warps' partials added in warp order, f(k, sum)
+// on every topic k < K by the CTA's threads.
+template <typename R, int G, int NVL, typename V4, typename F>
+__device__ __forceinline__ void pass_out(const V4 (&q)[NVL], R* part, int w, int wi, int K,
+                                         F&& store) {
+  const int lane = threadIdx.x & 31;
+  if (w == 1) {
+    if (lane >= G) return;
+#pragma unroll
+    for (int v = 0; v < NVL; ++v) {
+      const int k = 4 * (lane + G * v);
+      if (k < K) store(k, q[v].x);
+      if (k + 1 < K) store(k + 1, q[v].y);
+      if (k + 2 < K) store(k + 2, q[v].z);
+      if (k + 3 < K) store(k + 3, q[v].w);
+    }
+    return;
+  }
+  constexpr int S = 4 * G * NVL;
+  if (lane < G)
+#pragma unroll
+    for (int v = 0; v < NVL; ++v)
+      *reinterpret_cast<V4*>(part + wi * S + 4 * (lane + G * v)) = q[v];
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    R sum = part[k];
+    for (int i = 1; i < w; ++i) sum += part[i * S + k];
+    store(k, sum);
+  }
+}
+
 }  // namespace tmvb

@@ -44,7 +44,7 @@ import torch
 from ..utils.numerics import EPSILON, masked_fixpoint
 from . import _build
 from ._build import check, require
-from .lda_estep import elogtheta
+from .lda_estep import elogtheta, shape_query
 
 
 def _phi(lb, tau, El):
@@ -199,6 +199,7 @@ def flda_estep_pass_ref(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):
 
 
 _PASS_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+pass_shape = shape_query("tmvb_flda_estep_pass_shape")
 
 
 def flda_estep_pass(logbetaT, kappa, terms, counts, doc_mask, eta, El, tau):

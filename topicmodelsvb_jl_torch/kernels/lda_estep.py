@@ -214,6 +214,24 @@ def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
 _PASS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
 
+def shape_query(entry: str):
+    """``f(L, K, dtype)`` -> (lanes a slot, four-wide vectors a lane, warps a
+    document) of a pass kernel's warp mode from its C query ``entry``;
+    lanes 0 past the warp mode's reach (K > 512), where the block mode
+    runs.  Builds the kernels; needs CUDA."""
+    @functools.lru_cache(maxsize=None)
+    def shape(L: int, K: int, dtype=torch.float32) -> tuple:
+        out = (ctypes.c_int * 3)()
+        _build.function(entry, [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int)], None)(
+            L, K, torch.finfo(dtype).bits // 8, out)
+        return tuple(out)
+    return shape
+
+
+pass_shape = shape_query("tmvb_lda_estep_pass_shape")
+
+
 def lda_estep_pass(betaT, terms, counts, doc_mask, El):
     """One pass of the E-step fixpoint without its update: this rank's
     partial statistic ``pc [B, K]`` (see :func:`lda_estep_pass_ref`).
