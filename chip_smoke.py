@@ -2621,6 +2621,16 @@ def pass_reads(shape, terms, counts, doc_mask, K) -> dict:
             "live": int((doc_mask > 0).sum()) * L, "row_bytes": K * counts.element_size()}
 
 
+def ctpf_pass_reads(shape, counts, ratings, K) -> dict:
+    """``pass_reads`` for CTPF's pass mode: its warp mode's shape counted in
+    L + R slots, the kept token and reader slots (each reads its row of
+    ealefT or eheT from L2 once) and a row's bytes."""
+    L, R = counts.shape[1], ratings.shape[1]
+    return {"shape": shape(L, R, K, counts.dtype),
+            "kept": int((counts > 0).sum()) + int((ratings > 0).sum()),
+            "row_bytes": K * counts.element_size()}
+
+
 def pass_line(rec, reads, slots) -> str:
     """The warps a document (w), lanes a slot (G), ns a slot and L2 row
     bytes beside a pass mode's times; ``slots``: "kept" or "live"."""
@@ -2661,18 +2671,23 @@ def compare_pass(tok, Vs, K, dev, label):
     return rec
 
 
-def pass_timing_cases(dev, K: int = 100) -> dict:
-    """The pass modes of ``lda_estep`` and ``flda_estep`` on their main
-    paths' chunks of 1024 documents at K topics, by name: (wrapper, its
-    arguments).  LDA's routed chunk (vocab block 0 of 2) and seq chunk
-    (the first half of the token slots) of phase 13's corpus, fLDA's seq
-    chunk of phase 15's, both on the L = 1024 chunk's first 512 slots, both
-    float64 modes on the NSF corpus's first half (phase 17), and both on
-    the widest NSF bucket (L = 128) and its first 64 slots."""
+def pass_timing_cases(dev, K: int = 100, cpk=None) -> dict:
+    """The pass modes of ``lda_estep``, ``flda_estep`` and ``ctpf_estep`` on
+    their main paths' chunks of 1024 documents at K topics, by name:
+    (wrapper, its arguments).  LDA's routed chunk (vocab block 0 of 2) and
+    seq chunk (the first half of the token slots) of phase 13's corpus,
+    fLDA's seq chunk of phase 15's, both on the L = 1024 chunk's first 512
+    slots, both float64 modes on the NSF corpus's first half (phase 17),
+    and both on the widest NSF bucket (L = 128) and its first 64 slots;
+    CTPF's seq chunk (the first halves of the token and reader slots of
+    ``cpk``, the CiteULike corpus; built when None) in float32 and float64
+    (phases 15 and 17) and the first 384 token and 128 reader slots of the
+    L = 768, R = 256 chunk."""
     import numpy as np
     import torch
 
     import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep_pass
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass
 
@@ -2698,13 +2713,30 @@ def pass_timing_cases(dev, K: int = 100) -> dict:
     for L in (64, s0.L):
         cases[f"lda_estep_pass_wide_L{L}"] = lda(cut(s0, L), pk.V)
         cases[f"flda_estep_pass_wide_L{L}"] = flda(cut(s0, L), pk.V)
+    cpk = citeulike()[0] if cpk is None else cpk
+    hl, hr = cpk.L // 2, cpk.Rmax // 2
+
+    def ctpf(tok, rd, V, dt=f32):
+        args, _ = ctpf_args(tok, rd, V, cpk.U, K, dev)
+        args = tuple(a.to(dt) if a.is_floating_point() else a for a in args)
+        return ctpf_estep_pass, (*args[:10], args[10], args[12])
+
+    ctok, crd = cut(cpk, hl), (put(cpk.readers[:1024, :hr], i32), put(cpk.ratings[:1024, :hr], f32))
+    (ctt, ctc, ctm_), (ctr, ctq) = long_chunks(pk.V, cpk.U, dev)["ctpf_long"]
+    first = lambda a, n: a[:, :n].contiguous()
+    cases["ctpf_estep_pass_seq"] = ctpf(ctok, crd, cpk.V)
+    cases["ctpf_estep_pass_L384"] = ctpf((first(ctt, 384), first(ctc, 384), ctm_),
+                                         (first(ctr, 128), first(ctq, 128)), pk.V)
+    cases["ctpf_estep_pass_double_seq"] = ctpf(ctok, crd, cpk.V, f64)
     return cases
 
 
 def pass_regimes(dev) -> dict:
-    """The pass modes of ``lda_estep`` and ``flda_estep`` in float32 and
-    float64 against their plain versions on small chunks of each regime of
-    their warp mode and past it: w = 1 (L = 48, four documents a CTA),
+    """The pass modes of ``lda_estep``, ``flda_estep`` and ``ctpf_estep``
+    in float32 and float64 against their plain versions on small chunks of
+    each regime of their warp mode and past it (CTPF's on the same token
+    slots and L / 4 reader slots, counted in L + R): w = 1 (L = 48, four
+    documents a CTA),
     w = 3 and w = 8 (L = 160, 600), one long document among short ones
     (L = 1024), K = 101 (not a multiple of 4), 257 (three vectors a lane)
     and 600 (past the warp mode's reach: the block mode); each chunk has a
@@ -2716,14 +2748,15 @@ def pass_regimes(dev) -> dict:
     import numpy as np
     import torch
 
-    from topicmodelsvb_jl_torch.kernels import flda_estep, lda_estep
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep, flda_estep, lda_estep
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep_pass, ctpf_estep_pass_ref
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_pass, flda_estep_pass_ref
     from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_pass, lda_estep_pass_ref
 
     t0 = time.perf_counter()
-    V = 4000
-    errs = {n: 0.0 for n in ("lda_estep_pass", "flda_estep_pass", "lda_estep_pass_double",
-                             "flda_estep_pass_double")}
+    V, U = 4000, 600
+    errs = {n + d: 0.0 for n in ("lda_estep_pass", "flda_estep_pass", "ctpf_estep_pass")
+            for d in ("", "_double")}
     seen = []
     for K, B, L, layout in ((100, 512, 48, "mixed"), (101, 256, 160, "mixed"),
                             (100, 128, 600, "mixed"), (100, 64, 1024, "one long"),
@@ -2741,20 +2774,32 @@ def pass_regimes(dev) -> dict:
         trm = np.minimum((V * r.random((B, L)) ** 3).astype(np.int32), V - 1) * (cnt > 0)
         dm = np.ones(B)
         dm[-3:] = 0
+        R = L // 4
+        rat = (np.arange(R)[None, :] < r.integers(0, R + 1, size=B)[:, None]).astype(np.float64)
+        rat[1] = 0                                        # no reader either
+        rat[-3:] = 0
+        rdr = r.integers(0, U, size=(B, R)).astype(np.int32) * (rat > 0)
         put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
         seen.append(f"K={K} L={L} {layout} (G, NVL, w): LDA {lda_estep.pass_shape(L, K)}, "
-                    f"fLDA {flda_estep.pass_shape(L, K)}, float64 "
+                    f"fLDA {flda_estep.pass_shape(L, K)}, CTPF (R={R}) "
+                    f"{ctpf_estep.pass_shape(L, R, K)}, float64 "
                     f"{lda_estep.pass_shape(L, K, torch.float64)}, "
-                    f"{flda_estep.pass_shape(L, K, torch.float64)}")
+                    f"{flda_estep.pass_shape(L, K, torch.float64)}, "
+                    f"{ctpf_estep.pass_shape(L, R, K, torch.float64)}")
         for dt, suffix, rtol, atol in ((torch.float32, "", RTOL, ATOL),
                                        (torch.float64, "_double", RTOL64, ATOL64)):
             seg = (put(trm, torch.int32), put(cnt, dt), put(dm, dt))
             tag = f"K={K} B={B} L={L} {layout}{' float64' if suffix else ''}"
+            cargs, _ = ctpf_args((seg[0], seg[1].float(), seg[2].float()),
+                                 (put(rdr, torch.int32), put(rat, torch.float32)), V, U, K, dev)
+            cargs = tuple(a.to(dt) if a.is_floating_point() else a for a in cargs)
             for name, fn, ref, args, names in (
                     ("lda_estep_pass", lda_estep_pass, lda_estep_pass_ref,
                      pass_args(seg, V, K, dev), ("pc",)),
                     ("flda_estep_pass", flda_estep_pass, flda_estep_pass_ref,
-                     flda_pass_args(seg, V, K, dev)[0], ("pc", "tau_new"))):
+                     flda_pass_args(seg, V, K, dev)[0], ("pc", "tau_new")),
+                    ("ctpf_estep_pass", ctpf_estep_pass, ctpf_estep_pass_ref,
+                     (*cargs[:10], cargs[10], cargs[12]), ("gsum", "zsum"))):
                 tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
                 n0, d0 = fn.launches, fn.launches_double
                 got = tup(fn(*args))
@@ -2765,16 +2810,17 @@ def pass_regimes(dev) -> dict:
                 err = close(got, want, names, f"{name} {tag}", rtol, atol)
                 need(all(torch.equal(a, b) for a, b in zip(got, tup(fn(*args)))),
                      f"{name} {tag}: not bitwise repeatable")
-                need(bool(torch.all(got[0][seg[2] == 0] == 0)) and bool(torch.all(got[0][1] == 0)),
-                     f"{name} {tag}: pc of a masked or empty document")
-                if len(got) == 2:
+                need(all(bool(torch.all(x[seg[2] == 0] == 0)) and bool(torch.all(x[1] == 0))
+                         for x in got[:1 if name == "flda_estep_pass" else 2]),
+                     f"{name} {tag}: the statistic of a masked or empty document")
+                if name == "flda_estep_pass":
                     pad = (seg[1] == 0) & (seg[2] > 0)[:, None]   # document 1 has only padding
                     close((got[1][pad],), (want[1][pad],), ("tau_new on padding",),
                           f"{name} {tag}", rtol, atol)
                     need(torch.equal(got[1][seg[2] == 0], args[7][seg[2] == 0]),
                          f"{name} {tag}: a masked document's tau moved")
                 errs[name + suffix] = max(errs[name + suffix], err)
-    print(f"pass modes' regimes against their plain versions in float32 and float64: "
+    print(f"the pass modes' regimes against their plain versions in float32 and float64: "
           f"{'; '.join(seen)}; max abs err {errs}; {time.perf_counter() - t0:.1f} s")
     return errs
 
@@ -3118,6 +3164,13 @@ def tp_phase(smi, kc) -> tuple:
         for label, c in info["alone"].items():
             print(f"phase 13 rank {r} {label}: one step alone {c['step_s']:.4f} s, collectives "
                   f"{c['seconds']:.4f} s, {c['calls']} calls, {c['bytes']} bytes sent; card {smi}")
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep
+
+    cpk = kc["cpk"]
+    print(f"phase 13: ctpf_estep_pass's warp mode (G, NVL, w) on the seq CTPF ranks' chunk "
+          f"(L={cpk.L // 2} R={cpk.Rmax // 2} of {cpk.L}, {cpk.Rmax}, K=100): "
+          f"{ctpf_estep.pass_shape(cpk.L // 2, cpk.Rmax // 2, 100)}, float64 "
+          f"{ctpf_estep.pass_shape(cpk.L // 2, cpk.Rmax // 2, 100, torch.float64)}; card {smi}")
     print(f"phase 13: lda_estep_pass {rec['ms'] * 1e3:.1f} us device, "
           f"{rec['call_ms'] * 1e3:.1f} us a call, bound {rec['bound_ms'] * 1e3:.1f} us by "
           f"{rec['bound_by']}, plain {rec['plain_ms'] * 1e3:.1f} us, launches on the ranks "
@@ -3192,6 +3245,7 @@ def compare_ctpf_pass(tok, rd, V, U, K, dev, label):
     version."""
     import torch
 
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep as ctpf_mod
     from topicmodelsvb_jl_torch.kernels.ctpf_estep import (
         ctpf_estep, ctpf_estep_pass, ctpf_estep_pass_ref, ctpf_estep_ref,
     )
@@ -3227,8 +3281,10 @@ def compare_ctpf_pass(tok, rd, V, U, K, dev, label):
                  bound_ms(4 * ((n_unique(terms, kt) + n_unique(readers, kr)) * K
                                + 2 * B * (L + R) + B + 3 * K + 4 * B * K),
                           4 * K * kept + 8 * K * live))
+    reads = ctpf_pass_reads(ctpf_mod.pass_shape, counts, ratings, K)
     print(f"ctpf_estep_pass {label}: B={B} L={L} R={R} K={K} kept={kept} | {times(rec)} | "
-          f"ctpf_estep viter=0: state kept, wa/wh max abs err {err0:.3e}")
+          f"{pass_line(rec, reads, 'kept')} | ctpf_estep viter=0: state kept, wa/wh max abs err "
+          f"{err0:.3e}")
     return rec, {"max_abs_err": err0}
 
 
@@ -3592,10 +3648,44 @@ def compare_double(seg, V, K, dev, label) -> dict:
                    else (lambda got: bool(torch.all(got[-1][doc_mask == 0] == 0))))
         out[name] = check_double(name, kern, run, ref, names, rows_ok, nbytes, ops, rate,
                                  f"{label} B={B} L={L} K={K}")
+        if name == "flda_estep":
+            out[name]["exp_floor_ms"] = flda_double_line(flda_mod, fargs, kw, keep, out[name],
+                                                         rate, label)
     w = lda_estep(*largs, **kw)[3]
     out["scatter_rows"] = compare_scatter(V, w.reshape(-1, K), terms, keep, dev,
                                           f"float64 LDA w, {label}")
     return out
+
+
+# FP64-pipe instructions an element of flda_estep's float64 passes (the
+# resident design, flda_estep_res_kernel, as its SASS reads: exp2_res's
+# DMNMX, 3 DADD and 10 DFMA, then the exponent's DFMA, s's DADD, sum p lb's
+# DFMA and q's DFMA)
+FLDA64_OPS = 18
+
+
+def flda_double_line(flda_mod, fargs, kw, keep, rec, rate, label) -> float:
+    """Phase 16: flda_estep's float64 launch shape (the resident design or
+    the block kernel's tiles, blocks an SM) beside its time, its bytes
+    bound and its FP64 exp floor: FLDA64_OPS instructions for each (slot,
+    topic) of a real document in each pass the plain fixpoint ran, and for
+    each kept slot's topics in the rows of w, at half the FP64 rate (an
+    FMA is one instruction, two operations).  Returns the floor in ms."""
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep_ref
+
+    B, L = fargs[2].shape
+    K = fargs[0].shape[1]
+    shape = flda_mod.double_shape(L, K)
+    passes = float(fixpoint_passes(flda_mod, flda_estep_ref, fargs, kw).sum())
+    elems = passes * L * K + int(keep.sum()) * K
+    floor = elems * FLDA64_OPS / (rate / 2) * 1e3
+    print(f"flda_estep float64 {label}: {shape['design']} design "
+          f"({', '.join(f'{k} {v}' for k, v in shape.items() if k != 'design')}); "
+          f"{rec['ms'] * 1e3:.1f} us device, bound {rec['bound_ms'] * 1e3:.1f} us by "
+          f"{rec['bound_by']}, FP64 exp floor {floor * 1e3:.1f} us ({elems:.4g} elements x "
+          f"{FLDA64_OPS} FP64 instructions of the resident design, {passes:.0f} document "
+          f"passes)")
+    return floor
 
 
 def double_phase(smi, kc, dev) -> tuple:
@@ -4083,6 +4173,29 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
              + 4 * 1024 * K) + 4 * 1024 * (hl + hr),
         lambda: 4 * K * (int(ct.sum()) + int(cr.sum())) + 8 * K * int((cp[6] > 0).sum()), rate,
         f"seq, CiteULike token and reader halves 0 of 2, L={hl} R={hr} K={K}")
+    reads = ctpf_pass_reads(ctpf_mod.pass_shape, cp[3], cp[5], K)
+    print(f"kernels float64 ctpf_estep_pass: "
+          f"{pass_line(recs['ctpf_estep_pass_double'], reads, 'kept')}")
+    # flda_estep's float64 mode past its resident design: the L = 1024
+    # chunk, whose rows go through the block kernel's tiles
+    seg = long_chunks(V, 1, dev)["long_pad"]
+    fa = d(flda_args(seg, V, K, dev))
+    fkw = dict(viter=10, vtol=1.0 / K**2)
+    keep = seg[1] > 0
+    B, L = seg[0].shape
+    recs["flda_estep_double_L1024"] = check_double(
+        "flda_estep", flda_mod.flda_estep, lambda: flda_mod.flda_estep(*fa, **fkw),
+        lambda: flda_mod.flda_estep_ref(*fa, **fkw),
+        ("gamma", "El", "El_old", "tau", "tau_old", "w"),
+        lambda got: bool(torch.all(got[5][seg[2] == 0] == 0)),
+        8 * (n_unique(seg[0], keep) * (K + 1) + 3 * B * L + B + K + 1 + 6 * B * K + 2 * B * L
+             + B * L * (K + 1)) + 4 * B * L,
+        lambda: 4 * K * fixpoint_work(flda_mod, flda_mod.flda_estep_ref, fa, fkw,
+                                      keep.sum(1).double()) + 2 * (K + 1) * int(keep.sum()),
+        rate, f"L=1024 chunk B={B} L={L} K={K}")
+    recs["flda_estep_double_L1024"]["exp_floor_ms"] = flda_double_line(
+        flda_mod, fa, fkw, keep, recs["flda_estep_double_L1024"], rate, "L=1024 chunk")
+    del seg, fa
     # HMTM: phase 9's widest NSF chunk with unit counts, K = 25, viter 10
     label, Kh, viter, _, hargs = hmtm_chunks(kc["bucketed"], V, dev)[0]
     hargs = d(hargs)
@@ -4704,7 +4817,7 @@ def main() -> int:
             ("flda_estep_pass", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",
              p15["flda_pass"][0], (*p15["flda_pass"][1:], *regime("flda_estep_pass"))),
             ("ctpf_estep_pass", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
-             p15["ctpf_pass"][0], p15["ctpf_pass"][1:]),
+             p15["ctpf_pass"][0], (*p15["ctpf_pass"][1:], *regime("ctpf_estep_pass"))),
             # the f64 Elogtheta modes: the JAX package turns its Pallas kernels
             # off for them and runs its XLA chunk bodies
             ("lda_estep_f64", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:137",
@@ -4719,11 +4832,11 @@ def main() -> int:
             ("lda_elbo_tok_double", "lda_elbo.cu", tpu + "lda_elbo.py:119", dbl["lda_elbo_tok"],
              ()),
             ("flda_estep_double", "flda_estep.cu", tpu + "flda_estep.py:112", dbl["flda_estep"],
-             ()),
+             (every["flda_estep_double_L1024"],)),
             ("ctpf_estep_double", "ctpf_estep.cu", tpu + "ctpf_estep.py:105",
              every["ctpf_estep_double"], ()),
             ("ctpf_estep_pass_double", "ctpf_estep.cu", "topicmodelsvb_jl_tpu/models/ctpf.py:127",
-             every["ctpf_estep_pass_double"], ()),
+             every["ctpf_estep_pass_double"], regime("ctpf_estep_pass_double")),
             ("lda_estep_pass_double", "lda_estep.cu", "topicmodelsvb_jl_tpu/models/lda.py:127",
              every["lda_estep_pass_double"], regime("lda_estep_pass_double")),
             ("flda_estep_pass_double", "flda_estep.cu", "topicmodelsvb_jl_tpu/models/flda.py:91",

@@ -695,6 +695,83 @@ def test_ctpf_estep_pass_kernel_empty_chunk_and_rejects(cuda):
         ctpf_estep_pass(*args[:11], args[11].double())
 
 
+# the CTPF pass mode's warp mode: K from one topic to its reach (512, a
+# whole warp of four vectors a slot) and past it (513: the block mode);
+# L + R from one warp (12: four documents a CTA) to eight (1030), and no
+# readers at all (R = 0)
+CTPF_PASS_K = [1, 3, 100, 129, 512, 513]
+CTPF_PASS_LR = [(7, 5), (40, 24), (129, 33), (300, 100), (900, 130), (64, 0)]
+
+
+def _check_ctpf_pass_shape(shape, L, R, K):
+    """The warp mode's shape for the regime the case is meant to reach,
+    counted in the document's L + R slots."""
+    G, nvl, w = shape
+    if K > 512:
+        assert G == 0, shape                            # the block mode
+        return
+    assert G in (8, 16, 32) and 1 <= nvl <= 4 and 4 * G * nvl >= K and 1 <= w <= 8, shape
+    LR = L + R
+    assert w == 1 if LR <= 16 else (w == 8 if LR > 512 else w > 1), shape
+
+
+def _ctpf_pass_regime(K, L, R, dev, dtype):
+    """ctpf_estep_pass's arguments on 24 documents of up to L token and R
+    reader slots, in ``dtype``: document 0 has readers alone, 1 tokens
+    alone, 2 no kept slot, the last 3 doc_mask 0; R = 0 drops the readers."""
+    args = list(_ctpf_pass_args(_ctpf_chunk(K, 24, L, max(R, 1), 3000, 500, dev, seed=K + L)))
+    if R == 0:
+        args[4], args[5] = args[4][:, :0].contiguous(), args[5][:, :0].contiguous()
+    else:
+        args[3][0], args[2][0] = 0.0, 0                  # readers alone
+        args[5][1], args[4][1] = 0.0, 0                  # tokens alone
+        args[5][2], args[4][2] = 0.0, 0
+    args[3][2], args[2][2] = 0.0, 0                      # no kept slot
+    return tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", CTPF_PASS_K)
+@pytest.mark.parametrize("L,R", CTPF_PASS_LR)
+def test_ctpf_estep_pass_warp_mode_matches_plain(cuda, dtype, K, L, R):
+    _check_ctpf_pass_shape(ctpf_estep_mod.pass_shape(L, R, K, dtype), L, R, K)
+    args = _ctpf_pass_regime(K, L, R, cuda, dtype)
+    n0, d0 = ctpf_estep_pass.launches, ctpf_estep_pass.launches_double
+    got = ctpf_estep_pass(*args)
+    torch.cuda.synchronize()
+    assert (ctpf_estep_pass.launches, ctpf_estep_pass.launches_double) == (
+        n0 + 1, d0 + (dtype == torch.float64))
+    want = ctpf_estep_pass_ref(*args)
+    tol = dict(rtol=5e-3, atol=1e-5) if dtype == torch.float32 else dict(rtol=RTOL64,
+                                                                        atol=ATOL64)
+    for name, a, b in zip(("gsum", "zsum"), got, want):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a, b, **tol, msg=name)
+        assert torch.all(a[-3:] == 0) and torch.all(a[2] == 0), name   # masked, nothing kept
+    assert torch.all(got[0][0] != 0) and torch.all(got[1][1] == 0)   # readers, tokens alone
+    if R > 0:
+        assert torch.all(got[1][0] != 0)
+    again = ctpf_estep_pass(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # bitwise repeatable
+
+
+def test_ctpf_estep_pass_shape_choices(cuda):
+    """The warp mode's (lanes a slot, vectors a lane, warps a document)
+    over K and L + R in both dtypes: lanes 8, 16 or 32 whose vectors cover
+    K, one warp for up to 16 slots, 8 past 512; lanes 0 past K = 512."""
+    for dtype in (torch.float32, torch.float64):
+        for K in (1, 32, 33, 64, 65, 100, 128, 129, 300, 512, 513, 3000):
+            for L, R in ((4, 0), (7, 5), (40, 24), (64, 12), (129, 33), (384, 128), (900, 130)):
+                G, nvl, w = ctpf_estep_mod.pass_shape(L, R, K, dtype)
+                if K > 512:
+                    assert G == 0, (K, L, R)
+                    continue
+                assert G in (8, 16, 32) and 1 <= nvl <= 4 and 4 * G * nvl >= K, (K, L, R, G, nvl)
+                assert 4 * G * (nvl - 1) < K, (K, G, nvl)        # no vector wholly past K
+                assert 1 <= w <= 8, (K, L, R, w)
+                assert w == 1 if L + R <= 16 else (w == 8 if L + R > 512 else w > 1), (K, L, R, w)
+
+
 @pytest.mark.parametrize("K,L", [(3, 13), (100, 129), (100, 1025)])
 def test_flda_estep_at_viter_zero_keeps_the_state_and_writes_the_rows(cuda, K, L):
     """The split fixpoint's last call: no pass, the state returned as
@@ -1595,6 +1672,59 @@ def test_flda_estep_double_matches_plain(cuda, B, L, K):
     assert all(torch.equal(a, b) for a, b in zip(got, flda_estep(*args, viter=10, vtol=1.0 / K**2)))
     ch = flda_estep(*args, viter=10, vtol=1.0 / K**2, elogtheta_f64=True)
     assert all(torch.equal(a, b) for a, b in zip(ch, got))
+
+
+# flda_estep's float64 mode: the resident design at the widest NSF chunk
+# (L = 128), an odd K, one topic, K = 129 and 512 (16 and 32 lanes a
+# slot), 256 slots at K = 100 (one block an SM), and the block kernel past
+# it (L = 1024 in tiles; K = 600 past the design's reach); each at viter
+# 10 and 0, with a masked document, a real one with no kept slot and one
+# whose slots all keep a count
+FLDA64_CASES = [(1024, 128, 100, "resident"), (64, 64, 101, "resident"), (32, 40, 1, "resident"),
+                (32, 40, 129, "resident"), (16, 24, 512, "resident"),
+                (64, 256, 100, "resident"), (64, 1024, 100, "tiled"), (16, 40, 600, None)]
+
+
+@pytest.mark.parametrize("viter", [10, 0])
+@pytest.mark.parametrize("B,L,K,design", FLDA64_CASES)
+def test_flda_estep_double_designs_match_plain(cuda, B, L, K, design, viter):
+    shape = flda_estep_mod.double_shape(L, K)
+    if design is not None:
+        assert shape["design"] == design, shape
+    assert shape["blocks"] >= 1, shape
+    if (L, K) == (128, 100):
+        assert shape["blocks"] == 2, shape   # two documents an SM at the widest NSF chunk
+    args = list(_f64(_flda_chunk(K, B, L, 25_000, cuda, seed=K + L)))
+    args[3][1] = 0.0                                   # a real document with no kept slot
+    args[3][2] = torch.where(args[3][2] > 0, args[3][2], torch.ones_like(args[3][2]))
+    args[2][2] = torch.where(args[3][2] > 0, args[2][2], torch.full_like(args[2][2], 11))
+    kw = dict(viter=viter, vtol=1.0 / K**2)
+    n0, d0 = flda_estep.launches, flda_estep.launches_double
+    got = flda_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert (flda_estep.launches, flda_estep.launches_double) == (n0 + 1, d0 + 1)
+    _close64(got, flda_estep_ref(*args, **kw), ("gamma", "El", "El_old", "tau", "tau_old", "w"))
+    assert torch.all(got[5][-3:] == 0) and torch.all(got[5][1] == 0)
+    for a, b in zip(got[:5], args[7:]):
+        assert torch.equal(a[-3:], b[-3:])             # masked documents frozen
+        if viter == 0:
+            assert torch.equal(a, b)                   # no pass: the state as given
+    if viter:
+        assert not torch.equal(got[3][1], args[10][1])   # no kept slot: tau still moves
+    assert all(torch.equal(a, b) for a, b in zip(got, flda_estep(*args, **kw)))
+
+
+def test_flda_estep_double_widest_k(cuda):
+    """The float64 mode's widest K at L = 4 still runs (the block kernel)
+    and one past it is refused, as before the resident design."""
+    K = _k_past_f64_limit("flda_estep")
+    args = _f64(_flda_chunk(K - 500, 4, 4, 10, cuda))
+    assert flda_estep_mod.double_shape(4, K - 500)["design"] in ("tiled", "block-resident")
+    got = flda_estep(*args, viter=2, vtol=1e-3)
+    _close64(got, flda_estep_ref(*args, viter=2, vtol=1e-3),
+             ("gamma", "El", "El_old", "tau", "tau_old", "w"))
+    with pytest.raises(RuntimeError, match="does not fit"):
+        flda_estep(*_f64(_flda_chunk(K, 4, 4, 10, cuda)), viter=2, vtol=1e-3)
 
 
 @pytest.mark.parametrize("B,L,K", F64_SHAPES)

@@ -4,7 +4,7 @@ memory for a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and
 at CTM's (K = 50, 2048 documents), from the package of a given checkout,
 with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|ctpf|elbo|hmtm|lda_pass|flda_pass|pass_main]
+    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|flda_double|ctpf|elbo|hmtm|lda_pass|flda_pass|ctpf_pass|pass_main[:NAME]]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
@@ -34,10 +34,21 @@ pass.  ``lda_pass`` and ``flda_pass`` time the pass modes
 float64, with chip_smoke.py's ``pass_args``/``flda_pass_args``; each
 entry also gives the warp mode's shape (``pass_shape``: lanes a slot,
 vectors a lane, warps a document; lanes 0: the block mode) and the ns a
-kept slot (fLDA: a slot of a real document).  ``pass_main`` times both
+kept slot (fLDA: a slot of a real document).  ``ctpf_pass`` times
+``ctpf_estep_pass`` on 1024 CiteULike documents at (L, R) = (32, 8),
+(64, 12) (the seq chunk), (80, 24) (the widest bucket) and on the
+L = 768, R = 256 chunk's first (384, 128) and whole, each at K = 25, 100
+and 300 in float32 and at K = 100 in float64, with chip_smoke.py's
+``ctpf_args``; each entry gives the warp mode's shape and the ns a kept
+slot.  ``flda_double`` times ``flda_estep``'s float64 mode like ``flda``
+(the widest NSF bucket and the L = 1024 chunk, viter 0-10), plus the
+widest bucket's first 64 slots.  ``pass_main`` times the
 pass modes on their main paths' chunks (chip_smoke.py's
 ``pass_timing_cases``), each with the kernel's own µs a launch from
-``torch.profiler`` beside the device and call ms.  Prints
+``torch.profiler`` beside the device and call ms; ``pass_main:NAME``
+only the cases whose name holds NAME.  ``flda_double`` also counts, from
+``cuobjdump -sass`` of ROOT's built library, the FP64-pipe and MUFU
+instructions of each kernel of the float64 mode's resident design.  Prints
 one JSON line tagged LABEL with the device and call ms of each (shape,
 viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.  The kernel
 defaults to ``lda``.  Needs one CUDA GPU.
@@ -71,8 +82,9 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     if not torch.cuda.is_available():
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
-    if kernel not in ("lda", "flda", "ctpf", "elbo", "hmtm", "lda_pass", "flda_pass",
-                      "pass_main"):
+    kernel, _, only = kernel.partition(":")
+    if kernel not in ("lda", "flda", "flda_double", "ctpf", "elbo", "hmtm", "lda_pass",
+                      "flda_pass", "ctpf_pass", "pass_main"):
         raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
     packed = tt.synth_packed_nsf_scale(seed=7)
@@ -82,10 +94,14 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     out = {"label": label, "kernel": kernel, "card": torch.cuda.get_device_name(0)}
     if kernel in ("lda_pass", "flda_pass"):
         return emit(here, pass_sweep(smoke, kernel, s0, V, dev, out))
+    if kernel == "ctpf_pass":
+        return emit(here, ctpf_pass_sweep(smoke, V, dev, out))
     if kernel == "pass_main":
         from torch.profiler import ProfilerActivity, profile
 
         for name, (fn, args) in smoke.pass_timing_cases(dev).items():
+            if only not in name:
+                continue
             ms, call = smoke.time_calls(lambda: fn(*args))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(20):
@@ -146,6 +162,10 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     chunks = {f"L={s0.L}": (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
                             put(s0.doc_mask[:1024], torch.float32)),
               "L=1024": smoke.long_chunks(V, 1, dev)["long"]}
+    if kernel == "flda_double":
+        w = chunks[f"L={s0.L}"]
+        chunks["L=64"] = (w[0][:, :64].contiguous(), w[1][:, :64].contiguous(), w[2])
+        out["sass"] = sass_counts("flda_estep_res_kernel")
     if kernel == "elbo":
         s2 = tt.bucketize_packed(packed, chunk=2048, pad_multiple=8).segments[0]
         chunks["K=50 B=2048"] = (put(s2.terms[:2048], torch.int32),
@@ -176,6 +196,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
             alpha, gamma, El, El_old = smoke.warm_state(K, B, dev, seed=22)
             args = (logbetaT, kappa, terms, counts, doc_mask, alpha,
                     torch.tensor(0.6, device=dev), gamma, El, El_old, tau, tau_old)
+            if kernel == "flda_double":
+                args = tuple(a.double() if a.is_floating_point() else a for a in args)
             fn = flda_estep
         for viter in VITERS:
             ms, call = smoke.time_calls(lambda: fn(*args, viter=viter, vtol=1.0 / K**2))
@@ -218,6 +240,66 @@ def pass_sweep(smoke, kernel, s0, V, dev, out) -> dict:
             out[tag] = {"ms": ms, "call_ms": call, "shape": shape(L, K, dt),
                         "ns_a_slot": ms * 1e6 / max(n, 1)}
     return out
+
+
+def ctpf_pass_sweep(smoke, V, dev, out) -> dict:
+    """``ctpf_estep_pass``'s device and call ms, its warp mode's shape and
+    ns a kept slot at each (L, R) and K of the module doc."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep
+
+    # (lanes a slot, vectors a lane, warps a document); None in a checkout
+    # from before the CTPF pass mode's warp mode
+    shape = getattr(ctpf_estep, "pass_shape", lambda L, R, K, dt: None)
+    cpk, cbk, _ = smoke.citeulike()
+    (tt_, tc, tm), (tr, tq) = smoke.ctpf_bucket(cpk, cbk, dev)
+    (lt, lc_, lm), (lr, lq) = smoke.long_chunks(V, cpk.U, dev)["ctpf_long"]
+    cut = lambda a, n: a[:, :n].contiguous()
+    chunks = {(L, R): ((cut(tt_, L), cut(tc, L), tm), (cut(tr, R), cut(tq, R)), cpk.V)
+              for L, R in ((32, 8), (64, 12), (tt_.shape[1], tr.shape[1]))}
+    for L, R in ((384, 128), (lt.shape[1], lr.shape[1])):
+        chunks[(L, R)] = ((cut(lt, L), cut(lc_, L), lm), (cut(lr, R), cut(lq, R)), V)
+    for (L, R), (tok, rd, Vc) in chunks.items():
+        kept = int((tok[1] > 0).sum()) + int((rd[1] > 0).sum())
+        for K, dt in [(K, torch.float32) for K in PASS_K] + [(100, torch.float64)]:
+            args, _ = smoke.ctpf_args(tok, rd, Vc, cpk.U, K, dev)
+            args = tuple(a.to(dt) if a.is_floating_point() else a for a in args)
+            pargs = (*args[:10], args[10], args[12])
+            ms, call = smoke.time_calls(lambda: ctpf_estep.ctpf_estep_pass(*pargs))
+            tag = f"L={L} R={R} K={K}" + (" float64" if dt == torch.float64 else "")
+            out[tag] = {"ms": ms, "call_ms": call, "shape": shape(L, R, K, dt),
+                        "ns_a_slot": ms * 1e6 / max(kept, 1)}
+    return out
+
+
+def sass_counts(pattern: str) -> dict:
+    """Each kernel of the built library whose mangled name holds
+    ``pattern``: its FP64-pipe (DFMA, DADD, DMUL, DMNMX, DSETP) and MUFU
+    instructions in the SASS (``cuobjdump -sass``), static counts."""
+    import collections
+    import re
+    import subprocess
+
+    from topicmodelsvb_jl_torch.kernels import _build
+
+    lib = _build.build()
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    keep = ("DFMA", "DADD", "DMUL", "DMNMX", "DSETP", "MUFU")
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if pattern in m.group(1) else None
+            if cur:
+                out[cur] = collections.Counter()
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if cur and op and op.group(1) in keep:
+            out[cur][op.group(1)] += 1
+    return {name: dict(c) for name, c in out.items()}
 
 
 def emit(here, out) -> int:

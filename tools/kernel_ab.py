@@ -14,12 +14,14 @@ and the scatter beside ``index_add_``.  Then the LDA and fLDA main paths
 1024-document chunks, and HMTM's (NSF with unit counts, K = 25): one
 warm-up iteration each, then three steps alone, each timed by the host
 clock up to a synchronize.  Then ``pass_ms``: the device and call ms of
-the pass modes of ``lda_estep`` and ``flda_estep`` on their main paths'
-chunks (chip_smoke.py's ``pass_timing_cases``).  Last, ``digests``:
-a sha256 of the outputs of the E-step kernels, their pass modes,
-``lda_elbo_tok``, ``scatter_rows``, ``hmtm_estep`` and ``hmtm_logz`` (f32,
-and the f64 Elogtheta modes of ``lda_estep`` and ``flda_estep``, and the
-float64 modes of the two pass modes; phase 3's
+the pass modes of ``lda_estep``, ``flda_estep`` and ``ctpf_estep`` on
+their main paths' chunks (chip_smoke.py's ``pass_timing_cases``), and
+``flda_double_ms``: ``flda_estep``'s float64 mode on the widest NSF chunk
+and the L = 1024 one.  Last, ``digests``: a sha256 of the outputs of the
+E-step kernels, their pass modes, ``lda_elbo_tok``, ``scatter_rows``,
+``hmtm_estep`` and ``hmtm_logz`` (f32, and the f64 Elogtheta modes of
+``lda_estep`` and ``flda_estep``, the float64 modes of the three pass
+modes and of ``flda_estep``; phase 3's
 and phase 9's arguments) on the widest NSF and CiteULike chunks and on
 the chunks whose rows do not fit shared memory, and of ``hmtm_estep`` and
 ``hmtm_logz`` at K = 300 (``hmtm_cases``: the widest NSF chunk in f32,
@@ -105,6 +107,7 @@ def digests(smoke, kc, dev) -> dict:
         outs[f"lda_estep_pass_double_{tag}"] = (lda_estep_pass(*d(args[0], *seg, args[6])),)
         outs[f"flda_estep_pass_double_{tag}"] = flda_estep_pass(
             *d(*fa[:5], fa[6], fa[8], fa[10]))
+        outs[f"flda_estep_double_{tag}"] = flda_estep(*d(*fa), **kw)
     cpk = kc["cpk"]
     cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
     for tag, (tok, rd, Vc) in (("wide", (*smoke.ctpf_bucket(cpk, cbk, dev), cpk.V)),
@@ -112,6 +115,8 @@ def digests(smoke, kc, dev) -> dict:
         cargs, ckw = smoke.ctpf_args(tok, rd, Vc, cpk.U, K, dev)
         outs[f"ctpf_estep_{tag}"] = ctpf_estep(*cargs, **ckw)
         outs[f"ctpf_estep_pass_{tag}"] = ctpf_estep_pass(*cargs[:10], cargs[10], cargs[12])
+        c64 = tuple(a.double() if a.is_floating_point() else a for a in cargs)
+        outs[f"ctpf_estep_pass_double_{tag}"] = ctpf_estep_pass(*c64[:10], c64[10], c64[12])
     for tag, Kh, viter, hargs in hmtm_cases(smoke, kc, dev):
         outs[f"hmtm_estep_{tag}"] = hmtm_estep(*hargs, viter=viter, vtol=1.0 / Kh**2)
         got = outs[f"hmtm_estep_{tag}"]
@@ -119,6 +124,30 @@ def digests(smoke, kc, dev) -> dict:
     torch.cuda.synchronize()
     return {name: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in o)).hexdigest()[:16]
             for name, o in outs.items()}
+
+
+def flda_double_ms(smoke, kc, dev) -> dict:
+    """Device and call ms of ``flda_estep``'s float64 mode (viter 10) on
+    phase 3's arguments cast to float64: the widest NSF chunk and the
+    L = 1024 chunk."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+
+    K, V = kc["K"], kc["V"]
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
+    s0 = kc["bucketed"].segments[0]
+    chunks = {f"L{s0.L}": (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
+                           put(s0.doc_mask[:1024], torch.float32)),
+              "L1024": smoke.long_chunks(V, 1, dev)["long_pad"]}
+    out = {}
+    for tag, seg in chunks.items():
+        args = tuple(a.double() if a.is_floating_point() else a
+                     for a in smoke.flda_args(seg, V, K, dev))
+        kw = dict(viter=10, vtol=1.0 / K**2)
+        out[tag] = list(smoke.time_calls(lambda: flda_estep(*args, **kw)))
+    return out
 
 
 def main(root: str, label: str) -> int:
@@ -186,7 +215,9 @@ def main(root: str, label: str) -> int:
         out[f"hmtm_logz_{tag}_ms"] = smoke.time_calls(
             lambda: hmtm_logz(*a[:3], tg[0], tg[1]), 3, 1)
     out["pass_ms"] = {name: list(smoke.time_calls(lambda: fn(*args)))
-                      for name, (fn, args) in smoke.pass_timing_cases(dev).items()}
+                      for name, (fn, args) in smoke.pass_timing_cases(dev, cpk=kc["cpk"]).items()}
+    # flda_estep's float64 mode at the widest NSF chunk and the L = 1024 one
+    out["flda_double_ms"] = flda_double_ms(smoke, kc, dev)
     out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)

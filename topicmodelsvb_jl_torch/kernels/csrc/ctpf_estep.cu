@@ -84,18 +84,40 @@
 // result on the TPU, since a converged document's state is frozen there.
 // K is not padded beyond the stride.
 //
-// The pass mode (ctpf_estep_pass_kernel), for the sequence axis, where a
+// The pass mode (ctpf_estep_pass), for the sequence axis, where a
 // document's token and reader slots are split over ranks: one pass of the
 // fixpoint without its update, this rank's partials gsum = qp (r @ ea) +
-// qt h and zsum = qb h [B, K], from the block, slot list, rows and
-// products above.  The caller sums both over the ranks in one collective
-// and forms gimel, zayin, the masks and the stop test on the [B, K]
-// tiles; the last rows come from this kernel at viter = 0.  It reads the
-// same rows as a pass here and writes the two partials in place of the
-// state: one launch a pass.
+// qt h and zsum = qb h [B, K].  The caller sums both over the ranks in one
+// collective and forms gimel, zayin, the masks and the stop test on the
+// [B, K] tiles; the last rows come from this kernel at viter = 0.  It
+// replaces no Pallas kernel: the JAX package runs this per-pass body in
+// XLA on the sequence axis (topicmodelsvb_jl_tpu/models/ctpf.py:127-140).
+// What bounds it on an H100: few HBM bytes (the distinct rows, the slots,
+// the state and the partials: 1.7 us on the seq chunk of 1024 CiteULike
+// documents, L = 64, R = 12, K = 100), but every kept slot reads its row
+// from L2: 52,005 x 400 B = 20.8 MB there (41.6 MB in float64), ~204 MB
+// at L = 384, R = 128, the floor of a design that reads a row once per
+// kept slot.  Its warp mode (K <= 512, ctpf_estep_pass_warp_kernel) is the
+// LDA and fLDA pass modes' (rows.cuh): a document's token and reader
+// slots as one stream of 8-slot blocks over w warps (ctpf_pass_shape:
+// lda_pass_shape's rule on L + R slots), each kept row read once into
+// registers, both accumulators there, the [K] factors once a document
+// (psi with one division in place of eight), the warps folded in warp
+// order after one barrier.  Past K = 512 the block mode
+// (ctpf_estep_pass_kernel: the block, slot list, rows and products above)
+// runs.  Measured (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_ab.py and
+// tools/estep_sweep.py pass_main, in turns; PERF.md section 6): the seq
+// chunk 16.5 -> 11.5 us, L = 384, R = 128 77.0 -> 55.0 us (the rows from
+// L2 at ~3.7 TB/s), float64 33.2 -> 18.7 us.  Slower, each measured: the
+// token and reader slots as two phases, each dealt afresh (the readers'
+// own rounds add a chain of L2 reads: 13.0 and 18.2 us on the seq chunk),
+// more warps a document (5: two waves of 1024 documents at 74-80
+// registers), deeper row rings (D = 4), 32 lanes of one vector a slot
+// (13.4 us), picking q per element, and psi with its eight divisions
+// (12.5-12.8 us).
 //
 // The float64 mode (R = double; tmvb_ctpf_estep_f64, tmvb_ctpf_estep_pass_f64):
-// both kernels on a float64 state, every input, output and sum in double,
+// the kernels on a float64 state, every input, output and sum in double,
 // psi the same shift-by-8 series in double (what the plain version
 // computes on a float64 state), exp the double exp.  The JAX package runs
 // its kernel in the state's dtype (its ctpf_estep output specs follow
@@ -627,6 +649,229 @@ __global__ void __launch_bounds__(kCThreads, sizeof(R) == 4 ? 4 : 2) ctpf_estep_
   }
 }
 
+// psi(x) for x > 0 as digamma_series, the shift's eight reciprocals
+// 1/(x + i) summed as one fraction S / P, P = prod (x + i), from pairs
+// (x + 2m)(x + 2m + 1) with sums 2x + 4m + 1: one division in place of
+// eight (the warp mode's [K] factors; the rounding moves by a few ulps).
+// Past x = 3e4 the shift is dropped (P would pass the float range; the
+// series alone is then exact to far below the rounding).
+template <typename R>
+__device__ __forceinline__ R digamma_one_div(R x) {
+  R acc = R(0), t = x;
+  if (x < R(3e4)) {
+    R p[4], q[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const R a = x + R(2 * m);
+      p[m] = a * (a + R(1));
+      q[m] = R(2) * a + R(1);
+    }
+    const R p01 = p[0] * p[1], p23 = p[2] * p[3];
+    const R s01 = q[0] * p[1] + q[1] * p[0], s23 = q[2] * p[3] + q[3] * p[2];
+    acc = (s01 * p23 + s23 * p01) / (p01 * p23);
+    t = x + R(8);
+  }
+  const R inv = R(1) / t;
+  const R inv2 = inv * inv;
+  const R series = Real<R>::log(t) - R(0.5) * inv -
+      inv2 * (R(1) / R(12) - inv2 * (R(1) / R(120) - inv2 * (R(1) / R(252))));
+  return series - acc;
+}
+
+// The pass mode's warp mode (K <= 512): gsum and zsum as
+// ctpf_estep_pass_kernel computes them, a document's slots over the warps
+// of a CTA (w of them, ctpf_pass_shape; with w = 1 a CTA holds
+// kPassShortDocs documents, a warp each).  The [K] factors qp, qs, qt, qb
+// are formed once per document into shared memory [4, KQ] (KQ = 4 G NVL,
+// zeros past K) by its w warps' threads, each topic by one thread
+// (psi with one division, digamma_one_div), before one barrier; each lane
+// then reads its topics' qp and qs.  The document's token and reader
+// slots are one stream of 8-slot blocks, the tokens' then the readers'
+// (a block never mixes them), dealt to the warps in turn (round_slot):
+// each round's kept slots are compacted into lanes by a ballot and
+// shuffles (kept_src), and the S groups of G lanes take S of them at
+// once, D rows a group read into registers (row_to_regs: ealefT's row for
+// a token, eheT's for a reader) before the first is reduced.  Per row:
+// s = row . q (qp for a token, qs for a reader: both products are taken
+// and the slot's own kept, cheaper than picking q per element; a
+// butterfly over the group), r = w / (s + eps), then a += r row for a
+// token and h += r row for a reader (the other takes 0 row, which leaves
+// it as it was, bit for bit), all in registers.  The groups' a and h are added by butterflies
+// over the warp, then (w > 1) the warps' in warp order through shared
+// memory after one barrier (pass_out2); gsum = qp a + qt h and zsum = qb h
+// by each topic's thread.  Nothing is staged in shared memory inside the
+// pass.  Every sum in one fixed order: same inputs, same bits.
+template <typename R, int G, int NVL, int D>
+__global__ void __launch_bounds__(256) ctpf_estep_pass_warp_kernel(
+    const R* __restrict__ ealefT, const R* __restrict__ eheT, const int* __restrict__ terms,
+    const R* __restrict__ counts, const int* __restrict__ readers,
+    const R* __restrict__ ratings, const R* __restrict__ doc_mask,
+    const R* __restrict__ inv_db, const R* __restrict__ inv_dv, const R* __restrict__ inv_hv,
+    const R* __restrict__ gi_in, const R* __restrict__ za_in, R* __restrict__ gsum,
+    R* __restrict__ zsum, int B, int L, int Rn, int K, int w, int vec_in) {
+  using V4 = typename Real<R>::V4;
+  constexpr int S = 32 / G;
+  constexpr int KQ = 4 * G * NVL;   // the lane layout's topics, K and past it
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char pass_smem_raw[];
+  R* smem = reinterpret_cast<R*>(pass_smem_raw);
+  const PassWarp pw = pass_warp(w);
+  if (pw.b >= B) return;   // with w > 1 the whole CTA: one document
+  const int lane = threadIdx.x & 31, gi = lane / G, sub = lane % G;
+  const size_t dk = static_cast<size_t>(pw.b) * K;
+  if (!(doc_mask[pw.b] > R(0))) {
+    for (int k = pw.wi * 32 + lane; k < K; k += pw.nthr) {
+      gsum[dk + k] = R(0);
+      zsum[dk + k] = R(0);
+    }
+    return;
+  }
+  // qp, qs, qt, qb [4, KQ]: the CTA's with w > 1, else this warp's; then
+  // the warps' partials of a and h [w, 2 KQ] (w > 1)
+  R* q = smem + (w > 1 ? 0 : (threadIdx.x >> 5) * 4 * KQ);
+  for (int k = pw.wi * 32 + lane; k < KQ; k += pw.nthr) {
+    R qp = R(0), qs = R(0), qt = R(0), qb = R(0);
+    if (k < K) {
+      const R eg = Real<R>::exp(digamma_one_div(gi_in[dk + k]));
+      const R ez = Real<R>::exp(digamma_one_div(za_in[dk + k]));
+      qt = eg * inv_dv[k];
+      qb = ez * inv_hv[k];
+      qp = eg * inv_db[k];
+      qs = qt + qb;
+    }
+    q[k] = qp;
+    q[KQ + k] = qs;
+    q[2 * KQ + k] = qt;
+    q[3 * KQ + k] = qb;
+  }
+  if (w > 1)
+    __syncthreads();
+  else
+    __syncwarp();
+  V4 qpl[NVL], qsl[NVL], a[NVL], h[NVL];
+#pragma unroll
+  for (int v = 0; v < NVL; ++v) {
+    qpl[v] = *reinterpret_cast<const V4*>(q + 4 * (sub + G * v));
+    qsl[v] = *reinterpret_cast<const V4*>(q + KQ + 4 * (sub + G * v));
+    a[v] = Real<R>::zero4();
+    h[v] = Real<R>::zero4();
+  }
+  const bool vec = vec_in != 0;
+  const int* t = terms + static_cast<size_t>(pw.b) * L;
+  const R* c = counts + static_cast<size_t>(pw.b) * L;
+  const int* u = readers + static_cast<size_t>(pw.b) * Rn;
+  const R* y = ratings + static_cast<size_t>(pw.b) * Rn;
+  const int nblk_t = (L + 7) / 8, nblk = nblk_t + (Rn + 7) / 8;
+  for (int b0 = pw.wi; b0 < nblk; b0 += 4 * w) {
+    // this lane's slot: a token in the first nblk_t blocks, else a reader
+    const int i = round_slot(b0, w, lane), blk = i >> 3;
+    const bool tok = blk < nblk_t;
+    const int j = tok ? i : i - 8 * nblk_t;
+    R cl = R(0);
+    int tl = 0;
+    if (tok) {
+      if (j < L) {
+        cl = c[j];
+        tl = t[j];
+      }
+    } else if (blk < nblk && j < Rn) {
+      cl = y[j];
+      tl = u[j];
+    }
+    const unsigned ball = __ballot_sync(kAll, cl != R(0));
+    const int m = __popc(ball);
+    const int src = kept_src(ball, m, lane);
+    const int tk = __shfl_sync(kAll, tl, src);
+    const R ck = __shfl_sync(kAll, cl, src);
+    const int okk = __shfl_sync(kAll, static_cast<int>(tok), src);
+    for (int r0 = 0; r0 < m; r0 += S * D) {
+      V4 x[D][NVL];
+      R cd[D];
+      bool td[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int jj = r0 + d * S + gi;   // this group's kept slot
+        const int tj = __shfl_sync(kAll, tk, jj & 31);
+        cd[d] = __shfl_sync(kAll, ck, jj & 31);
+        td[d] = __shfl_sync(kAll, okk, jj & 31) != 0;
+        if (jj >= m) cd[d] = R(0);
+        if (r0 + d * S < m) {
+          row_to_regs<R, G, NVL>(x[d], (td[d] ? ealefT : eheT) + static_cast<size_t>(tj) * K, K,
+                                 vec, sub);
+        } else {
+#pragma unroll
+          for (int v = 0; v < NVL; ++v) x[d][v] = Real<R>::zero4();
+        }
+      }
+      R sd[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        V4 acc = Real<R>::zero4(), acs = Real<R>::zero4();
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          acc.x = Real<R>::fma(x[d][v].x, qpl[v].x, acc.x);
+          acc.y = Real<R>::fma(x[d][v].y, qpl[v].y, acc.y);
+          acc.z = Real<R>::fma(x[d][v].z, qpl[v].z, acc.z);
+          acc.w = Real<R>::fma(x[d][v].w, qpl[v].w, acc.w);
+          acs.x = Real<R>::fma(x[d][v].x, qsl[v].x, acs.x);
+          acs.y = Real<R>::fma(x[d][v].y, qsl[v].y, acs.y);
+          acs.z = Real<R>::fma(x[d][v].z, qsl[v].z, acs.z);
+          acs.w = Real<R>::fma(x[d][v].w, qsl[v].w, acs.w);
+        }
+        sd[d] = td[d] ? (acc.x + acc.y) + (acc.z + acc.w) : (acs.x + acs.y) + (acs.z + acs.w);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int d = 0; d < D; ++d) sd[d] += __shfl_xor_sync(kAll, sd[d], o);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (r0 + d * S >= m) break;
+        // 0 past the last kept slot and for the other accumulator: acc + 0
+        // row is acc, bit for bit (acc, row >= 0)
+        const R r = cd[d] != R(0) ? cd[d] / (sd[d] + Real<R>::eps) : R(0);
+        const R ra = td[d] ? r : R(0), rh = td[d] ? R(0) : r;
+#pragma unroll
+        for (int v = 0; v < NVL; ++v) {
+          a[v].x = Real<R>::fma(ra, x[d][v].x, a[v].x);
+          a[v].y = Real<R>::fma(ra, x[d][v].y, a[v].y);
+          a[v].z = Real<R>::fma(ra, x[d][v].z, a[v].z);
+          a[v].w = Real<R>::fma(ra, x[d][v].w, a[v].w);
+          h[v].x = Real<R>::fma(rh, x[d][v].x, h[v].x);
+          h[v].y = Real<R>::fma(rh, x[d][v].y, h[v].y);
+          h[v].z = Real<R>::fma(rh, x[d][v].z, h[v].z);
+          h[v].w = Real<R>::fma(rh, x[d][v].w, h[v].w);
+        }
+      }
+    }
+  }
+  fold_groups<G, NVL>(a);
+  fold_groups<G, NVL>(h);
+  pass_out2<R, G, NVL>(a, h, smem + 4 * KQ, w, pw.wi, K, [&](int k, R ak, R hk) {
+    gsum[dk + k] = q[k] * ak + q[2 * KQ + k] * hk;
+    zsum[dk + k] = q[3 * KQ + k] * hk;
+  });
+}
+
+// The warp mode's shape for CTPF, counted in the document's L + R slots:
+// LDA's rule (lda_pass_shape) on them.
+inline PassShape ctpf_pass_shape(int64_t L, int64_t Rn, int64_t K, int bytes) {
+  const int64_t LR = L + Rn;
+  if (K <= 64) return {8, K > 32 ? 2 : 1, pass_warps(LR)};
+  if (K <= 128)
+    return {16, 2, bytes == 8 ? pass_warps(LR) : warps_per(LR, LR <= 64 ? 16 : 32)};
+  return wide_pass_shape(LR, K);
+}
+
+// Dynamic shared memory of a warp-mode launch: the factors [4, KQ] of
+// each document (kPassShortDocs of them with w = 1), then with w > 1 the
+// warps' partials of a and h [w, 2 KQ].
+template <typename R>
+inline size_t ctpf_pass_smem(int G, int NVL, int w) {
+  const size_t kq = 4 * static_cast<size_t>(G) * NVL;
+  return (w > 1 ? (4 + 2 * static_cast<size_t>(w)) * kq : kPassShortDocs * 4 * kq) * sizeof(R);
+}
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // vec_in: K a multiple of the elements in 16 bytes (4 floats, 2 doubles)
@@ -657,6 +902,26 @@ int launch_ctpf(const R* ealefT, const R* eheT, const int* terms, const R* count
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename R, int G, int NVL, int D>
+int launch_ctpf_pass_warp(const R* ealefT, const R* eheT, const int* terms, const R* counts,
+                          const int* readers, const R* ratings, const R* doc_mask,
+                          const R* inv_db, const R* inv_dv, const R* inv_hv, const R* gi_in,
+                          const R* za_in, R* gsum, R* zsum, int64_t B, int64_t L, int64_t Rn,
+                          int64_t K, int w, int vec_in, cudaStream_t stream) {
+  const PassLaunch pl = pass_launch<R>(B, G, NVL, w);
+  const size_t smem = ctpf_pass_smem<R>(G, NVL, w);
+  auto kernel = ctpf_estep_pass_warp_kernel<R, G, NVL, D>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return fail(err);
+  kernel<<<pl.grid, pl.threads, smem, stream>>>(
+      ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv, gi_in,
+      za_in, gsum, zsum, static_cast<int>(B), static_cast<int>(L), static_cast<int>(Rn),
+      static_cast<int>(K), w, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pass mode's launch: the warp mode for K <= 512 (ctpf_pass_shape),
+// past it the block mode.
 template <typename R>
 int launch_ctpf_pass(const R* ealefT, const R* eheT, const int* terms, const R* counts,
                      const int* readers, const R* ratings, const R* doc_mask, const R* inv_db,
@@ -664,18 +929,40 @@ int launch_ctpf_pass(const R* ealefT, const R* eheT, const int* terms, const R* 
                      R* gsum, R* zsum, R* scratch, int64_t B, int64_t L, int64_t Rn,
                      int64_t K, void* stream) {
   if (B == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PassShape ps = ctpf_pass_shape(L, Rn, K, sizeof(R));
+  const int vec = K % (16 / sizeof(R)) == 0 && aligned16(ealefT) && aligned16(eheT);
+#define TMVB_CTPF_PASS_WARP(G, NVL)                                                            \
+  return launch_ctpf_pass_warp<R, G, NVL, pass_depth<R, G, NVL>()>(                          \
+      ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv, gi_in, \
+      za_in, gsum, zsum, B, L, Rn, K, ps.w, vec, st)
+  switch (ps.G * 8 + ps.NVL) {
+    case 8 * 8 + 1:
+      TMVB_CTPF_PASS_WARP(8, 1);
+    case 8 * 8 + 2:
+      TMVB_CTPF_PASS_WARP(8, 2);
+    case 16 * 8 + 2:
+      TMVB_CTPF_PASS_WARP(16, 2);
+    case 32 * 8 + 2:
+      TMVB_CTPF_PASS_WARP(32, 2);
+    case 32 * 8 + 3:
+      TMVB_CTPF_PASS_WARP(32, 3);
+    case 32 * 8 + 4:
+      TMVB_CTPF_PASS_WARP(32, 4);
+    default:
+      break;
+  }
+#undef TMVB_CTPF_PASS_WARP
   CtpfShape s;
   const int rc = ctpf_shape<R>(L + Rn, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
   if (!s.meta_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(ctpf_estep_pass_kernel<R>, s.bytes);
   if (err != cudaSuccess) return fail(err);
-  const int vec_in = K % (16 / sizeof(R)) == 0 && aligned16(ealefT) && aligned16(eheT);
-  ctpf_estep_pass_kernel<R><<<static_cast<unsigned>(B), kCThreads, s.bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  ctpf_estep_pass_kernel<R><<<static_cast<unsigned>(B), kCThreads, s.bytes, st>>>(
       ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db, inv_dv, inv_hv, gi_in,
       za_in, gsum, zsum, scratch, static_cast<int>(L), static_cast<int>(Rn), static_cast<int>(K),
-      s.tile, s.meta_in_smem, s.resident, vec_in);
+      s.tile, s.meta_in_smem, s.resident, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -693,6 +980,17 @@ int tmvb_ctpf_estep_rows_in_smem(int64_t L, int64_t R, int64_t K) {
 int tmvb_ctpf_estep_rows_in_smem_f64(int64_t L, int64_t R, int64_t K) {
   tmvb::CtpfShape s;
   return tmvb::ctpf_shape<double>(L + R, K, &s) != 0 ? -1 : s.resident;
+}
+
+// The warp mode's shape of ctpf_estep_pass on a document of L token and
+// R reader slots at K topics in elements of `bytes` (4 or 8): lanes a
+// slot, vectors a lane and warps a document in out[0..2]; lanes 0 past
+// the reach (the block mode runs).
+void tmvb_ctpf_estep_pass_shape(int64_t L, int64_t R, int64_t K, int bytes, int* out) {
+  const tmvb::PassShape s = tmvb::ctpf_pass_shape(L, R, K, bytes);
+  out[0] = s.G;
+  out[1] = s.NVL;
+  out[2] = s.w;
 }
 
 // Elements of device scratch a document needs: 3 (L + R) when its slot

@@ -96,16 +96,30 @@
 // floats 32-39 (the compaction counts, done by then), so the d^2 sum keeps
 // floats 16-23.  kF64 = false is the f32 mode's code as it was, bit for bit.
 //
-// The float64 mode (R = double; tmvb_flda_estep_f64): the same kernel on a
-// float64 state, every input, output and sum in double; 2^x is the double
-// exp2 (the f64 pipe has no ex2.approx), psi the shift-by-8 series in
+// The float64 mode (tmvb_flda_estep_f64): the function on a float64 state,
+// every input, output and sum in double, psi the shift-by-8 series in
 // double.  Bound: bytes doubled (~136 MB at the widest NSF chunk, ~41 us)
-// against the exps, which now run as instruction sequences on the FP64
-// pipe (~20 operations each at 33.5 TFLOP/s: ~80 us for 1.3e8 of them).
-// Every shared-memory size is in 8-byte elements: the widest NSF document
-// no longer stays resident (rows and p take 213 KB) and goes through
-// tiles of 58 slots with 2 blocks an SM, re-reading the 20 MB float64
-// table from L2 every pass; the widest K halves (~3,600 at L = 4).
+// against the exps, which run as instruction sequences on the FP64 pipe
+// (no ex2.approx there): 1.3e8 of them at the widest chunk.  In this
+// kernel (R = double, 2^x the library exp2, every shared-memory size in
+// 8-byte elements) the widest NSF document does not stay resident (rows
+// and p take 213 KB): it went through tiles of 58 slots, 2 blocks an SM,
+// re-reading the 20 MB float64 table from L2 every pass, 1.18 ms a chunk
+// (a pass ~106 us: ~37 of the FP64 exp2, ~25 of the tiles' re-reads and
+// barriers, ~6 of psi and bank conflicts, the rest a slot pass that keeps
+// 116 of 256 threads busy; copies of the kernel with one part cut).  So
+// where a document's rows fit one block's shared memory and K <= 512 the
+// float64 mode runs flda_estep_res_kernel (below): the rows copied once
+// and kept, the slots over all 256 threads, p in registers, 2^x by
+// exp2_res (18 FP64-pipe instructions an element in all, as the SASS
+// reads), the rows of w written from p taken anew.  Measured (NVIDIA H100
+// 80GB HBM3, 700 W; tools/estep_sweep.py flda_double and
+// tools/kernel_ab.py, in turns; PERF.md section 6): 1.18 ms -> 462 us at
+// the widest NSF chunk (a pass ~38 us; its FP64 floor ~15), 756 -> 288 us
+// at L = 64.  Slower, each measured: 16 lanes a slot of 7 topics (572 us), the
+// topic count a lane held at run time rather than compiled in (623 us:
+// the exps of a slot did not interleave).  Wider documents (L = 1024) and
+// K > 512 keep this kernel's tiles; the widest K stays ~3,600 at L = 4.
 //
 // The pass mode (flda_estep_pass; tmvb_flda_estep_pass[_f64]), for the
 // sequence axis, where a document's token slots are split over ranks: one
@@ -630,6 +644,291 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
   write_w<R>(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
 }
 
+// The float64 mode's 2^x in the resident design: x = n + f with n the
+// nearest integer (the 1.5 2^52 shift leaves it in the low word) and f in
+// [-1/2, 1/2], 2^f a degree-10 polynomial fitted at the Chebyshev nodes
+// of [-1/2, 1/2] (2.9e-16 relative off 2^f, ~2 ulps as evaluated), and n
+// added to the exponent as an integer: 3 DADD and 10 DFMA on the FP64
+// pipe, against the library exp2's longer sequence.  Below 2^-1021 it
+// flushes to 0, where the library gives a subnormal: < 1e-300 of any sum
+// s here (every p of a document's argmax topic is >= eps).
+__device__ __forceinline__ double exp2_res(double x) {
+  constexpr double kShift = 6755399441055744.0;   // 1.5 * 2^52
+  const double xc = fmax(x, -1075.0);
+  const double t = xc + kShift;
+  const double f = xc - (t - kShift);
+  double p = 7.072585949269223e-09;
+  p = fma(p, f, 1.0208690299958306e-07);
+  p = fma(p, f, 1.321544258792169e-06);
+  p = fma(p, f, 1.5252657260200837e-05);
+  p = fma(p, f, 0.0001540353044173605);
+  p = fma(p, f, 0.0013333558230164974);
+  p = fma(p, f, 0.009618129107606888);
+  p = fma(p, f, 0.05550410866444772);
+  p = fma(p, f, 0.24022650695910097);
+  p = fma(p, f, 0.69314718055995);
+  p = fma(p, f, 1.0);
+  const int n = __double2loint(t);
+  const int hi = __double2hiint(p) + static_cast<int>(static_cast<unsigned>(n) << 20);
+  const double r = __hiloint2double(hi, __double2loint(p));
+  return n < -1021 ? 0.0 : r;
+}
+
+// Lanes a slot and topics a lane of the resident design: 8 lanes of 4, 8,
+// 13 or 16 topics up to K = 128 (13: K = 100 with 4 of 104 columns past
+// it), 16 lanes of 16 to 256, 32 of 16 to 512; G = 0 past 512.
+struct FldaResShape {
+  int G, NV;
+};
+__host__ __device__ inline FldaResShape flda_res_lanes(int64_t K) {
+  if (K <= 128) return {8, K <= 32 ? 4 : (K <= 64 ? 8 : (K <= 104 ? 13 : 16))};
+  return {K <= 256 ? 16 : (K <= 512 ? 32 : 0), 16};
+}
+
+// Shared memory of the resident design in doubles: the rows [L, K], the
+// warps' gamma partials [8, K], e, gamma, El, El_old [K] each, tau and
+// (1 - eta) kappa[t] [L] each, 64 for the sums.
+__host__ __device__ inline size_t flda_res_smem(int64_t L, int64_t K) {
+  return (static_cast<size_t>(L) * K + 12 * static_cast<size_t>(K) + 2 * static_cast<size_t>(L) +
+          64) * sizeof(double);
+}
+
+// The float64 mode's resident design (flda_estep_res_kernel; K <= 512 and
+// a document's rows fit one block's shared memory, flda_double_shape): the
+// function of flda_estep_kernel<double>, one CTA of 256 threads a
+// document, its L rows copied once into shared memory (cp.async through
+// L1) and read from there on every pass: nothing is re-read from L2 and p
+// never leaves the registers.  A pass: the slots go 32 at a time over the
+// 8 warps' groups of G lanes, one slot a group (within a round the groups
+// of a half-warp take slots two apart, so that at G = 8 their rows' 64
+// bytes fall on different banks at K = 100); lane (g, sub) holds topics
+// sub + G j, j < NV (a compile-time count, so the NV exps of a slot
+// interleave; a lane's topics past K read column K - 1 and count 0);
+// p = exp2_res(fma(tau log2(e), lb, e)), butterflies over the
+// group give s and sum p lb, the group's first lane stores tau_new (tau
+// in shared memory; tau_old goes to tauo_out as each slot's tau moves,
+// tau to tau_out at the end; the counts are read as a round starts), and
+// a slot with a count adds (c / s) p into the lane's q.  The groups' q
+// are added by a butterfly over the warp, the warps' in warp order by each
+// topic's thread after one barrier; then gamma, psi, the sum's and max's
+// barrier, El and the stop test's barrier, as flda_estep_kernel.  The
+// rows of w are written after the last pass from p taken anew with
+// (tau_old, El_old), a padding slot's without its exps.
+// Every sum in one fixed order: same inputs, same bits.
+template <int G, int NV>
+__global__ void __launch_bounds__(kFThreads, 2) flda_estep_res_kernel(
+    const double* __restrict__ logbetaT, const double* __restrict__ kappa,
+    const int* __restrict__ terms, const double* __restrict__ counts,
+    const double* __restrict__ doc_mask, const double* __restrict__ alpha,
+    const double* __restrict__ eta_p, const double* __restrict__ gamma_in,
+    const double* __restrict__ el_in, const double* __restrict__ elo_in,
+    const double* __restrict__ tau_in, const double* __restrict__ tauo_in,
+    double* __restrict__ gamma_out, double* __restrict__ el_out, double* __restrict__ elo_out,
+    double* tau_out, double* tauo_out, double* __restrict__ w, int L, int K, int viter,
+    double vtol2, int vec_in) {
+  using R = double;
+  constexpr int S = 32 / G;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char flda_smem_raw[];
+  R* rows = reinterpret_cast<R*>(flda_smem_raw);   // [L, K]
+  R* qpart = rows + static_cast<size_t>(L) * K;     // [8, K]
+  R* e = qpart + kFWarps * K;
+  R* gam = e + K;
+  R* el = gam + K;
+  R* elo = el + K;
+  R* ts = elo + K;                                  // [L] tau
+  R* mkap = ts + L;                                 // [L] (1 - eta) kappa[t]
+  R* red = mkap + L;  // [64]: sum gamma [8], max psi [8], sum d^2 [8], max El [8]
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gi = lane / G, sub = lane % G;
+  // the group's slot in a round of 32: at S = 4 the half-warp's groups two apart
+  const int gslot = warp * S + (S == 4 ? ((gi & 1) << 1) | (gi >> 1) : gi);
+  const size_t dl = static_cast<size_t>(b) * L, dk = static_cast<size_t>(b) * K;
+  const int* t = terms + dl;
+  const R eta = *eta_p, one_m_eta = R(1) - eta;
+
+  // every slot's row, padding too, in slot order
+  if (vec_in) {
+    const int H = K / 2;
+    for (int idx = tid; idx < L * H; idx += kFThreads) {
+      const int l = idx / H, h = idx - l * H;
+      cp_async16_ca(rows + static_cast<size_t>(l) * K + 2 * h,
+                    logbetaT + static_cast<size_t>(t[l]) * K + 2 * h);
+    }
+  } else {
+    for (int idx = tid; idx < L * K; idx += kFThreads) {
+      const int l = idx / K, k = idx - l * K;
+      cp_async8(rows + idx, logbetaT + static_cast<size_t>(t[l]) * K + k);
+    }
+  }
+  for (int l = tid; l < L; l += kFThreads) {
+    ts[l] = tau_in[dl + l];
+    mkap[l] = one_m_eta * kappa[t[l]];
+    tauo_out[dl + l] = tauo_in[dl + l];
+  }
+  R mx = -INFINITY;
+  for (int k = tid; k < K; k += kFThreads) {
+    gam[k] = gamma_in[dk + k];
+    const R x = el_in[dk + k];
+    el[k] = x;
+    elo[k] = elo_in[dk + k];
+    mx = fmax(mx, x);
+  }
+  mx = block_max_once(mx, red + 24);
+  for (int k = tid; k < K; k += kFThreads) e[k] = (el[k] - mx) * Real<R>::log2e;
+  cp_async_wait_all();
+  __syncthreads();
+
+  bool active = doc_mask[b] > R(0);
+  int it = 0;
+  for (; it < viter && active; ++it) {
+    R q[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) q[j] = R(0);
+    for (int l0 = 0; l0 < L; l0 += kFWarps * S) {
+      const int l = l0 + gslot;
+      const int lc = min(l, L - 1);   // past L: the last slot, its results dropped
+      const R* row = rows + static_cast<size_t>(lc) * K;
+      const R c = __ldg(counts + dl + lc);
+      const R tau = ts[lc];
+      const R t2 = tau * Real<R>::log2e;
+      R p[NV];
+      R s = R(0), sl = R(0);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k = min(sub + G * j, K - 1);
+        const R x = row[k];
+        const R pj = exp2_res(fma(t2, x, e[k]));
+        p[j] = sub + G * j < K ? pj : R(0);
+        s += p[j];
+        sl = fma(p[j], x, sl);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(kAll, s, o);
+        sl += __shfl_xor_sync(kAll, sl, o);
+      }
+      if (l < L) {
+        // update_tau! (fLDA.jl:195-200): exp(-sum p lb / s) as a base-2 exp
+        const R tnew = eta / (eta + mkap[l] * ex2(-(sl / s) * Real<R>::log2e) + Real<R>::eps);
+        if (sub == 0) {
+          tauo_out[dl + l] = tau;
+          ts[l] = tnew;
+        }
+        if (c != R(0)) {
+          const R r = c / s;
+#pragma unroll
+          for (int j = 0; j < NV; ++j) q[j] = fma(r, p[j], q[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+      for (int j = 0; j < NV; ++j) q[j] += __shfl_xor_sync(kAll, q[j], o);
+    if (lane < G) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k = lane + G * j;
+        if (k < K) qpart[warp * K + k] = q[j];
+      }
+    }
+    __syncthreads();
+    // update_gamma! (fLDA.jl:188-191) into gam, psi(gamma) into e (the pass
+    // has read it), before the barrier of the sum and the max
+    R gpart = R(0), pmax = -INFINITY;
+    for (int k = tid; k < K; k += kFThreads) {
+      R qk = qpart[k];
+      for (int v = 1; v < kFWarps; ++v) qk += qpart[v * K + k];
+      const R g = alpha[k] + qk + Real<R>::eps;
+      gam[k] = g;
+      const R ps = digamma_series(g);
+      e[k] = ps;
+      gpart += g;
+      pmax = fmax(pmax, ps);
+    }
+    gpart = warp_sum(gpart);
+    pmax = warp_max(pmax);
+    if (lane == 0) {
+      red[warp] = gpart;
+      red[8 + warp] = pmax;
+    }
+    __syncthreads();
+    R g_sum = R(0), p_max = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < kFWarps; ++v) {
+      g_sum += red[v];
+      p_max = fmax(p_max, red[8 + v]);
+    }
+    // update_Elogtheta! (fLDA.jl:181-184); the next e shifted by
+    // max El_new = psi(max gamma) - psi(sum gamma)
+    R dpart = R(0);
+    if (tid < K) {
+      const R dg_sum = digamma_series(g_sum);
+      for (int k = tid; k < K; k += kFThreads) {
+        const R ps = e[k];
+        const R el_new = ps - dg_sum;
+        const R d = el_new - el[k];
+        dpart += d * d;
+        elo[k] = el[k];
+        el[k] = el_new;
+        e[k] = (ps - p_max) * Real<R>::log2e;
+      }
+    }
+    active = block_sum_once<kFWarps>(dpart, red + 16) >= vtol2;
+  }
+
+  // statistics from phi(tau_old, El_old) (fLDA.jl:160-177): p anew, e from
+  // El_old (the last pass's, or the state's as given when none ran)
+  R mo = -INFINITY;
+  for (int k = tid; k < K; k += kFThreads) {
+    mo = fmax(mo, elo[k]);
+    gamma_out[dk + k] = gam[k];
+    el_out[dk + k] = el[k];
+    elo_out[dk + k] = elo[k];
+  }
+  mo = block_max_once(mo, red + 24);
+  for (int k = tid; k < K; k += kFThreads) e[k] = (elo[k] - mo) * Real<R>::log2e;
+  for (int l = tid; l < L; l += kFThreads) tau_out[dl + l] = ts[l];
+  __syncthreads();
+  R* wd = w + dl * (K + 1);
+  for (int l0 = 0; l0 < L; l0 += kFWarps * S) {
+    const int l = l0 + gslot;
+    const int lc = min(l, L - 1);
+    const R* row = rows + static_cast<size_t>(lc) * K;
+    const R t2 = tauo_out[dl + lc] * Real<R>::log2e;
+    const R c = __ldg(counts + dl + lc);
+    R p[NV];
+    R s = R(1);   // a padding slot's row is zeros: no exps
+    if (l < L && c != R(0)) {
+      s = R(0);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k = min(sub + G * j, K - 1);
+        const R pj = exp2_res(fma(t2, row[k], e[k]));
+        p[j] = sub + G * j < K ? pj : R(0);
+        s += p[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) p[j] = R(0);
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kAll, s, o);
+    if (l < L) {
+      const R tcur = ts[l];
+      const R r = tcur * (c / s);
+      R* wl = wd + static_cast<size_t>(l) * (K + 1);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k = sub + G * j;
+        if (k < K) wl[k] = p[j] * r;
+      }
+      if (sub == 0) wl[K] = (R(1) - tcur) * c;
+    }
+  }
+}
+
 // The pass mode's block mode (K > 512, past the warp mode's reach; the
 // block-per-document design): one pass of the fixpoint without its
 // update, for the sequence axis: this rank's partial pc[b, k] = sum_l
@@ -938,6 +1237,63 @@ int launch_flda_pass(const R* logbetaT, const R* kappa, const int* terms, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The float64 mode's choice: the resident design's lanes a slot (0: the
+// tiled kernel, flda_estep_kernel<double>) and its shared memory.
+struct FldaDoubleShape {
+  int G, NV;
+  size_t bytes;
+};
+inline int flda_double_shape(int64_t L, int64_t K, FldaDoubleShape* s) {
+  const int optin = smem_optin();
+  if (optin < 0) return query_error();
+  const FldaResShape r = flda_res_lanes(K);
+  const size_t bytes = flda_res_smem(L, K);
+  *s = {r.G > 0 && bytes <= static_cast<size_t>(optin) ? r.G : 0, r.NV, bytes};
+  return 0;
+}
+
+// The resident design's kernel for (G, NV), or nullptr.
+inline const void* flda_res_kernel(int G, int NV) {
+  switch (G * 32 + NV) {
+    case 8 * 32 + 4:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<8, 4>);
+    case 8 * 32 + 8:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<8, 8>);
+    case 8 * 32 + 13:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<8, 13>);
+    case 8 * 32 + 16:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<8, 16>);
+    case 16 * 32 + 16:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<16, 16>);
+    case 32 * 32 + 16:
+      return reinterpret_cast<const void*>(flda_estep_res_kernel<32, 16>);
+    default:
+      return nullptr;
+  }
+}
+
+int launch_flda_res(const double* logbetaT, const double* kappa, const int* terms,
+                    const double* counts, const double* doc_mask, const double* alpha,
+                    const double* eta, const double* gamma_in, const double* el_in,
+                    const double* elo_in, const double* tau_in, const double* tauo_in,
+                    double* gamma_out, double* el_out, double* elo_out, double* tau_out,
+                    double* tauo_out, double* w, int64_t B, int64_t L, int64_t K, int viter,
+                    double vtol, int vec_in, const FldaDoubleShape& d, cudaStream_t stream) {
+  const void* kernel = flda_res_kernel(d.G, d.NV);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(kernel, d.bytes);
+  if (err != cudaSuccess) return fail(err);
+  int Li = static_cast<int>(L), Ki = static_cast<int>(K);
+  double vtol2 = vtol * vtol;
+  void* args[] = {&logbetaT, &kappa, &terms, &counts, &doc_mask, &alpha, &eta, &gamma_in,
+                  &el_in, &elo_in, &tau_in, &tauo_in, &gamma_out, &el_out, &elo_out, &tau_out,
+                  &tauo_out, &w, &Li, &Ki, &viter, &vtol2, &vec_in};
+  err = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(B)), dim3(kFThreads), args, d.bytes,
+                         stream);
+  if (err != cudaSuccess) return fail(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename R>
 int launch_flda(const R* logbetaT, const R* kappa, const int* terms, const R* counts,
                 const R* doc_mask, const R* alpha, const R* eta, const R* gamma_in,
@@ -946,6 +1302,16 @@ int launch_flda(const R* logbetaT, const R* kappa, const int* terms, const R* co
                 R* scratch, int64_t B, int64_t L, int64_t K, int viter, R vtol, int vec_in,
                 int elog_f64, void* stream) {
   if (B == 0) return 0;
+  if constexpr (sizeof(R) == 8) {
+    FldaDoubleShape d;
+    const int rc = flda_double_shape(L, K, &d);
+    if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (d.G > 0)
+      return launch_flda_res(logbetaT, kappa, terms, counts, doc_mask, alpha, eta, gamma_in,
+                             el_in, elo_in, tau_in, tauo_in, gamma_out, el_out, elo_out,
+                             tau_out, tauo_out, w, B, L, K, viter, vtol, vec_in, d, st);
+  }
   FldaShape s;
   const int rc = flda_shape<R>(L, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
@@ -994,8 +1360,49 @@ void tmvb_flda_estep_pass_shape(int64_t L, int64_t K, int bytes, int* out) {
 }
 
 int64_t tmvb_flda_estep_scratch_f64(int64_t L, int64_t K) {
+  tmvb::FldaDoubleShape d;
+  if (tmvb::flda_double_shape(L, K, &d) != 0) return -1;
+  if (d.G > 0) return 0;   // the resident design keeps its slot data in shared memory
   tmvb::FldaShape s;
   return tmvb::flda_shape<double>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : tmvb::kFMeta * L);
+}
+
+// The float64 mode's launch shape on a document of L slots at K topics:
+// out[0] 1 for the resident design (flda_estep_res_kernel), 0 for the
+// block kernel with its rows in tiles, 2 for the block kernel with every
+// row in shared memory (K > 512); out[1] lanes a slot (resident design)
+// or the slots of a tile; out[2] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); out[3] shared memory in
+// bytes a block.  Returns 0, or a CUDA error code.
+int tmvb_flda_estep_double_shape(int64_t L, int64_t K, int* out) {
+  tmvb::FldaDoubleShape d;
+  int rc = tmvb::flda_double_shape(L, K, &d);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  cudaError_t err;
+  if (d.G > 0) {
+    const void* kernel = tmvb::flda_res_kernel(d.G, d.NV);
+    err = tmvb::allow_smem(kernel, d.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tmvb::kFThreads,
+                                                          d.bytes);
+    out[0] = 1;
+    out[1] = d.G;
+    out[3] = static_cast<int>(d.bytes);
+  } else {
+    tmvb::FldaShape s;
+    rc = tmvb::flda_shape<double>(L, K, &s);
+    if (rc != 0) return rc;
+    err = tmvb::allow_smem(tmvb::flda_estep_kernel<double, false>, s.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tmvb::flda_estep_kernel<double, false>, tmvb::kFThreads, s.bytes);
+    out[0] = s.resident ? 2 : 0;
+    out[1] = s.tile;
+    out[3] = static_cast<int>(s.bytes);
+  }
+  out[2] = blocks;
+  return err == cudaSuccess ? 0 : tmvb::fail(err);
 }
 
 int tmvb_flda_estep(const float* logbetaT, const float* kappa, const int* terms,

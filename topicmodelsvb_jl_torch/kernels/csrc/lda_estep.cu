@@ -596,14 +596,14 @@ __global__ void __launch_bounds__(256) lda_estep_pass_warp_kernel(
   }
   const bool vec = vec_in != 0;
   for (int b0 = pw.wi; b0 < nblk; b0 += 4 * w) {
-    const int l = (b0 + (lane >> 3) * w) * 8 + (lane & 7);
+    const int l = round_slot(b0, w, lane);
     const R cl = l < L ? c[l] : R(0);
     const int tl = l < L ? t[l] : 0;
     const unsigned ball = __ballot_sync(kAll, cl != R(0));
     const int n = __popc(ball);
     // the kept slots' terms and counts into lanes 0 .. n - 1, in slot order
     // (the lanes past them repeat the first: only kept slots' rows are read)
-    const int src = n > 0 ? nth_set_bit(ball, lane < n ? lane + 1 : 1) : 0;
+    const int src = kept_src(ball, n, lane);
     const int tk = __shfl_sync(kAll, tl, src);
     const R ck = __shfl_sync(kAll, cl, src);
     for (int r0 = 0; r0 < n; r0 += S * D) {

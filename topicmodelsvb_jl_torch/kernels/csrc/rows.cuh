@@ -45,14 +45,16 @@ __device__ __forceinline__ void load_rows(R* rows, const R* __restrict__ table,
   }
 }
 
-// The warp modes of the pass kernels (lda_estep_pass, flda_estep_pass):
+// The warp modes of the pass kernels (lda_estep_pass, flda_estep_pass,
+// ctpf_estep_pass):
 // a document's slots over w warps, each row read once, straight into
 // registers.  A warp takes S = 32 / G slots at once, G lanes a slot: lane
 // (i, g) of group i holds topics 4 (g + G v) .. + 3 of its slot's row for
 // v < NVL, so one row takes NVL four-wide vectors a lane and the G lanes'
 // loads read it whole.  NVL <= 4 at G = 32: K <= 512 in either dtype is
 // the modes' reach.  Each kernel picks (G, NVL, w) from L, K and the
-// dtype (lda_pass_shape, flda_pass_shape; measured on an H100, PERF.md).
+// dtype (lda_pass_shape, flda_pass_shape, ctpf_pass_shape; measured on an
+// H100, PERF.md).
 constexpr int kPassShortDocs = 4;   // documents of one warp each a CTA
 
 // A warp-mode launch's shape; G = 0 past the reach (K > 512).
@@ -157,6 +159,15 @@ __device__ __forceinline__ void fold_groups(V4 (&q)[NVL]) {
     }
 }
 
+// The slot of lane `lane` in one round of a warp's 8-slot blocks: the
+// round takes blocks b0, b0 + w, b0 + 2 w and b0 + 3 w (the warp's every
+// w-th block, 8 lanes each), so that the kept slots, which lead a
+// document's row, spread evenly over its w warps; 8 slots are a 32-byte
+// sector of 4-byte ids.
+__device__ __forceinline__ int round_slot(int b0, int w, int lane) {
+  return (b0 + (lane >> 3) * w) * 8 + (lane & 7);
+}
+
 // The lane of the n-th set bit of m (n >= 1, at most popc(m)).
 __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
   int p = 0;
@@ -170,6 +181,14 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
     }
   }
   return p;
+}
+
+// The lane whose slot a round's lane `lane` takes when the n kept slots
+// (the set bits of `ball`) are compacted into lanes 0 .. n - 1 in slot
+// order; the lanes past them repeat the first (only kept slots' rows are
+// read).
+__device__ __forceinline__ int kept_src(unsigned ball, int n, int lane) {
+  return n > 0 ? nth_set_bit(ball, lane < n ? lane + 1 : 1) : 0;
 }
 
 // The document, the warp's index within it and the threads it has, for a
@@ -214,6 +233,44 @@ __device__ __forceinline__ void pass_out(const V4 (&q)[NVL], R* part, int w, int
     R sum = part[k];
     for (int i = 1; i < w; ++i) sum += part[i * S + k];
     store(k, sum);
+  }
+}
+
+// pass_out for two accumulators a and h of the same layout (CTPF's): with
+// w = 1 straight to f(k, a_k, h_k); with w > 1 into part [w, 2 S] (a,
+// then h), then after the CTA's one barrier both summed in warp order,
+// f(k, sum a, sum h) on every topic k < K by the CTA's threads.
+template <typename R, int G, int NVL, typename V4, typename F>
+__device__ __forceinline__ void pass_out2(const V4 (&a)[NVL], const V4 (&h)[NVL], R* part, int w,
+                                          int wi, int K, F&& store) {
+  const int lane = threadIdx.x & 31;
+  if (w == 1) {
+    if (lane >= G) return;
+#pragma unroll
+    for (int v = 0; v < NVL; ++v) {
+      const int k = 4 * (lane + G * v);
+      if (k < K) store(k, a[v].x, h[v].x);
+      if (k + 1 < K) store(k + 1, a[v].y, h[v].y);
+      if (k + 2 < K) store(k + 2, a[v].z, h[v].z);
+      if (k + 3 < K) store(k + 3, a[v].w, h[v].w);
+    }
+    return;
+  }
+  constexpr int S = 4 * G * NVL;
+  if (lane < G)
+#pragma unroll
+    for (int v = 0; v < NVL; ++v) {
+      *reinterpret_cast<V4*>(part + wi * 2 * S + 4 * (lane + G * v)) = a[v];
+      *reinterpret_cast<V4*>(part + wi * 2 * S + S + 4 * (lane + G * v)) = h[v];
+    }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    R sa = part[k], sh = part[S + k];
+    for (int i = 1; i < w; ++i) {
+      sa += part[i * 2 * S + k];
+      sh += part[i * 2 * S + S + k];
+    }
+    store(k, sa, sh);
   }
 }
 

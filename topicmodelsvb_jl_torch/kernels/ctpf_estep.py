@@ -27,7 +27,9 @@ guard of the TPU kernel.  ψ is the kernels' shift-by-8 series.
 where each document's token and reader slots are split over ranks: one
 pass's partial gimel and zayin statistics on this rank's slots; the
 caller sums them over the ranks between passes, and
-:func:`ctpf_split_fixpoint` drives it.
+:func:`ctpf_split_fixpoint` drives it.  Up to K = 512 it runs a warp mode
+(a document's slots over warps, each kept row read once into registers),
+whose shape :data:`pass_shape` reads; past it the block mode.
 
 On a float64 state the kernel and its pass mode run their float64 modes:
 the same fixpoint with every tensor in float64 and ψ the same shift-by-8
@@ -44,7 +46,7 @@ import torch
 from ..utils.numerics import EPSILON, masked_fixpoint
 from . import _build
 from ._build import check, require
-from .lda_estep import digamma_series
+from .lda_estep import digamma_series, shape_query
 
 
 def _factors(gimel, zayin, inv_db, inv_dv, inv_hv):
@@ -214,6 +216,10 @@ def ctpf_estep_pass_ref(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
 
 
 _PASS_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+
+# (lanes a slot, vectors a lane, warps a document) of the pass mode's warp
+# mode at (L, R, K, dtype); lanes 0 past K = 512, where the block mode runs
+pass_shape = shape_query("tmvb_ctpf_estep_pass_shape", lengths=2)
 
 
 def ctpf_estep_pass(ealefT, eheT, terms, counts, readers, ratings, doc_mask,

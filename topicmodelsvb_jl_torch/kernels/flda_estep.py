@@ -25,7 +25,8 @@ tau = eta / (eta + (1 − eta)·kappa·exp(−Σ_k phi·log beta) + EPSILON)
 ``elogtheta_f64=True`` the f64 Elogtheta channel as in ``lda_estep``
 (``lda_estep.elogtheta``; the kernel's f64-channel mode).  On a float64
 state the kernel runs its float64 mode, and the channel is the identity,
-as for ``lda_estep``.
+as for ``lda_estep``; where a document's rows fit shared memory (K <=
+512) that mode keeps them there across the passes (:func:`double_shape`).
 
 :func:`flda_estep_pass` is the kernel's pass mode, for the sequence axis,
 where each document's token slots are split over ranks: one pass's
@@ -181,6 +182,25 @@ def flda_estep(logbetaT, kappa, terms, counts, doc_mask, alpha, eta,
     else:
         flda_estep.launches_f64 += bool(elogtheta_f64)
     return (*outs, *taus, w)
+
+
+@functools.lru_cache(maxsize=None)
+def double_shape(L: int, K: int) -> dict:
+    """The float64 mode's launch shape on a document of L slots at K
+    topics: ``design`` ("resident": the rows copied once into shared
+    memory, ``flda_estep_res_kernel``; "tiled" or "block-resident": the
+    block kernel with its rows in tiles re-read every pass, or all in
+    shared memory past K = 512), ``lanes`` a slot (resident) or ``tile``
+    slots, ``blocks`` an SM and ``smem`` bytes a block.  Builds the
+    kernels; needs CUDA."""
+    out = (ctypes.c_int * 4)()
+    err = _build.function("tmvb_flda_estep_double_shape",
+                          [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])(
+        L, K, out)
+    check(err, "flda_estep.double_shape")
+    design = {1: "resident", 0: "tiled", 2: "block-resident"}[out[0]]
+    return {"design": design, ("lanes" if out[0] == 1 else "tile"): out[1], "blocks": out[2],
+            "smem": out[3]}
 
 
 flda_estep.launches = 0   # kernel launches (the plain version is not counted)

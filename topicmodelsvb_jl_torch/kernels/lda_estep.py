@@ -214,17 +214,22 @@ def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
 _PASS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
 
-def shape_query(entry: str):
+def shape_query(entry: str, lengths: int = 1):
     """``f(L, K, dtype)`` -> (lanes a slot, four-wide vectors a lane, warps a
     document) of a pass kernel's warp mode from its C query ``entry``;
     lanes 0 past the warp mode's reach (K > 512), where the block mode
-    runs.  Builds the kernels; needs CUDA."""
+    runs.  ``lengths``: the slot counts before K (CTPF's pass takes two,
+    ``f(L, R, K, dtype)``).  Builds the kernels; needs CUDA."""
     @functools.lru_cache(maxsize=None)
-    def shape(L: int, K: int, dtype=torch.float32) -> tuple:
+    def shape(*dims, dtype=torch.float32) -> tuple:
+        if len(dims) == lengths + 2:
+            *dims, dtype = dims
+        if len(dims) != lengths + 1:
+            raise TypeError(f"{entry}: {lengths} slot counts, K and the dtype, got {dims}")
         out = (ctypes.c_int * 3)()
-        _build.function(entry, [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                ctypes.POINTER(ctypes.c_int)], None)(
-            L, K, torch.finfo(dtype).bits // 8, out)
+        _build.function(entry, [ctypes.c_int64] * (lengths + 1) + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None)(
+            *dims, torch.finfo(dtype).bits // 8, out)
         return tuple(out)
     return shape
 
