@@ -1360,6 +1360,48 @@ def dtm_chunk_scatter(dtm, dev, label) -> list:
                             f"DTM per-slice rows, {label} first chunk")]
 
 
+@functools.lru_cache(maxsize=1)
+def dtm_scatter_standin(B=1024, V=15_113, T=12, K=20, L=320, seed=7) -> dict:
+    """A stand-in for DTM's two first-chunk scatters at the mac shape (what
+    ``dtm_chunk_scatter`` runs on a trained model), for the tools: B
+    documents drawn as ``mac_corpus`` draws them (a slice, a topic's band,
+    ~400 tokens kept as their distinct terms), as a dense [B, L] chunk (L
+    as the mac corpus's widest document, or wider if one here is).
+    Returns ``{"A rows": (ids, keep, K), "per-slice rows": (ids, keep,
+    2K + 1)}``: A's ids slice·V + term over the token slots, the per-slice
+    ids one a document; the weights are the caller's.  Prints each plan's
+    kept rows, pieces and longest run."""
+    import numpy as np
+
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan
+
+    r = np.random.default_rng(seed)
+    sl = np.minimum(r.uniform(0.0, T, B).astype(np.int64), T - 1)
+    z = r.integers(0, K, B)
+    doc = np.repeat(np.arange(B, dtype=np.int64), 1 + r.poisson(399, B))
+    band = V // K
+    topical = r.random(doc.size) < 0.8
+    t_top = (z[doc] * band + sl[doc] * (band // (2 * T))
+             + (band * r.random(doc.size) ** 5).astype(np.int64)) % V
+    t_bg = np.minimum((V * r.random(doc.size) ** 4).astype(np.int64), V - 1)
+    uniq = np.unique(doc * V + np.where(topical, t_top, t_bg))
+    d, term = uniq // V, uniq % V
+    n = np.bincount(d, minlength=B)
+    L = max(L, int(n.max()))
+    col = np.arange(uniq.size) - np.repeat(np.cumsum(n) - n, n)
+    terms, keep = np.zeros((B, L), np.int64), np.zeros((B, L), bool)
+    terms[d, col], keep[d, col] = term, True
+    out = {"A rows": (sl[:, None] * V + terms, keep, K),
+           "per-slice rows": (sl, np.ones(B, bool), 2 * K + 1)}
+    for name, (ids, kp, _) in out.items():
+        p = build_plan(ids, kp)
+        rows = np.diff(p.piece_start.numpy())
+        print(f"DTM stand-in {name} (B={B}, L={L}, V={V}, T={T}): kept={p.rows.shape[0]} "
+              f"pieces={p.n_pieces} rows a piece {rows.mean():.2f} (longest {rows.max()}) "
+              f"split runs={p.run_id.shape[0]}")
+    return out
+
+
 def dtm_card_vs_cpu(corp, dev) -> None:
     """A small DTM on the card (f32, the scatter kernel) against the CPU
     (f64, plain versions) from one init, stage by stage:
@@ -3688,6 +3730,47 @@ def flda_double_line(flda_mod, fargs, kw, keep, rec, rate, label) -> float:
     return floor
 
 
+# FP64-pipe lane instructions of ctpf_estep's float64 resident design
+# (ctpf_estep_res_kernel at K = 100: 16 lanes of 7 topics; its SASS holds
+# 576 FP64-pipe instructions, six exp_digamma of ~78 each): each kept
+# slot's topic in a pass (the normaliser's and the sum's DFMA, and the
+# group's butterfly and division spread over its topics, ~3), each topic
+# of a document in a pass (two exp_digamma and the update's ~25), and each
+# kept slot's topic in the rows of wa/wh (two DMUL)
+CTPF64_SLOT_OPS, CTPF64_TOPIC_OPS, CTPF64_ROW_OPS = 5, 180, 2
+
+
+def ctpf_double_line(ctpf_mod, cargs, ckw, kept_a_doc, rec, rate, label) -> float:
+    """Phase 17: ctpf_estep's float64 launch shape (the resident design or
+    the block kernel, blocks an SM) beside its time, its bytes bound and
+    its FP64 floor: CTPF64_SLOT_OPS instructions for each kept slot's
+    topic and CTPF64_TOPIC_OPS for each topic in each pass the plain
+    fixpoint ran, CTPF64_ROW_OPS for each kept slot's topic in the rows, at
+    half the FP64 rate (an FMA is one instruction, two operations).
+    Returns the floor in ms."""
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep_ref
+
+    t0 = time.perf_counter()
+    B, L = cargs[2].shape
+    R, K = cargs[4].shape[1], cargs[0].shape[1]
+    shape = ctpf_mod.double_shape(L, R, K)
+    passes = fixpoint_passes(ctpf_mod, ctpf_estep_ref, cargs, ckw)
+    slot_passes = float((passes * kept_a_doc).sum())
+    doc_passes = float(passes.sum())
+    kept = float(kept_a_doc.sum())
+    ops = K * (slot_passes * CTPF64_SLOT_OPS + doc_passes * CTPF64_TOPIC_OPS
+               + kept * CTPF64_ROW_OPS)
+    floor = ops / (rate / 2) * 1e3
+    print(f"ctpf_estep float64 {label}: {shape['design']} design "
+          f"({', '.join(f'{k} {v}' for k, v in shape.items() if k != 'design')}); "
+          f"{rec['ms'] * 1e3:.1f} us device, bound {rec['bound_ms'] * 1e3:.1f} us by "
+          f"{rec['bound_by']}, FP64 floor {floor * 1e3:.1f} us ({slot_passes:.4g} kept-slot "
+          f"passes x {CTPF64_SLOT_OPS}, {doc_passes:.0f} document passes x "
+          f"{CTPF64_TOPIC_OPS}, {kept:.0f} kept rows x {CTPF64_ROW_OPS} FP64 instructions a "
+          f"topic); this line {time.perf_counter() - t0:.2f} s")
+    return floor
+
+
 def double_phase(smi, kc, dev) -> tuple:
     """Phase 16, float64 on the card: (a) the float64 modes of lda_estep,
     flda_estep, lda_elbo_tok and scatter_rows against their plain
@@ -4119,6 +4202,11 @@ def dtype_phase(smi, kc, dev, ranks) -> tuple:
         lambda: 4 * K * fixpoint_work(ctpf_mod, ctpf_estep_ref, cargs, ckw,
                                       (kt.sum(1) + kr.sum(1)).double()) + 2 * K * kept,
         rate, f"CiteULike widest bucket B={B} L={L} R={R} K={K}")
+    recs["ctpf_estep_double"]["fp64_floor_ms"] = ctpf_double_line(
+        ctpf_mod, cargs, ckw, (kt.sum(1) + kr.sum(1)).double(), recs["ctpf_estep_double"], rate,
+        f"CiteULike widest bucket B={B} L={L} R={R} K={K}")
+    need(ctpf_mod.double_shape(L, R, K)["design"] == "resident",
+         "phase 17: ctpf_estep's float64 mode is not resident at CiteULike's widest bucket")
     # the pass modes on rank 0's half of the token (and reader) slots of the
     # first 1024 documents of their main paths (phases 13 and 15)
     pk = kc["packed"]

@@ -1747,28 +1747,85 @@ def test_lda_elbo_tok_double_matches_plain(cuda, B, L, K):
     assert abs(float(part) - float(keep)) <= RTOL64 * abs(float(keep))
 
 
-# W: DTM's K = 20 (double2 lanes), fLDA's K + 1 = 101 (8-byte lanes), LDA's 100
-@pytest.mark.parametrize("W", [20, 100, 101])
+# W: DTM's K = 20 and 2K + 1 = 41, LDA's 100 and fLDA's 101, and each side
+# of the float64 design's lanes a row (G = 2, 4, 8, 16 for up to 8, 16,
+# 32, 64 vectors: double2 where W is even, doubles where it is odd; past
+# 64 vectors a warp a piece, the float32 mode's design, past 128 of them
+# two passes over the rows); runs of 16 and 17 rows (each side of a CTA a
+# piece, LONG_ROWS) and of 256 and 257 rows (each side of a split run,
+# PIECE_ROWS) beside the random ones
+@pytest.mark.parametrize("W", [1, 7, 9, 16, 18, 20, 32, 34, 41, 63, 64, 65, 66, 100, 101, 128,
+                               130, 257, 258])
 def test_scatter_rows_double_matches_plain(cuda, W):
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import LONG_ROWS, PIECE_ROWS
+
     r = np.random.default_rng(9)
-    T, B, L = 12 * 15_113 if W == 20 else 25_000, 1024, 128
+    T, B, L = 12 * 15_113 if W == 20 else 25_000, 1024, 128 if W <= 130 else 16
     ids = (T * r.random((B, L)) ** 3).astype(np.int32)
     keep = r.random((B, L)) < 0.8
     ids[:, 0] = 7   # one long run: split pieces and the second launch
+    flat, kflat, at = ids.reshape(-1), keep.reshape(-1), B
+    for j, n in enumerate((LONG_ROWS, LONG_ROWS + 1, PIECE_ROWS, PIECE_ROWS + 1)):
+        flat[at:at + n], kflat[at:at + n] = T + j, True
+        at += n
     plan = build_plan(ids, keep).to(cuda)
+    assert 0 < plan.n_long < plan.n_pieces and plan.run_id.shape[0] > 0
     w = torch.tensor(r.random((B * L, W)) * keep.reshape(-1, 1), dtype=torch.float64,
                      device=cuda)
-    acc = torch.tensor(r.random((T, W)), dtype=torch.float64, device=cuda)
+    acc = torch.tensor(r.random((T + 4, W)), dtype=torch.float64, device=cuda)
     n0, d0 = scatter_rows.launches, scatter_rows.launches_double
     got = scatter_rows(acc.clone(), w, plan)
     torch.cuda.synchronize()
     assert (scatter_rows.launches, scatter_rows.launches_double) == (n0 + 1, d0 + 1)
-    assert plan.run_id.shape[0] > 0
     torch.testing.assert_close(got, scatter_rows_ref(acc.clone(), w, plan), rtol=RTOL64,
                                atol=ATOL64)
     assert torch.equal(got, scatter_rows(acc.clone(), w, plan))
+    # a row 8 bytes off 16-byte alignment takes the double lanes
+    if W % 2 == 0:
+        w8 = torch.empty(B * L * W + 1, dtype=torch.float64, device=cuda)[1:].view(B * L, W)
+        w8.copy_(w)
+        torch.testing.assert_close(scatter_rows(acc.clone(), w8, plan), got, rtol=RTOL64,
+                                   atol=ATOL64)
     with pytest.raises(TypeError, match="weights"):
         scatter_rows(acc.clone(), w.float(), plan)
+
+
+@pytest.mark.parametrize("W", [20, 41])
+def test_scatter_rows_double_at_dtm_shapes(cuda, W):
+    """DTM's float64 M-step scatters at the mac shape: A's rows (W = K =
+    20, ids slice·V + term, ~2 rows a piece) and the per-slice rows (W =
+    2K + 1 = 41, 12 slice ids over 1024 documents, one slice holding more
+    than 256 of them: a split run) against the plain version, bitwise
+    repeatable, one launch counted in ``launches_double``."""
+    T, V, B, L = 12, 15_113, 1024, 320
+    r = np.random.default_rng(23)
+    sid = r.integers(0, T, size=B)
+    if W == 20:
+        # ~225 terms a document, most from its topic's band of the vocabulary
+        n = r.integers(150, 300, size=B)
+        keep = np.arange(L)[None, :] < n[:, None]
+        band, z = V // 20, r.integers(0, 20, size=B)
+        terms = (z[:, None] * band + (band * r.random((B, L)) ** 2).astype(np.int64)) % V
+        ids, n_rows = sid[:, None] * V + terms, T * V
+    else:
+        sid[:300] = 5   # a run past PIECE_ROWS
+        ids, keep, n_rows = sid, np.ones(B, bool), T
+    plan = build_plan(ids, keep).to(cuda)
+    if W == 20:   # ~2 rows a piece, some past LONG_ROWS, no split run
+        assert 1.5 < plan.rows.shape[0] / plan.n_pieces < 3 and plan.run_id.shape[0] == 0
+        assert 0 < plan.n_long < plan.n_pieces
+    else:
+        assert plan.n_pieces >= 12 and plan.run_id.shape[0] == 1
+    w = torch.tensor(r.random((ids.size, W)) * keep.reshape(-1, 1), dtype=torch.float64,
+                     device=cuda)
+    acc = torch.tensor(r.random((n_rows, W)), dtype=torch.float64, device=cuda)
+    n0, d0 = scatter_rows.launches, scatter_rows.launches_double
+    got = scatter_rows(acc.clone(), w, plan)
+    torch.cuda.synchronize()
+    assert (scatter_rows.launches, scatter_rows.launches_double) == (n0 + 1, d0 + 1)
+    torch.testing.assert_close(got, scatter_rows_ref(acc.clone(), w, plan), rtol=RTOL64,
+                               atol=ATOL64)
+    assert all(torch.equal(got, scatter_rows(acc.clone(), w, plan)) for _ in range(3))
 
 
 def _k_past_f64_limit(name):
@@ -1854,6 +1911,69 @@ def test_ctpf_estep_double_matches_plain(cuda, B, L, R, K):
     assert torch.all(got[4][-3:] == 0) and torch.all(got[5][-3:] == 0)
     for a, b in zip(got[:4], args[10:]):
         assert torch.equal(a[-3:], b[-3:])   # masked documents frozen
+    assert all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw)))
+
+
+def _ctpf_res_edge(K):
+    """The widest L + R whose rows the float64 resident design keeps in
+    one block's shared memory at K topics (``double_shape``)."""
+    lo, hi = 1, 4096
+    assert ctpf_estep_mod.double_shape(1, 0, K)["design"] == "resident"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if ctpf_estep_mod.double_shape(mid, 0, K)["design"] == "resident" \
+            else (lo, mid)
+    return lo
+
+
+# ctpf_estep's float64 mode: CiteULike's widest chunk (resident at 2 blocks
+# an SM), K = 101 (odd: 8-byte copies and stores), 64 and 65 (each side of
+# 8 and 16 lanes a slot), 512 (32 lanes, the design's widest K) and 513
+# (past it: the block kernel); at each K an
+# L + R that just fits shared memory and one that just misses it; each at
+# viter 10 and 0, with masked documents (one with slots, its rows from its
+# state), a real one with no kept slot, one without readers and one whose
+# slots are all kept; and at viter 10 with a stop test that ends every
+# document's loop after one pass
+CTPF64_CASES = [(1024, 80, 24, 100), (64, 40, 8, 101), (32, 40, 8, 64), (32, 40, 8, 65),
+                (16, 24, 4, 512), (16, 24, 4, 513),
+                (16, "edge", 8, 100), (16, "past", 8, 100), (8, "edge", 8, 512),
+                (8, "past", 8, 512)]
+
+
+@pytest.mark.parametrize("viter,vtol", [(10, None), (0, None), (10, 1e6)])
+@pytest.mark.parametrize("B,L,R,K", CTPF64_CASES)
+def test_ctpf_estep_double_designs_match_plain(cuda, B, L, R, K, viter, vtol):
+    if L in ("edge", "past"):
+        L = _ctpf_res_edge(K) - R + (L == "past")
+    shape = ctpf_estep_mod.double_shape(L, R, K)
+    fits = K <= 512 and L + R <= _ctpf_res_edge(K)
+    assert (shape["design"] == "resident") == fits, shape
+    assert shape["blocks"] >= 1, shape
+    if (L, R, K) == (80, 24, 100):   # 16 lanes of 7 topics, two documents an SM
+        assert shape == {**shape, "lanes": 16, "blocks": 2}, shape
+    args = list(_f64(_ctpf_chunk(K, B, L, R, 8000, 5551, cuda, seed=K + L + viter)))
+    args[3][1], args[5][1] = 0.0, 0.0                  # a real document with no kept slot
+    args[5][2] = 0.0                                   # one without readers
+    args[3][4] = torch.where(args[3][4] > 0, args[3][4], torch.ones_like(args[3][4]))
+    args[5][4] = 1.0                                   # one whose slots are all kept
+    args[6][0] = 0.0                                   # masked, with slots
+    # vtol 1e6: every document stops after its first pass, before viter
+    kw = dict(viter=viter, vtol=vtol or 1.0 / K**2, **HYP)
+    n0, d0 = ctpf_estep.launches, ctpf_estep.launches_double
+    got = ctpf_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ctpf_estep.launches, ctpf_estep.launches_double) == (n0 + 1, d0 + 1)
+    _close64(got, ctpf_estep_ref(*args, **kw), CTPF_NAMES)
+    assert torch.all(got[4][-3:] == 0) and torch.all(got[5][-3:] == 0)
+    assert torch.all(got[4][1] == 0) and torch.all(got[5][1:3] == 0)
+    assert torch.any(got[4][0] != 0)                   # masked: rows from its state
+    for a, b in zip(got[:4], args[10:]):
+        assert torch.equal(a[-3:], b[-3:]) and torch.equal(a[0], b[0])   # masked: frozen
+        if viter == 0:
+            assert torch.equal(a, b)                   # no pass: the state as given
+    if viter:
+        assert not torch.equal(got[0][1], args[10][1])   # no kept slot: gimel still moves
     assert all(torch.equal(a, b) for a, b in zip(got, ctpf_estep(*args, **kw)))
 
 

@@ -59,6 +59,45 @@ def test_plan_layout(T, V, piece_rows):
     assert p.max_id == (sid.max() if sid.size else -1)
 
 
+@pytest.mark.parametrize("T,V,piece_rows", [(5000, 300, 256), (5000, 300, 7), (600, 1, 64),
+                                            (0, 10, 256), (40, 1000, 1), (20_000, 3000, 256)])
+def test_plan_tasks_layout(T, V, piece_rows):
+    """The float64 mode's tasks: every piece once as (row start, rows, id,
+    out), the pieces of more than LONG_ROWS rows first, each part in piece
+    order, and n_long of them."""
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import LONG_ROWS
+
+    ids, keep = _zipf_chunk(T, V, seed=T + V + 1)
+    p = build_plan(ids, keep, piece_rows)
+    ps = p.piece_start.numpy()
+    tasks = p.tasks.numpy()
+    assert p.tasks.dtype == torch.int32 and tasks.shape == (4 * p.n_pieces,)
+    tasks = tasks.reshape(-1, 4)
+    rows = np.diff(ps)
+    want = np.stack([ps[:-1], rows, p.piece_id.numpy(), p.piece_out.numpy()], axis=1)
+    long_ = rows > LONG_ROWS
+    assert p.n_long == long_.sum()
+    assert np.array_equal(tasks[:p.n_long], want[long_])
+    assert np.array_equal(tasks[p.n_long:], want[~long_])
+    if T == 20_000:
+        assert 0 < p.n_long < p.n_pieces   # both kinds
+
+
+def test_streamed_plans_keep_the_tasks():
+    """A streamed batch's plans staged as one int32 buffer come back as
+    views with every field, the tasks and n_long included."""
+    from topicmodelsvb_jl_torch import streaming
+
+    plans = [build_plan(*_zipf_chunk(T, V, seed=T), piece_rows=32)
+             for T, V in ((3000, 40), (0, 5), (700, 900))]
+    flat, metas = streaming._flatten_plans(plans)
+    for a, b in zip(plans, streaming._plan_views(torch.from_numpy(flat), metas)):
+        assert (a.T, a.max_id, a.n_scratch, a.n_long) == (b.T, b.max_id, b.n_scratch, b.n_long)
+        for f in ("rows", "ids", "piece_start", "piece_id", "piece_out", "run_start", "run_id",
+                  "tasks"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 def test_plan_rejects_bad_input():
     with pytest.raises(ValueError, match="differ"):
         build_plan(np.zeros(4, np.int32), np.ones(5, bool))

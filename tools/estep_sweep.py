@@ -4,7 +4,7 @@ memory for a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and
 at CTM's (K = 50, 2048 documents), from the package of a given checkout,
 with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|flda_double|ctpf|elbo|hmtm|lda_pass|flda_pass|ctpf_pass|pass_main[:NAME]]
+    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|flda_double|ctpf|ctpf_double|elbo|hmtm|lda_pass|flda_pass|ctpf_pass|pass_main[:NAME]|scatter_double]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
@@ -48,7 +48,15 @@ pass modes on their main paths' chunks (chip_smoke.py's
 ``torch.profiler`` beside the device and call ms; ``pass_main:NAME``
 only the cases whose name holds NAME.  ``flda_double`` also counts, from
 ``cuobjdump -sass`` of ROOT's built library, the FP64-pipe and MUFU
-instructions of each kernel of the float64 mode's resident design.  Prints
+instructions of each kernel of the float64 mode's resident design.
+``ctpf_double`` times ``ctpf_estep``'s float64 mode on the widest
+CiteULike bucket against viter and on each narrower bucket at viter 0 and
+10, with its launch shape (``double_shape``, where ROOT has it) and the
+FP64-pipe and MUFU counts of its float64 kernels' SASS.
+``scatter_double`` times ``scatter_rows`` in float64 and float32 beside
+``index_add_`` on DTM's two first-chunk plans at the mac shape (a
+stand-in with the real chunk's run lengths, ``dtm_scatter_standin``,
+which prints them) and on the widest NSF chunk at W = 100 and 101.  Prints
 one JSON line tagged LABEL with the device and call ms of each (shape,
 viter), and appends it to ``chiprun_out/estep_sweep.jsonl``.  The kernel
 defaults to ``lda``.  Needs one CUDA GPU.
@@ -83,8 +91,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
     kernel, _, only = kernel.partition(":")
-    if kernel not in ("lda", "flda", "flda_double", "ctpf", "elbo", "hmtm", "lda_pass",
-                      "flda_pass", "ctpf_pass", "pass_main"):
+    if kernel not in ("lda", "flda", "flda_double", "ctpf", "ctpf_double", "elbo", "hmtm",
+                      "lda_pass", "flda_pass", "ctpf_pass", "pass_main", "scatter_double"):
         raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
     packed = tt.synth_packed_nsf_scale(seed=7)
@@ -96,6 +104,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         return emit(here, pass_sweep(smoke, kernel, s0, V, dev, out))
     if kernel == "ctpf_pass":
         return emit(here, ctpf_pass_sweep(smoke, V, dev, out))
+    if kernel == "scatter_double":
+        return emit(here, scatter_sweep(smoke, s0, dev, out))
     if kernel == "pass_main":
         from torch.profiler import ProfilerActivity, profile
 
@@ -139,6 +149,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
             out[f"{label_} logz"] = list(smoke.time_calls(
                 lambda: hmtm_logz(*args[:3], args[6], args[7]), min(2 * n, 20), reps))
         return emit(here, out)
+    if kernel == "ctpf_double":
+        return emit(here, ctpf_double_sweep(smoke, dev, out))
     if kernel == "ctpf":
         cpk, cbk, _ = smoke.citeulike()
         lc = smoke.long_chunks(V, cpk.U, dev)
@@ -270,6 +282,63 @@ def ctpf_pass_sweep(smoke, V, dev, out) -> dict:
             tag = f"L={L} R={R} K={K}" + (" float64" if dt == torch.float64 else "")
             out[tag] = {"ms": ms, "call_ms": call, "shape": shape(L, R, K, dt),
                         "ns_a_slot": ms * 1e6 / max(kept, 1)}
+    return out
+
+
+def ctpf_double_sweep(smoke, dev, out) -> dict:
+    """``ctpf_estep``'s float64 mode on the CiteULike corpus's widest
+    bucket (chip_smoke.py's ``ctpf_args`` cast to float64) at each viter
+    of VITERS, then the first chunk of each narrower bucket at viter 0 and
+    10; its launch shape where the package has ``double_shape``; and the
+    FP64-pipe and MUFU instruction counts of the float64 kernels' SASS."""
+    from topicmodelsvb_jl_torch.kernels import ctpf_estep as mod
+
+    d = lambda args: tuple(a.double() if a.is_floating_point() else a for a in args)
+    cpk, cbk, _ = smoke.citeulike()
+    for j in range(len(cbk.segments)):
+        tok, rd = smoke.ctpf_bucket(cpk, cbk, dev, j)
+        args, kw = smoke.ctpf_args(tok, rd, cpk.V, cpk.U, 100, dev)
+        args = d(args)
+        L, R = tok[0].shape[1], rd[0].shape[1]
+        if hasattr(mod, "double_shape"):
+            out[f"L={L} R={R} shape"] = mod.double_shape(L, R, 100)
+        for viter in (VITERS if j == 0 else (0, 10)):
+            kw = dict(kw, viter=viter)
+            out[f"L={L} R={R} viter={viter}"] = list(smoke.time_calls(
+                lambda: mod.ctpf_estep(*args, **kw)))
+    out["sass"] = {**sass_counts("ctpf_estep_kernelIdE"), **sass_counts("ctpf_estep_res_kernel")}
+    return out
+
+
+def scatter_sweep(smoke, s0, dev, out) -> dict:
+    """``scatter_rows`` in float64 and float32 beside ``index_add_`` (the
+    same sums over all rows) on DTM's two first-chunk plans at the mac
+    shape (chip_smoke.py's ``dtm_scatter_standin``) and on the widest NSF
+    chunk's token rows at W = 100 and 101 (LDA's and fLDA's), each with
+    random weights that are 0 off the kept slots: device and call ms."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan, scatter_rows
+
+    cases = {name: (ids, keep, W) for name, (ids, keep, W) in smoke.dtm_scatter_standin().items()}
+    for W in (100, 101):
+        cases[f"NSF widest chunk W={W}"] = (s0.terms[:1024], s0.counts[:1024] > 0, W)
+    g = np.random.default_rng(3)
+    for name, (ids, keep, W) in cases.items():
+        ids, keep = np.asarray(ids).reshape(-1), np.asarray(keep).reshape(-1)
+        plan = build_plan(ids, keep).to(dev)
+        V = int(ids.max()) + 1
+        ids_l = torch.as_tensor(ids, dtype=torch.long, device=dev)
+        for dt in (torch.float64, torch.float32):
+            w = torch.as_tensor(g.random((ids.size, W)) * keep[:, None], dtype=dt, device=dev)
+            acc = torch.zeros((V, W), dtype=dt, device=dev)
+            tag = f"{name} {'float64' if dt == torch.float64 else 'float32'}"
+            out[tag] = {"ms": list(smoke.time_calls(lambda: scatter_rows(acc, w, plan))),
+                        "index_add_ms": list(smoke.time_calls(
+                            lambda: acc.index_add_(0, ids_l, w)))}
+        out[f"{name} plan"] = {"kept": int(plan.rows.shape[0]), "pieces": plan.n_pieces,
+                               "split_runs": int(plan.run_id.shape[0])}
     return out
 
 

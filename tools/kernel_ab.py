@@ -17,7 +17,12 @@ clock up to a synchronize.  Then ``pass_ms``: the device and call ms of
 the pass modes of ``lda_estep``, ``flda_estep`` and ``ctpf_estep`` on
 their main paths' chunks (chip_smoke.py's ``pass_timing_cases``), and
 ``flda_double_ms``: ``flda_estep``'s float64 mode on the widest NSF chunk
-and the L = 1024 one.  Last, ``digests``: a sha256 of the outputs of the
+and the L = 1024 one; ``ctpf_double_ms``: ``ctpf_estep``'s float64 mode on
+the widest CiteULike bucket; ``scatter_double_ms``: ``scatter_rows``'s
+float64 mode on DTM's two first-chunk plans at the mac shape
+(chip_smoke.py's ``dtm_scatter_standin``, which prints their run lengths)
+and on the widest NSF chunk's rows at W = 100, each with ``index_add_``
+beside it.  Last, ``digests``: a sha256 of the outputs of the
 E-step kernels, their pass modes, ``lda_elbo_tok``, ``scatter_rows``,
 ``hmtm_estep`` and ``hmtm_logz`` (f32, and the f64 Elogtheta modes of
 ``lda_estep`` and ``flda_estep``, the float64 modes of the three pass
@@ -25,7 +30,10 @@ modes and of ``flda_estep``; phase 3's
 and phase 9's arguments) on the widest NSF and CiteULike chunks and on
 the chunks whose rows do not fit shared memory, and of ``hmtm_estep`` and
 ``hmtm_logz`` at K = 300 (``hmtm_cases``: the widest NSF chunk in f32,
-whose device and call ms are timed too, and a float64 chunk); equal
+whose device and call ms are timed too, and a float64 chunk), of
+``scatter_rows`` in both dtypes on DTM's two stand-in plans and in
+float64 on the widest NSF chunk, of ``ctpf_estep``'s float64 mode on the
+widest CiteULike bucket and of ``lda_estep``'s on the widest NSF chunk; equal
 digests from two checkouts mean the kernels give the same bits.  ROOT's
 package must have those modes.
 Prints one JSON line tagged LABEL and appends it to
@@ -117,6 +125,18 @@ def digests(smoke, kc, dev) -> dict:
         outs[f"ctpf_estep_pass_{tag}"] = ctpf_estep_pass(*cargs[:10], cargs[10], cargs[12])
         c64 = tuple(a.double() if a.is_floating_point() else a for a in cargs)
         outs[f"ctpf_estep_pass_double_{tag}"] = ctpf_estep_pass(*c64[:10], c64[10], c64[12])
+        if tag == "wide":
+            outs["ctpf_estep_double_wide"] = ctpf_estep(*c64, **ckw)
+    d64 = lambda a: tuple(x.double() if x.is_floating_point() else x for x in a)
+    largs = d64(smoke.lda_args(wide, V, K, dev)[0])
+    outs["lda_estep_double_wide"] = lda_estep(*largs, **kw)
+    for name, (plan, w, n_rows, _) in scatter_cases(smoke, kc, dev, torch.float64).items():
+        acc = torch.zeros((n_rows, w.shape[1]), dtype=w.dtype, device=dev)
+        outs[f"scatter_rows_double_{name}"] = (scatter_rows(acc, w, plan),)
+    for name, (plan, w, n_rows, _) in scatter_cases(smoke, kc, dev, torch.float32,
+                                                    ("dtm_A", "dtm_slice")).items():
+        acc = torch.zeros((n_rows, w.shape[1]), dtype=w.dtype, device=dev)
+        outs[f"scatter_rows_{name}"] = (scatter_rows(acc, w, plan),)
     for tag, Kh, viter, hargs in hmtm_cases(smoke, kc, dev):
         outs[f"hmtm_estep_{tag}"] = hmtm_estep(*hargs, viter=viter, vtol=1.0 / Kh**2)
         got = outs[f"hmtm_estep_{tag}"]
@@ -124,6 +144,63 @@ def digests(smoke, kc, dev) -> dict:
     torch.cuda.synchronize()
     return {name: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in o)).hexdigest()[:16]
             for name, o in outs.items()}
+
+
+def scatter_cases(smoke, kc, dev, dtype, names=("dtm_A", "dtm_slice", "wide")) -> dict:
+    """``scatter_rows``'s chunks, each name -> (plan on ``dev``, weights
+    [T, W] in ``dtype``, acc rows, ids as int64): DTM's A rows (W = 20) and
+    per-slice rows (W = 41) from chip_smoke.py's ``dtm_scatter_standin``,
+    and the widest NSF chunk's token rows (W = 100); the weights seeded
+    uniforms, 0 off the kept slots."""
+    import numpy as np
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import build_plan
+
+    src = {}
+    if "dtm_A" in names or "dtm_slice" in names:
+        dtm = smoke.dtm_scatter_standin()
+        src["dtm_A"], src["dtm_slice"] = dtm["A rows"], dtm["per-slice rows"]
+    s0 = kc["bucketed"].segments[0]
+    src["wide"] = (s0.terms[:1024], s0.counts[:1024] > 0, 100)
+    out = {}
+    for j, name in enumerate(names):
+        ids, keep, W = src[name]
+        ids, keep = np.asarray(ids).reshape(-1), np.asarray(keep).reshape(-1)
+        g = torch.Generator().manual_seed(31 + j)
+        w = (torch.rand((ids.size, W), generator=g, dtype=torch.float64)
+             * torch.from_numpy(keep)[:, None]).to(dtype).to(dev)
+        out[name] = (build_plan(ids, keep).to(dev), w, int(ids.max()) + 1,
+                     torch.as_tensor(ids, dtype=torch.long, device=dev))
+    return out
+
+
+def scatter_double_ms(smoke, kc, dev) -> dict:
+    """Device and call ms of ``scatter_rows``'s float64 mode on
+    ``scatter_cases``, each with ``index_add_`` over all rows beside it."""
+    import torch
+
+    from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
+
+    out = {}
+    for name, (plan, w, n_rows, ids) in scatter_cases(smoke, kc, dev, torch.float64).items():
+        acc = torch.zeros((n_rows, w.shape[1]), dtype=w.dtype, device=dev)
+        out[name] = {"ms": list(smoke.time_calls(lambda: scatter_rows(acc, w, plan))),
+                     "index_add_ms": list(smoke.time_calls(lambda: acc.index_add_(0, ids, w)))}
+    return out
+
+
+def ctpf_double_ms(smoke, kc, dev) -> list:
+    """Device and call ms of ``ctpf_estep``'s float64 mode (viter 10) on
+    the widest CiteULike bucket, ``ctpf_args`` cast to float64."""
+    import topicmodelsvb_jl_torch as tt
+    from topicmodelsvb_jl_torch.kernels.ctpf_estep import ctpf_estep
+
+    cpk = kc["cpk"]
+    cbk = tt.bucketize_packed(cpk, chunk=1024, pad_multiple=8)
+    args, kw = smoke.ctpf_args(*smoke.ctpf_bucket(cpk, cbk, dev), cpk.V, cpk.U, kc["K"], dev)
+    args = tuple(a.double() if a.is_floating_point() else a for a in args)
+    return list(smoke.time_calls(lambda: ctpf_estep(*args, **kw)))
 
 
 def flda_double_ms(smoke, kc, dev) -> dict:
@@ -218,6 +295,8 @@ def main(root: str, label: str) -> int:
                       for name, (fn, args) in smoke.pass_timing_cases(dev, cpk=kc["cpk"]).items()}
     # flda_estep's float64 mode at the widest NSF chunk and the L = 1024 one
     out["flda_double_ms"] = flda_double_ms(smoke, kc, dev)
+    out["ctpf_double_ms"] = ctpf_double_ms(smoke, kc, dev)
+    out["scatter_double_ms"] = scatter_double_ms(smoke, kc, dev)
     out["digests"] = digests(smoke, kc, dev)
     line = json.dumps(out)
     print(line)

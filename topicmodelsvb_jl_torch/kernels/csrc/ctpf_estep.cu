@@ -129,7 +129,18 @@
 // wider ones go through tiles of half the f32 width.  Four doubles are a
 // Double4 (two 16-byte accesses); the tables' rows are copied 16 bytes
 // (two doubles) at a time where K is even.  The float32 instantiations
-// make the same calls as before: their bits do not move.
+// make the same calls as before: their bits do not move.  At 2 blocks an
+// SM the widest CiteULike chunk's 1024 documents take ~4 waves, each pass
+// a latency chain: 229 us against the float32 mode's 95 (NVIDIA H100 80GB
+// HBM3, 700 W; tools/estep_sweep.py ctpf_double on copies with one part
+// cut: of a ~15.9 us pass, psi and exp ~3.4, psi's eight divisions ~1.3 of
+// it, the barriers ~0.2; 70 us with no pass).  So where a document's rows
+// fit one block's shared memory and K <= 512 the float64 mode runs
+// ctpf_estep_res_kernel (below), the design of flda_estep_res_kernel.
+// Measured in turns (tools/kernel_ab.py): 227.6-227.8 -> 170.1-170.5 us
+// (viter 0: 70 -> 53.5; a pass 15.9 -> ~11.7; 2 blocks an SM of 126
+// registers); the variants tried are in PERF.md section 6.
+// Wider documents and K > 512 keep ctpf_estep_kernel<double>.
 
 #include <stdint.h>
 
@@ -853,6 +864,349 @@ __global__ void __launch_bounds__(256) ctpf_estep_pass_warp_kernel(
   });
 }
 
+// exp(psi(x)) for x > 0 in double without a log: psi(x) = ln t - 1/(2t) -
+// 1/(12t^2) + 1/(120t^4) - 1/(252t^6) - sum_{i<8} 1/(x + i), t = x + 8
+// (digamma_series' shift and truncation), so exp(psi(x)) = t exp(the rest);
+// the sum as one fraction S / P (digamma_one_div's pairs), and S / P and
+// 1 / t from one division 1 / (P t); past x = 3e4 no shift (t = x).  The
+// exp by exp2_res; ~1e-15 relative off exp(digamma_series(x)).
+__device__ __forceinline__ double exp_digamma(double x) {
+  double S = 0.0, P = 1.0, t = x;
+  if (x < 3e4) {
+    double p[4], q[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const double a = x + 2.0 * m;
+      p[m] = a * (a + 1.0);
+      q[m] = 2.0 * a + 1.0;
+    }
+    const double p01 = p[0] * p[1], p23 = p[2] * p[3];
+    const double s01 = q[0] * p[1] + q[1] * p[0], s23 = q[2] * p[3] + q[3] * p[2];
+    S = s01 * p23 + s23 * p01;
+    P = p01 * p23;
+    t = x + 8.0;
+  }
+  const double d = 1.0 / (P * t);
+  const double inv = P * d, acc = S * (t * d);
+  const double inv2 = inv * inv;
+  const double e = -0.5 * inv -
+      inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0))) - acc;
+  return t * exp2_res(e * Real<double>::log2e);
+}
+
+// The float64 mode's resident design (ctpf_estep_res_kernel; K <= 512 and
+// a document's L + R rows fit one block's shared memory,
+// ctpf_double_shape): the function of ctpf_estep_kernel<double>, one CTA
+// of 256 threads a document, flda_estep_res_kernel's layout.  The kept
+// slots are compacted (ctpf_compact: tokens, then readers; each slot's
+// table row is loaded beside the weights) and their rows copied once into
+// shared memory (cp.async through L1, ealefT's for a token, eheT's for a
+// reader), stride K, and read from there on every pass.  A pass takes the
+// tokens, then the readers: a phase's kept slots go 8 S at a time over the
+// 8 warps' S groups of G lanes (ctpf_res_lanes; at S = 4 a half-warp's
+// groups take slots two apart, so their rows' 64 bytes fall on different
+// banks at K = 100), a warp with no slot left skipping its rounds; lane
+// (g, sub) holds topics sub + G j, j < NV, a compile-time count, and the
+// phase's q (qp for tokens, qs = qt + qb for readers) in registers (a
+// lane's topics past K read column K - 1 against q's zeros).  Per slot: s
+// = row . q in two chains, a butterfly over the group, r = w / (s + eps)
+// (kept in the slot list for the rows of wa/wh), then a += r row; the
+// groups' a are added by a butterfly over the warp and the busy warps'
+// stored.  After one barrier the CTA's first half forms gimel, its d^2
+// and the next qp, qt, the second half zayin and the next qb, the warps'
+// sums in warp order, exp(psi) without a log (exp_digamma), before the
+// stop test's barrier: two barriers a pass.  The rows of wa/wh come from
+// the last pass's q and r/x, as in ctpf_estep_kernel (anew from the state
+// as given when no pass ran): the padding slots' zeros are stored while
+// the rows come in (a map of compact slots says which), the kept slots'
+// rows by the last pass the loop allows, from its registers, or after
+// the loop when the stop test ends it sooner.  Every sum in one fixed
+// order: same inputs, same bits.
+
+// The factors of every topic from (g, z) [K] into q [3, KQ] (qp, qt, qb):
+// g's on the CTA's first half, z's on its second.
+__device__ __forceinline__ void ctpf_res_factors(double* q, int KQ, int K, const double* g,
+                                                 const double* z,
+                                                 const double* __restrict__ inv_db,
+                                                 const double* __restrict__ inv_dv,
+                                                 const double* __restrict__ inv_hv) {
+  const bool zhalf = threadIdx.x >= kCThreads / 2;
+  for (int k = threadIdx.x % (kCThreads / 2); k < K; k += kCThreads / 2) {
+    if (zhalf) {
+      q[2 * KQ + k] = exp_digamma(z[k]) * inv_hv[k];
+    } else {
+      const double eg = exp_digamma(g[k]);
+      q[k] = eg * inv_db[k];
+      q[KQ + k] = eg * inv_dv[k];
+    }
+  }
+}
+
+// Shared memory of the resident design in doubles: the kept rows [L + R,
+// K], two q buffers [3, KQ] (qp, qt, qb; KQ = G NV, zeros past K), the
+// warps' a and h partials [8, K] each, gimel, gimel_old, zayin, zayin_old
+// [K] each, the slot list (weight, r or x, then as ints each compact
+// slot's slot, each slot's compact slot and its table row) [4, L + R], 32
+// for the sums.
+__host__ __device__ inline size_t ctpf_res_smem(int64_t LR, int64_t K, int KQ) {
+  return (static_cast<size_t>(LR) * K + 6 * static_cast<size_t>(KQ) +
+          (2 * kCWarps + 4) * static_cast<size_t>(K) + 4 * static_cast<size_t>(LR) + 32) *
+         sizeof(double);
+}
+
+// This lane's part of one round over the kept slots [lo, hi): the slot
+// j's row (past hi: hi - 1's, its result dropped) into x and s = row . q
+// over the group, q the phase's in registers.
+template <int G, int NV>
+__device__ __forceinline__ double ctpf_res_row(const double* rows, int j, int hi, int K,
+                                               int sub, const double (&qv)[NV],
+                                               double (&x)[NV]) {
+  const double* row = rows + static_cast<size_t>(min(j, hi - 1)) * K;
+  double s0 = 0.0, s1 = 0.0;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    x[v] = row[min(sub + G * v, K - 1)];
+    if (v & 1)
+      s1 = fma(x[v], qv[v], s1);
+    else
+      s0 = fma(x[v], qv[v], s0);
+  }
+  double s = s0 + s1;
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// One pass's phases, tokens [0, nL) then readers [nL, n): each kept slot's
+// r or x into mcs, with `sums` the busy warps' a (tokens) and h (readers)
+// into apart and hpart [8, K], and with `rows_out` each kept slot's row of
+// wa (tokens) or wh (readers), row_k (q_k r), from the registers.
+template <int G, int NV>
+__device__ __forceinline__ void ctpf_res_phases(const double* rows, const double* q,
+                                                const double* mw, double* mcs, double* apart,
+                                                double* hpart, double* wad, double* whd,
+                                                const int* mslot, int n, int nL, int K,
+                                                bool sums, bool rows_out) {
+  constexpr int S = 32 / G, KQ = G * NV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane / G, sub = lane % G;
+  const int gslot = warp * S + (S == 4 ? ((gq & 1) << 1) | (gq >> 1) : gq);
+#pragma unroll 1
+  for (int ph = 0; ph < 2; ++ph) {
+    const int lo = ph == 0 ? 0 : nL, hi = ph == 0 ? nL : n;
+    if (lo + warp * S >= hi) continue;   // no slot of this phase on this warp
+    double qv[NV], acc[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int k = sub + G * v;
+      qv[v] = ph == 0 ? q[k] : q[KQ + k] + q[2 * KQ + k];
+      acc[v] = 0.0;
+    }
+    for (int j0 = lo; j0 < hi && j0 + warp * S < hi; j0 += kCWarps * S) {
+      const int j = j0 + gslot;
+      double x[NV];
+      const double s = ctpf_res_row<G, NV>(rows, j, hi, K, sub, qv, x);
+      if (j < hi) {
+        const double r = mw[j] / (s + Real<double>::eps);
+        if (sub == 0) mcs[j] = r;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) acc[v] = fma(r, x[v], acc[v]);
+        if (rows_out) {
+          double* dst = (ph == 0 ? wad : whd) + static_cast<size_t>(mslot[j]) * K;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            if (sub + G * v < K) dst[sub + G * v] = x[v] * (qv[v] * r);
+        }
+      }
+    }
+    if (!sums) continue;
+#pragma unroll
+    for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], o);
+    double* part = ph == 0 ? apart : hpart;
+    if (lane < G) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int k = lane + G * v;
+        if (k < K) part[warp * K + k] = acc[v];
+      }
+    }
+  }
+}
+
+template <int G, int NV>
+__global__ void __launch_bounds__(kCThreads, 2) ctpf_estep_res_kernel(
+    const double* __restrict__ ealefT, const double* __restrict__ eheT,
+    const int* __restrict__ terms, const double* __restrict__ counts,
+    const int* __restrict__ readers, const double* __restrict__ ratings,
+    const double* __restrict__ doc_mask, const double* __restrict__ inv_db,
+    const double* __restrict__ inv_dv, const double* __restrict__ inv_hv,
+    const double* __restrict__ gi_in, const double* __restrict__ gio_in,
+    const double* __restrict__ za_in, const double* __restrict__ zao_in,
+    double* __restrict__ gi_out, double* __restrict__ gio_out, double* __restrict__ za_out,
+    double* __restrict__ zao_out, double* __restrict__ wa, double* __restrict__ wh, int L,
+    int Rn, int K, int viter, double vtol2, double c_hyper, double g_hyper, int vec_in,
+    int vec_out) {
+  using R = double;
+  constexpr int S = 32 / G;
+  constexpr int KQ = G * NV;
+  extern __shared__ __align__(16) unsigned char ctpf_smem_raw[];
+  const int LR = L + Rn;
+  R* rows = reinterpret_cast<R*>(ctpf_smem_raw);   // [LR, K] the kept slots' rows
+  R* q_cur = rows + static_cast<size_t>(LR) * K;    // qp, qt, qb [3, KQ] of this pass
+  R* q_nxt = q_cur + 3 * KQ;                        // of the next
+  R* apart = q_nxt + 3 * KQ;                        // the warps' a [8, K]
+  R* hpart = apart + kCWarps * K;                   // the warps' h [8, K]
+  R* gi = hpart + kCWarps * K;
+  R* gio = gi + K;
+  R* za = gio + K;
+  R* zao = za + K;
+  R* mw = zao + K;                                  // weight of compact slot j
+  R* mcs = mw + LR;                                 // its r or x
+  int* mslot = reinterpret_cast<int*>(mcs + LR);    // its token or reader slot
+  int* cidx = mslot + LR;                           // slot i's compact slot, -1: padding
+  int* sid = cidx + LR;                             // slot i's table row (term or user)
+  R* red = mcs + 3 * LR;  // [32]: sum d^2 [2 x 8], compaction counts [16 ints]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int* t = terms + static_cast<size_t>(b) * L;
+  const R* c = counts + static_cast<size_t>(b) * L;
+  const int* u = readers + static_cast<size_t>(b) * Rn;
+  const R* y = ratings + static_cast<size_t>(b) * Rn;
+  const size_t dk = static_cast<size_t>(b) * K;
+
+  // the first slot's table row is loaded beside the compaction's weights
+  const int id0 = tid < LR ? (tid < L ? t[tid] : u[tid - L]) : 0;
+  for (int i = tid; i < LR; i += kCThreads) cidx[i] = -1;
+  int nL;
+  const int n = ctpf_compact(c, y, L, Rn, mw, mslot, reinterpret_cast<int*>(red + 16), &nL);
+  for (int j = tid; j < n; j += kCThreads) cidx[j < nL ? mslot[j] : L + mslot[j]] = j;
+  for (int i = tid; i < LR; i += kCThreads) sid[i] = i == tid ? id0 : (i < L ? t[i] : u[i - L]);
+  __syncthreads();
+  auto row_of = [&](int j) -> const R* {   // compact slot j's table row
+    return (j < nL ? ealefT : eheT) +
+           static_cast<size_t>(sid[j < nL ? mslot[j] : L + mslot[j]]) * K;
+  };
+  if (vec_in) {
+    const int H = K / 2;
+    for (int idx = tid; idx < n * H; idx += kCThreads) {
+      const int j = idx / H, h = idx - j * H;
+      cp_async16_ca(rows + static_cast<size_t>(j) * K + 2 * h, row_of(j) + 2 * h);
+    }
+  } else {
+    for (int idx = tid; idx < n * K; idx += kCThreads) {
+      const int j = idx / K, k = idx - j * K;
+      cp_async8(rows + idx, row_of(j) + k);
+    }
+  }
+  // the padding slots' rows of wa/wh: zeros, stored while the rows come in
+  R* wad = wa + static_cast<size_t>(b) * L * K;
+  R* whd = wh + static_cast<size_t>(b) * Rn * K;
+  const int E = vec_out ? 2 : 1;   // doubles a store
+  const int H = K / E;
+  for (int idx = tid; idx < LR * H; idx += kCThreads) {
+    const int i = idx / H, e = E * (idx - i * H);
+    if (cidx[i] >= 0) continue;
+    R* dst = (i < L ? wad + static_cast<size_t>(i) * K : whd + static_cast<size_t>(i - L) * K) + e;
+    if (vec_out)
+      *reinterpret_cast<double2*>(dst) = make_double2(0.0, 0.0);
+    else
+      *dst = R(0);
+  }
+  for (int k = tid; k < KQ; k += kCThreads) {
+    if (k < K) {
+      gi[k] = gi_in[dk + k];
+      gio[k] = gio_in[dk + k];
+      za[k] = za_in[dk + k];
+      zao[k] = zao_in[dk + k];
+    } else {
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        q_cur[v * KQ + k] = R(0);
+        q_nxt[v * KQ + k] = R(0);
+      }
+    }
+  }
+  __syncthreads();   // the state in shared memory
+  bool active = doc_mask[b] > R(0);
+  if (viter > 0 && active) ctpf_res_factors(q_cur, KQ, K, gi, za, inv_db, inv_dv, inv_hv);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the warps that hold a slot of each phase
+  const int wa_n = min(kCWarps, (nL + S - 1) / S), wh_n = min(kCWarps, (n - nL + S - 1) / S);
+  int it = 0;
+  for (; it < viter && active; ++it) {
+    // the last pass the loop allows writes the kept slots' rows as it goes
+    ctpf_res_phases<G, NV>(rows, q_cur, mw, mcs, apart, hpart, wad, whd, mslot, n, nL, K, true,
+                           it == viter - 1);
+    __syncthreads();
+    // update_gimel!/update_zayin! (CTPF.jl:309-323) and the next pass's q
+    // from the new state, gimel's on the CTA's first half and zayin's on
+    // its second, before the barrier of the stop test
+    R dpart = R(0);
+    const bool zhalf = tid >= kCThreads / 2;
+    for (int k = tid % (kCThreads / 2); k < K; k += kCThreads / 2) {
+      R hr = R(0);
+      for (int v = 0; v < wh_n; ++v) hr += hpart[v * K + k];
+      if (zhalf) {
+        const R za_new = g_hyper + q_cur[2 * KQ + k] * hr;
+        zao[k] = za[k];
+        za[k] = za_new;
+        q_nxt[2 * KQ + k] = exp_digamma(za_new) * inv_hv[k];
+      } else {
+        R pc = R(0);
+        for (int v = 0; v < wa_n; ++v) pc += apart[v * K + k];
+        const R gi_new = c_hyper + q_cur[k] * pc + q_cur[KQ + k] * hr;
+        const R d = gi_new - gi[k];
+        dpart += d * d;
+        gio[k] = gi[k];
+        gi[k] = gi_new;
+        const R eg = exp_digamma(gi_new);
+        q_nxt[k] = eg * inv_db[k];
+        q_nxt[KQ + k] = eg * inv_dv[k];
+      }
+    }
+    // consecutive passes sum into different halves of red[0, 16)
+    active = block_sum_once<kCWarps>(dpart, red + kCWarps * (it & 1)) >= vtol2;
+    R* q = q_cur;
+    q_cur = q_nxt;
+    q_nxt = q;
+  }
+
+  for (int k = tid; k < K; k += kCThreads) {
+    gi_out[dk + k] = gi[k];
+    gio_out[dk + k] = gio[k];
+    za_out[dk + k] = za[k];
+    zao_out[dk + k] = zao[k];
+  }
+  // the kept slots' rows from phi/xi of (gimel_old, zayin_old): written by
+  // the last pass the loop allows; when no pass ran, anew from the state
+  // as given; when the stop test ended the loop sooner, from its last
+  // pass's q and r/x
+  if (it == 0) {
+    ctpf_res_factors(q_cur, KQ, K, gio, zao, inv_db, inv_dv, inv_hv);
+    __syncthreads();
+    ctpf_res_phases<G, NV>(rows, q_cur, mw, mcs, apart, hpart, wad, whd, mslot, n, nL, K, false,
+                           true);
+  } else if (it < viter) {
+    const R* q_last = q_nxt;
+    __syncthreads();   // every r/x of the slot list
+    for (int idx = tid; idx < n * H; idx += kCThreads) {
+      const int j = idx / H, e = E * (idx - j * H);
+      const bool tk = j < nL;
+      const R r = mcs[j];
+      const R* x = rows + static_cast<size_t>(j) * K + e;
+      R* dst = (tk ? wad : whd) + static_cast<size_t>(mslot[j]) * K + e;
+      const R o0 = x[0] * ((tk ? q_last[e] : q_last[KQ + e] + q_last[2 * KQ + e]) * r);
+      if (vec_out)
+        *reinterpret_cast<double2*>(dst) = make_double2(
+            o0, x[1] * ((tk ? q_last[e + 1] : q_last[KQ + e + 1] + q_last[2 * KQ + e + 1]) * r));
+      else
+        *dst = o0;
+    }
+  }
+}
+
 // The warp mode's shape for CTPF, counted in the document's L + R slots:
 // LDA's rule (lda_pass_shape) on them.
 inline PassShape ctpf_pass_shape(int64_t L, int64_t Rn, int64_t K, int bytes) {
@@ -874,6 +1228,77 @@ inline size_t ctpf_pass_smem(int G, int NVL, int w) {
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Lanes a slot and topics a lane of CTPF's resident design: 16 lanes of 7
+// topics from K = 65 to 112 (CiteULike's K = 100; 8 lanes of 13 measured
+// slower, their fold over a warp's four groups costing more than the
+// extra rounds), else fLDA's rule (res_lanes).
+__host__ __device__ inline ResShape ctpf_res_lanes(int64_t K) {
+  return K > 64 && K <= 112 ? ResShape{16, 7} : res_lanes(K);
+}
+
+// The float64 mode's choice: the resident design's lanes a slot (G = 0:
+// ctpf_estep_kernel<double>) and its shared memory.
+struct CtpfDoubleShape {
+  int G, NV;
+  size_t bytes;
+};
+inline int ctpf_double_shape(int64_t LR, int64_t K, CtpfDoubleShape* s) {
+  const int optin = smem_optin();
+  if (optin < 0) return query_error();
+  const ResShape r = ctpf_res_lanes(K);
+  const size_t bytes = ctpf_res_smem(LR, K, r.G * r.NV);
+  *s = {r.G > 0 && bytes <= static_cast<size_t>(optin) ? r.G : 0, r.NV, bytes};
+  return 0;
+}
+
+// The resident design's kernel for (G, NV), or nullptr.
+inline const void* ctpf_res_kernel(int G, int NV) {
+  switch (G * 32 + NV) {
+    case 8 * 32 + 4:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<8, 4>);
+    case 8 * 32 + 8:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<8, 8>);
+    case 8 * 32 + 16:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<8, 16>);
+    case 16 * 32 + 7:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<16, 7>);
+    case 16 * 32 + 16:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<16, 16>);
+    case 32 * 32 + 16:
+      return reinterpret_cast<const void*>(ctpf_estep_res_kernel<32, 16>);
+    default:
+      return nullptr;
+  }
+}
+
+// vec_in: K even and both tables 16-byte aligned; vec_out: K even and both
+// row outputs 16-byte aligned (16-byte copies and stores of two doubles).
+int launch_ctpf_res(const double* ealefT, const double* eheT, const int* terms,
+                    const double* counts, const int* readers, const double* ratings,
+                    const double* doc_mask, const double* inv_db, const double* inv_dv,
+                    const double* inv_hv, const double* gi_in, const double* gio_in,
+                    const double* za_in, const double* zao_in, double* gi_out, double* gio_out,
+                    double* za_out, double* zao_out, double* wa, double* wh, int64_t B, int64_t L,
+                    int64_t Rn, int64_t K, int viter, double vtol, double c_hyper,
+                    double g_hyper, const CtpfDoubleShape& d, cudaStream_t stream) {
+  const void* kernel = ctpf_res_kernel(d.G, d.NV);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(kernel, d.bytes);
+  if (err != cudaSuccess) return fail(err);
+  int Li = static_cast<int>(L), Ri = static_cast<int>(Rn), Ki = static_cast<int>(K);
+  double vtol2 = vtol * vtol;
+  int vec_in = K % 2 == 0 && aligned16(ealefT) && aligned16(eheT);
+  int vec_out = K % 2 == 0 && aligned16(wa) && aligned16(wh);
+  void* args[] = {&ealefT, &eheT,   &terms,  &counts, &readers, &ratings, &doc_mask, &inv_db,
+                  &inv_dv, &inv_hv, &gi_in,  &gio_in, &za_in,   &zao_in,  &gi_out,   &gio_out,
+                  &za_out, &zao_out, &wa,    &wh,     &Li,      &Ri,      &Ki,       &viter,
+                  &vtol2,  &c_hyper, &g_hyper, &vec_in, &vec_out};
+  err = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(B)), dim3(kCThreads), args, d.bytes,
+                         stream);
+  if (err != cudaSuccess) return fail(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // vec_in: K a multiple of the elements in 16 bytes (4 floats, 2 doubles)
 // and both tables 16-byte aligned; vec_out: K % 4 == 0 and both row
 // outputs 16-byte aligned.
@@ -885,6 +1310,16 @@ int launch_ctpf(const R* ealefT, const R* eheT, const int* terms, const R* count
                 R* wa, R* wh, R* scratch, int64_t B, int64_t L, int64_t Rn, int64_t K, int viter,
                 R vtol, R c_hyper, R g_hyper, void* stream) {
   if (B == 0) return 0;
+  if constexpr (sizeof(R) == 8) {
+    CtpfDoubleShape d;
+    const int rc = ctpf_double_shape(L + Rn, K, &d);
+    if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+    if (d.G > 0)
+      return launch_ctpf_res(ealefT, eheT, terms, counts, readers, ratings, doc_mask, inv_db,
+                             inv_dv, inv_hv, gi_in, gio_in, za_in, zao_in, gi_out, gio_out, za_out,
+                             zao_out, wa, wh, B, L, Rn, K, viter, vtol, c_hyper, g_hyper, d,
+                             static_cast<cudaStream_t>(stream));
+  }
   CtpfShape s;
   const int rc = ctpf_shape<R>(L + Rn, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
@@ -1001,10 +1436,51 @@ int64_t tmvb_ctpf_estep_scratch(int64_t L, int64_t R, int64_t K) {
                                                     : (s.meta_in_smem ? 0 : tmvb::kCMeta * (L + R));
 }
 int64_t tmvb_ctpf_estep_scratch_f64(int64_t L, int64_t R, int64_t K) {
+  tmvb::CtpfDoubleShape d;
+  if (tmvb::ctpf_double_shape(L + R, K, &d) != 0) return -1;
+  if (d.G > 0) return 0;   // the resident design keeps its slot list in shared memory
   tmvb::CtpfShape s;
   return tmvb::ctpf_shape<double>(L + R, K, &s) != 0
              ? -1
              : (s.meta_in_smem ? 0 : tmvb::kCMeta * (L + R));
+}
+
+// The float64 mode's launch shape on a document of L token and R reader
+// slots at K topics: out[0] 1 for the resident design
+// (ctpf_estep_res_kernel), 0 for ctpf_estep_kernel<double> with its rows
+// in tiles, 2 for it with every row in shared memory (K > 512); out[1]
+// lanes a slot (resident design) or the slots of a tile; out[2] blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); out[3] shared memory
+// in bytes a block.  Returns 0, or a CUDA error code.
+int tmvb_ctpf_estep_double_shape(int64_t L, int64_t R, int64_t K, int* out) {
+  tmvb::CtpfDoubleShape d;
+  int rc = tmvb::ctpf_double_shape(L + R, K, &d);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  cudaError_t err;
+  if (d.G > 0) {
+    const void* kernel = tmvb::ctpf_res_kernel(d.G, d.NV);
+    err = tmvb::allow_smem(kernel, d.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tmvb::kCThreads,
+                                                          d.bytes);
+    out[0] = 1;
+    out[1] = d.G;
+    out[3] = static_cast<int>(d.bytes);
+  } else {
+    tmvb::CtpfShape s;
+    rc = tmvb::ctpf_shape<double>(L + R, K, &s);
+    if (rc != 0) return rc;
+    err = tmvb::allow_smem(tmvb::ctpf_estep_kernel<double>, s.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tmvb::ctpf_estep_kernel<double>, tmvb::kCThreads, s.bytes);
+    out[0] = s.resident ? 2 : 0;
+    out[1] = s.tile;
+    out[3] = static_cast<int>(s.bytes);
+  }
+  out[2] = blocks;
+  return err == cudaSuccess ? 0 : tmvb::fail(err);
 }
 
 int tmvb_ctpf_estep(const float* ealefT, const float* eheT, const int* terms,

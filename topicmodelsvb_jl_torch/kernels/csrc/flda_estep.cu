@@ -109,12 +109,13 @@
 // barriers, ~6 of psi and bank conflicts, the rest a slot pass that keeps
 // 116 of 256 threads busy; copies of the kernel with one part cut).  So
 // where a document's rows fit one block's shared memory and K <= 512 the
-// float64 mode runs flda_estep_res_kernel (below): the rows copied once
-// and kept, the slots over all 256 threads, p in registers, 2^x by
-// exp2_res (18 FP64-pipe instructions an element in all, as the SASS
-// reads), the rows of w written from p taken anew.  Measured (NVIDIA H100
-// 80GB HBM3, 700 W; tools/estep_sweep.py flda_double and
-// tools/kernel_ab.py, in turns; PERF.md section 6): 1.18 ms -> 462 us at
+// float64 mode runs flda_estep_res_kernel (below; its lanes res_lanes in
+// rows.cuh): the rows copied once and kept, the slots over all 256
+// threads, p in registers, 2^x by exp2_res (common.cuh; 18 FP64-pipe
+// instructions an element in all, as the SASS reads), the rows of w
+// written from p taken anew.  Measured (NVIDIA H100 80GB HBM3, 700 W;
+// tools/estep_sweep.py flda_double and tools/kernel_ab.py, in turns;
+// PERF.md section 6): 1.18 ms -> 462 us at
 // the widest NSF chunk (a pass ~38 us; its FP64 floor ~15), 756 -> 288 us
 // at L = 64.  Slower, each measured: 16 lanes a slot of 7 topics (572 us), the
 // topic count a lane held at run time rather than compiled in (623 us:
@@ -642,47 +643,6 @@ __global__ void __launch_bounds__(kFThreads, 2) flda_estep_kernel(
     if (!resident) __syncthreads();  // before the next tile's rows land
   }
   write_w<R>(wd, pbuf, L - n, n, tcur, mc, mcs, mslot, K, Kp, true);
-}
-
-// The float64 mode's 2^x in the resident design: x = n + f with n the
-// nearest integer (the 1.5 2^52 shift leaves it in the low word) and f in
-// [-1/2, 1/2], 2^f a degree-10 polynomial fitted at the Chebyshev nodes
-// of [-1/2, 1/2] (2.9e-16 relative off 2^f, ~2 ulps as evaluated), and n
-// added to the exponent as an integer: 3 DADD and 10 DFMA on the FP64
-// pipe, against the library exp2's longer sequence.  Below 2^-1021 it
-// flushes to 0, where the library gives a subnormal: < 1e-300 of any sum
-// s here (every p of a document's argmax topic is >= eps).
-__device__ __forceinline__ double exp2_res(double x) {
-  constexpr double kShift = 6755399441055744.0;   // 1.5 * 2^52
-  const double xc = fmax(x, -1075.0);
-  const double t = xc + kShift;
-  const double f = xc - (t - kShift);
-  double p = 7.072585949269223e-09;
-  p = fma(p, f, 1.0208690299958306e-07);
-  p = fma(p, f, 1.321544258792169e-06);
-  p = fma(p, f, 1.5252657260200837e-05);
-  p = fma(p, f, 0.0001540353044173605);
-  p = fma(p, f, 0.0013333558230164974);
-  p = fma(p, f, 0.009618129107606888);
-  p = fma(p, f, 0.05550410866444772);
-  p = fma(p, f, 0.24022650695910097);
-  p = fma(p, f, 0.69314718055995);
-  p = fma(p, f, 1.0);
-  const int n = __double2loint(t);
-  const int hi = __double2hiint(p) + static_cast<int>(static_cast<unsigned>(n) << 20);
-  const double r = __hiloint2double(hi, __double2loint(p));
-  return n < -1021 ? 0.0 : r;
-}
-
-// Lanes a slot and topics a lane of the resident design: 8 lanes of 4, 8,
-// 13 or 16 topics up to K = 128 (13: K = 100 with 4 of 104 columns past
-// it), 16 lanes of 16 to 256, 32 of 16 to 512; G = 0 past 512.
-struct FldaResShape {
-  int G, NV;
-};
-__host__ __device__ inline FldaResShape flda_res_lanes(int64_t K) {
-  if (K <= 128) return {8, K <= 32 ? 4 : (K <= 64 ? 8 : (K <= 104 ? 13 : 16))};
-  return {K <= 256 ? 16 : (K <= 512 ? 32 : 0), 16};
 }
 
 // Shared memory of the resident design in doubles: the rows [L, K], the
@@ -1246,7 +1206,7 @@ struct FldaDoubleShape {
 inline int flda_double_shape(int64_t L, int64_t K, FldaDoubleShape* s) {
   const int optin = smem_optin();
   if (optin < 0) return query_error();
-  const FldaResShape r = flda_res_lanes(K);
+  const ResShape r = res_lanes(K);
   const size_t bytes = flda_res_smem(L, K);
   *s = {r.G > 0 && bytes <= static_cast<size_t>(optin) ? r.G : 0, r.NV, bytes};
   return 0;

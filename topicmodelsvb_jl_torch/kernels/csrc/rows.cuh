@@ -80,6 +80,18 @@ __host__ __device__ inline PassShape wide_pass_shape(int64_t L, int64_t K) {
   return {32, static_cast<int>((K + 127) / 128), pass_warps(L)};
 }
 
+// Lanes a slot and topics a lane of the float64 resident designs
+// (flda_estep_res_kernel, ctpf_estep_res_kernel): 8 lanes of 4, 8, 13 or
+// 16 topics up to K = 128 (13: K = 100 with 4 of 104 columns past it), 16
+// lanes of 16 to 256, 32 of 16 to 512; G = 0 past 512.
+struct ResShape {
+  int G, NV;
+};
+__host__ __device__ inline ResShape res_lanes(int64_t K) {
+  if (K <= 128) return {8, K <= 32 ? 4 : (K <= 64 ? 8 : (K <= 104 ? 13 : 16))};
+  return {K <= 256 ? 16 : (K <= 512 ? 32 : 0), 16};
+}
+
 // A warp-mode launch's grid, threads and dynamic shared memory (the
 // warps' q partials [w, 4 G NVL] when w > 1).
 struct PassLaunch {

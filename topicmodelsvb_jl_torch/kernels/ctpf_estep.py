@@ -34,6 +34,9 @@ whose shape :data:`pass_shape` reads; past it the block mode.
 On a float64 state the kernel and its pass mode run their float64 modes:
 the same fixpoint with every tensor in float64 and ψ the same shift-by-8
 series in double, what :func:`ctpf_estep_ref` computes on that state.
+Where a document's rows fit one block's shared memory and K <= 512 the
+float64 mode keeps them there across the passes (:func:`double_shape`),
+with ψ's eight reciprocals taken as one division and its own 2^x.
 """
 
 from __future__ import annotations
@@ -195,6 +198,23 @@ def ctpf_estep(ealefT, eheT, terms, counts, readers, ratings, doc_mask,
     ctpf_estep.launches += 1
     ctpf_estep.launches_double += dt == torch.float64
     return (*outs, wa, wh)
+
+
+def double_shape(L: int, R: int, K: int) -> dict:
+    """The float64 mode's launch shape on a document of L token and R
+    reader slots at K topics: ``design`` ("resident": the kept rows copied
+    once into shared memory, ``ctpf_estep_res_kernel``; "tiled" or
+    "block-resident": the block kernel with its rows in tiles re-read
+    every pass, or all in shared memory past K = 512), ``lanes`` a slot
+    (resident) or ``tile`` slots, ``blocks`` an SM and ``smem`` bytes a
+    block.  Builds the kernels; needs CUDA."""
+    out = (ctypes.c_int * 4)()
+    err = _build.function("tmvb_ctpf_estep_double_shape",
+                          [ctypes.c_int64] * 3 + [ctypes.POINTER(ctypes.c_int)])(L, R, K, out)
+    check(err, "ctpf_estep.double_shape")
+    design = {1: "resident", 0: "tiled", 2: "block-resident"}[out[0]]
+    return {"design": design, ("lanes" if out[0] == 1 else "tile"): out[1], "blocks": out[2],
+            "smem": out[3]}
 
 
 ctpf_estep.launches = 0   # kernel launches (the plain version is not counted)

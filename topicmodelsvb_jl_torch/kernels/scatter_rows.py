@@ -16,7 +16,11 @@ is built once on the host (:func:`build_plan`) and uploaded with the data:
 * each run is cut into pieces of at most ``PIECE_ROWS`` rows, so a long
   run (the Zipf head of the vocabulary) spreads over many warps; the
   pieces of such a split run write partial rows, which a second launch
-  adds in a fixed order.
+  adds in a fixed order;
+* for the float64 mode, the pieces again as ``tasks`` (row start, rows,
+  id, out), the ``n_long`` pieces of more than ``LONG_ROWS`` rows first
+  (a CTA each; the others a group of lanes each), each part in piece
+  order.  The float32 mode never reads them.
 
 Everything a call needs besides ``acc`` and the weights is set up once per
 plan, not once per call: the plan's index tensors are checked when the
@@ -46,9 +50,10 @@ from . import _build
 from ._build import check, require
 
 PIECE_ROWS = 256   # rows one warp sums before a run is split
+LONG_ROWS = 16     # the float64 mode: a piece of more rows takes a CTA (csrc kLongRows)
 
 _INDEX_FIELDS = ("rows", "ids", "piece_start", "piece_id", "piece_out", "run_start",
-                 "run_id")
+                 "run_id", "tasks")
 
 
 @dataclasses.dataclass
@@ -58,11 +63,14 @@ class ScatterPlan:
     Index tensors are int32.  ``piece_out[p]`` is -1 for a piece that is a
     whole run (it adds into its acc row), else the scratch row its partial
     goes to; the split runs' scratch rows are consecutive, from
-    ``run_start[r]`` to ``run_start[r + 1]``."""
+    ``run_start[r]`` to ``run_start[r + 1]``.  ``tasks`` [4 n_pieces]
+    holds each piece's (row start, rows, id, out), the ``n_long`` pieces
+    of more than ``LONG_ROWS`` rows first: the float64 mode's order."""
 
     T: int                     # slots of the chunk: rows of the weights
     max_id: int                # largest kept id, -1 when nothing is kept
     n_scratch: int             # pieces of the split runs
+    n_long: int                # pieces of more than LONG_ROWS rows
     rows: torch.Tensor         # [n] kept slots, stably sorted by id
     ids: torch.Tensor          # [n] their ids
     piece_start: torch.Tensor  # [n_pieces + 1] offsets into rows
@@ -70,13 +78,15 @@ class ScatterPlan:
     piece_out: torch.Tensor    # [n_pieces]
     run_start: torch.Tensor    # [n_runs + 1] offsets into the scratch rows
     run_id: torch.Tensor       # [n_runs] ids of the split runs
+    tasks: torch.Tensor        # [4 n_pieces] (start, rows, id, out), long pieces first
     scratch: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                       compare=False)   # (W, dtype) -> [n_scratch, W]
 
     def __post_init__(self):
         n, n_pc, n_runs = self.rows.shape[0], self.piece_id.shape[0], self.run_id.shape[0]
         want = {"rows": n, "ids": n, "piece_start": n_pc + 1, "piece_id": n_pc,
-                "piece_out": n_pc, "run_start": n_runs + 1, "run_id": n_runs}
+                "piece_out": n_pc, "run_start": n_runs + 1, "run_id": n_runs,
+                "tasks": 4 * n_pc}
         require("ScatterPlan", self.rows.device, {
             f: (getattr(self, f), (want[f],), torch.int32) for f in _INDEX_FIELDS})
 
@@ -129,12 +139,19 @@ def build_plan(ids, keep, piece_rows: int = PIECE_ROWS) -> ScatterPlan:
     piece_out = np.full(run_of.size, -1, np.int64)
     n_scratch = int(n_pc[split].sum())
     piece_out[split[run_of]] = np.arange(n_scratch)
+    piece_id = sid[piece_start[:-1]]
+    piece_len = np.diff(piece_start)
+    long_ = piece_len > LONG_ROWS
+    order = np.r_[np.flatnonzero(long_), np.flatnonzero(~long_)].astype(np.int64)
+    tasks = np.stack([piece_start[:-1][order], piece_len[order], piece_id[order],
+                      piece_out[order]], axis=1)
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
     return ScatterPlan(
         T=int(ids.size), max_id=int(sid[-1]) if n else -1, n_scratch=n_scratch,
-        rows=i32(rows), ids=i32(sid), piece_start=i32(piece_start),
-        piece_id=i32(sid[piece_start[:-1]]), piece_out=i32(piece_out),
-        run_start=i32(np.r_[0, np.cumsum(n_pc[split])]), run_id=i32(sid[run_lo[split]]))
+        n_long=int(long_.sum()), rows=i32(rows), ids=i32(sid), piece_start=i32(piece_start),
+        piece_id=i32(piece_id), piece_out=i32(piece_out),
+        run_start=i32(np.r_[0, np.cumsum(n_pc[split])]), run_id=i32(sid[run_lo[split]]),
+        tasks=i32(tasks.reshape(-1)))
 
 
 def scatter_rows_ref(acc: torch.Tensor, weights: torch.Tensor,
@@ -143,7 +160,12 @@ def scatter_rows_ref(acc: torch.Tensor, weights: torch.Tensor,
     return acc.index_add_(0, plan.ids, weights[plan.rows])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+# each mode's C argument types: the float64 mode takes the tasks and how
+# many are long besides the pieces' three arrays
+_ARGTYPES = {
+    torch.float32: [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p],
+    torch.float64: [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p],
+}
 
 
 def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
@@ -183,11 +205,17 @@ def scatter_rows(acc: torch.Tensor, weights: torch.Tensor,
     # 16-byte lanes: 4 floats or 2 doubles
     vec = W % (16 // acc.element_size()) == 0 and all(
         t.data_ptr() % 16 == 0 for t in (acc, weights, scratch))
+    pieces = (plan.piece_start, plan.piece_id, plan.piece_out)
+    if dtype == torch.float64:
+        ptrs = (weights, plan.rows, *pieces, plan.tasks, plan.run_start, plan.run_id, acc,
+                scratch)
+        counts = (plan.n_pieces, plan.n_long, plan.run_id.shape[0])
+    else:
+        ptrs = (weights, plan.rows, *pieces, plan.run_start, plan.run_id, acc, scratch)
+        counts = (plan.n_pieces, plan.run_id.shape[0])
     err = _build.launch(
-        _build.function(_ENTRY[dtype], _ARGTYPES), acc.device,
-        *(t.data_ptr() for t in (weights, plan.rows, plan.piece_start, plan.piece_id,
-                                 plan.piece_out, plan.run_start, plan.run_id, acc, scratch)),
-        plan.n_pieces, plan.run_id.shape[0], W, int(vec))
+        _build.function(_ENTRY[dtype], _ARGTYPES[dtype]), acc.device,
+        *(t.data_ptr() for t in ptrs), *counts, W, int(vec))
     check(err, "scatter_rows")
     scatter_rows.launches += 1
     scatter_rows.launches_double += dtype == torch.float64

@@ -83,7 +83,8 @@ from .utils.numerics import (
 
 _CKPT_FORMAT = 1
 _ALIGN = 256          # byte alignment of each array in a staging buffer
-_PLAN_FIELDS = ("rows", "ids", "piece_start", "piece_id", "piece_out", "run_start", "run_id")
+_PLAN_FIELDS = ("rows", "ids", "piece_start", "piece_id", "piece_out", "run_start", "run_id",
+                "tasks")
 
 
 def _dtypes(dtype) -> tuple:
@@ -107,10 +108,10 @@ def _layout(specs) -> tuple:
 
 def _flatten_plans(plans) -> tuple:
     """The index fields of ``plans`` as one int32 array, and each plan's
-    (T, max_id, n_scratch, field lengths)."""
+    (T, max_id, n_scratch, n_long, field lengths)."""
     parts, metas = [], []
     for p in plans:
-        metas.append((p.T, p.max_id, p.n_scratch,
+        metas.append((p.T, p.max_id, p.n_scratch, p.n_long,
                       tuple(int(getattr(p, f).shape[0]) for f in _PLAN_FIELDS)))
         parts += [getattr(p, f).numpy() for f in _PLAN_FIELDS]
     return (np.concatenate(parts) if parts else np.zeros(0, np.int32)), metas
@@ -119,12 +120,12 @@ def _flatten_plans(plans) -> tuple:
 def _plan_views(flat: torch.Tensor, metas) -> list:
     """ScatterPlans whose index tensors are views of ``flat``."""
     out, o = [], 0
-    for T, max_id, n_scratch, lens in metas:
+    for T, max_id, n_scratch, n_long, lens in metas:
         f = {}
         for name, n in zip(_PLAN_FIELDS, lens):
             f[name] = flat[o:o + n]
             o += n
-        out.append(ScatterPlan(T=T, max_id=max_id, n_scratch=n_scratch, **f))
+        out.append(ScatterPlan(T=T, max_id=max_id, n_scratch=n_scratch, n_long=n_long, **f))
     return out
 
 
