@@ -3690,6 +3690,9 @@ def compare_double(seg, V, K, dev, label) -> dict:
                    else (lambda got: bool(torch.all(got[-1][doc_mask == 0] == 0))))
         out[name] = check_double(name, kern, run, ref, names, rows_ok, nbytes, ops, rate,
                                  f"{label} B={B} L={L} K={K}")
+        if name == "lda_estep":
+            out[name]["fp64_floor_ms"] = lda_double_line(estep_mod, largs, kw, keep, out[name],
+                                                         rate, label)
         if name == "flda_estep":
             out[name]["exp_floor_ms"] = flda_double_line(flda_mod, fargs, kw, keep, out[name],
                                                          rate, label)
@@ -3740,6 +3743,51 @@ def flda_double_line(flda_mod, fargs, kw, keep, rec, rate, label) -> float:
 CTPF64_SLOT_OPS, CTPF64_TOPIC_OPS, CTPF64_ROW_OPS = 5, 180, 2
 
 
+# FP64-pipe lane slots of lda_estep's float64 resident design
+# (lda_estep_res_kernel at K = 100: 8 lanes of 13 topics), counted from the
+# instructions its SASS issues, a warp's 32 lanes each: each kept slot's
+# topic in a pass (s's and q's DFMA, and a round's ~42 FP64 instructions
+# for its 4 slots, the chains' and butterfly's DADD and the division,
+# spread over 100 topics: ~3.4), each topic of a document in a pass (four
+# warps of gamma, psi's nine divisions and log, ~129 instructions, four of
+# gamma, exp_digamma and a division, ~96, and the 8 warps' folds and e . q,
+# ~45, all over 100 topics: ~400), and each kept slot's topic in the rows
+# of w (two DMUL)
+LDA64_SLOT_OPS, LDA64_TOPIC_OPS, LDA64_ROW_OPS = 3.4, 400, 2
+
+
+def lda_double_line(lda_mod, largs, kw, keep, rec, rate, label) -> float:
+    """Phase 16: lda_estep's float64 launch shape (the resident design or
+    the block kernel's tiles, blocks an SM) beside its time, its bytes
+    bound and its FP64 floor: LDA64_SLOT_OPS instructions for each kept
+    slot's topic and LDA64_TOPIC_OPS for each topic in each pass the plain
+    fixpoint ran, LDA64_ROW_OPS for each kept slot's topic in the rows of
+    w, at half the FP64 rate (an FMA is one instruction, two operations).
+    Returns the floor in ms."""
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep_ref
+
+    t0 = time.perf_counter()
+    B, L = largs[1].shape
+    K = largs[0].shape[1]
+    shape = lda_mod.double_shape(L, K)
+    passes = fixpoint_passes(lda_mod, lda_estep_ref, largs, kw)
+    kept_a_doc = keep.sum(1).double()
+    slot_passes = float((passes * kept_a_doc).sum())
+    doc_passes = float(passes.sum())
+    kept = float(kept_a_doc.sum())
+    ops = K * (slot_passes * LDA64_SLOT_OPS + doc_passes * LDA64_TOPIC_OPS
+               + kept * LDA64_ROW_OPS)
+    floor = ops / (rate / 2) * 1e3
+    print(f"lda_estep float64 {label}: {shape['design']} design "
+          f"({', '.join(f'{k} {v}' for k, v in shape.items() if k != 'design')}); "
+          f"{rec['ms'] * 1e3:.1f} us device, bound {rec['bound_ms'] * 1e3:.1f} us by "
+          f"{rec['bound_by']}, FP64 floor {floor * 1e3:.1f} us ({slot_passes:.4g} kept-slot "
+          f"passes x {LDA64_SLOT_OPS}, {doc_passes:.0f} document passes x "
+          f"{LDA64_TOPIC_OPS}, {kept:.0f} kept rows x {LDA64_ROW_OPS} FP64 instructions a "
+          f"topic); this line {time.perf_counter() - t0:.2f} s")
+    return floor
+
+
 def ctpf_double_line(ctpf_mod, cargs, ckw, kept_a_doc, rec, rate, label) -> float:
     """Phase 17: ctpf_estep's float64 launch shape (the resident design or
     the block kernel, blocks an SM) beside its time, its bytes bound and
@@ -3774,7 +3822,9 @@ def ctpf_double_line(ctpf_mod, cargs, ckw, kept_a_doc, rec, rate, label) -> floa
 def double_phase(smi, kc, dev) -> tuple:
     """Phase 16, float64 on the card: (a) the float64 modes of lda_estep,
     flda_estep, lda_elbo_tok and scatter_rows against their plain
-    versions; (b) LDA, fLDA, CTM and fCTM on the NSF corpus cut to
+    versions (lda_estep's resident design with its launch shape and FP64
+    floor, ``lda_double_line``, and its tiles on the L = 1024 chunk); (b)
+    LDA, fLDA, CTM and fCTM on the NSF corpus cut to
     P16_DOCS documents (phase 13's dense cut) and the small DTM of phase 8
     (cgtol = 0), each on the card and on the CPU in float64 from one init,
     P16_ITERS iterations, within 1e-8 per iteration on the globals (rtol,
@@ -3796,7 +3846,8 @@ def double_phase(smi, kc, dev) -> tuple:
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
     from topicmodelsvb_jl_torch.kernels.hmtm_estep import hmtm_estep, hmtm_logz
     from topicmodelsvb_jl_torch.kernels.lda_elbo import lda_elbo_tok
-    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
+    from topicmodelsvb_jl_torch.kernels import lda_estep as lda_mod_k
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep, lda_estep_ref
     from topicmodelsvb_jl_torch.kernels.scatter_rows import scatter_rows
     from topicmodelsvb_jl_torch.models import lda as lda_mod
 
@@ -3808,8 +3859,29 @@ def double_phase(smi, kc, dev) -> tuple:
     wide = (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
             put(s0.doc_mask[:1024], torch.float32))
 
-    # (a) the float64 modes at the main path's widest chunk
+    # (a) the float64 modes at the main path's widest chunk, then lda_estep's
+    # past its resident design: the L = 1024 chunk, whose rows go through
+    # the block kernel's tiles
     recs = compare_double(wide, V, K, dev, f"widest bucket L={s0.L}")
+    need(lda_mod_k.double_shape(s0.L, K)["design"] == "resident",
+         "phase 16: lda_estep's float64 mode is not resident at the widest NSF chunk")
+    seg = long_chunks(V, 1, dev)["long_pad"]
+    largs = tuple(a.double() if torch.is_floating_point(a) else a
+                  for a in lda_args(seg, V, K, dev)[0])
+    lkw = dict(viter=10, vtol=1.0 / K**2)
+    keep = seg[1] > 0
+    B, L = seg[0].shape
+    need(lda_mod_k.double_shape(L, K)["design"] == "tiled",
+         "phase 16: lda_estep's float64 mode at L = 1024 is not the block kernel's tiles")
+    recs["lda_estep_double_L1024"] = check_double(
+        "lda_estep", lda_estep, lambda: lda_estep(*largs, **lkw),
+        lambda: lda_estep_ref(*largs, **lkw), ("gamma", "El", "El_old", "w"),
+        lambda got: bool(torch.all(got[3][seg[2] == 0] == 0)),
+        8 * (n_unique(seg[0], keep) * K + B * L + B + K + 6 * B * K + B * L * K) + 4 * B * L,
+        lambda: 4 * K * fixpoint_work(lda_mod_k, lda_estep_ref, largs, lkw,
+                                      keep.sum(1).double()) + 2 * K * int(keep.sum()),
+        engine.device_peak_flops(dev, torch.float64), f"L=1024 chunk B={B} L={L} K={K}")
+    del seg, largs
 
     # (b) card against CPU in float64, from one init, per iteration; the
     # CPU's float64 references are the phase's cost, so the depth is cut
@@ -4916,7 +4988,8 @@ def main() -> int:
             # state's dtype
             ("scatter_rows_double", "scatter_rows.cu", "bench_scatter_pallas.py:40",
              dbl["scatter_rows"], dbl["scatter_dtm"]),
-            ("lda_estep_double", "lda_estep.cu", tpu + "lda_estep.py:157", dbl["lda_estep"], ()),
+            ("lda_estep_double", "lda_estep.cu", tpu + "lda_estep.py:157", dbl["lda_estep"],
+             (dbl["lda_estep_double_L1024"],)),
             ("lda_elbo_tok_double", "lda_elbo.cu", tpu + "lda_elbo.py:119", dbl["lda_elbo_tok"],
              ()),
             ("flda_estep_double", "flda_estep.cu", tpu + "flda_estep.py:112", dbl["flda_estep"],

@@ -1714,6 +1714,54 @@ def test_flda_estep_double_designs_match_plain(cuda, B, L, K, design, viter):
     assert all(torch.equal(a, b) for a, b in zip(got, flda_estep(*args, **kw)))
 
 
+# lda_estep's float64 mode: the resident design at the widest NSF chunk
+# (L = 128, two documents an SM), each side of its lanes' steps (K = 1,
+# 33, 64, 65, 100, 101, 104, 105, 112, 113, 128, 129, 256, 512: 8 lanes of
+# 4, 8 or 13 topics, 16 lanes of 8, 32 lanes of 8 or 16; one or two slots a
+# group), 256 slots at K = 100 (one block an SM),
+# and the block kernel past it (L = 1024 in tiles; K = 600 past the
+# design's reach); each at viter 10 and 0, with masked documents (the last
+# three without counts, one with them), a real one with no kept slot and
+# one whose slots all keep a count
+LDA64_CASES = [(1024, 128, 100, "resident"), (32, 40, 1, "resident"), (32, 40, 33, "resident"),
+               (32, 40, 64, "resident"), (32, 40, 65, "resident"), (64, 64, 101, "resident"),
+               (32, 40, 104, "resident"), (32, 40, 105, "resident"), (32, 40, 112, "resident"),
+               (32, 40, 113, "resident"), (32, 40, 128, "resident"), (32, 40, 129, "resident"),
+               (16, 24, 256, "resident"), (16, 24, 512, "resident"), (64, 256, 100, "resident"),
+               (64, 1024, 100, "tiled"), (16, 40, 600, None)]
+
+
+@pytest.mark.parametrize("viter", [10, 0])
+@pytest.mark.parametrize("B,L,K,design", LDA64_CASES)
+def test_lda_estep_double_designs_match_plain(cuda, B, L, K, design, viter):
+    shape = lda_estep_mod.double_shape(L, K)
+    if design is not None:
+        assert shape["design"] == design, shape
+    assert shape["blocks"] >= 1, shape
+    if (L, K) == (128, 100):
+        assert shape["blocks"] == 2, shape   # two documents an SM at the widest NSF chunk
+    args = list(_f64(_chunk(K, B, L, 25_000, cuda, seed=K + L)[0]))
+    args[2][1] = 0.0                                   # a real document with no kept slot
+    args[2][2] = torch.where(args[2][2] > 0, args[2][2], torch.ones_like(args[2][2]))
+    args[1][2] = torch.where(args[2][2] > 0, args[1][2], torch.full_like(args[1][2], 11))
+    args[3][3] = 0.0                                   # masked, with its counts
+    kw = dict(viter=viter, vtol=1.0 / K**2)
+    n0, d0 = lda_estep.launches, lda_estep.launches_double
+    got = lda_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert (lda_estep.launches, lda_estep.launches_double) == (n0 + 1, d0 + 1)
+    _close64(got, lda_estep_ref(*args, **kw), ("gamma", "El", "El_old", "w"))
+    assert torch.all(got[3][-3:] == 0) and torch.all(got[3][1] == 0)
+    assert torch.all(got[3][3][args[2][3] > 0] > 0)   # a masked document's rows from El_old
+    for a, b in zip(got[:3], args[5:]):
+        assert torch.equal(a[-3:], b[-3:]) and torch.equal(a[3], b[3])   # masked: frozen
+        if viter == 0:
+            assert torch.equal(a, b)                   # no pass: the state as given
+    if viter:
+        assert not torch.equal(got[0][1], args[5][1])   # no kept slot: gamma still moves
+    assert all(torch.equal(a, b) for a, b in zip(got, lda_estep(*args, **kw)))
+
+
 def test_flda_estep_double_widest_k(cuda):
     """The float64 mode's widest K at L = 4 still runs (the block kernel)
     and one past it is refused, as before the resident design."""

@@ -223,21 +223,40 @@ def _assert_close(pairs):
         np.testing.assert_allclose(a, np.asarray(b), rtol=RTOL, atol=1e-14, err_msg=name)
 
 
-@pytest.mark.parametrize("K", [7, 16])
-def test_lda_estep_ref_f64_matches_jax(K):
-    x = _inputs(K)
+def _lda_estep_pair(x, K, viter):
+    """``lda_estep_ref`` and the JAX package's Pallas kernel in interpret
+    mode on one chunk of ``_inputs``, compared; returns the plain version's
+    arguments and outputs."""
     vtol = 1.0 / K**2
     betaT = x["beta"].T + EPSILON
     want = jax_lda_estep(_padk(betaT)[jnp.asarray(x["terms"])], jnp.asarray(x["counts"]),
                          jnp.asarray(x["doc_mask"]), _padk(x["alpha"]), _padk(x["gamma"]),
-                         _padk(x["El"]), _padk(x["El_old"]), viter=6, vtol=vtol, n_topics=K,
-                         interpret=True)
+                         _padk(x["El"]), _padk(x["El_old"]), viter=viter, vtol=vtol,
+                         n_topics=K, interpret=True)
     assert want[0].dtype == jnp.float64
     args = tuple(_t(x[k]) for k in ("terms", "counts", "doc_mask", "alpha", "gamma", "El",
                                     "El_old"))
-    got = lda_estep_ref(_t(betaT), *args, viter=6, vtol=vtol)
+    got = lda_estep_ref(_t(betaT), *args, viter=viter, vtol=vtol)
     _assert_close([(n, a, np.asarray(b)[..., :K])
                    for n, a, b in zip(("gamma", "El", "El_old", "w"), got, want)])
+    return betaT, args, got
+
+
+def _with_empty_document(x):
+    """``_inputs`` with document 1 real but without a kept slot."""
+    x["counts"][1] = 0.0
+    x["terms"][1] = 0
+    return x
+
+
+# K = 100: the main path's width, under KP = 128; document 1 is real and
+# has no kept slot (gamma = alpha + eps after a pass)
+@pytest.mark.parametrize("K", [7, 16, 100])
+def test_lda_estep_ref_f64_matches_jax(K):
+    x = _with_empty_document(_inputs(K))
+    vtol = 1.0 / K**2
+    betaT, args, got = _lda_estep_pair(x, K, 6)
+    assert not np.allclose(got[0][1].numpy(), x["gamma"][1])
     # the f64 Elogtheta channel is the identity on a float64 state
     assert all(torch.equal(a, b) for a, b in zip(
         lda_estep_ref(_t(betaT), *args, viter=6, vtol=vtol, elogtheta_f64=True), got))
@@ -246,6 +265,16 @@ def test_lda_estep_ref_f64_matches_jax(K):
     assert all(torch.equal(a, b)
                for a, b in zip(lda_estep(_t(betaT), *args, viter=6, vtol=vtol), got))
     assert (lda_estep.launches, lda_estep.launches_double) == n0
+
+
+# viter 0: no pass, the state as given and w from El_old, s anew
+@pytest.mark.parametrize("K", [7, 100])
+def test_lda_estep_ref_f64_no_pass_matches_jax(K):
+    x = _with_empty_document(_inputs(K, seed=4))
+    _, args, got = _lda_estep_pair(x, K, 0)
+    for a, b in zip(got[:3], args[4:]):
+        assert torch.equal(a, b)
+    assert torch.all(got[3][1] == 0) and torch.all(got[3][0][args[1][0] > 0] > 0)
 
 
 @pytest.mark.parametrize("K", [7, 16])

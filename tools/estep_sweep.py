@@ -4,7 +4,7 @@ memory for a range of ``viter``, or ``lda_elbo_tok`` at LDA's chunks and
 at CTM's (K = 50, 2048 documents), from the package of a given checkout,
 with chip_smoke.py's timer.
 
-    python3 tools/estep_sweep.py ROOT LABEL [lda|flda|flda_double|ctpf|ctpf_double|elbo|hmtm|lda_pass|flda_pass|ctpf_pass|pass_main[:NAME]|scatter_double]
+    python3 tools/estep_sweep.py ROOT LABEL [lda|lda_double|flda|flda_double|ctpf|ctpf_double|elbo|hmtm|lda_pass|flda_pass|ctpf_pass|pass_main[:NAME]|scatter_double]
 
 ROOT holds a checkout of this repository (``.`` for this one, or a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists); its
@@ -53,6 +53,12 @@ instructions of each kernel of the float64 mode's resident design.
 CiteULike bucket against viter and on each narrower bucket at viter 0 and
 10, with its launch shape (``double_shape``, where ROOT has it) and the
 FP64-pipe and MUFU counts of its float64 kernels' SASS.
+``lda_double`` times ``lda_estep``'s float64 mode like ``lda`` (the
+widest NSF bucket and the L = 1024 chunk, cast to float64, viter 0-10),
+then the widest bucket's first 132, 264 and 528 documents (one and two
+documents an SM, two waves) at viter 0 and 10, with its launch shape
+(``double_shape``, where ROOT has it) and the FP64-pipe and MUFU counts
+of its float64 kernels' SASS.
 ``scatter_double`` times ``scatter_rows`` in float64 and float32 beside
 ``index_add_`` on DTM's two first-chunk plans at the mac shape (a
 stand-in with the real chunk's run lengths, ``dtm_scatter_standin``,
@@ -91,7 +97,8 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         print("estep_sweep: no CUDA device", file=sys.stderr)
         return 2
     kernel, _, only = kernel.partition(":")
-    if kernel not in ("lda", "flda", "flda_double", "ctpf", "ctpf_double", "elbo", "hmtm",
+    if kernel not in ("lda", "lda_double", "flda", "flda_double", "ctpf", "ctpf_double", "elbo",
+                      "hmtm",
                       "lda_pass", "flda_pass", "ctpf_pass", "pass_main", "scatter_double"):
         raise SystemExit(f"estep_sweep: no kernel {kernel!r}")
     dev = torch.device("cuda", 0)
@@ -174,6 +181,14 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
     chunks = {f"L={s0.L}": (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
                             put(s0.doc_mask[:1024], torch.float32)),
               "L=1024": smoke.long_chunks(V, 1, dev)["long"]}
+    if kernel == "lda_double":
+        from topicmodelsvb_jl_torch.kernels import lda_estep as lda_mod
+
+        if hasattr(lda_mod, "double_shape"):
+            out["shape"] = {name: lda_mod.double_shape(seg[0].shape[1], K)
+                            for name, seg in chunks.items()}
+        out["sass"] = {**sass_counts("16lda_estep_kernelIdLb0E"),
+                       **sass_counts("20lda_estep_res_kernel")}
     if kernel == "flda_double":
         w = chunks[f"L={s0.L}"]
         chunks["L=64"] = (w[0][:, :64].contiguous(), w[1][:, :64].contiguous(), w[2])
@@ -195,10 +210,12 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         return emit(here, out)
     for name, (terms, counts, doc_mask) in chunks.items():
         B, L = terms.shape
-        if kernel == "lda":
+        if kernel in ("lda", "lda_double"):
             g = torch.Generator().manual_seed(11)
             betaT = (dirichlet_ones(g, V, (K,)).to(dev) + EPSILON).T.contiguous()
             args = (betaT, terms, counts, doc_mask, *smoke.warm_state(K, B, dev, seed=12))
+            if kernel == "lda_double":
+                args = tuple(a.double() if a.is_floating_point() else a for a in args)
             fn = lda_estep
         else:
             g = torch.Generator().manual_seed(21)
@@ -214,6 +231,12 @@ def main(root: str, label: str, kernel: str = "lda") -> int:
         for viter in VITERS:
             ms, call = smoke.time_calls(lambda: fn(*args, viter=viter, vtol=1.0 / K**2))
             out[f"{name} viter={viter}"] = [ms, call]
+        if kernel == "lda_double" and L == s0.L:
+            for nd in (132, 264, 528):
+                part = tuple(a[:nd] if a.dim() and a.shape[0] == B else a for a in args)
+                for viter in (0, 10):
+                    out[f"{name} B={nd} viter={viter}"] = list(smoke.time_calls(
+                        lambda: fn(*part, viter=viter, vtol=1.0 / K**2)))
     return emit(here, out)
 
 

@@ -16,8 +16,10 @@ warm-up iteration each, then three steps alone, each timed by the host
 clock up to a synchronize.  Then ``pass_ms``: the device and call ms of
 the pass modes of ``lda_estep``, ``flda_estep`` and ``ctpf_estep`` on
 their main paths' chunks (chip_smoke.py's ``pass_timing_cases``), and
-``flda_double_ms``: ``flda_estep``'s float64 mode on the widest NSF chunk
-and the L = 1024 one; ``ctpf_double_ms``: ``ctpf_estep``'s float64 mode on
+``flda_double_ms`` and ``lda_double_ms``: ``flda_estep``'s and
+``lda_estep``'s float64 modes on the widest NSF chunk and the L = 1024
+one, and ``lda_f64_ms`` ``lda_estep``'s f64 Elogtheta channel on them;
+``ctpf_double_ms``: ``ctpf_estep``'s float64 mode on
 the widest CiteULike bucket; ``scatter_double_ms``: ``scatter_rows``'s
 float64 mode on DTM's two first-chunk plans at the mac shape
 (chip_smoke.py's ``dtm_scatter_standin``, which prints their run lengths)
@@ -33,7 +35,8 @@ the chunks whose rows do not fit shared memory, and of ``hmtm_estep`` and
 whose device and call ms are timed too, and a float64 chunk), of
 ``scatter_rows`` in both dtypes on DTM's two stand-in plans and in
 float64 on the widest NSF chunk, of ``ctpf_estep``'s float64 mode on the
-widest CiteULike bucket and of ``lda_estep``'s on the widest NSF chunk; equal
+widest CiteULike bucket and of ``lda_estep``'s on the widest NSF chunk
+and the L = 1024 one; equal
 digests from two checkouts mean the kernels give the same bits.  ROOT's
 package must have those modes.
 Prints one JSON line tagged LABEL and appends it to
@@ -128,8 +131,9 @@ def digests(smoke, kc, dev) -> dict:
         if tag == "wide":
             outs["ctpf_estep_double_wide"] = ctpf_estep(*c64, **ckw)
     d64 = lambda a: tuple(x.double() if x.is_floating_point() else x for x in a)
-    largs = d64(smoke.lda_args(wide, V, K, dev)[0])
-    outs["lda_estep_double_wide"] = lda_estep(*largs, **kw)
+    for tag, seg in (("wide", wide), ("long", lc["long_pad"])):
+        largs = d64(smoke.lda_args(seg, V, K, dev)[0])
+        outs[f"lda_estep_double_{tag}"] = lda_estep(*largs, **kw)
     for name, (plan, w, n_rows, _) in scatter_cases(smoke, kc, dev, torch.float64).items():
         acc = torch.zeros((n_rows, w.shape[1]), dtype=w.dtype, device=dev)
         outs[f"scatter_rows_double_{name}"] = (scatter_rows(acc, w, plan),)
@@ -203,14 +207,16 @@ def ctpf_double_ms(smoke, kc, dev) -> list:
     return list(smoke.time_calls(lambda: ctpf_estep(*args, **kw)))
 
 
-def flda_double_ms(smoke, kc, dev) -> dict:
-    """Device and call ms of ``flda_estep``'s float64 mode (viter 10) on
-    phase 3's arguments cast to float64: the widest NSF chunk and the
-    L = 1024 chunk."""
+def double_ms(smoke, kc, dev, family) -> dict:
+    """Device and call ms of ``flda_estep``'s (``family`` "flda") or
+    ``lda_estep``'s ("lda") float64 mode (viter 10) on phase 3's arguments
+    cast to float64, or of ``lda_estep``'s f64 Elogtheta channel on them in
+    float32 ("lda_f64"): the widest NSF chunk and the L = 1024 chunk."""
     import numpy as np
     import torch
 
     from topicmodelsvb_jl_torch.kernels.flda_estep import flda_estep
+    from topicmodelsvb_jl_torch.kernels.lda_estep import lda_estep
 
     K, V = kc["K"], kc["V"]
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(dev)
@@ -218,12 +224,17 @@ def flda_double_ms(smoke, kc, dev) -> dict:
     chunks = {f"L{s0.L}": (put(s0.terms[:1024], torch.int32), put(s0.counts[:1024], torch.float32),
                            put(s0.doc_mask[:1024], torch.float32)),
               "L1024": smoke.long_chunks(V, 1, dev)["long_pad"]}
+    fn = flda_estep if family == "flda" else lda_estep
     out = {}
     for tag, seg in chunks.items():
-        args = tuple(a.double() if a.is_floating_point() else a
-                     for a in smoke.flda_args(seg, V, K, dev))
+        args = (smoke.flda_args(seg, V, K, dev) if family == "flda"
+                else smoke.lda_args(seg, V, K, dev)[0])
         kw = dict(viter=10, vtol=1.0 / K**2)
-        out[tag] = list(smoke.time_calls(lambda: flda_estep(*args, **kw)))
+        if family == "lda_f64":
+            kw["elogtheta_f64"] = True
+        else:
+            args = tuple(a.double() if a.is_floating_point() else a for a in args)
+        out[tag] = list(smoke.time_calls(lambda: fn(*args, **kw)))
     return out
 
 
@@ -293,8 +304,11 @@ def main(root: str, label: str) -> int:
             lambda: hmtm_logz(*a[:3], tg[0], tg[1]), 3, 1)
     out["pass_ms"] = {name: list(smoke.time_calls(lambda: fn(*args)))
                       for name, (fn, args) in smoke.pass_timing_cases(dev, cpk=kc["cpk"]).items()}
-    # flda_estep's float64 mode at the widest NSF chunk and the L = 1024 one
-    out["flda_double_ms"] = flda_double_ms(smoke, kc, dev)
+    # flda_estep's and lda_estep's float64 modes at the widest NSF chunk and
+    # the L = 1024 one
+    out["flda_double_ms"] = double_ms(smoke, kc, dev, "flda")
+    out["lda_double_ms"] = double_ms(smoke, kc, dev, "lda")
+    out["lda_f64_ms"] = double_ms(smoke, kc, dev, "lda_f64")
     out["ctpf_double_ms"] = ctpf_double_ms(smoke, kc, dev)
     out["scatter_double_ms"] = scatter_double_ms(smoke, kc, dev)
     out["digests"] = digests(smoke, kc, dev)

@@ -206,6 +206,40 @@ __device__ __forceinline__ double exp2_res(double x) {
   return n < -1021 ? 0.0 : r;
 }
 
+// exp(psi(x)) for x > 0 in double without a log, for the float64 resident
+// designs (ctpf_estep_res_kernel, lda_estep_res_kernel): psi(x) = ln t -
+// 1/(2t) - 1/(12t^2) + 1/(120t^4) - 1/(252t^6) - sum_{i<8} 1/(x + i), t = x + 8
+// (digamma_series' shift and truncation), so exp(psi(x)) = t exp(the rest);
+// the sum as one fraction S / P (digamma_one_div's pairs), and S / P and
+// 1 / t from one division 1 / (P t); past x = 3e4 no shift (t = x).  The
+// exp by exp2_res; ~1e-15 relative off exp(digamma_series(x)).
+__device__ __forceinline__ double exp_digamma(double x) {
+  double S = 0.0, P = 1.0, t = x;
+  if (x < 3e4) {
+    double p[4], q[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const double a = x + 2.0 * m;
+      p[m] = a * (a + 1.0);
+      q[m] = 2.0 * a + 1.0;
+    }
+    const double p01 = p[0] * p[1], p23 = p[2] * p[3];
+    const double s01 = q[0] * p[1] + q[1] * p[0], s23 = q[2] * p[3] + q[3] * p[2];
+    S = s01 * p23 + s23 * p01;
+    P = p01 * p23;
+    t = x + 8.0;
+  }
+  const double d = 1.0 / (P * t);
+  const double inv = P * d, acc = S * (t * d);
+  const double inv2 = inv * inv;
+  const double e = -0.5 * inv -
+      inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0))) - acc;
+  return t * exp2_res(e * Real<double>::log2e);
+}
+
+// True when p is 16-byte aligned (16-byte copies and stores).
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // Clears a failed setup call's error so the next launch check does not
 // report it again.
 inline int fail(cudaError_t err) {

@@ -864,36 +864,6 @@ __global__ void __launch_bounds__(256) ctpf_estep_pass_warp_kernel(
   });
 }
 
-// exp(psi(x)) for x > 0 in double without a log: psi(x) = ln t - 1/(2t) -
-// 1/(12t^2) + 1/(120t^4) - 1/(252t^6) - sum_{i<8} 1/(x + i), t = x + 8
-// (digamma_series' shift and truncation), so exp(psi(x)) = t exp(the rest);
-// the sum as one fraction S / P (digamma_one_div's pairs), and S / P and
-// 1 / t from one division 1 / (P t); past x = 3e4 no shift (t = x).  The
-// exp by exp2_res; ~1e-15 relative off exp(digamma_series(x)).
-__device__ __forceinline__ double exp_digamma(double x) {
-  double S = 0.0, P = 1.0, t = x;
-  if (x < 3e4) {
-    double p[4], q[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const double a = x + 2.0 * m;
-      p[m] = a * (a + 1.0);
-      q[m] = 2.0 * a + 1.0;
-    }
-    const double p01 = p[0] * p[1], p23 = p[2] * p[3];
-    const double s01 = q[0] * p[1] + q[1] * p[0], s23 = q[2] * p[3] + q[3] * p[2];
-    S = s01 * p23 + s23 * p01;
-    P = p01 * p23;
-    t = x + 8.0;
-  }
-  const double d = 1.0 / (P * t);
-  const double inv = P * d, acc = S * (t * d);
-  const double inv2 = inv * inv;
-  const double e = -0.5 * inv -
-      inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0))) - acc;
-  return t * exp2_res(e * Real<double>::log2e);
-}
-
 // The float64 mode's resident design (ctpf_estep_res_kernel; K <= 512 and
 // a document's L + R rows fit one block's shared memory,
 // ctpf_double_shape): the function of ctpf_estep_kernel<double>, one CTA
@@ -1225,8 +1195,6 @@ inline size_t ctpf_pass_smem(int G, int NVL, int w) {
   const size_t kq = 4 * static_cast<size_t>(G) * NVL;
   return (w > 1 ? (4 + 2 * static_cast<size_t>(w)) * kq : kPassShortDocs * 4 * kq) * sizeof(R);
 }
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Lanes a slot and topics a lane of CTPF's resident design: 16 lanes of 7
 // topics from K = 65 to 112 (CiteULike's K = 100; 8 lanes of 13 measured

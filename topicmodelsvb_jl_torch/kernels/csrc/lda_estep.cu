@@ -84,7 +84,17 @@
 // bounds 2, not 4), L = 1024 goes through tiles, and the widest K halves
 // (~4,100 at L = 4 against ~8,300): past it the wrapper raises.  Four
 // doubles are a Double4 (two 16-byte accesses); the table's rows are
-// copied 16 bytes (two doubles) at a time where K is even.
+// copied 16 bytes (two doubles) at a time where K is even.  That kernel
+// took 285-286 us at the widest NSF chunk (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md section 6): 2 blocks an SM, ~3.9 waves, s with one thread a slot
+// (~111 of 256 busy), q on ~150 threads, the float rule's stride (800
+// bytes at K = 100, 2-way conflicts on the 16-byte loads), four barriers
+// a pass and psi and exp on 100 threads between two of them.  So where a
+// document's rows fit one CTA's shared memory and K <= 512 the float64
+// mode runs lda_estep_res_kernel (below), ctpf_estep_res_kernel's design:
+// measured in turns (tools/kernel_ab.py) 284.4-286.2 -> 207.4-209.0 us
+// (viter 0: 84.4 -> 67.2); the variants tried are in PERF.md section 6.
+// Wider documents (L = 1024 at K = 100) and K > 512 keep this kernel.
 //
 // The pass mode (lda_estep_pass; tmvb_lda_estep_pass[_f64]), for the
 // modes whose token slots are split over ranks: pc [B, K] = e q, one pass
@@ -268,16 +278,19 @@ __device__ __forceinline__ void write_rows(R* __restrict__ wd, const R* rows, in
 }
 
 // Compacts the slots l < L with c[l] != 0, in slot order, into mc (their
-// counts) and mslot (their slots); returns their number.  wcount: 8 ints
-// of shared memory.  Every thread of the block must call it.
+// counts) and mslot (their slots), and with `mterm` their terms t[l] (read
+// beside the counts); returns their number.  wcount: 8 ints of shared
+// memory.  Every thread of the block must call it.
 template <typename R>
 __device__ __forceinline__ int compact_slots(const R* c, int L, R* mc, int* mslot,
-                                             int* wcount) {
+                                             int* wcount, const int* t = nullptr,
+                                             int* mterm = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int n = 0;
   for (int base = 0; base < L; base += kEstepThreads) {
     const int l = base + tid;
     const R cl = l < L ? c[l] : R(0);
+    const int tl = mterm != nullptr && l < L ? t[l] : 0;
     const unsigned ball = __ballot_sync(0xffffffffu, cl != R(0));
     if (lane == 0) wcount[warp] = __popc(ball);
     __syncthreads();
@@ -291,6 +304,7 @@ __device__ __forceinline__ int compact_slots(const R* c, int L, R* mc, int* mslo
       const int j = off + __popc(ball & ((1u << lane) - 1u));
       mc[j] = cl;
       mslot[j] = l;
+      if (mterm != nullptr) mterm[j] = tl;
     }
     n = total;
     __syncthreads();  // the list is complete; wcount may be rewritten
@@ -476,6 +490,387 @@ __global__ void __launch_bounds__(kEstepThreads, sizeof(R) == 4 ? 4 : 2) lda_est
     write_rows(wd, rows, m, e_last, mcs + j0, mslot + j0, K, Kp, vout);
     if (!resident) __syncthreads();  // before the next tile's rows land
   }
+}
+
+// The float64 mode's resident design (lda_estep_res_kernel; K <= 512 and
+// a document's L rows fit one CTA's shared memory, lda_double_shape): the
+// function of lda_estep_kernel<double>, one CTA of 256 threads a
+// document, the design of ctpf_estep_res_kernel in its single-phase case.
+// - The kept slots are compacted with each slot's term read beside its
+//   count (the terms held in the c / s words until the first pass), and
+//   their rows copied once into shared memory (cp.async through L1, 16
+//   bytes where K is even and the table aligned), stride K, then KQ - K
+//   zeros (KQ = G NV, the lanes' topics), read from there on every pass.
+//   The padding slots' rows of w are zeros, stored while the rows come in.
+// - A pass: the kept slots go 8 W at a time over the 8 warps (W = S D:
+//   S = 32 / G groups of G lanes, D slots a group at once; lda_res_lanes,
+//   8 lanes of 13 topics and D = 1 at K = 100), a warp with no slot left
+//   skipping its rounds; lane (g, sub) holds topics sub + G v, v < NV, a
+//   compile-time count, with e and the q partials in registers.  A lane
+//   reads its topics at fixed offsets from its row: past K it reads on
+//   into the next row or the zeros, finite values against e's zeros.  At
+//   S = 4 the groups of a half-warp take slots two apart: at K = 100
+//   (stride 800 bytes, 32 mod 128) their rows' 64 bytes then fall 64
+//   bytes apart, on different banks, where neighbouring slots would
+//   overlap.  Per slot: s = row . e in four chains, a butterfly over the
+//   group, r = c / s (kept in the slot list for the rows of w), then q +=
+//   r row.
+// - The fold: a butterfly over the warp's groups; each busy warp stores
+//   its q and its e . q (in four chains), then one barrier.  A warp with
+//   no slot holds zeros there (stored once), so every sum over the warps
+//   is a fixed tree of all 8.  sum gamma = sum (alpha + eps) + the warps'
+//   e . q: no barrier of its own.  gamma_k = alpha_k + e_k q_k + eps; the
+//   CTA's first half takes El = psi(gamma) - psi(sum gamma)
+//   (digamma_series, the plain version's series), its d^2 and El_old,
+//   the second half the next e = exp(psi(gamma)) / exp(psi(sum gamma))
+//   without a log (exp_digamma), 31 topics a warp at a time: lane 31
+//   takes the sum's term in the same instructions as the other lanes'
+//   topics and shuffles it to them.  Then the stop test: the warps' d^2
+//   sums after one barrier, as a tree.  Two barriers a pass.
+// - The rows of w, row (e r) with the e and r of the last pass (phi of
+//   El_old): written by the last pass the loop allows, from its registers;
+//   when the stop test ends the loop sooner, after it from the rows in
+//   shared memory and the slot list's r (the same products, the same
+//   bits); when no pass ran (viter 0, or doc_mask 0), e = exp(El_old) and
+//   s anew, as lda_estep_kernel.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6, PR
+// 24): the widest NSF chunk takes 2 CTAs an SM in ~4 waves; with no pass
+// ~67 us (the rows from L2 as every CTA of a wave starts, w's 105 MB as
+// they end), then ~14 us a pass, each CTA a chain of dependent FP64
+// operations (~25 cycles each in tools/estep_trace.py's clock marks):
+// four slot rounds, the fold, then gamma, psi and the stop test on the
+// first half.
+// Every sum in one fixed order: same inputs, same bits.
+
+constexpr int kResWarpsHalf = kEstepWarps / 2;   // the warps of each half of the CTA
+constexpr int kResStep = 31 * kResWarpsHalf;      // topics a half takes at a time
+constexpr int kResRed = 24;   // the warps' e . q [8], sum d^2 [8], compaction counts [8 ints]
+
+// Shared memory of the resident design in bytes: the kept rows [L, K] and
+// KQ - K zeros after the last (a lane's topics past K read on into the
+// next row, or into them, at fixed offsets), the warps' q [8, K], e twice,
+// gamma, El and El_old [K] each, the sums, the slot list's counts and c /
+// s [L] each (doubles), then its slots [L] (ints).  KQ = G NV >= K.
+__host__ __device__ inline size_t lda_res_smem(int64_t L, int64_t K, int64_t KQ) {
+  return (static_cast<size_t>(L) * K + static_cast<size_t>(KQ - K) +
+          (kEstepWarps + 5) * static_cast<size_t>(K) + kResRed + 2 * static_cast<size_t>(L)) *
+             sizeof(double) +
+         static_cast<size_t>(L) * sizeof(int);
+}
+
+// Lanes a slot (G), topics a lane (NV) and slots a group takes at once
+// (D) of LDA's resident design; G = 0 past K = 512.  The widest NSF chunk
+// (K = 100) takes 8 lanes of 13 topics, one slot a group: its arrays (a
+// row, e and q in registers, 78 of a thread's 128) leave no room for a
+// second slot (D = 2 spills), and 16 lanes of 7 topics at D = 1, 2 or 4
+// ran slower (PERF.md section 6).  Where the registers allow it,
+// two slots a group: narrow K, 16 lanes of 8 at K = 105-128 (8 lanes of
+// 16 spill), 32 lanes of 8 to K = 256.
+struct LdaResShape {
+  int G, NV, D;
+};
+__host__ __device__ inline LdaResShape lda_res_lanes(int64_t K) {
+  if (K <= 32) return {8, 4, 2};
+  if (K <= 64) return {8, 8, 2};
+  if (K <= 104) return {8, 13, 1};
+  if (K <= 128) return {16, 8, 2};
+  if (K <= 256) return {32, 8, 2};
+  return {K <= 512 ? 32 : 0, 16, 1};
+}
+
+// The lane's e for its topics, 0 past K.
+template <int G, int NV>
+__device__ __forceinline__ void lda_res_e(double (&e)[NV], const double* src, int K, int sub) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int k = sub + G * v;
+    e[v] = k < K ? src[k] : 0.0;
+  }
+}
+
+// One pass over the kept slots [0, n), D slots a group at a time (their
+// loads, chains, butterflies and divisions interleave): each slot's r =
+// c / s into mcs and r row into acc, and with `rows_out` its row of w,
+// row (e r), from the registers.
+template <int G, int NV, int D>
+__device__ __forceinline__ void lda_res_slots(const double* rows, const double (&e)[NV],
+                                              double (&acc)[NV], const double* mc, double* mcs,
+                                              double* wd, const int* mslot, int n, int K,
+                                              bool rows_out) {
+  constexpr int S = 32 / G, W = S * D;   // slots a warp takes at once
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane / G, sub = lane % G;
+  const int gslot = S == 4 ? ((gq & 1) << 1) | (gq >> 1) : gq;
+  for (int j0 = warp * W; j0 < n; j0 += kEstepWarps * W) {
+    double x[D][NV], s[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      // past K the lane reads the next row's first topics (or the zeros
+      // after the last row): finite, and e is 0 there
+      const double* row = rows + static_cast<size_t>(min(j0 + d * S + gslot, n - 1)) * K + sub;
+      double c4[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        x[d][v] = row[G * v];
+        c4[v % 4] = fma(x[d][v], e[v], c4[v % 4]);
+      }
+      s[d] = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int d = 0; d < D; ++d) s[d] += __shfl_xor_sync(0xffffffffu, s[d], o);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int j = j0 + d * S + gslot;
+      if (j < n) {
+        const double r = mc[j] / s[d];
+        if (sub == 0) mcs[j] = r;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) acc[v] = fma(r, x[d][v], acc[v]);
+        if (rows_out) {
+          double* dst = wd + static_cast<size_t>(mslot[j]) * K;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            if (sub + G * v < K) dst[sub + G * v] = x[d][v] * (e[v] * r);
+        }
+      }
+    }
+  }
+}
+
+// The warp's q, its groups' acc added by a butterfly over them, into
+// qw [K] and its e . q into *eqw.
+template <int G, int NV>
+__device__ __forceinline__ void lda_res_fold(double (&acc)[NV], const double (&e)[NV], double* qw,
+                                             double* eqw, int K) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], o);
+  double c4[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int v = 0; v < NV; ++v) c4[v % 4] = fma(e[v], acc[v], c4[v % 4]);
+  double eq = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) eq += __shfl_xor_sync(0xffffffffu, eq, o);
+  if (lane < G) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (lane + G * v < K) qw[lane + G * v] = acc[v];
+  }
+  if (lane == 0) *eqw = eq;
+}
+
+// The 8 warps' values p[0], p[stride], ..., p[7 stride] summed as a tree
+// (one fixed order, three additions deep; a warp with no slot holds 0).
+__device__ __forceinline__ double lda_res_sum8(const double* p, int stride) {
+  double a[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) a[v] = p[v * stride];
+  return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+}
+
+// gamma_k of the pass: alpha_k + e_k q_k + eps, q_k the warps' summed.
+__device__ __forceinline__ double lda_res_gamma(double alpha_k, const double* qpart,
+                                                const double* e, int K, int k) {
+  return alpha_k + e[k] * lda_res_sum8(qpart + k, K) + Real<double>::eps;
+}
+
+// Topic k's El = el_new, its gamma g and El_old; returns its d^2.
+__device__ __forceinline__ double lda_res_el(double* gam, double* el, double* elo, int k,
+                                             double g, double el_new) {
+  const double d = el_new - el[k];
+  gam[k] = g;
+  elo[k] = el[k];
+  el[k] = el_new;
+  return d * d;
+}
+
+template <int G, int NV, int D>
+__global__ void __launch_bounds__(kEstepThreads, 2) lda_estep_res_kernel(
+    const double* __restrict__ betaT, const int* __restrict__ terms,
+    const double* __restrict__ counts, const double* __restrict__ doc_mask,
+    const double* __restrict__ alpha, const double* __restrict__ gamma_in,
+    const double* __restrict__ el_in, const double* __restrict__ elo_in,
+    double* __restrict__ gamma_out, double* __restrict__ el_out, double* __restrict__ elo_out,
+    double* __restrict__ w, int L, int K, int viter, double vtol2, int vec_in, int vec_out) {
+  using R = double;
+  constexpr int W = 32 / G * D;   // slots a warp takes at once
+  extern __shared__ __align__(16) unsigned char lda_res_smem_raw[];
+  R* rows = reinterpret_cast<R*>(lda_res_smem_raw);   // kept slot j's row at j K
+  constexpr int KQ = G * NV;                           // the lanes' topics, >= K
+  R* qpart = rows + static_cast<size_t>(L) * K + (KQ - K);   // the warps' q [8, K]
+  R* e_cur = qpart + kEstepWarps * K;                  // e of this pass
+  R* e_nxt = e_cur + K;                                // of the next
+  R* gam = e_nxt + K;
+  R* el = gam + K;
+  R* elo = el + K;
+  R* red = elo + K;                                    // [kResRed]
+  R* mc = red + kResRed;                               // count of kept slot j
+  R* mcs = mc + L;                                     // its c / s
+  int* mslot = reinterpret_cast<int*>(mcs + L);        // its slot
+  int* mterm = reinterpret_cast<int*>(mcs);            // its term, until the first pass
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* t = terms + static_cast<size_t>(b) * L;
+  const R* c = counts + static_cast<size_t>(b) * L;
+  const size_t dk = static_cast<size_t>(b) * K;
+
+  // the kept slots, in slot order, each with its term
+  const int n = compact_slots(c, L, mc, mslot, reinterpret_cast<int*>(red + 16), t, mterm);
+  if (vec_in) {
+    const int H = K / 2;
+    for (int idx = tid; idx < n * H; idx += kEstepThreads) {
+      const int j = idx / H, h = idx - j * H;
+      cp_async16_ca(rows + static_cast<size_t>(j) * K + 2 * h,
+                    betaT + static_cast<size_t>(mterm[j]) * K + 2 * h);
+    }
+  } else {
+    for (int idx = tid; idx < n * K; idx += kEstepThreads) {
+      const int j = idx / K, k = idx - j * K;
+      cp_async8(rows + idx, betaT + static_cast<size_t>(mterm[j]) * K + k);
+    }
+  }
+  for (int i = tid; i < KQ - K; i += kEstepThreads) rows[static_cast<size_t>(n) * K + i] = R(0);
+  // the padding slots' rows of w: zeros, stored while the rows come in
+  R* wd = w + static_cast<size_t>(b) * L * K;
+  const int E = vec_out ? 2 : 1;   // doubles a store
+  const int H = K / E;
+  for (int idx = tid; idx < L * H; idx += kEstepThreads) {
+    if (c[idx / H] != R(0)) continue;
+    if (vec_out)
+      reinterpret_cast<double2*>(wd)[idx] = make_double2(0.0, 0.0);
+    else
+      wd[idx] = R(0);
+  }
+  // the state; e = exp(El) for a first pass, exp(El_old) for the rows when
+  // no pass runs
+  bool active = doc_mask[b] > R(0);
+  const bool runs = active && viter > 0;
+  for (int k = tid; k < K; k += kEstepThreads) {
+    gam[k] = gamma_in[dk + k];
+    const R x = el_in[dk + k], xo = elo_in[dk + k];
+    el[k] = x;
+    elo[k] = xo;
+    e_cur[k] = Real<R>::exp(runs ? x : xo);
+  }
+  // sum (alpha + eps), each warp the same bits
+  R asum = R(0);
+  for (int k = lane; k < K; k += 32) asum += alpha[k] + Real<R>::eps;
+  asum = warp_sum(asum);
+  // a warp with no slot adds zeros to every pass's sums
+  const int nb = min(kEstepWarps, (n + W - 1) / W);   // the warps that hold a slot
+  if (warp >= nb) {
+    for (int k = lane; k < K; k += 32) qpart[warp * K + k] = R(0);
+    if (lane == 0) red[warp] = R(0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const bool ehalf = warp >= kResWarpsHalf;
+  // each half's warp takes 31 topics at a time, lane 31 the sum's term
+  const int k0 = (warp % kResWarpsHalf) * 31 + lane;
+  const bool mine = lane < 31 && k0 < K;
+  const R alpha0 = mine ? alpha[k0] : R(0);   // the first topic's, held across the passes
+  int it = 0;
+  for (; it < viter && active; ++it) {
+    R e[NV], acc[NV];
+    lda_res_e<G, NV>(e, e_cur, K, lane % G);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[v] = R(0);
+    // the last pass the loop allows writes the kept slots' rows as it goes
+    lda_res_slots<G, NV, D>(rows, e, acc, mc, mcs, wd, mslot, n, K, it == viter - 1);
+    if (warp < nb) lda_res_fold<G, NV>(acc, e, qpart + warp * K, red + warp, K);
+    __syncthreads();
+    // sum gamma from the warps' e . q; then each topic's update, El on the
+    // first half and the next e on the second, 31 topics a warp at a time:
+    // lane 31 takes the sum's psi (exp psi) in the same instructions as the
+    // first topics' and hands it to its warp
+    const R gs = asum + lda_res_sum8(red, 1);
+    R dpart = R(0);
+    if (k0 - lane < K) {
+      const R g0 = mine ? lda_res_gamma(alpha0, qpart, e_cur, K, k0) : R(1);
+      if (ehalf) {
+        const R f = exp_digamma(lane == 31 ? gs : g0);
+        const R den = __shfl_sync(0xffffffffu, f, 31);
+        if (mine) e_nxt[k0] = f / den;
+        for (int k = k0 + kResStep; lane < 31 && k < K; k += kResStep)
+          e_nxt[k] = exp_digamma(lda_res_gamma(alpha[k], qpart, e_cur, K, k)) / den;
+      } else {
+        const R f = digamma_series(lane == 31 ? gs : g0);
+        const R dgs = __shfl_sync(0xffffffffu, f, 31);
+        if (mine) dpart = lda_res_el(gam, el, elo, k0, g0, f - dgs);
+        for (int k = k0 + kResStep; lane < 31 && k < K; k += kResStep) {
+          const R g = lda_res_gamma(alpha[k], qpart, e_cur, K, k);
+          dpart += lda_res_el(gam, el, elo, k, g, digamma_series(g) - dgs);
+        }
+      }
+    }
+    dpart = warp_sum(dpart);
+    if (lane == 0) red[kEstepWarps + warp] = dpart;
+    __syncthreads();
+    active = lda_res_sum8(red + kEstepWarps, 1) >= vtol2;
+    R* x = e_cur;
+    e_cur = e_nxt;
+    e_nxt = x;
+  }
+
+  for (int k = tid; k < K; k += kEstepThreads) {
+    gamma_out[dk + k] = gam[k];
+    el_out[dk + k] = el[k];
+    elo_out[dk + k] = elo[k];
+  }
+  // the kept slots' rows from phi(beta, El_old): written by the last pass
+  // the loop allows; when no pass ran, with e = exp(El_old) and s anew;
+  // when the stop test ended the loop sooner, from its last pass's e and r
+  if (it == 0) {
+    R e[NV], acc[NV] = {};
+    lda_res_e<G, NV>(e, e_cur, K, lane % G);
+    lda_res_slots<G, NV, D>(rows, e, acc, mc, mcs, wd, mslot, n, K, true);
+  } else if (it < viter) {
+    const R* e_last = e_nxt;
+    for (int idx = tid; idx < n * H; idx += kEstepThreads) {
+      const int j = idx / H, k = E * (idx - j * H);
+      const R r = mcs[j];
+      const R* x = rows + static_cast<size_t>(j) * K + k;
+      R* dst = wd + static_cast<size_t>(mslot[j]) * K + k;
+      const R o0 = x[0] * (e_last[k] * r);
+      if (vec_out)
+        *reinterpret_cast<double2*>(dst) = make_double2(o0, x[1] * (e_last[k + 1] * r));
+      else
+        *dst = o0;
+    }
+  }
+}
+
+// The float64 mode's choice: the resident design's lanes a slot, topics
+// a lane and slots a group takes at once (G = 0: lda_estep_kernel<double>)
+// and its shared memory.
+struct LdaDoubleShape {
+  int G, NV, D;
+  size_t bytes;
+};
+inline int lda_double_shape(int64_t L, int64_t K, LdaDoubleShape* s) {
+  const int optin = smem_optin();
+  if (optin < 0) return query_error();
+  const LdaResShape r = lda_res_lanes(K);
+  const size_t bytes = r.G > 0 ? lda_res_smem(L, K, static_cast<int64_t>(r.G) * r.NV) : 0;
+  *s = {r.G > 0 && bytes <= static_cast<size_t>(optin) ? r.G : 0, r.NV, r.D, bytes};
+  return 0;
+}
+
+// The resident design's kernel for (G, NV, D), or nullptr.
+inline const void* lda_res_kernel(int G, int NV, int D) {
+#define TMVB_LDA_RES(g, nv, d) \
+  if (G == g && NV == nv && D == d) return reinterpret_cast<const void*>(lda_estep_res_kernel<g, nv, d>)
+  TMVB_LDA_RES(8, 4, 2);
+  TMVB_LDA_RES(8, 8, 2);
+  TMVB_LDA_RES(8, 13, 1);
+  TMVB_LDA_RES(16, 8, 2);
+  TMVB_LDA_RES(32, 8, 2);
+  TMVB_LDA_RES(32, 16, 1);
+#undef TMVB_LDA_RES
+  return nullptr;
 }
 
 // The pass mode's block mode (K > 512, past the warp mode's reach; the
@@ -744,14 +1139,11 @@ void tmvb_lda_estep_pass_shape(int64_t L, int64_t K, int bytes, int* out) {
 
 // 1 when every row of a document of L slots stays in shared memory, 0
 // when its rows go through in tiles, -1 when the device cannot be queried
-// or K is too wide.
+// or K is too wide (the float32 mode; the float64 mode's launch shape is
+// tmvb_lda_estep_double_shape).
 int tmvb_lda_estep_rows_in_smem(int64_t L, int64_t K) {
   tmvb::EstepShape s;
   return tmvb::estep_shape<float>(L, K, &s) != 0 ? -1 : s.resident;
-}
-int tmvb_lda_estep_rows_in_smem_f64(int64_t L, int64_t K) {
-  tmvb::EstepShape s;
-  return tmvb::estep_shape<double>(L, K, &s) != 0 ? -1 : s.resident;
 }
 
 // Elements of device scratch a document needs: 3 L when its slot list
@@ -761,13 +1153,82 @@ int64_t tmvb_lda_estep_scratch(int64_t L, int64_t K) {
   return tmvb::estep_shape<float>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : 3 * L);
 }
 int64_t tmvb_lda_estep_scratch_f64(int64_t L, int64_t K) {
+  tmvb::LdaDoubleShape d;
+  if (tmvb::lda_double_shape(L, K, &d) != 0) return -1;
+  if (d.G > 0) return 0;   // the resident design keeps its slot list in shared memory
   tmvb::EstepShape s;
   return tmvb::estep_shape<double>(L, K, &s) != 0 ? -1 : (s.meta_in_smem ? 0 : 3 * L);
+}
+
+// The float64 mode's launch shape on a document of L slots at K topics:
+// out[0] 1 for the resident design (lda_estep_res_kernel), 0 for
+// lda_estep_kernel<double> with its rows in tiles, 2 for it with every row
+// in shared memory (K > 512); out[1] lanes a slot (resident design) or the
+// slots of a tile; out[2] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); out[3] shared memory in
+// bytes a block; out[4] topics a lane and out[5] slots a group takes at
+// once (resident design), else 0.  Returns 0, or a CUDA error code.
+int tmvb_lda_estep_double_shape(int64_t L, int64_t K, int* out) {
+  tmvb::LdaDoubleShape d;
+  int rc = tmvb::lda_double_shape(L, K, &d);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  cudaError_t err;
+  if (d.G > 0) {
+    const void* kernel = tmvb::lda_res_kernel(d.G, d.NV, d.D);
+    err = tmvb::allow_smem(kernel, d.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tmvb::kEstepThreads,
+                                                          d.bytes);
+    out[0] = 1;
+    out[1] = d.G;
+    out[3] = static_cast<int>(d.bytes);
+    out[4] = d.NV;
+    out[5] = d.D;
+  } else {
+    tmvb::EstepShape s;
+    rc = tmvb::estep_shape<double>(L, K, &s);
+    if (rc != 0) return rc;
+    err = tmvb::allow_smem(tmvb::lda_estep_kernel<double, false>, s.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tmvb::lda_estep_kernel<double, false>, tmvb::kEstepThreads, s.bytes);
+    out[0] = s.resident ? 2 : 0;
+    out[1] = s.tile;
+    out[3] = static_cast<int>(s.bytes);
+    out[4] = 0;
+    out[5] = 0;
+  }
+  out[2] = blocks;
+  return err == cudaSuccess ? 0 : tmvb::fail(err);
 }
 
 }  // extern "C"
 
 namespace tmvb {
+
+// vec_in: K even and betaT 16-byte aligned (16-byte copies of two
+// doubles); w's 16-byte stores where K is even and w aligned.
+int launch_lda_res(const double* betaT, const int* terms, const double* counts,
+                   const double* doc_mask, const double* alpha, const double* gamma_in,
+                   const double* el_in, const double* elo_in, double* gamma_out, double* el_out,
+                   double* elo_out, double* w, int64_t B, int64_t L, int64_t K, int viter,
+                   double vtol, int vec_in, const LdaDoubleShape& d, cudaStream_t stream) {
+  const void* kernel = lda_res_kernel(d.G, d.NV, d.D);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(kernel, d.bytes);
+  if (err != cudaSuccess) return fail(err);
+  int Li = static_cast<int>(L), Ki = static_cast<int>(K);
+  double vtol2 = vtol * vtol;
+  int vec_out = K % 2 == 0 && aligned16(w);
+  void* args[] = {&betaT,     &terms,  &counts,  &doc_mask, &alpha, &gamma_in, &el_in,
+                  &elo_in,    &gamma_out, &el_out, &elo_out, &w,     &Li,       &Ki,
+                  &viter,     &vtol2,  &vec_in,  &vec_out};
+  err = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(B)), dim3(kEstepThreads), args,
+                         d.bytes, stream);
+  if (err != cudaSuccess) return fail(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename R>
 int launch_estep(const R* betaT, const int* terms, const R* counts, const R* doc_mask,
@@ -776,6 +1237,15 @@ int launch_estep(const R* betaT, const int* terms, const R* counts, const R* doc
                  int64_t K, int viter, R vtol, int vec_in, int vec_out, int elog_f64,
                  void* stream) {
   if (B == 0) return 0;
+  if constexpr (sizeof(R) == 8) {
+    LdaDoubleShape d;
+    const int rc = lda_double_shape(L, K, &d);
+    if (rc != 0) return fail(static_cast<cudaError_t>(rc));
+    if (d.G > 0)
+      return launch_lda_res(betaT, terms, counts, doc_mask, alpha, gamma_in, el_in, elo_in,
+                            gamma_out, el_out, elo_out, w, B, L, K, viter, vtol, vec_in, d,
+                            static_cast<cudaStream_t>(stream));
+  }
   EstepShape s;
   int rc = estep_shape<R>(L, K, &s);
   if (rc != 0) return fail(static_cast<cudaError_t>(rc));
@@ -812,7 +1282,8 @@ int tmvb_lda_estep(const float* betaT, const int* terms, const float* counts,
 // the f64 channel is the identity on a float64 state, so there is no
 // elog_f64.  vec_in: K % 2 == 0 and betaT
 // 16-byte aligned (16-byte copies of two doubles); vec_out: K % 4 == 0 and
-// w 16-byte aligned.
+// w 16-byte aligned (the resident design takes its 16-byte stores of w
+// where K is even and w aligned).
 int tmvb_lda_estep_f64(const double* betaT, const int* terms, const double* counts,
                        const double* doc_mask, const double* alpha, const double* gamma_in,
                        const double* el_in, const double* elo_in, double* gamma_out,

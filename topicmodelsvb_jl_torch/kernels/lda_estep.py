@@ -39,7 +39,9 @@ with every tensor in float64 and ψ the same shift-by-8 series in double,
 what :func:`lda_estep_ref` computes on that state (its truncation,
 ~2.5e-10, is the plain version's too).  ``elogtheta_f64`` is the
 identity there, as in the JAX package, which casts a float64 gamma to
-float64.
+float64.  Where a document's rows fit one block's shared memory and K <=
+512 that mode keeps its kept rows there across the passes
+(:func:`double_shape`).
 """
 
 from __future__ import annotations
@@ -197,6 +199,28 @@ def lda_estep(betaT, terms, counts, doc_mask, alpha, gamma, El, El_old,
 lda_estep.launches = 0   # kernel launches (the plain version is not counted)
 lda_estep.launches_f64 = 0   # of them, launches of the f64-channel mode (f32 state)
 lda_estep.launches_double = 0   # of them, launches of the float64 mode
+
+
+@functools.lru_cache(maxsize=None)
+def double_shape(L: int, K: int) -> dict:
+    """The float64 mode's launch shape on a document of L slots at K
+    topics: ``design`` ("resident": the kept rows copied once into shared
+    memory, ``lda_estep_res_kernel``; "tiled" or "block-resident": the
+    block kernel with its rows in tiles re-read every pass, or all in
+    shared memory past K = 512), ``lanes`` a slot, ``topics`` a lane and
+    ``depth`` (slots a group takes at once; resident) or ``tile`` slots,
+    ``blocks`` an SM and ``smem`` bytes a block.  Builds the kernels; needs
+    CUDA."""
+    out = (ctypes.c_int * 6)()
+    err = _build.function("tmvb_lda_estep_double_shape",
+                          [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])(
+        L, K, out)
+    check(err, "lda_estep.double_shape")
+    if out[0] == 1:
+        return {"design": "resident", "lanes": out[1], "topics": out[4], "depth": out[5],
+                "blocks": out[2], "smem": out[3]}
+    return {"design": {0: "tiled", 2: "block-resident"}[out[0]], "tile": out[1],
+            "blocks": out[2], "smem": out[3]}
 
 
 def lda_estep_pass_ref(betaT, terms, counts, doc_mask, El):
